@@ -8,17 +8,22 @@ exit and no result line, if any phase fails:
 2. builds every CUDA kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and compiles the Triton kernel;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main path, and times kernel, plain version, the library
+   shapes of the main paths, and times kernel, plain version, the library
    call that computes the same function (``F.conv2d``,
-   ``torch.optim.SGD(fused=True)``; the port never calls them) and the
-   bound (bytes over 3.35 TB/s or operations over the peak rate of their
-   type, whichever is larger);
+   ``torch.optim.SGD(fused=True)``, ``F.scaled_dot_product_attention``
+   forward and backward; the port never calls them) and the bound (bytes
+   over 3.35 TB/s or operations over the peak rate of their type,
+   whichever is larger);
 4. trains full-width ResNet-18 (synthetic CIFAR-10, batch 256, bf16, conv
    ``pallas``, fused SGD) for a few steps through the port's Trainer, then
-   evaluates 2 batches, and checks that every kernel of the path was
-   launched the expected number of times in that run;
-5. holds one small train step on the card against the same step on the
-   CPU (the plain versions);
+   evaluates 2 batches; then trains the full-width TransformerLM (d 512, 8
+   layers, 8 heads, vocab 32000, S 2048, batch 8, f32, flash attention)
+   for a few steps through the port's LMTrainer and evaluates 2 batches.
+   Every launch count is set to 0 just before each path and read just
+   after: each kernel of the path ran the expected number of times, and
+   no other kernel ran;
+5. holds one small ResNet step and one small LM step on the card against
+   the same steps on the CPU (the plain versions);
 6. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -39,6 +44,17 @@ CONV_PER_STEP = 2 * sum(n for _, _, n in GEOMETRIES)     # fwd + input grad
 CONV_PER_EVAL_BATCH = sum(n for _, _, n in GEOMETRIES)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # tensor-core bf16; f32 FMA
+# The LM of the JAX package's transformer_lm_2k_flash benchmark: its one
+# attention call per layer is [batch 8, 8 heads, S 2048, head dim 64].
+LM_ARGS = ("--lm-attention", "flash", "--lm-d-model", "512", "--lm-layers",
+           "8", "--lm-heads", "8", "--lm-vocab", "32000", "--lm-seq-len",
+           "2048", "--batch-size", "8", "--lr", "0.01", "--momentum", "0.9")
+LM_LAYERS, LM_BATCH, LM_SEQ = 8, 8, 2048
+FLASH_SHAPE = (8, 8, 2048, 64)
+# Kernel against plain version: forward 2e-5 and gradients 5e-4 in f32,
+# 2e-2 in bf16 (outputs rounded once from f32): the JAX package's own.
+FLASH_TOL = {"float32": (2e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
+FLASH_MATMULS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}
 
 
 def fail(msg: str) -> None:
@@ -174,7 +190,110 @@ def check_sgd(torch, sgd_mod, n: int) -> dict:
             "bound_ms": bound, "max_abs_err": max_err}
 
 
-def main_path(torch, conv_mod, sgd_mod) -> dict:
+def flash_bound_ms(name, bh, s, d, causal, dtype_name) -> tuple:
+    """(ms for the operations at peak, ms for the bytes) of one launch:
+    each matmul of the kernel costs 2 d operations a (query, key) pair it
+    reaches (the causal lower triangle only); the bytes read every input
+    once and write every output once."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    ops = 2.0 * d * FLASH_MATMULS[name] * pairs
+    tensors = {"flash_fwd": 4, "flash_dq": 5, "flash_dkv": 6}[name]
+    rows = {"flash_fwd": 1, "flash_dq": 2, "flash_dkv": 2}[name]  # lse, delta
+    nbytes = tensors * bh * s * d * size + rows * bh * s * 4
+    return 1e3 * ops / PEAK_OPS[dtype_name], 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def check_flash(torch, F, fa) -> dict:
+    """The three flash kernels against their plain versions: at the LM's
+    attention shape (causal, f32 and bf16), at one non-causal shape and at
+    one S that is not a multiple of the kernels' 64-row tile; timed, with
+    SDPA beside them, at the LM's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = ((FLASH_SHAPE, True, "float32"), (FLASH_SHAPE, True, "bfloat16"),
+             ((2, 4, 512, 64), False, "float32"),
+             ((2, 4, 1000, 64), True, "float32"))
+    out = {name: {"max_abs_err": 0.0} for name in FLASH_MATMULS}
+    for (b, h, s, d), causal, dtype_name in cases:
+        dt = getattr(torch, dtype_name)
+        bh, scale = b * h, d ** -0.5
+        q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
+                       .to(dt) for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
+        delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+        args = (q, k, v, do, lse_ref, delta, causal, scale)
+        got = {"flash_fwd": (o, lse), "flash_dq": (fa.flash_dq(*args),),
+               "flash_dkv": fa.flash_dkv(*args)}
+        want = {"flash_fwd": (o_ref, lse_ref),
+                "flash_dq": (fa.flash_dq_reference(*args),),
+                "flash_dkv": fa.flash_dkv_reference(*args)}
+        torch.cuda.synchronize()
+        fwd_tol, grad_tol = FLASH_TOL[dtype_name]
+        kind = f"{'causal' if causal else 'full'} {dtype_name} {b}x{h}x{s}x{d}"
+        timed = (b, h, s, d) == FLASH_SHAPE
+        if timed:
+            q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, scale=scale), iters=10)
+            leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+            o4 = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                scale=scale)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                o4, leaves, do.view(b, h, s, d), retain_graph=True), iters=10)
+        for name in FLASH_MATMULS:
+            tol = fwd_tol if name == "flash_fwd" else grad_tol
+            err = 0.0
+            for g, w in zip(got[name], want[name]):
+                err = max(err, (g.float() - w.float()).abs().max().item())
+                t = 2e-5 if g.dtype == torch.float32 and name == "flash_fwd" \
+                    else tol
+                if not torch.allclose(g.float(), w.float(), rtol=t, atol=t):
+                    fail(f"{name} {kind}: max abs err {err} above {t}")
+            if dtype_name == "float32":
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            line = f"KERNEL {name} {kind} max_abs_err {err:.3e}"
+            if timed:
+                fn = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal,
+                                                        scale),
+                      "flash_dq": lambda: fa.flash_dq(*args),
+                      "flash_dkv": lambda: fa.flash_dkv(*args)}[name]
+                ref = {"flash_fwd": lambda: fa.flash_attention_reference(
+                    q, k, v, causal, scale),
+                       "flash_dq": lambda: fa.flash_dq_reference(*args),
+                       "flash_dkv": lambda: fa.flash_dkv_reference(*args)
+                       }[name]
+                ms = time_ms(fn, iters=10)
+                plain = time_ms(ref, iters=3, warmup=1)
+                lib = lib_fwd if name == "flash_fwd" else lib_bwd
+                ops_ms, bytes_ms = flash_bound_ms(name, bh, s, d, causal,
+                                                  dtype_name)
+                line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                         f"{lib:.4f} bound_ms {max(ops_ms, bytes_ms):.4f} "
+                         f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+                if dtype_name == "float32":
+                    out[name].update(
+                        ms=ms, plain_ms=plain, library_ms=lib,
+                        bound_ms=max(ops_ms, bytes_ms),
+                        bound_by=("operations" if ops_ms >= bytes_ms
+                                  else "bytes"))
+            print(line, flush=True)
+    print("KERNEL flash library_ms: SDPA forward for flash_fwd, SDPA's whole "
+          "backward (dq, dk and dv together) for flash_dq and flash_dkv",
+          flush=True)
+    return out
+
+
+def zero_counts(wrappers) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def read_counts(wrappers) -> dict:
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def main_path(torch, wrappers) -> dict:
     """Full-width ResNet-18 through the port's Trainer; counts launches."""
     from ps_pytorch_tpu_torch.config import config_from_args
     from ps_pytorch_tpu_torch.runtime import Trainer
@@ -191,12 +310,10 @@ def main_path(torch, conv_mod, sgd_mod) -> dict:
     losses = []
     trainer.metrics.printer = lambda line: (print(line, flush=True),
                                             losses.append(line))
-    conv_mod.conv3x3.launches = 0
-    sgd_mod.fused_sgd_update.launches = 0
+    zero_counts(wrappers)
     trainer.train()
     result = trainer.evaluate(max_batches=EVAL_BATCHES)
-    launches = {"conv3x3": conv_mod.conv3x3.launches,
-                "fused_sgd": sgd_mod.fused_sgd_update.launches}
+    launches = read_counts(wrappers)
     print(f"MAIN step_times_s {trainer.step_times} max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} eval {result} launches "
           f"{launches}", flush=True)
@@ -208,10 +325,52 @@ def main_path(torch, conv_mod, sgd_mod) -> dict:
     if result["count"] != EVAL_BATCHES * BATCH or not all(
             math.isfinite(result[k]) for k in ("loss", "prec1", "prec5")):
         fail(f"main path: bad evaluation {result}")
-    want = {"conv3x3": CONV_PER_STEP * STEPS
-            + CONV_PER_EVAL_BATCH * EVAL_BATCHES, "fused_sgd": STEPS}
+    want = dict({name: 0 for name in wrappers}, conv3x3=CONV_PER_STEP * STEPS
+                + CONV_PER_EVAL_BATCH * EVAL_BATCHES, fused_sgd=STEPS)
     if launches != want:
         fail(f"main path launches {launches}, expected {want}")
+    return launches
+
+
+def lm_main_path(torch, wrappers) -> dict:
+    """Full-width TransformerLM through the port's LMTrainer (flash
+    attention, f32, plain SGD with momentum); counts launches."""
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+    from ps_pytorch_tpu_torch.runtime.metrics import parse_line
+
+    cfg = config_from_args([*LM_ARGS, "--max-steps", str(STEPS),
+                            "--eval-freq", "0", "--resume", "false"])
+    trainer = LMTrainer(cfg, device="cuda")
+    lines = []
+    trainer.metrics.printer = lambda line: (print(line, flush=True),
+                                            lines.append(line))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    trainer.train()
+    result = trainer.evaluate(max_batches=EVAL_BATCHES)
+    launches = read_counts(wrappers)
+    tokens = LM_BATCH * LM_SEQ
+    print(f"MAIN-LM step_times_s {trainer.step_times} tokens_per_s "
+          f"{[round(tokens / t, 1) for t in trainer.step_times]} "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} eval "
+          f"{result} launches {launches}", flush=True)
+    recs = [parse_line(line) for line in lines]
+    if len(recs) != STEPS or not all(r and math.isfinite(r["loss"])
+                                     for r in recs):
+        fail(f"LM main path: expected {STEPS} STEP lines with finite loss")
+    if not recs[-1]["loss"] < recs[0]["loss"]:
+        fail(f"LM main path: loss did not fall ({recs[0]['loss']} -> "
+             f"{recs[-1]['loss']})")
+    if result["batches"] != EVAL_BATCHES or not all(
+            math.isfinite(result[k]) for k in ("loss", "perplexity")):
+        fail(f"LM main path: bad evaluation {result}")
+    per_pass = LM_LAYERS               # one attention call a layer
+    want = dict({name: 0 for name in wrappers},
+                flash_fwd=per_pass * (STEPS + EVAL_BATCHES),
+                flash_dq=per_pass * STEPS, flash_dkv=per_pass * STEPS)
+    if launches != want:
+        fail(f"LM main path launches {launches}, expected {want}")
     return launches
 
 
@@ -251,6 +410,43 @@ def small_step_agrees(torch) -> None:
           f"weight diff {worst:.3e}", flush=True)
 
 
+def small_lm_step_agrees(torch, fa) -> None:
+    """A small LM (2 layers, d 64, 4 heads, S 128, flash), 2 train steps
+    on the card and on the CPU from the same weights and batches: losses
+    and weights agree (rtol 1e-3, atol 1e-4)."""
+    from ps_pytorch_tpu_torch.models.transformer import TransformerLM
+    from ps_pytorch_tpu_torch.optim import SGD
+    from ps_pytorch_tpu_torch.parallel.sp import LMTrainStep
+
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (4, 128)).astype(np.int32)
+               for _ in range(2)]
+    runs = {}
+    before = fa.flash_dkv.launches
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(vocab_size=256, n_layers=2, n_heads=4,
+                              d_model=64, max_seq_len=128,
+                              attention_impl="flash",
+                              generator=torch.Generator().manual_seed(3)
+                              ).to(dev)
+        step = LMTrainStep(model, SGD(0.1, momentum=0.9))
+        losses = [float(step(tok)["loss"]) for tok in batches]
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v
+                              in model.state_dict().items()})
+    if fa.flash_dkv.launches != before + 4:
+        fail("small LM step: the card run did not go through the kernels")
+    (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
+    if not np.allclose(lc, lp, rtol=1e-3, atol=1e-4):
+        fail(f"small LM step: losses on the card {lc} vs CPU {lp}")
+    for k in sc:
+        if not torch.allclose(sc[k], sp[k], rtol=1e-3, atol=1e-4):
+            fail(f"small LM step: {k} differs between card and CPU by "
+                 f"{(sc[k] - sp[k]).abs().max().item()}")
+    worst = max((sc[k] - sp[k]).abs().max().item() for k in sc)
+    print(f"CHECK small LM step card vs CPU: losses {lc} vs {lp}, max abs "
+          f"weight diff {worst:.3e}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -260,6 +456,7 @@ def main() -> int:
     from ps_pytorch_tpu_torch.models import build_model
     from ps_pytorch_tpu_torch.ops import _build
     from ps_pytorch_tpu_torch.ops import conv3x3 as conv_mod
+    from ps_pytorch_tpu_torch.ops import flash_attention as fa
     from ps_pytorch_tpu_torch.ops import fused_sgd as sgd_mod
     from ps_pytorch_tpu_torch.tools.profile_capture import card_line
 
@@ -286,11 +483,23 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"BUILD triton fused_sgd {time.monotonic() - t0:.2f} s", flush=True)
 
+    wrappers = {"conv3x3": conv_mod.conv3x3,
+                "fused_sgd": sgd_mod.fused_sgd_update,
+                "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
+                "flash_dkv": fa.flash_dkv}
+    # Each path right after the checks of its own kernels, with the
+    # allocator's cache emptied between the two: the ResNet steps ran
+    # slower when they came after the flash checks.
     conv = check_conv(torch, F, conv_mod)
     n_params = sum(p.numel() for p in build_model("ResNet18").parameters())
     sgd = check_sgd(torch, sgd_mod, n_params)
-    launches = main_path(torch, conv_mod, sgd_mod)
+    launches = main_path(torch, wrappers)
     small_step_agrees(torch)
+    torch.cuda.empty_cache()
+    flash = check_flash(torch, F, fa)
+    torch.cuda.empty_cache()
+    lm_launches = lm_main_path(torch, wrappers)
+    small_lm_step_agrees(torch, fa)
 
     kernels = [
         dict(name="conv3x3", route="cuda",
@@ -308,6 +517,13 @@ def main() -> int:
              launches=launches["fused_sgd"], max_abs_err=sgd["max_abs_err"],
              ms=sgd["ms"], plain_ms=sgd["plain_ms"], bound_ms=sgd["bound_ms"],
              bound_by="bytes", library_ms=sgd["library_ms"]),
+    ] + [
+        dict(name=name, route="cuda",
+             source="ps_pytorch_tpu_torch/csrc/flash_attention.cu",
+             replaces=f"ps_pytorch_tpu/ops/flash_attention.py:{line}",
+             launches=lm_launches[name], **flash[name])
+        for name, line in (("flash_fwd", 95), ("flash_dq", 164),
+                           ("flash_dkv", 189))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"CARD {card_line()}", flush=True)

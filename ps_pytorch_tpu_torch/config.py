@@ -5,7 +5,8 @@ name and default, so ``to_json``/``from_json`` read and write the same keys
 and a config from either package loads in the other. The port runs one
 slice of the system (synchronous data-parallel CNN training, see
 ROADMAP.md), so a field it does not run raises ``ValueError`` when it is set
-to anything but its default: it is never silently ignored.
+to anything but its default: it is never silently ignored. The LM fields
+run for ``lm_parallelism="sp"`` on one device (``runtime/lm_trainer.py``).
 """
 
 from __future__ import annotations
@@ -188,6 +189,16 @@ class TrainConfig:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.nesterov and (self.momentum <= 0):
             raise ValueError("Nesterov momentum requires a momentum")
+        if self.lm_parallelism not in ("sp", "tp", "pp", "ep"):
+            raise ValueError(f"unknown lm_parallelism "
+                             f"{self.lm_parallelism!r} (sp | tp | pp | ep)")
+        if self.lm_attention not in ("auto", "full", "flash"):
+            raise ValueError(f"unknown lm_attention "
+                             f"{self.lm_attention!r} (auto | full | flash)")
+        if self.lm_parallelism != "sp":
+            raise ValueError(f"lm_parallelism={self.lm_parallelism!r} is not "
+                             "ported yet (ROADMAP.md); only sp on one "
+                             "device runs")
         if self.eval_freq > 0:
             raise ValueError(
                 f"eval_freq={self.eval_freq} checkpoints every N steps, and "
@@ -223,6 +234,8 @@ PORTED_FIELDS = frozenset({
     "nesterov", "epochs", "max_steps", "eval_freq", "train_dir", "resume",
     "seed", "mode", "compute_dtype", "device_normalize", "fused_optimizer",
     "conv_impl", "log_every", "metrics_file",
+    "lm_vocab", "lm_d_model", "lm_layers", "lm_heads", "lm_seq_len",
+    "lm_corpus_tokens", "lm_corpus_file", "lm_parallelism", "lm_attention",
 })
 
 

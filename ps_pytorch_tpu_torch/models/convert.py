@@ -4,7 +4,9 @@ The port's module names are the flax names, so the map is mechanical:
 
 - conv ``kernel`` HWIO <-> ``weight`` OIHW;
 - Dense ``kernel`` [in,out] <-> Linear ``weight`` [out,in];
-- BatchNorm ``scale``/``bias`` <-> ``weight``/``bias``;
+- BatchNorm and LayerNorm ``scale``/``bias`` <-> ``weight``/``bias``;
+- Embed ``embedding`` <-> ``embedding`` (the port's ``Embed`` keeps the
+  flax name, so a 2-D ``weight`` is always a Dense kernel);
 - ``batch_stats`` ``mean``/``var`` <-> ``running_mean``/``running_var``.
 
 Trees are nested dicts of numpy arrays (``jax.device_get`` of the flax
@@ -37,8 +39,8 @@ def from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
             sd[f"{mod}.weight"] = a.T
         elif leaf == "scale":
             sd[f"{mod}.weight"] = a
-        elif leaf == "bias":
-            sd[f"{mod}.bias"] = a
+        elif leaf in ("bias", "embedding"):
+            sd[f"{mod}.{leaf}"] = a
         else:
             raise ValueError(f"unknown param {'/'.join(path)} {a.shape}")
     for path, a in _walk(batch_stats or {}):
@@ -73,8 +75,8 @@ def to_jax(state_dict) -> Tuple[dict, dict]:
             put(params, mod, "kernel", a.T)
         elif leaf == "weight":
             put(params, mod, "scale", a)
-        elif leaf == "bias":
-            put(params, mod, "bias", a)
+        elif leaf in ("bias", "embedding"):
+            put(params, mod, leaf, a)
         elif leaf == "running_mean":
             put(stats, mod, "mean", a)
         elif leaf == "running_var":

@@ -67,20 +67,21 @@ class Conv3x3(nn.Module):
 
 
 class Linear(nn.Module):
-    """``flax.linen.Dense``: inputs, kernel and bias cast to the compute
-    type."""
+    """``flax.linen.Dense``: inputs, kernel and bias (``use_bias``) cast to
+    the compute type."""
 
     def __init__(self, fin: int, fout: int, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(fout, fin))
         lecun_normal_(self.weight, fin, generator)
-        self.bias = nn.Parameter(torch.zeros(fout))
+        self.bias = nn.Parameter(torch.zeros(fout)) if bias else None
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
 class BatchNorm(nn.Module):

@@ -1,0 +1,102 @@
+"""The LM training loop: the core of the JAX package's
+``runtime/lm_trainer.py`` (build ``:54-103``, ``train`` ``:359-443``,
+``evaluate`` ``:479-500``) for ``lm_parallelism="sp"`` on one device.
+
+On one device the sequence is not sharded, so ``--lm-attention auto``
+resolves to ``full`` (as the JAX trainer does there) and ``flash`` to the
+hand-written kernels. The optimizer is the plain ``optim.SGD`` with the
+configured schedule whatever ``--fused-optimizer`` says, as
+``lm_trainer.py:59-63``. STEP lines carry ``acc 0.0 participating 1.0``
+(``:403-407``); the JSONL record adds ``tokens_per_sec``.
+
+``step_time`` runs from fetching the batch to reading the step's loss when
+the step is logged, which waits for the device; an unlogged step's time
+ends at dispatch. The optional planes of the JAX trainer (checkpoints,
+health, faults, telemetry exporters) are not part of this slice
+(ROADMAP.md).
+"""
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ps_pytorch_tpu_torch.config import TrainConfig
+from ps_pytorch_tpu_torch.data.text import TokenLoader, lm_streams
+from ps_pytorch_tpu_torch.models.transformer import TransformerLM
+from ps_pytorch_tpu_torch.optim import SGD, build_schedule
+from ps_pytorch_tpu_torch.parallel.sp import LMTrainStep, make_lm_eval_fn
+from ps_pytorch_tpu_torch.runtime.metrics import (
+    MetricsLogger, derive_step_record,
+)
+from ps_pytorch_tpu_torch.runtime.trainer import refuse_resume, resolve_device
+
+
+class LMTrainer:
+    def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
+                 printer=print):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        refuse_resume(cfg)
+        impl = "flash" if cfg.lm_attention == "flash" else "full"
+        self.model = TransformerLM(
+            vocab_size=cfg.lm_vocab, n_layers=cfg.lm_layers,
+            n_heads=cfg.lm_heads, d_model=cfg.lm_d_model,
+            max_seq_len=cfg.lm_seq_len, attention_impl=impl,
+            generator=torch.Generator().manual_seed(cfg.seed)).to(self.device)
+        self.opt = SGD(lr=build_schedule(cfg), momentum=cfg.momentum,
+                       weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
+        self.step_fn = LMTrainStep(self.model, self.opt)
+        self.eval_fn = make_lm_eval_fn(self.model)
+        train_stream, self.val_tokens = lm_streams(cfg)
+        self.train_loader = TokenLoader(train_stream, cfg.batch_size,
+                                        cfg.lm_seq_len, seed=cfg.seed)
+        self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
+                                     printer=printer)
+        self.step_times: list = []
+
+    def train(self) -> None:
+        cfg = self.cfg
+        step = 0
+        try:
+            while step < cfg.max_steps:
+                step += 1
+                t0 = time.monotonic()
+                tokens = self.train_loader.next_batch()
+                t_data = time.monotonic() - t0
+                m = self.step_fn(tokens)
+                logged = step % cfg.log_every == 0 or step == cfg.max_steps
+                loss = float(m["loss"]) if logged else None
+                t_step = time.monotonic() - t0
+                self.step_times.append(t_step)
+                if logged:
+                    self.metrics.log_step(
+                        step, self.train_loader._epoch, loss=loss, acc=0.0,
+                        participating=1.0, step_time=t_step,
+                        data_time=t_data,
+                        **derive_step_record(
+                            step_time_s=t_step, data_time_s=t_data,
+                            examples=cfg.batch_size,
+                            tokens=cfg.batch_size * cfg.lm_seq_len))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            self.metrics.close()
+
+    def evaluate(self, max_batches: Optional[int] = None) -> dict:
+        """Held-out next-token loss and perplexity over the validation
+        tail (its first ``max_batches`` batches), through the train step's
+        forward."""
+        cfg = self.cfg
+        val = TokenLoader(self.val_tokens, cfg.batch_size, cfg.lm_seq_len,
+                          seed=0, shuffle=False)
+        losses = []
+        for i, tokens in enumerate(val.epoch(0)):
+            if max_batches is not None and i >= max_batches:
+                break
+            losses.append(float(self.eval_fn(tokens)))
+        self.model.train()
+        loss = float(np.mean(losses)) if losses else float("nan")
+        return {"loss": loss, "perplexity": float(np.exp(min(loss, 30.0))),
+                "batches": len(losses)}

@@ -65,10 +65,12 @@ def parse_line(line: str) -> Optional[dict]:
 
 
 def derive_step_record(*, step_time_s: float, data_time_s: float,
-                       examples: int) -> dict:
-    """The v2 derived fields. ``mfu`` is None: the port does not count
-    FLOPs yet (ROADMAP.md), and the line then prints ``mfu n/a``."""
-    return {
+                       examples: int, tokens: Optional[int] = None) -> dict:
+    """The v2 derived fields, plus ``tokens_per_sec`` when ``tokens`` is
+    given (the JAX ``telemetry/registry.py`` adds it the same way, to the
+    JSONL record only). ``mfu`` is None: the port does not count FLOPs yet
+    (ROADMAP.md), and the line then prints ``mfu n/a``."""
+    rec = {
         "mfu": None,
         "examples_per_sec": (round(examples / step_time_s, 2)
                              if examples and step_time_s > 0 else None),
@@ -76,6 +78,9 @@ def derive_step_record(*, step_time_s: float, data_time_s: float,
                                                / step_time_s)), 4)
                             if step_time_s > 0 else None),
     }
+    if tokens and step_time_s > 0:
+        rec["tokens_per_sec"] = round(tokens / step_time_s, 1)
+    return rec
 
 
 class MetricsLogger:

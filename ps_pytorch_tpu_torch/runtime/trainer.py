@@ -38,15 +38,21 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     return dev
 
 
+def refuse_resume(cfg: TrainConfig) -> None:
+    """Resuming is not ported: a train_dir that holds checkpoints raises
+    unless ``--resume false``."""
+    if cfg.resume and any(Path(cfg.train_dir).glob("model_step_*")):
+        raise ValueError(f"{cfg.train_dir} holds checkpoints, and "
+                         "resuming is not ported yet (ROADMAP.md); pass "
+                         "--resume false or another --train-dir")
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
                  printer=print):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.resume and any(Path(cfg.train_dir).glob("model_step_*")):
-            raise ValueError(f"{cfg.train_dir} holds checkpoints, and "
-                             "resuming is not ported yet (ROADMAP.md); pass "
-                             "--resume false or another --train-dir")
+        refuse_resume(cfg)
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl,
                                  seed=cfg.seed).to(self.device)

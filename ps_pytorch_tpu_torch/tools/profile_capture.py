@@ -5,12 +5,17 @@ main path, then print one JSON digest line.
         --dataset synthetic_cifar10 --batch-size 256 --eval-freq 0 \
         --conv-impl pallas --fused-optimizer --momentum 0.9 \
         --weight-decay 5e-4 [--warmup 5 --timed 30 --profiled 3 --out DIR]
+    python -m ps_pytorch_tpu_torch.tools.profile_capture --lm \
+        --lm-attention flash --lm-d-model 512 --lm-layers 8 --lm-heads 8 \
+        --lm-vocab 32000 --lm-seq-len 2048 --batch-size 8 --lr 0.01 \
+        --momentum 0.9 --eval-freq 0 --resume false [--warmup 3 --timed 10]
 
-It takes the trainer's flags, builds the port's Trainer on ``cuda`` and
-drives its train step on the loader's batches: ``--warmup`` steps (kernel
-builds, cuDNN autotuning), ``--timed`` steps each ended by a
+It takes the trainer's flags (``--lm``: those of ``train_lm``), builds the
+port's Trainer (``--lm``: LMTrainer) on ``cuda`` and drives its train step
+on the loader's batches: ``--warmup`` steps (kernel builds, cuDNN
+autotuning), ``--timed`` steps each ended by a
 ``torch.cuda.synchronize()`` on the host clock (median and spread of the
-step time, images per second), then ``--profiled`` steps under
+step time, images or tokens per second), then ``--profiled`` steps under
 ``torch.profiler``, whose device events give the time per kernel name,
 grouped by what launched it, and the device's busy and idle share of the
 profiled window (against the window itself, which the profiler's own host
@@ -36,9 +41,14 @@ from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
 GROUPS = (
     ("conv3x3 kernel (port)", ("conv3x3_kernel",)),
     ("fused_sgd kernel (port)", ("sgd_kernel",)),
+    ("flash kernels (port)", ("flash_fwd_kernel", "flash_dq_kernel",
+                              "flash_dkv_kernel")),
     ("cuDNN conv", ("cudnn", "conv2d", "implicit_convolve", "xmma_fprop",
                     "xmma_dgrad", "xmma_wgrad", "fprop", "dgrad", "wgrad")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk")),
+    ("softmax / cross-entropy", ("softmax", "nll_loss", "cross_entropy")),
+    ("embedding", ("embedding", "index_select", "indexing_backward",
+                   "index_add", "scatter", "gather")),
     ("reduction", ("reduce", "norm", "batch_norm", "welford")),
     ("copy / layout", ("copy", "memcpy", "memset", "transpose", "cat",
                        "pad", "flip")),
@@ -80,16 +90,31 @@ def main(argv=None) -> int:
     parser.add_argument("--timed", type=int, default=30)
     parser.add_argument("--profiled", type=int, default=3)
     parser.add_argument("--out", default="train_dir_profile")
+    parser.add_argument("--lm", action="store_true",
+                        help="profile the LM train step (LMTrainer)")
     args = parser.parse_args(argv)
     cfg = config_from_namespace(args)
-    from ps_pytorch_tpu_torch.runtime import Trainer
-
-    trainer = Trainer(cfg, device="cuda")
+    if args.lm:
+        from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+        trainer = LMTrainer(cfg, device="cuda")
+        name = f"TransformerLM_{trainer.model.attention_impl}"
+        per_step = {"tokens": cfg.batch_size * cfg.lm_seq_len}
+        keys = ("batch_size", "lm_vocab", "lm_d_model", "lm_layers",
+                "lm_heads", "lm_seq_len", "lm_attention")
+    else:
+        from ps_pytorch_tpu_torch.runtime import Trainer
+        trainer = Trainer(cfg, device="cuda")
+        name = f"{cfg.network}_{cfg.conv_impl}"
+        per_step = {"images": cfg.batch_size}
+        keys = ("network", "dataset", "batch_size", "compute_dtype",
+                "conv_impl", "fused_optimizer")
     mask = np.ones(1, np.float32)
     batches = [trainer.train_loader.next_batch()
                for _ in range(args.warmup + args.timed + args.profiled)]
 
     def step(i):
+        if args.lm:
+            return trainer.step_fn(batches[i])
         x, y = batches[i]
         return trainer.step_fn(x, y, mask)
 
@@ -115,7 +140,7 @@ def main(argv=None) -> int:
         window_us = (time.perf_counter() - t0) * 1e6
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    trace = out / f"trace_{cfg.network}_{cfg.conv_impl}.json"
+    trace = out / f"trace_{name}.json"
     prof.export_chrome_trace(str(trace))
 
     dev = [e for e in prof.events()
@@ -134,14 +159,13 @@ def main(argv=None) -> int:
     q = statistics.quantiles(times, n=4) if len(times) >= 2 else times * 3
     digest = {
         "card": card_line(),
-        "config": {k: getattr(cfg, k) for k in (
-            "network", "dataset", "batch_size", "compute_dtype", "conv_impl",
-            "fused_optimizer")},
+        "config": {k: getattr(cfg, k) for k in keys},
         "loss_after_timed_steps": loss,
         "step_s": {"median": statistics.median(times), "q1": q[0],
                    "q3": q[2], "min": min(times), "max": max(times),
                    "n": len(times)},
-        "images_per_s_at_median": cfg.batch_size / statistics.median(times),
+        **{f"{unit}_per_s_at_median": count / statistics.median(times)
+           for unit, count in per_step.items()},
         "profiled_steps": n,
         "device_busy_ms_per_step": busy / 1e3 / n,
         "window_ms_per_step": window_us / 1e3 / n,

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from ps_pytorch_tpu_torch.ops import conv3x3 as conv
+from ps_pytorch_tpu_torch.ops import flash_attention as fa
 from ps_pytorch_tpu_torch.ops import fused_sgd
 
 # Kernel against plain version, both on the card: f32 sums in another
@@ -20,6 +21,10 @@ from ps_pytorch_tpu_torch.ops import fused_sgd
 # outputs of 2-4); the SGD update is the same arithmetic (1e-6).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SGD_TOL = 1e-6
+# Flash kernels against their plain versions: the JAX package's own
+# tolerances (forward 2e-5 and gradients 5e-4 in f32; bf16 outputs rounded
+# once from f32, 2e-2).
+FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -106,3 +111,79 @@ def test_fused_sgd_kernel_matches_plain(cuda, wd, nesterov, damp):
     assert fused_sgd.fused_sgd_update.launches == before + 3
     torch.testing.assert_close(p, p_ref, rtol=SGD_TOL, atol=SGD_TOL)
     torch.testing.assert_close(b, b_ref, rtol=SGD_TOL, atol=SGD_TOL)
+
+
+def _flash_inputs(dev, bh, s, d, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(bh, s, d, device=dev, generator=gen).to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,d", [
+    (4, 128, 16),        # the CPU tests' head dim, two whole tiles
+    (3, 256, 64),        # the LM's head dim
+    (2, 200, 64),        # S not a multiple of the 64-row tile
+    (2, 72, 40),         # ragged S and a head dim that is not a power of 2
+])
+def test_flash_kernels_match_plain(cuda, bh, s, d, causal, dtype):
+    q, k, v, do = _flash_inputs(cuda, bh, s, d, dtype)
+    scale = d ** -0.5
+    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.shape == (bh, s, 1)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=fwd_tol,
+                               atol=fwd_tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, scale)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, scale)
+    want = (fa.flash_dq_reference(q, k, v, do, lse_ref, delta, causal, scale),
+            *fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, causal,
+                                    scale))
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), rtol=grad_tol,
+                                   atol=grad_tol)
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_flash_attention_grads_on_card_match_cpu(cuda):
+    """flash_attention through autograd on the card (three kernels) against
+    the same call on the CPU (plain versions)."""
+    q, k, v, g = (t.reshape(2, 2, 192, 32)
+                  for t in _flash_inputs(cuda, 4, 192, 32, torch.float32, 3))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        qi, ki, vi = (t.detach().to(dev).requires_grad_(True)
+                      for t in (q, k, v))
+        o = fa.flash_attention(qi, ki, vi, causal=True)
+        o.backward(g.to(dev))
+        outs.append([t.detach().cpu() for t in (o, qi.grad, ki.grad,
+                                                vi.grad)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_on_what_they_do_not_take(cuda):
+    q, k, v, _ = _flash_inputs(cuda, 2, 64, 16, torch.float32)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), k.half(), v.half(), True, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(0, 1), k.transpose(0, 1),
+                     v.transpose(0, 1), True, 0.25)
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q, k.cpu(), v, True, 0.25)
+    wide = torch.zeros(1, 8, 136, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(wide, wide, wide, True, 0.1)
