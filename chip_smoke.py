@@ -6,32 +6,43 @@ exit and no result line, if any phase fails:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and compiles the Triton kernel;
+   source, in parallel) and compiles the Triton kernels;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths, and times kernel, plain version, the library
    call that computes the same function (``F.conv2d``,
-   ``torch.optim.SGD(fused=True)``, ``F.scaled_dot_product_attention``
-   forward and backward; the port never calls them) and the bound (bytes
-   over 3.35 TB/s or operations over the peak rate of their type,
-   whichever is larger);
+   ``torch.optim.SGD(fused=True)``, ``torch.optim.Adam(fused=True)``,
+   ``F.scaled_dot_product_attention`` forward and backward; the port never
+   calls them) and the bound (bytes over 3.35 TB/s or operations over the
+   peak rate of their type, whichever is larger);
 4. trains full-width ResNet-18 (synthetic CIFAR-10, batch 256, bf16, conv
    ``pallas``, fused SGD) for a few steps through the port's Trainer, then
-   evaluates 2 batches; then trains the full-width TransformerLM (d 512, 8
-   layers, 8 heads, vocab 32000, S 2048, batch 8, f32, flash attention)
-   for a few steps through the port's LMTrainer and evaluates 2 batches.
-   Every launch count is set to 0 just before each path and read just
-   after: each kernel of the path ran the expected number of times, and
-   no other kernel ran;
+   evaluates 2 batches; then the same network with fused Adam through the
+   entry points a user calls: ``train.main`` checkpointing every 3 of 6
+   steps, a resumed Trainer to step 8 held against an uninterrupted one,
+   and ``evaluate.main --once 6``; then the full-width TransformerLM (d
+   512, 8 layers, 8 heads, vocab 32000, S 2048, batch 8, f32, flash
+   attention) for a few steps through the port's LMTrainer, evaluating 2
+   batches. Every launch count is set to 0 just before each path and read
+   just after: each kernel of the path ran the expected number of times,
+   and no other kernel ran;
 5. holds one small ResNet step and one small LM step on the card against
    the same steps on the CPU (the plain versions);
-6. prints the ``kernels`` JSON line, the card line, and last
+6. trains LeNet on the UCI digits for 1200 steps through ``train.main`` and
+   scores the checkpoint with ``evaluate.main``: Prec@1 must reach 0.98;
+7. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
+import io
 import json
 import math
+import re
+import shutil
 import sys
+import tempfile
 import time
+from contextlib import redirect_stdout
+from pathlib import Path
 
 import numpy as np
 
@@ -55,6 +66,21 @@ FLASH_SHAPE = (8, 8, 2048, 64)
 # 2e-2 in bf16 (outputs rounded once from f32): the JAX package's own.
 FLASH_TOL = {"float32": (2e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
 FLASH_MATMULS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}
+# ResNet-18 with fused Adam through the entry points: checkpoints every 3
+# of 6 steps, then a resume to step 8.
+CKPT_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
+             "--batch-size", str(BATCH), "--compute-dtype", "bfloat16",
+             "--conv-impl", "pallas", "--optimizer", "adam",
+             "--fused-optimizer", "--lr", "1e-3", "--weight-decay", "5e-4")
+# The JAX package's accuracy oracle (tools/accuracy_run.py): LeNet on the
+# UCI digits, checkpoint at the last step, scored by the evaluator.
+DIGITS_ARGS = ("--network", "LeNet", "--dataset", "Digits", "--batch-size",
+               "128", "--lr", "0.01", "--momentum", "0.9", "--weight-decay",
+               "1e-4", "--compute-dtype", "float32", "--epochs", "0",
+               "--max-steps", "1200", "--eval-freq", "1200", "--log-every",
+               "200")
+EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
+                     re.M)
 
 
 def fail(msg: str) -> None:
@@ -184,6 +210,62 @@ def check_sgd(torch, sgd_mod, n: int) -> dict:
     lib = time_ms(lib_opt.step)
     bound = 1e3 * 20.0 * n / HBM_BYTES_PER_S
     print(f"KERNEL fused_sgd {n} params ms {ms:.4f} plain_ms {plain:.4f} "
+          f"library_ms {lib:.4f} bound_ms {bound:.4f} max_abs_err "
+          f"{max_err:.3e}", flush=True)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "max_abs_err": max_err}
+
+
+def check_adam(torch, adam_mod, n: int) -> dict:
+    """The fused-Adam kernel against its plain version, 3 steps each,
+    without and with weight decay and AMSGrad, on one element, on a size
+    that is not a multiple of the block and on n (ResNet-18's parameter
+    count); then timed at n on the main path's settings."""
+    from ps_pytorch_tpu_torch.optim.adam import adam_step_size
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    max_err = 0.0
+    for wd, amsgrad in ((0.0, False), (5e-4, False), (5e-4, True)):
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+        for size in (1, 100_003, n):
+            p = torch.randn(size, device="cuda", generator=gen)
+            bufs = [torch.zeros_like(p) for _ in range(3 if amsgrad else 2)]
+            ref = [p.clone()] + [b.clone() for b in bufs]
+            for t in range(1, 4):
+                g = torch.randn(size, device="cuda", generator=gen)
+                ss = adam_step_size(1e-3, 0.9, 0.999, t)
+                adam_mod.fused_adam_update(p, bufs[0], bufs[1], bufs[2] if
+                                           amsgrad else None, g, ss, **kw)
+                adam_mod.fused_adam_reference(ref[0], ref[1], ref[2], ref[3]
+                                              if amsgrad else None, g, ss,
+                                              **kw)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item()
+                      for a, b in zip([p] + bufs, ref))
+            max_err = max(max_err, err)
+            if not all(torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+                       for a, b in zip([p] + bufs, ref)):
+                fail(f"fused_adam wd {wd} amsgrad {amsgrad} size {size}: "
+                     f"max abs err {err} above rtol 1e-6, atol 1e-7")
+            print(f"CHECK fused_adam wd {wd} amsgrad {amsgrad} size {size}: "
+                  f"3 steps, max abs err {err:.3e}", flush=True)
+    # Timing on the main path's settings (wd 5e-4, no AMSGrad): reads p, m,
+    # v, g and writes p, m, v.
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=5e-4)
+    p, m, g = (torch.randn(n, device="cuda", generator=gen) for _ in range(3))
+    v = torch.rand(n, device="cuda", generator=gen)
+    ss = adam_step_size(1e-3, 0.9, 0.999, 10)
+    ms = time_ms(lambda: adam_mod.fused_adam_update(p, m, v, None, g, ss,
+                                                    **kw))
+    plain = time_ms(lambda: adam_mod.fused_adam_reference(p, m, v, None, g,
+                                                          ss, **kw))
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g.clone()
+    lib_opt = torch.optim.Adam([param], lr=1e-3, weight_decay=5e-4,
+                               fused=True)
+    lib_opt.step()
+    lib = time_ms(lib_opt.step)
+    bound = 1e3 * 28.0 * n / HBM_BYTES_PER_S
+    print(f"KERNEL fused_adam {n} params ms {ms:.4f} plain_ms {plain:.4f} "
           f"library_ms {lib:.4f} bound_ms {bound:.4f} max_abs_err "
           f"{max_err:.3e}", flush=True)
     return {"ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -374,6 +456,141 @@ def lm_main_path(torch, wrappers) -> dict:
     return launches
 
 
+def run_entry(main, argv) -> str:
+    """Run an entry point's ``main``; echo and return what it printed."""
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = main(argv)
+    print(out.getvalue(), end="", flush=True)
+    if rc != 0:
+        fail(f"{main.__module__} exited {rc}")
+    return out.getvalue()
+
+
+def ckpt_main_path(torch, wrappers) -> dict:
+    """ResNet-18 with fused Adam through ``train.main`` (checkpoints at
+    steps 3 and 6), a resumed Trainer to step 8 against an uninterrupted
+    8-step one, and ``evaluate.main --once 6``; counts launches."""
+    from ps_pytorch_tpu_torch import evaluate, train
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.data import load_arrays
+    from ps_pytorch_tpu_torch.models.convert import state_to_jax
+    from ps_pytorch_tpu_torch.runtime import Trainer
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+
+    eval_batches = math.ceil(len(load_arrays("synthetic_cifar10",
+                                             train=False)[1]) / 1000)
+    # Deterministic cuDNN algorithms (the stem and the strided convs), so
+    # that the resumed run can equal the uninterrupted one.
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    td, whole_dir = f"{root}/td", f"{root}/whole"
+    try:
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        out = run_entry(train.main, [*CKPT_ARGS, "--max-steps", "6",
+                                     "--eval-freq", "3", "--train-dir", td,
+                                     "--device", "cuda"])
+        t_train = time.monotonic() - t0
+        if [int(x) for x in re.findall(r"^STEP (\d+) ", out, re.M)] != \
+                list(range(1, 7)):
+            fail("MAIN-CKPT: train.main did not print STEP 1..6")
+        if ckpt.committed_steps(td) != [3, 6] or not all(
+                ckpt.verify_checkpoint(td, k) for k in (3, 6)):
+            fail(f"MAIN-CKPT: checkpoints {ckpt.committed_steps(td)}, "
+                 "expected model_step_3 and model_step_6, verified")
+        nbytes = sum(f.stat().st_size
+                     for f in Path(ckpt.checkpoint_path(td, 6)).iterdir())
+        cfg = config_from_args([*CKPT_ARGS, "--max-steps", "8",
+                                "--eval-freq", "3", "--train-dir", td])
+        out = io.StringIO()
+        with redirect_stdout(out):
+            resumed = Trainer(cfg, device="cuda")
+        print(out.getvalue(), end="", flush=True)
+        if f"RESUME from {ckpt.checkpoint_path(td, 6)} at step 6" \
+                not in out.getvalue() or resumed.start_step != 6:
+            fail("MAIN-CKPT: the second Trainer did not resume at step 6")
+        lines = []
+        resumed.metrics.printer = lambda line: (print(line, flush=True),
+                                                lines.append(line))
+        resumed.train()
+        if [int(ln.split()[1]) for ln in lines] != [7, 8]:
+            fail(f"MAIN-CKPT: the resumed run printed {lines}")
+        whole = Trainer(config_from_args(
+            [*CKPT_ARGS, "--max-steps", "8", "--eval-freq", "0",
+             "--resume", "false", "--train-dir", whole_dir]), device="cuda",
+            printer=lambda line: None)
+        whole.train()
+        got = state_to_jax(resumed.model, resumed.step_fn.opt_state, 8)
+        want = state_to_jax(whole.model, whole.step_fn.opt_state, 8)
+        diff, close = 0.0, True
+        for part in ("params", "opt_state"):
+            for a, b in zip(flat_leaves(got[part]), flat_leaves(want[part])):
+                diff = max(diff, float(np.abs(a - b).max()))
+                close &= bool(np.allclose(a, b, rtol=1e-6, atol=0.0))
+        print(f"CHECK resume: params and Adam moments after step 8, resumed "
+              f"at 6 vs uninterrupted: max abs diff {diff:.3e}", flush=True)
+        if not close:
+            fail(f"MAIN-CKPT: the resumed run differs by {diff} (rtol 1e-6)")
+        out = run_entry(evaluate.main, ["--train-dir", td, "--once", "6"])
+        found = EVAL_RE.findall(out)
+        if len(found) != 1 or found[0][0] != "6" or not all(
+                math.isfinite(float(x)) for x in found[0][1:]):
+            fail("MAIN-CKPT: evaluate.main printed no finite EVAL step 6")
+        launches = read_counts(wrappers)
+        t0 = time.monotonic()
+        resumed.checkpoint(8)
+        t_save = time.monotonic() - t0
+        t0 = time.monotonic()
+        ckpt.load_checkpoint(td, 8, resumed._restore)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+        print(f"MAIN-CKPT train_main_s {t_train:.2f} step_times_s "
+              f"{resumed.step_times + whole.step_times} checkpoint_bytes "
+              f"{nbytes} save_s {t_save:.3f} load_s {t_load:.3f} launches "
+              f"{launches}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    steps = 6 + 2 + 8
+    want = dict({name: 0 for name in wrappers}, fused_adam=steps,
+                conv3x3=CONV_PER_STEP * steps
+                + CONV_PER_EVAL_BATCH * 2 * eval_batches)
+    if launches != want:
+        fail(f"MAIN-CKPT launches {launches}, expected {want}")
+    return launches
+
+
+def flat_leaves(tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_leaves(v)
+        else:
+            yield np.asarray(v, np.float64)
+
+
+def digits_accuracy(torch) -> None:
+    """LeNet on the UCI digits through ``train.main`` on the card, scored
+    by ``evaluate.main``: Prec@1 at least 0.98."""
+    from ps_pytorch_tpu_torch import evaluate, train
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_digits_")
+    try:
+        t0 = time.monotonic()
+        run_entry(train.main, [*DIGITS_ARGS, "--train-dir", root,
+                               "--device", "cuda"])
+        wall = time.monotonic() - t0
+        found = EVAL_RE.findall(run_entry(
+            evaluate.main, ["--train-dir", root, "--once", "1200"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if len(found) != 1 or not float(found[0][2]) >= 0.98:
+        fail(f"ACCURACY digits: EVAL {found}, Prec@1 below 0.98")
+    print(f"ACCURACY digits LeNet 1200 steps: prec1 {found[0][2]} prec5 "
+          f"{found[0][3]} loss {found[0][1]} train_wall_s {wall:.2f}",
+          flush=True)
+
+
 def small_step_agrees(torch) -> None:
     """One small ResNet (one BasicBlock a stage, f32, conv pallas, fused
     SGD), 2 train steps on the card and on the CPU from the same weights
@@ -457,6 +674,7 @@ def main() -> int:
     from ps_pytorch_tpu_torch.ops import _build
     from ps_pytorch_tpu_torch.ops import conv3x3 as conv_mod
     from ps_pytorch_tpu_torch.ops import flash_attention as fa
+    from ps_pytorch_tpu_torch.ops import fused_adam as adam_mod
     from ps_pytorch_tpu_torch.ops import fused_sgd as sgd_mod
     from ps_pytorch_tpu_torch.tools.profile_capture import card_line
 
@@ -482,9 +700,17 @@ def main() -> int:
                              nesterov=False)
     torch.cuda.synchronize()
     print(f"BUILD triton fused_sgd {time.monotonic() - t0:.2f} s", flush=True)
+    t0 = time.monotonic()
+    adam_mod.fused_adam_update(one.clone(), one.clone(), one.clone(), None,
+                               one.clone(), 0.1, b1=0.9, b2=0.999, eps=1e-8,
+                               weight_decay=0.0)
+    torch.cuda.synchronize()
+    print(f"BUILD triton fused_adam {time.monotonic() - t0:.2f} s",
+          flush=True)
 
     wrappers = {"conv3x3": conv_mod.conv3x3,
                 "fused_sgd": sgd_mod.fused_sgd_update,
+                "fused_adam": adam_mod.fused_adam_update,
                 "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
                 "flash_dkv": fa.flash_dkv}
     # Each path right after the checks of its own kernels, with the
@@ -495,11 +721,14 @@ def main() -> int:
     sgd = check_sgd(torch, sgd_mod, n_params)
     launches = main_path(torch, wrappers)
     small_step_agrees(torch)
+    adam = check_adam(torch, adam_mod, n_params)
+    ckpt_launches = ckpt_main_path(torch, wrappers)
     torch.cuda.empty_cache()
     flash = check_flash(torch, F, fa)
     torch.cuda.empty_cache()
     lm_launches = lm_main_path(torch, wrappers)
     small_lm_step_agrees(torch, fa)
+    digits_accuracy(torch)
 
     kernels = [
         dict(name="conv3x3", route="cuda",
@@ -517,6 +746,13 @@ def main() -> int:
              launches=launches["fused_sgd"], max_abs_err=sgd["max_abs_err"],
              ms=sgd["ms"], plain_ms=sgd["plain_ms"], bound_ms=sgd["bound_ms"],
              bound_by="bytes", library_ms=sgd["library_ms"]),
+        dict(name="fused_adam", route="triton",
+             source="ps_pytorch_tpu_torch/ops/_adam_triton.py",
+             replaces="ps_pytorch_tpu/ops/fused_adam.py:31",
+             launches=ckpt_launches["fused_adam"],
+             max_abs_err=adam["max_abs_err"], ms=adam["ms"],
+             plain_ms=adam["plain_ms"], bound_ms=adam["bound_ms"],
+             bound_by="bytes", library_ms=adam["library_ms"]),
     ] + [
         dict(name=name, route="cuda",
              source="ps_pytorch_tpu_torch/csrc/flash_attention.cu",

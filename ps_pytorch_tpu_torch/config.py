@@ -3,10 +3,11 @@
 The same dataclass as the JAX package's ``config.py``: every field keeps its
 name and default, so ``to_json``/``from_json`` read and write the same keys
 and a config from either package loads in the other. The port runs one
-slice of the system (synchronous data-parallel CNN training, see
-ROADMAP.md), so a field it does not run raises ``ValueError`` when it is set
-to anything but its default: it is never silently ignored. The LM fields
-run for ``lm_parallelism="sp"`` on one device (``runtime/lm_trainer.py``).
+slice of the system (synchronous data-parallel CNN training with its
+checkpoints and evaluator, see ROADMAP.md), so a field it does not run
+raises ``ValueError`` when it is set to anything but its default: it is
+never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
+one device (``runtime/lm_trainer.py``), without checkpoints.
 """
 
 from __future__ import annotations
@@ -199,17 +200,14 @@ class TrainConfig:
             raise ValueError(f"lm_parallelism={self.lm_parallelism!r} is not "
                              "ported yet (ROADMAP.md); only sp on one "
                              "device runs")
-        if self.eval_freq > 0:
+        if self.eval_freq > 0 and self.network in LM_NETWORKS:
             raise ValueError(
                 f"eval_freq={self.eval_freq} checkpoints every N steps, and "
-                "checkpointing is not ported yet (ROADMAP.md); pass "
+                "LM checkpoints are not ported yet (ROADMAP.md); pass "
                 "--eval-freq 0")
         if self.mode != "sync":
             raise ValueError(f"mode={self.mode!r} is not ported yet "
                              "(ROADMAP.md); only sync runs")
-        if self.optimizer != "sgd":
-            raise ValueError(f"optimizer={self.optimizer!r} is not ported "
-                             "yet (ROADMAP.md)")
         defaults = TrainConfig.__dataclass_fields__
         for name in sorted(set(defaults) - PORTED_FIELDS):
             if getattr(self, name) != defaults[name].default:
@@ -226,12 +224,15 @@ class TrainConfig:
         return cls(**json.loads(s))
 
 
+LM_NETWORKS = ("TransformerLM", "MoETransformerLM")
+
 # The fields this slice runs. Every other field must keep its default.
 PORTED_FIELDS = frozenset({
     "network", "dataset", "batch_size", "test_batch_size", "data_dir",
     "num_classes", "optimizer", "lr", "lr_schedule", "lr_warmup_steps",
     "lr_decay_steps", "lr_decay_factor", "momentum", "weight_decay",
-    "nesterov", "epochs", "max_steps", "eval_freq", "train_dir", "resume",
+    "nesterov", "adam_beta1", "adam_beta2", "adam_eps", "amsgrad",
+    "epochs", "max_steps", "eval_freq", "train_dir", "resume", "ckpt_keep",
     "seed", "mode", "compute_dtype", "device_normalize", "fused_optimizer",
     "conv_impl", "log_every", "metrics_file",
     "lm_vocab", "lm_d_model", "lm_layers", "lm_heads", "lm_seq_len",

@@ -1,7 +1,7 @@
 """Vectorized numpy augmentations: a copy of the JAX package's
 ``data/augment.py`` for the sets this slice runs, numpy path only.
 
-- MNIST: normalize (0.1307, 0.3081)
+- MNIST and Digits: normalize (0.1307, 0.3081)
 - CIFAR-10/100 train: pad-4 reflect -> random crop 32 -> random hflip ->
   normalize mean [125.3,123.0,113.9]/255, std [63.0,62.1,66.7]/255
 
@@ -60,7 +60,7 @@ def pad_images(x: np.ndarray, pad: int, mode: str) -> np.ndarray:
 
 def norm_constants_for(dataset: str):
     """(mean, std) of the host normalize stack, or None."""
-    if dataset == "MNIST":
+    if dataset in ("MNIST", "Digits"):
         return MNIST_MEAN, MNIST_STD
     if dataset in ("Cifar10", "Cifar100", "synthetic_cifar10"):
         return CIFAR_MEAN, CIFAR_STD

@@ -18,6 +18,8 @@ from ps_pytorch_tpu_torch.data import augment
 # dataset -> (H, W, C, num_classes, train_size_hint)
 DATASET_SHAPES = {
     "MNIST": (28, 28, 1, 10, 60000),
+    # UCI digits (shipped with the port) upsampled to MNIST geometry.
+    "Digits": (28, 28, 1, 10, 1437),
     "Cifar10": (32, 32, 3, 10, 50000),
     "Cifar100": (32, 32, 3, 100, 50000),
     "synthetic": (32, 32, 3, 10, 50000),
@@ -43,6 +45,8 @@ def _load_files(name: str, root: str, train: bool):
         x, y = vision_io.load_cifar10(root, train)
     elif name == "Cifar100":
         x, y = vision_io.load_cifar100(root, train)
+    elif name == "Digits":
+        x, y = vision_io.load_digits28(train)
     else:
         raise ValueError(name)
     return x.astype(np.uint8, copy=False), y.astype(np.int32)
@@ -190,6 +194,20 @@ class DataLoader:
             except StopIteration:
                 self._epoch += 1
                 self._epoch_iter = None
+
+    def fast_forward(self, n_batches: int) -> None:
+        """Position the stream as if ``n_batches`` had been drawn, so a run
+        resumed at step k sees the batch an uninterrupted run sees at step
+        k+1. Whole epochs are skipped (an epoch's order is a function of
+        its index); the rest is drawn batch by batch to keep the augment
+        stream in step."""
+        per_epoch = len(self)
+        if n_batches <= 0 or per_epoch <= 0:
+            return
+        self._epoch = n_batches // per_epoch
+        self._epoch_iter = None
+        for _ in range(n_batches % per_epoch):
+            self.next_batch()
 
 
 def prepare_data(cfg, host_id: int = 0,

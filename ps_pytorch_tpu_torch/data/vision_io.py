@@ -1,6 +1,7 @@
 """Dataset file parsers (no torchvision): MNIST IDX files and the CIFAR
-python pickle batches, as the files sit on disk. A copy of the JAX
-package's ``data/vision_io.py`` for the sets this slice runs.
+python pickle batches, as the files sit on disk, and the UCI digits that
+ship with the port. A copy of the JAX package's ``data/vision_io.py`` for
+the sets this slice runs.
 
 All loaders return ``(x uint8 [N,H,W,C], y int32 [N])``.
 """
@@ -70,3 +71,32 @@ def load_cifar100(root: str, train: bool) -> Tuple[np.ndarray, np.ndarray]:
     d = _cifar_pickle(os.path.join(base, "train" if train else "test"))
     x = np.asarray(d["data"], np.uint8).reshape(-1, 3, 32, 32)
     return x.transpose(0, 2, 3, 1), np.asarray(d["fine_labels"], np.int32)
+
+
+# ---- Digits (real data that ships with the port) ----
+
+DIGITS_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digits.csv.gz")
+DIGITS_TRAIN = 1437   # 80% of 1797, fixed seeded split
+
+
+def _nn_resize(x: np.ndarray, hw: int) -> np.ndarray:
+    idx = (np.arange(hw) * x.shape[1]) // hw
+    return x[:, idx][:, :, idx]
+
+
+def load_digits28(train: bool, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """UCI handwritten digits as 28x28x1 uint8: the nearest-neighbour
+    upsample of the 8x8 scans, pixel range 0-16 rescaled to 0-255, split
+    1437/360 by a seeded permutation, as the JAX package's
+    ``load_digits28``. ``digits.csv.gz`` is scikit-learn 1.9.0's bundled
+    copy (BSD-3; the data is UCI's): 1797 rows of 64 pixels and a label."""
+    with gzip.open(DIGITS_CSV, "rt") as f:
+        data = np.loadtxt(f, delimiter=",")
+    images = data[:, :-1].reshape(-1, 8, 8)
+    x = _nn_resize(images, 28)
+    x = np.clip(x * (255.0 / 16.0), 0, 255).astype(np.uint8)[..., None]
+    y = data[:, -1].astype(np.int32)
+    order = np.random.default_rng(seed).permutation(len(x))
+    sel = order[:DIGITS_TRAIN] if train else order[DIGITS_TRAIN:]
+    return x[sel], y[sel]

@@ -12,12 +12,18 @@ The port's module names are the flax names, so the map is mechanical:
 Trees are nested dicts of numpy arrays (``jax.device_get`` of the flax
 variables). A training state's ``batch_stats`` carry a leading replica
 axis ``[n_data]`` (``parallel/dp.py``); ``from_jax`` takes replica 0.
+
+``state_to_jax``/``state_from_jax`` carry a whole training state across:
+the JAX ``TrainState`` (``parallel/dp.py:36-40``) as the dict that flax
+serializes, with ``opt_state`` in the JAX optimizers' structures.
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ps_pytorch_tpu_torch.optim.adam import AdamState
 
 
 def _walk(tree, prefix=()):
@@ -84,3 +90,88 @@ def to_jax(state_dict) -> Tuple[dict, dict]:
         else:
             raise ValueError(f"unknown state_dict entry {name}")
     return params, stats
+
+
+def _sorted(tree: dict) -> dict:
+    """Every dict of the tree with sorted keys, as ``jax.device_get``
+    leaves them before the JAX package serializes a state."""
+    return {k: _sorted(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def _map(fn, tree: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _moments_to_jax(moments) -> dict:
+    """name -> tensor (or ``()``: no buffers) -> a flax params-shaped
+    tree ({} for none)."""
+    return _sorted(to_jax(moments)[0]) if moments else {}
+
+
+def _opt_fields(opt_state) -> tuple:
+    """The JAX optimizer state's fields, in their declared order:
+    ``AdamState(step, exp_avg, exp_avg_sq, max_exp_avg_sq)`` and
+    ``SGDState(step, momentum)``."""
+    if isinstance(opt_state, AdamState):
+        return ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")
+    return ("momentum",)
+
+
+def state_to_jax(model: torch.nn.Module, opt_state, step: int) -> dict:
+    """The port's training state -> the JAX ``TrainState`` as the dict
+    flax serializes: ``step`` int32 0-d, ``params``, ``opt_state`` and
+    ``batch_stats`` with a replica axis of 1, fields in declared order and
+    every other dict sorted. The port's ``flat`` buffers are not written
+    (the moments are views of them)."""
+    params, stats = to_jax(model.state_dict())
+    opt = {"step": np.asarray(opt_state.step, np.int32)}
+    for field in _opt_fields(opt_state):
+        opt[field] = _moments_to_jax(getattr(opt_state, field))
+    return {"step": np.asarray(step, np.int32), "params": _sorted(params),
+            "opt_state": opt,
+            "batch_stats": _sorted(_map(lambda a: a[None], stats))}
+
+
+def _check_fits(got: Dict[str, torch.Tensor], own: Dict[str, torch.Tensor],
+                what: str) -> None:
+    if set(got) != set(own):
+        raise ValueError(f"{what}: the checkpoint holds {sorted(got)}, the "
+                         f"model {sorted(own)}")
+    for k, t in got.items():
+        if t.shape != own[k].shape:
+            raise ValueError(f"{what} {k}: checkpoint {tuple(t.shape)}, "
+                             f"model {tuple(own[k].shape)}")
+
+
+def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None
+                   ) -> Tuple[Optional[tuple], int]:
+    """A JAX ``TrainState`` dict (``state_to_jax``'s layout, or one the
+    JAX package wrote: replica 0's BatchNorm statistics are taken) -> the
+    model's parameters and buffers and, given ``opt_state``, its moments,
+    all copied INTO the existing storage (the fused optimizers hold the
+    parameters as views of their flat buffer). Everything is checked
+    before anything is copied. Returns (the optimizer state with the
+    stored step, or None; the stored training step)."""
+    own = model.state_dict()
+    sd = from_jax(tree["params"], tree.get("batch_stats"))
+    _check_fits(sd, own, "model")
+    pairs = [(own[k], sd[k]) for k in sd]
+    if opt_state is not None:
+        stored = tree["opt_state"]
+        fields = _opt_fields(opt_state)
+        if set(stored) != {"step", *fields}:
+            raise ValueError(f"the checkpoint's optimizer state has "
+                             f"{sorted(stored)}, this optimizer "
+                             f"{sorted(('step',) + fields)}")
+        for field in fields:
+            mine = getattr(opt_state, field) or {}
+            got = from_jax(stored[field]) if stored[field] else {}
+            _check_fits(got, mine, field)
+            pairs += [(mine[k], got[k]) for k in got]
+        opt_state = opt_state._replace(step=int(stored["step"]))
+    with torch.no_grad():
+        for dst, src in pairs:
+            dst.copy_(src)
+    return opt_state, int(tree["step"])

@@ -97,6 +97,55 @@ def flat_base(tensors: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
     return base if ptr == base.data_ptr() + base.numel() * size else None
 
 
+def flatten_params(params: Dict[str, torch.Tensor], optimizer: str
+                   ) -> torch.Tensor:
+    """Lay ``params`` out in one flat f32 buffer, in order, and rebind each
+    to its view (``p.data = view``). Returns the buffer."""
+    if not params:
+        raise ValueError("no parameters")
+    ref = next(iter(params.values()))
+    for name, p in params.items():
+        if p.dtype != torch.float32 or p.device != ref.device:
+            raise ValueError(f"{name}: {optimizer} takes float32 "
+                             "parameters on one device")
+    total = sum(p.numel() for p in params.values())
+    flat_p = torch.empty(total, dtype=torch.float32, device=ref.device)
+    with torch.no_grad():
+        for name, view in views_of(flat_p, params).items():
+            view.copy_(params[name])
+            params[name].data = view
+    return flat_p
+
+
+def views_of(flat: torch.Tensor, params: Dict[str, torch.Tensor]) -> dict:
+    """name -> the view of ``flat`` at that parameter's place."""
+    out, off = {}, 0
+    for name, p in params.items():
+        out[name] = flat[off:off + p.numel()].view_as(p)
+        off += p.numel()
+    return out
+
+
+def flat_grads(params: Dict[str, torch.Tensor], flat_p: torch.Tensor,
+               grads: Dict[str, torch.Tensor], optimizer: str
+               ) -> torch.Tensor:
+    """Check that ``params`` still lie where ``flatten_params`` put them,
+    and return the flat gradient: the buffer that ``grads`` are views of
+    (the data-parallel step's reduced gradient) as it is, else their
+    concatenation."""
+    ptr = flat_p.data_ptr()
+    for name, p in params.items():
+        if p.data_ptr() != ptr:
+            raise ValueError(f"{name} is not where {optimizer}.init put it: "
+                             "pass the parameters given to init")
+        ptr += p.numel() * 4
+    gs = [grads[name] for name in params]
+    flat_g = flat_base(gs)
+    if flat_g is None:
+        flat_g = torch.cat([g.reshape(-1).float() for g in gs])
+    return flat_g
+
+
 class FusedSGD(SGD):
     """The fused optimizer: ``optim.SGD``'s hyperparameters and
     ``init``/``apply`` contract. ``init`` makes the parameters views of one
@@ -106,40 +155,16 @@ class FusedSGD(SGD):
         """Lay ``params`` out in one flat f32 buffer and rebind each to its
         view. Momentum buffers exist even at momentum 0, as in the JAX
         version (the kernel reads them)."""
-        if not params:
-            raise ValueError("no parameters")
-        ref = next(iter(params.values()))
-        total = sum(p.numel() for p in params.values())
-        flat_p = torch.empty(total, dtype=torch.float32, device=ref.device)
+        flat_p = flatten_params(params, "FusedSGD")
         flat_b = torch.zeros_like(flat_p)
-        momentum, off = {}, 0
-        with torch.no_grad():
-            for name, p in params.items():
-                if p.dtype != torch.float32 or p.device != ref.device:
-                    raise ValueError(f"{name}: FusedSGD takes float32 "
-                                     f"parameters on one device")
-                n = p.numel()
-                view = flat_p[off:off + n].view_as(p)
-                view.copy_(p)
-                p.data = view
-                momentum[name] = flat_b[off:off + n].view_as(p)
-                off += n
-        return SGDState(step=0, momentum=momentum, flat=(flat_p, flat_b))
+        return SGDState(step=0, momentum=views_of(flat_b, params),
+                        flat=(flat_p, flat_b))
 
     def apply(self, params: Dict[str, torch.Tensor], state: SGDState,
               grads: Dict[str, torch.Tensor]) -> SGDState:
         """One step, in place on the parameters and the momentum."""
         flat_p, flat_b = state.flat
-        ptr = flat_p.data_ptr()
-        for name, p in params.items():
-            if p.data_ptr() != ptr:
-                raise ValueError(f"{name} is not where FusedSGD.init put it: "
-                                 "pass the parameters given to init")
-            ptr += p.numel() * 4
-        gs = [grads[name] for name in params]
-        flat_g = flat_base(gs)
-        if flat_g is None:
-            flat_g = torch.cat([g.reshape(-1).float() for g in gs])
+        flat_g = flat_grads(params, flat_p, grads, "FusedSGD")
         lr = self.lr(state.step) if callable(self.lr) else self.lr
         fused_sgd_update(flat_p, flat_b, flat_g, lr, state.step == 0,
                          momentum=self.momentum, dampening=self.dampening,

@@ -1,5 +1,6 @@
 """The data-parallel train step, the JAX package's ``parallel/dp.py``
-(``make_train_step`` ``:174-245``, ``make_eval_step`` ``:248-272``).
+(``make_train_step`` ``:174-245``, ``make_eval_step`` ``:248-272``), and
+the reduction of eval batches (its ``runtime/evaluator.py:accumulate_eval``).
 
 One process per replica. Each replica runs forward and backward on its
 local batch; gradients are averaged over the participating replicas with a
@@ -14,7 +15,7 @@ The parameters' ``.grad`` are views of that flat buffer, so backward
 writes the gradients where the reduction and the fused optimizer read them.
 """
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -139,3 +140,20 @@ def make_eval_step(model: torch.nn.Module, input_norm=None) -> Callable:
                 "top5": top5, "count": y.shape[0]}
 
     return eval_step
+
+
+def accumulate_eval(eval_fn: Callable, batches: Iterable,
+                    max_batches: Optional[int] = None) -> dict:
+    """Run ``eval_fn(x, y)`` over ``batches`` (the first ``max_batches``)
+    -> loss, prec1, prec5 and count over all examples."""
+    tot = {"sum_loss": 0.0, "top1": 0, "top5": 0, "count": 0}
+    for i, (x, y) in enumerate(batches):
+        if max_batches is not None and i >= max_batches:
+            break
+        m = eval_fn(x, y)
+        tot["sum_loss"] += float(m["sum_loss"])
+        for k in ("top1", "top5", "count"):
+            tot[k] += int(m[k])
+    n = max(tot["count"], 1)
+    return {"loss": tot["sum_loss"] / n, "prec1": tot["top1"] / n,
+            "prec5": tot["top5"] / n, "count": tot["count"]}

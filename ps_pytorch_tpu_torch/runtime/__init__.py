@@ -1,3 +1,5 @@
-"""The training loop and the metrics schema."""
+"""The training loop, its checkpoints, the polling evaluator and the
+metrics schema."""
 
+from ps_pytorch_tpu_torch.runtime.evaluator import Evaluator  # noqa: F401
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer  # noqa: F401

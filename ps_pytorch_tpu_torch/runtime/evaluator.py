@@ -1,0 +1,82 @@
+"""The standalone polling evaluator: the JAX package's
+``runtime/evaluator.py`` for CNN checkpoints.
+
+A separate process watches ``train_dir`` for ``model_step_<k>``, loads each
+new checkpoint and prints loss, Prec@1 and Prec@5 on the test set as the
+``EVAL`` line. The model and the test loader are built from the
+checkpoint's own ``config.json``; the BatchNorm statistics are replica 0's.
+It reads checkpoints of either package. LM checkpoints (``EVAL_LM``) are
+not ported yet.
+"""
+
+import time
+from typing import Callable, Optional
+
+from ps_pytorch_tpu_torch.config import LM_NETWORKS, TrainConfig
+from ps_pytorch_tpu_torch.data import prepare_data
+from ps_pytorch_tpu_torch.data.augment import input_norm_for
+from ps_pytorch_tpu_torch.models import build_model
+from ps_pytorch_tpu_torch.models.convert import state_from_jax
+from ps_pytorch_tpu_torch.parallel import make_eval_step
+from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval
+from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
+
+EVAL_LINE = "EVAL step {step} loss {loss:.6f} prec1 {prec1:.4f} prec5 {prec5:.4f}"
+
+
+class Evaluator:
+    def __init__(self, train_dir: str, poll_s: float = 10.0,
+                 printer: Callable = print, device: Optional[str] = None):
+        self.train_dir = train_dir
+        self.poll_s = poll_s
+        self.printer = printer
+        self.device = resolve_device(device)
+        self._built_for: Optional[str] = None
+
+    def _build(self, config_json: str) -> None:
+        cfg = TrainConfig.from_json(config_json)
+        if cfg.network in LM_NETWORKS:
+            raise ValueError(f"{cfg.network} checkpoints (EVAL_LM) are not "
+                             "ported yet (ROADMAP.md)")
+        self.model = build_model(cfg.network, cfg.num_classes,
+                                 cfg.compute_dtype, cfg.conv_impl
+                                 ).to(self.device)
+        _, self.test_loader = prepare_data(cfg)
+        self.eval_fn = make_eval_step(self.model, input_norm_for(cfg))
+        self._built_for = config_json
+
+    def evaluate_step(self, step: int) -> dict:
+        with open(f"{ckpt.checkpoint_path(self.train_dir, step)}/"
+                  "config.json") as f:
+            config_json = f.read()
+        if config_json != self._built_for:
+            self._build(config_json)
+        ckpt.load_checkpoint(self.train_dir, step,
+                             lambda tree: state_from_jax(tree, self.model))
+        result = accumulate_eval(self.eval_fn, self.test_loader.epoch(0))
+        result = {"step": step, "loss": result["loss"],
+                  "prec1": result["prec1"], "prec5": result["prec5"]}
+        self.printer(EVAL_LINE.format(**result))
+        return result
+
+    def run(self, stop_after: Optional[int] = None,
+            idle_timeout_s: Optional[float] = None) -> list:
+        """Wake every ``poll_s`` and evaluate every committed step newer
+        than the last one seen; return after ``stop_after`` was evaluated,
+        or after ``idle_timeout_s`` with nothing new."""
+        done, idle, results = -1, 0.0, []
+        while True:
+            steps = [s for s in ckpt.committed_steps(self.train_dir)
+                     if s > done]
+            if steps:
+                for s in steps:
+                    results.append(self.evaluate_step(s))
+                done, idle = steps[-1], 0.0
+                if stop_after is not None and done >= stop_after:
+                    return results
+            else:
+                time.sleep(self.poll_s)
+                idle += self.poll_s
+                if idle_timeout_s is not None and idle >= idle_timeout_s:
+                    return results

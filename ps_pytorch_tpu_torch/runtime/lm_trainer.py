@@ -11,9 +11,10 @@ configured schedule whatever ``--fused-optimizer`` says, as
 
 ``step_time`` runs from fetching the batch to reading the step's loss when
 the step is logged, which waits for the device; an unlogged step's time
-ends at dispatch. The optional planes of the JAX trainer (checkpoints,
-health, faults, telemetry exporters) are not part of this slice
-(ROADMAP.md).
+ends at dispatch. The optional planes of the JAX trainer (checkpoints
+and resume, health, faults, telemetry exporters) are not part of this
+slice (ROADMAP.md): the trainer refuses ``eval_freq > 0`` and a
+``train_dir`` to resume from.
 """
 
 import time
@@ -30,7 +31,8 @@ from ps_pytorch_tpu_torch.parallel.sp import LMTrainStep, make_lm_eval_fn
 from ps_pytorch_tpu_torch.runtime.metrics import (
     MetricsLogger, derive_step_record,
 )
-from ps_pytorch_tpu_torch.runtime.trainer import refuse_resume, resolve_device
+from ps_pytorch_tpu_torch.runtime.checkpoint import committed_steps
+from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
 
 
 class LMTrainer:
@@ -38,7 +40,12 @@ class LMTrainer:
                  printer=print):
         self.cfg = cfg
         self.device = resolve_device(device)
-        refuse_resume(cfg)
+        if cfg.eval_freq > 0 or (cfg.resume and
+                                 committed_steps(cfg.train_dir)):
+            raise ValueError(
+                "LM checkpoints, and resuming from them, are not ported yet "
+                "(ROADMAP.md); pass --eval-freq 0, and --resume false or "
+                "another --train-dir")
         impl = "flash" if cfg.lm_attention == "flash" else "full"
         self.model = TransformerLM(
             vocab_size=cfg.lm_vocab, n_layers=cfg.lm_layers,

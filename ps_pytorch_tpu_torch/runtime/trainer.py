@@ -1,17 +1,21 @@
 """The training loop: the core loop of the JAX package's
-``runtime/trainer.py`` (build ``:51-99``, ``train`` ``:517``, ``evaluate``
-``:726``) on one process and one device.
+``runtime/trainer.py`` (build ``:51-99``, resume ``:278-301``, checkpoint
+``:303-334``, ``train`` ``:517``, ``evaluate`` ``:726``) on one process and
+one device.
 
-next batch -> step (forward, backward, masked mean, update) -> STEP line.
-The loop keeps the JAX trainer's 1-deep pipeline: step k is dispatched
-before step k-1's metrics are read, and the reported step_time runs from
-fetching the batch to that read. The optional planes of the JAX trainer
-(checkpoints, coordinator, health, faults, telemetry exporters) are not
-part of this slice (ROADMAP.md).
+next batch -> step (forward, backward, masked mean, update) -> STEP line,
+and every ``eval_freq`` steps a checkpoint ``model_step_<k>`` for the
+polling evaluator (``runtime/evaluator.py``). The loop keeps the JAX
+trainer's 1-deep pipeline: step k is dispatched before step k-1's metrics
+are read, and the reported step_time runs from fetching the batch to that
+read. With ``resume`` on, the newest valid checkpoint in ``train_dir`` is
+restored and the loader fast-forwarded to it, so the resumed run sees the
+batches an uninterrupted one would. The other optional planes of the JAX
+trainer (coordinator, health, faults, telemetry exporters) are not part of
+this slice (ROADMAP.md).
 """
 
 import time
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -21,8 +25,11 @@ from ps_pytorch_tpu_torch.config import TrainConfig
 from ps_pytorch_tpu_torch.data import prepare_data
 from ps_pytorch_tpu_torch.data.augment import input_norm_for
 from ps_pytorch_tpu_torch.models import build_model
+from ps_pytorch_tpu_torch.models.convert import state_from_jax, state_to_jax
 from ps_pytorch_tpu_torch.optim import build_optimizer
 from ps_pytorch_tpu_torch.parallel import make_eval_step, make_train_step
+from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval
+from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.metrics import (
     MetricsLogger, derive_step_record,
 )
@@ -38,21 +45,11 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     return dev
 
 
-def refuse_resume(cfg: TrainConfig) -> None:
-    """Resuming is not ported: a train_dir that holds checkpoints raises
-    unless ``--resume false``."""
-    if cfg.resume and any(Path(cfg.train_dir).glob("model_step_*")):
-        raise ValueError(f"{cfg.train_dir} holds checkpoints, and "
-                         "resuming is not ported yet (ROADMAP.md); pass "
-                         "--resume false or another --train-dir")
-
-
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
                  printer=print):
         self.cfg = cfg
         self.device = resolve_device(device)
-        refuse_resume(cfg)
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl,
                                  seed=cfg.seed).to(self.device)
@@ -65,6 +62,38 @@ class Trainer:
         self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
                                      printer=printer)
         self.step_times: list = []
+        self.start_step = 0
+        if cfg.resume:
+            self._maybe_resume()
+
+    def _restore(self, tree: dict) -> None:
+        """Put a checkpoint's state into the model and the optimizer, in
+        place."""
+        self.step_fn.opt_state, _ = state_from_jax(tree, self.model,
+                                                   self.step_fn.opt_state)
+
+    def _maybe_resume(self) -> None:
+        """Restore the newest checkpoint that verifies, walking back past
+        corrupt ones, and replay the data stream to it."""
+        got = ckpt.load_latest_valid(self.cfg.train_dir, self._restore)
+        if got is None:
+            return
+        _, meta, _, step = got
+        self.start_step = int(meta["step"])
+        self.train_loader.fast_forward(self.start_step)
+        print(f"RESUME from {ckpt.checkpoint_path(self.cfg.train_dir, step)} "
+              f"at step {self.start_step}")
+
+    def checkpoint(self, step: int) -> str:
+        """Commit ``model_step_<step>``, then keep the newest ``ckpt_keep``
+        when that is set. Returns the checkpoint's path."""
+        path = ckpt.save_checkpoint(
+            self.cfg.train_dir, step,
+            state_to_jax(self.model, self.step_fn.opt_state, step),
+            config_json=self.cfg.to_json())
+        if self.cfg.ckpt_keep > 0:
+            ckpt.prune_checkpoints(self.cfg.train_dir, self.cfg.ckpt_keep)
+        return path
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -72,14 +101,15 @@ class Trainer:
 
     def train(self) -> None:
         """Run to max_steps or epochs * steps-per-epoch, whichever is
-        smaller."""
+        smaller, from ``start_step``; checkpoint every ``eval_freq`` steps
+        and at a last step that is not a multiple of it."""
         cfg = self.cfg
         steps_per_epoch = max(len(self.train_loader), 1)
         epoch_budget = (cfg.epochs * steps_per_epoch if cfg.epochs > 0
                         else cfg.max_steps)
         last_step = min(cfg.max_steps, epoch_budget)
         mask = np.ones(1, np.float32)
-        step, m_prev = 0, None
+        step, m_prev = self.start_step, None
         try:
             while step < last_step:
                 step += 1
@@ -101,22 +131,19 @@ class Trainer:
                         **derive_step_record(step_time_s=t_step,
                                              data_time_s=t_data,
                                              examples=cfg.batch_size))
+                if cfg.eval_freq > 0 and step % cfg.eval_freq == 0:
+                    self.checkpoint(step)
             self._sync()
+            if cfg.eval_freq > 0 and step > self.start_step \
+                    and step % cfg.eval_freq != 0:
+                self.checkpoint(step)
         finally:
             self.metrics.close()
 
     def evaluate(self, max_batches: Optional[int] = None) -> dict:
         """Loss, top-1 and top-5 over the test loader (or its first
         ``max_batches`` batches)."""
-        tot = {"sum_loss": 0.0, "top1": 0, "top5": 0, "count": 0}
-        for i, (x, y) in enumerate(self.test_loader.epoch(0)):
-            if max_batches is not None and i >= max_batches:
-                break
-            m = self.eval_fn(x, y)
-            tot["sum_loss"] += float(m["sum_loss"])
-            for k in ("top1", "top5", "count"):
-                tot[k] += int(m[k])
+        result = accumulate_eval(self.eval_fn, self.test_loader.epoch(0),
+                                 max_batches)
         self.model.train()
-        n = max(tot["count"], 1)
-        return {"loss": tot["sum_loss"] / n, "prec1": tot["top1"] / n,
-                "prec5": tot["top5"] / n, "count": tot["count"]}
+        return result

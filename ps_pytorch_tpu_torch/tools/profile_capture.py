@@ -41,6 +41,7 @@ from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
 GROUPS = (
     ("conv3x3 kernel (port)", ("conv3x3_kernel",)),
     ("fused_sgd kernel (port)", ("sgd_kernel",)),
+    ("fused_adam kernel (port)", ("adam_kernel",)),
     ("flash kernels (port)", ("flash_fwd_kernel", "flash_dq_kernel",
                               "flash_dkv_kernel")),
     ("cuDNN conv", ("cudnn", "conv2d", "implicit_convolve", "xmma_fprop",

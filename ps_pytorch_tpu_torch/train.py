@@ -2,13 +2,16 @@
 
 Takes the root ``train.py``'s flags (one per TrainConfig field; a bool flag
 may stand alone) plus ``--device`` (default ``cuda``). Prints the same
-CONFIG, STEP and FINAL lines as the JAX trainer. Example, ResNet-18 on
-CIFAR-10 geometry through both hand-written kernels:
+CONFIG, STEP and FINAL lines as the JAX trainer, writes ``model_step_<k>``
+into ``--train-dir`` every ``--eval-freq`` steps, and resumes from the
+newest valid one unless ``--resume false``. Example, ResNet-18 on CIFAR-10
+geometry through the hand-written conv3x3 and fused-Adam kernels:
 
     python -m ps_pytorch_tpu_torch.train --network ResNet18 \
-        --dataset synthetic_cifar10 --batch-size 256 --max-steps 5 \
-        --eval-freq 0 --conv-impl pallas --fused-optimizer \
-        --momentum 0.9 --weight-decay 5e-4
+        --dataset synthetic_cifar10 --batch-size 256 \
+        --compute-dtype bfloat16 --conv-impl pallas --optimizer adam \
+        --fused-optimizer --lr 1e-3 --weight-decay 5e-4 --max-steps 6 \
+        --eval-freq 3 --train-dir /tmp/td
 """
 
 import sys

@@ -14,11 +14,13 @@ import torch
 
 from ps_pytorch_tpu_torch.ops import conv3x3 as conv
 from ps_pytorch_tpu_torch.ops import flash_attention as fa
-from ps_pytorch_tpu_torch.ops import fused_sgd
+from ps_pytorch_tpu_torch.ops import fused_adam, fused_sgd
+from ps_pytorch_tpu_torch.optim.adam import adam_step_size
 
 # Kernel against plain version, both on the card: f32 sums in another
 # order (1e-4), bf16 outputs rounded once from f32 (2e-2, about one ulp at
-# outputs of 2-4); the SGD update is the same arithmetic (1e-6).
+# outputs of 2-4); the SGD and Adam updates are the same arithmetic (1e-6;
+# Adam's atol 1e-7, the JAX package's own).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SGD_TOL = 1e-6
 # Flash kernels against their plain versions: the JAX package's own
@@ -111,6 +113,31 @@ def test_fused_sgd_kernel_matches_plain(cuda, wd, nesterov, damp):
     assert fused_sgd.fused_sgd_update.launches == before + 3
     torch.testing.assert_close(p, p_ref, rtol=SGD_TOL, atol=SGD_TOL)
     torch.testing.assert_close(b, b_ref, rtol=SGD_TOL, atol=SGD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 100_003])
+@pytest.mark.parametrize("wd,amsgrad", [(0.0, False), (5e-4, False),
+                                        (5e-4, True)])
+def test_fused_adam_kernel_matches_plain(cuda, n, wd, amsgrad):
+    """3 steps on n elements: one, less than a block, and a ragged last
+    block."""
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    p = torch.randn(n, device=cuda, generator=gen)
+    bufs = [torch.zeros_like(p) for _ in range(3 if amsgrad else 2)]
+    ref = [p.clone()] + [b.clone() for b in bufs]
+    before = fused_adam.fused_adam_update.launches
+    for t in range(1, 4):
+        g = torch.randn(n, device=cuda, generator=gen)
+        ss = adam_step_size(1e-3, 0.9, 0.999, t)
+        fused_adam.fused_adam_update(p, *bufs[:2], bufs[2] if amsgrad
+                                     else None, g, ss, **kw)
+        fused_adam.fused_adam_reference(ref[0], *ref[1:3], ref[3] if amsgrad
+                                        else None, g, ss, **kw)
+    assert fused_adam.fused_adam_update.launches == before + 3
+    for got, want in zip([p] + bufs, ref):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
 def _flash_inputs(dev, bh, s, d, dtype, seed=0):

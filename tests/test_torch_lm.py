@@ -254,7 +254,8 @@ def test_auto_attention_resolves_to_full_on_one_device():
 ])
 def test_unported_lm_fields_raise(field, value):
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        config.TrainConfig(**{"eval_freq": 0, field: value})
+        config.TrainConfig(**{"eval_freq": 0, "network": "TransformerLM",
+                              field: value})
 
 
 def test_lm_config_validates_like_jax():

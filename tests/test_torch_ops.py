@@ -2,7 +2,8 @@
 
 On the CPU every wrapper runs its plain PyTorch version, and these tests
 hold that version against the JAX functions it replaces: the Pallas conv in
-interpret mode, its custom VJP, the Pallas fused SGD and the optax SGD.
+interpret mode, its custom VJP, the Pallas fused SGD and Adam and the optax
+SGD and Adam.
 Inputs are made with numpy from a seed and handed to both packages.
 
 The hand-written kernels themselves are held against their plain versions
@@ -19,13 +20,16 @@ import optax
 import pytest
 import torch
 
+from ps_pytorch_tpu.ops import fused_adam as jax_fused_adam
 from ps_pytorch_tpu.ops import fused_sgd as jax_fused_sgd
 from ps_pytorch_tpu.ops import pallas_conv as jax_conv
+from ps_pytorch_tpu.optim import adam as jax_adam
+from ps_pytorch_tpu.optim import schedules as jax_schedules
 from ps_pytorch_tpu.optim import sgd as jax_sgd
 from ps_pytorch_tpu_torch.ops import _backend, _build
 from ps_pytorch_tpu_torch.ops import conv3x3 as conv
-from ps_pytorch_tpu_torch.ops import fused_sgd
-from ps_pytorch_tpu_torch.optim import SGD
+from ps_pytorch_tpu_torch.ops import fused_adam, fused_sgd
+from ps_pytorch_tpu_torch.optim import SGD, Adam, schedules
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -235,10 +239,94 @@ def test_nesterov_needs_momentum_and_no_dampening():
             cls(0.1, momentum=0.9, dampening=0.1, nesterov=True)
 
 
+# --------------------------------------------------------------- adam --
+
+# (weight decay, AMSGrad, step schedule): the JAX package's three fused-Adam
+# cases and one with an lr that steps down after 2 updates.
+ADAM_CASES = [(0.0, False, False), (5e-4, False, False), (5e-4, True, False),
+              (5e-4, False, True)]
+
+
+@pytest.mark.parametrize("which", ["fused", "plain"])
+@pytest.mark.parametrize("wd,amsgrad,scheduled", ADAM_CASES)
+def test_adam_matches_jax(which, wd, amsgrad, scheduled):
+    """4 steps of the port's FusedAdam (its plain version on the CPU) and
+    of its functional Adam against the JAX FusedAdam (interpret mode) and
+    the optax Adam: parameters and every moment at rtol 1e-6, atol 1e-7."""
+    lr = (1e-2, jax_schedules.step_decay(1e-2, 2, 0.1),
+          schedules.step_decay(1e-2, 2, 0.1)) if scheduled else (1e-2,) * 3
+    kw = dict(weight_decay=wd, amsgrad=amsgrad)
+    if which == "fused":
+        ref = jax_fused_adam.FusedAdam(lr=lr[1], interpret=True, **kw)
+        opt = fused_adam.FusedAdam(lr=lr[2], **kw)
+    else:
+        ref = jax_adam(lr=lr[1], **kw)
+        opt = Adam(lr=lr[2], **kw)
+    p0 = _sgd_tree(0)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    js = ref.init(jp)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    ts = opt.init(tp)
+    rng = np.random.default_rng(1)
+    fields = ("exp_avg", "exp_avg_sq") + (("max_exp_avg_sq",) if amsgrad
+                                          else ())
+    for _ in range(4):
+        g = {k: rng.normal(size=v.shape).astype(np.float32)
+             for k, v in p0.items()}
+        jg = {k: jnp.asarray(v) for k, v in g.items()}
+        if which == "fused":
+            jp, js = ref.apply(jp, js, jg)
+        else:
+            upd, js = ref.update(jg, js, jp)
+            jp = optax.apply_updates(jp, upd)
+        ts = opt.apply(tp, ts, {k: torch.from_numpy(v) for k, v in g.items()})
+        for k in p0:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-7)
+            for field in fields:
+                np.testing.assert_allclose(
+                    getattr(ts, field)[k].numpy(),
+                    np.asarray(getattr(js, field)[k]), rtol=1e-6, atol=1e-7)
+    assert ts.step == 4 == int(js.step)
+    if not amsgrad:
+        assert ts.max_exp_avg_sq == ()
+
+
+def test_adam_step_size_is_float32_like_jax():
+    opt = Adam(1e-3)
+    for t in (1, 2, 10, 1000):
+        want = 1e-3 * jnp.sqrt(1 - 0.999 ** jnp.float32(t)) \
+            / (1 - 0.9 ** jnp.float32(t))
+        got = opt.step_size(opt.init({})._replace(step=t - 1))
+        np.testing.assert_allclose(got, float(want), rtol=1e-7)
+
+
+def test_fused_adam_keeps_params_and_moments_in_flat_buffers():
+    params = {k: torch.from_numpy(v) for k, v in _sgd_tree(0).items()}
+    opt = fused_adam.FusedAdam(lr=0.1, amsgrad=True)
+    state = opt.init(params)
+    flat_p, flat_m, flat_v, flat_vh = state.flat
+    assert flat_p.numel() == 130 * 7 + 11 == flat_vh.numel()
+    assert params["b"].data_ptr() == flat_p.data_ptr() + 130 * 7 * 4
+    assert state.exp_avg["b"].data_ptr() == flat_m.data_ptr() + 130 * 7 * 4
+    grads = {k: torch.ones_like(v) for k, v in params.items()}
+    before = fused_adam.fused_adam_update.launches
+    state = opt.apply(params, state, grads)
+    assert fused_adam.fused_adam_update.launches == before   # CPU: plain
+    assert state.step == 1 and float(flat_m[0]) == pytest.approx(0.1)
+    with pytest.raises(ValueError, match="FusedAdam.init"):
+        opt.apply({k: v.clone() for k, v in params.items()}, state, grads)
+    with pytest.raises(ValueError, match="sizes"):
+        fused_adam.fused_adam_update(flat_p, flat_m, flat_v, flat_vh[:-1],
+                                     flat_p, 0.1, b1=0.9, b2=0.999, eps=1e-8,
+                                     weight_decay=0.0)
+
+
 def test_importing_the_ops_needs_no_triton():
     """Triton is imported by the launching function only: the package
     imports where there is none."""
     code = ("import sys, ps_pytorch_tpu_torch.ops.fused_sgd, "
+            "ps_pytorch_tpu_torch.ops.fused_adam, "
             "ps_pytorch_tpu_torch.ops.conv3x3; "
             "print('triton' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -31,19 +31,23 @@ import torch
 from ps_pytorch_tpu import config as jax_config
 from ps_pytorch_tpu.data import augment as jax_augment
 from ps_pytorch_tpu.data import datasets as jax_datasets
+from ps_pytorch_tpu.data import vision_io as jax_vision_io
 from ps_pytorch_tpu.models import lenet as jax_lenet
 from ps_pytorch_tpu.models import resnet as jax_resnet
+from ps_pytorch_tpu.ops.fused_adam import FusedAdam as JaxFusedAdam
 from ps_pytorch_tpu.ops.fused_sgd import FusedSGD as JaxFusedSGD
+from ps_pytorch_tpu.optim import adam as jax_adam
 from ps_pytorch_tpu.optim import sgd as jax_sgd
 from ps_pytorch_tpu.parallel import (
     create_train_state, make_mesh, make_train_step as jax_make_train_step,
 )
 from ps_pytorch_tpu.runtime import metrics as jax_metrics
 from ps_pytorch_tpu_torch import config, train
-from ps_pytorch_tpu_torch.data import augment, datasets
+from ps_pytorch_tpu_torch.data import augment, datasets, vision_io
 from ps_pytorch_tpu_torch.models import convert, lenet, resnet
+from ps_pytorch_tpu_torch.ops.fused_adam import FusedAdam
 from ps_pytorch_tpu_torch.ops.fused_sgd import FusedSGD
-from ps_pytorch_tpu_torch.optim import SGD
+from ps_pytorch_tpu_torch.optim import SGD, Adam, build_optimizer
 from ps_pytorch_tpu_torch.parallel import make_eval_step, make_train_step
 from ps_pytorch_tpu_torch.runtime import metrics
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer, resolve_device
@@ -76,12 +80,29 @@ def test_config_json_round_trips_with_jax():
     ("mode", "kofn"), ("mode", "async"), ("shard_update", True),
     ("fault_spec", "kv_drop:p=0.1"), ("health_spec", "nonfinite:halt"),
     ("elastic", True), ("kv_replicas", "dir:/a,dir:/b,dir:/c"),
-    ("optimizer", "adam"), ("eval_freq", 50), ("loader_workers", 4),
+    ("compress_grad", True), ("sync_batchnorm", True), ("loader_workers", 4),
 ])
 def test_unported_fields_raise(field, value):
     kw = {"eval_freq": 0, field: value}
     with pytest.raises(ValueError, match="ROADMAP.md"):
         config.TrainConfig(**kw)
+
+
+def test_default_flags_and_adam_are_ported():
+    """The JAX defaults (checkpoint every 50 steps, resume) and Adam's
+    fields now run; an LM that would checkpoint is still refused."""
+    cfg = config.config_from_args([])
+    assert (cfg.eval_freq, cfg.resume) == (50, True)
+    cfg = config.TrainConfig(optimizer="adam", adam_beta1=0.8,
+                             adam_beta2=0.99, adam_eps=1e-6, amsgrad=True,
+                             fused_optimizer=True, ckpt_keep=2)
+    opt = build_optimizer(cfg)
+    assert isinstance(opt, FusedAdam)
+    assert (opt.b1, opt.b2, opt.eps, opt.amsgrad) == (0.8, 0.99, 1e-6, True)
+    assert type(build_optimizer(dataclasses.replace(
+        cfg, fused_optimizer=False))) is Adam
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        config.TrainConfig(network="TransformerLM", eval_freq=10)
 
 
 def test_config_validates_like_jax():
@@ -146,7 +167,7 @@ def test_synthetic_sets_match_jax(dataset):
 
 
 def test_norm_constants_match_jax():
-    for ds in ("MNIST", "Cifar10", "Cifar100", "synthetic_cifar10",
+    for ds in ("MNIST", "Digits", "Cifar10", "Cifar100", "synthetic_cifar10",
                "synthetic_mnist"):
         ours, theirs = (augment.device_norm_constants(ds),
                         jax_augment.device_norm_constants(ds))
@@ -158,6 +179,31 @@ def test_norm_constants_match_jax():
     cfg = config.TrainConfig(eval_freq=0, dataset="synthetic_cifar10",
                              device_normalize=False)
     assert augment.input_norm_for(cfg) is None
+
+
+def test_digits_match_jax_bytes():
+    """The shipped Digits file gives the JAX package's splits (which read
+    scikit-learn's copy) byte for byte, and the loaders the same batches,
+    also after a fast-forward across an epoch boundary."""
+    for train_split in (True, False):
+        ours = vision_io.load_digits28(train_split)
+        theirs = jax_vision_io.load_digits28(train_split)
+        for u, v in zip(ours, theirs):
+            assert u.dtype == v.dtype and u.shape == v.shape
+            assert u.tobytes() == v.tobytes()
+    cfg = config.TrainConfig(dataset="Digits", batch_size=128,
+                             test_batch_size=100, seed=3)
+    assert cfg.num_classes == 10
+    for ours, theirs in zip(datasets.prepare_data(cfg),
+                            jax_datasets.prepare_data(cfg)):
+        for (a, ay), (b, by) in zip(_batches(ours, 3), _batches(theirs, 3)):
+            assert a.tobytes() == b.tobytes() and ay.tobytes() == by.tobytes()
+    ours, theirs = (mod.prepare_data(cfg)[0] for mod in (datasets,
+                                                          jax_datasets))
+    ours.fast_forward(13)               # 11 batches an epoch
+    theirs.fast_forward(13)
+    for (a, ay), (b, by) in zip(_batches(ours, 2), _batches(theirs, 2)):
+        assert a.tobytes() == b.tobytes() and ay.tobytes() == by.tobytes()
 
 
 def test_loader_rejects_bad_geometry():
@@ -285,6 +331,37 @@ def test_train_steps_match_jax(name):
                            jax.device_get(state.opt_state.momentum))
         _assert_tree_close(got_stats, jax.tree.map(
             lambda a: np.asarray(a)[0], state.batch_stats))
+    assert step.opt_state.step == 2
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_adam_train_steps_match_jax(fused):
+    """Two LeNet steps with Adam (weight decay) against JAX's
+    ``make_train_step`` on a 1-device mesh with the JAX Adam (the fused
+    one in interpret mode): loss, params and moments at 1e-4."""
+    mesh = make_mesh(data=1)
+    kw = dict(weight_decay=5e-4)
+    jtx = (JaxFusedAdam(lr=1e-3, interpret=True, **kw) if fused
+           else jax_adam(lr=1e-3, **kw))
+    state = _flax_state(jax_lenet.LeNet(), jtx, (28, 28, 1), mesh)
+    jstep = jax_make_train_step(jax_lenet.LeNet(), jtx, mesh, state,
+                                donate=False)
+    model = lenet.LeNet()
+    model.load_state_dict(convert.from_jax(jax.device_get(state.params)))
+    step = make_train_step(model, (FusedAdam if fused else Adam)(1e-3, **kw))
+    for k, seed in enumerate((10, 11)):
+        x, y, _ = _slice_inputs("LeNet", 4, seed)
+        state, jm = jstep(state, jnp.asarray(x), jnp.asarray(y),
+                          jnp.ones(1, jnp.float32), jax.random.key(k))
+        tm = step(x, y, np.ones(1, np.float32))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=TOL, atol=TOL)
+        _assert_tree_close(convert.to_jax(model.state_dict())[0],
+                           jax.device_get(state.params))
+        for field in ("exp_avg", "exp_avg_sq"):
+            _assert_tree_close(
+                convert.to_jax(getattr(step.opt_state, field))[0],
+                jax.device_get(getattr(state.opt_state, field)))
     assert step.opt_state.step == 2
 
 
@@ -436,12 +513,10 @@ def test_trainer_refuses_what_it_cannot_do(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device()
-    td = tmp_path / "td"
-    (td / "model_step_5").mkdir(parents=True)
-    cfg = config.TrainConfig(eval_freq=0, train_dir=str(td),
-                             dataset="synthetic_mnist")
-    with pytest.raises(ValueError, match="resum"):
-        Trainer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="kofn"):
+        Trainer(config.TrainConfig(mode="kofn", dataset="Digits",
+                                   train_dir=str(tmp_path / "td")),
+                device="cpu")
 
 
 # ----------------------------------------------------------- isolation --
@@ -455,24 +530,25 @@ def _imports(path):
 
 
 def test_port_never_imports_jax():
-    """No module of the port, nor chip_smoke.py, imports jax, flax, optax
-    or the JAX package; importing every module leaves them out of
+    """No module of the port, nor chip_smoke.py, imports jax, flax, optax,
+    msgpack or the JAX package; importing every module leaves them out of
     sys.modules."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax",
+            assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
                                "ps_pytorch_tpu"), f"{f}: imports {name}"
     mods = sorted(
         "ps_pytorch_tpu_torch." + ".".join(
             f.relative_to(PKG).with_suffix("").parts).removesuffix(
                 ".__init__")
-        for f in PKG.rglob("*.py") if f.name != "_sgd_triton.py")
+        for f in PKG.rglob("*.py")
+        if f.name not in ("_sgd_triton.py", "_adam_triton.py"))
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m.rstrip('.'))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'ps_pytorch_tpu')]\n"
+            "('jax', 'flax', 'optax', 'msgpack', 'ps_pytorch_tpu')]\n"
             "print(len(bad), bad[:5])")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
