@@ -12,11 +12,16 @@ exit and no result line, if any phase fails:
    call that computes the same function (``F.conv2d``,
    ``torch.optim.SGD(fused=True)``, ``torch.optim.Adam(fused=True)``,
    ``F.scaled_dot_product_attention`` forward and backward; the port never
-   calls them) and the bound (bytes over 3.35 TB/s or operations over the
+   calls them; no single PyTorch call computes the int8 stochastic-rounding
+   quantizer, so it has none) and the bound (bytes over 3.35 TB/s or operations over the
    peak rate of their type, whichever is larger);
 4. trains full-width ResNet-18 (synthetic CIFAR-10, batch 256, bf16, conv
    ``pallas``, fused SGD) for a few steps through the port's Trainer, then
-   evaluates 2 batches; then the same network with fused Adam through the
+   evaluates 2 batches; then the same network trained asynchronously by 2
+   slices through ``train.main --mode async`` with every gradient leaf
+   through the int8 quantize kernel on submit, a mixed-rate schedule with
+   stale gradients, and a compressed checkpoint that is resumed and scored
+   by ``evaluate.main``; then the same network with fused Adam through the
    entry points a user calls: ``train.main`` checkpointing every 3 of 6
    steps, a resumed Trainer to step 8 held against an uninterrupted one,
    and ``evaluate.main --once 6``; then the full-width TransformerLM (d
@@ -25,8 +30,9 @@ exit and no result line, if any phase fails:
    batches. Every launch count is set to 0 just before each path and read
    just after: each kernel of the path ran the expected number of times,
    and no other kernel ran;
-5. holds one small ResNet step and one small LM step on the card against
-   the same steps on the CPU (the plain versions);
+5. holds one small ResNet step, two small asynchronous ticks (the same
+   injected rounding noise) and one small LM step on the card against the
+   same steps on the CPU (the plain versions);
 6. trains LeNet on the UCI digits for 1200 steps through ``train.main`` and
    scores the checkpoint with ``evaluate.main``: Prec@1 must reach 0.98;
 7. prints the ``kernels`` JSON line, the card line, and last
@@ -79,6 +85,16 @@ DIGITS_ARGS = ("--network", "LeNet", "--dataset", "Digits", "--batch-size",
                "1e-4", "--compute-dtype", "float32", "--epochs", "0",
                "--max-steps", "1200", "--eval-freq", "1200", "--log-every",
                "200")
+# ResNet-18 trained by two asynchronous slices, int8 gradients between them.
+# The test set's 8333 images make 2 eval batches of 4167.
+ASYNC_TICKS = 4
+ASYNC_ARGS = ("--mode", "async", "--async-slices", "2", "--network",
+              "ResNet18", "--dataset", "synthetic_cifar10", "--batch-size",
+              str(BATCH), "--compute-dtype", "bfloat16", "--conv-impl",
+              "pallas", "--fused-optimizer", "--momentum", "0.9",
+              "--weight-decay", "5e-4", "--compress-grad", "--grad-codec",
+              "int8", "--test-batch-size", "4167")
+QUANT_SIZES = (1, 4096, 4097, 100_003, 2_359_296, 11_173_962)
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 
@@ -366,6 +382,314 @@ def check_flash(torch, F, fa) -> dict:
     return out
 
 
+def check_quantize(torch, tq, leaf_sizes) -> dict:
+    """The quantize kernel against its plain version: values and scales
+    BITWISE at every size, f32 and bf16, with an all-zero block and a block
+    holding one huge value where the size allows; the dequantized error at
+    most one quantum and the mean of 256 draws within a quarter quantum;
+    then timed at ResNet-18's largest leaf and over its whole gradient tree
+    (``leaf_sizes``), with the plain version and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def noise_for(n):
+        return torch.rand((tq.padded_rows(n), tq.LANES), device="cuda",
+                          generator=gen)
+
+    max_err = 0.0
+    for dtype_name in ("float32", "bfloat16"):
+        for n in QUANT_SIZES:
+            x = torch.randn(n, device="cuda", generator=gen) * 0.02
+            if n > 2 * tq.BLOCK:
+                x[:tq.BLOCK] = 0.0                  # scale 1e-30, zeros
+                x[tq.BLOCK + 7] = 3e38              # one huge value
+            x = x.to(getattr(torch, dtype_name))
+            u = noise_for(n)
+            qt = tq.quantize_int8(x, u)
+            values, scales = tq.quantize_int8_reference(tq.pad_to_blocks(x), u)
+            torch.cuda.synchronize()
+            err = max((qt.values.int() - values.int()).abs().max().item(),
+                      (qt.scales - scales).abs().max().item())
+            max_err = max(max_err, float(err))
+            if not (torch.equal(qt.values, values)
+                    and torch.equal(qt.scales, scales)):
+                fail(f"quantize {dtype_name} n={n}: kernel and plain version "
+                     f"differ (max abs {err}); they must be bitwise equal")
+            back = tq.dequantize_int8(qt)
+            quantum = qt.scales.repeat_interleave(tq.BLOCK)[:n]
+            if not bool(((back - x.float()).abs()
+                         <= quantum * (1 + 1e-6)).all()):
+                fail(f"quantize {dtype_name} n={n}: dequantized error above "
+                     "one quantum")
+            if n > 2 * tq.BLOCK and (qt.values[:tq.BLOCK_ROWS].any()
+                                     or not 0 < float(qt.scales[0]) < 1.1e-30):
+                fail(f"quantize {dtype_name} n={n}: the all-zero block")
+            print(f"CHECK quantize {dtype_name} n={n}: values and scales "
+                  f"bitwise equal, max abs err {err:.1e}", flush=True)
+    # Unbiased: one draw errs by at most half a quantum in standard
+    # deviation, so the mean of 256 draws has at most 1/32 and the limit of
+    # a quarter quantum is 8 of them (with the reference's 64 draws it is
+    # 4, which 100,003 elements exceed by chance).
+    x = torch.randn(100_003, device="cuda", generator=gen) * 0.1
+    acc = torch.zeros_like(x)
+    for _ in range(256):
+        qt = tq.quantize_int8(x, generator=gen)
+        acc += tq.dequantize_int8(qt)
+    quantum = qt.scales.repeat_interleave(tq.BLOCK)[:x.numel()]
+    bias = ((acc / 256 - x).abs() / quantum).max().item()
+    if not bias <= 0.25:
+        fail(f"quantize: mean of 256 draws off by {bias} quanta (limit 0.25)")
+    print(f"CHECK quantize unbiased: mean of 256 draws within {bias:.3f} "
+          "quantum (limit 0.25)", flush=True)
+
+    def bound_ms(sizes):
+        nbytes = sum(4 * n + 5 * tq.padded_rows(n) * tq.LANES
+                     + 4 * tq.padded_rows(n) // tq.BLOCK_ROWS for n in sizes)
+        return 1e3 * nbytes / HBM_BYTES_PER_S
+
+    out = {}
+    for label, sizes in (("largest leaf", [max(leaf_sizes)]),
+                         ("gradient tree", leaf_sizes)):
+        xs = [torch.randn(n, device="cuda", generator=gen) * 0.02
+              for n in sizes]
+        us = [noise_for(n) for n in sizes]
+        ms = time_ms(lambda: [tq.quantize_int8(x, u)
+                              for x, u in zip(xs, us)])
+        plain = time_ms(lambda: [tq.quantize_int8_reference(
+            tq.pad_to_blocks(x), u) for x, u in zip(xs, us)], iters=5)
+        out = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms(sizes)}
+        print(f"KERNEL quantize {label} ({len(sizes)} launches, "
+              f"{sum(sizes)} elements) ms {ms:.4f} plain_ms {plain:.4f} "
+              f"library_ms none (no single PyTorch call floors x/scale + "
+              f"noise into int8 with a scale per block) bound_ms "
+              f"{out['bound_ms']:.4f}", flush=True)
+    return dict(out, max_abs_err=max_err)
+
+
+def read_jsonl(path) -> list:
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def async_main_path(torch, wrappers, n_leaves: int, n_params: int) -> dict:
+    """Full-width ResNet-18 trained by 2 asynchronous slices through
+    ``train.main --mode async`` with the int8 codec; then a mixed-rate
+    schedule whose stale gradients are used; then a run that leaves one
+    slice pooled (K-of-N), writes a compressed checkpoint, resumes from it
+    and is scored by ``evaluate.main``. Counts launches of the first."""
+    from ps_pytorch_tpu_torch import compression, evaluate, train
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.ops import quantize as tq
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.runtime.metrics import parse_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        # 1. The command a user runs.
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        out = run_entry(train.main, [
+            *ASYNC_ARGS, "--max-steps", str(ASYNC_TICKS), "--eval-freq", "0",
+            "--resume", "false", "--train-dir", f"{root}/main",
+            "--metrics-file", f"{root}/main.jsonl", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts(wrappers)
+        recs = [parse_line(ln) for ln in out.splitlines()
+                if ln.startswith("STEP")]
+        rows = read_jsonl(f"{root}/main.jsonl")
+        if "SLICES 2 x 1 devices" not in out or "FINAL loss " not in out:
+            fail("MAIN-ASYNC: train.main printed no SLICES or FINAL line")
+        if [r["step"] for r in recs] != list(range(1, ASYNC_TICKS + 1)) \
+                or not all(math.isfinite(r["loss"]) and r["participating"]
+                           == 2 for r in recs):
+            fail(f"MAIN-ASYNC: expected {ASYNC_TICKS} STEP lines with finite "
+                 "loss and 2 participating slices")
+        if [r["applied"] for r in rows] != list(range(1, ASYNC_TICKS + 1)) \
+                or any(r["dropped_stale"] for r in rows):
+            fail(f"MAIN-ASYNC: applied/dropped_stale {rows}")
+        final = re.search(r"^FINAL loss (\S+) prec1 (\S+) prec5 (\S+)$", out,
+                          re.M)
+        if not final or not all(math.isfinite(float(v))
+                                for v in final.groups()):
+            fail("MAIN-ASYNC: no finite FINAL line")
+        print(f"MAIN-ASYNC ticks {ASYNC_TICKS} slices 2 tick_times_s "
+              f"{[r['step_time'] for r in rows]} train_main_s {wall:.2f} "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()} "
+              f"pool_wire_bytes {[r['pool_wire_bytes'] for r in rows]} "
+              f"(used contributions are consumed before the line is "
+              f"written) launches {launches}", flush=True)
+        want = dict({name: 0 for name in wrappers},
+                    quantize=ASYNC_TICKS * 2 * n_leaves,
+                    conv3x3=CONV_PER_STEP * 2 * ASYNC_TICKS
+                    + CONV_PER_EVAL_BATCH * 2, fused_sgd=ASYNC_TICKS)
+        if launches != want:
+            fail(f"MAIN-ASYNC launches {launches}, expected {want}")
+
+        # 2. Slice 1 at half rate, fetching every 2 of its steps: its stale
+        # gradients are used, none is dropped.
+        cfg = config_from_args([*ASYNC_ARGS, "--eval-freq", "0", "--resume",
+                                "false", "--train-dir", f"{root}/sched"])
+        tr = MultiSliceTrainer(cfg, n_slices=2, slice_periods=[1, 2],
+                               fetch_every=2, device="cuda",
+                               printer=lambda line: None)
+        used, stale_used = {0: 0, 1: 0}, 0
+        for _ in range(8):
+            info = tr.tick()
+            for sid in info["used"]:
+                used[sid] += 1
+            stale_used += sum(tr._slice_version[sid] < tr.step - 1
+                              for sid in info["used"])
+            if not math.isfinite(info["loss"]):
+                fail("MAIN-ASYNC schedule: loss is not finite")
+        print(f"MAIN-ASYNC schedule periods [1, 2] fetch_every 2: used "
+              f"{used} stale_but_used {stale_used} applied {tr.applied} "
+              f"dropped_stale {tr.dropped_stale}", flush=True)
+        if used[0] != 8 or used[1] < 3 or tr.dropped_stale != 0 \
+                or tr.applied != 8 or stale_used < 1:
+            fail("MAIN-ASYNC schedule: the slow slice's stale gradients "
+                 "were not used as the schedule predicts")
+        del tr
+        async_tick_breakdown(torch, config_from_args(
+            [*ASYNC_ARGS, "--eval-freq", "0", "--resume", "false",
+             "--train-dir", f"{root}/parts"]))
+
+        # 3. K-of-N (the freshest 1 of 2: slice 1 stays pooled), compressed
+        # checkpoints every 2 ticks, resume, evaluator.
+        td = f"{root}/td"
+        ck_args = [*ASYNC_ARGS, "--num-aggregate", "1", "--eval-freq", "2",
+                   "--train-dir", td, "--device", "cuda"]
+        run_entry(train.main, [*ck_args, "--max-steps", "4",
+                               "--metrics-file", f"{root}/ck.jsonl"])
+        rows = read_jsonl(f"{root}/ck.jsonl")
+        wire = {r["pool_wire_bytes"] for r in rows}
+        share = max(wire) / (4.0 * n_params)
+        print(f"MAIN-ASYNC K-of-N pool_wire_bytes {sorted(wire)} = "
+              f"{share:.4f} of the f32 tree's {4 * n_params} bytes; "
+              f"participating {[r['participating'] for r in rows]}",
+              flush=True)
+        if len(wire) != 1 or not 0.25 <= share <= 0.28 or any(
+                r["participating"] != 1 for r in rows):
+            fail("MAIN-ASYNC K-of-N: the pooled slice's int8 tree is not "
+                 "about a quarter of the f32 tree")
+        if ckpt.committed_steps(td) != [2, 4] or not all(
+                ckpt.verify_checkpoint(td, k) for k in (2, 4)):
+            fail(f"MAIN-ASYNC: checkpoints {ckpt.committed_steps(td)}")
+        meta = json.loads(Path(ckpt.checkpoint_path(td, 4), "meta.json")
+                          .read_text())
+        blob = Path(ckpt.checkpoint_path(td, 4), "state.msgpack").read_bytes()
+        if meta != {"step": 4, "compressed": True} or blob[:4] != b"PSC1":
+            fail(f"MAIN-ASYNC: checkpoint 4 is not compressed ({meta})")
+        print(f"MAIN-ASYNC checkpoint codec {compression.codec_name()} "
+              f"state_bytes {len(blob)} ({len(blob) / (8.0 * n_params):.3f} "
+              "of the f32 parameters and momentum)", flush=True)
+        out = run_entry(train.main, [*ck_args, "--max-steps", "6"])
+        if f"RESUME from {ckpt.checkpoint_path(td, 4)} at step 4" not in out \
+                or [int(x) for x in re.findall(r"^STEP (\d+) ", out, re.M)] \
+                != [5, 6]:
+            fail("MAIN-ASYNC: the second run did not resume at step 4")
+        found = EVAL_RE.findall(run_entry(
+            evaluate.main, ["--train-dir", td, "--once", "4"]))
+        if len(found) != 1 or found[0][0] != "4" or not all(
+                math.isfinite(float(x)) for x in found[0][1:]):
+            fail("MAIN-ASYNC: evaluate.main printed no finite EVAL step 4")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def async_tick_breakdown(torch, cfg) -> None:
+    """Where a tick's time goes: 2 warm-up ticks, then 3 ticks taken apart
+    into the trainer's own phases, each ended by a synchronize and timed on
+    the host clock, so a phase holds its device time and its host time.
+    The sum exceeds a real tick only by the extra synchronizes."""
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer
+
+    tr = MultiSliceTrainer(cfg, n_slices=2, device="cuda",
+                           printer=lambda line: None)
+    for _ in range(2):
+        tr.tick()
+    torch.cuda.synchronize()
+    parts = {k: 0.0 for k in ("fetch", "batch", "forward_backward",
+                              "submit_quantize", "collect_dequantize_average",
+                              "update")}
+    ticks = 3
+
+    def timed(name, fn):
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] += time.monotonic() - t0
+        return out
+
+    t_all = time.monotonic()
+    for _ in range(ticks):
+        tr.step += 1
+        for s in range(2):
+            timed("fetch", lambda: tr._fetch(s))
+            x, y = timed("batch", tr.train_loaders[s].next_batch)
+            grads, _ = timed("forward_backward", lambda: tr.grad_fns[s](x, y))
+            timed("submit_quantize",
+                  lambda: tr.aggregator.submit(s, tr.step - 1, grads))
+        avg, pool = timed("collect_dequantize_average",
+                          lambda: tr.aggregator.collect(tr.step - 1))
+
+        def update():
+            with torch.no_grad():
+                tr.opt_state = tr.opt.apply(tr.params, tr.opt_state, avg)
+            tr.aggregator.consume(pool["used"])
+
+        timed("update", update)
+    total = time.monotonic() - t_all
+    print("MAIN-ASYNC breakdown ms a tick (2 slices, each phase ended by a "
+          "synchronize): " + " ".join(
+              f"{k} {1e3 * v / ticks:.2f}" for k, v in parts.items())
+          + f" sum {1e3 * sum(parts.values()) / ticks:.2f} wall "
+          f"{1e3 * total / ticks:.2f}", flush=True)
+
+
+def small_async_tick_agrees(torch, tq) -> None:
+    """LeNet, 2 slices, int8 codec, fused SGD: 2 ticks on the card and on
+    the CPU from the same weights, batches and injected rounding noise.
+    Losses agree at rtol 1e-3; parameters at atol 1e-3: sums run in another
+    order on the card, and a quotient that lands on the other side of an
+    integer moves that element by one quantum (about 1% of the leaf's
+    largest gradient) times the learning rate."""
+    from ps_pytorch_tpu_torch.config import TrainConfig
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer
+
+    def noise_fn(slice_id, step, leaf_index, shape):
+        rng = np.random.default_rng((slice_id, step, leaf_index))
+        return torch.from_numpy(rng.random(shape, dtype=np.float32))
+
+    runs = {}
+    before = tq.quantize_int8.launches
+    for dev in ("cuda", "cpu"):
+        cfg = TrainConfig(
+            network="LeNet", dataset="synthetic_mnist", batch_size=64,
+            lr=0.05, momentum=0.9, compute_dtype="float32", mode="async",
+            eval_freq=0, fused_optimizer=True, compress_grad=True,
+            grad_codec="int8", resume=False)
+        tr = MultiSliceTrainer(cfg, n_slices=2, device=dev,
+                               printer=lambda line: None, noise_fn=noise_fn)
+        losses = [tr.tick()["loss"] for _ in range(2)]
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v
+                              in tr.model.state_dict().items()})
+    n_leaves = len(runs["cpu"][1])
+    if tq.quantize_int8.launches != before + 2 * 2 * n_leaves:
+        fail("small async tick: the card run did not quantize every leaf "
+             "through the kernel")
+    (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
+    if not np.allclose(lc, lp, rtol=1e-3, atol=1e-4):
+        fail(f"small async tick: losses on the card {lc} vs CPU {lp}")
+    worst = max((sc[k] - sp[k]).abs().max().item() for k in sc)
+    if worst > 1e-3:
+        fail(f"small async tick: weights differ between card and CPU by "
+             f"{worst}")
+    print(f"CHECK small async tick card vs CPU: losses {lc} vs {lp}, max "
+          f"abs weight diff {worst:.3e}", flush=True)
+
+
 def zero_counts(wrappers) -> None:
     for fn in wrappers.values():
         fn.launches = 0
@@ -461,7 +785,8 @@ def run_entry(main, argv) -> str:
     out = io.StringIO()
     with redirect_stdout(out):
         rc = main(argv)
-    print(out.getvalue(), end="", flush=True)
+    for line in out.getvalue().splitlines():    # the CONFIG line is 3 KB
+        print(line if len(line) < 400 else line[:200] + " ...", flush=True)
     if rc != 0:
         fail(f"{main.__module__} exited {rc}")
     return out.getvalue()
@@ -676,6 +1001,7 @@ def main() -> int:
     from ps_pytorch_tpu_torch.ops import flash_attention as fa
     from ps_pytorch_tpu_torch.ops import fused_adam as adam_mod
     from ps_pytorch_tpu_torch.ops import fused_sgd as sgd_mod
+    from ps_pytorch_tpu_torch.ops import quantize as tq
     from ps_pytorch_tpu_torch.tools.profile_capture import card_line
 
     card = card_line()
@@ -712,15 +1038,20 @@ def main() -> int:
                 "fused_sgd": sgd_mod.fused_sgd_update,
                 "fused_adam": adam_mod.fused_adam_update,
                 "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
-                "flash_dkv": fa.flash_dkv}
+                "flash_dkv": fa.flash_dkv, "quantize": tq.quantize_int8}
     # Each path right after the checks of its own kernels, with the
     # allocator's cache emptied between the two: the ResNet steps ran
     # slower when they came after the flash checks.
     conv = check_conv(torch, F, conv_mod)
-    n_params = sum(p.numel() for p in build_model("ResNet18").parameters())
+    leaf_sizes = [p.numel() for p in build_model("ResNet18").parameters()]
+    n_params = sum(leaf_sizes)
     sgd = check_sgd(torch, sgd_mod, n_params)
     launches = main_path(torch, wrappers)
     small_step_agrees(torch)
+    quant = check_quantize(torch, tq, leaf_sizes)
+    async_launches = async_main_path(torch, wrappers, len(leaf_sizes),
+                                     n_params)
+    small_async_tick_agrees(torch, tq)
     adam = check_adam(torch, adam_mod, n_params)
     ckpt_launches = ckpt_main_path(torch, wrappers)
     torch.cuda.empty_cache()
@@ -753,6 +1084,13 @@ def main() -> int:
              max_abs_err=adam["max_abs_err"], ms=adam["ms"],
              plain_ms=adam["plain_ms"], bound_ms=adam["bound_ms"],
              bound_by="bytes", library_ms=adam["library_ms"]),
+        dict(name="quantize", route="cuda",
+             source="ps_pytorch_tpu_torch/csrc/quantize.cu",
+             replaces="ps_pytorch_tpu/ops/quantize.py:45",
+             launches=async_launches["quantize"],
+             max_abs_err=quant["max_abs_err"], ms=quant["ms"],
+             plain_ms=quant["plain_ms"], bound_ms=quant["bound_ms"],
+             bound_by="bytes", library_ms=None),
     ] + [
         dict(name=name, route="cuda",
              source="ps_pytorch_tpu_torch/csrc/flash_attention.cu",

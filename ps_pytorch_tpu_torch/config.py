@@ -2,9 +2,10 @@
 
 The same dataclass as the JAX package's ``config.py``: every field keeps its
 name and default, so ``to_json``/``from_json`` read and write the same keys
-and a config from either package loads in the other. The port runs one
-slice of the system (synchronous data-parallel CNN training with its
-checkpoints and evaluator, see ROADMAP.md), so a field it does not run
+and a config from either package loads in the other. The port runs some
+slices of the system (synchronous data-parallel CNN training with its
+checkpoints and evaluator, and single-process asynchronous stale-gradient
+training with its codecs, see ROADMAP.md), so a field it does not run
 raises ``ValueError`` when it is set to anything but its default: it is
 never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
 one device (``runtime/lm_trainer.py``), without checkpoints.
@@ -205,16 +206,49 @@ class TrainConfig:
                 f"eval_freq={self.eval_freq} checkpoints every N steps, and "
                 "LM checkpoints are not ported yet (ROADMAP.md); pass "
                 "--eval-freq 0")
-        if self.mode != "sync":
+        if self.mode == "kofn":
             raise ValueError(f"mode={self.mode!r} is not ported yet "
-                             "(ROADMAP.md); only sync runs")
-        defaults = TrainConfig.__dataclass_fields__
-        for name in sorted(set(defaults) - PORTED_FIELDS):
-            if getattr(self, name) != defaults[name].default:
+                             "(ROADMAP.md); sync and async run")
+        if self.mode == "async" and self.network in LM_NETWORKS:
+            raise ValueError(f"mode='async' for {self.network} is not "
+                             "ported yet (ROADMAP.md); the asynchronous "
+                             "trainer runs the CNNs")
+        from ps_pytorch_tpu_torch.compression.codecs import (
+            EF_GRAD_CODECS, GRAD_CODECS, require_codec,
+        )
+        require_codec("grad_codec", self.grad_codec, GRAD_CODECS)
+        if not (0.0 < self.grad_topk_frac <= 1.0):
+            raise ValueError(f"grad_topk_frac={self.grad_topk_frac} "
+                             "(must be in (0, 1])")
+        if self.ef and self.grad_codec not in EF_GRAD_CODECS:
+            raise ValueError(
+                f"--ef requires a lossy homomorphic grad_codec "
+                f"({' | '.join(EF_GRAD_CODECS)}), got {self.grad_codec!r}")
+        if self.wire_bucket_mb < 0:
+            raise ValueError(f"wire_bucket_mb={self.wire_bucket_mb} "
+                             "(must be >= 0; 0 = blocking wire)")
+        if self.wire_workers < 0:
+            raise ValueError(f"wire_workers={self.wire_workers} "
+                             "(must be >= 0; <=1 = no pipelining)")
+        if self.ef_clip < 0:
+            raise ValueError(f"ef_clip={self.ef_clip} (must be >= 0; "
+                             "0 = unclamped residual)")
+        if self.mode != "async":
+            # The async fields are inert in the JAX sync trainer; here a
+            # set one raises rather than being ignored.
+            for name in ASYNC_ONLY_FIELDS:
+                if getattr(self, name) != _default(name):
+                    raise ValueError(
+                        f"{name}={getattr(self, name)!r} with mode="
+                        f"{self.mode!r} is not ported yet (ROADMAP.md); it "
+                        "runs with --mode async only")
+        for name in sorted(set(TrainConfig.__dataclass_fields__)
+                           - PORTED_FIELDS):
+            if getattr(self, name) != _default(name):
                 raise ValueError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"(ROADMAP.md); leave it at its default "
-                    f"{defaults[name].default!r}")
+                    f"{_default(name)!r}")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
@@ -226,8 +260,20 @@ class TrainConfig:
 
 LM_NETWORKS = ("TransformerLM", "MoETransformerLM")
 
-# The fields this slice runs. Every other field must keep its default.
-PORTED_FIELDS = frozenset({
+
+def _default(name: str):
+    return TrainConfig.__dataclass_fields__[name].default
+
+
+# Fields that only the asynchronous trainer reads.
+ASYNC_ONLY_FIELDS = ("num_aggregate", "async_slices", "fetch_every",
+                     "staleness_limit", "staleness_decay", "grad_codec",
+                     "grad_topk_frac", "ef", "ef_clip", "wire_bucket_mb",
+                     "wire_workers")
+
+# The fields the port runs. Every other field must keep its default.
+PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS) | frozenset({
+    "compress_grad", "codec_level",
     "network", "dataset", "batch_size", "test_batch_size", "data_dir",
     "num_classes", "optimizer", "lr", "lr_schedule", "lr_warmup_steps",
     "lr_decay_steps", "lr_decay_factor", "momentum", "weight_decay",

@@ -92,6 +92,17 @@ def to_jax(state_dict) -> Tuple[dict, dict]:
     return params, stats
 
 
+def leaf_layout(name: str, a: np.ndarray, to_jax: bool) -> np.ndarray:
+    """One parameter-shaped array (a gradient, an error-feedback residual)
+    of the port's parameter ``name`` between the two layouts: conv OIHW <->
+    HWIO, Linear [out,in] <-> [in,out], everything else as it is."""
+    if name.endswith(".weight") and a.ndim == 4:
+        return a.transpose(2, 3, 1, 0) if to_jax else a.transpose(3, 2, 0, 1)
+    if name.endswith(".weight") and a.ndim == 2:
+        return a.T
+    return a
+
+
 def _sorted(tree: dict) -> dict:
     """Every dict of the tree with sorted keys, as ``jax.device_get``
     leaves them before the JAX package serializes a state."""

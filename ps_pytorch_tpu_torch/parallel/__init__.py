@@ -1,5 +1,6 @@
 """The data-parallel step (``torch.distributed`` for more than one
-replica)."""
+replica), and the stale-gradient aggregator of the asynchronous path with
+its bucket schedule (``async_dp``, ``buckets``)."""
 
 from ps_pytorch_tpu_torch.parallel.dp import (  # noqa: F401
     TrainStep, make_eval_step, make_train_step,

@@ -1,5 +1,8 @@
-"""The training loop, its checkpoints, the polling evaluator and the
-metrics schema."""
+"""The training loops (synchronous and multi-slice asynchronous), their
+checkpoints, the polling evaluator and the metrics schema."""
 
 from ps_pytorch_tpu_torch.runtime.evaluator import Evaluator  # noqa: F401
+from ps_pytorch_tpu_torch.runtime.multislice import (  # noqa: F401
+    MultiSliceTrainer,
+)
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer  # noqa: F401

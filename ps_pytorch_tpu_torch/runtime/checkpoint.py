@@ -4,8 +4,8 @@ reads what the other writes.
 
 ``train_dir/model_step_<k>/`` holds ``state.msgpack`` (the training state
 as flax's msgpack bytes, ``runtime/msgpack_io.py``), ``config.json``,
-``meta.json`` (``{"step": k, "compressed": false}``) and ``manifest.json``
-with the SHA-256 of each file. The write goes into a pid-suffixed
+``meta.json`` (``{"step": k, "compressed": false}``), an optional
+``extra_state.msgpack`` and ``manifest.json`` with the SHA-256 of each file. The write goes into a pid-suffixed
 ``.tmp_<k>_<pid>``, manifest included, and commits with ``os.rename``: a
 polling evaluator never sees a half-written checkpoint, and a committed one
 is always verifiable. ``latest_valid_step`` and ``load_latest_valid`` walk
@@ -13,8 +13,12 @@ back past a torn or bit-rotted checkpoint to the newest one that verifies.
 
 The state is a nested dict of numpy arrays (``models.convert.state_to_jax``);
 loading returns the same (``state_from_jax`` puts it into a model).
-Compressed checkpoints and an ``extra_state`` belong to the compression
-and async slice, which is not ported yet.
+
+``compress=True`` wraps the serialized bytes in the ``PSC1`` container of
+``compression/`` (the checkpoint leg of ``--compress-grad``) and says so in
+``meta.json``. ``extra_state`` is an auxiliary tree (error-feedback
+residuals, say) committed beside the model as ``extra_state.msgpack``: same
+atomic rename, same manifest coverage, read back by ``load_extra_state``.
 """
 
 import hashlib
@@ -25,6 +29,9 @@ import shutil
 import time
 from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
+
+from ps_pytorch_tpu_torch.compression import w_compress, w_decompress
 from ps_pytorch_tpu_torch.runtime import msgpack_io
 
 _STEP_RE = re.compile(r"^model_step_(\d+)$")
@@ -48,18 +55,26 @@ def _sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
+def _as_device_get(tree: Any) -> Any:
+    """A tree of dicts as ``jax.device_get`` hands it to flax in the JAX
+    package's save: every dict with sorted keys, numpy scalars as 0-d
+    arrays."""
+    if isinstance(tree, dict):
+        return {k: _as_device_get(tree[k]) for k in sorted(tree)}
+    return np.asarray(tree) if isinstance(tree, np.generic) else tree
+
+
 def save_checkpoint(train_dir: str, step: int, state: Any,
                     config_json: str = "{}", compress: bool = False,
+                    codec_level: int = 3,
                     extra_state: Optional[Any] = None) -> str:
     """Atomically write train_dir/model_step_<step>. Returns the final
     path."""
-    if compress or extra_state is not None:
-        raise ValueError("compressed checkpoints and extra_state belong to "
-                         "the compression/async slice, not ported yet "
-                         "(ROADMAP.md)")
     os.makedirs(train_dir, exist_ok=True)
     blob = msgpack_io.packb(state)
-    meta = {"step": step, "compressed": False}
+    meta = {"step": step, "compressed": bool(compress)}
+    if compress:
+        blob = w_compress(np.frombuffer(blob, np.uint8), level=codec_level)
     # A restarted writer must not collide with a crashed predecessor's
     # tmp: sweep this step's stale tmps, then write under our pid.
     for name in os.listdir(train_dir):
@@ -72,6 +87,9 @@ def save_checkpoint(train_dir: str, step: int, state: Any,
         f.write(blob)
     with open(os.path.join(tmp, "config.json"), "w") as f:
         f.write(config_json)
+    if extra_state is not None:
+        with open(os.path.join(tmp, "extra_state.msgpack"), "wb") as f:
+            f.write(msgpack_io.packb(_as_device_get(extra_state)))
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
     manifest = {"step": step, "algo": "sha256",
@@ -133,14 +151,27 @@ def load_checkpoint(train_dir: str, step: int,
     _check_manifest(path)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    if meta.get("compressed"):
-        raise ValueError(f"{path} is compressed; reading compressed "
-                         "checkpoints is not ported yet (ROADMAP.md)")
     with open(os.path.join(path, "state.msgpack"), "rb") as f:
-        tree = msgpack_io.unpackb(f.read())
+        blob = f.read()
+    if meta.get("compressed"):
+        blob = w_decompress(blob).tobytes()
+    tree = msgpack_io.unpackb(blob)
     with open(os.path.join(path, "config.json")) as f:
         config_json = f.read()
     return (restore(tree) if restore else tree), meta, config_json
+
+
+def load_extra_state(train_dir: str, step: int) -> Optional[Any]:
+    """The auxiliary tree that ``save_checkpoint(..., extra_state=...)``
+    committed at ``step``, or None when that checkpoint carries none. It is
+    checked against the manifest like the main payload."""
+    path = checkpoint_path(train_dir, step)
+    fpath = os.path.join(path, "extra_state.msgpack")
+    if not os.path.exists(fpath):
+        return None
+    _check_manifest(path)
+    with open(fpath, "rb") as f:
+        return msgpack_io.unpackb(f.read())
 
 
 def committed_steps(train_dir: str) -> List[int]:

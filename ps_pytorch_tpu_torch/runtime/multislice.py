@@ -1,0 +1,318 @@
+"""Multi-slice asynchronous (stale-gradient) training: the JAX package's
+``runtime/multislice.py``.
+
+Asynchrony lives BETWEEN slices: each slice computes a gradient against the
+parameter version it last fetched (possibly stale), ships it to the
+aggregator tagged with that version's step (``parallel/async_dp.py``), and
+the canonical parameters advance from whatever fresh-enough contributions
+exist: parameter-server semantics with the "master" reduced to an optimizer
+over a gradient pool.
+
+Slices on one card. The JAX trainer splits its devices into ``n_slices``
+groups; here every slice lies on the one selected device unless ``devices``
+names one device per slice. A slice is its own copy of the model: its own
+BatchNorm statistics, its own last-fetched parameters, its own shard of the
+data (``host_id=s`` of ``n_slices`` over a shared-seed shuffle). "Fetch" is
+a copy from the canonical parameters. The canonical parameters and the
+optimizer state stay on the device for the whole run; with
+``--fused-optimizer`` they live in the fused optimizer's flat buffer. A
+gradient visits the host only when a host codec is configured (blosc,
+int8lat, topk, randk); the ``int8`` codec quantizes, dequantizes and
+averages on the device.
+
+Scheduling model (deterministic, testable): slice i advances every
+``slice_periods[i]`` global ticks and re-fetches canonical params every
+``fetch_every`` of its own steps, so a slow slice submits gradients
+computed on stale weights and exercises the drop/decay paths without
+wall-clock nondeterminism.
+
+As in the reference, a resumed run restores the canonical parameters, the
+optimizer state and slice 0's BatchNorm statistics; the loaders start over
+and the other slices keep fresh statistics.
+"""
+
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ps_pytorch_tpu_torch.config import TrainConfig
+from ps_pytorch_tpu_torch.data.augment import input_norm_for
+from ps_pytorch_tpu_torch.data.datasets import DataLoader, load_arrays
+from ps_pytorch_tpu_torch.models import build_model
+from ps_pytorch_tpu_torch.models.convert import (
+    from_jax, leaf_layout, state_from_jax, state_to_jax,
+)
+from ps_pytorch_tpu_torch.optim import build_optimizer
+from ps_pytorch_tpu_torch.parallel.async_dp import StaleGradientAggregator
+from ps_pytorch_tpu_torch.parallel.dp import (
+    _input, accumulate_eval, make_eval_step,
+)
+from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
+from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
+
+
+def make_slice_grad_fn(model: torch.nn.Module, input_norm=None) -> Callable:
+    """``fn(x, y) -> (grads, metrics)`` of one slice: forward and backward
+    on the slice's own model in train mode (its BatchNorm statistics move),
+    ``grads`` a fresh ``name -> tensor`` dict on the model's device,
+    ``metrics`` the 0-d loss and accuracy."""
+    params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
+
+    def grad_fn(x, y):
+        x = _input(x, device, input_norm)
+        y = torch.as_tensor(np.asarray(y)).to(device, non_blocking=True)
+        model.train()
+        for p in params.values():
+            p.grad = None
+        logits = model(x)
+        loss = F.cross_entropy(logits, y.long())
+        loss.backward()
+        with torch.no_grad():
+            acc = (logits.argmax(-1) == y).float().mean()
+        grads = {name: p.grad for name, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return grads, {"loss": loss.detach(), "accuracy": acc}
+
+    return grad_fn
+
+
+class MultiSliceTrainer:
+    """PS-style asynchronous training over ``n_slices`` slices."""
+
+    def __init__(self, cfg: TrainConfig, n_slices: int = 2,
+                 slice_periods: Optional[Sequence[int]] = None,
+                 fetch_every: int = 1, devices: Optional[List] = None,
+                 device: Optional[str] = None, printer=print,
+                 noise_fn: Optional[Callable] = None):
+        self.device = resolve_device(device)
+        if devices is None:
+            devices = [self.device] * n_slices
+        devices = [torch.device(d) for d in devices]
+        if len(devices) % n_slices:
+            raise ValueError(f"{len(devices)} devices not divisible by "
+                             f"{n_slices} slices")
+        if len(devices) != n_slices:
+            raise ValueError("a slice of several devices is not ported yet "
+                             "(ROADMAP.md); name one device per slice")
+        self.cfg = cfg
+        self.n_slices = n_slices
+        self.slice_periods = list(slice_periods or [1] * n_slices)
+        if len(self.slice_periods) != n_slices:
+            raise ValueError("need one period per slice")
+        self.fetch_every = max(fetch_every, 1)
+
+        # Canonical parameters and optimizer state: on the device for the
+        # whole run. Its BatchNorm buffers only carry slice 0's statistics
+        # into evaluate() and the checkpoint.
+        self.model = build_model(cfg.network, cfg.num_classes,
+                                 cfg.compute_dtype, cfg.conv_impl,
+                                 seed=cfg.seed).to(self.device)
+        self.opt = build_optimizer(cfg)
+        self.params: Dict[str, torch.nn.Parameter] = dict(
+            self.model.named_parameters())
+        self.opt_state = self.opt.init(self.params)
+        # Per-slice replicas: same initial weights and statistics.
+        self.slices = []
+        for dev in devices:
+            m = build_model(cfg.network, cfg.num_classes, cfg.compute_dtype,
+                            cfg.conv_impl, seed=cfg.seed).to(dev)
+            m.load_state_dict(self.model.state_dict())
+            self.slices.append(m)
+
+        self.aggregator = StaleGradientAggregator(
+            n_slices, staleness_limit=cfg.staleness_limit,
+            staleness_decay=cfg.staleness_decay,
+            num_aggregate=cfg.num_aggregate, compress=cfg.compress_grad,
+            codec=cfg.grad_codec, codec_level=cfg.codec_level,
+            wire_bucket_bytes=int(cfg.wire_bucket_mb * (1 << 20)),
+            wire_workers=cfg.wire_workers, topk_frac=cfg.grad_topk_frac,
+            error_feedback=cfg.ef, ef_clip=cfg.ef_clip, noise_fn=noise_fn)
+        self._input_norm = input_norm_for(cfg)
+        self.grad_fns = [make_slice_grad_fn(m, self._input_norm)
+                         for m in self.slices]
+        self.eval_fn = make_eval_step(self.model, self._input_norm)
+        # Each slice's last-fetched version step and its own step count.
+        self._slice_version = [0] * n_slices
+        self._slice_steps = [0] * n_slices
+
+        # Disjoint-by-construction per-slice data: slice s is "host" s of
+        # n_slices over a shared-seed shuffle, and still draws
+        # cfg.batch_size per step (hence the n_slices-scaled loader batch).
+        dev_norm = self._input_norm is not None
+        xtr, ytr = load_arrays(cfg.dataset, cfg.data_dir, train=True,
+                               seed=cfg.seed)
+        self.train_loaders = [
+            DataLoader(xtr, ytr, cfg.batch_size * n_slices, cfg.dataset,
+                       train=True, seed=cfg.seed, host_id=s,
+                       num_hosts=n_slices, device_normalize=dev_norm)
+            for s in range(n_slices)]
+        xte, yte = load_arrays(cfg.dataset, cfg.data_dir, train=False,
+                               seed=cfg.seed)
+        self.test_loader = DataLoader(xte, yte, cfg.test_batch_size,
+                                      cfg.dataset, train=False, shuffle=False,
+                                      seed=cfg.seed, drop_last=False,
+                                      device_normalize=dev_norm)
+        self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
+                                     printer=printer)
+        self.step = 0          # canonical (master) step
+        self.applied = 0       # updates actually applied
+        self.dropped_stale = 0
+
+    @torch.no_grad()
+    def _fetch(self, s: int) -> None:
+        """Slice ``s`` takes the canonical parameters (not the BatchNorm
+        statistics, which stay its own): the weight-distribution hop."""
+        own = dict(self.slices[s].named_parameters())
+        for name, p in self.params.items():
+            own[name].copy_(p)
+
+    def tick(self) -> dict:
+        """One global tick: scheduled slices compute and submit; the
+        canonical params advance from the pool. Returns tick metrics."""
+        self.step += 1
+        info = {"computed": [], "loss": None, "acc": None}
+        losses, accs = [], []
+        for s in range(self.n_slices):
+            if (self.step - 1) % self.slice_periods[s]:
+                continue
+            if self._slice_steps[s] % self.fetch_every == 0:
+                self._fetch(s)
+                self._slice_version[s] = self.step - 1
+            self._slice_steps[s] += 1
+            x, y = self.train_loaders[s].next_batch()
+            grads, m = self.grad_fns[s](x, y)
+            self.aggregator.submit(s, self._slice_version[s], grads)
+            info["computed"].append(s)
+            losses.append(float(m["loss"]))
+            accs.append(float(m["accuracy"]))
+        if losses:
+            info["loss"] = sum(losses) / len(losses)
+            info["acc"] = sum(accs) / len(accs)
+        avg, pool = self.aggregator.collect(self.step - 1)
+        if avg is not None and pool["used"]:
+            # The pooled average lies where the first fresh contributor's
+            # gradient lay (or on the host, after a host codec).
+            grads = {name: torch.as_tensor(g).to(self.device)
+                     for name, g in avg.items()}
+            with torch.no_grad():
+                self.opt_state = self.opt.apply(self.params, self.opt_state,
+                                                grads)
+            self.applied += 1
+            self.aggregator.consume(pool["used"])
+        # GC every tick (collect only reports; unremoved entries would be
+        # counted again next tick and retain dead gradients).
+        self.dropped_stale += self.aggregator.drop_older_than(self.step - 1)
+        info["used"] = pool["used"]
+        return info
+
+    @torch.no_grad()
+    def _take_slice0_stats(self) -> None:
+        """Slice 0's BatchNorm statistics into the canonical model, which
+        evaluate() and the checkpoint read."""
+        own = dict(self.model.named_buffers())
+        for name, b in self.slices[0].named_buffers():
+            own[name].copy_(b)
+
+    def evaluate(self, max_batches: Optional[int] = None) -> dict:
+        """Top-1/top-5/loss on the canonical params with slice 0's
+        BatchNorm statistics."""
+        self._take_slice0_stats()
+        return accumulate_eval(self.eval_fn, self.test_loader.epoch(0),
+                               max_batches)
+
+    # ---- state across the two packages ----
+    def load_jax(self, tree: dict,
+                 slice_batch_stats: Optional[Sequence[dict]] = None) -> None:
+        """A JAX ``MultiSliceTrainer``'s state into this one: ``tree`` is
+        its ``TrainState`` as the dict flax serializes (canonical params,
+        optimizer state, slice 0's statistics), ``slice_batch_stats`` the
+        per-slice BatchNorm statistics (``_bs``, numpy). Every slice takes
+        the canonical parameters and its own statistics."""
+        self._restore(tree)
+        self.step = int(tree["step"])
+        stats = slice_batch_stats or [tree.get("batch_stats")] * self.n_slices
+        for s, model in enumerate(self.slices):
+            self._fetch(s)
+            model.load_state_dict(from_jax({}, stats[s]), strict=False)
+
+    def _ef_layout(self, state: dict, to_jax: bool) -> dict:
+        """The aggregator's EF state (slice -> leaf index -> residual)
+        between the port's parameter layouts and the JAX package's. Leaf i
+        is the i-th parameter by sorted name in both."""
+        names = sorted(self.params)
+        return {sid: {i: leaf_layout(names[int(i)], np.asarray(r), to_jax)
+                      for i, r in leaves.items()}
+                for sid, leaves in state.items()}
+
+    # ---- checkpoint/resume (same contract and format as the Trainer) ----
+    def _checkpoint(self) -> str:
+        # EF residuals are sender state: without them a resumed lossy-codec
+        # run re-sends error the accumulator had already banked. They are
+        # stored in the JAX package's layouts.
+        extra = {"ef": self._ef_layout(self.aggregator.ef_state_dict(),
+                                       to_jax=True)} if self.cfg.ef else None
+        self._take_slice0_stats()
+        return ckpt.save_checkpoint(
+            self.cfg.train_dir, self.step,
+            state_to_jax(self.model, self.opt_state, self.step),
+            config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
+            codec_level=self.cfg.codec_level, extra_state=extra)
+
+    def _restore(self, tree: dict) -> None:
+        self.opt_state, _ = state_from_jax(tree, self.model, self.opt_state)
+
+    def maybe_resume(self) -> bool:
+        """Restore canonical params and optimizer state (and slice 0's
+        BatchNorm statistics; other slices keep fresh ones), from the
+        newest checkpoint that verifies: a corrupt newest one is skipped."""
+        if ckpt.latest_step(self.cfg.train_dir) is None:
+            return False
+        got = ckpt.load_latest_valid(self.cfg.train_dir, self._restore)
+        if got is None:
+            return False
+        _, meta, _, step = got
+        self.slices[0].load_state_dict(self.model.state_dict())
+        self.step = int(meta["step"])
+        for s in range(self.n_slices):
+            self._fetch(s)
+        self._slice_version = [self.step] * self.n_slices
+        extra = ckpt.load_extra_state(self.cfg.train_dir, step)
+        if extra and "ef" in extra:
+            self.aggregator.load_ef_state(
+                self._ef_layout(extra["ef"], to_jax=False))
+        print(f"RESUME from {ckpt.checkpoint_path(self.cfg.train_dir, step)} "
+              f"at step {self.step}")
+        return True
+
+    def train(self, max_steps: Optional[int] = None):
+        cfg = self.cfg
+        if cfg.resume:
+            self.maybe_resume()
+        last = max_steps or cfg.max_steps
+        try:
+            while self.step < last:
+                t0 = time.monotonic()
+                info = self.tick()
+                t_step = time.monotonic() - t0
+                if info["loss"] is not None \
+                        and self.step % cfg.log_every == 0:
+                    self.metrics.log_step(
+                        self.step, 0, loss=info["loss"], acc=info["acc"],
+                        participating=float(len(info["used"])),
+                        step_time=t_step, data_time=0.0,
+                        applied=self.applied,
+                        dropped_stale=self.dropped_stale,
+                        pool_wire_bytes=self.aggregator.wire_bytes())
+                if cfg.eval_freq > 0 and self.step % cfg.eval_freq == 0:
+                    self._checkpoint()
+            if cfg.eval_freq > 0 and self.step % cfg.eval_freq != 0:
+                self._checkpoint()
+        finally:
+            self.metrics.close()
+        return self.params

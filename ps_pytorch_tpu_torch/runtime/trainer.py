@@ -48,6 +48,10 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
                  printer=print):
+        if cfg.mode != "sync":
+            raise ValueError(f"the Trainer runs mode='sync'; mode="
+                             f"{cfg.mode!r} is MultiSliceTrainer's "
+                             "(runtime/multislice.py)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg.network, cfg.num_classes,
@@ -90,7 +94,8 @@ class Trainer:
         path = ckpt.save_checkpoint(
             self.cfg.train_dir, step,
             state_to_jax(self.model, self.step_fn.opt_state, step),
-            config_json=self.cfg.to_json())
+            config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
+            codec_level=self.cfg.codec_level)
         if self.cfg.ckpt_keep > 0:
             ckpt.prune_checkpoints(self.cfg.train_dir, self.cfg.ckpt_keep)
         return path

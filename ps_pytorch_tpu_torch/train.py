@@ -4,7 +4,11 @@ Takes the root ``train.py``'s flags (one per TrainConfig field; a bool flag
 may stand alone) plus ``--device`` (default ``cuda``). Prints the same
 CONFIG, STEP and FINAL lines as the JAX trainer, writes ``model_step_<k>``
 into ``--train-dir`` every ``--eval-freq`` steps, and resumes from the
-newest valid one unless ``--resume false``. Example, ResNet-18 on CIFAR-10
+newest valid one unless ``--resume false``. ``--mode async`` trains
+``--async-slices`` slices asynchronously in this one process
+(``runtime/multislice.py``) and prints ``SLICES`` in place of ``MESH``; an
+asynchronous launch of several processes is not ported yet (ROADMAP.md).
+Example, ResNet-18 on CIFAR-10
 geometry through the hand-written conv3x3 and fused-Adam kernels:
 
     python -m ps_pytorch_tpu_torch.train --network ResNet18 \
@@ -12,15 +16,24 @@ geometry through the hand-written conv3x3 and fused-Adam kernels:
         --compute-dtype bfloat16 --conv-impl pallas --optimizer adam \
         --fused-optimizer --lr 1e-3 --weight-decay 5e-4 --max-steps 6 \
         --eval-freq 3 --train-dir /tmp/td
+
+and the same network trained by two asynchronous slices whose gradients
+cross between them as int8 through the hand-written quantize kernel:
+
+    python -m ps_pytorch_tpu_torch.train --mode async --async-slices 2 \
+        --network ResNet18 --dataset synthetic_cifar10 --batch-size 256 \
+        --compute-dtype bfloat16 --conv-impl pallas --fused-optimizer \
+        --compress-grad --grad-codec int8 --max-steps 6 --eval-freq 0
 """
 
+import os
 import sys
 
 from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
 
 
 def main(argv=None) -> int:
-    from ps_pytorch_tpu_torch.runtime import Trainer
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer, Trainer
 
     parser = add_train_args()
     parser.add_argument("--device", default="cuda",
@@ -28,8 +41,19 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     cfg = config_from_namespace(args)
     print(f"CONFIG {cfg.to_json()}")
-    trainer = Trainer(cfg, device=args.device)
-    print(f"MESH data=1 model=1 devices=1 device={trainer.device}")
+    if cfg.mode == "async":
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise ValueError("--mode async over several processes (one "
+                             "slice per process, gradients over the wire) "
+                             "is not ported yet (ROADMAP.md); run one "
+                             "process with --async-slices")
+        trainer = MultiSliceTrainer(cfg, n_slices=cfg.async_slices,
+                                    fetch_every=cfg.fetch_every,
+                                    device=args.device)
+        print(f"SLICES {cfg.async_slices} x 1 devices")
+    else:
+        trainer = Trainer(cfg, device=args.device)
+        print(f"MESH data=1 model=1 devices=1 device={trainer.device}")
     trainer.train()
     result = trainer.evaluate()
     print(f"FINAL loss {result['loss']:.6f} prec1 {result['prec1']:.4f} "

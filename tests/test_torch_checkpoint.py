@@ -198,9 +198,23 @@ def test_restore_refuses_a_state_that_does_not_fit():
 
 
 def test_compressed_and_extra_state_refused(tmp_path):
-    for kw in (dict(compress=True), dict(extra_state={"a": 1})):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            ckpt.save_checkpoint(str(tmp_path), 1, {}, **kw)
+    """Once refused, now written: a compressed state and an extra state
+    read back as they went in, and flax reads the extra state's bytes."""
+    state = {"step": np.asarray(1, np.int32),
+             "params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)}}
+    extra = {"ef": {"1": {"0": np.ones(3, np.float32)}, "0": {}}}
+    path = ckpt.save_checkpoint(str(tmp_path), 1, state, compress=True,
+                                extra_state=extra)
+    tree, meta, _ = ckpt.load_checkpoint(str(tmp_path), 1)
+    assert meta == {"step": 1, "compressed": True}
+    _assert_trees_equal(tree, state)
+    back = ckpt.load_extra_state(str(tmp_path), 1)
+    assert list(back["ef"]) == ["0", "1"]
+    np.testing.assert_array_equal(back["ef"]["1"]["0"], extra["ef"]["1"]["0"])
+    with open(os.path.join(path, "extra_state.msgpack"), "rb") as f:
+        raw = serialization.msgpack_restore(f.read())
+    np.testing.assert_array_equal(raw["ef"]["1"]["0"], extra["ef"]["1"]["0"])
+    assert jax_ckpt.load_extra_state(str(tmp_path), 1).keys() == back.keys()
 
 
 # ---------------------------------------------------------- integrity --

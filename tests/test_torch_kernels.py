@@ -15,6 +15,7 @@ import torch
 from ps_pytorch_tpu_torch.ops import conv3x3 as conv
 from ps_pytorch_tpu_torch.ops import flash_attention as fa
 from ps_pytorch_tpu_torch.ops import fused_adam, fused_sgd
+from ps_pytorch_tpu_torch.ops import quantize as tq
 from ps_pytorch_tpu_torch.optim.adam import adam_step_size
 
 # Kernel against plain version, both on the card: f32 sums in another
@@ -23,6 +24,7 @@ from ps_pytorch_tpu_torch.optim.adam import adam_step_size
 # Adam's atol 1e-7, the JAX package's own).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SGD_TOL = 1e-6
+# The quantize kernel is its plain version bit for bit (values and scales).
 # Flash kernels against their plain versions: the JAX package's own
 # tolerances (forward 2e-5 and gradients 5e-4 in f32; bf16 outputs rounded
 # once from f32, 2e-2).
@@ -214,3 +216,73 @@ def test_flash_wrappers_raise_on_what_they_do_not_take(cuda):
     wide = torch.zeros(1, 8, 136, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(wide, wide, wide, True, 0.1)
+
+
+def _quantize_both(x, seed=0):
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    noise = torch.rand((tq.padded_rows(x.numel()), tq.LANES), device=x.device,
+                       generator=gen)
+    qt = tq.quantize_int8(x, noise)
+    values, scales = tq.quantize_int8_reference(tq.pad_to_blocks(x), noise)
+    torch.cuda.synchronize()
+    return qt, values, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 10, 4095, 4096, 4097, 100_003, 2_359_296])
+def test_quantize_kernel_is_bitwise_its_plain_version(cuda, n, dtype):
+    """One element, a bias, around one block, a ragged size and ResNet-18's
+    largest leaf: int8 values and f32 scales bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = (torch.randn(n, device=cuda, generator=gen) * 0.03).to(dtype)
+    before = tq.quantize_int8.launches
+    qt, values, scales = _quantize_both(x)
+    assert tq.quantize_int8.launches == before + 1
+    assert qt.values.dtype == torch.int8 and qt.shape == (n,)
+    assert tuple(qt.values.shape) == (tq.padded_rows(n), tq.LANES)
+    assert torch.equal(qt.values, values)
+    assert torch.equal(qt.scales, scales)
+    back = tq.dequantize_int8(qt)
+    quantum = qt.scales.repeat_interleave(tq.BLOCK)[:n]
+    assert bool(((back - x.float()).abs() <= quantum * (1 + 1e-6)).all())
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_edge_blocks_and_views(cuda):
+    """An all-zero block (scale 1e-30, zeros), a block with one huge
+    value, subnormal inputs, a 0-d leaf, and a view at an address that is
+    not 16-byte aligned (the scalar load path)."""
+    x = torch.randn(3 * tq.BLOCK + 5, device=cuda) * 1e-3
+    x[:tq.BLOCK] = 0.0
+    x[tq.BLOCK + 17] = 3e38
+    x[2 * tq.BLOCK:2 * tq.BLOCK + 100] = 1e-42
+    cases = [x, torch.tensor(2.5, device=cuda), x[1:], x[3:4100].bfloat16()[1:],
+             x.reshape(-1, 1)[:, 0], x[::2]]
+    for leaf in cases:
+        qt, values, scales = _quantize_both(leaf, seed=1)
+        assert torch.equal(qt.values, values)
+        assert torch.equal(qt.scales, scales)
+    qt, _, _ = _quantize_both(x)
+    assert 0.0 < float(qt.scales[0]) < 1.1e-30
+    assert not qt.values[:tq.BLOCK_ROWS].any()
+    assert int(qt.values.reshape(-1)[tq.BLOCK + 17]) == 127
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_from_worker_threads_and_raises(cuda):
+    """Launches from pool threads (the bucketed wire) give the main
+    thread's result; a CPU noise tensor for a CUDA leaf raises."""
+    from concurrent.futures import ThreadPoolExecutor
+    leaves = [torch.randn(n, device=cuda) for n in (10, 5000, 70_000, 3)]
+    want = [_quantize_both(l, seed=i)[0] for i, l in enumerate(leaves)]
+    before = tq.quantize_int8.launches
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(lambda a: _quantize_both(a[1], seed=a[0])[0],
+                            enumerate(leaves)))
+    assert tq.quantize_int8.launches == before + len(leaves)
+    for a, b in zip(got, want):
+        assert torch.equal(a.values, b.values)
+        assert torch.equal(a.scales, b.scales)
+    with pytest.raises(ValueError):
+        tq.quantize_int8(leaves[0], torch.rand(32, 128))

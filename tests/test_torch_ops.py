@@ -130,7 +130,7 @@ def test_backend_routes_by_device_only():
 def test_build_targets_are_keyed_by_source(tmp_path, monkeypatch):
     """One library per csrc/*.cu, its name carrying a hash of the source
     and the flags; a changed source gives another library."""
-    assert _build.sources() == ["conv3x3", "flash_attention"]
+    assert _build.sources() == ["conv3x3", "flash_attention", "quantize"]
     first = _build.target("conv3x3")
     assert first.parent == _build.BUILD and first.suffix == ".so"
     src = tmp_path / "conv3x3.cu"

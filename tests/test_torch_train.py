@@ -77,10 +77,10 @@ def test_config_json_round_trips_with_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mode", "kofn"), ("mode", "async"), ("shard_update", True),
+    ("mode", "kofn"), ("sync_topology", "hier"), ("shard_update", True),
     ("fault_spec", "kv_drop:p=0.1"), ("health_spec", "nonfinite:halt"),
     ("elastic", True), ("kv_replicas", "dir:/a,dir:/b,dir:/c"),
-    ("compress_grad", True), ("sync_batchnorm", True), ("loader_workers", 4),
+    ("shard_wire", True), ("sync_batchnorm", True), ("loader_workers", 4),
 ])
 def test_unported_fields_raise(field, value):
     kw = {"eval_freq": 0, field: value}
