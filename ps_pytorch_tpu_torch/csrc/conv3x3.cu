@@ -3,34 +3,73 @@
 // Replaces ps_pytorch_tpu/ops/pallas_conv.py:_conv_kernel (the Pallas
 // kernel behind conv3x3 / conv3x3_input_grad / conv3x3_op). It computes
 //     out[n,h,w,co] = sum_{dy,dx,c} x[n,h+dy-1,w+dx-1,c] * wt[dy,dx,c,co]
-// with zero padding outside the image, f32 accumulation, and the output in
-// the input's type (float or bfloat16). The input gradient of the conv is
-// the same kernel on flip(wt,(0,1)).swapaxes(2,3) (ops/conv3x3.py).
+// in NHWC / HWIO, with zero padding outside each image, f32 accumulation,
+// and one round-to-nearest-even into the input's type (float or bfloat16).
+// The input gradient of the conv is the same kernel on
+// flip(wt,(0,1)).swapaxes(2,3) (ops/conv3x3.py).
 //
 // What bounds it on this card. At batch 256 each ResNet-18 stride-1 3x3 is
-// about 19.3 GFLOP: 20 us at the 989 TFLOP/s bf16 tensor-core peak. The
-// 32x32x64 geometry also moves about 67 MB in bf16, 20 us at 3.35 TB/s, so
-// it sits on the ridge; the deeper ones are bound by operations.
+// about 19.3 GFLOP: 0.020 ms a launch at the 989 TFLOP/s bf16 tensor-core
+// peak, 0.51 ms for the 26 launches of a training step. The 32x32x64
+// geometry also moves about 67 MB in bf16, 0.020 ms at 3.35 TB/s, so it sits
+// on the ridge; the deeper ones are bound by operations.
 //
-// Design. The Pallas kernel walks a sequential grid with a VMEM scratch
-// accumulator; here every block owns a whole output tile and nothing carries
-// between blocks. The batch is treated as one tall image of N*H rows. A
-// block computes TH rows x TW columns of it (TH*TW <= 64 pixels) for 64
-// output channels, 256 threads, 4 pixels x 4 channels each, accumulated in
-// registers in f32. It walks the input channels in chunks of 8: each chunk
-// loads the tile's halo ((TH+2) x (TW+2) pixels, zero outside the image
-// columns and outside the N*H rows) and the 9 taps' weight slices into
-// shared memory as f32, then runs the 9 taps from there, so each input byte
-// is read from device memory about once per tile instead of 9 times. A halo
-// row that belongs to the neighbouring image is masked in the inner loop
-// (the zero padding between images), so there is no padded copy of x.
-// It runs on the CUDA cores (f32 FMA, 67 TFLOP/s peak): simple and right
-// first. wgmma/TMA tiles on the tensor cores are later work (ROADMAP.md).
+// Two kernels, picked by shape before the launch (ops/conv3x3.py:route):
+//
+// conv3x3_tc_kernel, bf16 with C % 8 == 0, Co % 8 == 0 and 16-byte aligned
+// pointers (every ResNet stride-1 3x3). An implicit GEMM on the tensor
+// cores: M = output pixels, N = Co, K = 9*C in tap-major order, through
+// Hopper's warpgroup product wgmma.mma_async m64nBNk16 (bf16 x bf16 -> f32,
+// the sums in registers). The batch is one tall image of N*H rows; a block
+// owns TH rows x TW columns of it (TW = min(W, 64), TH = BM / TW, so 8x8 and
+// 4x4 images still fill a tile) and BN output channels, with 2 warpgroups
+// of BM/2 pixels each. The tile, by geometry:
+//     BN = 64 for Co <= 64, else 128;
+//     BM = 256 where that still makes about a wave of blocks (128 for the
+//     132 SMs) and fits in shared memory (not at W = 1), else 128.
+// At batch 256: 32x32x64 256 x 64 (1024 blocks), 16x16x128 and 8x8x256
+// 256 x 128 (256 and 128 blocks), 4x4x512 128 x 128 (32 x 4 = 128 blocks):
+// at each geometry the fastest of the candidate tiles timed on the H100.
+// For each chunk of BK = 32 input channels the block copies the tile's halo,
+// (TH+2) x (TW+2) pixels x 32 channels, and the 9 taps' weight slices
+// w[t, c0:c0+32, co0:co0+BN] into shared memory with 16-byte cp.async, in a
+// 2-stage ring: chunk k+1 lands while the tensor cores run chunk k. A (the
+// pixels) comes from registers: every tap's fragment is an ldmatrix from
+// that one halo, each lane giving the address of its own pixel's shifted
+// row, so x is read from device memory about (TH+2)(TW+2)/(TH*TW) =
+// 1.3-1.6 times, not 9, and the next step's ldmatrix runs while this
+// step's wgmma is in flight. A lane whose tap falls in the padding (outside
+// the image, or on the neighbouring image's row of the tall stack) points
+// at one row of zeros in shared memory: there is no padded copy of x. B
+// (the weights) is read by the tensor cores straight from shared memory
+// through a descriptor: N-major 64-channel halves of 128-byte rows in the
+// 128-byte swizzle. The halo rows are XOR-swizzled by 16-byte chunk so that
+// ldmatrix meets no bank conflicts. TMA's tiled mode cannot gather a halo
+// with per-image padding, so cp.async copies both. Channels and pixels past
+// C, Co or the image are zero-filled on load (cp.async src-size 0) and
+// skipped on store. The epilogue rounds f32 to bf16 once
+// (__floats2bfloat162_rn), stages the tile in shared memory and writes it
+// with 16-byte stores. Offsets into x, w and out are 64-bit.
+//
+// conv3x3_simt_kernel, every f32 call and any other bf16 shape: the first
+// port of the kernel, exact f32 FMA on the CUDA cores (67 TFLOP/s). The f32
+// path stays here on purpose: the tensor cores would take f32 inputs only
+// as TF32 (10-bit mantissa), which breaks the f32 parity the port is held
+// to (1e-4 against the plain version, 1e-3 over two training steps). A
+// block computes TH*TW <= 64 pixels x 64 channels, 4 x 4 a thread, staging
+// 8 input channels of the halo and the 9 weight slices at a time in shared
+// memory as f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
+
+// ------------------------------------------------------------------ SIMT --
+
+namespace simt {
 
 constexpr int BM = 64;                 // output pixels per block
 constexpr int BN = 64;                 // output channels per block
@@ -51,9 +90,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 template <typename T>
 __global__ void __launch_bounds__(TPB)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ out, int N, int H, int W, int C, int Co,
-               int TH, int TW) {
+conv3x3_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    T* __restrict__ out, int N, int H, int W, int C, int Co,
+                    int TH, int TW) {
   __shared__ __align__(16) float xs[HALO_MAX * BK];  // [(TH+2)*(TW+2)][BK]
   __shared__ __align__(16) float ws[9 * BK * BN];    // [tap][k][BN]
 
@@ -169,20 +208,394 @@ int launch(const void* x, const void* w, void* out, int N, int H, int W,
   const long long blocks = row_tiles * col_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, (unsigned)((Co + BN - 1) / BN));
-  conv3x3_kernel<T><<<grid, TPB, 0, static_cast<cudaStream_t>(stream)>>>(
+  conv3x3_simt_kernel<T><<<grid, TPB, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
       N, H, W, C, Co, TH, TW);
   return (int)cudaGetLastError();
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------- tensor cores --
+
+namespace tc {
+
+constexpr int BK = 32;             // input channels per stage
+constexpr int STAGES = 2;          // cp.async ring depth
+constexpr int THREADS = 256;       // 2 warpgroups
+constexpr int ROW_BYTES = BK * 2;  // one halo pixel's BK channels in bf16
+constexpr int HALF_BYTES = 9 * BK * 128;  // 64 channels of a chunk's weights
+// A block may use 227 KB of the SM's shared memory (H100).
+constexpr int MAX_SMEM = 232448;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Make the landed copies visible to the tensor cores' (async) reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching accumulators across wgmma_wait.
+template <int R> __device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) asm volatile("" : "+f"(d[r])::"memory");
+}
+
+// d (64 x N, f32) += a (64 x 16 bf16, this warp's 16 rows in registers, the
+// mma.m16n8k16 A layout) * B (16 x N bf16 in shared memory, N-major, 128-byte
+// swizzle, described by desc).
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const unsigned (&a)[4],
+                                          unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64],
+                                          const unsigned (&a)[4],
+                                          unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2],
+                                      const unsigned (&a)[4],
+                                      unsigned long long desc) {
+  if constexpr (BN == 64)
+    wgmma_n64(d, a, desc);
+  else
+    wgmma_n128(d, a, desc);
+}
+
+// Byte offset of 16-byte chunk kc (channels 8kc..8kc+7) of halo row r: a
+// row is 64 bytes, and chunk kc sits at kc ^ ((r >> 1) & 3), so any 8
+// consecutive rows fill all 32 banks.
+__device__ __forceinline__ unsigned a_off(int r, int kc) {
+  return r * ROW_BYTES + ((kc ^ ((r >> 1) & 3)) << 4);
+}
+// Byte offset of 16-byte chunk nc (channels 8nc..8nc+7) of weight row `row`
+// (= tap * BK + k): each 64-channel half is its own [9*BK][64] block of
+// 128-byte rows, chunk nc % 8 at (nc % 8) ^ (row % 8): the 128-byte swizzle
+// of wgmma's N-major operand.
+__device__ __forceinline__ unsigned b_off(int row, int nc) {
+  return (nc >> 3) * HALF_BYTES + row * 128 + (((nc & 7) ^ (row & 7)) << 4);
+}
+// wgmma descriptor of the 16 x BN slice of B starting at row address addr:
+// 128-byte swizzle, the next 8 rows (k) 1024 bytes on, the next 64 columns
+// (n) one half on.
+__device__ __forceinline__ unsigned long long b_desc(unsigned addr) {
+  return (unsigned long long)((addr >> 4) & 0x3FFF) |
+         ((unsigned long long)(HALF_BYTES >> 4) << 16) |
+         ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// One block: BM pixels x BN channels. Warpgroup g owns pixels
+// [g*BM/2, (g+1)*BM/2) as BM/128 m64 tiles; warp w of it the 16 rows w*16..
+// of each tile.
+// Two 128 x 64 blocks fit an SM (126 registers, 99 KB of shared memory at
+// 32x32); every larger tile takes one.
+template <int BM, int BN>
+__global__ void __launch_bounds__(THREADS, BM * BN <= 128 * 64 ? 2 : 1)
+conv3x3_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  __nv_bfloat16* __restrict__ out, int N, int H, int W, int C,
+                  int Co, int TH, int TW, int a_bytes) {
+  constexpr int MT = BM / 128;            // m64 tiles a warpgroup
+  constexpr int NACC = BN / 2;            // f32 sums a thread per m64 tile
+  constexpr int NC = BN / 8;              // 16-byte chunks in a weight row
+  constexpr int B_BYTES = (BN / 64) * HALF_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzle atoms are 1024 bytes: align the ring to them.
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int stage_bytes = a_bytes + B_BYTES;
+  const int HW2 = TW + 2;
+  const int halo = (TH + 2) * HW2;        // halo rows; row `halo` is zeros
+  const int rows = N * H;
+  const int col_tiles = (W + TW - 1) / TW;
+  const int row0 = (blockIdx.x / col_tiles) * TH;  // first row of N*H
+  const int col0 = (blockIdx.x % col_tiles) * TW;
+  const int co0 = blockIdx.y * BN;
+
+  if (tid < 4 * STAGES)
+    *reinterpret_cast<uint4*>(smem + (tid >> 2) * stage_bytes +
+                              halo * ROW_BYTES + (tid & 3) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+
+  // This lane's pixel in each of its m64 tiles (the ldmatrix row it
+  // addresses): its halo row for tap (0,0) and a mask of the taps that read
+  // inside its own image.
+  int a_base[MT];
+  unsigned a_mask[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int p = wg * (BM / 2) + i * 64 + wq * 16 + (lane & 15);
+    const int pr = p / TW, pc = p % TW;
+    const int r = row0 + pr, col = col0 + pc;
+    const bool pv = pr < TH && r < rows && col < W;
+    const int h = pv ? r % H : 0;
+    unsigned m = 0;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int hh = h + t / 3 - 1, ww = col + t % 3 - 1;
+      if (pv && hh >= 0 && hh < H && ww >= 0 && ww < W) m |= 1u << t;
+    }
+    a_base[i] = pr * HW2 + pc;
+    a_mask[i] = m;
+  }
+
+  // Copy chunk c0 (channels c0..c0+BK-1) of the halo and of the 9 weight
+  // slices into stage s.
+  auto load_stage = [&](int s, int c0) {
+    const unsigned sa = smem_u32(smem + s * stage_bytes);
+    const unsigned sb = sa + a_bytes;
+    const int kc = tid & 3;
+    const int ch = c0 + kc * 8;
+    for (int q = tid >> 2; q < halo; q += THREADS / 4) {
+      const int r = row0 - 1 + q / HW2, col = col0 - 1 + q % HW2;
+      const bool ok = ch < C && r >= 0 && r < rows && col >= 0 && col < W;
+      const __nv_bfloat16* src =
+          ok ? x + (((long long)r * W + col) * C + ch) : x;
+      cp_async16(sa + a_off(q, kc), src, ok);
+    }
+    const int nc = tid % NC;
+    const int co = co0 + nc * 8;
+    for (int row = tid / NC; row < 9 * BK; row += THREADS / NC) {
+      const int t = row / BK, c = c0 + row % BK;
+      const bool ok = co < Co && c < C;
+      const __nv_bfloat16* src =
+          ok ? w + (((long long)t * C + c) * Co + co) : w;
+      cp_async16(sb + b_off(row, nc), src, ok);
+    }
+  };
+
+  float acc[MT][NACC];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int v = 0; v < NACC; ++v) acc[i][v] = 0.f;
+
+  const int chunks = (C + BK - 1) / BK;
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < chunks; ++kt) {
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // chunk kt is in; stage (kt+1)%2 is free again
+    if (kt + 1 < chunks) load_stage((kt + 1) % STAGES, (kt + 1) * BK);
+    cp_async_commit();
+    const unsigned sa = smem_u32(smem + (kt % STAGES) * stage_bytes);
+    const unsigned sb = sa + a_bytes;
+    // 9 taps x 2 k16 steps. A is double-buffered in registers: the
+    // ldmatrix of step s+1 runs while the wgmma of step s is in flight.
+    unsigned af[2][MT][4];
+#pragma unroll
+    for (int step = 0; step < 9 * BK / 16; ++step) {
+      const int t = step / (BK / 16), ks = step % (BK / 16);
+      const int toff = (t / 3) * HW2 + t % 3;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = (a_mask[i] >> t) & 1u ? a_base[i] + toff : halo;
+        ldmatrix_x4(af[step & 1][i], sa + a_off(r, ks * 2 + (lane >> 4)));
+      }
+      wgmma_fence();
+      const unsigned long long desc = b_desc(sb + (t * BK + ks * 16) * 128);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) wgmma<BN>(acc[i], af[step & 1][i], desc);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();  // the stage is read before the next chunk lands in it
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) pin(acc[i]);
+
+  // Epilogue: f32 -> bf16 once, staged as a [BM][BN+8] tile in shared
+  // memory, then 16-byte stores of whole 8-channel chunks. Sum 4j..4j+3 of
+  // a thread is (row g, columns 8j+2q, +1) and (row g+8, the same).
+  cp_async_wait_all();
+  __syncthreads();
+  constexpr int CS = BN + 8;
+  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int r = wg * (BM / 2) + i * 64 + wq * 16 + g, c = j * 8 + q * 2;
+      *reinterpret_cast<__nv_bfloat162*>(&cs[r * CS + c]) =
+          __floats2bfloat162_rn(acc[i][4 * j], acc[i][4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(&cs[(r + 8) * CS + c]) =
+          __floats2bfloat162_rn(acc[i][4 * j + 2], acc[i][4 * j + 3]);
+    }
+  __syncthreads();
+  for (int e = tid; e < BM * NC; e += THREADS) {
+    const int p = e / NC, nc = e % NC;
+    const int pr = p / TW, pc = p % TW;
+    const int r = row0 + pr, col = col0 + pc, co = co0 + nc * 8;
+    if (pr < TH && r < rows && col < W && co < Co)
+      *reinterpret_cast<uint4*>(out + (((long long)r * W + col) * Co + co)) =
+          *reinterpret_cast<const uint4*>(&cs[p * CS + nc * 8]);
+  }
+}
+
+// Dynamic shared memory of one block of the BM x BN tile at image width W:
+// the ring's 2 stages (halo and zero row, rounded to 1024 bytes, then the
+// weight slices) or the epilogue's staged tile, whichever is larger, plus
+// 1024 bytes to align the ring.
+template <int BM, int BN>
+int smem_bytes(int W, int* a_bytes) {
+  const int TW = W < 64 ? W : 64;
+  const int halo = (BM / TW + 2) * (TW + 2);
+  *a_bytes = ((halo + 1) * ROW_BYTES + 1023) / 1024 * 1024;
+  const int ring = STAGES * (*a_bytes + (BN / 64) * HALF_BYTES);
+  const int tile = BM * (BN + 8) * 2;
+  return (ring > tile ? ring : tile) + 1024;
+}
+
+template <int BM, int BN>
+int launch(const void* x, const void* w, void* out, int N, int H, int W,
+           int C, int Co, void* stream) {
+  auto kernel = conv3x3_tc_kernel<BM, BN>;
+  int a_bytes = 0;
+  const int smem = smem_bytes<BM, BN>(W, &a_bytes);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int TW = W < 64 ? W : 64;
+  const int TH = BM / TW;
+  const long long row_tiles = ((long long)N * H + TH - 1) / TH;
+  const long long blocks = row_tiles * ((W + TW - 1) / TW);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  // Raise the kernel's shared-memory limit once per device, so a launch
+  // costs no driver call beyond itself.
+  static std::atomic<bool> ready[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev].load()) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev].store(true);
+  }
+  const dim3 grid((unsigned)blocks, (unsigned)((Co + BN - 1) / BN));
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
+      N, H, W, C, Co, TH, TW, a_bytes);
+  return (int)cudaGetLastError();
+}
+
+// The tile, from the table in the header.
+template <int BN>
+int launch_bn(const void* x, const void* w, void* out, int N, int H, int W,
+              int C, int Co, void* stream) {
+  const long long pixels = (long long)N * H * W;
+  int unused = 0;
+  if ((pixels + 255) / 256 * ((Co + BN - 1) / BN) >= 128 &&
+      smem_bytes<256, BN>(W, &unused) <= MAX_SMEM)
+    return launch<256, BN>(x, w, out, N, H, W, C, Co, stream);
+  return launch<128, BN>(x, w, out, N, H, W, C, Co, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" int psk_conv3x3_f32(const void* x, const void* w, void* out, int N,
                                int H, int W, int C, int Co, void* stream) {
-  return launch<float>(x, w, out, N, H, W, C, Co, stream);
+  return simt::launch<float>(x, w, out, N, H, W, C, Co, stream);
 }
 
+extern "C" int psk_conv3x3_bf16_simt(const void* x, const void* w, void* out,
+                                     int N, int H, int W, int C, int Co,
+                                     void* stream) {
+  return simt::launch<__nv_bfloat16>(x, w, out, N, H, W, C, Co, stream);
+}
+
+// The tensor-core kernel. Takes C % 8 == 0, Co % 8 == 0 and 16-byte aligned
+// pointers, and refuses anything else (cudaErrorInvalidValue): the caller
+// picks the kernel by shape before the launch.
 extern "C" int psk_conv3x3_bf16(const void* x, const void* w, void* out, int N,
                                 int H, int W, int C, int Co, void* stream) {
-  return launch<__nv_bfloat16>(x, w, out, N, H, W, C, Co, stream);
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 || Co % 8 ||
+      (reinterpret_cast<unsigned long long>(x) |
+       reinterpret_cast<unsigned long long>(w) |
+       reinterpret_cast<unsigned long long>(out)) % 16 ||
+      (long long)N * H > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return Co <= 64
+             ? tc::launch_bn<64>(x, w, out, N, H, W, C, Co, stream)
+             : tc::launch_bn<128>(x, w, out, N, H, W, C, Co, stream);
 }

@@ -1,23 +1,43 @@
-"""3x3 stride-1 SAME convolution: the hand-written CUDA kernel
-``csrc/conv3x3.cu`` and its plain PyTorch version.
+"""3x3 stride-1 SAME convolution: the hand-written CUDA kernels of
+``csrc/conv3x3.cu`` and their plain PyTorch version.
 
 Replaces the JAX package's ``ops/pallas_conv.py:_conv_kernel`` and keeps its
 public layout: ``conv3x3(x[N,H,W,C], w[3,3,C,Co])`` in NHWC/HWIO, f32
-accumulation, output in the input's type. The input gradient is the same
-kernel on ``flip(w,(0,1)).swapaxes(2,3)``; the weight gradient is 9 tap
-contractions in torch ops, as ``pallas_conv.py:_conv_op_bwd`` leaves it to
-XLA. ``Conv3x3Function`` ties the three together for autograd.
+accumulation, one rounding into the input's type. The input gradient is
+the same kernel on ``flip(w,(0,1)).swapaxes(2,3)``; the weight gradient is
+9 tap contractions in torch ops, as ``pallas_conv.py:_conv_op_bwd`` leaves
+it to XLA. ``Conv3x3Function`` ties the three together for autograd.
 
 Bound on an H100 (bf16, batch 256): each ResNet-18 stride-1 3x3 is about
-19.3 GFLOP, 20 us at 989 TFLOP/s; the 32x32x64 one also moves about 67 MB,
-20 us at 3.35 TB/s. The kernel's design and what it does about that are in
-the source's header.
+19.3 GFLOP, 0.020 ms a launch at 989 TFLOP/s (0.51 ms for a step's 26); the
+32x32x64 one also moves about 67 MB, 0.020 ms at 3.35 TB/s.
+
+Two kernels, picked by ``route`` before the launch:
+
+- ``"tc"``: bf16 with C and Co multiples of 8 and 16-byte aligned pointers
+  (every ResNet stride-1 3x3). An implicit GEMM on the tensor cores (M
+  pixels, N = Co, K = 9C tap-major) through Hopper's ``wgmma``, f32 sums in
+  registers: a block of BM pixels (TW = min(W, 64) columns x BM / TW rows
+  of the batch stacked as one tall image) and BN channels, from a table by
+  geometry (BM 128 or 256, BN 64 or 128), copies each 32-channel chunk of
+  its halo and of the 9 weight slices into shared memory through a 2-stage
+  ``cp.async`` ring; every tap's pixel fragments are ``ldmatrix`` loads
+  from that one halo (a tap in the padding reads a row of zeros), and the
+  tensor cores read the weights from shared memory.
+  ``conv3x3.tc_launches`` counts these launches.
+- ``"simt"``: every f32 call and any other bf16 shape. Exact f32 FMA on the
+  CUDA cores; f32 stays here because the tensor cores would round f32
+  inputs to TF32 and break the f32 tolerances the port is held to.
+
+A launch that fails raises; it is never retried on the other kernel or on
+the plain version. The source's header has the design in full.
 
 ``variant`` is accepted for the JAX signature: ``taps9`` and ``im2col`` are
 two MXU schedules of the TPU kernel, and both run the same kernel here.
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +49,8 @@ VARIANTS = ("taps9", "im2col")
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    for fn in (lib.psk_conv3x3_f32, lib.psk_conv3x3_bf16):
+    for fn in (lib.psk_conv3x3_f32, lib.psk_conv3x3_bf16,
+               lib.psk_conv3x3_bf16_simt):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -60,7 +81,20 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def route(dtype: torch.dtype, c: int, co: int, *pointers: int) -> str:
+    """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 with
+    C and Co multiples of 8 and every pointer 16-byte aligned, else
+    ``"simt"``."""
+    if dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0 \
+            and all(p % 16 == 0 for p in pointers):
+        return "tc"
+    return "simt"
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            kernel: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel ``route`` picks (``kernel`` names one, for timing
+    the two side by side)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -72,14 +106,22 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n, h, wd, c = x.shape
     co = w.shape[-1]
     out = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    fn = lib.psk_conv3x3_bf16 if x.dtype == torch.bfloat16 \
-        else lib.psk_conv3x3_f32
+    kernel = kernel or route(x.dtype, c, co, x.data_ptr(), w.data_ptr(),
+                             out.data_ptr())
+    fn = {(torch.float32, "simt"): lib.psk_conv3x3_f32,
+          (torch.bfloat16, "simt"): lib.psk_conv3x3_bf16_simt,
+          (torch.bfloat16, "tc"): lib.psk_conv3x3_bf16}.get((x.dtype, kernel))
+    if fn is None:
+        raise ValueError(f"no {kernel!r} conv3x3 kernel for {x.dtype}")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, co,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv3x3 {kernel} kernel launch failed: CUDA "
+                           f"error {err}")
     conv3x3.launches += 1
+    if kernel == "tc":
+        conv3x3.tc_launches += 1
     return out
 
 
@@ -87,7 +129,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
             variant: str = "taps9") -> torch.Tensor:
     """NHWC 3x3 stride-1 SAME conv: x [N,H,W,C] @ w [3,3,C,Co] ->
     [N,H,W,Co]. CUDA tensors run the kernel, CPU tensors the plain
-    version. ``conv3x3.launches`` counts kernel launches."""
+    version. ``conv3x3.launches`` counts kernel launches,
+    ``conv3x3.tc_launches`` those of the tensor-core kernel."""
     _check(x, w, variant)
     if use_kernel(x, w):
         return _launch(x, w)
@@ -95,6 +138,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3x3.launches = 0
+conv3x3.tc_launches = 0
 
 
 def conv3x3_input_grad(g: torch.Tensor, w: torch.Tensor,

@@ -39,7 +39,7 @@ from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
 
 # Kernel-name fragments -> the group a device event is charged to.
 GROUPS = (
-    ("conv3x3 kernel (port)", ("conv3x3_kernel",)),
+    ("conv3x3 kernel (port)", ("conv3x3_tc_kernel", "conv3x3_simt_kernel")),
     ("fused_sgd kernel (port)", ("sgd_kernel",)),
     ("fused_adam kernel (port)", ("adam_kernel",)),
     ("flash kernels (port)", ("flash_fwd_kernel", "flash_dq_kernel",

@@ -48,20 +48,42 @@ def _conv_inputs(dev, n, h, w, c, co, dtype, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "input_grad"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
-    (3, 8, 8, 16, 8),        # Co below one 64-channel tile
-    (2, 32, 32, 64, 64),     # ResNet-18's first stage
-    (2, 5, 70, 24, 72),      # W above one 64-pixel tile, ragged C and Co
-    (4, 4, 4, 512, 512),     # ResNet-18's last stage
+    (3, 8, 8, 16, 8),        # Co of 8, below one channel tile
+    (2, 32, 32, 64, 64),     # ResNet-18's four stride-1 geometries
+    (2, 16, 16, 128, 128),
+    (2, 8, 8, 256, 256),
+    (2, 4, 4, 512, 512),
+    (4, 4, 4, 512, 512),
+    (256, 32, 32, 64, 64),   # the first stage at the main path's batch
+    (2, 5, 70, 24, 72),      # W above one 64-column tile, ragged C and Co
+    (3, 5, 70, 24, 72),      # M not a multiple of the 128-pixel tile
+    (5, 4, 4, 64, 64),       # 80 pixels: one ragged tile
+    (2, 6, 6, 12, 16),       # C % 8 != 0: bf16 takes the SIMT kernel
+    (4, 8192, 1, 8, 136),    # W = 1: the 256 x 128 tile would not fit
+    (128, 128, 2, 16, 136),  # W = 2 on the 256 x 128 tile
+    (33, 33, 31, 8, 56),     # ragged rows and columns on the 256 x 64 tile
 ])
-def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
+def test_conv3x3_kernel_matches_plain(cuda, shape, dtype, kind):
+    """Forward and input gradient against the plain version; bf16 with C
+    and Co multiples of 8 goes through the tensor cores, everything else
+    through the SIMT kernel."""
+    n, h, wd, c, co = shape
     x, w = _conv_inputs(cuda, *shape, dtype)
-    before = conv.conv3x3.launches
-    got = conv.conv3x3(x, w)
+    fn, w_eff, c_out = conv.conv3x3, w, co
+    if kind == "input_grad":        # x is the cotangent [N,H,W,Co]
+        x = _conv_inputs(cuda, n, h, wd, co, c, dtype, seed=1)[0]
+        fn, c_out = conv.conv3x3_input_grad, c
+        w_eff = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()
+    before, tc_before = conv.conv3x3.launches, conv.conv3x3.tc_launches
+    got = fn(x, w)
     assert conv.conv3x3.launches == before + 1
-    assert got.dtype == dtype and got.shape == (*shape[:3], shape[4])
-    want = conv.conv3x3_reference(x, w)
+    tensor_cores = dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0
+    assert conv.conv3x3.tc_launches == tc_before + tensor_cores
+    assert got.dtype == dtype and got.shape == (n, h, wd, c_out)
+    want = conv.conv3x3_reference(x, w_eff)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
@@ -94,6 +116,17 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
         conv.conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError):
         conv.conv3x3(x, w.cpu())
+    with pytest.raises(ValueError, match="tc"):    # no f32 tensor-core kernel
+        conv._launch(x, w, "tc")
+    # A bf16 view 2 bytes off a 16-byte boundary: route picks SIMT, and the
+    # tensor-core kernel, named, refuses it rather than running elsewhere.
+    xb, wb = x.bfloat16(), w.bfloat16()
+    odd = torch.empty(xb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    odd = odd.view(xb.shape).copy_(xb)
+    assert conv.route(odd.dtype, 8, 8, odd.data_ptr(), wb.data_ptr()) \
+        == "simt"
+    with pytest.raises(RuntimeError, match="tc kernel launch failed"):
+        conv._launch(odd, wb, "tc")
 
 
 @pytest.mark.cuda

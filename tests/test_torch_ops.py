@@ -116,6 +116,24 @@ def test_conv3x3_rejects_unknown_variant_and_mixed_dtypes():
         conv.conv3x3(x, w.bfloat16())
 
 
+@pytest.mark.parametrize("dtype,c,co,pointers,want", [
+    (torch.bfloat16, 64, 64, (0, 256, 4096), "tc"),
+    (torch.bfloat16, 24, 72, (16, 48, 80), "tc"),      # ragged C and Co
+    (torch.bfloat16, 8, 8, (), "tc"),
+    (torch.float32, 64, 64, (0, 256, 4096), "simt"),   # f32 stays exact
+    (torch.bfloat16, 12, 16, (0, 0, 0), "simt"),       # C % 8
+    (torch.bfloat16, 16, 12, (0, 0, 0), "simt"),       # Co % 8
+    (torch.bfloat16, 64, 64, (2, 256, 4096), "simt"),  # x off 16 bytes
+    (torch.bfloat16, 64, 64, (0, 8, 4096), "simt"),    # w off 16 bytes
+    (torch.bfloat16, 64, 64, (0, 256, 4104), "simt"),  # out off 16 bytes
+])
+def test_conv3x3_route_by_dtype_channels_and_alignment(dtype, c, co,
+                                                       pointers, want):
+    """The kernel a CUDA call takes is decided from dtype, C, Co and the
+    pointers' alignment before the launch."""
+    assert conv.route(dtype, c, co, *pointers) == want
+
+
 # ------------------------------------------------------------ backend --
 
 def test_backend_routes_by_device_only():
