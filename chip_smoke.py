@@ -16,8 +16,10 @@ exit and no result line, if any phase fails:
    quantizer, so it has none) and the bound (bytes over 3.35 TB/s or operations over the
    peak rate of their type, whichever is larger); conv3x3 runs f32 through
    its SIMT kernel and bf16 through its tensor-core kernel, and the bf16
-   rows also time the SIMT kernel on the same inputs; then times the conv's
-   weight gradient (torch ops) over one step's calls;
+   rows also time the SIMT kernel on the same inputs; flash dq and dk/dv
+   run on the tensor cores (f32 as 3xTF32) and print a second bound at
+   that route's rate, ``bound_tc_ms``; then times the conv's weight
+   gradient (torch ops) over one step's calls;
 4. trains full-width ResNet-18 (synthetic CIFAR-10, batch 256, bf16, conv
    ``pallas``, fused SGD) for a few steps through the port's Trainer, then
    evaluates 2 batches; then the same network trained asynchronously by 2
@@ -32,8 +34,9 @@ exit and no result line, if any phase fails:
    attention) for a few steps through the port's LMTrainer, evaluating 2
    batches. Every launch count is set to 0 just before each path and read
    just after: each kernel of the path ran the expected number of times,
-   no other kernel ran, and every bf16 conv3x3 launch took the tensor-core
-   kernel (``conv3x3_tc``);
+   no other kernel ran, and every bf16 conv3x3 launch and every flash dq
+   and dk/dv launch took the tensor-core kernel (``conv3x3_tc``,
+   ``flash_dq_tc``, ``flash_dkv_tc``);
 5. holds one small ResNet step in f32 (SIMT conv only) and one in bf16
    (tensor-core conv only), two small asynchronous ticks (the same
    injected rounding noise) and one small LM step on the card against the
@@ -66,6 +69,7 @@ CONV_PER_STEP = 2 * sum(n for _, _, n in GEOMETRIES)     # fwd + input grad
 CONV_PER_EVAL_BATCH = sum(n for _, _, n in GEOMETRIES)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # tensor-core bf16; f32 FMA
+TF32_OPS = 495e12                  # tensor-core TF32; 3xTF32 takes 3 of them
 # The LM of the JAX package's transformer_lm_2k_flash benchmark: its one
 # attention call per layer is [batch 8, 8 heads, S 2048, head dim 64].
 LM_ARGS = ("--lm-attention", "flash", "--lm-d-model", "512", "--lm-layers",
@@ -77,6 +81,15 @@ FLASH_SHAPE = (8, 8, 2048, 64)
 # 2e-2 in bf16 (outputs rounded once from f32): the JAX package's own.
 FLASH_TOL = {"float32": (2e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
 FLASH_MATMULS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}
+# Beside the LM's shape: the widest head dim, causal, in both types; a head
+# dim whose bf16 depth is padded from 40 to 48; a full (non-causal) shape;
+# an S that is not a multiple of the kernels' 64-row tile.
+FLASH_CASES = ((FLASH_SHAPE, True, "float32"), (FLASH_SHAPE, True, "bfloat16"),
+               ((2, 4, 512, 128), True, "float32"),
+               ((2, 4, 512, 128), True, "bfloat16"),
+               ((2, 4, 1000, 40), True, "bfloat16"),
+               ((2, 4, 512, 64), False, "float32"),
+               ((2, 4, 1000, 64), True, "float32"))
 # ResNet-18 with fused Adam through the entry points: checkpoints every 3
 # of 6 steps, then a resume to step 8.
 CKPT_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
@@ -396,30 +409,32 @@ def check_adam(torch, adam_mod, n: int) -> dict:
 
 
 def flash_bound_ms(name, bh, s, d, causal, dtype_name) -> tuple:
-    """(ms for the operations at peak, ms for the bytes) of one launch:
-    each matmul of the kernel costs 2 d operations a (query, key) pair it
+    """(ms for the operations at the input type's peak, ms for the bytes,
+    ms for the operations at the route's own rate) of one launch: each
+    matmul of the kernel costs 2 d operations a (query, key) pair it
     reaches (the causal lower triangle only); the bytes read every input
-    once and write every output once."""
+    once and write every output once. The route's rate: f32 dq and dk/dv
+    run 3xTF32 on the tensor cores, three TF32 operations for each f32
+    one; the f32 forward runs on the CUDA cores; bf16 at the bf16 peak."""
     size = 2 if dtype_name == "bfloat16" else 4
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     ops = 2.0 * d * FLASH_MATMULS[name] * pairs
     tensors = {"flash_fwd": 4, "flash_dq": 5, "flash_dkv": 6}[name]
     rows = {"flash_fwd": 1, "flash_dq": 2, "flash_dkv": 2}[name]  # lse, delta
     nbytes = tensors * bh * s * d * size + rows * bh * s * 4
-    return 1e3 * ops / PEAK_OPS[dtype_name], 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / PEAK_OPS[dtype_name]
+    route_ms = 1e3 * 3 * ops / TF32_OPS \
+        if dtype_name == "float32" and name != "flash_fwd" else ops_ms
+    return ops_ms, 1e3 * nbytes / HBM_BYTES_PER_S, route_ms
 
 
 def check_flash(torch, F, fa) -> dict:
-    """The three flash kernels against their plain versions: at the LM's
-    attention shape (causal, f32 and bf16), at one non-causal shape and at
-    one S that is not a multiple of the kernels' 64-row tile; timed, with
-    SDPA beside them, at the LM's shape."""
+    """The three flash kernels against their plain versions at
+    ``FLASH_CASES``, each launch's route read from the tensor-core counts;
+    timed, with SDPA beside them, at the LM's shape."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = ((FLASH_SHAPE, True, "float32"), (FLASH_SHAPE, True, "bfloat16"),
-             ((2, 4, 512, 64), False, "float32"),
-             ((2, 4, 1000, 64), True, "float32"))
     out = {name: {"max_abs_err": 0.0} for name in FLASH_MATMULS}
-    for (b, h, s, d), causal, dtype_name in cases:
+    for (b, h, s, d), causal, dtype_name in FLASH_CASES:
         dt = getattr(torch, dtype_name)
         bh, scale = b * h, d ** -0.5
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
@@ -428,8 +443,16 @@ def check_flash(torch, F, fa) -> dict:
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
         delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
         args = (q, k, v, do, lse_ref, delta, causal, scale)
+        tc_before = (fa.flash_dq.tc_launches, fa.flash_dkv.tc_launches)
         got = {"flash_fwd": (o, lse), "flash_dq": (fa.flash_dq(*args),),
                "flash_dkv": fa.flash_dkv(*args)}
+        routes = {"flash_fwd": "simt"}
+        for name, fn, before in (("flash_dq", fa.flash_dq, tc_before[0]),
+                                 ("flash_dkv", fa.flash_dkv, tc_before[1])):
+            routes[name] = "tc" if fn.tc_launches == before + 1 else "simt"
+            if routes[name] != "tc":
+                fail(f"{name} {b}x{h}x{s}x{d}: launched no tensor-core "
+                     "kernel")
         want = {"flash_fwd": (o_ref, lse_ref),
                 "flash_dq": (fa.flash_dq_reference(*args),),
                 "flash_dkv": fa.flash_dkv_reference(*args)}
@@ -438,6 +461,10 @@ def check_flash(torch, F, fa) -> dict:
         kind = f"{'causal' if causal else 'full'} {dtype_name} {b}x{h}x{s}x{d}"
         timed = (b, h, s, d) == FLASH_SHAPE
         if timed:
+            # SDPA under torch's default flags, not the deterministic cuDNN
+            # that the trainers leave set.
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = False
             q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
             lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal, scale=scale), iters=10)
@@ -446,6 +473,7 @@ def check_flash(torch, F, fa) -> dict:
                                                 scale=scale)
             lib_bwd = time_ms(lambda: torch.autograd.grad(
                 o4, leaves, do.view(b, h, s, d), retain_graph=True), iters=10)
+            torch.backends.cudnn.deterministic = deterministic
         for name in FLASH_MATMULS:
             tol = fwd_tol if name == "flash_fwd" else grad_tol
             err = 0.0
@@ -457,7 +485,8 @@ def check_flash(torch, F, fa) -> dict:
                     fail(f"{name} {kind}: max abs err {err} above {t}")
             if dtype_name == "float32":
                 out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-            line = f"KERNEL {name} {kind} max_abs_err {err:.3e}"
+            line = (f"KERNEL {name} {kind} route {routes[name]} "
+                    f"max_abs_err {err:.3e}")
             if timed:
                 fn = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal,
                                                         scale),
@@ -471,21 +500,25 @@ def check_flash(torch, F, fa) -> dict:
                 ms = time_ms(fn, iters=10)
                 plain = time_ms(ref, iters=3, warmup=1)
                 lib = lib_fwd if name == "flash_fwd" else lib_bwd
-                ops_ms, bytes_ms = flash_bound_ms(name, bh, s, d, causal,
-                                                  dtype_name)
+                ops_ms, bytes_ms, route_ms = flash_bound_ms(
+                    name, bh, s, d, causal, dtype_name)
                 line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
                          f"{lib:.4f} bound_ms {max(ops_ms, bytes_ms):.4f} "
-                         f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+                         f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}) "
+                         f"bound_tc_ms {max(route_ms, bytes_ms):.4f}")
                 if dtype_name == "float32":
                     out[name].update(
                         ms=ms, plain_ms=plain, library_ms=lib,
                         bound_ms=max(ops_ms, bytes_ms),
                         bound_by=("operations" if ops_ms >= bytes_ms
-                                  else "bytes"))
+                                  else "bytes"),
+                        bound_tc_ms=max(route_ms, bytes_ms))
             print(line, flush=True)
     print("KERNEL flash library_ms: SDPA forward for flash_fwd, SDPA's whole "
-          "backward (dq, dk and dv together) for flash_dq and flash_dkv",
-          flush=True)
+          "backward (dq, dk and dv together) for flash_dq and flash_dkv; "
+          "bound_tc_ms: the operations at the route's own rate (f32 dq and "
+          "dk/dv: 3xTF32, three TF32 operations at 495 TFLOP/s for each "
+          "f32 one)", flush=True)
     return out
 
 
@@ -796,26 +829,33 @@ def small_async_tick_agrees(torch, tq) -> None:
           f"abs weight diff {worst:.3e}", flush=True)
 
 
+# Wrappers that count their tensor-core launches apart (``tc_launches``).
+TC_COUNTED = ("conv3x3", "flash_dq", "flash_dkv")
+
+
 def zero_counts(wrappers) -> None:
     for fn in wrappers.values():
         fn.launches = 0
-    wrappers["conv3x3"].tc_launches = 0
+    for name in TC_COUNTED:
+        wrappers[name].tc_launches = 0
 
 
 def read_counts(wrappers) -> dict:
-    """Launches of every wrapper, and ``conv3x3_tc``: those of conv3x3's
-    tensor-core kernel."""
+    """Launches of every wrapper, and ``<name>_tc``: those of its
+    tensor-core kernel, for conv3x3, flash_dq and flash_dkv."""
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    counts["conv3x3_tc"] = wrappers["conv3x3"].tc_launches
+    for name in TC_COUNTED:
+        counts[f"{name}_tc"] = wrappers[name].tc_launches
     return counts
 
 
 def want_counts(wrappers, **launches) -> dict:
     """The counts a path should read: the given launches, every other
-    wrapper 0, and every conv3x3 launch through the tensor cores (the paths
-    run bf16)."""
+    wrapper 0, and every conv3x3 (the paths run bf16), flash dq and flash
+    dk/dv launch through the tensor cores."""
     want = dict({name: 0 for name in wrappers}, **launches)
-    want["conv3x3_tc"] = want["conv3x3"]
+    for name in TC_COUNTED:
+        want[f"{name}_tc"] = want[name]
     return want
 
 
@@ -924,9 +964,9 @@ def ckpt_main_path(torch, wrappers) -> dict:
 
     eval_batches = math.ceil(len(load_arrays("synthetic_cifar10",
                                              train=False)[1]) / 1000)
-    # Deterministic cuDNN algorithms (the stem and the strided convs), so
-    # that the resumed run can equal the uninterrupted one.
-    torch.backends.cudnn.deterministic = True
+    # The trainers set deterministic cuDNN algorithms themselves (the stem
+    # and the strided convs), so that the resumed run can equal the
+    # uninterrupted one.
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     td, whole_dir = f"{root}/td", f"{root}/whole"
     try:
@@ -994,7 +1034,6 @@ def ckpt_main_path(torch, wrappers) -> dict:
               f"{nbytes} save_s {t_save:.3f} load_s {t_load:.3f} launches "
               f"{launches}", flush=True)
     finally:
-        torch.backends.cudnn.deterministic = False
         shutil.rmtree(root, ignore_errors=True)
     steps = 6 + 2 + 8
     want = want_counts(wrappers, fused_adam=steps,
@@ -1239,7 +1278,9 @@ def main() -> int:
         dict(name=name, route="cuda",
              source="ps_pytorch_tpu_torch/csrc/flash_attention.cu",
              replaces=f"ps_pytorch_tpu/ops/flash_attention.py:{line}",
-             launches=lm_launches[name], **flash[name])
+             launches=lm_launches[name], **flash[name],
+             **({"tc_launches": lm_launches[f"{name}_tc"]}
+                if f"{name}_tc" in lm_launches else {}))
         for name, line in (("flash_fwd", 95), ("flash_dq", 164),
                            ("flash_dkv", 189))
     ]

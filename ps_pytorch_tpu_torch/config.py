@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -189,6 +190,20 @@ class TrainConfig:
                              "(xla | pallas | pallas_im2col)")
         if self.compute_dtype not in ("float32", "bfloat16", "float16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        # The hand-written kernels take f32 and bf16. float16 runs where no
+        # kernel is on the path: --conv-impl xla, and the LM with full
+        # attention (lm_attention "auto" is full on the one device the LM
+        # runs on, runtime/lm_trainer.py).
+        if self.compute_dtype == "float16" and (
+                self.conv_impl != "xla" and self.network not in LM_NETWORKS
+                or self.network in LM_NETWORKS
+                and self.lm_attention == "flash"):
+            raise ValueError(
+                "compute_dtype='float16' with a hand-written kernel on the "
+                f"path (conv_impl={self.conv_impl!r}, lm_attention="
+                f"{self.lm_attention!r}) is not ported yet (ROADMAP.md): the "
+                "kernels take float32 and bfloat16; use --conv-impl xla or "
+                "--lm-attention full")
         if self.nesterov and (self.momentum <= 0):
             raise ValueError("Nesterov momentum requires a momentum")
         if self.lm_parallelism not in ("sp", "tp", "pp", "ep"):
@@ -284,6 +299,20 @@ PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS) | frozenset({
     "lm_vocab", "lm_d_model", "lm_layers", "lm_heads", "lm_seq_len",
     "lm_corpus_tokens", "lm_corpus_file", "lm_parallelism", "lm_attention",
 })
+
+
+def refuse_multi_process() -> None:
+    """Raise when the environment asks for more than one process, by
+    torch's launcher contract (``WORLD_SIZE``) or the JAX package's
+    (``PS_TPU_NUM_PROCESSES``, ``parallel/dist.py``): each process would
+    train a model of its own, unrelated to the others."""
+    for name in ("WORLD_SIZE", "PS_TPU_NUM_PROCESSES"):
+        n = int(os.environ.get(name, "1") or "1")
+        if n > 1:
+            raise ValueError(
+                f"{name}={n}: a launch of several processes is not ported "
+                "yet (ROADMAP.md); each would train its own model. Run one "
+                "process (--mode async trains several slices in it)")
 
 
 def _parse_bool(s: str) -> bool:

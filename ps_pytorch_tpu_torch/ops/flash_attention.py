@@ -15,9 +15,19 @@ goes to ``parallel/ring.py:full_attention``, which is the JAX package's own
 semantics, not a device fallback. Every other S runs the kernels, whose
 tile is 64 rows whatever the blocks say; a ragged last tile is masked.
 
+``route`` names the kernel a launch takes, before the launch: the forward
+runs f32 FMA on the CUDA cores (``"simt"``); dq and dk/dv run on the tensor
+cores (``"tc"``), f32 as 3xTF32 (each operand split into two TF32 parts,
+three products) and bf16 as one bf16 product, every shape the wrappers
+take. ``flash_dq.tc_launches`` and ``flash_dkv.tc_launches`` count the
+tensor-core launches. A launch that fails raises; nothing retries it on
+another kernel or on the plain version.
+
 Bound on an H100 at the LM's full width (``[8, 8, 2048, 64]`` f32, causal):
 34.4, 51.5 and 68.7 GFLOP for forward, dq and dk/dv, 0.51, 0.77 and 1.03 ms
-at the 67 TFLOP/s f32 peak; the kernels' design is in the source's header.
+at the 67 TFLOP/s f32 peak; 0.31 and 0.42 ms for dq and dk/dv as 3xTF32 at
+495 TFLOP/s (three TF32 products an f32 one). The kernels' design is in the
+source's header.
 """
 
 import ctypes
@@ -30,6 +40,9 @@ from ps_pytorch_tpu_torch.ops._backend import use_kernel
 
 NEG_INF = -1e30          # the finite mask value of the Pallas kernels
 MAX_HEAD_DIM = 128
+# The kernel of each launch: the forward on the CUDA cores, the backward on
+# the tensor cores.
+ROUTES = {"fwd": "simt", "dq": "tc", "dkv": "tc"}
 
 
 def _pick_block(s: int, requested: int) -> int:
@@ -130,9 +143,17 @@ def _check(q3: torch.Tensor, *others: torch.Tensor, rows=()) -> None:
                              f"{t.dtype}{tuple(t.shape)}")
 
 
-def _launch(name: str, tensors, outs, causal: bool, scale: float) -> None:
+def route(name: str) -> str:
+    """The kernel a CUDA call of ``flash_<name>`` launches: ``"tc"`` (the
+    tensor cores: dq and dk/dv) or ``"simt"`` (the CUDA cores: the
+    forward)."""
+    return ROUTES[name]
+
+
+def _launch(name: str, tensors, outs, causal: bool, scale: float) -> str:
     """Launch ``psk_flash_<name>`` on the current stream over contiguous
-    device tensors; raises on any type, layout or launch error."""
+    device tensors; raises on any type, layout or launch error. Returns the
+    route it took."""
     q3 = tensors[0]
     if q3.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernels take float32 or bfloat16, got "
@@ -144,6 +165,13 @@ def _launch(name: str, tensors, outs, causal: bool, scale: float) -> None:
             raise ValueError("flash kernels need contiguous tensors")
         if t.device != q3.device:
             raise ValueError(f"tensors on {q3.device} and {t.device}")
+    kernel = route(name)
+    if kernel == "tc":
+        # The tensor-core kernels copy 16-byte rows with cp.async: a view
+        # that starts off a 16-byte boundary is copied once (the outputs
+        # are the wrapper's own allocations).
+        tensors = [t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in tensors]
     lib = _build.load("flash_attention", _configure)
     fn = getattr(lib, f"psk_flash_{name}_"
                  f"{'bf16' if q3.dtype == torch.bfloat16 else 'f32'}")
@@ -153,8 +181,9 @@ def _launch(name: str, tensors, outs, causal: bool, scale: float) -> None:
                  int(causal), float(scale),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash {name} kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash {name} {kernel} kernel launch failed: "
+                           f"CUDA error {err}")
+    return kernel
 
 
 def flash_fwd(q3, k3, v3, causal: bool, scale: float
@@ -175,25 +204,31 @@ def flash_fwd(q3, k3, v3, causal: bool, scale: float
 
 def flash_dq(q3, k3, v3, do3, lse, delta, causal: bool, scale: float
              ) -> torch.Tensor:
-    """dq over [BH,S,D] from the forward's lse and delta [BH,S,1] f32."""
+    """dq over [BH,S,D] from the forward's lse and delta [BH,S,1] f32.
+    CUDA tensors run the tensor-core kernel (``flash_dq.launches`` and
+    ``flash_dq.tc_launches`` count it), CPU tensors the plain version."""
     _check(q3, k3, v3, do3, rows=(lse, delta))
     if not use_kernel(q3, k3, v3, do3, lse, delta):
         return flash_dq_reference(q3, k3, v3, do3, lse, delta, causal, scale)
     dq = torch.empty_like(q3)
-    _launch("dq", (q3, k3, v3, do3, lse, delta), (dq,), causal, scale)
+    if _launch("dq", (q3, k3, v3, do3, lse, delta), (dq,), causal,
+               scale) == "tc":
+        flash_dq.tc_launches += 1
     flash_dq.launches += 1
     return dq
 
 
 def flash_dkv(q3, k3, v3, do3, lse, delta, causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) over [BH,S,D]."""
+    """(dk, dv) over [BH,S,D]; counted as ``flash_dq`` is."""
     _check(q3, k3, v3, do3, rows=(lse, delta))
     if not use_kernel(q3, k3, v3, do3, lse, delta):
         return flash_dkv_reference(q3, k3, v3, do3, lse, delta, causal,
                                    scale)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
-    _launch("dkv", (q3, k3, v3, do3, lse, delta), (dk, dv), causal, scale)
+    if _launch("dkv", (q3, k3, v3, do3, lse, delta), (dk, dv), causal,
+               scale) == "tc":
+        flash_dkv.tc_launches += 1
     flash_dkv.launches += 1
     return dk, dv
 
@@ -201,6 +236,8 @@ def flash_dkv(q3, k3, v3, do3, lse, delta, causal: bool, scale: float
 flash_fwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
+flash_dq.tc_launches = 0
+flash_dkv.tc_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -20,7 +20,9 @@ from ps_pytorch_tpu_torch.models.convert import state_from_jax
 from ps_pytorch_tpu_torch.parallel import make_eval_step
 from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
-from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
+from ps_pytorch_tpu_torch.runtime.trainer import (
+    resolve_device, set_reference_numerics,
+)
 
 EVAL_LINE = "EVAL step {step} loss {loss:.6f} prec1 {prec1:.4f} prec5 {prec5:.4f}"
 
@@ -28,6 +30,7 @@ EVAL_LINE = "EVAL step {step} loss {loss:.6f} prec1 {prec1:.4f} prec5 {prec5:.4f
 class Evaluator:
     def __init__(self, train_dir: str, poll_s: float = 10.0,
                  printer: Callable = print, device: Optional[str] = None):
+        set_reference_numerics()
         self.train_dir = train_dir
         self.poll_s = poll_s
         self.printer = printer

@@ -32,12 +32,15 @@ from ps_pytorch_tpu_torch.runtime.metrics import (
     MetricsLogger, derive_step_record,
 )
 from ps_pytorch_tpu_torch.runtime.checkpoint import committed_steps
-from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
+from ps_pytorch_tpu_torch.runtime.trainer import (
+    resolve_device, set_reference_numerics,
+)
 
 
 class LMTrainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
                  printer=print):
+        set_reference_numerics()
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.eval_freq > 0 or (cfg.resume and

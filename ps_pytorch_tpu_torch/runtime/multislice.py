@@ -52,7 +52,9 @@ from ps_pytorch_tpu_torch.parallel.dp import (
 )
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
-from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
+from ps_pytorch_tpu_torch.runtime.trainer import (
+    resolve_device, set_reference_numerics,
+)
 
 
 def make_slice_grad_fn(model: torch.nn.Module, input_norm=None) -> Callable:
@@ -90,6 +92,7 @@ class MultiSliceTrainer:
                  fetch_every: int = 1, devices: Optional[List] = None,
                  device: Optional[str] = None, printer=print,
                  noise_fn: Optional[Callable] = None):
+        set_reference_numerics()
         self.device = resolve_device(device)
         if devices is None:
             devices = [self.device] * n_slices

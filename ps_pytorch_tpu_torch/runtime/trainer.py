@@ -45,9 +45,21 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     return dev
 
 
+def set_reference_numerics() -> None:
+    """The arithmetic the port is held to, set where a trainer or the
+    evaluator is built: float32 matmuls and cuDNN convolutions in full f32
+    (torch runs f32 cuDNN convolutions in TF32 by default), and
+    deterministic cuDNN algorithms, so that a resumed run equals an
+    uninterrupted one bitwise. Process-wide torch flags."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
                  printer=print):
+        set_reference_numerics()
         if cfg.mode != "sync":
             raise ValueError(f"the Trainer runs mode='sync'; mode="
                              f"{cfg.mode!r} is MultiSliceTrainer's "

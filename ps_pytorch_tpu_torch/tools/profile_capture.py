@@ -22,7 +22,10 @@ profiled window (against the window itself, which the profiler's own host
 cost stretches, and against the unprofiled median step), and the device
 time charged to each PyTorch operator that launched it. The Chrome trace
 is written to ``--out``; the digest carries the card's name and power
-limit. Without a CUDA device it fails.
+limit. Without a CUDA device it fails. The trainers pick deterministic
+cuDNN algorithms (``runtime/trainer.py:set_reference_numerics``);
+``--cudnn-nondeterministic`` lets cuDNN choose freely after the trainer is
+built, to measure what determinism costs.
 """
 
 import json
@@ -42,8 +45,8 @@ GROUPS = (
     ("conv3x3 kernel (port)", ("conv3x3_tc_kernel", "conv3x3_simt_kernel")),
     ("fused_sgd kernel (port)", ("sgd_kernel",)),
     ("fused_adam kernel (port)", ("adam_kernel",)),
-    ("flash kernels (port)", ("flash_fwd_kernel", "flash_dq_kernel",
-                              "flash_dkv_kernel")),
+    ("flash kernels (port)", ("flash_fwd_kernel", "flash_dq_tc_kernel",
+                              "flash_dkv_tc_kernel")),
     ("cuDNN conv", ("cudnn", "conv2d", "implicit_convolve", "xmma_fprop",
                     "xmma_dgrad", "xmma_wgrad", "fprop", "dgrad", "wgrad")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk")),
@@ -93,6 +96,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default="train_dir_profile")
     parser.add_argument("--lm", action="store_true",
                         help="profile the LM train step (LMTrainer)")
+    parser.add_argument("--cudnn-nondeterministic", action="store_true",
+                        help="let cuDNN pick non-deterministic algorithms")
     args = parser.parse_args(argv)
     cfg = config_from_namespace(args)
     if args.lm:
@@ -109,6 +114,8 @@ def main(argv=None) -> int:
         per_step = {"images": cfg.batch_size}
         keys = ("network", "dataset", "batch_size", "compute_dtype",
                 "conv_impl", "fused_optimizer")
+    if args.cudnn_nondeterministic:
+        torch.backends.cudnn.deterministic = False
     mask = np.ones(1, np.float32)
     batches = [trainer.train_loader.next_batch()
                for _ in range(args.warmup + args.timed + args.profiled)]
@@ -161,6 +168,7 @@ def main(argv=None) -> int:
     digest = {
         "card": card_line(),
         "config": {k: getattr(cfg, k) for k in keys},
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
         "loss_after_timed_steps": loss,
         "step_s": {"median": statistics.median(times), "q1": q[0],
                    "q3": q[2], "min": min(times), "max": max(times),

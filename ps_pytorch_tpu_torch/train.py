@@ -6,8 +6,9 @@ CONFIG, STEP and FINAL lines as the JAX trainer, writes ``model_step_<k>``
 into ``--train-dir`` every ``--eval-freq`` steps, and resumes from the
 newest valid one unless ``--resume false``. ``--mode async`` trains
 ``--async-slices`` slices asynchronously in this one process
-(``runtime/multislice.py``) and prints ``SLICES`` in place of ``MESH``; an
-asynchronous launch of several processes is not ported yet (ROADMAP.md).
+(``runtime/multislice.py``) and prints ``SLICES`` in place of ``MESH``. A
+launch of several processes (``WORLD_SIZE`` or ``PS_TPU_NUM_PROCESSES``
+above 1) is not ported yet and raises (ROADMAP.md).
 Example, ResNet-18 on CIFAR-10
 geometry through the hand-written conv3x3 and fused-Adam kernels:
 
@@ -26,10 +27,11 @@ cross between them as int8 through the hand-written quantize kernel:
         --compress-grad --grad-codec int8 --max-steps 6 --eval-freq 0
 """
 
-import os
 import sys
 
-from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
+from ps_pytorch_tpu_torch.config import (
+    add_train_args, config_from_namespace, refuse_multi_process,
+)
 
 
 def main(argv=None) -> int:
@@ -39,14 +41,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
+    refuse_multi_process()
     cfg = config_from_namespace(args)
     print(f"CONFIG {cfg.to_json()}")
     if cfg.mode == "async":
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise ValueError("--mode async over several processes (one "
-                             "slice per process, gradients over the wire) "
-                             "is not ported yet (ROADMAP.md); run one "
-                             "process with --async-slices")
         trainer = MultiSliceTrainer(cfg, n_slices=cfg.async_slices,
                                     fetch_every=cfg.fetch_every,
                                     device=args.device)

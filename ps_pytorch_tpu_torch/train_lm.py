@@ -4,7 +4,8 @@ ps_pytorch_tpu_torch.train_lm``.
 Takes the root ``train_lm.py``'s flags (one per TrainConfig field) plus
 ``--device`` (default ``cuda``), and prints the same CONFIG, ``LM ...``,
 STEP and FINAL lines. Sequence parallelism runs on one device, where
-``--lm-attention flash`` goes through the hand-written CUDA kernels.
+``--lm-attention flash`` goes through the hand-written CUDA kernels; a
+launch of several processes raises (ROADMAP.md).
 Example, the full-width LM of the JAX package's ``transformer_lm_2k_flash``
 benchmark:
 
@@ -16,7 +17,9 @@ benchmark:
 
 import sys
 
-from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
+from ps_pytorch_tpu_torch.config import (
+    add_train_args, config_from_namespace, refuse_multi_process,
+)
 
 
 def main(argv=None) -> int:
@@ -26,6 +29,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
+    refuse_multi_process()
     cfg = config_from_namespace(args)
     print(f"CONFIG {cfg.to_json()}")
     trainer = LMTrainer(cfg, device=args.device)

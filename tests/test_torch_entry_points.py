@@ -1,0 +1,124 @@
+"""What the port's entry points and trainers guard, on the CPU: a launch of
+several processes is refused before any model is built, every trainer and
+the evaluator set the arithmetic the port is held to (no TF32,
+deterministic cuDNN), and float16 is refused at config time wherever a
+hand-written kernel (f32 and bf16 only) would meet it.
+"""
+
+import io
+from contextlib import redirect_stdout
+
+import pytest
+import torch
+
+from ps_pytorch_tpu_torch import config, train, train_lm
+from ps_pytorch_tpu_torch.runtime import (
+    Evaluator, MultiSliceTrainer, Trainer, lm_trainer,
+)
+from ps_pytorch_tpu_torch.runtime import trainer as trainer_mod
+
+CNN_ARGS = ["--network", "LeNet", "--dataset", "synthetic_mnist",
+            "--batch-size", "16", "--compute-dtype", "float32",
+            "--max-steps", "1", "--eval-freq", "0", "--resume", "false",
+            "--device", "cpu"]
+LM_ARGS = ["--lm-attention", "flash", "--lm-d-model", "32", "--lm-layers",
+           "1", "--lm-heads", "2", "--lm-vocab", "64", "--lm-seq-len", "32",
+           "--batch-size", "2", "--max-steps", "1", "--eval-freq", "0",
+           "--resume", "false", "--lm-corpus-tokens", "2000", "--device",
+           "cpu"]
+
+
+def _lm_cfg(**kw):
+    return config.TrainConfig(**dict(
+        network="TransformerLM", eval_freq=0, resume=False, lm_d_model=32,
+        lm_layers=1, lm_heads=2, lm_vocab=64, lm_seq_len=32,
+        lm_corpus_tokens=2000, batch_size=2), **kw)
+
+
+@pytest.mark.parametrize("var", ["WORLD_SIZE", "PS_TPU_NUM_PROCESSES"])
+@pytest.mark.parametrize("entry", ["train_sync", "train_async", "train_lm"])
+def test_a_launch_of_several_processes_raises_before_a_model_is_built(
+        entry, var, monkeypatch, tmp_path):
+    def built(*args, **kw):
+        raise AssertionError("a trainer was built")
+
+    monkeypatch.setattr(trainer_mod.Trainer, "__init__", built)
+    monkeypatch.setattr(MultiSliceTrainer, "__init__", built)
+    monkeypatch.setattr(lm_trainer.LMTrainer, "__init__", built)
+    main, argv = {
+        "train_sync": (train.main, CNN_ARGS),
+        "train_async": (train.main, CNN_ARGS + ["--mode", "async"]),
+        "train_lm": (train_lm.main, LM_ARGS)}[entry]
+    argv = argv + ["--train-dir", str(tmp_path / "td")]
+    monkeypatch.setenv(var, "2")
+    out = io.StringIO()
+    with pytest.raises(ValueError, match=f"{var}=2.*ROADMAP.md"):
+        with redirect_stdout(out):
+            main(argv)
+    assert out.getvalue() == ""          # refused before the CONFIG line
+    monkeypatch.setenv(var, "1")         # one process: the trainer is built
+    with pytest.raises(AssertionError, match="a trainer was built"):
+        with redirect_stdout(out):
+            main(argv)
+
+
+@pytest.fixture
+def numerics_flags():
+    """Sets the three flags to the opposite of the reference's, and puts
+    back what they were after the test."""
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cudnn, "deterministic")
+    saved = [getattr(mod, name) for mod, name in flags]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    yield
+    for (mod, name), value in zip(flags, saved):
+        setattr(mod, name, value)
+
+
+@pytest.mark.parametrize("kind", ["sync", "async", "lm", "evaluator"])
+def test_building_a_trainer_sets_the_reference_numerics(kind, numerics_flags,
+                                                        tmp_path):
+    cnn = config.config_from_args(CNN_ARGS[:-2] + [
+        "--train-dir", str(tmp_path / "td")])
+    if kind == "sync":
+        Trainer(cnn, device="cpu", printer=lambda line: None)
+    elif kind == "async":
+        MultiSliceTrainer(config.config_from_args(
+            CNN_ARGS[:-2] + ["--mode", "async", "--train-dir",
+                             str(tmp_path / "td")]),
+            n_slices=2, device="cpu", printer=lambda line: None)
+    elif kind == "lm":
+        lm_trainer.LMTrainer(_lm_cfg(train_dir=str(tmp_path / "td")),
+                             device="cpu", printer=lambda line: None)
+    else:
+        Evaluator(str(tmp_path / "td"), device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cudnn.deterministic is True
+
+
+@pytest.mark.parametrize("kw", [
+    dict(network="ResNet18", conv_impl="pallas"),
+    dict(network="ResNet18", conv_impl="pallas_im2col"),
+    dict(network="LeNet", conv_impl="pallas"),
+    dict(network="TransformerLM", eval_freq=0, lm_attention="flash"),
+])
+def test_float16_is_refused_where_a_kernel_would_meet_it(kw):
+    with pytest.raises(ValueError, match="float16.*ROADMAP.md"):
+        config.TrainConfig(compute_dtype="float16", **kw)
+    config.TrainConfig(compute_dtype="bfloat16", **kw)
+    config.TrainConfig(compute_dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(network="ResNet18", conv_impl="xla"),
+    dict(network="LeNet"),
+    dict(network="TransformerLM", eval_freq=0, lm_attention="full"),
+    dict(network="TransformerLM", eval_freq=0, lm_attention="auto"),
+])
+def test_float16_still_runs_without_a_kernel(kw):
+    assert config.TrainConfig(compute_dtype="float16",
+                              **kw).compute_dtype == "float16"

@@ -173,3 +173,95 @@ def test_cpu_wrappers_count_no_launches_and_check_shapes():
             fa.flash_dq(q, k, v, q, bad, lse, True, 0.1)
         with pytest.raises(ValueError, match="lse and delta"):
             fa.flash_dkv(q, k, v, q, lse, bad, True, 0.1)
+
+
+# -------------------------------------- the backward kernels' arithmetic --
+
+def _tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa bits,
+    to nearest, ties away from zero, on the float's bits."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)) \
+        .view(np.float32)
+
+
+def _truncate_tf32(x):
+    """The top 19 bits of f32 x: what the tensor cores read of it."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """hi: x truncated to TF32; lo: the rest, truncated again as the tensor
+    cores read it."""
+    hi = _truncate_tf32(x)
+    return hi, _truncate_tf32(x - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 route of the dq and dk/dv kernels computes it on the
+    tensor cores: both operands split into TF32 hi + lo, the products of
+    TF32 values exact in f32, summed in f32 with the small terms first."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    acc = np.matmul(al, bh)
+    acc += np.matmul(ah, bl)
+    acc += np.matmul(ah, bh)
+    return acc
+
+
+def _mm_tf32(a, b):
+    """One TF32 product of the operands rounded to TF32."""
+    return np.matmul(_tf32(a), _tf32(b))
+
+
+def _emulated_backward(mm, q, k, v, do, lse, delta, causal, scale):
+    """dq, dk, dv through the five products of the tensor-core kernels,
+    scaled as they scale: s = (q k^T) scale, dq = (ds k) scale,
+    dk = (ds^T q) scale."""
+    s = mm(q, k.transpose(0, 2, 1)) * np.float32(scale)
+    if causal:
+        n = s.shape[-1]
+        s = np.where(np.arange(n)[None, :] > np.arange(n)[:, None],
+                     np.float32(fa.NEG_INF), s)
+    p = np.exp(s - lse).astype(np.float32)
+    ds = p * (mm(do, v.transpose(0, 2, 1)) - delta)
+    dq = mm(ds, k) * np.float32(scale)
+    dk = mm(ds.transpose(0, 2, 1), q) * np.float32(scale)
+    dv = mm(p.transpose(0, 2, 1), do)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("bh,s,d,causal,block", [
+    (4, 256, 64, True, 64),
+    (2, 200, 40, False, 8),
+])
+def test_3xtf32_backward_matches_jax_and_one_tf32_product_does_not(
+        bh, s, d, causal, block):
+    """The f32 route's arithmetic (3xTF32) holds dq, dk and dv to the JAX
+    ``_bwd_call`` (Pallas in interpret mode) at the reference's 5e-4; one
+    TF32 product errs at least 10x more, which is why the kernels split."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = (rng.standard_normal((bh, s, d)).astype(np.float32)
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = jax_fa._fwd_call(*map(jnp.asarray, (q, k, v)), causal, scale,
+                              block, block, True)
+    o, lse = np.asarray(o), np.asarray(lse)
+    delta = (do * o).sum(-1, keepdims=True, dtype=np.float32)
+    want = jax_fa._bwd_call(*map(jnp.asarray, (q, k, v, o, lse, do)), causal,
+                            scale, block, block, True)
+    three = _emulated_backward(_mm_3xtf32, q, k, v, do, lse, delta, causal,
+                               scale)
+    one = _emulated_backward(_mm_tf32, q, k, v, do, lse, delta, causal,
+                             scale)
+    exact = _emulated_backward(
+        lambda a, b: np.matmul(a.astype(np.float64), b.astype(np.float64)),
+        *(t.astype(np.float64) for t in (q, k, v, do, lse, delta)), causal,
+        scale)
+    for got, jax_out, ref, bad, name in zip(three, want, exact, one,
+                                            ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got, jax_out, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+        err3 = np.abs(got - ref).max()
+        err1 = np.abs(bad - ref).max()
+        assert err1 >= 10 * err3, (name, err1, err3)

@@ -189,6 +189,8 @@ def _flash_inputs(dev, bh, s, d, dtype, seed=0):
     (3, 256, 64),        # the LM's head dim
     (2, 200, 64),        # S not a multiple of the 64-row tile
     (2, 72, 40),         # ragged S and a head dim that is not a power of 2
+    (2, 200, 128),       # the widest head dim: 32-query tiles in dk/dv
+    (1, 96, 72),         # a head dim padded to 128, its depth to 72 / 80
 ])
 def test_flash_kernels_match_plain(cuda, bh, s, d, causal, dtype):
     q, k, v, do = _flash_inputs(cuda, bh, s, d, dtype)
@@ -196,6 +198,7 @@ def test_flash_kernels_match_plain(cuda, bh, s, d, causal, dtype):
     fwd_tol, grad_tol = FLASH_TOL[dtype]
     before = (fa.flash_fwd.launches, fa.flash_dq.launches,
               fa.flash_dkv.launches)
+    tc_before = (fa.flash_dq.tc_launches, fa.flash_dkv.tc_launches)
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -216,6 +219,28 @@ def test_flash_kernels_match_plain(cuda, bh, s, d, causal, dtype):
                                    atol=grad_tol)
     assert (fa.flash_fwd.launches, fa.flash_dq.launches,
             fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    # dq and dk/dv took the tensor-core kernels.
+    assert (fa.flash_dq.tc_launches, fa.flash_dkv.tc_launches) == \
+        tuple(n + 1 for n in tc_before)
+
+
+@pytest.mark.cuda
+def test_flash_backward_takes_views_off_16_byte_boundaries(cuda):
+    """The tensor-core kernels copy 16-byte rows: an input that starts 4
+    bytes into its storage is copied once by the wrapper, and the result
+    is the plain version's."""
+    bh, s, d = 2, 96, 32
+    flat = [torch.randn(bh * s * d + 1, device=cuda) for _ in range(4)]
+    q, k, v, do = (t[1:].view(bh, s, d) for t in flat)
+    assert q.data_ptr() % 16 != 0
+    o, lse = fa.flash_attention_reference(q, k, v, True, d ** -0.5)
+    delta = (do * o).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta, True, d ** -0.5)
+    torch.testing.assert_close(fa.flash_dq(*args),
+                               fa.flash_dq_reference(*args),
+                               rtol=5e-4, atol=5e-4)
+    for got, ref in zip(fa.flash_dkv(*args), fa.flash_dkv_reference(*args)):
+        torch.testing.assert_close(got, ref, rtol=5e-4, atol=5e-4)
 
 
 @pytest.mark.cuda
