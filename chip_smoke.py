@@ -16,15 +16,18 @@ exit and no result line, if any phase fails:
    quantizer, so it has none) and the bound (bytes over 3.35 TB/s or operations over the
    peak rate of their type, whichever is larger); conv3x3 runs f32 through
    its SIMT kernel and bf16 through its tensor-core kernel, and the bf16
-   rows also time the SIMT kernel on the same inputs; flash dq and dk/dv
-   run on the tensor cores (f32 as 3xTF32) and print a second bound at
-   that route's rate, ``bound_tc_ms``; then times the conv's weight
-   gradient (torch ops) over one step's calls;
+   rows also time the SIMT kernel on the same inputs; the three flash
+   kernels run on the tensor cores (f32 as 3xTF32) and print a second
+   bound at that route's rate, ``bound_tc_ms``; the tree quantizer runs a
+   whole gradient tree in one launch, with its noise drawn in the kernel
+   (Philox) and with the caller's; then times the conv's weight gradient
+   (torch ops) over one step's calls;
 4. trains full-width ResNet-18 (synthetic CIFAR-10, batch 256, bf16, conv
    ``pallas``, fused SGD) for a few steps through the port's Trainer, then
    evaluates 2 batches; then the same network trained asynchronously by 2
-   slices through ``train.main --mode async`` with every gradient leaf
-   through the int8 quantize kernel on submit, a mixed-rate schedule with
+   slices through ``train.main --mode async`` with every gradient tree
+   through one launch of the int8 quantize kernel on submit, a mixed-rate
+   schedule with
    stale gradients, and a compressed checkpoint that is resumed and scored
    by ``evaluate.main``; then the same network with fused Adam through the
    entry points a user calls: ``train.main`` checkpointing every 3 of 6
@@ -34,8 +37,8 @@ exit and no result line, if any phase fails:
    attention) for a few steps through the port's LMTrainer, evaluating 2
    batches. Every launch count is set to 0 just before each path and read
    just after: each kernel of the path ran the expected number of times,
-   no other kernel ran, and every bf16 conv3x3 launch and every flash dq
-   and dk/dv launch took the tensor-core kernel (``conv3x3_tc``,
+   no other kernel ran, and every bf16 conv3x3 launch and every flash
+   launch took the tensor-core kernel (``conv3x3_tc``, ``flash_fwd_tc``,
    ``flash_dq_tc``, ``flash_dkv_tc``);
 5. holds one small ResNet step in f32 (SIMT conv only) and one in bf16
    (tensor-core conv only), two small asynchronous ticks (the same
@@ -413,9 +416,9 @@ def flash_bound_ms(name, bh, s, d, causal, dtype_name) -> tuple:
     ms for the operations at the route's own rate) of one launch: each
     matmul of the kernel costs 2 d operations a (query, key) pair it
     reaches (the causal lower triangle only); the bytes read every input
-    once and write every output once. The route's rate: f32 dq and dk/dv
+    once and write every output once. The route's rate: the f32 kernels
     run 3xTF32 on the tensor cores, three TF32 operations for each f32
-    one; the f32 forward runs on the CUDA cores; bf16 at the bf16 peak."""
+    one; bf16 at the bf16 peak."""
     size = 2 if dtype_name == "bfloat16" else 4
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     ops = 2.0 * d * FLASH_MATMULS[name] * pairs
@@ -423,8 +426,8 @@ def flash_bound_ms(name, bh, s, d, causal, dtype_name) -> tuple:
     rows = {"flash_fwd": 1, "flash_dq": 2, "flash_dkv": 2}[name]  # lse, delta
     nbytes = tensors * bh * s * d * size + rows * bh * s * 4
     ops_ms = 1e3 * ops / PEAK_OPS[dtype_name]
-    route_ms = 1e3 * 3 * ops / TF32_OPS \
-        if dtype_name == "float32" and name != "flash_fwd" else ops_ms
+    route_ms = 1e3 * 3 * ops / TF32_OPS if dtype_name == "float32" \
+        else ops_ms
     return ops_ms, 1e3 * nbytes / HBM_BYTES_PER_S, route_ms
 
 
@@ -434,22 +437,24 @@ def check_flash(torch, F, fa) -> dict:
     timed, with SDPA beside them, at the LM's shape."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {name: {"max_abs_err": 0.0} for name in FLASH_MATMULS}
+    fns = {"flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
+           "flash_dkv": fa.flash_dkv}
     for (b, h, s, d), causal, dtype_name in FLASH_CASES:
         dt = getattr(torch, dtype_name)
         bh, scale = b * h, d ** -0.5
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
                        .to(dt) for _ in range(4))
-        o, lse = fa.flash_fwd(q, k, v, causal, scale)
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
         delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
         args = (q, k, v, do, lse_ref, delta, causal, scale)
-        tc_before = (fa.flash_dq.tc_launches, fa.flash_dkv.tc_launches)
+        tc_before = {name: fn.tc_launches for name, fn in fns.items()}
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
         got = {"flash_fwd": (o, lse), "flash_dq": (fa.flash_dq(*args),),
                "flash_dkv": fa.flash_dkv(*args)}
-        routes = {"flash_fwd": "simt"}
-        for name, fn, before in (("flash_dq", fa.flash_dq, tc_before[0]),
-                                 ("flash_dkv", fa.flash_dkv, tc_before[1])):
-            routes[name] = "tc" if fn.tc_launches == before + 1 else "simt"
+        routes = {}
+        for name, fn in fns.items():
+            routes[name] = "tc" if fn.tc_launches == tc_before[name] + 1 \
+                else "simt"
             if routes[name] != "tc":
                 fail(f"{name} {b}x{h}x{s}x{d}: launched no tensor-core "
                      "kernel")
@@ -516,100 +521,132 @@ def check_flash(torch, F, fa) -> dict:
             print(line, flush=True)
     print("KERNEL flash library_ms: SDPA forward for flash_fwd, SDPA's whole "
           "backward (dq, dk and dv together) for flash_dq and flash_dkv; "
-          "bound_tc_ms: the operations at the route's own rate (f32 dq and "
-          "dk/dv: 3xTF32, three TF32 operations at 495 TFLOP/s for each "
-          "f32 one)", flush=True)
+          "bound_tc_ms: the operations at the route's own rate (f32: "
+          "3xTF32, three TF32 operations at 495 TFLOP/s for each f32 one)",
+          flush=True)
     return out
 
 
+def quantize_bound_ms(tq, sizes, injected: bool) -> float:
+    """Bytes of one tree launch over 3.35 TB/s: each f32 element read once
+    (and its noise, when the caller gives it), each padded int8 written
+    once, a scale a block, and the leaf table and block map."""
+    rows = [tq.padded_rows(n) for n in sizes]
+    nbytes = sum(4 * n for n in sizes) + sum(
+        (1 + 4 * injected) * r * tq.LANES + 12 * r // tq.BLOCK_ROWS
+        for r in rows) + 48 * len(sizes)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
 def check_quantize(torch, tq, leaf_sizes) -> dict:
-    """The quantize kernel against its plain version: values and scales
-    BITWISE at every size, f32 and bf16, with an all-zero block and a block
-    holding one huge value where the size allows; the dequantized error at
-    most one quantum and the mean of 256 draws within a quarter quantum;
-    then timed at ResNet-18's largest leaf and over its whole gradient tree
-    (``leaf_sizes``), with the plain version and the bound."""
+    """The tree quantizer against its plain version: values and scales
+    BITWISE, with the noise drawn in the kernel (Philox) and with the
+    caller's, for ``QUANT_SIZES`` as one tree in f32 and in bf16 (an
+    all-zero block and a block holding one huge value where the size
+    allows) and for ResNet-18's gradient tree (``leaf_sizes``); the
+    dequantized error at most one quantum and the mean of 256 draws under
+    256 keys within a quarter quantum; then timed over the ResNet-18 tree
+    in both modes: the kernel's device time (CUDA-graph replay of the
+    launch), the whole call's (table built and copied on the host), the
+    plain version and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(4)
+    key = (1, 17)
 
-    def noise_for(n):
-        return torch.rand((tq.padded_rows(n), tq.LANES), device="cuda",
-                          generator=gen)
+    def noise_for(xs):
+        return [torch.rand((tq.padded_rows(x.numel()), tq.LANES),
+                           device="cuda", generator=gen) for x in xs]
 
-    max_err = 0.0
-    for dtype_name in ("float32", "bfloat16"):
-        for n in QUANT_SIZES:
+    def tree_of(sizes, dtype_name):
+        xs = []
+        for n in sizes:
             x = torch.randn(n, device="cuda", generator=gen) * 0.02
             if n > 2 * tq.BLOCK:
                 x[:tq.BLOCK] = 0.0                  # scale 1e-30, zeros
                 x[tq.BLOCK + 7] = 3e38              # one huge value
-            x = x.to(getattr(torch, dtype_name))
-            u = noise_for(n)
-            qt = tq.quantize_int8(x, u)
-            values, scales = tq.quantize_int8_reference(tq.pad_to_blocks(x), u)
+            xs.append(x.to(getattr(torch, dtype_name)))
+        return xs
+
+    max_err = 0.0
+    for label, dtype_name, sizes in (
+            ("QUANT_SIZES", "float32", QUANT_SIZES),
+            ("QUANT_SIZES", "bfloat16", QUANT_SIZES),
+            ("ResNet-18 gradient tree", "float32", leaf_sizes)):
+        xs = tree_of(sizes, dtype_name)
+        for mode, noise in (("philox", None), ("injected", noise_for(xs))):
+            before = tq.quantize_int8.launches
+            got = tq.quantize_tree(xs, key, noise)
+            if tq.quantize_int8.launches != before + 1:
+                fail(f"quantize tree {label}: not one launch")
+            want = tq.quantize_tree_reference(xs, key, noise)
             torch.cuda.synchronize()
-            err = max((qt.values.int() - values.int()).abs().max().item(),
-                      (qt.scales - scales).abs().max().item())
+            err = 0.0
+            for x, a, b in zip(xs, got, want):
+                err = max(err, (a.values.int() - b.values.int()).abs().max()
+                          .item(), (a.scales - b.scales).abs().max().item())
+                if not (torch.equal(a.values, b.values)
+                        and torch.equal(a.scales, b.scales)):
+                    fail(f"quantize {label} {dtype_name} {mode} n="
+                         f"{x.numel()}: kernel and plain version differ "
+                         f"(max abs {err}); they must be bitwise equal")
+                back = tq.dequantize_int8(a)
+                quantum = a.scales.repeat_interleave(tq.BLOCK)[:x.numel()]
+                if not bool(((back - x.float()).abs()
+                             <= quantum * (1 + 1e-6)).all()):
+                    fail(f"quantize {label} {dtype_name} {mode} n="
+                         f"{x.numel()}: dequantized error above one quantum")
+                if x.numel() > 2 * tq.BLOCK and label == "QUANT_SIZES" and (
+                        a.values[:tq.BLOCK_ROWS].any()
+                        or not 0 < float(a.scales[0]) < 1.1e-30):
+                    fail(f"quantize {dtype_name} n={x.numel()}: the all-zero "
+                         "block")
             max_err = max(max_err, float(err))
-            if not (torch.equal(qt.values, values)
-                    and torch.equal(qt.scales, scales)):
-                fail(f"quantize {dtype_name} n={n}: kernel and plain version "
-                     f"differ (max abs {err}); they must be bitwise equal")
-            back = tq.dequantize_int8(qt)
-            quantum = qt.scales.repeat_interleave(tq.BLOCK)[:n]
-            if not bool(((back - x.float()).abs()
-                         <= quantum * (1 + 1e-6)).all()):
-                fail(f"quantize {dtype_name} n={n}: dequantized error above "
-                     "one quantum")
-            if n > 2 * tq.BLOCK and (qt.values[:tq.BLOCK_ROWS].any()
-                                     or not 0 < float(qt.scales[0]) < 1.1e-30):
-                fail(f"quantize {dtype_name} n={n}: the all-zero block")
-            print(f"CHECK quantize {dtype_name} n={n}: values and scales "
-                  f"bitwise equal, max abs err {err:.1e}", flush=True)
+            print(f"CHECK quantize tree {label} {dtype_name} noise {mode}: "
+                  f"{len(xs)} leaves, {sum(sizes)} elements in one launch, "
+                  f"values and scales bitwise equal, max abs err {err:.1e}",
+                  flush=True)
     # Unbiased: one draw errs by at most half a quantum in standard
     # deviation, so the mean of 256 draws has at most 1/32 and the limit of
     # a quarter quantum is 8 of them (with the reference's 64 draws it is
     # 4, which 100,003 elements exceed by chance).
     x = torch.randn(100_003, device="cuda", generator=gen) * 0.1
     acc = torch.zeros_like(x)
-    for _ in range(256):
-        qt = tq.quantize_int8(x, generator=gen)
+    for step in range(256):
+        qt = tq.quantize_tree([x], (0, step))[0]
         acc += tq.dequantize_int8(qt)
     quantum = qt.scales.repeat_interleave(tq.BLOCK)[:x.numel()]
     bias = ((acc / 256 - x).abs() / quantum).max().item()
     if not bias <= 0.25:
         fail(f"quantize: mean of 256 draws off by {bias} quanta (limit 0.25)")
-    print(f"CHECK quantize unbiased: mean of 256 draws within {bias:.3f} "
-          "quantum (limit 0.25)", flush=True)
+    print(f"CHECK quantize unbiased (Philox noise, 256 keys): mean of 256 "
+          f"draws within {bias:.3f} quantum (limit 0.25)", flush=True)
 
-    def bound_ms(sizes):
-        nbytes = sum(4 * n + 5 * tq.padded_rows(n) * tq.LANES
-                     + 4 * tq.padded_rows(n) // tq.BLOCK_ROWS for n in sizes)
-        return 1e3 * nbytes / HBM_BYTES_PER_S
-
+    xs = tree_of(leaf_sizes, "float32")
     out = {}
-    for label, sizes in (("largest leaf", [max(leaf_sizes)]),
-                         ("gradient tree", leaf_sizes)):
-        xs = [torch.randn(n, device="cuda", generator=gen) * 0.02
-              for n in sizes]
-        us = [noise_for(n) for n in sizes]
-        ms = time_ms(lambda: [tq.quantize_int8(x, u)
-                              for x, u in zip(xs, us)])
-        plain = time_ms(lambda: [tq.quantize_int8_reference(
-            tq.pad_to_blocks(x), u) for x, u in zip(xs, us)], iters=5)
-        out = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms(sizes)}
-        print(f"KERNEL quantize {label} ({len(sizes)} launches, "
-              f"{sum(sizes)} elements) ms {ms:.4f} plain_ms {plain:.4f} "
-              f"library_ms none (no single PyTorch call floors x/scale + "
-              f"noise into int8 with a scale per block) bound_ms "
-              f"{out['bound_ms']:.4f}", flush=True)
-    return dict(out, max_abs_err=max_err)
+    for mode, noise in (("philox", None), ("injected", noise_for(xs))):
+        plan = tq._plan(xs, noise)
+        ms = graph_ms(lambda: tq._launch(plan, key))
+        call = time_ms(lambda: tq.quantize_tree(xs, key, noise))
+        plain = time_ms(lambda: tq.quantize_tree_reference(xs, key, noise),
+                        iters=5)
+        bound = quantize_bound_ms(tq, leaf_sizes, mode == "injected")
+        out[mode] = {"ms": ms, "call_ms": call, "plain_ms": plain,
+                     "bound_ms": bound}
+        print(f"KERNEL quantize gradient tree noise {mode} (1 launch, "
+              f"{len(xs)} leaves, {sum(leaf_sizes)} elements) ms {ms:.4f} "
+              f"call_ms {call:.4f} plain_ms {plain:.4f} library_ms none (no "
+              f"single PyTorch call floors x/scale + noise into int8 with a "
+              f"scale per block) bound_ms {bound:.4f} (bytes)", flush=True)
+    return dict(out["philox"], max_abs_err=max_err,
+                injected_ms=out["injected"]["ms"],
+                injected_call_ms=out["injected"]["call_ms"],
+                injected_bound_ms=out["injected"]["bound_ms"])
 
 
 def read_jsonl(path) -> list:
     return [json.loads(line) for line in Path(path).read_text().splitlines()]
 
 
-def async_main_path(torch, wrappers, n_leaves: int, n_params: int) -> dict:
+def async_main_path(torch, wrappers, n_params: int) -> dict:
     """Full-width ResNet-18 trained by 2 asynchronous slices through
     ``train.main --mode async`` with the int8 codec; then a mixed-rate
     schedule whose stale gradients are used; then a run that leaves one
@@ -659,7 +696,7 @@ def async_main_path(torch, wrappers, n_leaves: int, n_params: int) -> dict:
               f"pool_wire_bytes {[r['pool_wire_bytes'] for r in rows]} "
               f"(used contributions are consumed before the line is "
               f"written) launches {launches}", flush=True)
-        want = want_counts(wrappers, quantize=ASYNC_TICKS * 2 * n_leaves,
+        want = want_counts(wrappers, quantize=ASYNC_TICKS * 2,
                            conv3x3=CONV_PER_STEP * 2 * ASYNC_TICKS
                            + CONV_PER_EVAL_BATCH * 2, fused_sgd=ASYNC_TICKS)
         if launches != want:
@@ -814,10 +851,9 @@ def small_async_tick_agrees(torch, tq) -> None:
         losses = [tr.tick()["loss"] for _ in range(2)]
         runs[dev] = (losses, {k: v.detach().cpu() for k, v
                               in tr.model.state_dict().items()})
-    n_leaves = len(runs["cpu"][1])
-    if tq.quantize_int8.launches != before + 2 * 2 * n_leaves:
-        fail("small async tick: the card run did not quantize every leaf "
-             "through the kernel")
+    if tq.quantize_int8.launches != before + 2 * 2:
+        fail("small async tick: the card run did not quantize each tree in "
+             "one launch of the kernel")
     (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
     if not np.allclose(lc, lp, rtol=1e-3, atol=1e-4):
         fail(f"small async tick: losses on the card {lc} vs CPU {lp}")
@@ -830,7 +866,7 @@ def small_async_tick_agrees(torch, tq) -> None:
 
 
 # Wrappers that count their tensor-core launches apart (``tc_launches``).
-TC_COUNTED = ("conv3x3", "flash_dq", "flash_dkv")
+TC_COUNTED = ("conv3x3", "flash_fwd", "flash_dq", "flash_dkv")
 
 
 def zero_counts(wrappers) -> None:
@@ -842,7 +878,7 @@ def zero_counts(wrappers) -> None:
 
 def read_counts(wrappers) -> dict:
     """Launches of every wrapper, and ``<name>_tc``: those of its
-    tensor-core kernel, for conv3x3, flash_dq and flash_dkv."""
+    tensor-core kernel, for conv3x3 and the three flash kernels."""
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in TC_COUNTED:
         counts[f"{name}_tc"] = wrappers[name].tc_launches
@@ -851,8 +887,8 @@ def read_counts(wrappers) -> dict:
 
 def want_counts(wrappers, **launches) -> dict:
     """The counts a path should read: the given launches, every other
-    wrapper 0, and every conv3x3 (the paths run bf16), flash dq and flash
-    dk/dv launch through the tensor cores."""
+    wrapper 0, and every conv3x3 (the paths run bf16) and flash launch
+    through the tensor cores."""
     want = dict({name: 0 for name in wrappers}, **launches)
     for name in TC_COUNTED:
         want[f"{name}_tc"] = want[name]
@@ -1230,8 +1266,7 @@ def main() -> int:
     small_step_agrees(torch, conv_mod, "float32")
     small_step_agrees(torch, conv_mod, "bfloat16")
     quant = check_quantize(torch, tq, leaf_sizes)
-    async_launches = async_main_path(torch, wrappers, len(leaf_sizes),
-                                     n_params)
+    async_launches = async_main_path(torch, wrappers, n_params)
     small_async_tick_agrees(torch, tq)
     adam = check_adam(torch, adam_mod, n_params)
     ckpt_launches = ckpt_main_path(torch, wrappers)
@@ -1270,9 +1305,7 @@ def main() -> int:
         dict(name="quantize", route="cuda",
              source="ps_pytorch_tpu_torch/csrc/quantize.cu",
              replaces="ps_pytorch_tpu/ops/quantize.py:45",
-             launches=async_launches["quantize"],
-             max_abs_err=quant["max_abs_err"], ms=quant["ms"],
-             plain_ms=quant["plain_ms"], bound_ms=quant["bound_ms"],
+             launches=async_launches["quantize"], **quant,
              bound_by="bytes", library_ms=None),
     ] + [
         dict(name=name, route="cuda",

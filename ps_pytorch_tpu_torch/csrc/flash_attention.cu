@@ -19,11 +19,11 @@
 // multiply-adds in the forward (q k^T and p v), 3 D in dq and 4 D in dk/dv.
 // At the LM's full width (BH 64, S 2048, D 64, causal: 2,098,176 pairs a
 // head) that is 34.4, 51.5 and 68.7 GFLOP: 0.51, 0.77 and 1.03 ms at the
-// 67 TFLOP/s f32 peak of the CUDA cores, 0.31 and 0.42 ms for dq and dk/dv
-// as 3xTF32 on the tensor cores (three 495 TFLOP/s TF32 products for one
-// f32 product), 0.052 and 0.070 ms in bf16 at 989 TFLOP/s. The bytes (q, k,
-// v, dO, o once each, 34 MB a tensor in f32) take about 0.04 ms at 3.35
-// TB/s: every kernel is bound by operations.
+// 67 TFLOP/s f32 peak of the CUDA cores; 0.21, 0.31 and 0.42 ms as 3xTF32
+// on the tensor cores (three 495 TFLOP/s TF32 products for one f32
+// product); 0.035, 0.052 and 0.070 ms in bf16 at 989 TFLOP/s. The bytes
+// (q, k, v, dO, o once each, 34 MB a tensor in f32) take about 0.04 ms at
+// 3.35 TB/s: every kernel is bound by operations.
 //
 // All three kernels: blocks run in any order, so each block owns one output
 // tile of 64 rows and loops over the other axis itself (the Pallas kernels
@@ -35,33 +35,41 @@
 // ragged last tile of a sequence whose length is not a multiple of the tile
 // is zero-filled and masked.
 //
-// Forward (f32 FMA on the CUDA cores). 256 threads as a
-// 16 x 16 grid; each thread holds a 4 x 4 piece of every 64 x 64 score tile
-// (rows ty*4+i, columns tx+16j), so the 16 threads of one row are one
-// half-warp and row max and sum are 4 shuffles. Tiles are staged in shared
-// memory as f32 with rows padded to an odd stride; the probability tile
-// goes through shared memory for p v. Moving it onto the tensor cores is
-// queued (ROADMAP.md).
+// All three run on the tensor cores, with warp-level mma.sync. Four warps
+// a block, each owning 16 rows of the block's tile, so a warp's products
+// are m16 tiles: s = q k^T (keys as N) and then p v in the forward; s =
+// q k^T and dp = dO v^T in dq, then ds k; in dk/dv the block computes s^T =
+// k q^T and dp^T = v dO^T with its keys as M, so p^T and ds^T come out as
+// the rows of the block's own outputs, then p^T dO and ds^T q for dv and
+// dk. The block's own tiles (q in the forward; q and dO in dq; k and v in
+// dk/dv) are loaded once; the other axis's tiles (and in dk/dv their lse
+// and delta) are staged in shared memory by 16-byte cp.async,
+// double-buffered in bf16 so the next tile loads during this tile's
+// products; f32 loads one tile at a time and spends the shared memory saved
+// on more blocks an SM, which its long chains of dependent products need
+// more (the launch section). Shared-memory rows are padded by 16 bytes,
+// which makes every ldmatrix and every scalar fragment read below free of
+// bank conflicts. q is not scaled in shared memory: the scores are scaled
+// after the product and dq, dk by scale at the end.
+//   The forward keeps its softmax in registers. The m16n8 accumulator lane
+//   4g + t holds rows g and g + 8 of its warp's 16, columns 2t and 2t + 1
+//   of each 8-key tile: a row's max and sum over a 64-key tile are the
+//   lane's own 16 columns and then two shuffles across its quad (xor 1,
+//   2). The running max m (in log2 units: the scores times scale log2(e),
+//   so every exponential is one exp2) stays per row in registers; the
+//   running sum l per lane, rescaled with the accumulator by alpha =
+//   2^(m_old - m_new) before p v is added, and summed over the quad once at
+//   the end, where o = acc / max(l, 1e-30) and lse = m ln 2 + log(max(l,
+//   1e-30)) are written (lse in f32). l sums the unrounded p, as the
+//   reference does; p v takes p in the value type (the reference's
+//   p.astype(v.dtype): a no-op in f32, round to nearest even in bf16).
+//   Masked scores are the reference's finite -1e30, so a row never meets
+//   inf - inf.
 //
-// Backward (dq and dk/dv) on the tensor cores, with warp-level
-// mma.sync. Four warps a block, each owning 16 rows of the block's tile, so
-// a warp's products are m16 tiles: s = q k^T and dp = dO v^T (keys as N in
-// dq; in dk/dv the block computes s^T = k q^T and dp^T = v dO^T with its
-// keys as M, so p^T and ds^T come out as the rows of the block's own
-// outputs), then ds k for dq, or p^T dO and ds^T q for dv and dk. The
-// block's own tiles (q and dO in dq; k and v in dk/dv) are loaded once; the
-// other axis's tiles (and in dk/dv their lse and delta) are staged in
-// shared memory by 16-byte cp.async, double-buffered in bf16 so the next
-// tile loads during this tile's products; f32 loads one tile at a time and
-// spends the shared memory saved on more blocks an SM, which its long
-// chains of dependent products need more (the launch section). Shared-
-// memory rows are padded by 16 bytes, which makes
-// every ldmatrix and every scalar fragment read below free of bank
-// conflicts. q is not scaled in shared memory: the scores are scaled after
-// the product and dq, dk by scale at the end.
 //   f32 as 3xTF32 (m16n8k8). One TF32 product keeps 10 mantissa bits and
-//   misses the reference's 5e-4 on the gradients by 4x (an error in s is
-//   multiplied by exp). Each operand x is split into hi, x truncated to TF32
+//   misses the reference's 5e-4 on the gradients by 4x and its 2e-5 on o
+//   and lse by 11-48x (an error in s is multiplied by exp); emulated, the
+//   3xTF32 forward errs about 1e-6 (tests/test_torch_flash.py). Each operand x is split into hi, x truncated to TF32
 //   (a mask), and lo = x - hi (exact in f32), and every product is
 //   a_lo b_hi + a_hi b_lo + a_hi b_hi into the f32 accumulator, the small
 //   terms first. The tensor cores read only the top 19 bits of a 32-bit
@@ -94,13 +102,21 @@
 //   operands (the plain version keeps them f32: within the bf16 2e-2).
 // D is padded to a multiple of 16 in shared memory (zero-filled); the
 // products run to D rounded up to the k step (8 f32, 16 bf16) and skip the
-// rest. Tiles: dq owns 64 queries and loops over 64 keys; dk/dv owns 64
-// keys and loops over 64 queries in bf16 and 32 in f32 (and in both at
-// D > 64, where dk and dv take 64 f32 registers each). At D = 64: f32 dq
-// 148 registers and 70 KB of shared memory a block (three blocks an SM),
-// f32 dk/dv 127 and 52 KB (four); bf16 dq 128 and 55 KB, bf16 dk/dv 168
-// and 55 KB; no spills at any D (214-242 registers at D = 128). Launch
-// order puts the blocks with the most tiles first (grid x = BH, y = tile).
+// rest. Tiles: the forward and dq own 64 queries and loop over 64 keys;
+// dk/dv owns 64 keys and loops over 64 queries in bf16 and 32 in f32 (and
+// in both at D > 64, where dk and dv take 64 f32 registers each). The
+// forward reads q's fragments from its shared-memory tile at every key
+// tile, as dq does, rather than holding them split in registers beside its
+// accumulator (64 f32 registers at D = 128). At D = 64: f32 dq 148
+// registers and 70 KB of shared memory a block (three blocks an SM), f32
+// dk/dv 127 and 52 KB (four); bf16 dq 128 and 55 KB, bf16 dk/dv 168 and 55
+// KB; no spills at any D (214-242 registers at D = 128). The forward: f32
+// 117 registers and 52 KB a block at D = 64 (four blocks an SM), bf16 102
+// and 46 KB; at D = 128 f32 146 and bf16 128, which spills 24 bytes (D =
+// 128 bf16 is on no main path; __launch_bounds__ with one block an SM
+// removes the spill but lifts the registers of every instantiation).
+// Launch order puts the blocks with the most tiles first (grid x = BH,
+// y = tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,170 +127,12 @@
 namespace {
 
 constexpr int BT = 64;          // rows of every tile: queries and keys alike
-constexpr int TPB = 256;        // threads per block, a 16 x 16 grid
-constexpr int PLD = BT + 1;     // padded row stride of a 64 x 64 smem tile
 constexpr float NEG = -1e30f;   // the Pallas kernels' finite mask value
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
-}
-
-// The 16 threads of one tile row are one half-warp: xor offsets below 16
-// stay inside it.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Rows [row0, row0 + 64) of one [S, D] slab into smem tile dst[64][LD] as
-// f32 times mul (q * scale, as the Pallas kernels scale q in f32). Rows at
-// or past S and columns at or past D are zero.
-template <typename T, int W>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int S, int D, float mul) {
-  constexpr int LD = W + 1;
-  for (int idx = threadIdx.x; idx < BT * W; idx += TPB) {
-    const int r = idx / W, c = idx % W;
-    const int g = row0 + r;
-    dst[r * LD + c] =
-        (g < S && c < D) ? to_f32<T>(src[(size_t)g * D + c]) * mul : 0.f;
-  }
-}
-
-// acc[i][j] += sum_d a[ty*4+i][d] * b[tx+16j][d] over two smem tiles of
-// stride LD: one 64 x 64 product tile, 4 x 4 of it in this thread.
-template <int LD>
-__device__ __forceinline__ void tile_abt(float acc[4][4], const float* a,
-                                         const float* b, int D, int tx, int ty) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty * 4 + i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[i][jd] += sum_c p[ty*4+i][c] * m[c][tx+16jd]: the thread's 4 rows x
-// DJ columns of (64 x 64 tile p) times (64 x W tile m of stride LD).
-template <int DJ, int LD>
-__device__ __forceinline__ void tile_pm(float out[4][DJ], const float* p,
-                                        const float* m, int tx, int ty) {
-#pragma unroll 4
-  for (int c = 0; c < BT; ++c) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(ty * 4 + i) * PLD + c];
-#pragma unroll
-    for (int jd = 0; jd < DJ; ++jd) {
-      const float mv = m[c * LD + tx + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) out[i][jd] = fmaf(pv[i], mv, out[i][jd]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- forward
-// grid (q tiles, BH); smem: q, k, v tiles [64][W+1] and p [64][65].
-template <typename T, int DJ>
-__global__ void __launch_bounds__(TPB)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int D, int causal, float scale) {
-  constexpr int W = 16 * DJ, LD = W + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + BT * LD;
-  float* vs = ks + BT * LD;
-  float* ps = vs + BT * LD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // Causal: the last query tiles do the most work, so they start first.
-  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * BT;
-  const size_t base = (size_t)blockIdx.y * S * D;
-
-  load_tile<T, W>(qs, q + base, q0, S, D, scale);
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = 0.f;
-  }
-  const int q_end = min(q0 + BT, S);
-  const int kv_end = causal ? q_end : S;   // keys past the last query: dead
-  for (int k0 = 0; k0 < kv_end; k0 += BT) {
-    __syncthreads();   // the previous tile's k, v and p are read
-    load_tile<T, W>(ks, k + base, k0, S, D, 1.f);
-    load_tile<T, W>(vs, v + base, k0, S, D, 1.f);
-    __syncthreads();
-    float s[4][4] = {};
-    tile_abt<LD>(s, qs, ks, D, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        if (kp >= S || (causal && kp > qp)) s[i][j] = NEG;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        // p v takes p in the value type (the Pallas kernel's astype).
-        ps[(ty * 4 + i) * PLD + tx + 16 * j] = to_f32<T>(from_f32<T>(p));
-      }
-      l[i] = alpha * l[i] + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int jd = 0; jd < DJ; ++jd) acc[i][jd] *= alpha;
-    }
-    __syncthreads();
-    tile_pm<DJ, LD>(acc, ps, vs, tx, ty);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jd = 0; jd < DJ; ++jd) {
-      const int d = tx + 16 * jd;
-      if (d < D) o[base + (size_t)r * D + d] = from_f32<T>(acc[i][jd] / lc);
-    }
-    if (tx == 0) lse[(size_t)blockIdx.y * S + r] = m[i] + logf(lc);
-  }
-}
-
-// ------------------------------------------- backward on the tensor cores
+// -------------------------------------------------- tensor-core helpers
 constexpr int TC_THREADS = 128;   // 4 warps, 16 rows of the block's tile each
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -546,6 +404,136 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out,
   }
 }
 
+// ---------------------------------------------------------------- forward
+// grid (BH, q tiles); smem: the q tile, then STAGES (1 or 2) stages of k
+// and v tiles.
+template <typename T, int DP, int STAGES>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int S, int D, int causal,
+                    float scale) {
+  constexpr int RB = Tile<T, DP>::RB, TILE = BT * RB;
+  constexpr int NT = BT / 8, ND = DP / 8;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t s0 = smem_addr(tc_smem);
+  const uint32_t kv0 = s0 + TILE;                      // k, v of stage 0
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  // Causal: the last query tiles see the most keys; they start first.
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BT;
+  const size_t base = (size_t)blockIdx.x * S * D;
+  const int kdepth = (D + Mma<T>::KS - 1) / Mma<T>::KS * Mma<T>::KS;
+  const int n_kv = ((causal ? min(q0 + BT, S) : S) + BT - 1) / BT;
+
+  load_tile_async<T, DP, BT>(s0, q + base, q0, S, D);
+  load_tile_async<T, DP, BT>(kv0, k + base, 0, S, D);
+  load_tile_async<T, DP, BT>(kv0 + TILE, v + base, 0, S, D);
+  cp_async_commit();
+
+  const int ra = q0 + 16 * warp + (lane >> 2);   // rows ra and ra + 8
+  const float scale2 = scale * LOG2E;
+  // Per row h (0: ra, 1: ra + 8): the running max of the scores in log2
+  // units, and this lane's share of the running sum.
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[ND][4] = {};
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = STAGES == 2 ? it & 1 : 0;   // the stages as in dq
+    if constexpr (STAGES == 2) {
+      if (it + 1 < n_kv) {
+        const uint32_t next = kv0 + 2 * (st ^ 1) * TILE;
+        load_tile_async<T, DP, BT>(next, k + base, (it + 1) * BT, S, D);
+        load_tile_async<T, DP, BT>(next + TILE, v + base, (it + 1) * BT, S,
+                                   D);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      if (it > 0) {
+        load_tile_async<T, DP, BT>(kv0, k + base, it * BT, S, D);
+        load_tile_async<T, DP, BT>(kv0 + TILE, v + base, it * BT, S, D);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t ks = kv0 + 2 * st * TILE;
+    float s[NT][4] = {};
+    mma_abt<T, DP, NT>(s, s0 + 16 * warp * RB, ks, kdepth, lane);
+    const int k0 = it * BT;
+    // Only the diagonal tile (causal) and the ragged last tile hold masked
+    // scores; the others skip the test.
+    if (k0 + BT > S || (causal && k0 + BT - 1 > q0)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = ra + 8 * (e >> 1);
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          if (col >= S || (causal && col > row)) s[j][e] = NEG;
+        }
+      }
+    }
+    // The row max of the raw products, then in log2 units (scale2 > 0, so
+    // the max commutes with the scaling, rounding included).
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * scale2);
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(fmaf(s[j][e], scale2, -m[e >> 1]));   // p
+        l[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
+    }
+    mma_pb<T, DP, ND, NT>(acc, s, tc_smem + (ks + TILE - s0), ks + TILE, D,
+                          lane);
+    __syncthreads();   // the stage is refilled from here on
+  }
+  float lc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    lc[h] = fmaxf(l[h], 1e-30f);
+    const float inv = 1.f / lc[h];
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      acc[jd][2 * h] *= inv;
+      acc[jd][2 * h + 1] *= inv;
+    }
+  }
+  store_rows<T, ND>(o + base, acc, ra, S, D, 1.f, t);
+  if (t == 0) {
+    float* lse_bh = lse + (size_t)blockIdx.x * S;
+    if (ra < S) lse_bh[ra] = m[0] * LN2 + logf(lc[0]);
+    if (ra + 8 < S) lse_bh[ra + 8] = m[1] * LN2 + logf(lc[1]);
+  }
+}
+
 // --------------------------------------------------------------------- dq
 // grid (BH, q tiles); smem: q and dO tiles, then STAGES (1 or 2) stages of
 // k and v tiles.
@@ -734,8 +722,8 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- launch
-constexpr size_t tile_bytes(int dj) { return sizeof(float) * BT * (16 * dj + 1); }
-constexpr size_t fwd_smem(int dj) { return 3 * tile_bytes(dj) + sizeof(float) * BT * PLD; }
+template <typename T, int DP, int STAGES>
+constexpr size_t fwd_tc_smem() { return (1 + 2 * STAGES) * BT * Tile<T, DP>::RB; }
 template <typename T, int DP, int STAGES>
 constexpr size_t dq_tc_smem() { return (2 + 2 * STAGES) * BT * Tile<T, DP>::RB; }
 template <typename T, int DP, int BQ, int STAGES>
@@ -765,27 +753,37 @@ int launch(K kernel, dim3 grid, int threads, size_t smem, void* stream,
 
 int tiles(int S) { return (S + BT - 1) / BT; }
 
-template <typename T, int DJ>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int BH, int S, int D, int causal, float scale, void* stream) {
-  return launch(flash_fwd_kernel<T, DJ>, dim3(tiles(S), BH), TPB,
-                fwd_smem(DJ), stream, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<T*>(o), static_cast<float*>(lse), S, D, causal,
-                scale);
-}
-
 // The streamed tiles by type, from timings of 64- and 32-row tiles in one
 // and two stages at the LM's shape on the card (PERF.md §6). f32 is
-// bound by latency more than by shared memory: one stage (70 KB a block
+// bound by latency more than by shared memory: one stage (70 KB a dq block
 // at D = 64, three blocks an SM) beat two, and dk/dv's 32-query tiles beat
 // 64. bf16 keeps two stages of 64 rows (one stage was slower). dk/dv takes
-// 32 queries at D > 64 in both types (registers).
+// 32 queries at D > 64 in both types (registers). The forward takes the
+// same stages; PSK_FLASH_FWD_STAGES overrides them at build time, for
+// tools/flash_fwd_stages.py, which times both.
 template <typename T> constexpr int stages() {
   return std::is_same<T, float>::value ? 1 : 2;
 }
+template <typename T> constexpr int fwd_stages() {
+#ifdef PSK_FLASH_FWD_STAGES
+  return PSK_FLASH_FWD_STAGES;
+#else
+  return stages<T>();
+#endif
+}
 template <typename T, int DP> constexpr int dkv_bq() {
   return std::is_same<T, float>::value || DP > 64 ? 32 : 64;
+}
+
+template <typename T, int DP>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        int BH, int S, int D, int causal, float scale, void* stream) {
+  constexpr int ST = fwd_stages<T>();
+  return launch(flash_fwd_tc_kernel<T, DP, ST>, dim3(BH, tiles(S)),
+                TC_THREADS, fwd_tc_smem<T, DP, ST>(), stream,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<T*>(o),
+                static_cast<float*>(lse), S, D, causal, scale);
 }
 
 template <typename T, int DP>
@@ -817,16 +815,16 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
                 static_cast<T*>(dv), S, D, causal, scale);
 }
 
-// Head dims up to 16, 32, 64 and 128: the forward's 1, 2, 4 or 8 columns a
-// thread; the backward's tiles padded to 16, 32, 64 or 128 columns.
+// Head dims up to 16, 32, 64 and 128: tiles padded to 16, 32, 64 or 128
+// columns.
 template <typename T>
 int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse,
             int BH, int S, int D, int causal, float scale, void* stream) {
   if (int e = check_shape(BH, S, D)) return e;
-  if (D <= 16) return fwd<T, 1>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
-  if (D <= 32) return fwd<T, 2>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
-  if (D <= 64) return fwd<T, 4>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
-  return fwd<T, 8>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
+  if (D <= 16) return fwd<T, 16>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
+  if (D <= 32) return fwd<T, 32>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
+  if (D <= 64) return fwd<T, 64>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
+  return fwd<T, 128>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
 }
 
 template <typename T>

@@ -15,18 +15,19 @@ goes to ``parallel/ring.py:full_attention``, which is the JAX package's own
 semantics, not a device fallback. Every other S runs the kernels, whose
 tile is 64 rows whatever the blocks say; a ragged last tile is masked.
 
-``route`` names the kernel a launch takes, before the launch: the forward
-runs f32 FMA on the CUDA cores (``"simt"``); dq and dk/dv run on the tensor
-cores (``"tc"``), f32 as 3xTF32 (each operand split into two TF32 parts,
-three products) and bf16 as one bf16 product, every shape the wrappers
-take. ``flash_dq.tc_launches`` and ``flash_dkv.tc_launches`` count the
+``route`` names the kernel a launch takes, before the launch: all three
+run on the tensor cores (``"tc"``) at every shape the wrappers take, f32 as
+3xTF32 (each operand split into two TF32 parts, three products) and bf16
+as one bf16 product. The forward keeps its online softmax in registers and
+feeds p to ``p v`` from the accumulator. ``flash_fwd.tc_launches``,
+``flash_dq.tc_launches`` and ``flash_dkv.tc_launches`` count the
 tensor-core launches. A launch that fails raises; nothing retries it on
 another kernel or on the plain version.
 
 Bound on an H100 at the LM's full width (``[8, 8, 2048, 64]`` f32, causal):
 34.4, 51.5 and 68.7 GFLOP for forward, dq and dk/dv, 0.51, 0.77 and 1.03 ms
-at the 67 TFLOP/s f32 peak; 0.31 and 0.42 ms for dq and dk/dv as 3xTF32 at
-495 TFLOP/s (three TF32 products an f32 one). The kernels' design is in the
+at the 67 TFLOP/s f32 peak; 0.21, 0.31 and 0.42 ms as 3xTF32 at 495
+TFLOP/s (three TF32 products an f32 one). The kernels' design is in the
 source's header.
 """
 
@@ -40,9 +41,8 @@ from ps_pytorch_tpu_torch.ops._backend import use_kernel
 
 NEG_INF = -1e30          # the finite mask value of the Pallas kernels
 MAX_HEAD_DIM = 128
-# The kernel of each launch: the forward on the CUDA cores, the backward on
-# the tensor cores.
-ROUTES = {"fwd": "simt", "dq": "tc", "dkv": "tc"}
+# The kernel of each launch: all three on the tensor cores.
+ROUTES = {"fwd": "tc", "dq": "tc", "dkv": "tc"}
 
 
 def _pick_block(s: int, requested: int) -> int:
@@ -145,8 +145,7 @@ def _check(q3: torch.Tensor, *others: torch.Tensor, rows=()) -> None:
 
 def route(name: str) -> str:
     """The kernel a CUDA call of ``flash_<name>`` launches: ``"tc"`` (the
-    tensor cores: dq and dk/dv) or ``"simt"`` (the CUDA cores: the
-    forward)."""
+    tensor cores) for the forward, dq and dk/dv alike."""
     return ROUTES[name]
 
 
@@ -166,12 +165,10 @@ def _launch(name: str, tensors, outs, causal: bool, scale: float) -> str:
         if t.device != q3.device:
             raise ValueError(f"tensors on {q3.device} and {t.device}")
     kernel = route(name)
-    if kernel == "tc":
-        # The tensor-core kernels copy 16-byte rows with cp.async: a view
-        # that starts off a 16-byte boundary is copied once (the outputs
-        # are the wrapper's own allocations).
-        tensors = [t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in tensors]
+    # The tensor-core kernels copy 16-byte rows with cp.async: a view that
+    # starts off a 16-byte boundary is copied once (the outputs are the
+    # wrapper's own allocations).
+    tensors = [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
     lib = _build.load("flash_attention", _configure)
     fn = getattr(lib, f"psk_flash_{name}_"
                  f"{'bf16' if q3.dtype == torch.bfloat16 else 'f32'}")
@@ -189,15 +186,16 @@ def _launch(name: str, tensors, outs, causal: bool, scale: float) -> str:
 def flash_fwd(q3, k3, v3, causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward over [BH,S,D]: (o, lse [BH,S,1] f32). CUDA tensors run the
-    kernel (``flash_fwd.launches`` counts it), CPU tensors the plain
-    version."""
+    tensor-core kernel (``flash_fwd.launches`` and
+    ``flash_fwd.tc_launches`` count it), CPU tensors the plain version."""
     _check(q3, k3, v3)
     if not use_kernel(q3, k3, v3):
         return flash_attention_reference(q3, k3, v3, causal, scale)
     o = torch.empty_like(q3)
     lse = torch.empty(q3.shape[:2] + (1,), dtype=torch.float32,
                       device=q3.device)
-    _launch("fwd", (q3, k3, v3), (o, lse), causal, scale)
+    if _launch("fwd", (q3, k3, v3), (o, lse), causal, scale) == "tc":
+        flash_fwd.tc_launches += 1
     flash_fwd.launches += 1
     return o, lse
 
@@ -236,6 +234,7 @@ def flash_dkv(q3, k3, v3, do3, lse, delta, causal: bool, scale: float
 flash_fwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
+flash_fwd.tc_launches = 0
 flash_dq.tc_launches = 0
 flash_dkv.tc_launches = 0
 

@@ -13,9 +13,9 @@ The aggregator forms the update gradient from the freshest contributions:
   are pooled compressed exactly as they would travel, and decompressed at
   aggregation time.
 
-Codecs. ``int8`` quantizes every leaf on its device through the
-hand-written kernel (``ops/quantize.py``) and dequantizes and averages
-there: nothing crosses to the host. ``blosc`` (lossless bytes,
+Codecs. ``int8`` quantizes the whole tree on its device in one launch of
+the hand-written kernel (``ops/quantize.py:quantize_tree``) and dequantizes
+and averages there: nothing crosses to the host. ``blosc`` (lossless bytes,
 ``compression/``) and the homomorphic family ``int8lat``/``topk``/``randk``
 (``compression/codecs.py``) are host codecs: the leaves come to the host to
 be encoded and the average comes back as numpy. Without a codec the leaves
@@ -38,7 +38,7 @@ from ps_pytorch_tpu_torch.compression.codecs import (
     encode_leaves, get_grad_codec, is_payload, payload_nbytes, require_codec,
 )
 from ps_pytorch_tpu_torch.ops.quantize import (
-    LANES, QuantizedTensor, dequantize_int8, padded_rows, quantize_int8,
+    LANES, QuantizedTensor, dequantize_int8, padded_rows, quantize_tree,
     quantized_nbytes,
 )
 from ps_pytorch_tpu_torch.parallel.buckets import plan_buckets, stream_buckets
@@ -81,12 +81,12 @@ def _to_numpy(leaf: Any) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def noise_seed(slice_id: int, step: int, leaf_index: int) -> int:
-    """The seed of one leaf's rounding noise: a function of the
-    contribution and the leaf's GLOBAL index, so the payload is the same at
-    every bucket size and worker count."""
-    return hash((int(slice_id), int(step), int(leaf_index))) \
-        & 0x7FFFFFFFFFFFFFFF
+def noise_key(slice_id: int, step: int) -> Tuple[int, int]:
+    """The Philox key of a contribution's rounding noise (the int8 codec):
+    the words (slice_id, step) mod 2^32. The counter holds the leaf's index
+    in the tree, so a leaf's noise depends on the contribution and its
+    index, and on nothing else: not on bucket size or worker count."""
+    return int(slice_id) & 0xFFFFFFFF, int(step) & 0xFFFFFFFF
 
 
 class StaleGradientAggregator:
@@ -133,8 +133,8 @@ class StaleGradientAggregator:
         self.wire_workers = int(wire_workers)
         self._executor: Optional[ThreadPoolExecutor] = None
         # ``noise_fn(slice_id, step, leaf_index, shape) -> f32 tensor`` of
-        # the int8 codec's rounding noise; None draws it on the leaf's
-        # device from a generator seeded by ``noise_seed``.
+        # the int8 codec's rounding noise; None draws it inside the kernel
+        # (Philox under ``noise_key``).
         self.noise_fn = noise_fn
         # slice_id -> (step, leaves or encoded leaves, treedef)
         self._pool: Dict[int, Tuple[int, List[Any], Any]] = {}
@@ -177,33 +177,21 @@ class StaleGradientAggregator:
             self._bucket_pool(len(buckets)))
         return [c for block in out for c in block]
 
-    def _noise(self, slice_id: int, step: int, leaf_index: int,
-               leaf: torch.Tensor) -> torch.Tensor:
-        shape = (padded_rows(leaf.numel()), LANES)
-        if self.noise_fn is not None:
-            return self.noise_fn(slice_id, step, leaf_index, shape).to(
-                leaf.device)
-        gen = torch.Generator(device=leaf.device)
-        gen.manual_seed(noise_seed(slice_id, step, leaf_index))
-        return torch.rand(shape, dtype=torch.float32, device=leaf.device,
-                          generator=gen)
-
     def _quantize_leaves(self, leaves: List[Any], slice_id: int,
                          step: int) -> List[QuantizedTensor]:
-        """int8 on the per-bucket schedule, every leaf on its own device.
-        The rounding noise is keyed per GLOBAL leaf index (``b.start +
-        j``), so the payload is bitwise the same at every bucket size and
-        worker count."""
+        """int8 on the leaves' device, the whole tree in one launch. The
+        bucket plan schedules the host codecs' encodes; this codec has no
+        host leg to overlap, and its payload is the same at every bucket
+        size and worker count: leaf i's noise is keyed by the contribution
+        and i."""
         leaves = [l if isinstance(l, torch.Tensor) else torch.as_tensor(
             np.asarray(l)) for l in leaves]
-        buckets = plan_buckets(leaves, self.wire_bucket_bytes)
-        out = stream_buckets(
-            leaves, buckets,
-            lambda b, block: [
-                quantize_int8(l, self._noise(slice_id, step, b.start + j, l))
-                for j, l in enumerate(block)],
-            self._bucket_pool(len(buckets)))
-        return [q for block in out for q in block]
+        noise = None
+        if self.noise_fn is not None:
+            noise = [self.noise_fn(slice_id, step, i,
+                                   (padded_rows(l.numel()), LANES)).to(
+                                       l.device) for i, l in enumerate(leaves)]
+        return quantize_tree(leaves, noise_key(slice_id, step), noise)
 
     def submit_encoded(self, slice_id: int, step: int, tree: Any) -> None:
         """Pool a contribution that is ALREADY codec-encoded (a sender that

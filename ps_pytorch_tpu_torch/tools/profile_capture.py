@@ -45,7 +45,7 @@ GROUPS = (
     ("conv3x3 kernel (port)", ("conv3x3_tc_kernel", "conv3x3_simt_kernel")),
     ("fused_sgd kernel (port)", ("sgd_kernel",)),
     ("fused_adam kernel (port)", ("adam_kernel",)),
-    ("flash kernels (port)", ("flash_fwd_kernel", "flash_dq_tc_kernel",
+    ("flash kernels (port)", ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
                               "flash_dkv_tc_kernel")),
     ("cuDNN conv", ("cudnn", "conv2d", "implicit_convolve", "xmma_fprop",
                     "xmma_dgrad", "xmma_wgrad", "fprop", "dgrad", "wgrad")),

@@ -205,8 +205,8 @@ def test_tree_flatten_order_is_jax_order():
     assert leaves == jax.tree.leaves(tree) == [3, 2, 1, 8, 7, 6]
     assert async_dp.tree_unflatten(treedef, leaves) == tree
     assert list(async_dp.tree_unflatten(treedef, leaves)) == sorted(tree)
-    assert async_dp.noise_seed(1, 2, 3) == async_dp.noise_seed(1, 2, 3) \
-        != async_dp.noise_seed(1, 2, 4)
+    assert async_dp.noise_key(1, 2) == async_dp.noise_key(1, 2) == (1, 2) \
+        != async_dp.noise_key(1, 3)
 
 
 def _files(path):

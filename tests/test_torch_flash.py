@@ -265,3 +265,74 @@ def test_3xtf32_backward_matches_jax_and_one_tf32_product_does_not(
         err3 = np.abs(got - ref).max()
         err1 = np.abs(bad - ref).max()
         assert err1 >= 10 * err3, (name, err1, err3)
+
+
+# ----------------------------------------- the forward kernel's arithmetic --
+
+def _emulated_forward(mm, q, k, v, causal, scale, tile=64):
+    """o and lse as the forward kernel computes them: per 64-key tile the
+    scores ``mm(q, k^T)`` times scale log2(e) (masked to -1e30), the running
+    max m in log2 units, the running sum l and the accumulator rescaled by
+    2^(m_old - m_new) before ``mm(p, v)`` is added; at the end o = acc times
+    1 / max(l, 1e-30) and lse = m ln 2 + log(max(l, 1e-30))."""
+    f32 = q.dtype
+    bh, s, d = q.shape
+    scale2 = f32.type(scale) * f32.type(1.4426950408889634)
+    neg = f32.type(fa.NEG_INF)
+    m = np.full((bh, s, 1), neg, f32)
+    l = np.zeros((bh, s, 1), f32)
+    acc = np.zeros((bh, s, d), f32)
+    rows = np.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        st = (mm(q, kt.transpose(0, 2, 1)) * scale2).astype(f32)
+        if causal:
+            cols = np.arange(k0, k0 + kt.shape[1])[None, :]
+            st = np.where(cols > rows, neg, st)
+        m_new = np.maximum(m, st.max(-1, keepdims=True))
+        alpha = np.exp2(m - m_new)
+        p = np.exp2(st - m_new)
+        l = l * alpha + p.sum(-1, keepdims=True, dtype=f32)
+        acc = (acc * alpha + mm(p, vt)).astype(f32)
+        m = m_new
+    lc = np.maximum(l, f32.type(1e-30))
+    return acc * (1 / lc), m * f32.type(0.6931471805599453) + np.log(lc)
+
+
+@pytest.mark.parametrize("bh,s,d,causal,block", [
+    (4, 256, 64, True, 64),
+    (2, 200, 40, False, 8),
+])
+def test_3xtf32_forward_matches_jax_and_one_tf32_product_does_not(
+        bh, s, d, causal, block):
+    """The forward kernel's f32 arithmetic (3xTF32 on q k^T and p v, the
+    online softmax over 64-key tiles) holds o and lse to the JAX
+    ``_fwd_call`` (Pallas in interpret mode) at the reference's 2e-5. One
+    TF32 product misses 2e-5 and errs at least 10x more against f64, which
+    is why the forward splits too."""
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((bh, s, d)).astype(np.float32)
+               for _ in range(3))
+    scale = d ** -0.5
+    jo, jlse = (np.asarray(t) for t in jax_fa._fwd_call(
+        *map(jnp.asarray, (q, k, v)), causal, scale, block, block, True))
+    three = _emulated_forward(_mm_3xtf32, q, k, v, causal, scale)
+    one = _emulated_forward(_mm_tf32, q, k, v, causal, scale)
+    exact = _emulated_forward(
+        lambda a, b: np.matmul(a.astype(np.float64), b.astype(np.float64)),
+        *(t.astype(np.float64) for t in (q, k, v)), causal, scale)
+    misses = []
+    for i, (want, name) in enumerate(((jo, "o"), (jlse, "lse"))):
+        np.testing.assert_allclose(three[i], want, rtol=FWD_TOL,
+                                   atol=FWD_TOL, err_msg=name)
+        misses.append(np.abs(one[i] - want).max())
+        err3 = np.abs(three[i] - exact[i]).max()
+        err1 = np.abs(one[i] - exact[i]).max()
+        assert err1 >= 10 * err3, (name, err1, err3)
+    # One TF32 product misses the reference's tolerance on o.
+    assert misses[0] > FWD_TOL, misses
+
+
+def test_every_flash_kernel_takes_the_tensor_cores():
+    assert {name: fa.route(name) for name in ("fwd", "dq", "dkv")} == \
+        {"fwd": "tc", "dq": "tc", "dkv": "tc"}

@@ -198,7 +198,8 @@ def test_flash_kernels_match_plain(cuda, bh, s, d, causal, dtype):
     fwd_tol, grad_tol = FLASH_TOL[dtype]
     before = (fa.flash_fwd.launches, fa.flash_dq.launches,
               fa.flash_dkv.launches)
-    tc_before = (fa.flash_dq.tc_launches, fa.flash_dkv.tc_launches)
+    tc_before = (fa.flash_fwd.tc_launches, fa.flash_dq.tc_launches,
+                 fa.flash_dkv.tc_launches)
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -219,21 +220,23 @@ def test_flash_kernels_match_plain(cuda, bh, s, d, causal, dtype):
                                    atol=grad_tol)
     assert (fa.flash_fwd.launches, fa.flash_dq.launches,
             fa.flash_dkv.launches) == tuple(n + 1 for n in before)
-    # dq and dk/dv took the tensor-core kernels.
-    assert (fa.flash_dq.tc_launches, fa.flash_dkv.tc_launches) == \
-        tuple(n + 1 for n in tc_before)
+    # The forward, dq and dk/dv took the tensor-core kernels.
+    assert (fa.flash_fwd.tc_launches, fa.flash_dq.tc_launches,
+            fa.flash_dkv.tc_launches) == tuple(n + 1 for n in tc_before)
 
 
 @pytest.mark.cuda
 def test_flash_backward_takes_views_off_16_byte_boundaries(cuda):
-    """The tensor-core kernels copy 16-byte rows: an input that starts 4
-    bytes into its storage is copied once by the wrapper, and the result
-    is the plain version's."""
+    """The tensor-core kernels (the forward too) copy 16-byte rows: an
+    input that starts 4 bytes into its storage is copied once by the
+    wrapper, and the result is the plain version's."""
     bh, s, d = 2, 96, 32
     flat = [torch.randn(bh * s * d + 1, device=cuda) for _ in range(4)]
     q, k, v, do = (t[1:].view(bh, s, d) for t in flat)
     assert q.data_ptr() % 16 != 0
     o, lse = fa.flash_attention_reference(q, k, v, True, d ** -0.5)
+    for got, ref in zip(fa.flash_fwd(q, k, v, True, d ** -0.5), (o, lse)):
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
     delta = (do * o).sum(-1, keepdim=True)
     args = (q, k, v, do, lse, delta, True, d ** -0.5)
     torch.testing.assert_close(fa.flash_dq(*args),
@@ -344,3 +347,38 @@ def test_quantize_kernel_from_worker_threads_and_raises(cuda):
         assert torch.equal(a.scales, b.scales)
     with pytest.raises(ValueError):
         tq.quantize_int8(leaves[0], torch.rand(32, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("injected", [False, True])
+def test_quantize_tree_kernel_is_bitwise_its_plain_version(cuda, injected):
+    """A tree of f32, bf16 and cast leaves, a 0-d one, an all-zero one and
+    a view off its alignment, in ONE launch: values and scales bitwise the
+    plain version's, with the noise drawn in the kernel (Philox) and with
+    the caller's noise."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    big = torch.randn(3 * tq.BLOCK + 5, device=cuda, generator=gen) * 1e-3
+    big[tq.BLOCK + 17] = 3e38
+    leaves = [torch.randn(n, device=cuda, generator=gen) * 0.03
+              for n in (1, 10, 4095, 4096, 4097, 100_003)]
+    leaves += [big, big[1:], torch.zeros(3, 5000, device=cuda),
+               torch.tensor(2.5, device=cuda),
+               (torch.randn(70, 3, device=cuda, generator=gen)).bfloat16(),
+               torch.randn(33, device=cuda, generator=gen).double()]
+    noise = [torch.rand((tq.padded_rows(x.numel()), tq.LANES), device=cuda,
+                        generator=gen) for x in leaves] if injected else None
+    before = tq.quantize_int8.launches
+    got = tq.quantize_tree(leaves, (3, 41), noise)
+    assert tq.quantize_int8.launches == before + 1
+    want = tq.quantize_tree_reference(leaves, (3, 41), noise)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.values, b.values)
+        assert torch.equal(a.scales, b.scales)
+        assert (a.shape, a.size) == (b.shape, b.size)
+    # The card draws the CPU's noise.
+    cpu = tq.quantize_tree([x.cpu() for x in leaves], (3, 41),
+                           None if noise is None else [u.cpu() for u in noise])
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.values.cpu(), b.values)
+        assert torch.equal(a.scales.cpu(), b.scales)

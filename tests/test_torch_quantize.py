@@ -139,6 +139,154 @@ def test_quantize_generator_is_reproducible_and_checked():
         tq.quantize_int8(x, torch.zeros(800, 128, device="meta"))
 
 
+# ------------------------------------------------ Philox and the tree --
+
+def _np_philox(counter, key):
+    """Philox4x32-10 in numpy uint32 words, products in uint64: written
+    here from the paper, independent of the port's int64 version."""
+    c = [np.atleast_1d(np.asarray(w, np.uint32)) for w in counter]
+    k = [np.uint32(key[0]), np.uint32(key[1])]
+    m0, m1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
+    for r in range(10):
+        if r:
+            k = [np.uint32((int(k[0]) + 0x9E3779B9) % 2 ** 32),
+                 np.uint32((int(k[1]) + 0xBB67AE85) % 2 ** 32)]
+        p0 = m0 * c[0].astype(np.uint64)
+        p1 = m1 * c[2].astype(np.uint64)
+        hi0, lo0 = (p0 >> np.uint64(32)).astype(np.uint32), p0.astype(
+            np.uint32)
+        hi1, lo1 = (p1 >> np.uint64(32)).astype(np.uint32), p1.astype(
+            np.uint32)
+        c = [hi1 ^ c[1] ^ k[0], lo1, hi0 ^ c[3] ^ k[1], lo0]
+    return c
+
+
+# Random123's known-answer vectors for philox4x32-10: counter, key, output.
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff, 0xffffffff),
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PHILOX_KAT)))
+def test_philox_known_answers(case):
+    counter, key, want = PHILOX_KAT[case]
+    got = tq.philox4x32([torch.tensor([w], dtype=torch.int64)
+                         for w in counter], key)
+    assert tuple(int(w[0]) for w in got) == want
+    assert tuple(int(w[0]) for w in _np_philox(counter, key)) == want
+
+
+def test_philox_matches_numpy_bitwise():
+    """Random counters and keys, words up to 2^32 - 1: the int64 version
+    (16-bit halves, no overflow) is the uint32 one bit for bit."""
+    rng = np.random.default_rng(0)
+    counter = [rng.integers(0, 2 ** 32, 5000, dtype=np.uint64)
+               for _ in range(4)]
+    for key in ((0, 0), (1, 2), (0xFFFFFFFF, 7), (123456789, 0xDEADBEEF)):
+        got = tq.philox4x32([torch.from_numpy(w.astype(np.int64))
+                             for w in counter], key)
+        want = _np_philox([w.astype(np.uint32) for w in counter], key)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), w.astype(np.int64))
+
+
+def test_philox_uniform_is_the_counter_stream_in_unit_interval():
+    """Element e of leaf i is word e % 4 of counter (e // 4, i, 0, 0), as
+    (bits >> 8) * 2^-24: exact, in [0, 1), mean about 1/2."""
+    key, index, n = (3, 11), 5, 10_001
+    u = tq.philox_uniform(key, index, n)
+    assert u.dtype == torch.float32 and u.shape == (n,)
+    groups = np.arange(-(-n // 4), dtype=np.uint32)
+    words = _np_philox([groups, np.full_like(groups, index),
+                        np.zeros_like(groups), np.zeros_like(groups)], key)
+    bits = np.stack(words, axis=1).reshape(-1)[:n]
+    want = (bits >> np.uint32(8)).astype(np.float32) * np.float32(2 ** -24)
+    assert u.numpy().tobytes() == want.tobytes()
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    assert abs(float(u.mean()) - 0.5) < 0.01
+    assert not torch.equal(u, tq.philox_uniform(key, index + 1, n))
+    assert not torch.equal(u, tq.philox_uniform((3, 12), index, n))
+
+
+def _tree(seed=0):
+    rng = np.random.default_rng(seed)
+    leaves = [torch.from_numpy(np.asarray(rng.normal(size=s) * sc,
+                                          np.float32)) for s, sc in (((5, 5, 1, 6), 0.1), ((6,), 1.0),
+                            ((400, 120), 1e-3), ((), 2.0), ((3, 5000), 0.0),
+                            ((4097,), 5.0))]
+    leaves.append(torch.from_numpy(rng.normal(size=(70, 3)).astype(
+        np.float32)).bfloat16())
+    leaves.append(torch.from_numpy(rng.integers(-9, 9, (33,))))  # cast
+    return leaves
+
+
+def test_tree_quantizer_is_per_leaf_quantize_int8_bitwise():
+    """The tree's plain version (Philox noise) equals quantize_int8 leaf by
+    leaf with the same noise injected, and the JAX quantizer on it, values
+    and scales bitwise; with injected noise the tree equals quantize_int8
+    with the same noise."""
+    leaves, key = _tree(), (1, 9)
+    got = tq.quantize_tree(leaves, key)
+    injected = [np.random.default_rng(i).random(
+        (tq.padded_rows(l.numel()), tq.LANES), dtype=np.float32)
+        for i, l in enumerate(leaves)]
+    got_injected = tq.quantize_tree(leaves, noise=[torch.from_numpy(u)
+                                                   for u in injected])
+    for i, leaf in enumerate(leaves):
+        rows = tq.padded_rows(leaf.numel())
+        u = tq.philox_uniform(key, i, rows * tq.LANES).reshape(rows, tq.LANES)
+        for qt, noise in ((got[i], u), (got_injected[i],
+                                        torch.from_numpy(injected[i]))):
+            want = tq.quantize_int8(leaf, noise)
+            assert torch.equal(qt.values, want.values)
+            assert torch.equal(qt.scales, want.scales)
+            assert (qt.shape, qt.size) == (want.shape, want.size) == \
+                (tuple(leaf.shape), max(leaf.numel(), 1))
+        jv, js = jq._quantize_padded(jnp.asarray(_padded(
+            leaf.float().numpy())), jnp.asarray(u.numpy()), True)
+        assert got[i].values.numpy().tobytes() == np.asarray(jv).tobytes()
+        assert got[i].scales.numpy().tobytes() == np.asarray(js).tobytes()
+    assert not got[4].values.any()          # the all-zero leaf
+    assert tq.quantize_int8.launches == 0   # the CPU never launches
+
+
+def test_tree_quantizer_checks_its_inputs():
+    leaves = _tree()[:2]
+    with pytest.raises(ValueError, match="at least one"):
+        tq.quantize_tree([])
+    with pytest.raises(ValueError, match="empty"):
+        tq.quantize_tree([leaves[0], torch.zeros(0)])
+    with pytest.raises(ValueError, match="noise tensors"):
+        tq.quantize_tree(leaves, noise=[torch.zeros(32, 128)])
+    with pytest.raises(ValueError, match="noise"):
+        tq.quantize_tree(leaves, noise=[torch.zeros(32, 128),
+                                        torch.zeros(32, 64)])
+    with pytest.raises(ValueError):
+        tq.quantize_tree([leaves[0], leaves[1].to("meta")])
+
+
+def test_philox_noise_keeps_the_quantizer_unbiased():
+    """|dequantize - x| <= one quantum, and the mean of 64 draws under 64
+    keys (the aggregator's steps) lies within a quarter quantum of x."""
+    x = (np.random.default_rng(0).normal(size=(2, 4096)) * 0.1).astype(
+        np.float32)
+    xt = torch.from_numpy(x)
+    acc = torch.zeros_like(xt)
+    for step in range(64):
+        qt = tq.quantize_tree([xt], (1, step))[0]
+        back = tq.dequantize_int8(qt)
+        quantum = qt.scales.reshape(2, 1)
+        assert bool(((back - xt).abs() <= quantum * (1 + 1e-6)).all())
+        acc += back
+    assert bool(((acc / 64 - xt).abs() <= quantum / 4).all())
+
+
 def test_quantize_constants_match_jax():
     assert (tq.LANES, tq.BLOCK_ROWS, tq.BLOCK) == (jq.LANES, jq.BLOCK_ROWS,
                                                    jq.BLOCK)
