@@ -32,7 +32,15 @@ exit and no result line, if any phase fails:
    by ``evaluate.main``; then the same network with fused Adam through the
    entry points a user calls: ``train.main`` checkpointing every 3 of 6
    steps, a resumed Trainer to step 8 held against an uninterrupted one,
-   and ``evaluate.main --once 6``; then the full-width TransformerLM (d
+   and ``evaluate.main --once 6``; then the same ResNet-18 as processes
+   through the port's launcher, each rank this script's rank mode
+   (``--rank``: ``train.run`` between zeroed and read counts): after a
+   probe that gloo all-reduces a CUDA tensor between two ranks on the
+   card, one rank over NCCL (MAIN-DIST) and two ranks on the one card over
+   gloo (MAIN-KOFN: K-of-N with process 0 slowed by 0.3 s a step, its
+   masks, process 0's checkpoints scored by ``evaluate.main``, equal
+   parameter hashes, and a sync run with the same straggler for its
+   cost); then the full-width TransformerLM (d
    512, 8 layers, 8 heads, vocab 32000, S 2048, batch 8, f32, flash
    attention) for a few steps through the port's LMTrainer, evaluating 2
    batches. Every launch count is set to 0 just before each path and read
@@ -116,6 +124,20 @@ ASYNC_ARGS = ("--mode", "async", "--async-slices", "2", "--network",
               "--weight-decay", "5e-4", "--compress-grad", "--grad-codec",
               "int8", "--test-batch-size", "4167")
 QUANT_SIZES = (1, 4096, 4097, 100_003, 2_359_296, 11_173_962)
+# The CNN path's ResNet-18 run as processes through the port's launcher,
+# each rank this script's rank mode: one rank (MAIN-DIST, NCCL), then two
+# ranks on the one card (MAIN-KOFN, gloo) K-of-N with one backup worker and
+# process 0 made a straggler; 8333 test images make 2 eval batches of 4167.
+DIST_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
+             "--batch-size", str(BATCH), "--compute-dtype", "bfloat16",
+             "--conv-impl", "pallas", "--fused-optimizer", "--momentum",
+             "0.9", "--weight-decay", "5e-4", "--test-batch-size", "4167",
+             "--resume", "false", "--device", "cuda")
+KOFN_STEPS = 8
+KOFN_ARGS = ("--mode", "kofn", "--num-aggregate", "1", "--inject-step-delay",
+             "0.3", "--inject-delay-process", "0", "--max-steps",
+             str(KOFN_STEPS), "--eval-freq", "4")
+RANK_TIMEOUT_S = 400
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 
@@ -1199,7 +1221,263 @@ def small_lm_step_agrees(torch, fa) -> None:
           f"weight diff {worst:.3e}", flush=True)
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper, by the name the kernels line gives it."""
+    from ps_pytorch_tpu_torch.ops import conv3x3 as conv_mod
+    from ps_pytorch_tpu_torch.ops import flash_attention as fa
+    from ps_pytorch_tpu_torch.ops import fused_adam as adam_mod
+    from ps_pytorch_tpu_torch.ops import fused_sgd as sgd_mod
+    from ps_pytorch_tpu_torch.ops import quantize as tq
+    return {"conv3x3": conv_mod.conv3x3,
+            "fused_sgd": sgd_mod.fused_sgd_update,
+            "fused_adam": adam_mod.fused_adam_update,
+            "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
+            "flash_dkv": fa.flash_dkv, "quantize": tq.quantize_int8}
+
+
+def rank_main(argv) -> int:
+    """One rank of MAIN-DIST or MAIN-KOFN, started by the launcher:
+    ``train.run(argv)`` with every launch count set to 0 just before, then
+    one ``RANK`` line: this process's launch counts, the checkpoints it
+    wrote, its step and peer-wait times, and a sha256 of its parameters."""
+    import hashlib
+
+    from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+
+    saves = []
+    save_checkpoint = ckpt.save_checkpoint
+
+    def counted(train_dir, step, *args, **kw):
+        saves.append(step)
+        return save_checkpoint(train_dir, step, *args, **kw)
+
+    ckpt.save_checkpoint = counted
+    wrappers = kernel_wrappers()
+    zero_counts(wrappers)
+    trainer, result = train.run(argv)
+    launches = read_counts(wrappers)
+    digest = hashlib.sha256()
+    for _, p in sorted(trainer.model.named_parameters()):
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    print("RANK " + json.dumps({
+        "rank": trainer.rank, "launches": launches, "saves": saves,
+        "step_times": trainer.step_times, "wait_times": trainer.wait_times,
+        "params_sha256": digest.hexdigest(), "eval": result}), flush=True)
+    return 0
+
+
+def probe_rank_main() -> int:
+    """One rank of the gloo probe: join the group through the env
+    contract, all-reduce ResNet-18's gradient size of f32 on the card, and
+    check the sum."""
+    import torch
+    from ps_pytorch_tpu_torch.parallel import dist
+
+    dist.initialize_from_env("cuda")
+    try:
+        n = 11_173_962
+        x = torch.full((n,), float(dist.rank() + 1),
+                       device=dist.local_device())
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            torch.distributed.all_reduce(x)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        want = float(sum(range(1, dist.world() + 1))) * dist.world() ** 2
+        print("PROBE " + json.dumps({
+            "backend": dist.backend(), "rank": dist.rank(),
+            "device": str(x.device), "elements": n,
+            "ok": bool((x == want).all()), "all_reduce_s": times}),
+            flush=True)
+    finally:
+        dist.shutdown()
+    print("FINAL probe", flush=True)
+    return 0
+
+
+def launch_ranks(root: str, n: int, argv, phase: str) -> list:
+    """``tools.launch launch --simulate n --wait`` with this script as the
+    entry; echoes the ranks' logs and returns them."""
+    import socket
+
+    from ps_pytorch_tpu_torch.tools import launch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    run_dir = f"{root}/run"
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = launch.main(["launch", "--run-dir", run_dir, "--simulate",
+                          str(n), "--port", str(port), "--entry",
+                          str(Path(__file__).resolve()), "--wait",
+                          "--timeout", str(RANK_TIMEOUT_S), "--", *argv])
+    logs = [Path(run_dir, f"proc_{r}.log").read_text() for r in range(n)]
+    for r, log in enumerate(logs):
+        for line in log.splitlines():
+            if not line.startswith(("CONFIG", "[W")):
+                print(f"{phase} [rank {r}] {line[:400]}", flush=True)
+    if rc != 0:
+        fail(f"{phase}: the launcher exited {rc} ({out.getvalue().strip()})")
+    return logs
+
+
+def rank_record(log: str, phase: str) -> dict:
+    found = re.findall(r"^RANK (.*)$", log, re.M)
+    if len(found) != 1:
+        fail(f"{phase}: a rank printed no RANK line")
+    return json.loads(found[0])
+
+
+def gloo_probe() -> None:
+    """Two ranks on the one card through the launcher: gloo all-reduces a
+    CUDA tensor in this torch build, the sum right on both."""
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    try:
+        logs = launch_ranks(root, 2, ["--rank-probe"], "PROBE-GLOO")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    probes = [json.loads(re.findall(r"^PROBE (.*)$", log, re.M)[0])
+              for log in logs]
+    if not all(p["ok"] and p["backend"] == "gloo" and p["device"] ==
+               "cuda:0" for p in probes):
+        fail(f"PROBE-GLOO: gloo did not all-reduce a CUDA tensor right "
+             f"({probes})")
+    print(f"PROBE-GLOO 2 ranks on cuda:0, {probes[0]['elements']} f32 "
+          f"elements: all_reduce_s {[p['all_reduce_s'] for p in probes]} "
+          f"card {card_line()}", flush=True)
+
+
+def dist_main_path(wrappers) -> dict:
+    """MAIN-DIST: the CNN path's ResNet-18 as one rank through the
+    launcher, NCCL: the step all-reduces at world 1."""
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 1, ["--rank", *DIST_ARGS, "--max-steps",
+                                      str(STEPS), "--eval-freq", "0",
+                                      "--train-dir", f"{root}/td"],
+                            "MAIN-DIST")
+        wall = time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if "MESH data=1 model=1 devices=1 backend=nccl device=cuda:0" \
+            not in logs[0]:
+        fail("MAIN-DIST: MESH does not say backend=nccl")
+    rec = rank_record(logs[0], "MAIN-DIST")
+    want = want_counts(wrappers, conv3x3=CONV_PER_STEP * STEPS
+                       + CONV_PER_EVAL_BATCH * 2, fused_sgd=STEPS)
+    print(f"MAIN-DIST world 1 backend nccl step_times_s {rec['step_times']} "
+          f"wait_times_s {rec['wait_times']} launch_wall_s {wall:.2f} eval "
+          f"{rec['eval']} launches {rec['launches']} card {card_line()}",
+          flush=True)
+    if rec["launches"] != want:
+        fail(f"MAIN-DIST launches {rec['launches']}, expected {want}")
+    return rec["launches"]
+
+
+def kofn_main_path(wrappers) -> dict:
+    """MAIN-KOFN: the same ResNet-18 (global batch 256, 128 a rank) as two
+    ranks on the one card through the launcher (gloo), K-of-N with one
+    backup worker and process 0 slowed by 0.3 s a step: the leader's masks
+    must drop it from real durations over the KV; process 0 alone writes
+    the checkpoints, the ranks end with equal parameters, every conv3x3
+    launch takes the tensor cores; then ``evaluate.main`` scores process
+    0's last checkpoint, and a short sync run with the same straggler
+    gives the wait it costs when it is not masked out."""
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_kofn_")
+    td = f"{root}/td"
+    try:
+        logs = launch_ranks(root, 2, ["--rank", *DIST_ARGS, *KOFN_ARGS,
+                                      "--train-dir", td], "MAIN-KOFN")
+        for log in logs:
+            if "MESH data=2 model=1 devices=2 backend=gloo device=cuda:0" \
+                    not in log:
+                fail("MAIN-KOFN: MESH does not say backend=gloo on cuda:0")
+        masks = re.findall(r"^MASK step (\d+) (\[.*\])$", logs[0], re.M)
+        if not masks or masks[-1][1] != "[0, 1]":
+            fail(f"MAIN-KOFN: the leader's last MASK is not [0, 1] ({masks})")
+        flip = int(masks[-1][0])
+        recs = [rank_record(log, "MAIN-KOFN") for log in logs]
+        for r, log in enumerate(logs):
+            steps = [(int(a), float(b)) for a, b in re.findall(
+                r"^STEP (\d+) .* participating (\S+) ", log, re.M)]
+            if [k for k, _ in steps] != list(range(1, KOFN_STEPS + 1)) or \
+                    any(p != 1 for k, p in steps if k >= flip):
+                fail(f"MAIN-KOFN rank {r}: STEP lines {steps}")
+        if [rec["saves"] for rec in recs] != [[4, 8], []] or \
+                ckpt.committed_steps(td) != [4, 8]:
+            fail(f"MAIN-KOFN: checkpoints {[rec['saves'] for rec in recs]}, "
+                 f"committed {ckpt.committed_steps(td)}; process 0 alone "
+                 "must write model_step_4 and model_step_8")
+        if recs[0]["params_sha256"] != recs[1]["params_sha256"]:
+            fail("MAIN-KOFN: the ranks' parameters differ")
+        want = want_counts(wrappers, conv3x3=CONV_PER_STEP * KOFN_STEPS
+                           + CONV_PER_EVAL_BATCH * 2, fused_sgd=KOFN_STEPS)
+        for r, rec in enumerate(recs):
+            if rec["launches"] != want:
+                fail(f"MAIN-KOFN rank {r} launches {rec['launches']}, "
+                     f"expected {want}")
+        card = card_line()
+        for r, rec in enumerate(recs):
+            print(f"MAIN-KOFN rank {r} step_times_s {rec['step_times']} "
+                  f"wait_times_s {rec['wait_times']} card {card}",
+                  flush=True)
+        print(f"MAIN-KOFN masks {masks} params_sha256 "
+              f"{recs[0]['params_sha256']} (equal on both ranks) launches a "
+              f"rank {recs[0]['launches']}", flush=True)
+        found = EVAL_RE.findall(run_entry(evaluate.main, [
+            "--train-dir", td, "--once", str(KOFN_STEPS)]))
+        if len(found) != 1 or found[0][0] != str(KOFN_STEPS) or not all(
+                math.isfinite(float(x)) for x in found[0][1:]):
+            fail(f"MAIN-KOFN: evaluate.main printed no finite EVAL step "
+                 f"{KOFN_STEPS}")
+        # The same straggler with process 0 in every step (sync): what
+        # its 0.3 s costs the other rank before and after it is masked out.
+        sync_steps = 4
+        logs = launch_ranks(root, 2, [
+            "--rank", *DIST_ARGS, "--inject-step-delay", "0.3",
+            "--inject-delay-process", "0", "--max-steps", str(sync_steps),
+            "--eval-freq", "0", "--train-dir", f"{root}/sync"],
+            "MAIN-KOFN-SYNC")
+        sync = [rank_record(log, "MAIN-KOFN-SYNC") for log in logs]
+        want = want_counts(wrappers, conv3x3=CONV_PER_STEP * sync_steps
+                           + CONV_PER_EVAL_BATCH * 2, fused_sgd=sync_steps)
+        if any(rec["launches"] != want for rec in sync) or \
+                sync[0]["params_sha256"] != sync[1]["params_sha256"]:
+            fail(f"MAIN-KOFN-SYNC: launches {[r['launches'] for r in sync]} "
+                 f"(expected {want}) or the ranks' parameters differ")
+        print(f"MAIN-KOFN-SYNC rank 1 step_times_s {sync[1]['step_times']} "
+              f"wait_times_s {sync[1]['wait_times']} card {card}",
+              flush=True)
+        print(f"MAIN-KOFN straggler cost: rank 1's wait a step, median "
+              f"over steps 2 on: process 0 in every step (sync) "
+              f"{np.median(sync[1]['wait_times'][1:]):.4f} s, masked out "
+              f"from step {flip} (kofn) "
+              f"{np.median(recs[1]['wait_times'][1:]):.4f} s; step "
+              f"{np.median(sync[1]['step_times'][1:]):.4f} s against "
+              f"{np.median(recs[1]['step_times'][1:]):.4f} s; card {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return recs[0]["launches"]
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2:])
+    if sys.argv[1:] == ["--rank-probe"]:
+        return probe_rank_main()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -1247,11 +1525,7 @@ def main() -> int:
     print(f"BUILD triton fused_adam {time.monotonic() - t0:.2f} s",
           flush=True)
 
-    wrappers = {"conv3x3": conv_mod.conv3x3,
-                "fused_sgd": sgd_mod.fused_sgd_update,
-                "fused_adam": adam_mod.fused_adam_update,
-                "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
-                "flash_dkv": fa.flash_dkv, "quantize": tq.quantize_int8}
+    wrappers = kernel_wrappers()
     # Each path right after the checks of its own kernels, with the
     # allocator's cache emptied between the two: the ResNet steps ran
     # slower when they came after the flash checks.
@@ -1271,6 +1545,9 @@ def main() -> int:
     adam = check_adam(torch, adam_mod, n_params)
     ckpt_launches = ckpt_main_path(torch, wrappers)
     torch.cuda.empty_cache()
+    gloo_probe()
+    dist_main_path(wrappers)
+    kofn_main_path(wrappers)
     flash = check_flash(torch, F, fa)
     torch.cuda.empty_cache()
     lm_launches = lm_main_path(torch, wrappers)

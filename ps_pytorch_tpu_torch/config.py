@@ -3,9 +3,10 @@
 The same dataclass as the JAX package's ``config.py``: every field keeps its
 name and default, so ``to_json``/``from_json`` read and write the same keys
 and a config from either package loads in the other. The port runs some
-slices of the system (synchronous data-parallel CNN training with its
-checkpoints and evaluator, and single-process asynchronous stale-gradient
-training with its codecs, see ROADMAP.md), so a field it does not run
+slices of the system (synchronous data-parallel CNN training, K-of-N
+included, one process a replica, with its checkpoints and evaluator, and
+single-process asynchronous stale-gradient training with its codecs, see
+ROADMAP.md), so a field it does not run
 raises ``ValueError`` when it is set to anything but its default: it is
 never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
 one device (``runtime/lm_trainer.py``), without checkpoints.
@@ -221,13 +222,17 @@ class TrainConfig:
                 f"eval_freq={self.eval_freq} checkpoints every N steps, and "
                 "LM checkpoints are not ported yet (ROADMAP.md); pass "
                 "--eval-freq 0")
-        if self.mode == "kofn":
-            raise ValueError(f"mode={self.mode!r} is not ported yet "
-                             "(ROADMAP.md); sync and async run")
-        if self.mode == "async" and self.network in LM_NETWORKS:
-            raise ValueError(f"mode='async' for {self.network} is not "
-                             "ported yet (ROADMAP.md); the asynchronous "
-                             "trainer runs the CNNs")
+        if self.mode != "sync" and self.network in LM_NETWORKS:
+            raise ValueError(f"mode={self.mode!r} for {self.network} is not "
+                             "ported yet (ROADMAP.md); the LM trains in "
+                             "mode 'sync' on one device")
+        if self.network in LM_NETWORKS:
+            for name in SYNC_ONLY_FIELDS:
+                if getattr(self, name) != _default(name):
+                    raise ValueError(
+                        f"{name}={getattr(self, name)!r} for {self.network} "
+                        "is not ported yet (ROADMAP.md); the CNN trainer "
+                        "runs it")
         from ps_pytorch_tpu_torch.compression.codecs import (
             EF_GRAD_CODECS, GRAD_CODECS, require_codec,
         )
@@ -248,15 +253,20 @@ class TrainConfig:
         if self.ef_clip < 0:
             raise ValueError(f"ef_clip={self.ef_clip} (must be >= 0; "
                              "0 = unclamped residual)")
-        if self.mode != "async":
-            # The async fields are inert in the JAX sync trainer; here a
-            # set one raises rather than being ignored.
-            for name in ASYNC_ONLY_FIELDS:
-                if getattr(self, name) != _default(name):
-                    raise ValueError(
-                        f"{name}={getattr(self, name)!r} with mode="
-                        f"{self.mode!r} is not ported yet (ROADMAP.md); it "
-                        "runs with --mode async only")
+        # A field inert in the JAX trainer of this mode raises here rather
+        # than being ignored.
+        inert = {"sync": ASYNC_ONLY_FIELDS + ("num_aggregate",),
+                 "kofn": ASYNC_ONLY_FIELDS,
+                 "async": SYNC_ONLY_FIELDS}[self.mode]
+        for name in inert:
+            if getattr(self, name) != _default(name):
+                runs = ("--mode kofn or async" if name == "num_aggregate"
+                        else "--mode async only" if name in ASYNC_ONLY_FIELDS
+                        else "--mode sync or kofn")
+                raise ValueError(
+                    f"{name}={getattr(self, name)!r} with mode="
+                    f"{self.mode!r} is not ported yet (ROADMAP.md); it runs "
+                    f"with {runs}")
         for name in sorted(set(TrainConfig.__dataclass_fields__)
                            - PORTED_FIELDS):
             if getattr(self, name) != _default(name):
@@ -280,15 +290,21 @@ def _default(name: str):
     return TrainConfig.__dataclass_fields__[name].default
 
 
-# Fields that only the asynchronous trainer reads.
-ASYNC_ONLY_FIELDS = ("num_aggregate", "async_slices", "fetch_every",
+# Fields that only the asynchronous trainer reads. ``num_aggregate`` is
+# read by it too (the freshest K slices) and by K-of-N (the fastest K
+# replicas).
+ASYNC_ONLY_FIELDS = ("async_slices", "fetch_every",
                      "staleness_limit", "staleness_decay", "grad_codec",
                      "grad_topk_frac", "ef", "ef_clip", "wire_bucket_mb",
                      "wire_workers")
+# Fields that only the synchronous trainer (sync and kofn) reads: the
+# straggler deadline and the injected straggler.
+SYNC_ONLY_FIELDS = ("kill_threshold", "inject_step_delay",
+                    "inject_delay_process")
 
 # The fields the port runs. Every other field must keep its default.
-PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS) | frozenset({
-    "compress_grad", "codec_level",
+PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS) | frozenset({
+    "num_aggregate", "compress_grad", "codec_level",
     "network", "dataset", "batch_size", "test_batch_size", "data_dir",
     "num_classes", "optimizer", "lr", "lr_schedule", "lr_warmup_steps",
     "lr_decay_steps", "lr_decay_factor", "momentum", "weight_decay",
@@ -301,18 +317,20 @@ PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS) | frozenset({
 })
 
 
-def refuse_multi_process() -> None:
+def refuse_multi_process(what: str) -> None:
     """Raise when the environment asks for more than one process, by
     torch's launcher contract (``WORLD_SIZE``) or the JAX package's
-    (``PS_TPU_NUM_PROCESSES``, ``parallel/dist.py``): each process would
-    train a model of its own, unrelated to the others."""
+    (``PS_TPU_NUM_PROCESSES``, ``parallel/dist.py``), for a path that runs
+    in one process only (``what``): each process would train a model of
+    its own, unrelated to the others."""
     for name in ("WORLD_SIZE", "PS_TPU_NUM_PROCESSES"):
         n = int(os.environ.get(name, "1") or "1")
         if n > 1:
             raise ValueError(
-                f"{name}={n}: a launch of several processes is not ported "
-                "yet (ROADMAP.md); each would train its own model. Run one "
-                "process (--mode async trains several slices in it)")
+                f"{name}={n}: {what} across several processes is not "
+                "ported yet (ROADMAP.md); each would train its own model. "
+                "Run one process (--mode async trains several slices in "
+                "it; --mode sync and kofn run one process a replica)")
 
 
 def _parse_bool(s: str) -> bool:

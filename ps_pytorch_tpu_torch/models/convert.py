@@ -11,7 +11,8 @@ The port's module names are the flax names, so the map is mechanical:
 
 Trees are nested dicts of numpy arrays (``jax.device_get`` of the flax
 variables). A training state's ``batch_stats`` carry a leading replica
-axis ``[n_data]`` (``parallel/dp.py``); ``from_jax`` takes replica 0.
+axis ``[n_data]`` (``parallel/dp.py``); ``from_jax`` takes one replica's,
+replica 0's unless told otherwise.
 
 ``state_to_jax``/``state_from_jax`` carry a whole training state across:
 the JAX ``TrainState`` (``parallel/dp.py:36-40``) as the dict that flax
@@ -34,8 +35,11 @@ def _walk(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
-    """flax ``params`` (+ ``batch_stats``) -> torch state_dict."""
+def from_jax(params, batch_stats=None,
+             replica: int = 0) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (+ ``batch_stats``) -> torch state_dict. Statistics
+    with a replica axis give replica ``replica``'s, or replica 0's when
+    they hold fewer replicas (a checkpoint of a smaller world)."""
     sd = {}
     for path, a in _walk(params):
         mod, leaf = ".".join(path[:-1]), path[-1]
@@ -51,8 +55,8 @@ def from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unknown param {'/'.join(path)} {a.shape}")
     for path, a in _walk(batch_stats or {}):
         mod, leaf = ".".join(path[:-1]), path[-1]
-        if a.ndim == 2:             # [n_data, C]: replica 0's statistics
-            a = a[0]
+        if a.ndim == 2:             # [n_data, C]
+            a = a[replica if replica < len(a) else 0]
         names = {"mean": "running_mean", "var": "running_var"}
         if leaf not in names:
             raise ValueError(f"unknown batch stat {'/'.join(path)}")
@@ -130,19 +134,31 @@ def _opt_fields(opt_state) -> tuple:
     return ("momentum",)
 
 
-def state_to_jax(model: torch.nn.Module, opt_state, step: int) -> dict:
+def _stack(trees: list) -> dict:
+    """Trees of one structure -> one tree, each leaf stacked on a new
+    leading axis."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def state_to_jax(model: torch.nn.Module, opt_state, step: int,
+                 replica_buffers: Optional[list] = None) -> dict:
     """The port's training state -> the JAX ``TrainState`` as the dict
     flax serializes: ``step`` int32 0-d, ``params``, ``opt_state`` and
-    ``batch_stats`` with a replica axis of 1, fields in declared order and
-    every other dict sorted. The port's ``flat`` buffers are not written
-    (the moments are views of them)."""
+    ``batch_stats`` with a replica axis, fields in declared order and
+    every other dict sorted. The replica axis holds the model's own
+    statistics, or each replica's from ``replica_buffers`` (one dict of
+    BatchNorm buffers a replica, in replica order). The port's ``flat``
+    buffers are not written (the moments are views of them)."""
     params, stats = to_jax(model.state_dict())
     opt = {"step": np.asarray(opt_state.step, np.int32)}
     for field in _opt_fields(opt_state):
         opt[field] = _moments_to_jax(getattr(opt_state, field))
+    stats = _stack([to_jax(b)[1] for b in replica_buffers or [
+        dict(model.named_buffers())]])
     return {"step": np.asarray(step, np.int32), "params": _sorted(params),
-            "opt_state": opt,
-            "batch_stats": _sorted(_map(lambda a: a[None], stats))}
+            "opt_state": opt, "batch_stats": _sorted(stats)}
 
 
 def _check_fits(got: Dict[str, torch.Tensor], own: Dict[str, torch.Tensor],
@@ -156,17 +172,18 @@ def _check_fits(got: Dict[str, torch.Tensor], own: Dict[str, torch.Tensor],
                              f"model {tuple(own[k].shape)}")
 
 
-def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None
-                   ) -> Tuple[Optional[tuple], int]:
+def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None,
+                   replica: int = 0) -> Tuple[Optional[tuple], int]:
     """A JAX ``TrainState`` dict (``state_to_jax``'s layout, or one the
-    JAX package wrote: replica 0's BatchNorm statistics are taken) -> the
+    JAX package wrote: replica ``replica``'s BatchNorm statistics are
+    taken, as ``from_jax`` picks them) -> the
     model's parameters and buffers and, given ``opt_state``, its moments,
     all copied INTO the existing storage (the fused optimizers hold the
     parameters as views of their flat buffer). Everything is checked
     before anything is copied. Returns (the optimizer state with the
     stored step, or None; the stored training step)."""
     own = model.state_dict()
-    sd = from_jax(tree["params"], tree.get("batch_stats"))
+    sd = from_jax(tree["params"], tree.get("batch_stats"), replica)
     _check_fits(sd, own, "model")
     pairs = [(own[k], sd[k]) for k in sd]
     if opt_state is not None:

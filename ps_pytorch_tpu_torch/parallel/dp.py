@@ -5,7 +5,8 @@ the reduction of eval batches (its ``runtime/evaluator.py:accumulate_eval``).
 One process per replica. Each replica runs forward and backward on its
 local batch; gradients are averaged over the participating replicas with a
 masked mean ``sum(g*m)/max(sum(m),1)``, one ``all_reduce`` of one flat
-gradient buffer when a process group of size > 1 is given. BatchNorm
+gradient buffer whenever a process group is given (at world 1 too, so a
+one-rank launch runs the same collective path). BatchNorm
 statistics stay local to each replica, as in the reference. An all-zero
 mask leaves parameters and optimizer state untouched (``:217-226``), and
 ``skip_nonfinite`` does the same for a step whose gradient norm is not
@@ -15,6 +16,7 @@ The parameters' ``.grad`` are views of that flat buffer, so backward
 writes the gradients where the reduction and the fused optimizer read them.
 """
 
+import time
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -42,7 +44,9 @@ class TrainStep:
     """``step(x, y, mask) -> metrics``: x the local [B,H,W,C] batch, y its
     labels, mask the [world] participation vector. Metrics are 0-d device
     tensors (loss, accuracy, participating, grad_norm, nonfinite): reading
-    one waits for the device."""
+    one waits for the device. ``comm_s`` is the host time the last call
+    spent in its all-reduces: waiting for the other replicas, and for the
+    device where the backend copies through host memory (gloo)."""
 
     def __init__(self, model: torch.nn.Module, opt, *,
                  group: Optional[dist.ProcessGroup] = None, input_norm=None,
@@ -53,6 +57,7 @@ class TrainStep:
         self.rank = dist.get_rank(group) if group is not None else 0
         self.input_norm = input_norm
         self.skip_nonfinite = skip_nonfinite
+        self.comm_s = 0.0
         self.device = _device_of(model)
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
@@ -90,9 +95,11 @@ class TrainStep:
             acc = (logits.argmax(-1) == y).float().mean()
             stats = torch.stack([loss.detach(), acc]) * m
             self.flat_grad.mul_(m)
-            if self.world > 1:
+            if self.group is not None:      # even at world 1
+                t0 = time.monotonic()
                 dist.all_reduce(self.flat_grad, group=self.group)
                 dist.all_reduce(stats, group=self.group)
+                self.comm_s = time.monotonic() - t0
             self.flat_grad.div_(denom)
             stats = stats / denom
             # dot, not linalg.vector_norm: the CPU's f32 vector_norm over

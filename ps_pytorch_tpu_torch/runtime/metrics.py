@@ -84,12 +84,19 @@ def derive_step_record(*, step_time_s: float, data_time_s: float,
 
 
 class MetricsLogger:
-    """Per-step sink: the stdout STEP line and an optional JSONL file."""
+    """Per-step sink: the stdout STEP line and an optional JSONL file.
+
+    With more than one process, process i > 0 writes ``{jsonl_path}.p{i}``
+    so that processes never interleave writes in one file; process 0 keeps
+    the bare path (the JAX package's ``runtime/metrics.py:106-114``)."""
 
     def __init__(self, jsonl_path: str = "", log_every: int = 1,
-                 printer=print):
+                 printer=print, process_index: int = 0,
+                 num_processes: int = 1):
         self.log_every = max(log_every, 1)
         self.printer = printer
+        if jsonl_path and num_processes > 1 and process_index > 0:
+            jsonl_path = f"{jsonl_path}.p{process_index}"
         self.jsonl_path = jsonl_path
         self._fh: Optional[IO] = open(jsonl_path, "a") if jsonl_path else None
 

@@ -1,18 +1,22 @@
-"""The training loop: the core loop of the JAX package's
-``runtime/trainer.py`` (build ``:51-99``, resume ``:278-301``, checkpoint
-``:303-334``, ``train`` ``:517``, ``evaluate`` ``:726``) on one process and
-one device.
+"""The training loop: the JAX package's ``runtime/trainer.py`` (build
+``:51-99``, coordinator ``:115-165``, resume ``:278-301``, checkpoint
+``:303-334``, ``train`` ``:517-620``, ``evaluate`` ``:726``), one process a
+replica.
 
-next batch -> step (forward, backward, masked mean, update) -> STEP line,
-and every ``eval_freq`` steps a checkpoint ``model_step_<k>`` for the
-polling evaluator (``runtime/evaluator.py``). The loop keeps the JAX
-trainer's 1-deep pipeline: step k is dispatched before step k-1's metrics
-are read, and the reported step_time runs from fetching the batch to that
-read. With ``resume`` on, the newest valid checkpoint in ``train_dir`` is
-restored and the loader fast-forwarded to it, so the resumed run sees the
-batches an uninterrupted one would. The other optional planes of the JAX
-trainer (coordinator, health, faults, telemetry exporters) are not part of
-this slice (ROADMAP.md).
+announce step -> next batch -> the step's participation mask from the
+Coordinator -> step (forward, backward, masked mean over the process
+group, update) -> report this replica's duration -> STEP line, and every
+``eval_freq`` steps a checkpoint ``model_step_<k>`` for the polling
+evaluator (``runtime/evaluator.py``), written by process 0 only. Each
+process reads its own shard of the data (``host_id`` = rank; ``batch_size``
+is the global batch). The loop keeps the JAX trainer's 1-deep pipeline:
+step k is dispatched before step k-1's metrics are read, and the reported
+step_time runs from fetching the batch to that read. With ``resume`` on,
+every process restores the newest valid checkpoint in ``train_dir`` and
+fast-forwards its own shard to it, so the resumed run sees the batches an
+uninterrupted one would. The other optional planes of the JAX trainer
+(health, faults, telemetry exporters, the lease and elections) are not part
+of this slice (ROADMAP.md).
 """
 
 import time
@@ -28,8 +32,12 @@ from ps_pytorch_tpu_torch.models import build_model
 from ps_pytorch_tpu_torch.models.convert import state_from_jax, state_to_jax
 from ps_pytorch_tpu_torch.optim import build_optimizer
 from ps_pytorch_tpu_torch.parallel import make_eval_step, make_train_step
+from ps_pytorch_tpu_torch.parallel import dist
 from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+from ps_pytorch_tpu_torch.runtime.coordinator import (
+    Coordinator, DistributedKV, KVStore,
+)
 from ps_pytorch_tpu_torch.runtime.metrics import (
     MetricsLogger, derive_step_record,
 )
@@ -60,37 +68,54 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
                  printer=print):
         set_reference_numerics()
-        if cfg.mode != "sync":
-            raise ValueError(f"the Trainer runs mode='sync'; mode="
+        if cfg.mode not in ("sync", "kofn"):
+            raise ValueError(f"the Trainer runs mode='sync' and 'kofn'; mode="
                              f"{cfg.mode!r} is MultiSliceTrainer's "
                              "(runtime/multislice.py)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # One replica a process: in a process group, this process's rank
+        # among ``world``; alone, replica 0 of 1.
+        self.rank, self.world = dist.local_data_shard()
+        self.group = dist.group()
+        store = dist.store()
+        self.coordinator = Coordinator(
+            self.world, mode=cfg.mode, num_aggregate=cfg.num_aggregate,
+            kill_threshold=cfg.kill_threshold,
+            kv=DistributedKV(store) if store is not None else KVStore(),
+            leader=self.rank == 0)
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl,
                                  seed=cfg.seed).to(self.device)
         self.opt = build_optimizer(cfg)
-        self.train_loader, self.test_loader = prepare_data(cfg)
+        self.train_loader, self.test_loader = prepare_data(
+            cfg, host_id=self.rank, num_hosts=self.world)
         input_norm = input_norm_for(cfg)
         self.step_fn = make_train_step(self.model, self.opt,
+                                       group=self.group,
                                        input_norm=input_norm)
         self.eval_fn = make_eval_step(self.model, input_norm)
         self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
-                                     printer=printer)
+                                     printer=printer,
+                                     process_index=self.rank,
+                                     num_processes=self.world)
+        # Per step: the wall time, and the part of it spent waiting on the
+        # other replicas (the mask wait and the all-reduces).
         self.step_times: list = []
+        self.wait_times: list = []
         self.start_step = 0
         if cfg.resume:
             self._maybe_resume()
 
     def _restore(self, tree: dict) -> None:
         """Put a checkpoint's state into the model and the optimizer, in
-        place."""
-        self.step_fn.opt_state, _ = state_from_jax(tree, self.model,
-                                                   self.step_fn.opt_state)
+        place; this replica's BatchNorm statistics where it has them."""
+        self.step_fn.opt_state, _ = state_from_jax(
+            tree, self.model, self.step_fn.opt_state, replica=self.rank)
 
     def _maybe_resume(self) -> None:
         """Restore the newest checkpoint that verifies, walking back past
-        corrupt ones, and replay the data stream to it."""
+        corrupt ones, and replay this process's data stream to it."""
         got = ckpt.load_latest_valid(self.cfg.train_dir, self._restore)
         if got is None:
             return
@@ -100,12 +125,31 @@ class Trainer:
         print(f"RESUME from {ckpt.checkpoint_path(self.cfg.train_dir, step)} "
               f"at step {self.start_step}")
 
-    def checkpoint(self, step: int) -> str:
-        """Commit ``model_step_<step>``, then keep the newest ``ckpt_keep``
-        when that is set. Returns the checkpoint's path."""
+    def _replica_buffers(self) -> Optional[list]:
+        """Every replica's BatchNorm buffers, gathered to every process (a
+        collective: all processes call it), or None in one process."""
+        own = dict(self.model.named_buffers())
+        if self.group is None or not own:
+            return None
+        flat = torch.cat([b.reshape(-1) for b in own.values()])
+        parts = [torch.empty_like(flat) for _ in range(self.world)]
+        torch.distributed.all_gather(parts, flat, group=self.group)
+        sizes = [b.numel() for b in own.values()]
+        return [{name: t.view_as(b) for (name, b), t in
+                 zip(own.items(), part.split(sizes))} for part in parts]
+
+    def checkpoint(self, step: int) -> Optional[str]:
+        """Commit ``model_step_<step>`` with every replica's BatchNorm
+        statistics, then keep the newest ``ckpt_keep`` when that is set.
+        Every process calls it; process 0 writes and returns the path, the
+        others return None."""
+        replica_buffers = self._replica_buffers()
+        if self.rank != 0:
+            return None
         path = ckpt.save_checkpoint(
             self.cfg.train_dir, step,
-            state_to_jax(self.model, self.step_fn.opt_state, step),
+            state_to_jax(self.model, self.step_fn.opt_state, step,
+                         replica_buffers),
             config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
             codec_level=self.cfg.codec_level)
         if self.cfg.ckpt_keep > 0:
@@ -119,26 +163,43 @@ class Trainer:
     def train(self) -> None:
         """Run to max_steps or epochs * steps-per-epoch, whichever is
         smaller, from ``start_step``; checkpoint every ``eval_freq`` steps
-        and at a last step that is not a multiple of it."""
+        and at a last step that is not a multiple of it.
+
+        The duration this replica reports to the Coordinator is its own
+        time: the step's wall time less the time it waited on the other
+        replicas (for the mask, in the all-reduces). Every rank of a
+        synchronous group runs at the slowest one's pace, so the wall times
+        of all ranks are the same and cannot tell the straggler."""
         cfg = self.cfg
+        co = self.coordinator
         steps_per_epoch = max(len(self.train_loader), 1)
         epoch_budget = (cfg.epochs * steps_per_epoch if cfg.epochs > 0
                         else cfg.max_steps)
         last_step = min(cfg.max_steps, epoch_budget)
-        mask = np.ones(1, np.float32)
+        slow = cfg.inject_step_delay > 0 \
+            and self.rank == cfg.inject_delay_process
         step, m_prev = self.start_step, None
         try:
             while step < last_step:
                 step += 1
+                co.announce_step(step)
                 t0 = time.monotonic()
                 x, y = self.train_loader.next_batch()
                 t_data = time.monotonic() - t0
+                mask = co.participation_mask(step)
+                t_mask = time.monotonic() - t0 - t_data
                 m = self.step_fn(x, y, mask)
+                if slow:
+                    # Fault injection: make this process a straggler.
+                    time.sleep(cfg.inject_step_delay)
                 if m_prev is not None:
                     float(m_prev["loss"])       # the 1-deep pipeline's sync
                 m_prev = m
                 t_step = time.monotonic() - t0
+                t_wait = t_mask + self.step_fn.comm_s
                 self.step_times.append(t_step)
+                self.wait_times.append(t_wait)
+                co.report_duration(self.rank, step, t_step - t_wait)
                 if step % cfg.log_every == 0 or step == last_step:
                     self.metrics.log_step(
                         step, (step - 1) // steps_per_epoch,
@@ -159,8 +220,27 @@ class Trainer:
 
     def evaluate(self, max_batches: Optional[int] = None) -> dict:
         """Loss, top-1 and top-5 over the test loader (or its first
-        ``max_batches`` batches)."""
-        result = accumulate_eval(self.eval_fn, self.test_loader.epoch(0),
-                                 max_batches)
-        self.model.train()
-        return result
+        ``max_batches`` batches), each process over the whole test set with
+        replica 0's BatchNorm statistics (broadcast from process 0; a
+        collective), as the JAX trainer evaluates; its own statistics are
+        put back after."""
+        bufs = [b for _, b in self.model.named_buffers()]
+        own = None
+        if self.group is not None and bufs:
+            own = [b.clone() for b in bufs]
+            flat = torch.cat([b.reshape(-1) for b in bufs])
+            torch.distributed.broadcast(flat, 0, group=self.group)
+            self._copy_into(bufs, flat.split([b.numel() for b in bufs]))
+        try:
+            return accumulate_eval(self.eval_fn, self.test_loader.epoch(0),
+                                   max_batches)
+        finally:
+            self.model.train()
+            if own is not None:
+                self._copy_into(bufs, own)
+
+    @staticmethod
+    @torch.no_grad()
+    def _copy_into(dst: list, src) -> None:
+        for d, s in zip(dst, src):
+            d.copy_(s.view_as(d))

@@ -4,13 +4,19 @@ Takes the root ``train.py``'s flags (one per TrainConfig field; a bool flag
 may stand alone) plus ``--device`` (default ``cuda``). Prints the same
 CONFIG, STEP and FINAL lines as the JAX trainer, writes ``model_step_<k>``
 into ``--train-dir`` every ``--eval-freq`` steps, and resumes from the
-newest valid one unless ``--resume false``. ``--mode async`` trains
-``--async-slices`` slices asynchronously in this one process
-(``runtime/multislice.py``) and prints ``SLICES`` in place of ``MESH``. A
-launch of several processes (``WORLD_SIZE`` or ``PS_TPU_NUM_PROCESSES``
-above 1) is not ported yet and raises (ROADMAP.md).
-Example, ResNet-18 on CIFAR-10
-geometry through the hand-written conv3x3 and fused-Adam kernels:
+newest valid one unless ``--resume false``.
+
+``--mode sync`` and ``--mode kofn`` run one process a replica. Started by
+the port's launcher (``tools/launch.py``), or by hand with the JAX
+package's env contract (``PS_TPU_COORDINATOR``, ``PS_TPU_NUM_PROCESSES``,
+``PS_TPU_PROCESS_ID``; ``parallel/dist.py``), each process joins the
+process group before any model is built and prints ``MESH data=<world>
+... backend=<nccl|gloo>``; without the contract it trains alone
+(``backend=none``). ``--mode async`` trains ``--async-slices`` slices
+asynchronously in one process (``runtime/multislice.py``) and prints
+``SLICES`` in place of ``MESH``; it and the LM refuse a launch of several
+processes (ROADMAP.md). Example, ResNet-18 on CIFAR-10 geometry through the
+hand-written conv3x3 and fused-Adam kernels:
 
     python -m ps_pytorch_tpu_torch.train --network ResNet18 \
         --dataset synthetic_cifar10 --batch-size 256 \
@@ -18,8 +24,16 @@ geometry through the hand-written conv3x3 and fused-Adam kernels:
         --fused-optimizer --lr 1e-3 --weight-decay 5e-4 --max-steps 6 \
         --eval-freq 3 --train-dir /tmp/td
 
-and the same network trained by two asynchronous slices whose gradients
-cross between them as int8 through the hand-written quantize kernel:
+the same network on two ranks, K-of-N with one backup worker:
+
+    python -m ps_pytorch_tpu_torch.tools.launch launch --simulate 2 \
+        --wait -- --mode kofn --num-aggregate 1 --network ResNet18 \
+        --dataset synthetic_cifar10 --batch-size 256 \
+        --compute-dtype bfloat16 --conv-impl pallas --fused-optimizer \
+        --max-steps 8 --eval-freq 4 --train-dir /tmp/td
+
+and trained by two asynchronous slices whose gradients cross between them
+as int8 through the hand-written quantize kernel:
 
     python -m ps_pytorch_tpu_torch.train --mode async --async-slices 2 \
         --network ResNet18 --dataset synthetic_cifar10 --batch-size 256 \
@@ -34,28 +48,43 @@ from ps_pytorch_tpu_torch.config import (
 )
 
 
-def main(argv=None) -> int:
+def run(argv=None):
+    """``main`` without the exit code: returns the trainer and its final
+    evaluation, after the FINAL line, for scripts that read them."""
+    from ps_pytorch_tpu_torch.parallel import dist
     from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer, Trainer
 
     parser = add_train_args()
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
-    refuse_multi_process()
     cfg = config_from_namespace(args)
-    print(f"CONFIG {cfg.to_json()}")
     if cfg.mode == "async":
-        trainer = MultiSliceTrainer(cfg, n_slices=cfg.async_slices,
-                                    fetch_every=cfg.fetch_every,
-                                    device=args.device)
-        print(f"SLICES {cfg.async_slices} x 1 devices")
-    else:
-        trainer = Trainer(cfg, device=args.device)
-        print(f"MESH data=1 model=1 devices=1 device={trainer.device}")
-    trainer.train()
-    result = trainer.evaluate()
-    print(f"FINAL loss {result['loss']:.6f} prec1 {result['prec1']:.4f} "
-          f"prec5 {result['prec5']:.4f}")
+        refuse_multi_process("--mode async")
+    try:
+        dist.initialize_from_env(args.device)
+        print(f"CONFIG {cfg.to_json()}")
+        if cfg.mode == "async":
+            trainer = MultiSliceTrainer(cfg, n_slices=cfg.async_slices,
+                                        fetch_every=cfg.fetch_every,
+                                        device=args.device)
+            print(f"SLICES {cfg.async_slices} x 1 devices")
+        else:
+            trainer = Trainer(cfg, device=str(dist.local_device(args.device)))
+            print(f"MESH data={trainer.world} model=1 devices="
+                  f"{trainer.world} backend={dist.backend()} "
+                  f"device={trainer.device}")
+        trainer.train()
+        result = trainer.evaluate()
+        print(f"FINAL loss {result['loss']:.6f} prec1 {result['prec1']:.4f} "
+              f"prec5 {result['prec5']:.4f}")
+        return trainer, result
+    finally:
+        dist.shutdown()
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

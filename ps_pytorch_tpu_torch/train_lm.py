@@ -29,7 +29,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
-    refuse_multi_process()
+    refuse_multi_process("the LM")
     cfg = config_from_namespace(args)
     print(f"CONFIG {cfg.to_json()}")
     trainer = LMTrainer(cfg, device=args.device)

@@ -1,6 +1,7 @@
 """What the port's entry points and trainers guard, on the CPU: a launch of
-several processes is refused before any model is built, every trainer and
-the evaluator set the arithmetic the port is held to (no TF32,
+several processes without the whole launch contract (or for a path that
+runs in one process only) is refused before any model is built, every
+trainer and the evaluator set the arithmetic the port is held to (no TF32,
 deterministic cuDNN), and float16 is refused at config time wherever a
 hand-written kernel (f32 and bf16 only) would meet it.
 """
@@ -50,9 +51,17 @@ def test_a_launch_of_several_processes_raises_before_a_model_is_built(
         "train_async": (train.main, CNN_ARGS + ["--mode", "async"]),
         "train_lm": (train_lm.main, LM_ARGS)}[entry]
     argv = argv + ["--train-dir", str(tmp_path / "td")]
+    for name in ("WORLD_SIZE", "PS_TPU_NUM_PROCESSES", "PS_TPU_COORDINATOR"):
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(var, "2")
+    # The sync trainer runs one process a replica: it asks for the rest of
+    # the launch contract; the other entry points run in one process only.
+    match = {("train_sync", "WORLD_SIZE"): "WORLD_SIZE=2.*tools.launch",
+             ("train_sync", "PS_TPU_NUM_PROCESSES"):
+             "PS_TPU_NUM_PROCESSES=2 without PS_TPU_COORDINATOR"}.get(
+                 (entry, var), f"{var}=2.*ROADMAP.md")
     out = io.StringIO()
-    with pytest.raises(ValueError, match=f"{var}=2.*ROADMAP.md"):
+    with pytest.raises(ValueError, match=match):
         with redirect_stdout(out):
             main(argv)
     assert out.getvalue() == ""          # refused before the CONFIG line

@@ -77,7 +77,7 @@ def test_config_json_round_trips_with_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mode", "kofn"), ("sync_topology", "hier"), ("shard_update", True),
+    ("leader_lease_s", 1.0), ("sync_topology", "hier"), ("shard_update", True),
     ("fault_spec", "kv_drop:p=0.1"), ("health_spec", "nonfinite:halt"),
     ("elastic", True), ("kv_replicas", "dir:/a,dir:/b,dir:/c"),
     ("shard_wire", True), ("sync_batchnorm", True), ("loader_workers", 4),
@@ -513,8 +513,10 @@ def test_trainer_refuses_what_it_cannot_do(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device()
-    with pytest.raises(ValueError, match="kofn"):
-        Trainer(config.TrainConfig(mode="kofn", dataset="Digits",
+    # K-of-N in one process: K can be at most the world of 1.
+    with pytest.raises(ValueError, match="num_aggregate <= 1"):
+        Trainer(config.TrainConfig(mode="kofn", num_aggregate=2,
+                                   dataset="Digits",
                                    train_dir=str(tmp_path / "td")),
                 device="cpu")
 
