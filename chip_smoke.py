@@ -6,7 +6,10 @@ exit and no result line, if any phase fails:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and compiles the Triton kernels;
+   source, in parallel, beside the g++ build of the RRC loader's native
+   kernel, ``native/loader.cpp``, into ``ps_pytorch_tpu_torch/build``; it
+   fails unless that kernel is the one the loader runs) and compiles the
+   Triton kernels;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths, and times kernel, plain version, the library
    call that computes the same function (``F.conv2d``,
@@ -40,8 +43,14 @@ exit and no result line, if any phase fails:
    gloo (MAIN-KOFN: K-of-N with process 0 slowed by 0.3 s a step, its
    masks, process 0's checkpoints scored by ``evaluate.main``, equal
    parameter hashes, and a sync run with the same straggler for its
-   cost); then the full-width TransformerLM (d
-   512, 8 layers, 8 heads, vocab 32000, S 2048, batch 8, f32, flash
+   cost); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
+   Dropout, synthetic CIFAR-100, batch 256) and ResNet-50 at 224 px on the
+   random-resized-crop loader (MAIN-IMAGENET: batch 128, uint8 batches)
+   through ``train.main`` and ``evaluate.main --once``, each after the
+   bf16 conv3x3 checks at its geometries (VGG11's channel ladder from
+   16x16 down to 2x2, ResNet-50's 56, 28, 14 and 7 px stages); then the
+   full-width TransformerLM (d 512, 8 layers, 8 heads, vocab 32000, S
+   2048, batch 8, f32, flash
    attention) for a few steps through the port's LMTrainer, evaluating 2
    batches. Every launch count is set to 0 just before each path and read
    just after: each kernel of the path ran the expected number of times,
@@ -49,7 +58,9 @@ exit and no result line, if any phase fails:
    launch took the tensor-core kernel (``conv3x3_tc``, ``flash_fwd_tc``,
    ``flash_dq_tc``, ``flash_dkv_tc``);
 5. holds one small ResNet step in f32 (SIMT conv only) and one in bf16
-   (tensor-core conv only), two small asynchronous ticks (the same
+   (tensor-core conv only), one small bf16 VGG step (the same injected
+   Dropout masks) and one of a ResNet with the ImageNet stem, two small
+   asynchronous ticks (the same
    injected rounding noise) and one small LM step on the card against the
    same steps on the CPU (the plain versions);
 6. trains LeNet on the UCI digits for 1200 steps through ``train.main`` and
@@ -65,6 +76,7 @@ import re
 import shutil
 import sys
 import tempfile
+import threading
 import time
 from contextlib import redirect_stdout
 from pathlib import Path
@@ -138,6 +150,36 @@ KOFN_ARGS = ("--mode", "kofn", "--num-aggregate", "1", "--inject-step-delay",
              "0.3", "--inject-delay-process", "0", "--max-steps",
              str(KOFN_STEPS), "--eval-freq", "4")
 RANK_TIMEOUT_S = 400
+# VGG11 (with BatchNorm) on synthetic CIFAR-100, the JAX package's
+# vgg11_cifar100_kofn / vgg11_pallas_conv (bench_suite.py:1450, 1511):
+# batch 256, SGD lr 0.05 momentum 0.9; 8333 test images make 2 eval
+# batches of 4167.
+VGG_STEPS = 5
+VGG_ARGS = ("--network", "VGG11", "--dataset", "synthetic_cifar100",
+            "--batch-size", str(BATCH), "--test-batch-size", "4167",
+            "--compute-dtype", "bfloat16", "--conv-impl", "pallas",
+            "--fused-optimizer", "--lr", "0.05", "--momentum", "0.9",
+            "--resume", "false", "--device", "cuda")
+# VGG11's 7 convs past its 3-channel input conv at 32 px: (H=W, C, Co,
+# count); the input gradients run Co -> C.
+VGG_GEOMETRIES = ((16, 64, 128, 1), (8, 128, 256, 1), (8, 256, 256, 1),
+                  (4, 256, 512, 1), (4, 512, 512, 1), (2, 512, 512, 2))
+# ResNet-50 at 224 px on the RRC loader (bench_suite.py:1454,
+# resnet50_imagenet: SGD lr 0.05 momentum 0.9, :1400), uint8 batches
+# normalized in the step; the 512 test
+# images (center crop) make one eval batch.
+IMAGENET_BATCH = 128
+IMAGENET_STEPS = 4
+IMAGENET_ARGS = ("--network", "ResNet50_ImageNet", "--dataset",
+                 "synthetic_imagenet_rrc", "--batch-size",
+                 str(IMAGENET_BATCH), "--compute-dtype", "bfloat16",
+                 "--conv-impl", "pallas", "--fused-optimizer", "--lr", "0.05",
+                 "--momentum", "0.9",
+                 "--device-normalize", "true", "--resume", "false",
+                 "--device", "cuda")
+# ResNet-50's 13 stride-1 3x3s at 224 px: (H=W, C, Co, count).
+RESNET50_GEOMETRIES = ((56, 64, 64, 3), (28, 128, 128, 3), (14, 256, 256, 5),
+                       (7, 512, 512, 2))
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 
@@ -303,6 +345,71 @@ def check_conv(torch, F, conv_mod) -> dict:
           f"{step['bound_ms']:.4f} ratio_to_library "
           f"{step['ms'] / step['library_ms']:.3f}", flush=True)
     return dict(step, max_abs_err=max_err)
+
+
+def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
+                          geometries) -> dict:
+    """The bf16 tensor-core conv3x3 against its plain version at a model's
+    stride-1 geometries, forward (C -> Co) and input gradient (Co -> C),
+    within the bf16 tolerance of ``check_conv``; every launch must take the
+    tensor-core kernel. Times the kernel, the plain version and
+    ``F.conv2d`` by graph replay beside the bound, and sums one step's
+    launches (each geometry times its count)."""
+    tol = 2e-2
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "ops_ms": 0.0, "bytes_ms": 0.0}
+    max_err, launches = 0.0, 0
+    for h, c, co, count in geometries:
+        x = torch.randn(batch, h, h, c, device="cuda", generator=gen)
+        g = torch.randn(batch, h, h, co, device="cuda", generator=gen)
+        w = torch.randn(3, 3, c, co, device="cuda", generator=gen) \
+            / math.sqrt(9 * c)
+        x, g, w = x.bfloat16(), g.bfloat16(), w.bfloat16()
+        wt = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()
+        for kind, fn, inp, w_eff in (
+                ("fwd", conv_mod.conv3x3, x, w),
+                ("input_grad", conv_mod.conv3x3_input_grad, g, wt)):
+            tc_before = conv_mod.conv3x3.tc_launches
+            out = fn(inp, w)
+            if conv_mod.conv3x3.tc_launches != tc_before + 1:
+                fail(f"conv3x3 {label} {kind} {h}x{h}x{c}->{co} did not take "
+                     "the tensor-core kernel")
+            ref = conv_mod.conv3x3_reference(inp, w_eff)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not torch.allclose(out.float(), ref.float(), rtol=tol,
+                                  atol=tol):
+                fail(f"conv3x3 {label} {kind} bf16 {batch}x{h}x{h} "
+                     f"{c}->{co}: max abs err {err} above {tol}")
+            c_in, c_out = w_eff.shape[2], w_eff.shape[3]
+            in_cl = inp.permute(0, 3, 1, 2)          # channels_last NCHW
+            w_oihw = w_eff.permute(3, 2, 0, 1).contiguous()
+            ms = graph_ms(lambda: conv_mod.conv3x3(inp, w_eff))
+            plain = graph_ms(lambda: conv_mod.conv3x3_reference(inp, w_eff),
+                             iters=3)
+            lib = graph_ms(lambda: F.conv2d(in_cl, w_oihw, padding=1))
+            ops_ms, bytes_ms = conv_bound_ms(batch, h, c_in, c_out,
+                                             "bfloat16")
+            bound = max(ops_ms, bytes_ms)
+            print(f"KERNEL conv3x3 {label} {kind} bfloat16 {batch}x{h}x{h} "
+                  f"{c_in}->{c_out} x{count} route tc ms {ms:.4f} plain_ms "
+                  f"{plain:.4f} library_ms {lib:.4f} bound_ms {bound:.4f} "
+                  f"ratio_to_library {ms / lib:.3f} tflops "
+                  f"{2 * 9 * batch * h * h * c_in * c_out / ms / 1e9:.1f} "
+                  f"max_abs_err {err:.3e}", flush=True)
+            max_err = max(max_err, err)
+            launches += count
+            for key, value in (("ms", ms), ("plain_ms", plain),
+                               ("library_ms", lib), ("bound_ms", bound),
+                               ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                step[key] += count * value
+    print(f"KERNEL conv3x3 {label} one step's {launches} launches (bf16, "
+          f"batch {batch}, route tc): ms {step['ms']:.4f} plain_ms "
+          f"{step['plain_ms']:.4f} library_ms {step['library_ms']:.4f} "
+          f"bound_ms {step['bound_ms']:.4f} ratio_to_library "
+          f"{step['ms'] / step['library_ms']:.3f}", flush=True)
+    return dict(step, max_abs_err=max_err, launches_a_step=launches)
 
 
 def time_weight_grad(torch, conv_mod) -> None:
@@ -1102,6 +1209,157 @@ def ckpt_main_path(torch, wrappers) -> dict:
     return launches
 
 
+def eval_batch_count(dataset: str, test_batch: int) -> int:
+    """Eval batches of a synthetic set's test split (about a sixth of
+    train, at least 1000, at most train), without making it."""
+    from ps_pytorch_tpu_torch.data import DATASET_SHAPES
+    n = DATASET_SHAPES[dataset][4]
+    return math.ceil(max(n // 6, min(1000, n)) / test_batch)
+
+
+def entry_path(torch, wrappers, phase: str, args, steps: int,
+               eval_batches: int, conv_per_step: int,
+               conv_per_eval_batch: int) -> dict:
+    """``train.main`` for ``steps`` steps with a checkpoint at the last,
+    then ``evaluate.main --once`` on it, every launch count set to 0 just
+    before and read just after: STEP lines with finite losses, a finite
+    FINAL and EVAL, conv3x3 launches all through the tensor cores, one
+    fused SGD a step. ``eval_batches`` is that of one evaluation (the
+    trainer's final one and the evaluator's are counted)."""
+    from ps_pytorch_tpu_torch import evaluate, train
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    td = f"{root}/td"
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        out = run_entry(train.main, [
+            *args, "--max-steps", str(steps), "--eval-freq", str(steps),
+            "--train-dir", td, "--metrics-file", f"{root}/m.jsonl"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        found = EVAL_RE.findall(run_entry(
+            evaluate.main, ["--train-dir", td, "--once", str(steps)]))
+        launches = read_counts(wrappers)
+        rows = read_jsonl(f"{root}/m.jsonl")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    final = re.search(r"^FINAL loss (\S+) prec1 (\S+) prec5 (\S+)$", out,
+                      re.M)
+    if [r["step"] for r in rows] != list(range(1, steps + 1)) or not all(
+            math.isfinite(r["loss"]) for r in rows):
+        fail(f"{phase}: expected {steps} steps with finite loss")
+    if not final or not all(math.isfinite(float(v)) for v in final.groups()):
+        fail(f"{phase}: no finite FINAL line")
+    if len(found) != 1 or found[0][0] != str(steps) or not all(
+            math.isfinite(float(v)) for v in found[0][1:]):
+        fail(f"{phase}: evaluate.main printed no finite EVAL step {steps}")
+    print(f"{phase} step_times_s {[r['step_time'] for r in rows]} "
+          f"images_per_s {[r['examples_per_sec'] for r in rows]} "
+          f"train_main_s {wall:.2f} max_memory_allocated {peak} "
+          f"launches {launches}", flush=True)
+    want = want_counts(wrappers, fused_sgd=steps,
+                       conv3x3=conv_per_step * steps
+                       + conv_per_eval_batch * 2 * eval_batches)
+    if launches != want:
+        fail(f"{phase} launches {launches}, expected {want}")
+    return dict(launches, peak=peak)
+
+
+def vgg_main_path(torch, wrappers) -> dict:
+    """MAIN-VGG: VGG11 (BatchNorm, biased convs, Dropout) on synthetic
+    CIFAR-100 through the entry points: 7 conv3x3 launches a forward (every
+    conv past the 3-channel input conv), 14 a train step."""
+    per_pass = sum(n for _, _, _, n in VGG_GEOMETRIES)
+    return entry_path(torch, wrappers, "MAIN-VGG", VGG_ARGS, VGG_STEPS,
+                      eval_batch_count("synthetic_cifar100", 4167),
+                      2 * per_pass, per_pass)
+
+
+def imagenet_main_path(torch, wrappers) -> dict:
+    """MAIN-IMAGENET: ResNet-50 at 224 px on synthetic_imagenet_rrc
+    through the entry points, the RRC loader running its native kernel: 13
+    conv3x3 launches a forward, 26 a train step."""
+    from ps_pytorch_tpu_torch.data import augment
+
+    backend = augment.rrc_backend()
+    print(f"MAIN-IMAGENET rrc_backend {backend}", flush=True)
+    if backend != "native":
+        fail("MAIN-IMAGENET: the RRC loader runs its numpy version, not "
+             "the native kernel")
+    per_pass = sum(n for _, _, _, n in RESNET50_GEOMETRIES)
+    return entry_path(torch, wrappers, "MAIN-IMAGENET", IMAGENET_ARGS,
+                      IMAGENET_STEPS,
+                      eval_batch_count("synthetic_imagenet_rrc", 1000),
+                      2 * per_pass, per_pass)
+
+
+def small_bf16_step_agrees(torch, conv_mod, label: str, build, hw: int,
+                           masks=()) -> None:
+    """One bf16 train step of a small model from ``build(device)`` (conv
+    pallas, fused SGD, uint8 batches normalized in the step), on the card
+    and on the CPU from the same weights and batch, each Dropout layer fed
+    the same mask: losses agree at rtol 1e-2, as the small bf16 ResNet
+    step; every conv3x3 launch on the tensor cores."""
+    from ps_pytorch_tpu_torch.ops.fused_sgd import FusedSGD
+    from ps_pytorch_tpu_torch.parallel import make_train_step
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (8, hw, hw, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, 8).astype(np.int32)
+    norm = (np.full(3, 1 / 64.0, np.float32), np.full(3, 2.0, np.float32))
+    runs = {}
+    before = (conv_mod.conv3x3.launches, conv_mod.conv3x3.tc_launches)
+    for dev in ("cuda", "cpu"):
+        model = build(dev)
+        for k, keep in enumerate(masks):
+            getattr(model, f"Dropout_{k}").mask_fn = (
+                lambda t, keep=keep: torch.from_numpy(keep))
+        step = make_train_step(model, FusedSGD(0.05, momentum=0.9,
+                                               weight_decay=5e-4),
+                               input_norm=norm)
+        loss = float(step(x, y, np.ones(1, np.float32), key=1)["loss"])
+        runs[dev] = (loss, {k: v.detach().cpu() for k, v
+                            in model.state_dict().items()})
+    launches = conv_mod.conv3x3.launches - before[0]
+    tc = conv_mod.conv3x3.tc_launches - before[1]
+    (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
+    worst = max((sc[k].float() - sp[k].float()).abs().max().item()
+                for k in sc)
+    if launches == 0 or tc != launches:
+        fail(f"small {label} step: {launches} conv3x3 launches, {tc} "
+             "through the tensor cores")
+    if not (math.isfinite(lc) and np.isclose(lc, lp, rtol=1e-2, atol=0.0)):
+        fail(f"small {label} step bf16: loss on the card {lc} vs CPU {lp}")
+    print(f"CHECK small {label} step bfloat16 card vs CPU: loss {lc} vs "
+          f"{lp}, max abs weight diff {worst:.3e}, conv3x3 launches "
+          f"{launches} (tensor cores {tc})", flush=True)
+
+
+def small_vgg_and_stem_steps_agree(torch, conv_mod) -> None:
+    """A narrow VGG (BatchNorm, biased convs, both Dropout layers with
+    injected masks) at 32 px, and a ResNet with the ImageNet stem (7x7/2
+    conv, 3x3/2 max pool, global mean; two Bottlenecks a stage) at 64 px."""
+    from ps_pytorch_tpu_torch.models.resnet import Bottleneck, ResNet
+    from ps_pytorch_tpu_torch.models.vgg import VGG
+
+    rng = np.random.default_rng(1)
+    small_bf16_step_agrees(
+        torch, conv_mod, "VGG",
+        lambda dev: VGG((16, "M", 32, "M", 32, "M", 64, "M", 64, "M"), True,
+                        10, torch.bfloat16, "pallas",
+                        torch.Generator().manual_seed(3)).to(dev),
+        32, masks=(rng.random((8, 64)) < 0.5, rng.random((8, 512)) < 0.5))
+    small_bf16_step_agrees(
+        torch, conv_mod, "ImageNet-stem ResNet",
+        lambda dev: ResNet(Bottleneck, (2, 2, 2, 2), 10, torch.bfloat16,
+                           "pallas", torch.Generator().manual_seed(3),
+                           imagenet_stem=True).to(dev), 64)
+
+
 def flat_leaves(tree):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1500,9 +1758,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # The RRC loader's g++ build runs beside the nvcc builds.
+    from ps_pytorch_tpu_torch.data import augment
+    rrc = {}
     t0 = time.monotonic()
+    loader_build = threading.Thread(target=lambda: rrc.update(
+        backend=augment.rrc_backend(), s=time.monotonic() - t0))
+    loader_build.start()
     took = _build.build()
     print(f"BUILD nvcc {took} wall {time.monotonic() - t0:.2f} s", flush=True)
+    loader_build.join()
+    if rrc["backend"] != "native":
+        fail("the native RRC loader (native/loader.cpp) did not build")
+    print(f"BUILD g++ RRC loader {rrc['s']:.2f} s "
+          f"{Path(augment._load_native_loader()._name).name}", flush=True)
     for name in took:
         kernel = ""
         for line in _build.build_log(name).splitlines():
@@ -1545,6 +1814,14 @@ def main() -> int:
     adam = check_adam(torch, adam_mod, n_params)
     ckpt_launches = ckpt_main_path(torch, wrappers)
     torch.cuda.empty_cache()
+    vgg_conv = check_conv_geometries(torch, F, conv_mod, "VGG11", BATCH,
+                                     VGG_GEOMETRIES)
+    vgg_launches = vgg_main_path(torch, wrappers)
+    small_vgg_and_stem_steps_agree(torch, conv_mod)
+    r50_conv = check_conv_geometries(torch, F, conv_mod, "ResNet50_ImageNet",
+                                     IMAGENET_BATCH, RESNET50_GEOMETRIES)
+    imagenet_launches = imagenet_main_path(torch, wrappers)
+    torch.cuda.empty_cache()
     gloo_probe()
     dist_main_path(wrappers)
     kofn_main_path(wrappers)
@@ -1565,11 +1842,28 @@ def main() -> int:
              bound_ms=conv["bound_ms"],
              bound_by=("operations" if conv["ops_ms"] >= conv["bytes_ms"]
                        else "bytes"),
-             library_ms=conv["library_ms"]),
+             library_ms=conv["library_ms"],
+             # The slice's other paths: launches of each run, and one
+             # train step's launches at its geometries (kernel, bound,
+             # plain version and F.conv2d, ms).
+             paths={
+                 name: dict(launches=counts["conv3x3"],
+                            tc_launches=counts["conv3x3_tc"],
+                            step_ms=timed["ms"], bound_ms=timed["bound_ms"],
+                            plain_ms=timed["plain_ms"],
+                            library_ms=timed["library_ms"],
+                            max_abs_err=timed["max_abs_err"])
+                 for name, counts, timed in (
+                     ("MAIN-VGG", vgg_launches, vgg_conv),
+                     ("MAIN-IMAGENET", imagenet_launches, r50_conv))}),
         dict(name="fused_sgd", route="triton",
              source="ps_pytorch_tpu_torch/ops/_sgd_triton.py",
              replaces="ps_pytorch_tpu/ops/fused_sgd.py:34",
-             launches=launches["fused_sgd"], max_abs_err=sgd["max_abs_err"],
+             launches=launches["fused_sgd"],
+             launches_by_path={"MAIN-VGG": vgg_launches["fused_sgd"],
+                               "MAIN-IMAGENET":
+                               imagenet_launches["fused_sgd"]},
+             max_abs_err=sgd["max_abs_err"],
              ms=sgd["ms"], plain_ms=sgd["plain_ms"], bound_ms=sgd["bound_ms"],
              bound_by="bytes", library_ms=sgd["library_ms"]),
         dict(name="fused_adam", route="triton",

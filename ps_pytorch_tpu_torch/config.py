@@ -173,6 +173,12 @@ class TrainConfig:
 
     def __post_init__(self) -> None:
         from ps_pytorch_tpu_torch.data.datasets import DATASET_SHAPES
+        if self.dataset == "ImageNet":
+            raise ValueError(
+                "dataset 'ImageNet' is not ported yet (ROADMAP.md): its "
+                "files are not in the repo and its parser is not ported; "
+                "synthetic_imagenet_rrc runs the same 256 -> 224 px "
+                "random-resized-crop path")
         if self.dataset not in DATASET_SHAPES:
             raise ValueError(
                 f"dataset {self.dataset!r} is not ported yet (ROADMAP.md); "

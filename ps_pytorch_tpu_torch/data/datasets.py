@@ -1,10 +1,12 @@
 """Dataset registry and a single-host prefetching loader: a copy of the JAX
-package's ``data/datasets.py`` for the sets this slice runs.
+package's ``data/datasets.py`` with one worker (its worker pool,
+``loader_workers`` above 1, is not ported: ROADMAP.md).
 
 For the same seed the loader yields the same bytes as the JAX package's
 single-worker loader: the same shuffle (``default_rng((seed, epoch))``),
 the same augment stream (``default_rng((seed, epoch, host, 7))``) and the
-same draw order.
+same draw order, and for the RRC sets the same counter-based rectangles
+and integer resize.
 """
 
 import queue
@@ -27,6 +29,19 @@ DATASET_SHAPES = {
     # Synthetic uint8 images through the real CIFAR augment stack.
     "synthetic_cifar10": (32, 32, 3, 10, 50000),
     "synthetic_cifar100": (32, 32, 3, 100, 50000),
+    "SVHN": (32, 32, 3, 10, 73257),
+    # ImageNet-shaped synthetic sets (ResNet-50 at 224 px): float images
+    # without augment, and 256 px uint8 storage through the RRC stack.
+    "synthetic_imagenet": (224, 224, 3, 1000, 512),
+    "synthetic_imagenet_rrc": (224, 224, 3, 1000, 512),
+}
+
+# Datasets whose stored images are larger than the model-facing shape: the
+# RRC sets store 256 px, and the loader's RRC (train) or center crop (eval)
+# gives the 224 px of DATASET_SHAPES.
+_STORAGE_HW = {
+    "ImageNet": (256, 256),
+    "synthetic_imagenet_rrc": (256, 256),
 }
 
 
@@ -45,6 +60,8 @@ def _load_files(name: str, root: str, train: bool):
         x, y = vision_io.load_cifar10(root, train)
     elif name == "Cifar100":
         x, y = vision_io.load_cifar100(root, train)
+    elif name == "SVHN":
+        x, y = vision_io.load_svhn(root, train)
     elif name == "Digits":
         x, y = vision_io.load_digits28(train)
     else:
@@ -54,7 +71,9 @@ def _load_files(name: str, root: str, train: bool):
 
 def _synthetic(name: str, train: bool, seed: int = 0):
     h, w, c, ncls, n = DATASET_SHAPES[name]
+    h, w = _STORAGE_HW.get(name, (h, w))
     if not train:
+        # About a sixth of train, at least 1000, never more than train.
         n = max(n // 6, min(1000, n))
     rng = np.random.default_rng(seed + (0 if train else 1))
     # Class-dependent means make the task learnable.
@@ -62,7 +81,7 @@ def _synthetic(name: str, train: bool, seed: int = 0):
     x = rng.normal(0.5, 0.25, size=(n, h, w, c)).astype(np.float32)
     x += (y[:, None, None, None].astype(np.float32) / ncls - 0.5) * 0.5
     x = np.clip(x, 0.0, 1.0)
-    if name == "synthetic_cifar10":
+    if name == "synthetic_cifar10" or name in augment.RRC_STACKS:
         x = (x * 255.0).astype(np.uint8)
     return x, y
 
@@ -110,6 +129,13 @@ class DataLoader:
         self._padded = None
         if train and dataset in augment.CROP_STACKS:
             self._padded = augment.pad_images(x, *augment.CROP_STACKS[dataset])
+        # RRC sets: RRC from the decode-sized store on train batches, a
+        # center crop on eval batches, to the model-facing shape.
+        self._rrc = augment.RRC_STACKS.get(dataset) if train else None
+        if dataset in DATASET_SHAPES:
+            self._out_h, self._out_w, _ = sample_shape(dataset)
+        else:
+            self._out_h, self._out_w = x.shape[1], x.shape[2]
         self._epoch_iter = None
         self._epoch = 0
 
@@ -126,21 +152,35 @@ class DataLoader:
         lo = self.host_id * self.shard_size
         return idx[lo:lo + self.shard_size]
 
-    def _assemble(self, b: int, order: np.ndarray,
+    def _assemble(self, b: int, order: np.ndarray, epoch: int,
                   aug_rng) -> Tuple[np.ndarray, np.ndarray]:
         sel = order[b * self.local_batch:(b + 1) * self.local_batch]
         norm_out = not self.device_normalize
-        if self._padded is not None:
+        mean_std = augment.norm_constants_for(self.dataset)
+        if self._rrc is not None:
+            # The rectangles' stream is counter-based: counter = epoch * N
+            # + sample, whatever batch the sample lands in.
+            scale, ratio = self._rrc
+            counters = (np.uint64(epoch) * np.uint64(len(self.x))
+                        + sel.astype(np.uint64))
+            xb = augment.random_resized_crop(
+                self.x, sel, counters, self.seed, self._out_h, self._out_w,
+                scale, ratio)
+            if norm_out and mean_std is not None:
+                xb = augment.normalize(xb, *mean_std)
+        elif self._padded is not None:
             xb = augment.crop_flip_prepadded(
-                self._padded, sel, aug_rng, self.x.shape[1], self.x.shape[2])
-            mean_std = augment.norm_constants_for(self.dataset)
+                self._padded, sel, aug_rng, self._out_h, self._out_w)
             if norm_out and mean_std is not None:
                 xb = augment.normalize(xb, *mean_std)
         elif self.train:
             xb = augment.augment_train(self.x[sel], self.dataset, aug_rng,
                                        normalize_out=norm_out)
         else:
-            xb = augment.transform_test(self.x[sel], self.dataset,
+            xb = self.x[sel]
+            if self.dataset in augment.RRC_STACKS:
+                xb = augment.center_crop(xb, self._out_h, self._out_w)
+            xb = augment.transform_test(xb, self.dataset,
                                         normalize_out=norm_out)
         return xb, self.y[sel]
 
@@ -166,7 +206,7 @@ class DataLoader:
         def produce():
             try:
                 for b in range(n):
-                    if not _put(self._assemble(b, order, aug_rng)):
+                    if not _put(self._assemble(b, order, epoch, aug_rng)):
                         return
                 _put(None)
             except BaseException as e:  # handed to the consumer, re-raised there

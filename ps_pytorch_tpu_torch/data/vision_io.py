@@ -1,7 +1,7 @@
-"""Dataset file parsers (no torchvision): MNIST IDX files and the CIFAR
-python pickle batches, as the files sit on disk, and the UCI digits that
-ship with the port. A copy of the JAX package's ``data/vision_io.py`` for
-the sets this slice runs.
+"""Dataset file parsers (no torchvision): MNIST IDX files, the CIFAR
+python pickle batches and SVHN's ``.mat`` files, as the files sit on disk,
+and the UCI digits that ship with the port. A copy of the JAX package's
+``data/vision_io.py``.
 
 All loaders return ``(x uint8 [N,H,W,C], y int32 [N])``.
 """
@@ -71,6 +71,17 @@ def load_cifar100(root: str, train: bool) -> Tuple[np.ndarray, np.ndarray]:
     d = _cifar_pickle(os.path.join(base, "train" if train else "test"))
     x = np.asarray(d["data"], np.uint8).reshape(-1, 3, 32, 32)
     return x.transpose(0, 2, 3, 1), np.asarray(d["fine_labels"], np.int32)
+
+
+def load_svhn(root: str, train: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """``{train,test}_32x32.mat`` (no SVHN data ships with the repo)."""
+    from scipy.io import loadmat
+    split = "train" if train else "test"
+    d = loadmat(os.path.join(root, f"{split}_32x32.mat"))
+    x = d["X"].transpose(3, 0, 1, 2).astype(np.uint8)   # HWCN -> NHWC
+    y = d["y"].ravel().astype(np.int32)
+    y[y == 10] = 0   # SVHN labels digits 1..10 with '0' stored as 10
+    return x, y
 
 
 # ---- Digits (real data that ships with the port) ----

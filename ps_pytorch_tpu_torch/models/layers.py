@@ -1,13 +1,13 @@
 """Layers with the JAX package's numerics: f32 parameters cast to the
 compute type at each call (``resnet.py:44, 154``), flax's BatchNorm
-statistics, and flax's default initializers.
+statistics, flax's initializers, and flax's Dropout arithmetic.
 
 Activations are NCHW tensors in channels_last memory, so ``permute(0, 2,
 3, 1)`` is a free NHWC view for the conv kernel.
 """
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +24,16 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     with torch.no_grad():
         nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
+
+
+def he_normal_fan_out_(w: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> None:
+    """The VGG convs' init, flax's ``variance_scaling(2.0, "fan_out",
+    "normal")`` (``vgg.py:21``): an untruncated normal with variance
+    2 / fan_out, fan_out = kh * kw * Co of the OIHW weight."""
+    fan_out = w.shape[0] * w.shape[2] * w.shape[3]
+    with torch.no_grad():
+        w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
 
 
 class Conv2d(nn.Module):
@@ -50,20 +60,28 @@ class Conv3x3(nn.Module):
     """3x3 stride-1 SAME conv through the hand-written kernel
     (``ops/conv3x3.py``): the counterpart of ``resnet.py:PallasConv3x3``.
     The weight stays OIHW so that ``xla`` and ``pallas`` state_dicts are
-    interchangeable; the call permutes it to ``[3,3,C,Co]``."""
+    interchangeable; the call permutes it to ``[3,3,C,Co]``. With ``bias``
+    (VGG) the zero-initialised bias is added after the kernel, in the
+    compute type, as ``PallasConv3x3`` adds it: the kernel rounds once and
+    the add rounds again."""
 
     def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
                  variant: str = "taps9",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bias: bool = False):
         super().__init__()
         self.dtype, self.variant = dtype, variant
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         lecun_normal_(self.weight, cin * 9, generator)
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
         w = self.weight.to(self.dtype).permute(2, 3, 1, 0).contiguous()
         xh = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
-        return Conv3x3Function.apply(xh, w, self.variant).permute(0, 3, 1, 2)
+        out = Conv3x3Function.apply(xh, w, self.variant).permute(0, 3, 1, 2)
+        if self.bias is not None:
+            out = out + self.bias.to(self.dtype)[:, None, None]
+        return out
 
 
 class Linear(nn.Module):
@@ -116,3 +134,39 @@ class BatchNorm(nn.Module):
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout(rate)`` with flax's arithmetic: keep where a
+    uniform draw is below ``1 - rate``, output ``where(keep, x / keep_prob,
+    0)``; the identity in eval mode. The draws come from ``generator``, a
+    ``torch.Generator`` on the activations' device that the train step
+    seeds before each forward (``parallel/dp.py:DropoutDraws``); there is
+    no global stream to fall back on. ``mask_fn(x) -> keep`` (a bool
+    tensor of x's shape) replaces the draws, so that a test can inject the
+    reference's masks."""
+
+    def __init__(self, rate: float,
+                 mask_fn: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None):
+        super().__init__()
+        self.rate = rate
+        self.mask_fn = mask_fn
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        if self.mask_fn is not None:
+            keep = self.mask_fn(x).to(device=x.device, dtype=torch.bool)
+            if keep.shape != x.shape:
+                raise ValueError(f"mask_fn gave a mask of shape "
+                                 f"{tuple(keep.shape)} for {tuple(x.shape)}")
+        elif self.generator is None:
+            raise RuntimeError("Dropout in train mode needs its generator "
+                               "(seeded by the train step) or a mask_fn")
+        else:
+            keep = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -1,14 +1,16 @@
-"""CIFAR ResNets, the JAX package's ``models/resnet.py``: 3x3 stride-1 stem
-(no maxpool), stages [64,128,256,512] with strides [1,2,2,2], projection
-shortcut where the shape changes, 4x4 average pool, linear head.
+"""ResNets, the JAX package's ``models/resnet.py``: the CIFAR stem (3x3
+stride-1, no maxpool) or, with ``imagenet_stem``, the ImageNet one (7x7/2
+conv, BatchNorm, ReLU, 3x3/2 max pool with padding 1); stages
+[64,128,256,512] with strides [1,2,2,2], projection shortcut where the
+shape changes, then a 4x4 average pool (CIFAR) or a global mean over H and
+W (ImageNet), linear head.
 
 Submodule names are the flax names (``conv1``, ``bn1``, ``BasicBlock_<i>``
 with ``Conv_<k>``/``BatchNorm_<k>``, ``linear``), so weights map
 mechanically (``models/convert.py``). Under ``conv_impl`` ``pallas`` or
 ``pallas_im2col`` the stride-1 3x3 convs run the hand-written kernel
 (``ops/conv3x3.py``); the stem, the strided 3x3s and the 1x1 projections
-stay ``F.conv2d``, as the JAX package leaves them to XLA. The ImageNet
-stems wait for a later slice (ROADMAP.md).
+stay ``F.conv2d``, as the JAX package leaves them to XLA.
 """
 
 from typing import Optional, Sequence
@@ -100,11 +102,17 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     def __init__(self, block, num_blocks: Sequence[int], num_classes: int = 10,
                  dtype: torch.dtype = torch.float32, conv_impl: str = "xla",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 imagenet_stem: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = Conv2d(3, 64, 3, padding=1, dtype=dtype,
-                            generator=generator)
+        self.imagenet_stem = imagenet_stem
+        if imagenet_stem:
+            self.conv1 = Conv2d(3, 64, 7, 2, 3, dtype=dtype,
+                                generator=generator)
+        else:
+            self.conv1 = Conv2d(3, 64, 3, padding=1, dtype=dtype,
+                                generator=generator)
         self.bn1 = BatchNorm(64, dtype)
         blocks, cin = [], 64
         for planes, n, stride in zip((64, 128, 256, 512), num_blocks,
@@ -123,9 +131,15 @@ class ResNet(nn.Module):
         # x: [B, H, W, 3] NHWC; the permute is the channels_last view.
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
+        if self.imagenet_stem:
+            # Padded cells are -inf, as flax pads: they never win the max.
+            x = F.max_pool2d(x, 3, 2, 1)
         for b in self.blocks:
             x = b(x)
-        x = F.avg_pool2d(x, 4).flatten(1)
+        if self.imagenet_stem:
+            x = x.mean((2, 3))                   # global average pool
+        else:
+            x = F.avg_pool2d(x, 4).flatten(1)
         return self.linear(x).float()
 
 
@@ -157,3 +171,15 @@ def ResNet152(num_classes=10, dtype=torch.float32, conv_impl="xla",
               generator=None):
     return ResNet(Bottleneck, (3, 8, 36, 3), num_classes, dtype, conv_impl,
                   generator)
+
+
+def ResNet18_ImageNet(num_classes=1000, dtype=torch.float32, conv_impl="xla",
+                      generator=None):
+    return ResNet(BasicBlock, (2, 2, 2, 2), num_classes, dtype, conv_impl,
+                  generator, imagenet_stem=True)
+
+
+def ResNet50_ImageNet(num_classes=1000, dtype=torch.float32, conv_impl="xla",
+                      generator=None):
+    return ResNet(Bottleneck, (3, 4, 6, 3), num_classes, dtype, conv_impl,
+                  generator, imagenet_stem=True)

@@ -14,6 +14,13 @@ finite.
 
 The parameters' ``.grad`` are views of that flat buffer, so backward
 writes the gradients where the reduction and the fused optimizer read them.
+
+A model with Dropout (VGG) draws its masks from one device generator that
+the step seeds from the step's ``key`` and the replica index before the
+forward, the counterpart of the JAX step's ``fold_in(rng,
+axis_index("data"))`` (``:201``): the draws depend only on (key, replica),
+so a resumed run draws what an uninterrupted one draws. They are torch's
+Philox, not threefry: the two packages' masks differ by design.
 """
 
 import time
@@ -40,9 +47,33 @@ def _input(x, device, input_norm) -> torch.Tensor:
     return x
 
 
+class DropoutDraws:
+    """The model's Dropout layers share one ``torch.Generator`` on
+    ``device``; ``seed(key, index)`` seeds it before a forward. A model
+    without Dropout holds no generator and pays nothing."""
+
+    def __init__(self, model: torch.nn.Module, device: torch.device):
+        from ps_pytorch_tpu_torch.models.layers import Dropout
+        layers = [m for m in model.modules() if isinstance(m, Dropout)]
+        self.generator = torch.Generator(device=device) if layers else None
+        for m in layers:
+            m.generator = self.generator
+
+    def seed(self, key: Optional[int], index: int) -> None:
+        """Seed the draws of replica (or slice) ``index`` at the step's
+        ``key`` (``cfg.seed * 100003 + step``)."""
+        if self.generator is None:
+            return
+        if key is None:
+            raise ValueError("the model has Dropout: the step needs its key "
+                             "(cfg.seed * 100003 + step)")
+        self.generator.manual_seed((key * 1_000_003 + index) % (1 << 63))
+
+
 class TrainStep:
-    """``step(x, y, mask) -> metrics``: x the local [B,H,W,C] batch, y its
-    labels, mask the [world] participation vector. Metrics are 0-d device
+    """``step(x, y, mask, key=None) -> metrics``: x the local [B,H,W,C]
+    batch, y its labels, mask the [world] participation vector, key the
+    step's Dropout key (needed only by a model with Dropout). Metrics are 0-d device
     tensors (loss, accuracy, participating, grad_norm, nonfinite): reading
     one waits for the device. ``comm_s`` is the host time the last call
     spent in its all-reduces: waiting for the other replicas, and for the
@@ -59,6 +90,7 @@ class TrainStep:
         self.skip_nonfinite = skip_nonfinite
         self.comm_s = 0.0
         self.device = _device_of(model)
+        self.dropout = DropoutDraws(model, self.device)
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
         self.opt_state = opt.init(self.params)
@@ -70,7 +102,8 @@ class TrainStep:
             self.grads[name] = self.flat_grad[off:off + p.numel()].view_as(p)
             off += p.numel()
 
-    def __call__(self, x, y, mask) -> Dict[str, torch.Tensor]:
+    def __call__(self, x, y, mask,
+                 key: Optional[int] = None) -> Dict[str, torch.Tensor]:
         mask = np.asarray(mask, np.float32)
         if mask.shape != (self.world,):
             raise ValueError(f"mask of shape {mask.shape} for {self.world} "
@@ -83,6 +116,7 @@ class TrainStep:
         self.flat_grad.zero_()
         for name, p in self.params.items():
             p.grad = self.grads[name]
+        self.dropout.seed(key, self.rank)
         logits = self.model(x)
         loss = F.cross_entropy(logits, y.long())
         loss.backward()

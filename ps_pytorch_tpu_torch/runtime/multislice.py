@@ -48,7 +48,7 @@ from ps_pytorch_tpu_torch.models.convert import (
 from ps_pytorch_tpu_torch.optim import build_optimizer
 from ps_pytorch_tpu_torch.parallel.async_dp import StaleGradientAggregator
 from ps_pytorch_tpu_torch.parallel.dp import (
-    _input, accumulate_eval, make_eval_step,
+    DropoutDraws, _input, accumulate_eval, make_eval_step,
 )
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
@@ -57,20 +57,25 @@ from ps_pytorch_tpu_torch.runtime.trainer import (
 )
 
 
-def make_slice_grad_fn(model: torch.nn.Module, input_norm=None) -> Callable:
-    """``fn(x, y) -> (grads, metrics)`` of one slice: forward and backward
-    on the slice's own model in train mode (its BatchNorm statistics move),
+def make_slice_grad_fn(model: torch.nn.Module, input_norm=None,
+                       index: int = 0) -> Callable:
+    """``fn(x, y, key=None) -> (grads, metrics)`` of slice ``index``:
+    forward and backward on the slice's own model in train mode (its
+    BatchNorm statistics move; its Dropout draws seeded from the tick's
+    ``key`` and ``index``, as ``parallel/dp.py`` seeds a replica's),
     ``grads`` a fresh ``name -> tensor`` dict on the model's device,
     ``metrics`` the 0-d loss and accuracy."""
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
+    dropout = DropoutDraws(model, device)
 
-    def grad_fn(x, y):
+    def grad_fn(x, y, key=None):
         x = _input(x, device, input_norm)
         y = torch.as_tensor(np.asarray(y)).to(device, non_blocking=True)
         model.train()
         for p in params.values():
             p.grad = None
+        dropout.seed(key, index)
         logits = model(x)
         loss = F.cross_entropy(logits, y.long())
         loss.backward()
@@ -137,8 +142,8 @@ class MultiSliceTrainer:
             wire_workers=cfg.wire_workers, topk_frac=cfg.grad_topk_frac,
             error_feedback=cfg.ef, ef_clip=cfg.ef_clip, noise_fn=noise_fn)
         self._input_norm = input_norm_for(cfg)
-        self.grad_fns = [make_slice_grad_fn(m, self._input_norm)
-                         for m in self.slices]
+        self.grad_fns = [make_slice_grad_fn(m, self._input_norm, s)
+                         for s, m in enumerate(self.slices)]
         self.eval_fn = make_eval_step(self.model, self._input_norm)
         # Each slice's last-fetched version step and its own step count.
         self._slice_version = [0] * n_slices
@@ -189,7 +194,8 @@ class MultiSliceTrainer:
                 self._slice_version[s] = self.step - 1
             self._slice_steps[s] += 1
             x, y = self.train_loaders[s].next_batch()
-            grads, m = self.grad_fns[s](x, y)
+            grads, m = self.grad_fns[s](
+                x, y, key=self.cfg.seed * 100003 + self.step)
             self.aggregator.submit(s, self._slice_version[s], grads)
             info["computed"].append(s)
             losses.append(float(m["loss"]))

@@ -14,7 +14,9 @@ step k is dispatched before step k-1's metrics are read, and the reported
 step_time runs from fetching the batch to that read. With ``resume`` on,
 every process restores the newest valid checkpoint in ``train_dir`` and
 fast-forwards its own shard to it, so the resumed run sees the batches an
-uninterrupted one would. The other optional planes of the JAX trainer
+uninterrupted one would; a model's Dropout masks are drawn from the step's
+key ``seed * 100003 + step`` and the replica (``parallel/dp.py``), so it
+draws the masks too. The other optional planes of the JAX trainer
 (health, faults, telemetry exporters, the lease and elections) are not part
 of this slice (ROADMAP.md).
 """
@@ -188,7 +190,7 @@ class Trainer:
                 t_data = time.monotonic() - t0
                 mask = co.participation_mask(step)
                 t_mask = time.monotonic() - t0 - t_data
-                m = self.step_fn(x, y, mask)
+                m = self.step_fn(x, y, mask, key=cfg.seed * 100003 + step)
                 if slow:
                     # Fault injection: make this process a straggler.
                     time.sleep(cfg.inject_step_delay)

@@ -5,6 +5,13 @@ main path, then print one JSON digest line.
         --dataset synthetic_cifar10 --batch-size 256 --eval-freq 0 \
         --conv-impl pallas --fused-optimizer --momentum 0.9 \
         --weight-decay 5e-4 [--warmup 5 --timed 30 --profiled 3 --out DIR]
+    python -m ps_pytorch_tpu_torch.tools.profile_capture --network VGG11 \
+        --dataset synthetic_cifar100 --batch-size 256 --eval-freq 0 \
+        --conv-impl pallas --fused-optimizer --momentum 0.9
+    python -m ps_pytorch_tpu_torch.tools.profile_capture \
+        --network ResNet50_ImageNet --dataset synthetic_imagenet_rrc \
+        --batch-size 128 --eval-freq 0 --conv-impl xla --fused-optimizer \
+        --momentum 0.9 [--warmup 3 --timed 10 --profiled 2]
     python -m ps_pytorch_tpu_torch.tools.profile_capture --lm \
         --lm-attention flash --lm-d-model 512 --lm-layers 8 --lm-heads 8 \
         --lm-vocab 32000 --lm-seq-len 2048 --batch-size 8 --lr 0.01 \
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
+from ps_pytorch_tpu_torch.data import augment
 
 # Kernel-name fragments -> the group a device event is charged to.
 GROUPS = (
@@ -53,6 +61,7 @@ GROUPS = (
     ("softmax / cross-entropy", ("softmax", "nll_loss", "cross_entropy")),
     ("embedding", ("embedding", "index_select", "indexing_backward",
                    "index_add", "scatter", "gather")),
+    ("pooling", ("max_pool", "avg_pool", "pool2d")),
     ("reduction", ("reduce", "norm", "batch_norm", "welford")),
     ("copy / layout", ("copy", "memcpy", "memset", "transpose", "cat",
                        "pad", "flip")),
@@ -124,7 +133,7 @@ def main(argv=None) -> int:
         if args.lm:
             return trainer.step_fn(batches[i])
         x, y = batches[i]
-        return trainer.step_fn(x, y, mask)
+        return trainer.step_fn(x, y, mask, key=cfg.seed * 100003 + i + 1)
 
     for i in range(args.warmup):
         step(i)
@@ -192,6 +201,8 @@ def main(argv=None) -> int:
         "device_ms_per_step_top_ops": [
             [name, round(us / 1e3 / n, 4)] for name, us in ops if us > 0],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        **({"rrc_backend": augment.rrc_backend()}
+           if cfg.dataset in augment.RRC_STACKS else {}),
         "trace": str(trace),
     }
     print(json.dumps(digest), flush=True)

@@ -18,6 +18,8 @@ import pytest
 import torch
 from flax import serialization
 
+from ps_pytorch_tpu import config as jax_config
+from ps_pytorch_tpu.models import build_model as jax_build_model
 from ps_pytorch_tpu.models import lenet as jax_lenet
 from ps_pytorch_tpu.models import resnet as jax_resnet
 from ps_pytorch_tpu.ops.fused_adam import FusedAdam as JaxFusedAdam
@@ -26,12 +28,14 @@ from ps_pytorch_tpu.optim import adam as jax_adam
 from ps_pytorch_tpu.optim import sgd as jax_sgd
 from ps_pytorch_tpu.parallel import create_train_state, make_mesh
 from ps_pytorch_tpu.runtime import checkpoint as jax_ckpt
+from ps_pytorch_tpu.runtime import evaluator as jax_evaluator
 from ps_pytorch_tpu.runtime import metrics as jax_metrics
 from ps_pytorch_tpu_torch import config
 from ps_pytorch_tpu_torch.models import convert, lenet, resnet
 from ps_pytorch_tpu_torch.ops.fused_adam import FusedAdam
 from ps_pytorch_tpu_torch.ops.fused_sgd import FusedSGD
 from ps_pytorch_tpu_torch.optim import SGD, Adam
+from ps_pytorch_tpu_torch.runtime import Evaluator
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime import msgpack_io
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer
@@ -293,3 +297,84 @@ def test_resume_is_bitwise(tmp_path, optimizer):
         a, b = (open(os.path.join(ckpt.checkpoint_path(str(d), 4), name),
                      "rb").read() for d in (tmp_path / "a", tmp_path / "b"))
         assert a == b
+
+
+# ---------------------------------------------------------------- VGG --
+
+def _tiny_cifar100(root, n_train=32, n_test=20):
+    """CIFAR-100's python pickles (``cifar-100-python/{train,test}``) with
+    a few seeded images, so that VGG11 trains and is scored fast."""
+    import pickle
+    base = root / "cifar-100-python"
+    base.mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    for name, n in (("train", n_train), ("test", n_test)):
+        with open(base / name, "wb") as f:
+            pickle.dump({"data": rng.integers(0, 256, (n, 3072),
+                                               dtype=np.uint8),
+                         "fine_labels": rng.integers(0, 100, n).tolist()}, f)
+    return str(root)
+
+
+def _vgg_cfg(td, data_dir, **kw):
+    base = dict(network="VGG11", dataset="Cifar100", data_dir=data_dir,
+                batch_size=8, test_batch_size=20, lr=0.05, momentum=0.9,
+                weight_decay=5e-4, compute_dtype="float32",
+                fused_optimizer=True, epochs=0, max_steps=4, eval_freq=2,
+                train_dir=str(td), log_every=1)
+    base.update(kw)
+    return config.TrainConfig(**base)
+
+
+def _both_evaluators(td, step):
+    got = Evaluator(td, device="cpu", printer=lambda _: None
+                    ).evaluate_step(step)
+    want = jax_evaluator.Evaluator(td, printer=lambda _: None
+                                   ).evaluate_step(step)
+    return got, want
+
+
+def test_vgg_checkpoints_score_alike_in_both_evaluators(tmp_path):
+    """VGG11 (BatchNorm, biased convs, 100 classes) on a small CIFAR-100:
+    the port's checkpoint after 2 steps, and a JAX checkpoint of a seeded
+    flax init, each scored by the JAX ``evaluate.py --once`` path and the
+    port's evaluator to the same loss, Prec@1 and Prec@5."""
+    data_dir = _tiny_cifar100(tmp_path / "data")
+    td = str(tmp_path / "port")
+    cfg = _vgg_cfg(td, data_dir, max_steps=2)
+    Trainer(cfg, device="cpu", printer=lambda _: None).train()
+    jtd = str(tmp_path / "jax")
+    state = create_train_state(jax_build_model("VGG11", 100),
+                               jax_sgd(lr=0.05, momentum=0.9),
+                               make_mesh(data=1), (1, 32, 32, 3),
+                               jax.random.key(3))
+    jcfg = jax_config.TrainConfig(**{**json.loads(cfg.to_json()),
+                                     "train_dir": jtd})
+    jax_ckpt.save_checkpoint(jtd, 3, state, config_json=jcfg.to_json())
+    for path, step in ((td, 2), (jtd, 3)):
+        got, want = _both_evaluators(path, step)
+        assert got["step"] == want["step"] == step
+        for k in ("loss", "prec1", "prec5"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+
+
+def test_vgg_resume_with_dropout_is_bitwise(tmp_path):
+    """VGG11 with its two Dropout layers: 2 steps, then a resumed Trainer
+    for 2 more, against 4 uninterrupted steps. The masks are drawn from
+    (seed * 100003 + step, replica), so the resumed run draws the same
+    ones: equal losses, bitwise parameters, momentum and checkpoint."""
+    data_dir = _tiny_cifar100(tmp_path / "data")
+    whole, whole_steps = _run(_vgg_cfg(tmp_path / "a", data_dir))
+    _run(_vgg_cfg(tmp_path / "b", data_dir, max_steps=2))
+    resumed, resumed_steps = _run(_vgg_cfg(tmp_path / "b", data_dir))
+    assert resumed.start_step == 2
+    assert [r["loss"] for r in resumed_steps] == \
+        [r["loss"] for r in whole_steps[2:]]
+    want = convert.state_to_jax(whole.model, whole.step_fn.opt_state, 4)
+    got = convert.state_to_jax(resumed.model, resumed.step_fn.opt_state, 4)
+    _assert_trees_equal(got, want)
+    for name in ("state.msgpack", "meta.json"):
+        a, b = (open(os.path.join(ckpt.checkpoint_path(str(d), 4), name),
+                     "rb").read() for d in (tmp_path / "a", tmp_path / "b"))
+        assert a == b
+    assert whole.model.Dropout_0.generator is whole.step_fn.dropout.generator

@@ -2,8 +2,9 @@
 several processes without the whole launch contract (or for a path that
 runs in one process only) is refused before any model is built, every
 trainer and the evaluator set the arithmetic the port is held to (no TF32,
-deterministic cuDNN), and float16 is refused at config time wherever a
-hand-written kernel (f32 and bf16 only) would meet it.
+deterministic cuDNN), float16 is refused at config time wherever a
+hand-written kernel (f32 and bf16 only) would meet it, and so are the real
+ImageNet and the loader's worker pool.
 """
 
 import io
@@ -113,6 +114,9 @@ def test_building_a_trainer_sets_the_reference_numerics(kind, numerics_flags,
     dict(network="ResNet18", conv_impl="pallas"),
     dict(network="ResNet18", conv_impl="pallas_im2col"),
     dict(network="LeNet", conv_impl="pallas"),
+    dict(network="VGG11", dataset="synthetic_cifar100", conv_impl="pallas"),
+    dict(network="ResNet50_ImageNet", dataset="synthetic_imagenet_rrc",
+         conv_impl="pallas"),
     dict(network="TransformerLM", eval_freq=0, lm_attention="flash"),
 ])
 def test_float16_is_refused_where_a_kernel_would_meet_it(kw):
@@ -131,3 +135,21 @@ def test_float16_is_refused_where_a_kernel_would_meet_it(kw):
 def test_float16_still_runs_without_a_kernel(kw):
     assert config.TrainConfig(compute_dtype="float16",
                               **kw).compute_dtype == "float16"
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--dataset", "ImageNet"], "ImageNet.*ROADMAP.md"),
+    (["--dataset", "synthetic_imagenet_rrc", "--loader-workers", "2"],
+     "loader_workers=2.*ROADMAP.md"),
+])
+def test_the_real_imagenet_and_the_worker_pool_stay_refused(argv, match,
+                                                             tmp_path):
+    """Both raise before the CONFIG line: the real ImageNet's files are
+    not in the repo, and the loader's worker pool is not ported."""
+    out = io.StringIO()
+    with pytest.raises(ValueError, match=match):
+        with redirect_stdout(out):
+            train.main(["--network", "ResNet50_ImageNet", *argv,
+                        "--train-dir", str(tmp_path / "td"), "--device",
+                        "cpu"])
+    assert out.getvalue() == ""

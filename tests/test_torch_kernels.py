@@ -65,6 +65,14 @@ def _conv_inputs(dev, n, h, w, c, co, dtype, seed=0):
     (4, 8192, 1, 8, 136),    # W = 1: the 256 x 128 tile would not fit
     (128, 128, 2, 16, 136),  # W = 2 on the 256 x 128 tile
     (33, 33, 31, 8, 56),     # ragged rows and columns on the 256 x 64 tile
+    (2, 16, 16, 64, 128),    # VGG11's channel ladder (C != Co; the input
+    (2, 8, 8, 128, 256),     # gradient runs Co -> C) down to its 2x2 stage
+    (2, 4, 4, 256, 512),
+    (3, 2, 2, 512, 512),
+    (2, 56, 56, 64, 64),     # ResNet-50's stride-1 geometries at 224 px:
+    (2, 28, 28, 128, 128),   # widths that leave part of the 256-pixel
+    (3, 14, 14, 256, 256),   # tile's rows empty (TH * TW < BM)
+    (5, 7, 7, 512, 512),
 ])
 def test_conv3x3_kernel_matches_plain(cuda, shape, dtype, kind):
     """Forward and input gradient against the plain version; bf16 with C
