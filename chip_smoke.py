@@ -52,8 +52,19 @@ exit and no result line, if any phase fails:
    full-width TransformerLM (d 512, 8 layers, 8 heads, vocab 32000, S
    2048, batch 8, f32, flash
    attention) for a few steps through the port's LMTrainer, evaluating 2
-   batches. Every launch count is set to 0 just before each path and read
-   just after: each kernel of the path ran the expected number of times,
+   batches. Right after MAIN, the same ResNet-18 through ``train.run``
+   with every flag of the ops plane (MAIN-TELEMETRY: 8 steps, the JSONL,
+   the Chrome trace of its spans, a ``torch.profiler`` window over steps
+   3-4 whose kernels include conv3x3's tensor-core kernel, the exporter
+   scraped by a thread while the steps run, the health spec), then two
+   Trainers whose coordinator hands out a NaN mask at step 3 (HEALTH:
+   ``nonfinite:halt`` stops there with ``model_step_3`` and a flight dump,
+   ``nonfinite:skip`` keeps the parameters bitwise and trains on). MAIN,
+   MAIN-TELEMETRY, MAIN-VGG, MAIN-IMAGENET and MAIN-LM print their FLOPs a
+   step (the JAX package's xla / full-attention count, ``FLOPS_A_STEP``)
+   and a numeric ``mfu`` on every STEP line, each JSONL row's within 1e-6
+   of that count over its step time and the H100's 989 TFLOP/s. Every
+   launch count is set to 0 just before each path and read just after: each kernel of the path ran the expected number of times,
    no other kernel ran, and every bf16 conv3x3 launch and every flash
    launch took the tensor-core kernel (``conv3x3_tc``, ``flash_fwd_tc``,
    ``flash_dq_tc``, ``flash_dkv_tc``);
@@ -74,10 +85,12 @@ import json
 import math
 import re
 import shutil
+import socket
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from contextlib import redirect_stdout
 from pathlib import Path
 
@@ -182,6 +195,29 @@ RESNET50_GEOMETRIES = ((56, 64, 64, 3), (28, 128, 128, 3), (14, 256, 256, 5),
                        (7, 512, 512, 2))
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
+# The model's FLOPs a training step, the JAX package's count on the xla /
+# full-attention route at each path's shapes (utils/flops.py), and the
+# H100 SXM's dense bf16 peak that mfu divides by (NVIDIA's data sheet,
+# 700 W), whatever the compute type, as the JAX package divides it.
+FLOPS_A_STEP = {"MAIN": 852_223_328_256, "MAIN-TELEMETRY": 852_223_328_256,
+                "MAIN-VGG": 234_624_122_880,
+                "MAIN-IMAGENET": 3_110_281_936_896,
+                "MAIN-LM": 5_733_781_340_160}
+MFU_PEAK = 989e12
+# MAIN-TELEMETRY: MAIN's ResNet-18 through train.run with every flag of
+# the ops plane; 8333 test images make 2 eval batches of 4167.
+TELEMETRY_STEPS = 8
+TELEMETRY_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
+                  "--batch-size", str(BATCH), "--test-batch-size", "4167",
+                  "--compute-dtype", "bfloat16", "--conv-impl", "pallas",
+                  "--fused-optimizer", "--momentum", "0.9", "--weight-decay",
+                  "5e-4", "--max-steps", str(TELEMETRY_STEPS),
+                  "--eval-freq", str(TELEMETRY_STEPS), "--resume", "false",
+                  "--profile-steps", "3-4", "--health-spec",
+                  "nonfinite:halt;spike:warn,factor=10;stall:warn",
+                  "--device", "cuda")
+TELEMETRY_SPANS = ("data_wait", "host_dispatch", "device_sync",
+                   "metrics_sync", "checkpoint", "checkpoint_write")
 
 
 def fail(msg: str) -> None:
@@ -1029,13 +1065,14 @@ def main_path(torch, wrappers) -> dict:
     from ps_pytorch_tpu_torch.config import config_from_args
     from ps_pytorch_tpu_torch.runtime import Trainer
 
+    root = tempfile.mkdtemp(prefix="chip_smoke_main_")
     cfg = config_from_args([
         "--network", "ResNet18", "--dataset", "synthetic_cifar10",
         "--batch-size", str(BATCH), "--test-batch-size", str(BATCH),
         "--max-steps", str(STEPS), "--eval-freq", "0", "--resume", "false",
         "--conv-impl", "pallas", "--fused-optimizer", "--optimizer", "sgd",
         "--momentum", "0.9", "--weight-decay", "5e-4",
-        "--compute-dtype", "bfloat16"])
+        "--compute-dtype", "bfloat16", "--metrics-file", f"{root}/m.jsonl"])
     trainer = Trainer(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -1048,6 +1085,10 @@ def main_path(torch, wrappers) -> dict:
     print(f"MAIN step_times_s {trainer.step_times} max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} eval {result} launches "
           f"{launches}", flush=True)
+    rows = read_jsonl(f"{root}/m.jsonl")
+    shutil.rmtree(root, ignore_errors=True)
+    check_mfu("MAIN", losses, rows, trainer.ops.flops_per_step,
+              trainer.ops.peak_per_chip)
     from ps_pytorch_tpu_torch.runtime.metrics import parse_line
     recs = [parse_line(line) for line in losses]
     if len(recs) != STEPS or not all(r and math.isfinite(r["loss"])
@@ -1060,7 +1101,223 @@ def main_path(torch, wrappers) -> dict:
                        + CONV_PER_EVAL_BATCH * EVAL_BATCHES, fused_sgd=STEPS)
     if launches != want:
         fail(f"main path launches {launches}, expected {want}")
+    return dict(launches, median_step_s=float(np.median(trainer.step_times)))
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def telemetry_main_path(torch, wrappers, main_median_s: float) -> dict:
+    """MAIN-TELEMETRY: MAIN's ResNet-18 through ``train.run`` with every
+    flag of the ops plane, a thread scraping /metrics and /healthz while
+    the steps run; every launch count set to 0 just before and read just
+    after."""
+    from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.telemetry import parse_exposition
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    port = free_port()
+    argv = [*TELEMETRY_ARGS, "--train-dir", f"{root}/td", "--metrics-file",
+            f"{root}/m.jsonl", "--trace-file", f"{root}/t.json",
+            "--profile-dir", f"{root}/prof", "--metrics-port", str(port),
+            "--flight-file", f"{root}/f.json"]
+    bodies, done = [], threading.Event()
+
+    def scrape():
+        # Raw bodies only: parsing waits for the run's end, so the thread
+        # holds the interpreter lock as little as a remote scraper would.
+        url = f"http://127.0.0.1:{port}"
+        while not done.is_set():
+            try:
+                with urllib.request.urlopen(f"{url}/metrics",
+                                            timeout=5) as resp:
+                    text = resp.read()
+                with urllib.request.urlopen(f"{url}/healthz",
+                                            timeout=5) as resp:
+                    bodies.append((text, resp.read()))
+            except OSError:         # not listening yet, or stopped
+                pass
+            done.wait(0.05)
+
+    thread = threading.Thread(target=scrape, daemon=True)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        thread.start()
+        out = io.StringIO()
+        with redirect_stdout(out):
+            trainer, result = train.run(argv)
+        done.set()
+        thread.join(timeout=10)
+        launches = read_counts(wrappers)
+        peak_alloc = torch.cuda.max_memory_allocated()
+        for line in out.getvalue().splitlines():
+            print(line if len(line) < 400 else line[:200] + " ...",
+                  flush=True)
+        rows = read_jsonl(f"{root}/m.jsonl")
+        trace = json.loads(Path(f"{root}/t.json").read_text())
+        profiles = sorted(Path(f"{root}/prof").glob("*.json"))
+        kernels = [] if len(profiles) != 1 else [
+            e["name"] for e in json.loads(profiles[0].read_text())[
+                "traceEvents"] if e.get("cat") == "kernel"]
+        committed = ckpt.committed_steps(f"{root}/td")
+    finally:
+        done.set()
+        shutil.rmtree(root, ignore_errors=True)
+    scrapes = [(parse_exposition(text.decode()), json.loads(health))
+               for text, health in bodies]
+    lines = out.getvalue().splitlines()
+    check_mfu("MAIN-TELEMETRY", lines, rows, trainer.ops.flops_per_step,
+              trainer.ops.peak_per_chip)
+    if [r["step"] for r in rows] != list(range(1, TELEMETRY_STEPS + 1)) \
+            or committed != [TELEMETRY_STEPS]:
+        fail(f"MAIN-TELEMETRY: JSONL steps {[r['step'] for r in rows]}, "
+             f"checkpoints {committed}")
+    mem = [r.get("device_mem_peak_bytes") for r in rows]
+    if not all(m and m > 0 for m in mem) or mem != sorted(mem) or \
+            max(mem) > peak_alloc:
+        fail(f"MAIN-TELEMETRY: device_mem_peak_bytes {mem} is not positive "
+             f"and rising or holding up to max_memory_allocated "
+             f"{peak_alloc}")
+    seen = [m["train_steps_total"] for m, _ in scrapes]
+    if len({v for v in seen if 1 <= v <= TELEMETRY_STEPS}) < 2 or \
+            seen != sorted(seen) or not all(
+                m["health_ok"] == 1 and h["ok"] for m, h in scrapes) or \
+            not any(m["device_mem_peak_bytes"] > 0 for m, _ in scrapes):
+        fail(f"MAIN-TELEMETRY: scrapes saw train_steps_total {seen}, "
+             "expected it rising with health_ok 1 and device memory")
+    spans = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+    if not set(TELEMETRY_SPANS) <= spans:
+        fail(f"MAIN-TELEMETRY: trace spans {sorted(spans)} lack "
+             f"{sorted(set(TELEMETRY_SPANS) - spans)}")
+    tc = [k for k in kernels if "conv3x3_tc" in k]
+    if not tc:
+        fail(f"MAIN-TELEMETRY: the profile ({len(profiles)} files, "
+             f"{len(kernels)} kernel events) holds no conv3x3_tc kernel")
+    want = want_counts(wrappers, fused_sgd=TELEMETRY_STEPS,
+                       conv3x3=CONV_PER_STEP * TELEMETRY_STEPS
+                       + CONV_PER_EVAL_BATCH * 2)
+    if launches != want:
+        fail(f"MAIN-TELEMETRY launches {launches}, expected {want}")
+    median = float(np.median(trainer.step_times))
+    # Outside the first step and the profiled window (steps 3-4).
+    steady = float(np.median([t for k, t in enumerate(trainer.step_times, 1)
+                              if k not in (1, 3, 4)]))
+    print(f"MAIN-TELEMETRY scrapes {len(scrapes)} train_steps_total seen "
+          f"{sorted(set(seen))} health_ok 1 device_mem_peak_bytes "
+          f"{mem[-1]} (JSONL, rising or holding; max_memory_allocated "
+          f"{peak_alloc}) spans {sorted(spans)} profile kernel events "
+          f"{len(kernels)} conv3x3_tc {len(tc)} ({tc[0]}) launches "
+          f"{launches}", flush=True)
+    print(f"MAIN-TELEMETRY step_times_s {trainer.step_times} median "
+          f"{median:.4f} s against MAIN's {main_median_s:.4f} s (ratio "
+          f"{median / main_median_s:.3f}; profiled steps 3-4, scraped "
+          f"every 50 ms); steps 2, 5-8 {steady:.4f} s (ratio "
+          f"{steady / main_median_s:.3f}) eval {result}", flush=True)
     return launches
+
+
+def nan_mask_at(trainer, bad_step: int) -> None:
+    """The JAX package's grad_nan fault, by hand: the coordinator's mask
+    is NaN at ``bad_step`` (loss, gradients and grad norm go NaN)."""
+    decide = trainer.coordinator.participation_mask
+
+    def mask(step, *args, **kw):
+        m = np.asarray(decide(step, *args, **kw), np.float32)
+        return m * np.nan if step == bad_step else m
+    trainer.coordinator.participation_mask = mask
+
+
+def health_on_card(torch) -> None:
+    """HEALTH: full-width ResNet-18 Trainers on the card with a NaN mask at
+    step 3. ``nonfinite:halt`` stops there with model_step_3 and a flight
+    dump; ``nonfinite:skip`` leaves the parameters of step 2 bitwise and
+    trains steps 4-5."""
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime import Trainer
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.telemetry import load_flight
+
+    base = ["--network", "ResNet18", "--dataset", "synthetic_cifar10",
+            "--batch-size", str(BATCH), "--compute-dtype", "bfloat16",
+            "--conv-impl", "pallas", "--fused-optimizer", "--momentum",
+            "0.9", "--eval-freq", "0", "--resume", "false"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_health_")
+    try:
+        lines = []
+        halt = Trainer(config_from_args(
+            [*base, "--max-steps", "6", "--health-spec", "nonfinite:halt",
+             "--train-dir", f"{root}/halt", "--flight-file",
+             f"{root}/f.json"]), device="cuda", printer=lines.append)
+        nan_mask_at(halt, 3)
+        halt.train()
+        for line in lines:
+            print(line, flush=True)
+        reason = load_flight(f"{root}/f.json")["reason"]
+        saved = ckpt.committed_steps(f"{root}/halt")
+        if not any(ln.startswith("HEALTH halt at step 3") for ln in lines) \
+                or saved != [3] or reason != "watchdog:nonfinite":
+            fail(f"HEALTH halt: checkpoints {saved}, flight {reason}")
+        skip = Trainer(config_from_args(
+            [*base, "--max-steps", "5", "--health-spec", "nonfinite:skip",
+             "--train-dir", f"{root}/skip"]), device="cuda",
+            printer=lambda line: None)
+        nan_mask_at(skip, 3)
+        params, step = [], skip.step_fn
+
+        def spy(*args, **kw):
+            out = step(*args, **kw)
+            params.append(torch.cat([p.detach().reshape(-1).clone() for p
+                                     in skip.model.parameters()]))
+            return out
+        spy.comm_s = 0.0
+        skip.step_fn = spy
+        skip.train()
+        skip.step_fn = step     # no trainer <-> spy cycle outlives the phase
+        kept = torch.equal(params[1], params[2])
+        moved = [not torch.equal(a, b) for a, b in zip(params[2:],
+                                                         params[3:])]
+        finite = bool(torch.isfinite(params[-1]).all())
+        print(f"HEALTH halt at step 3: checkpoints {saved}, flight reason "
+              f"{reason}; skip: parameters after step 3 equal step 2's "
+              f"bitwise {kept}, steps 4-5 moved {moved}, finite {finite}, "
+              f"nonfinite trips {skip.ops.health.trips['nonfinite']}",
+              flush=True)
+        if not kept or not all(moved) or not finite:
+            fail("HEALTH skip: the NaN step changed the parameters or the "
+                 "next steps did not train")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_mfu(phase: str, lines, rows, flops, peak) -> None:
+    """The path's FLOPs a step equal the JAX package's xla / full count,
+    the peak is the H100's, every STEP line prints a numeric mfu, and every
+    JSONL row's mfu is that count over its step time and the peak (to
+    1e-6: the JSONL rounds to 6 places)."""
+    from ps_pytorch_tpu_torch.runtime.metrics import parse_line
+
+    if flops != FLOPS_A_STEP[phase]:
+        fail(f"{phase}: {flops} FLOPs a step, expected {FLOPS_A_STEP[phase]}")
+    if peak != MFU_PEAK:
+        fail(f"{phase}: peak {peak} FLOP/s for this card, expected "
+             f"{MFU_PEAK}: the card's name is not in the peak table")
+    recs = [parse_line(line) for line in lines if line.startswith("STEP")]
+    if not recs or any(r is None or r.get("mfu") is None for r in recs):
+        fail(f"{phase}: a STEP line without a numeric mfu")
+    for row in rows:
+        want = flops / (row["step_time"] * peak)
+        if row["mfu"] is None or abs(row["mfu"] - want) > 1e-6:
+            fail(f"{phase}: JSONL mfu {row['mfu']} at step {row['step']}, "
+                 f"expected {want}")
+    print(f"{phase} flops_per_step {flops} peak_flops_per_s {peak:.6g} "
+          f"mfu {[r['mfu'] for r in recs]} (JSONL {len(rows)} rows, each "
+          f"within 1e-6 of count / (step_time * peak))", flush=True)
 
 
 def lm_main_path(torch, wrappers) -> dict:
@@ -1070,8 +1327,10 @@ def lm_main_path(torch, wrappers) -> dict:
     from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
     from ps_pytorch_tpu_torch.runtime.metrics import parse_line
 
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm_")
     cfg = config_from_args([*LM_ARGS, "--max-steps", str(STEPS),
-                            "--eval-freq", "0", "--resume", "false"])
+                            "--eval-freq", "0", "--resume", "false",
+                            "--metrics-file", f"{root}/m.jsonl"])
     trainer = LMTrainer(cfg, device="cuda")
     lines = []
     trainer.metrics.printer = lambda line: (print(line, flush=True),
@@ -1086,6 +1345,10 @@ def lm_main_path(torch, wrappers) -> dict:
           f"{[round(tokens / t, 1) for t in trainer.step_times]} "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} eval "
           f"{result} launches {launches}", flush=True)
+    rows = read_jsonl(f"{root}/m.jsonl")
+    shutil.rmtree(root, ignore_errors=True)
+    check_mfu("MAIN-LM", lines, rows, trainer.ops.flops_per_step,
+              trainer.ops.peak_per_chip)
     recs = [parse_line(line) for line in lines]
     if len(recs) != STEPS or not all(r and math.isfinite(r["loss"])
                                      for r in recs):
@@ -1227,6 +1490,10 @@ def entry_path(torch, wrappers, phase: str, args, steps: int,
     fused SGD a step. ``eval_batches`` is that of one evaluation (the
     trainer's final one and the evaluator's are counted)."""
     from ps_pytorch_tpu_torch import evaluate, train
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.utils.flops import (
+        peak_flops_bf16, training_flops,
+    )
 
     root = tempfile.mkdtemp(prefix="chip_smoke_entry_")
     td = f"{root}/td"
@@ -1261,6 +1528,10 @@ def entry_path(torch, wrappers, phase: str, args, steps: int,
           f"images_per_s {[r['examples_per_sec'] for r in rows]} "
           f"train_main_s {wall:.2f} max_memory_allocated {peak} "
           f"launches {launches}", flush=True)
+    i = args.index("--device")          # the entry point's, not a field
+    check_mfu(phase, out.splitlines(), rows,
+              training_flops(config_from_args([*args[:i], *args[i + 2:]])),
+              peak_flops_bf16(torch.cuda.get_device_name(0)))
     want = want_counts(wrappers, fused_sgd=steps,
                        conv3x3=conv_per_step * steps
                        + conv_per_eval_batch * 2 * eval_batches)
@@ -1806,6 +2077,8 @@ def main() -> int:
     n_params = sum(leaf_sizes)
     sgd = check_sgd(torch, sgd_mod, n_params)
     launches = main_path(torch, wrappers)
+    telemetry_main_path(torch, wrappers, launches["median_step_s"])
+    health_on_card(torch)
     small_step_agrees(torch, conv_mod, "float32")
     small_step_agrees(torch, conv_mod, "bfloat16")
     quant = check_quantize(torch, tq, leaf_sizes)

@@ -5,8 +5,9 @@ name and default, so ``to_json``/``from_json`` read and write the same keys
 and a config from either package loads in the other. The port runs some
 slices of the system (synchronous data-parallel CNN training, K-of-N
 included, one process a replica, with its checkpoints and evaluator, and
-single-process asynchronous stale-gradient training with its codecs, see
-ROADMAP.md), so a field it does not run
+single-process asynchronous stale-gradient training with its codecs, and
+the ops plane of the synchronous and LM trainers, see ROADMAP.md), so a
+field it does not run
 raises ``ValueError`` when it is set to anything but its default: it is
 never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
 one device (``runtime/lm_trainer.py``), without checkpoints.
@@ -259,16 +260,27 @@ class TrainConfig:
         if self.ef_clip < 0:
             raise ValueError(f"ef_clip={self.ef_clip} (must be >= 0; "
                              "0 = unclamped residual)")
+        if self.health_spec:
+            # A typo'd watchdog fails here, not during the incident it was
+            # meant to catch.
+            from ps_pytorch_tpu_torch.telemetry.health import (
+                parse_health_spec,
+            )
+            parse_health_spec(self.health_spec)
+        if self.metrics_port < 0:
+            raise ValueError(f"metrics_port={self.metrics_port} "
+                             "(must be >= 0; 0 = exporter off)")
+        parse_profile_steps(self.profile_steps)
         # A field inert in the JAX trainer of this mode raises here rather
         # than being ignored.
         inert = {"sync": ASYNC_ONLY_FIELDS + ("num_aggregate",),
                  "kofn": ASYNC_ONLY_FIELDS,
-                 "async": SYNC_ONLY_FIELDS}[self.mode]
+                 "async": SYNC_ONLY_FIELDS + OPS_FIELDS}[self.mode]
         for name in inert:
             if getattr(self, name) != _default(name):
                 runs = ("--mode kofn or async" if name == "num_aggregate"
                         else "--mode async only" if name in ASYNC_ONLY_FIELDS
-                        else "--mode sync or kofn")
+                        else "--mode sync or kofn, and the LM")
                 raise ValueError(
                     f"{name}={getattr(self, name)!r} with mode="
                     f"{self.mode!r} is not ported yet (ROADMAP.md); it runs "
@@ -307,9 +319,14 @@ ASYNC_ONLY_FIELDS = ("async_slices", "fetch_every",
 # straggler deadline and the injected straggler.
 SYNC_ONLY_FIELDS = ("kill_threshold", "inject_step_delay",
                     "inject_delay_process")
+# The ops plane (telemetry/): the CNN Trainer and the LMTrainer read these;
+# the asynchronous trainer reads none of them, as in the JAX package.
+OPS_FIELDS = ("trace_file", "timeline_file", "metrics_port", "health_spec",
+              "flight_file", "profile_dir", "profile_steps")
 
 # The fields the port runs. Every other field must keep its default.
-PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS) | frozenset({
+PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
+                          + OPS_FIELDS) | frozenset({
     "num_aggregate", "compress_grad", "codec_level",
     "network", "dataset", "batch_size", "test_batch_size", "data_dir",
     "num_classes", "optimizer", "lr", "lr_schedule", "lr_warmup_steps",
@@ -321,6 +338,21 @@ PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS) | frozenset({
     "lm_vocab", "lm_d_model", "lm_layers", "lm_heads", "lm_seq_len",
     "lm_corpus_tokens", "lm_corpus_file", "lm_parallelism", "lm_attention",
 })
+
+
+def parse_profile_steps(spec: str) -> tuple:
+    """``"lo-hi"`` or ``"n"`` -> (lo, hi), the inclusive window of steps
+    that ``--profile-dir`` traces; raises ValueError unless
+    0 < lo <= hi."""
+    lo, _, hi = str(spec).partition("-")
+    try:
+        window = (int(lo), int(hi or lo))
+    except ValueError:
+        raise ValueError(f"profile_steps={spec!r} (want 'lo-hi' or 'n', "
+                         "step numbers)") from None
+    if not 0 < window[0] <= window[1]:
+        raise ValueError(f"profile_steps={spec!r} (want 0 < lo <= hi)")
+    return window
 
 
 def refuse_multi_process(what: str) -> None:

@@ -33,6 +33,7 @@ import numpy as np
 
 from ps_pytorch_tpu_torch.compression import w_compress, w_decompress
 from ps_pytorch_tpu_torch.runtime import msgpack_io
+from ps_pytorch_tpu_torch.telemetry.trace import span as _span
 
 _STEP_RE = re.compile(r"^model_step_(\d+)$")
 _MANIFEST = "manifest.json"
@@ -69,7 +70,15 @@ def save_checkpoint(train_dir: str, step: int, state: Any,
                     codec_level: int = 3,
                     extra_state: Optional[Any] = None) -> str:
     """Atomically write train_dir/model_step_<step>. Returns the final
-    path."""
+    path. Recorded as the ambient span ``checkpoint_write``."""
+    with _span("checkpoint_write", step=step):
+        return _save_checkpoint(train_dir, step, state, config_json,
+                                compress, codec_level, extra_state)
+
+
+def _save_checkpoint(train_dir: str, step: int, state: Any,
+                     config_json: str, compress: bool, codec_level: int,
+                     extra_state: Optional[Any]) -> str:
     os.makedirs(train_dir, exist_ok=True)
     blob = msgpack_io.packb(state)
     meta = {"step": step, "compressed": bool(compress)}
@@ -146,7 +155,15 @@ def load_checkpoint(train_dir: str, step: int,
                     ) -> Tuple[Any, dict, str]:
     """-> (state, meta, config_json). ``state`` is the stored tree, or what
     ``restore(tree)`` returns (it puts the tree into a model and raises
-    when the tree does not fit)."""
+    when the tree does not fit). Recorded as the ambient span
+    ``checkpoint_load``."""
+    with _span("checkpoint_load", step=step):
+        return _load_checkpoint(train_dir, step, restore)
+
+
+def _load_checkpoint(train_dir: str, step: int,
+                     restore: Optional[Callable[[dict], Any]]
+                     ) -> Tuple[Any, dict, str]:
     path = checkpoint_path(train_dir, step)
     _check_manifest(path)
     with open(os.path.join(path, "meta.json")) as f:

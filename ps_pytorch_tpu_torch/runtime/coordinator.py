@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ps_pytorch_tpu_torch.resilience.retry import RetryPolicy, is_retryable
+from ps_pytorch_tpu_torch.telemetry.trace import span as _span
 
 
 class LeaderLost(RuntimeError):
@@ -179,11 +180,15 @@ class Coordinator:
         """float32[n] mask for step ``step``'s masked mean. Every replica
         must consume the SAME mask or the parameters diverge, so the
         leader decides it and publishes it on the KV; followers block on
-        the published value."""
+        the published value. Recorded as the ambient span
+        ``coordinator_mask``: on a follower the mask wait, the stall a
+        straggling leader puts on everyone; on the leader the decision
+        and the publish."""
         key = f"{self.run_id}/mask/{step}"
-        if not self.leader:
-            return self._await_mask(key, step, timeout_s)
-        return self._decide_and_publish_mask(key, step)
+        with _span("coordinator_mask", step=step):
+            if not self.leader:
+                return self._await_mask(key, step, timeout_s)
+            return self._decide_and_publish_mask(key, step)
 
     def _await_mask(self, key: str, step: int,
                     timeout_s: float) -> np.ndarray:

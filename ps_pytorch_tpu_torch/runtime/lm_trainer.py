@@ -11,12 +11,21 @@ configured schedule whatever ``--fused-optimizer`` says, as
 
 ``step_time`` runs from fetching the batch to reading the step's loss when
 the step is logged, which waits for the device; an unlogged step's time
-ends at dispatch. The optional planes of the JAX trainer (checkpoints
-and resume, health, faults, telemetry exporters) are not part of this
-slice (ROADMAP.md): the trainer refuses ``eval_freq > 0`` and a
+ends at dispatch.
+
+The ops plane is the CNN Trainer's (``runtime/ops_plane.py``), as the JAX
+LM trainer's is: spans ``data_wait``, ``host_dispatch`` and
+``metrics_sync``, ``mfu`` counted from the full-attention model whether
+``--lm-attention`` is ``flash`` or ``full``, the exporter, the watchdogs
+(on the loss the logged steps read: the LM step has no grad norm, as in
+the JAX package), the flight recorder, the timeline and the profiler
+window. A ``halt`` dumps the flight recorder and leaves the loop without
+a checkpoint. LM checkpoints and resume, and the fault plane, are not
+ported yet (ROADMAP.md): the trainer refuses ``eval_freq > 0`` and a
 ``train_dir`` to resume from.
 """
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -28,10 +37,10 @@ from ps_pytorch_tpu_torch.data.text import TokenLoader, lm_streams
 from ps_pytorch_tpu_torch.models.transformer import TransformerLM
 from ps_pytorch_tpu_torch.optim import SGD, build_schedule
 from ps_pytorch_tpu_torch.parallel.sp import LMTrainStep, make_lm_eval_fn
-from ps_pytorch_tpu_torch.runtime.metrics import (
-    MetricsLogger, derive_step_record,
-)
 from ps_pytorch_tpu_torch.runtime.checkpoint import committed_steps
+from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
+from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
+from ps_pytorch_tpu_torch.runtime.ops_plane import OpsPlane
 from ps_pytorch_tpu_torch.runtime.trainer import (
     resolve_device, set_reference_numerics,
 )
@@ -41,7 +50,6 @@ class LMTrainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
                  printer=print):
         set_reference_numerics()
-        self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.eval_freq > 0 or (cfg.resume and
                                  committed_steps(cfg.train_dir)):
@@ -49,6 +57,9 @@ class LMTrainer:
                 "LM checkpoints, and resuming from them, are not ported yet "
                 "(ROADMAP.md); pass --eval-freq 0, and --resume false or "
                 "another --train-dir")
+        # The network the LM trains, as the JAX LM trainer resolves it
+        # (``lm_trainer.py:171-175``): the FLOP count reads it.
+        self.cfg = cfg = dataclasses.replace(cfg, network="TransformerLM")
         impl = "flash" if cfg.lm_attention == "flash" else "full"
         self.model = TransformerLM(
             vocab_size=cfg.lm_vocab, n_layers=cfg.lm_layers,
@@ -64,35 +75,57 @@ class LMTrainer:
                                         cfg.lm_seq_len, seed=cfg.seed)
         self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
                                      printer=printer)
+        self.ops = OpsPlane(cfg, device=self.device, rank=0, world=1,
+                            kv=KVStore(), health_extra=lambda: {
+                                "leader": True, "role": "leader"},
+                            printer=printer)
         self.step_times: list = []
 
     def train(self) -> None:
         cfg = self.cfg
+        ops, tracer = self.ops, self.ops.tracer
+        tokens_a_step = cfg.batch_size * cfg.lm_seq_len
         step = 0
         try:
             while step < cfg.max_steps:
                 step += 1
+                ops.count_flops()
+                ops.profile_step(step)
                 t0 = time.monotonic()
-                tokens = self.train_loader.next_batch()
+                with tracer.span("data_wait", step=step):
+                    tokens = self.train_loader.next_batch()
                 t_data = time.monotonic() - t0
-                m = self.step_fn(tokens)
+                with tracer.span("host_dispatch", step=step):
+                    m = self.step_fn(tokens)
                 logged = step % cfg.log_every == 0 or step == cfg.max_steps
-                loss = float(m["loss"]) if logged else None
+                loss = None
+                if logged:
+                    with tracer.span("metrics_sync", step=step):
+                        loss = float(m["loss"])
                 t_step = time.monotonic() - t0
                 self.step_times.append(t_step)
+                ops.ops_step(step, examples=cfg.batch_size, loss=loss,
+                             step_time=t_step, data_time=t_data)
                 if logged:
                     self.metrics.log_step(
                         step, self.train_loader._epoch, loss=loss, acc=0.0,
                         participating=1.0, step_time=t_step,
-                        data_time=t_data,
-                        **derive_step_record(
-                            step_time_s=t_step, data_time_s=t_data,
-                            examples=cfg.batch_size,
-                            tokens=cfg.batch_size * cfg.lm_seq_len))
+                        data_time=t_data, phases=tracer.step_summary(step),
+                        **ops.derived(step_time=t_step, data_time=t_data,
+                                      examples=cfg.batch_size,
+                                      tokens=tokens_a_step))
+                if ops.should_halt:
+                    ops.halt(step, None)
+                    break
+                ops.publish_step(step, t_step, t_data)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        except BaseException as e:
+            ops.crash(e)
+            raise
         finally:
             self.metrics.close()
+            ops.close(final_step=step)
 
     def evaluate(self, max_batches: Optional[int] = None) -> dict:
         """Held-out next-token loss and perplexity over the validation

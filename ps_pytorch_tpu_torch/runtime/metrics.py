@@ -1,6 +1,9 @@
 """Per-step metrics, schema v2: a copy of the JAX package's
 ``runtime/metrics.py`` that prints byte-identical STEP lines and writes the
-same JSONL keys, so the JAX package's tools parse the port's logs.
+same JSONL keys, so the JAX package's tools parse the port's logs. The
+trainers add ``phases`` (the step's span totals, ``telemetry/trace.py``)
+and, on a CUDA device, ``device_mem_peak_bytes`` and ``device_mem_bytes``
+to each record, as the JAX trainers do.
 
     STEP <step> epoch <e> loss <l> acc <a> participating <p>
          step_time <s> data_time <d> [mfu <m|n/a> ips <i> stall <f>]
@@ -10,6 +13,12 @@ import json
 import re
 import time
 from typing import IO, Optional
+
+# The derived fields (mfu, goodput, stall, device memory) are the
+# registry's, as in the JAX package.
+from ps_pytorch_tpu_torch.telemetry.registry import (  # noqa: F401
+    derive_step_record,
+)
 
 SCHEMA_VERSION = 2
 
@@ -61,25 +70,6 @@ def parse_line(line: str) -> Optional[dict]:
         rec["mfu"] = None if m2["mfu"] == "n/a" else float(m2["mfu"])
         rec["examples_per_sec"] = float(m2["examples_per_sec"])
         rec["data_stall_frac"] = float(m2["data_stall_frac"])
-    return rec
-
-
-def derive_step_record(*, step_time_s: float, data_time_s: float,
-                       examples: int, tokens: Optional[int] = None) -> dict:
-    """The v2 derived fields, plus ``tokens_per_sec`` when ``tokens`` is
-    given (the JAX ``telemetry/registry.py`` adds it the same way, to the
-    JSONL record only). ``mfu`` is None: the port does not count FLOPs yet
-    (ROADMAP.md), and the line then prints ``mfu n/a``."""
-    rec = {
-        "mfu": None,
-        "examples_per_sec": (round(examples / step_time_s, 2)
-                             if examples and step_time_s > 0 else None),
-        "data_stall_frac": (round(max(0.0, min(1.0, data_time_s
-                                               / step_time_s)), 4)
-                            if step_time_s > 0 else None),
-    }
-    if tokens and step_time_s > 0:
-        rec["tokens_per_sec"] = round(tokens / step_time_s, 1)
     return rec
 
 

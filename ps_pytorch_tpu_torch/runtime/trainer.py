@@ -16,9 +16,19 @@ every process restores the newest valid checkpoint in ``train_dir`` and
 fast-forwards its own shard to it, so the resumed run sees the batches an
 uninterrupted one would; a model's Dropout masks are drawn from the step's
 key ``seed * 100003 + step`` and the replica (``parallel/dp.py``), so it
-draws the masks too. The other optional planes of the JAX trainer
-(health, faults, telemetry exporters, the lease and elections) are not part
-of this slice (ROADMAP.md).
+draws the masks too.
+
+The ops plane (``runtime/ops_plane.py``) runs beside the loop: spans
+``data_wait``, ``host_dispatch``, ``device_sync``, ``metrics_sync`` and
+``checkpoint`` on every step, ``mfu`` and the device memory on the STEP
+line and in the JSONL, the Prometheus exporter, the health watchdogs
+(a ``halt`` commits ``model_step_<k>`` at the step that tripped, dumps the
+flight recorder and leaves the loop), the flight dump on a crash, the
+cross-process timeline and the ``torch.profiler`` window. The loop's one
+wait for the card, where the step's loss is read, reads the step's grad
+norm and nonfinite flag in the same copy, so the watchdogs add no device
+sync. The fault plane, the lease and elections are not ported yet
+(ROADMAP.md).
 """
 
 import time
@@ -40,9 +50,8 @@ from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import (
     Coordinator, DistributedKV, KVStore,
 )
-from ps_pytorch_tpu_torch.runtime.metrics import (
-    MetricsLogger, derive_step_record,
-)
+from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
+from ps_pytorch_tpu_torch.runtime.ops_plane import OpsPlane
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -86,6 +95,16 @@ class Trainer:
             kill_threshold=cfg.kill_threshold,
             kv=DistributedKV(store) if store is not None else KVStore(),
             leader=self.rank == 0)
+        # Before the step: the nonfinite:skip watchdog sets its gate. The
+        # /healthz identity holds the coordinator, not the trainer, so the
+        # trainer is freed (its tensors with it) when the last reference
+        # goes, not at the next cycle collection.
+        co = self.coordinator
+        self.ops = OpsPlane(cfg, device=self.device, rank=self.rank,
+                            world=self.world, kv=co.kv, run_id=co.run_id,
+                            health_extra=lambda: {"run_id": co.run_id,
+                                                  "leader": bool(co.leader)},
+                            printer=printer)
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl,
                                  seed=cfg.seed).to(self.device)
@@ -93,9 +112,9 @@ class Trainer:
         self.train_loader, self.test_loader = prepare_data(
             cfg, host_id=self.rank, num_hosts=self.world)
         input_norm = input_norm_for(cfg)
-        self.step_fn = make_train_step(self.model, self.opt,
-                                       group=self.group,
-                                       input_norm=input_norm)
+        self.step_fn = make_train_step(
+            self.model, self.opt, group=self.group, input_norm=input_norm,
+            skip_nonfinite=self.ops.skip_nonfinite)
         self.eval_fn = make_eval_step(self.model, input_norm)
         self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
                                      printer=printer,
@@ -173,52 +192,76 @@ class Trainer:
         synchronous group runs at the slowest one's pace, so the wall times
         of all ranks are the same and cannot tell the straggler."""
         cfg = self.cfg
-        co = self.coordinator
+        co, ops, tracer = self.coordinator, self.ops, self.ops.tracer
         steps_per_epoch = max(len(self.train_loader), 1)
         epoch_budget = (cfg.epochs * steps_per_epoch if cfg.epochs > 0
                         else cfg.max_steps)
         last_step = min(cfg.max_steps, epoch_budget)
         slow = cfg.inject_step_delay > 0 \
             and self.rank == cfg.inject_delay_process
-        step, m_prev = self.start_step, None
+        step, halted = self.start_step, False
         try:
             while step < last_step:
                 step += 1
+                ops.count_flops()
+                ops.profile_step(step)
                 co.announce_step(step)
                 t0 = time.monotonic()
-                x, y = self.train_loader.next_batch()
+                with tracer.span("data_wait", step=step):
+                    x, y = self.train_loader.next_batch()
                 t_data = time.monotonic() - t0
                 mask = co.participation_mask(step)
                 t_mask = time.monotonic() - t0 - t_data
-                m = self.step_fn(x, y, mask, key=cfg.seed * 100003 + step)
+                with tracer.span("host_dispatch", step=step):
+                    m = self.step_fn(x, y, mask,
+                                     key=cfg.seed * 100003 + step)
                 if slow:
                     # Fault injection: make this process a straggler.
                     time.sleep(cfg.inject_step_delay)
-                if m_prev is not None:
-                    float(m_prev["loss"])       # the 1-deep pipeline's sync
-                m_prev = m
+                with tracer.span("device_sync", step=step):
+                    # The loop's one wait for the card: the step's
+                    # scalars in one copy (on one CUDA stream, reading
+                    # any of the step's outputs waits for all of it).
+                    loss, acc, grad_norm, nonfinite = torch.stack(
+                        [m["loss"], m["accuracy"], m["grad_norm"],
+                         m["nonfinite"]]).tolist()
                 t_step = time.monotonic() - t0
                 t_wait = t_mask + self.step_fn.comm_s
                 self.step_times.append(t_step)
                 self.wait_times.append(t_wait)
                 co.report_duration(self.rank, step, t_step - t_wait)
+                ops.ops_step(step, examples=cfg.batch_size, loss=loss,
+                             grad_norm=grad_norm, nonfinite=nonfinite,
+                             step_time=t_step, data_time=t_data)
+                if ops.should_halt:
+                    ops.halt(step, self.checkpoint)
+                    halted = True
+                    break
+                ops.publish_step(step, t_step, t_data)
                 if step % cfg.log_every == 0 or step == last_step:
+                    with tracer.span("metrics_sync", step=step):
+                        part = float(m["participating"])
                     self.metrics.log_step(
-                        step, (step - 1) // steps_per_epoch,
-                        loss=float(m["loss"]), acc=float(m["accuracy"]),
-                        participating=float(m["participating"]),
-                        step_time=t_step, data_time=t_data,
-                        **derive_step_record(step_time_s=t_step,
-                                             data_time_s=t_data,
-                                             examples=cfg.batch_size))
+                        step, (step - 1) // steps_per_epoch, loss=loss,
+                        acc=acc, participating=part, step_time=t_step,
+                        data_time=t_data,
+                        phases=tracer.step_summary(step),
+                        **ops.derived(step_time=t_step, data_time=t_data,
+                                      examples=cfg.batch_size))
                 if cfg.eval_freq > 0 and step % cfg.eval_freq == 0:
-                    self.checkpoint(step)
+                    with tracer.span("checkpoint", step=step):
+                        self.checkpoint(step)
             self._sync()
             if cfg.eval_freq > 0 and step > self.start_step \
-                    and step % cfg.eval_freq != 0:
-                self.checkpoint(step)
+                    and step % cfg.eval_freq != 0 and not halted:
+                with tracer.span("checkpoint", step=step):
+                    self.checkpoint(step)
+        except BaseException as e:
+            ops.crash(e)
+            raise
         finally:
             self.metrics.close()
+            ops.close(final_step=step)
 
     def evaluate(self, max_batches: Optional[int] = None) -> dict:
         """Loss, top-1 and top-5 over the test loader (or its first

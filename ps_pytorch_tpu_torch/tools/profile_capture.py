@@ -29,7 +29,9 @@ profiled window (against the window itself, which the profiler's own host
 cost stretches, and against the unprofiled median step), and the device
 time charged to each PyTorch operator that launched it. The Chrome trace
 is written to ``--out``; the digest carries the card's name and power
-limit. Without a CUDA device it fails. The trainers pick deterministic
+limit, and the step's ``mfu`` at the median (the model's FLOPs a step,
+``utils/flops.py``, over the median and the card's bf16 peak). Without a
+CUDA device it fails. The trainers pick deterministic
 cuDNN algorithms (``runtime/trainer.py:set_reference_numerics``);
 ``--cudnn-nondeterministic`` lets cuDNN choose freely after the trainer is
 built, to measure what determinism costs.
@@ -47,6 +49,7 @@ import torch
 
 from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
 from ps_pytorch_tpu_torch.data import augment
+from ps_pytorch_tpu_torch.telemetry import compute_mfu
 
 # Kernel-name fragments -> the group a device event is charged to.
 GROUPS = (
@@ -125,6 +128,7 @@ def main(argv=None) -> int:
                 "conv_impl", "fused_optimizer")
     if args.cudnn_nondeterministic:
         torch.backends.cudnn.deterministic = False
+    trainer.ops.count_flops()
     mask = np.ones(1, np.float32)
     batches = [trainer.train_loader.next_batch()
                for _ in range(args.warmup + args.timed + args.profiled)]
@@ -184,6 +188,10 @@ def main(argv=None) -> int:
                    "n": len(times)},
         **{f"{unit}_per_s_at_median": count / statistics.median(times)
            for unit, count in per_step.items()},
+        "flops_per_step": trainer.ops.flops_per_step,
+        "mfu_at_median": compute_mfu(
+            trainer.ops.flops_per_step, statistics.median(times),
+            trainer.ops.peak_per_chip),
         "profiled_steps": n,
         "device_busy_ms_per_step": busy / 1e3 / n,
         "window_ms_per_step": window_us / 1e3 / n,
