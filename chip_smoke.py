@@ -43,7 +43,15 @@ exit and no result line, if any phase fails:
    gloo (MAIN-KOFN: K-of-N with process 0 slowed by 0.3 s a step, its
    masks, process 0's checkpoints scored by ``evaluate.main``, equal
    parameter hashes, and a sync run with the same straggler for its
-   cost); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
+   cost), then two processes on the card as asynchronous slices over the
+   KV wire (MAIN-WIRE, ``--rank-wire``: ``train.run --mode async``, int8
+   to version 6 with checkpoints every 3, resumed to 8 and scored by
+   ``evaluate.main``, blosc on the bucketed wire, raw on the blocking one;
+   equal FINAL lines, process 0's checkpoints, a quantize launch a tick a
+   process and a fused SGD launch an applied version, the armoured bytes
+   a submission against the sizes, and, before it, one int8 ResNet-18
+   gradient tree's chunks from the kernel and from the plain version
+   hashed equal); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
    Dropout, synthetic CIFAR-100, batch 256) and ResNet-50 at 224 px on the
    random-resized-crop loader (MAIN-IMAGENET: batch 128, uint8 batches)
    through ``train.main`` and ``evaluate.main --once``, each after the
@@ -163,6 +171,26 @@ KOFN_ARGS = ("--mode", "kofn", "--num-aggregate", "1", "--inject-step-delay",
              "0.3", "--inject-delay-process", "0", "--max-steps",
              str(KOFN_STEPS), "--eval-freq", "4")
 RANK_TIMEOUT_S = 400
+# MAIN-WIRE: the same ResNet-18 as two processes on the one card, async
+# across processes (runtime/async_trainer.py): gradients and the canonical
+# weights cross between them as armoured chunks over process 0's TCPStore.
+# (name, codec flags, max steps, eval freq, resume): int8 with checkpoints
+# every 3 versions, resumed from 6 to 8; blosc on the default bucketed
+# wire; raw on the blocking legacy wire.
+WIRE_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
+             "ResNet18", "--dataset", "synthetic_cifar10", "--batch-size",
+             str(BATCH), "--compute-dtype", "bfloat16", "--conv-impl",
+             "pallas", "--fused-optimizer", "--momentum", "0.9",
+             "--weight-decay", "5e-4", "--test-batch-size", "4167",
+             "--device", "cuda")
+WIRE_INT8 = ("--compress-grad", "true", "--grad-codec", "int8")
+WIRE_RUNS = (("int8", WIRE_INT8, 6, 3, False),
+             ("int8-resumed", WIRE_INT8, 8, 3, True),
+             ("blosc", ("--compress-grad", "true", "--grad-codec", "blosc"),
+              3, 0, False),
+             ("raw", ("--compress-grad", "false", "--wire-bucket-mb", "0"),
+              2, 0, False))
+WIRE_SAVES = {"int8": [3, 6], "int8-resumed": [8], "blosc": [], "raw": []}
 # VGG11 (with BatchNorm) on synthetic CIFAR-100, the JAX package's
 # vgg11_cifar100_kofn / vgg11_pallas_conv (bench_suite.py:1450, 1511):
 # batch 256, SGD lr 0.05 momentum 0.9; 8333 test images make 2 eval
@@ -2002,9 +2030,238 @@ def kofn_main_path(wrappers) -> dict:
     return recs[0]["launches"]
 
 
+def wire_rank_main(argv) -> int:
+    """One process of MAIN-WIRE, started by the launcher: ``train.run``
+    with every launch count set to 0 just before, then one ``WIRE`` line:
+    its launch counts, the checkpoints it wrote, its versions and steps,
+    its wire bytes, tick times, publish times and the median of each span
+    (wire spans by channel: ``agrad`` gradients, ``aparams`` weights)."""
+    from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.runtime import async_trainer
+
+    saves = []
+    save_checkpoint = async_trainer.ckpt.save_checkpoint
+
+    def counted(train_dir, step, *args, **kw):
+        saves.append(step)
+        return save_checkpoint(train_dir, step, *args, **kw)
+
+    async_trainer.ckpt.save_checkpoint = counted
+    wrappers = kernel_wrappers()
+    zero_counts(wrappers)
+    trainer, result = train.run(argv)
+    launches = read_counts(wrappers)
+    spans = {}
+    for ev in trainer.tracer.spans():
+        channel = ev.get("args", {}).get("channel", "")
+        kind = next((k for k in ("agrad", "aparams") if k in channel), "")
+        spans.setdefault(f"{ev['name']}/{kind}" if kind else ev["name"],
+                         []).append(ev["dur"])
+    rows = read_jsonl(trainer.metrics.jsonl_path)
+    own = trainer.transport.grad_ch[trainer.pid]
+    print("WIRE " + json.dumps({
+        "pid": trainer.pid, "launches": launches, "saves": saves,
+        "version": trainer.version, "applied": trainer.applied,
+        "own_steps": trainer.own_steps,
+        "dropped_stale": trainer.dropped_stale,
+        "wire": trainer.transport.wire_stats(),
+        "grad_bytes_per_submission": own.bytes_out / max(own.publishes, 1),
+        "tick_s": [r["step_time"] for r in rows],
+        "publish_s": [r["publish_s"] for r in rows],
+        "span_median_s": {k: float(np.median(v)) for k, v in spans.items()},
+        "span_count": {k: len(v) for k, v in spans.items()},
+        "eval": result}), flush=True)
+    return 0
+
+
+def wire_sizes() -> dict:
+    """Armoured bytes a gradient submission of ResNet-18 should put on
+    the wire, from its parameter sizes: base85 turns 4 bytes into 5; the
+    f32 tree (raw npy framing adds a header a leaf) or the int8 form
+    (each leaf padded to whole 4096-element blocks: int8 values and one
+    f32 scale a block) before blosc, which only shrinks the int8 and
+    f32 trees here."""
+    from ps_pytorch_tpu_torch.models import build_model
+    from ps_pytorch_tpu_torch.ops import quantize as tq
+
+    sizes = [p.numel() for p in build_model("ResNet18").parameters()]
+    f32 = 4 * sum(sizes)
+    int8 = sum(tq.padded_rows(n) * tq.LANES
+               + tq.padded_rows(n) // tq.BLOCK_ROWS * 4 for n in sizes)
+    return {"leaves": len(sizes), "f32": f32, "int8": int8,
+            "raw": 1.25 * f32, "blosc": 1.25 * f32, "int8_armoured":
+            1.25 * int8}
+
+
+def wire_int8_bytes_agree(torch, tq) -> None:
+    """One int8 tree of ResNet-18's gradients (random, seeded, in the JAX
+    layout) with injected noise through ``quantize_wire`` on the card (the
+    kernel, one launch) and on the CPU (the plain version), each published
+    through the bucketed blosc channel into its own store: the chunk
+    bytes (sha256 over every key and value) are the same."""
+    import hashlib
+
+    from ps_pytorch_tpu_torch.models import build_model
+    from ps_pytorch_tpu_torch.models.convert import jax_path, leaf_layout, nest
+    from ps_pytorch_tpu_torch.parallel.transport import KVPytreeChannel
+    from ps_pytorch_tpu_torch.runtime.async_trainer import quantize_wire
+    from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    params = dict(build_model("ResNet18").named_parameters())
+    names = sorted(params)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    leaves = [leaf_layout(n, 1e-2 * torch.randn(
+        params[n].shape, generator=gen, device="cuda"), True).contiguous()
+        for n in names]
+    noise = [torch.rand((tq.padded_rows(l.numel()), tq.LANES),
+                        generator=gen, device="cuda") for l in leaves]
+    paths = [jax_path(n, params[n].dim()) for n in names]
+    digests, launched = [], []
+    for dev in ("cuda", "cpu"):
+        before = tq.quantize_int8.launches
+        wire = quantize_wire([l.to(dev) for l in leaves], 42 * 31 + 5,
+                             [u.to(dev) for u in noise])
+        launched.append(tq.quantize_int8.launches - before)
+        tree = nest(paths, wire)
+        kv = KVStore()
+        ch = KVPytreeChannel(kv, "async-42/agrad/0", tree, codec="blosc",
+                             bucket_bytes=4 << 20, workers=4)
+        ch.publish(1, tree, meta={"step": 0})
+        ch.close()
+        h = hashlib.sha256()
+        for k in sorted(kv._d):
+            if not k.endswith(("/meta", "/ver")):
+                h.update(k.encode() + b"\0" + kv._d[k].encode() + b"\0")
+        digests.append((h.hexdigest(), ch.bytes_out))
+    if launched != [1, 0] or digests[0] != digests[1]:
+        fail(f"MAIN-WIRE: the int8 wire of the kernel and the plain version "
+             f"differ (launches {launched}, sha256 and bytes {digests})")
+    print(f"CHECK wire int8 ResNet-18 gradient tree ({len(names)} leaves) "
+          f"kernel (1 launch) and plain version on the CPU, injected noise: "
+          f"chunk sha256 {digests[0][0]} equal, armoured bytes "
+          f"{digests[0][1]} card {card_line()}", flush=True)
+
+
+def wire_main_path(wrappers) -> dict:
+    """MAIN-WIRE: the CNN path's ResNet-18 at full width as two processes
+    on the one card through the launcher, ``--mode async`` one slice a
+    process. Each run: both processes print the ASYNC line and the same
+    finite FINAL line; the leader's applied updates make its version;
+    process 0 alone commits the checkpoints (and the resumed launch prints
+    RESUME); every conv3x3 launch takes the tensor cores (26 a step, 13 an
+    eval batch); the quantize kernel ran once a tick in each process under
+    int8 and fused SGD once an applied version on the leader; each
+    process's armoured bytes a gradient submission match the sizes
+    (``wire_sizes``). Then ``evaluate.main`` scores the last checkpoint.
+    Returns the launches over every run and both processes."""
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    sizes = wire_sizes()
+    print(f"MAIN-WIRE predicted armoured bytes a submission: raw "
+          f"{sizes['raw']:.0f} (f32 {sizes['f32']} B, {sizes['leaves']} "
+          f"leaves), int8 before blosc {sizes['int8_armoured']:.0f} (int8 "
+          f"form {sizes['int8']} B), ratio "
+          f"{sizes['int8_armoured'] / sizes['raw']:.4f}", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_wire_")
+    total = {name: 0 for name in read_counts(wrappers)}
+    try:
+        for name, flags, steps, eval_freq, resume in WIRE_RUNS:
+            codec = name.split("-")[0]
+            td = f"{root}/td_{codec}"
+            start = 6 if resume else 0
+            t0 = time.monotonic()
+            logs = launch_ranks(f"{root}/{name}", 2, [
+                "--rank-wire", *WIRE_ARGS, *flags, "--max-steps", str(steps),
+                "--eval-freq", str(eval_freq), "--resume",
+                "true" if resume else "false", "--train-dir", td,
+                "--metrics-file", f"{root}/{name}.jsonl", "--trace-file",
+                f"{root}/{name}.trace.json"], f"MAIN-WIRE {name}")
+            wall = time.monotonic() - t0
+            phase = f"MAIN-WIRE {name}"
+            if not all("ASYNC process-slices 2 x 1 devices" in log
+                       for log in logs):
+                fail(f"{phase}: a process did not print the ASYNC line")
+            recs = []
+            for log in logs:
+                found = re.findall(r"^WIRE (.*)$", log, re.M)
+                if len(found) != 1:
+                    fail(f"{phase}: a process printed no WIRE line")
+                recs.append(json.loads(found[0]))
+            finals = [re.findall(r"^FINAL (.*)$", log, re.M) for log in logs]
+            if len(finals[0]) != 1 or finals[0] != finals[1] or not all(
+                    math.isfinite(float(x))
+                    for x in finals[0][0].split()[1::2]):
+                fail(f"{phase}: FINAL lines differ or are not finite "
+                     f"({finals})")
+            lead, follow = recs
+            if [r["pid"] for r in recs] != [0, 1] or \
+                    lead["version"] != steps or \
+                    lead["applied"] != steps - start:
+                fail(f"{phase}: leader version {lead['version']} applied "
+                     f"{lead['applied']}, expected {steps} and "
+                     f"{steps - start}")
+            if [r["saves"] for r in recs] != [WIRE_SAVES[name], []]:
+                fail(f"{phase}: checkpoints {[r['saves'] for r in recs]}, "
+                     f"expected process 0 alone {WIRE_SAVES[name]}")
+            if resume and f"RESUME from {td}/model_step_6 at step 6" \
+                    not in logs[0]:
+                fail(f"{phase}: the leader printed no RESUME at step 6")
+            for r in recs:
+                want = want_counts(
+                    wrappers, conv3x3=CONV_PER_STEP * r["own_steps"]
+                    + CONV_PER_EVAL_BATCH * 2,
+                    quantize=r["own_steps"] if codec == "int8" else 0,
+                    fused_sgd=r["applied"] if r["pid"] == 0 else 0)
+                if r["launches"] != want:
+                    fail(f"{phase} process {r['pid']}: launches "
+                         f"{r['launches']}, expected {want}")
+                for k, v in r["launches"].items():
+                    total[k] += v
+                got = r["grad_bytes_per_submission"]
+                pred = sizes["int8_armoured" if codec == "int8" else codec]
+                if (abs(got / pred - 1) > 0.10 if codec == "raw"
+                        else got > 1.10 * pred):
+                    fail(f"{phase} process {r['pid']}: {got:.0f} armoured "
+                         f"bytes a submission against {pred:.0f} predicted")
+                print(f"{phase} process {r['pid']} own_steps "
+                      f"{r['own_steps']} version {r['version']} applied "
+                      f"{r['applied']} dropped_stale {r['dropped_stale']} "
+                      f"tick_s {r['tick_s']} publish_s {r['publish_s']} "
+                      f"card {card}", flush=True)
+                print(f"{phase} process {r['pid']} grad_bytes_per_submission "
+                      f"{got:.0f} predicted {pred:.0f} ratio "
+                      f"{got / pred:.4f} wire {r['wire']} card {card}",
+                      flush=True)
+                print(f"{phase} process {r['pid']} span_median_s "
+                      f"{r['span_median_s']} span_count {r['span_count']} "
+                      f"card {card}", flush=True)
+            print(f"{phase} launch_wall_s {wall:.2f} FINAL {finals[0][0]} "
+                  f"(equal in both processes) launches {lead['launches']} "
+                  f"and {follow['launches']} card {card}", flush=True)
+        found = EVAL_RE.findall(run_entry(evaluate.main, [
+            "--train-dir", f"{root}/td_int8", "--once", "8"]))
+        if len(found) != 1 or found[0][0] != "8" or not all(
+                math.isfinite(float(x)) for x in found[0][1:]):
+            fail("MAIN-WIRE: evaluate.main printed no finite EVAL step 8")
+        if ckpt.committed_steps(f"{root}/td_int8") != [3, 6, 8]:
+            fail(f"MAIN-WIRE: committed "
+                 f"{ckpt.committed_steps(f'{root}/td_int8')}")
+        print(f"MAIN-WIRE EVAL step 8 {found[0][1:]} launches over every "
+              f"run and both processes {total}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:
         return rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--rank-wire"]:
+        return wire_rank_main(sys.argv[2:])
     if sys.argv[1:] == ["--rank-probe"]:
         return probe_rank_main()
     import torch
@@ -2098,6 +2355,8 @@ def main() -> int:
     gloo_probe()
     dist_main_path(wrappers)
     kofn_main_path(wrappers)
+    wire_int8_bytes_agree(torch, tq)
+    wire_launches = wire_main_path(wrappers)
     flash = check_flash(torch, F, fa)
     torch.cuda.empty_cache()
     lm_launches = lm_main_path(torch, wrappers)
@@ -2128,14 +2387,18 @@ def main() -> int:
                             max_abs_err=timed["max_abs_err"])
                  for name, counts, timed in (
                      ("MAIN-VGG", vgg_launches, vgg_conv),
-                     ("MAIN-IMAGENET", imagenet_launches, r50_conv))}),
+                     ("MAIN-IMAGENET", imagenet_launches, r50_conv))},
+             # MAIN-WIRE runs MAIN's geometry: its times are this row's.
+             launches_by_path={"MAIN-WIRE": wire_launches["conv3x3"]},
+             tc_launches_by_path={"MAIN-WIRE": wire_launches["conv3x3_tc"]}),
         dict(name="fused_sgd", route="triton",
              source="ps_pytorch_tpu_torch/ops/_sgd_triton.py",
              replaces="ps_pytorch_tpu/ops/fused_sgd.py:34",
              launches=launches["fused_sgd"],
              launches_by_path={"MAIN-VGG": vgg_launches["fused_sgd"],
                                "MAIN-IMAGENET":
-                               imagenet_launches["fused_sgd"]},
+                               imagenet_launches["fused_sgd"],
+                               "MAIN-WIRE": wire_launches["fused_sgd"]},
              max_abs_err=sgd["max_abs_err"],
              ms=sgd["ms"], plain_ms=sgd["plain_ms"], bound_ms=sgd["bound_ms"],
              bound_by="bytes", library_ms=sgd["library_ms"]),
@@ -2149,8 +2412,9 @@ def main() -> int:
         dict(name="quantize", route="cuda",
              source="ps_pytorch_tpu_torch/csrc/quantize.cu",
              replaces="ps_pytorch_tpu/ops/quantize.py:45",
-             launches=async_launches["quantize"], **quant,
-             bound_by="bytes", library_ms=None),
+             launches=async_launches["quantize"],
+             launches_by_path={"MAIN-WIRE": wire_launches["quantize"]},
+             **quant, bound_by="bytes", library_ms=None),
     ] + [
         dict(name=name, route="cuda",
              source="ps_pytorch_tpu_torch/csrc/flash_attention.cu",

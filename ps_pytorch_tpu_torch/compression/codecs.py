@@ -23,11 +23,14 @@ the next step re-sends. EF state is plain numpy and goes into a checkpoint
 as ``extra_state`` (``runtime/checkpoint.py``).
 
 This module also owns the codec registries and the one unknown-codec error
-that the config and the aggregator raise. The channel leaf codecs
-(``blosc`` | ``raw`` framing of the multi-process wire) belong to the
-transport, which is not ported yet (ROADMAP.md).
+that the config, the channel and the aggregator raise, and the channel leaf
+codecs of the multi-process wire (``parallel/transport.py``): ``raw``, the
+self-describing npy framing behind ``NPYRAW0:``, and ``blosc``, the
+``PSC1`` container of ``compression.g_compress``, byte for byte the JAX
+package's.
 """
 
+import io
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -57,6 +60,54 @@ def require_codec(kind: str, got: str, allowed: Sequence[str]) -> str:
     if got not in allowed:
         raise codec_error(kind, got, allowed)
     return got
+
+
+# ---------------------------------------------------------------------------
+# Channel leaf codecs (the KVPytreeChannel framing registry)
+# ---------------------------------------------------------------------------
+
+_RAW_MAGIC = b"NPYRAW0:"
+
+
+def _host(leaf: Any) -> np.ndarray:
+    """A leaf as a host numpy array: a tensor (on any device) is copied to
+    the host in C order (npy framing would mark a transposed view as
+    Fortran order), anything else goes through ``np.asarray``."""
+    if hasattr(leaf, "detach"):
+        return leaf.detach().contiguous().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _encode_leaf_raw(leaf: Any, level: int) -> bytes:
+    # --compress-grad off: self-describing uncompressed npy framing.
+    buf = io.BytesIO()
+    np.save(buf, _host(leaf), allow_pickle=False)
+    return _RAW_MAGIC + buf.getvalue()
+
+
+def _encode_leaf_blosc(leaf: Any, level: int) -> bytes:
+    from ps_pytorch_tpu_torch.compression import g_compress
+    return g_compress(_host(leaf), level=level)
+
+
+CHANNEL_LEAF_ENCODERS = {"raw": _encode_leaf_raw, "blosc": _encode_leaf_blosc}
+
+
+def encode_channel_leaf(leaf: Any, level: int, codec: str) -> bytes:
+    """Registry-dispatched leaf framing for the KV wire."""
+    enc = CHANNEL_LEAF_ENCODERS.get(codec)
+    if enc is None:
+        raise codec_error("channel codec", codec, CHANNEL_CODECS)
+    return enc(leaf, level)
+
+
+def decode_channel_leaf(raw: bytes) -> np.ndarray:
+    """Self-describing: the framing is recognised from the bytes, so mixed
+    readers and writers cannot misread a payload."""
+    if raw.startswith(_RAW_MAGIC):
+        return np.load(io.BytesIO(raw[len(_RAW_MAGIC):]), allow_pickle=False)
+    from ps_pytorch_tpu_torch.compression import g_decompress
+    return g_decompress(raw)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ The same dataclass as the JAX package's ``config.py``: every field keeps its
 name and default, so ``to_json``/``from_json`` read and write the same keys
 and a config from either package loads in the other. The port runs some
 slices of the system (synchronous data-parallel CNN training, K-of-N
-included, one process a replica, with its checkpoints and evaluator, and
-single-process asynchronous stale-gradient training with its codecs, and
-the ops plane of the synchronous and LM trainers, see ROADMAP.md), so a
+included, one process a replica, with its checkpoints and evaluator,
+asynchronous stale-gradient training with its codecs, in one process or
+one process a slice over the KV wire, the KV retry plane, and the ops
+plane of the synchronous and LM trainers, see ROADMAP.md), so a
 field it does not run
 raises ``ValueError`` when it is set to anything but its default: it is
 never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
@@ -270,16 +271,44 @@ class TrainConfig:
         if self.metrics_port < 0:
             raise ValueError(f"metrics_port={self.metrics_port} "
                              "(must be >= 0; 0 = exporter off)")
+        if self.kv_retry_attempts < 1:
+            raise ValueError(f"kv_retry_attempts={self.kv_retry_attempts} "
+                             "(must be >= 1; 1 = no retries)")
+        if self.kv_retry_base_s < 0:
+            raise ValueError("kv_retry_base_s must be >= 0")
+        if self.ckpt_keep < 0 or self.kv_retry_budget < 0:
+            raise ValueError("ckpt_keep / kv_retry_budget / auto_resume "
+                             "must be >= 0")
+        if self.mode == "async" and \
+                self.publish_every > max(self.staleness_limit, 1):
+            # Followers see only published versions: a publish gap wider
+            # than the staleness window makes every follower gradient
+            # stale for good.
+            raise ValueError(
+                f"publish_every={self.publish_every} > "
+                f"staleness_limit={self.staleness_limit}: followers could "
+                f"never contribute a fresh-enough gradient")
         parse_profile_steps(self.profile_steps)
         # A field inert in the JAX trainer of this mode raises here rather
-        # than being ignored.
-        inert = {"sync": ASYNC_ONLY_FIELDS + ("num_aggregate",),
-                 "kofn": ASYNC_ONLY_FIELDS,
-                 "async": SYNC_ONLY_FIELDS + OPS_FIELDS}[self.mode]
+        # than being ignored. Asynchronous training runs in one process
+        # (MultiSliceTrainer) unless the launch contract asks for several
+        # (AsyncTrainer, one process a slice), which reads the wire's
+        # publish period and writes the trace of the wire's spans.
+        wire = self.mode == "async" and several_processes()
+        inert = {"sync": ASYNC_ONLY_FIELDS + WIRE_FIELDS + ("num_aggregate",),
+                 "kofn": ASYNC_ONLY_FIELDS + WIRE_FIELDS,
+                 "async": SYNC_ONLY_FIELDS + tuple(
+                     f for f in OPS_FIELDS + WIRE_FIELDS
+                     if not (wire and f in WIRE_FIELDS + ("trace_file",)))
+                 }[self.mode]
         for name in inert:
             if getattr(self, name) != _default(name):
                 runs = ("--mode kofn or async" if name == "num_aggregate"
                         else "--mode async only" if name in ASYNC_ONLY_FIELDS
+                        else "--mode async across processes"
+                        if name in WIRE_FIELDS
+                        else "--mode sync or kofn, the LM, and --mode async "
+                        "across processes" if name == "trace_file"
                         else "--mode sync or kofn, and the LM")
                 raise ValueError(
                     f"{name}={getattr(self, name)!r} with mode="
@@ -320,14 +349,21 @@ ASYNC_ONLY_FIELDS = ("async_slices", "fetch_every",
 SYNC_ONLY_FIELDS = ("kill_threshold", "inject_step_delay",
                     "inject_delay_process")
 # The ops plane (telemetry/): the CNN Trainer and the LMTrainer read these;
-# the asynchronous trainer reads none of them, as in the JAX package.
+# of the asynchronous trainers, only the one across processes reads
+# trace_file, as in the JAX package.
 OPS_FIELDS = ("trace_file", "timeline_file", "metrics_port", "health_spec",
               "flight_file", "profile_dir", "profile_steps")
+# Fields that only asynchronous training across processes reads
+# (runtime/async_trainer.py).
+WIRE_FIELDS = ("publish_every",)
+# Fields whose validity depends on the launch (several processes or one).
+LAUNCH_FIELDS = WIRE_FIELDS + ("trace_file",)
 
 # The fields the port runs. Every other field must keep its default.
 PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
-                          + OPS_FIELDS) | frozenset({
+                          + OPS_FIELDS + WIRE_FIELDS) | frozenset({
     "num_aggregate", "compress_grad", "codec_level",
+    "kv_retry_attempts", "kv_retry_base_s", "kv_retry_budget",
     "network", "dataset", "batch_size", "test_batch_size", "data_dir",
     "num_classes", "optimizer", "lr", "lr_schedule", "lr_warmup_steps",
     "lr_decay_steps", "lr_decay_factor", "momentum", "weight_decay",
@@ -355,6 +391,23 @@ def parse_profile_steps(spec: str) -> tuple:
     return window
 
 
+def checkpoint_config(config_json: str) -> TrainConfig:
+    """The config a checkpoint was written under, for a reader that trains
+    nothing (the evaluator): the launch that wrote it validated the
+    fields of ``LAUNCH_FIELDS`` and no reader reads them, so they keep
+    their defaults here, whatever this process's launch."""
+    fields = json.loads(config_json)
+    for name in LAUNCH_FIELDS:
+        fields.pop(name, None)
+    return TrainConfig(**fields)
+
+
+def several_processes() -> bool:
+    """True when the launch contract (``parallel/dist.py``) asks for more
+    than one process."""
+    return int(os.environ.get("PS_TPU_NUM_PROCESSES", "1") or "1") > 1
+
+
 def refuse_multi_process(what: str) -> None:
     """Raise when the environment asks for more than one process, by
     torch's launcher contract (``WORLD_SIZE``) or the JAX package's
@@ -367,8 +420,8 @@ def refuse_multi_process(what: str) -> None:
             raise ValueError(
                 f"{name}={n}: {what} across several processes is not "
                 "ported yet (ROADMAP.md); each would train its own model. "
-                "Run one process (--mode async trains several slices in "
-                "it; --mode sync and kofn run one process a replica)")
+                "Run one process (the CNN trainer runs one process a "
+                "replica, or a slice with --mode async)")
 
 
 def _parse_bool(s: str) -> bool:

@@ -96,15 +96,41 @@ def to_jax(state_dict) -> Tuple[dict, dict]:
     return params, stats
 
 
-def leaf_layout(name: str, a: np.ndarray, to_jax: bool) -> np.ndarray:
+def leaf_layout(name: str, a, to_jax: bool):
     """One parameter-shaped array (a gradient, an error-feedback residual)
     of the port's parameter ``name`` between the two layouts: conv OIHW <->
-    HWIO, Linear [out,in] <-> [in,out], everything else as it is."""
+    HWIO, Linear [out,in] <-> [in,out], everything else as it is. A numpy
+    array gives a numpy view, a tensor a tensor view on its own device
+    (``.contiguous()`` lays it out)."""
     if name.endswith(".weight") and a.ndim == 4:
-        return a.transpose(2, 3, 1, 0) if to_jax else a.transpose(3, 2, 0, 1)
+        order = (2, 3, 1, 0) if to_jax else (3, 2, 0, 1)
+        return a.permute(*order) if isinstance(a, torch.Tensor) \
+            else a.transpose(order)
     if name.endswith(".weight") and a.ndim == 2:
         return a.T
     return a
+
+
+def jax_path(name: str, ndim: int) -> Tuple[str, ...]:
+    """The flax path of the port's parameter ``name`` (of ``ndim``
+    dimensions): ``Conv_0.weight`` -> ``("Conv_0", "kernel")``."""
+    mod, leaf = name.rsplit(".", 1)
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    elif leaf not in ("bias", "embedding"):
+        raise ValueError(f"unknown param {name}")
+    return tuple(mod.split(".")) + (leaf,)
+
+
+def nest(paths, leaves) -> dict:
+    """A nested dict holding ``leaves`` at ``paths`` (tuples of keys)."""
+    tree: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
 
 
 def _sorted(tree: dict) -> dict:

@@ -1,0 +1,549 @@
+"""Asynchronous (stale-gradient) training across processes: the JAX
+package's ``runtime/async_trainer.py``, one slice a process, gradients
+crossing the process boundary as codec-compressed bytes over the KV
+(``parallel/transport.py``).
+
+This is the reference's multi-machine async path: workers ship
+staleness-tagged gradients to a master (``resnet_split.py:25-42``,
+``sync_replicas_master_nn.py:156-186``).
+
+- Each process trains one copy of the model on its own device and its own
+  shard of the data (``host_id`` = rank).
+- Process 0 is the PS leader: it owns the optimizer state, pools the
+  processes' contributions with their staleness
+  (``parallel/async_dp.py:StaleGradientAggregator``), applies at most one
+  update a tick (through the fused SGD kernel under
+  ``--fused-optimizer``), publishes the canonical weights every
+  ``publish_every`` updates and writes the checkpoints.
+- Followers fetch the canonical weights every ``fetch_every`` of their
+  own steps, so a slow follower submits stale gradients.
+- Every process scores the canonical state: the parameters and the
+  leader's BatchNorm statistics of the final publish.
+
+The wire carries the JAX package's tree, byte for byte: the flax
+parameter tree with sorted keys, conv kernels HWIO and dense kernels
+[in,out]. Each leaf is laid out that way on the device before it is
+encoded and back after it is decoded (``models/convert.py:leaf_layout``).
+The gradient codecs:
+
+- off (``raw``) and ``blosc``: the f32 gradient, framed by the channel;
+- ``int8``: one launch of the hand-written quantize kernel over the whole
+  JAX-layout tree (``ops/quantize.py:quantize_tree``), before the bytes
+  leave the card; leaf i travels as ``{"v": int8 [R,128], "s": f32
+  [R/32,1]}``, blosc-framed. Its rounding noise is Philox under the key
+  made of ``seed * 31 + seq * n + pid`` (the JAX package's threefry key)
+  and i; ``noise_fn`` injects other noise. The leader dequantizes on the
+  device and averages there;
+- ``int8lat`` / ``topk`` / ``randk``: homomorphic payloads summed in the
+  compressed domain on the leader, with sender-side error feedback
+  (``--ef``).
+
+Across processes the KV is the process group's TCPStore
+(``DistributedKV``), alone an in-process ``KVStore``, either behind the
+retry plane (``resilience.wrap_kv_with``). Process 0 serves the store:
+``leave()`` holds it until every process has read the final state.
+
+A resume restores the leader's parameters, optimizer state, BatchNorm
+statistics and error-feedback residuals, and, beyond the JAX trainer, its
+sequence number and its data stream: the leader applies exactly one
+update a tick (its own contribution is always fresh), so its sequence
+number is the version, and a resumed run is bitwise the uninterrupted one.
+
+Not ported yet (ROADMAP.md): the elastic leader, the replicated KV, the
+hierarchical topology, the sharded wire, the integrity screen, the fault
+injector and the Prometheus exporter.
+"""
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ps_pytorch_tpu_torch import resilience
+from ps_pytorch_tpu_torch.compression.codecs import (
+    HOMOMORPHIC_GRAD_CODECS, ErrorFeedback, encode_leaves, is_payload,
+)
+from ps_pytorch_tpu_torch.config import TrainConfig
+from ps_pytorch_tpu_torch.data.augment import input_norm_for
+from ps_pytorch_tpu_torch.data.datasets import DataLoader, load_arrays
+from ps_pytorch_tpu_torch.models import build_model
+from ps_pytorch_tpu_torch.models.convert import (
+    jax_path, leaf_layout, nest, state_from_jax, state_to_jax,
+)
+from ps_pytorch_tpu_torch.ops.quantize import (
+    LANES, QuantizedTensor, dequantize_int8, padded_rows, quantize_tree,
+)
+from ps_pytorch_tpu_torch.optim import build_optimizer
+from ps_pytorch_tpu_torch.parallel import dist
+from ps_pytorch_tpu_torch.parallel.async_dp import (
+    StaleGradientAggregator, tree_flatten,
+)
+from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval, make_eval_step
+from ps_pytorch_tpu_torch.parallel.transport import KVGradientTransport
+from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+from ps_pytorch_tpu_torch.runtime.coordinator import DistributedKV, KVStore
+from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
+from ps_pytorch_tpu_torch.runtime.multislice import make_slice_grad_fn
+from ps_pytorch_tpu_torch.runtime.trainer import (
+    resolve_device, set_reference_numerics,
+)
+from ps_pytorch_tpu_torch.telemetry import Tracer, set_default_tracer
+
+_U32 = 0xFFFFFFFF
+
+
+def _is_quantized(x) -> bool:
+    return isinstance(x, dict) and "v" in x
+
+
+def quantize_wire(leaves: List[torch.Tensor], key: int,
+                  noise: Optional[List[torch.Tensor]] = None) -> List[dict]:
+    """The int8 wire form of a JAX-layout gradient tree's leaves: one
+    ``quantize_tree`` launch (the plain version for CPU tensors), leaf i
+    as ``{"v": int8 [R,128], "s": f32 [R/32,1]}``. The rounding noise of
+    leaf i is ``noise[i]``, else Philox under the 64-bit ``key`` (the JAX
+    trainer's threefry seed) and i."""
+    qts = quantize_tree(leaves, (key & _U32, (key >> 32) & _U32), noise)
+    return [{"v": q.values, "s": q.scales} for q in qts]
+
+
+class AsyncTrainer:
+    """PS-style asynchronous training, one slice a process.
+
+    ``kv``: the store of the wire (default: the process group's TCPStore
+    across processes, an in-process ``KVStore`` alone). ``device``: cuda
+    (default) or cpu. ``noise_fn(pid, seq, leaf_index, shape) -> f32
+    tensor``: the int8 codec's rounding noise of a leaf; None draws it in
+    the kernel (Philox)."""
+
+    def __init__(self, cfg: TrainConfig, kv=None, device: Optional[str] = None,
+                 printer=print, noise_fn: Optional[Callable] = None):
+        set_reference_numerics()
+        self.cfg = cfg
+        self.pid, self.n = dist.rank(), dist.world()
+        self.leader = self.pid == 0
+        self.device = dist.local_device(str(resolve_device(device)))
+        self.noise_fn = noise_fn
+        self.model = build_model(cfg.network, cfg.num_classes,
+                                 cfg.compute_dtype, cfg.conv_impl,
+                                 seed=cfg.seed).to(self.device)
+        self.params: Dict[str, torch.nn.Parameter] = dict(
+            self.model.named_parameters())
+        # The wire's leaf order: the port's sorted names are the flax
+        # paths' sorted order ("." sorts below every character of a name).
+        self.names = sorted(self.params)
+        self._paths = [jax_path(n, self.params[n].dim()) for n in self.names]
+        if sorted(self._paths) != self._paths:
+            raise ValueError("the parameters' names do not sort as their "
+                             "flax paths")
+        self._jax_shapes = [tuple(leaf_layout(n, self.params[n], True).shape)
+                            for n in self.names]
+        buffers = dict(self.model.named_buffers())
+        self._stat_names = sorted(buffers)
+        stat_leaf = {"running_mean": "mean", "running_var": "var"}
+        self._stat_paths = [tuple(n.split(".")[:-1])
+                            + (stat_leaf[n.rsplit(".", 1)[1]],)
+                            for n in self._stat_names]
+
+        if kv is None:
+            store = dist.store()
+            kv = DistributedKV(store) if store is not None else KVStore()
+        # The retry plane around the store: the transport sees one
+        # hardened KV.
+        kv, self._retrier = resilience.wrap_kv_with(kv, cfg)
+        self._kv = kv
+        self.run_id = f"async-{cfg.seed}"
+
+        # The gradient codec of the wire (--compress-grad / --grad-codec):
+        # off -> raw npy framing; blosc -> the native lossless container;
+        # int8 -> the quantize kernel on the card, its components blosc
+        # framed; int8lat / topk / randk -> homomorphic payloads.
+        self._wire_int8 = cfg.compress_grad and cfg.grad_codec == "int8"
+        self._wire_homo = cfg.compress_grad and \
+            cfg.grad_codec in HOMOMORPHIC_GRAD_CODECS
+        self._ef: Optional[ErrorFeedback] = None   # sender residuals (--ef)
+        self._enc_pool: Optional[ThreadPoolExecutor] = None
+        chan_codec = "blosc" if cfg.compress_grad else "raw"
+        zeros = [np.zeros(s, np.float32) for s in self._jax_shapes]
+        if self._wire_homo:
+            # Payload shapes do not depend on the data: one throwaway
+            # encode of zeros fixes the wire's structure.
+            grad_template = nest(self._paths, encode_leaves(
+                cfg.grad_codec, zeros, slice_id=0, step=0,
+                frac=cfg.grad_topk_frac))
+        elif self._wire_int8:
+            grad_template = nest(self._paths, [
+                {"v": np.zeros(0, np.int8), "s": np.zeros(0, np.float32)}
+                for _ in self.names])
+        else:
+            grad_template = nest(self._paths, zeros)
+        param_template = {"params": nest(self._paths, zeros),
+                          "bs0": nest(self._stat_paths, [
+                              np.zeros(0, np.float32)
+                              for _ in self._stat_names])}
+        wire_bucket_bytes = int(cfg.wire_bucket_mb * (1 << 20))
+        self._wire_overlap = wire_bucket_bytes > 0
+        self.transport = KVGradientTransport(
+            kv, self.n, grad_template=grad_template,
+            param_template=param_template, run_id=self.run_id,
+            level=cfg.codec_level, codec=chan_codec,
+            bucket_bytes=wire_bucket_bytes, workers=cfg.wire_workers)
+
+        # This process is shard pid of n over the shared-seed shuffle and
+        # draws cfg.batch_size a step, like a reference worker.
+        self._input_norm = input_norm_for(cfg)
+        dev_norm = self._input_norm is not None
+        xtr, ytr = load_arrays(cfg.dataset, cfg.data_dir, train=True,
+                               seed=cfg.seed)
+        self.train_loader = DataLoader(
+            xtr, ytr, cfg.batch_size * self.n, cfg.dataset, train=True,
+            seed=cfg.seed, host_id=self.pid, num_hosts=self.n,
+            device_normalize=dev_norm)
+        xte, yte = load_arrays(cfg.dataset, cfg.data_dir, train=False,
+                               seed=cfg.seed)
+        self.test_loader = DataLoader(xte, yte, cfg.test_batch_size,
+                                      cfg.dataset, train=False, shuffle=False,
+                                      seed=cfg.seed, drop_last=False,
+                                      device_normalize=dev_norm)
+        self.grad_fn = make_slice_grad_fn(self.model, self._input_norm)
+        self.eval_fn = make_eval_step(self.model, self._input_norm)
+
+        self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
+                                     printer=printer, process_index=self.pid,
+                                     num_processes=self.n)
+        # Ambient tracer: the transport's wire spans land here beside the
+        # loop's own.
+        self.tracer = Tracer(pid=self.pid)
+        self._prev_tracer = set_default_tracer(self.tracer)
+        self.last_publish_s = 0.0
+        self.version = 0        # canonical PS step (leader-owned)
+        self.applied = 0
+        self.dropped_stale = 0
+        self.own_steps = 0      # this process's contributions this run
+        self._seq = 0
+        if self.leader:
+            self.opt = build_optimizer(cfg)
+            self.opt_state = self.opt.init(self.params)
+            # Homomorphic payloads enter the pool as payloads and are
+            # summed in the compressed domain; every other codec is
+            # decoded to f32 on the device first, and the pool averages
+            # there.
+            self.aggregator = StaleGradientAggregator(
+                self.n, staleness_limit=cfg.staleness_limit,
+                staleness_decay=cfg.staleness_decay,
+                num_aggregate=cfg.num_aggregate, compress=self._wire_homo,
+                codec=cfg.grad_codec, topk_frac=cfg.grad_topk_frac)
+
+    # ---- layouts between the port's parameters and the wire ----
+    def _wire_leaves(self, tensors: Dict[str, torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """Parameter-shaped tensors in the JAX layout, in wire order, on
+        their device."""
+        return [leaf_layout(n, tensors[n].detach(), True).contiguous()
+                for n in self.names]
+
+    def _port_tensors(self, leaves) -> Dict[str, torch.Tensor]:
+        """Wire-order JAX-layout leaves (numpy or tensors) -> name ->
+        tensor in the port's layout on this process's device."""
+        return {name: leaf_layout(name, self._on_device(a), False)
+                .contiguous() for name, a in zip(self.names, leaves)}
+
+    def _on_device(self, a) -> torch.Tensor:
+        """A decoded leaf (numpy, maybe over an immutable buffer) or a
+        tensor, on this process's device."""
+        if isinstance(a, np.ndarray) and not a.flags.writeable:
+            a = a.copy()
+        return torch.as_tensor(a).to(self.device, non_blocking=True)
+
+    @torch.no_grad()
+    def _load_params(self, tree) -> None:
+        for name, t in self._port_tensors(tree_flatten(tree)[0]).items():
+            self.params[name].copy_(t)
+
+    def _bs0(self) -> dict:
+        """This process's BatchNorm statistics as the flax tree (no
+        replica axis)."""
+        buffers = dict(self.model.named_buffers())
+        return nest(self._stat_paths,
+                    [buffers[n].detach() for n in self._stat_names])
+
+    # ---- checkpoint/resume (leader authority, sync-Trainer contract) ----
+    def _checkpoint(self) -> None:
+        # The leader's EF residual rides the checkpoint as extra state;
+        # followers restart with a zero residual.
+        extra_state = {"ef": self._ef.state_dict()} \
+            if (self.cfg.ef and self._ef is not None) else None
+        ckpt.save_checkpoint(
+            self.cfg.train_dir, self.version,
+            state_to_jax(self.model, self.opt_state, self.version),
+            config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
+            codec_level=self.cfg.codec_level, extra_state=extra_state)
+        if self.cfg.ckpt_keep > 0:
+            ckpt.prune_checkpoints(self.cfg.train_dir, self.cfg.ckpt_keep)
+
+    def _restore(self, tree: dict) -> None:
+        self.opt_state, _ = state_from_jax(tree, self.model, self.opt_state)
+
+    def _maybe_resume(self) -> bool:
+        if ckpt.latest_step(self.cfg.train_dir) is None:
+            return False
+        got = ckpt.load_latest_valid(self.cfg.train_dir, self._restore)
+        if got is None:
+            return False
+        _, meta, _, step = got
+        self.version = int(meta["step"])
+        extra = ckpt.load_extra_state(self.cfg.train_dir, step)
+        if extra and "ef" in extra:
+            self._ef = ErrorFeedback(clip=self.cfg.ef_clip)
+            self._ef.load_state_dict(extra["ef"])
+        # One contribution, one update a tick: the leader's sequence number
+        # is the version, and its stream resumes where the run left it.
+        self._seq = self.version
+        self.train_loader.fast_forward(self.version)
+        print(f"RESUME from {ckpt.checkpoint_path(self.cfg.train_dir, step)} "
+              f"at step {self.version}", flush=True)
+        return True
+
+    # ---- wire codecs ----
+    def _encode_grads(self, grads: Dict[str, torch.Tensor]):
+        cfg = self.cfg
+        leaves = self._wire_leaves(grads)
+        if self._wire_homo:
+            if cfg.ef and self._ef is None:
+                self._ef = ErrorFeedback(clip=cfg.ef_clip)
+            # Bucket k is encoded (and its EF updated) on the pool while
+            # bucket k+1 comes off the device; payloads are bitwise the
+            # same at every bucket size (leaf identity is the flat index).
+            return nest(self._paths, encode_leaves(
+                cfg.grad_codec, leaves, slice_id=self.pid, step=self._seq,
+                frac=cfg.grad_topk_frac, ef=self._ef,
+                bucket_bytes=(int(cfg.wire_bucket_mb * (1 << 20))
+                              if self._wire_overlap else 0),
+                pool=self._encode_pool()))
+        if not self._wire_int8:
+            # Device tensors: the channel copies each bucket (or leaf) to
+            # the host after its own values are ready.
+            return nest(self._paths, leaves)
+        noise = None
+        if self.noise_fn is not None:
+            noise = [self.noise_fn(self.pid, self._seq, i,
+                                   (padded_rows(l.numel()), LANES)).to(
+                                       l.device) for i, l in enumerate(leaves)]
+        return nest(self._paths, quantize_wire(
+            leaves, cfg.seed * 31 + self._seq * self.n + self.pid, noise))
+
+    def _encode_pool(self) -> Optional[ThreadPoolExecutor]:
+        if self._enc_pool is None and self._wire_overlap \
+                and self.cfg.wire_workers > 1:
+            self._enc_pool = ThreadPoolExecutor(
+                max_workers=self.cfg.wire_workers,
+                thread_name_prefix="grad-enc")
+        return self._enc_pool
+
+    def _decode_grads(self, wire) -> Dict[str, torch.Tensor]:
+        """A decoded raw / blosc / int8 wire tree -> f32 gradients in the
+        port's layout on the device (int8 dequantized there)."""
+        if not self._wire_int8:
+            return self._port_tensors(tree_flatten(wire)[0])
+        flat = []
+        for enc, shape in zip(tree_flatten(wire, is_leaf=_is_quantized)[0],
+                              self._jax_shapes):
+            qt = QuantizedTensor(self._on_device(enc["v"]),
+                                 self._on_device(enc["s"]), shape,
+                                 int(np.prod(shape)))
+            flat.append(dequantize_int8(qt))
+        return self._port_tensors(flat)
+
+    # ---- the two roles ----
+    def _publish_canonical(self) -> None:
+        t0 = time.monotonic()
+        payload = {"params": nest(self._paths, self._wire_leaves(self.params)),
+                   "bs0": self._bs0()}
+        self.transport.publish_params(self.version, payload)
+        self.last_publish_s = time.monotonic() - t0
+
+    def _fetch_canonical(self, min_version: int = -1):
+        """(version, {"params", "bs0"}) of the newest canonical publish
+        above ``min_version``, else None. The pointer is read first, so a
+        follower reads no payload it already holds."""
+        ch = self.transport.param_ch
+        v = ch.latest_version()
+        if v is None or v <= min_version:
+            return None
+        got = ch.read(v)
+        return None if got is None else (got[0], got[1])
+
+    def _compute_and_submit(self, version_used: int) -> dict:
+        cfg = self.cfg
+        with self.tracer.span("data_wait", step=self._seq + 1):
+            x, y = self.train_loader.next_batch()
+        with self.tracer.span("host_dispatch", step=self._seq + 1):
+            grads, m = self.grad_fn(x, y, key=cfg.seed * 7919
+                                    + self._seq * 13 + self.pid)
+        self._seq += 1
+        self.own_steps += 1
+        self.transport.submit_grads(self.pid, self._seq, version_used,
+                                    self._encode_grads(grads))
+        with self.tracer.span("device_sync", step=self._seq):
+            loss, acc = torch.stack([m["loss"], m["accuracy"]]).tolist()
+        return {"loss": loss, "acc": acc}
+
+    def _leader_apply(self) -> int:
+        """Pool new wire contributions and apply at most one update.
+        Returns the number of contributions used."""
+        for s, step, wire in self.transport.poll_new_grads():
+            if self._wire_homo:
+                self.aggregator.submit_encoded(s, step, wire)
+            else:
+                self.aggregator.submit(s, step, self._decode_grads(wire))
+        avg, pool = self.aggregator.collect(self.version)
+        used = 0
+        if avg is not None and pool["used"]:
+            if self._wire_homo:
+                avg = self._port_tensors(
+                    tree_flatten(avg, is_leaf=is_payload)[0])
+            self.opt_state = self.opt.apply(self.params, self.opt_state, avg)
+            self.version += 1
+            self.applied += 1
+            used = len(pool["used"])
+            self.aggregator.consume(pool["used"])
+            # publish_every > 1 trades follower freshness for publish
+            # traffic; the final state is always published.
+            if self.applied % max(self.cfg.publish_every, 1) == 0:
+                self._publish_canonical()
+            if self.cfg.eval_freq > 0 and \
+                    self.version % self.cfg.eval_freq == 0:
+                self._checkpoint()
+        self.dropped_stale += self.aggregator.drop_older_than(self.version)
+        return used
+
+    def train(self):
+        cfg = self.cfg
+        my_version = 0
+        try:
+            if self.leader:
+                if cfg.resume:
+                    self._maybe_resume()
+                # The start weights (fresh or resumed) become visible to
+                # followers before anyone trains.
+                self._publish_canonical()
+            else:
+                # Block on the leader's first publish (the reference
+                # worker's first blocking fetch).
+                deadline = time.monotonic() + 120.0
+                while True:
+                    got = self._fetch_canonical()
+                    if got is not None:
+                        my_version = got[0]
+                        self._load_params(got[1]["params"])
+                        break
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("no initial params from leader")
+                    time.sleep(0.05)
+            # Safety valve for a follower whose leader dies before
+            # set_done: a bounded loop.
+            self._train_loop(cfg, my_version, cfg.max_steps * 50 + 100)
+        finally:
+            self.metrics.close()
+            if cfg.trace_file:
+                path = cfg.trace_file
+                if self.pid > 0:
+                    path = f"{path}.p{self.pid}"
+                self.tracer.write_chrome_trace(path)
+            set_default_tracer(self._prev_tracer)
+        return self.params
+
+    def _train_loop(self, cfg, my_version: int, max_own: int) -> None:
+        own_steps = 0
+        while own_steps < max_own:
+            t0 = time.monotonic()
+            if self.transport.done() is not None and not self.leader:
+                break
+            if self.leader and self.version >= cfg.max_steps:
+                break
+            if self.leader:
+                # The leader's parameters are canonical, and its
+                # contributions carry the true current version.
+                my_version = self.version
+            elif own_steps % self.fetch_every == 0:
+                got = self._fetch_canonical(my_version)
+                if got is not None:
+                    my_version = got[0]
+                    self._load_params(got[1]["params"])
+            m = self._compute_and_submit(my_version)
+            own_steps += 1
+            used = self._leader_apply() if self.leader else 0
+            step_for_log = self.version if self.leader else own_steps
+            if step_for_log and step_for_log % cfg.log_every == 0:
+                wire = self.transport.wire_stats()
+                extra = {}
+                if self._retrier is not None:
+                    s = self._retrier.snapshot()
+                    # Schema gate: the resilience columns appear once the
+                    # retry plane absorbed an error.
+                    if s["kv_retries"] or s["kv_giveups"]:
+                        extra.update(s)
+                self.metrics.log_step(
+                    step_for_log, 0, loss=m["loss"], acc=m["acc"],
+                    participating=float(used),
+                    step_time=time.monotonic() - t0, data_time=0.0,
+                    applied=self.applied, dropped_stale=self.dropped_stale,
+                    wire_bytes_out=wire["wire_bytes_out"],
+                    wire_bytes_in=wire["wire_bytes_in"],
+                    publish_s=round(self.last_publish_s, 4), **extra)
+        if self.leader:
+            if cfg.eval_freq > 0 and self.version % cfg.eval_freq != 0:
+                self._checkpoint()
+            # The final state, visible to every process whatever
+            # publish_every (evaluate() and late followers read it).
+            self._publish_canonical()
+            self.transport.set_done(self.version)
+
+    @property
+    def fetch_every(self) -> int:
+        return max(self.cfg.fetch_every, 1)
+
+    def evaluate(self, max_batches: Optional[int] = None) -> dict:
+        """Every process scores the canonical state, the parameters and
+        the leader's BatchNorm statistics of the newest publish, so all
+        FINAL lines agree; its own state is put back after."""
+        got = self._fetch_canonical()
+        held = None
+        if got is not None:
+            held = {k: v.detach().clone()
+                    for k, v in self.model.state_dict().items()}
+            self._load_params(got[1]["params"])
+            buffers = dict(self.model.named_buffers())
+            with torch.no_grad():
+                for name, a in zip(self._stat_names,
+                                   tree_flatten(got[1]["bs0"])[0]):
+                    buffers[name].copy_(self._on_device(a))
+        try:
+            return accumulate_eval(self.eval_fn, self.test_loader.epoch(0),
+                                   max_batches)
+        finally:
+            if held is not None:
+                with torch.no_grad():
+                    for k, v in self.model.state_dict().items():
+                        v.copy_(held[k])
+
+    def leave(self, timeout_s: float = 300.0) -> None:
+        """Mark this process done with the store; process 0, which serves
+        the store, waits for every mark before it returns, so no process
+        loses the store while it reads the final state."""
+        self._kv.set(f"{self.run_id}/aexit/{self.pid}", "1")
+        self.transport.close()
+        if self._enc_pool is not None:
+            self._enc_pool.shutdown(wait=True)
+            self._enc_pool = None
+        if not self.leader:
+            return
+        deadline = time.monotonic() + timeout_s
+        for p in range(self.n):
+            while self._kv.get(f"{self.run_id}/aexit/{p}") is None:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"process {p} did not leave within "
+                                       f"{timeout_s} s")
+                time.sleep(0.05)

@@ -70,6 +70,11 @@ class KVStore:
             return sorted(k for k in self._d if k.startswith(prefix))
 
 
+# Never a value of the KV (its values are ASCII text): the "expected" and
+# "desired" value of the compare-and-set that reads a key without waiting.
+_ABSENT = b"\x00ps_tpu_absent\x00"
+
+
 class DistributedKV(KVStore):
     """KV over a ``torch.distributed`` store (the TCPStore of
     ``parallel/dist.py:initialize_from_env``), seen by every process. Keys
@@ -82,11 +87,15 @@ class DistributedKV(KVStore):
         self._store.set(key, value)        # overwrites
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
-        # TCPStore.get blocks until the key exists; check first. Only a
-        # missing key maps to the default: a dead store raises here.
-        if not self._store.check([key]):
-            return default
-        return self._store.get(key).decode()
+        """The value, or ``default`` at once when the key is absent.
+        ``TCPStore.get`` waits up to the store's timeout for a missing key,
+        and a check before it races a writer's delete (the wire's GC), so
+        the read is one compare-and-set whose expected value no key holds:
+        it answers the stored value, or the expected one when the key is
+        absent, and never creates or changes the key. Only a missing key
+        maps to the default: a dead store raises here."""
+        got = self._store.compare_set(key, _ABSENT, _ABSENT)
+        return default if got == _ABSENT else got.decode()
 
     def delete(self, key: str) -> None:
         self._store.delete_key(key)

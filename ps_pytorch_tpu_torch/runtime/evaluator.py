@@ -12,7 +12,7 @@ not ported yet.
 import time
 from typing import Callable, Optional
 
-from ps_pytorch_tpu_torch.config import LM_NETWORKS, TrainConfig
+from ps_pytorch_tpu_torch.config import LM_NETWORKS, checkpoint_config
 from ps_pytorch_tpu_torch.data import prepare_data
 from ps_pytorch_tpu_torch.data.augment import input_norm_for
 from ps_pytorch_tpu_torch.models import build_model
@@ -38,7 +38,7 @@ class Evaluator:
         self._built_for: Optional[str] = None
 
     def _build(self, config_json: str) -> None:
-        cfg = TrainConfig.from_json(config_json)
+        cfg = checkpoint_config(config_json)
         if cfg.network in LM_NETWORKS:
             raise ValueError(f"{cfg.network} checkpoints (EVAL_LM) are not "
                              "ported yet (ROADMAP.md)")

@@ -27,8 +27,11 @@ flight recorder and leaves the loop), the flight dump on a crash, the
 cross-process timeline and the ``torch.profiler`` window. The loop's one
 wait for the card, where the step's loss is read, reads the step's grad
 norm and nonfinite flag in the same copy, so the watchdogs add no device
-sync. The fault plane, the lease and elections are not ported yet
-(ROADMAP.md).
+sync. The Coordinator's KV goes through the retry plane
+(``resilience.wrap_kv_with``, ``kv_retry_attempts``), as in the JAX
+trainer: a transient store error is retried, and the JSONL grows the
+``kv_retries`` / ``kv_giveups`` columns once one was. The fault plane, the
+lease and elections are not ported yet (ROADMAP.md).
 """
 
 import time
@@ -37,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ps_pytorch_tpu_torch import resilience
 from ps_pytorch_tpu_torch.config import TrainConfig
 from ps_pytorch_tpu_torch.data import prepare_data
 from ps_pytorch_tpu_torch.data.augment import input_norm_for
@@ -90,11 +94,11 @@ class Trainer:
         self.rank, self.world = dist.local_data_shard()
         self.group = dist.group()
         store = dist.store()
+        kv, self._retrier = resilience.wrap_kv_with(
+            DistributedKV(store) if store is not None else KVStore(), cfg)
         self.coordinator = Coordinator(
             self.world, mode=cfg.mode, num_aggregate=cfg.num_aggregate,
-            kill_threshold=cfg.kill_threshold,
-            kv=DistributedKV(store) if store is not None else KVStore(),
-            leader=self.rank == 0)
+            kill_threshold=cfg.kill_threshold, kv=kv, leader=self.rank == 0)
         # Before the step: the nonfinite:skip watchdog sets its gate. The
         # /healthz identity holds the coordinator, not the trainer, so the
         # trainer is freed (its tensors with it) when the last reference
@@ -177,6 +181,12 @@ class Trainer:
             ckpt.prune_checkpoints(self.cfg.train_dir, self.cfg.ckpt_keep)
         return path
 
+    def _retry_columns(self) -> dict:
+        """``kv_retries`` / ``kv_giveups`` once the retry plane absorbed an
+        error (the JAX trainer's schema gate), else nothing."""
+        s = self._retrier.snapshot() if self._retrier is not None else {}
+        return s if s and (s["kv_retries"] or s["kv_giveups"]) else {}
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -247,7 +257,8 @@ class Trainer:
                         data_time=t_data,
                         phases=tracer.step_summary(step),
                         **ops.derived(step_time=t_step, data_time=t_data,
-                                      examples=cfg.batch_size))
+                                      examples=cfg.batch_size),
+                        **self._retry_columns())
                 if cfg.eval_freq > 0 and step % cfg.eval_freq == 0:
                     with tracer.span("checkpoint", step=step):
                         self.checkpoint(step)

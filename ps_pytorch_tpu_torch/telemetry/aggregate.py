@@ -10,9 +10,10 @@ JSONL, a per-replica timeline: a straggler is a visible row.
 Keys are the JAX package's: ``<run>/tel/<pid>/<step>`` is written before
 the ``<run>/tel/<pid>/last`` pointer moves, and publishers delete their
 own keys beyond ``window`` steps. Every read is a ``get`` of a named key
-with a default: ``DistributedKV.get`` checks the key before reading it
-(``TCPStore.get`` blocks on a missing key), so a missing step never hangs
-the leader, and nothing scans (``DistributedKV.keys`` raises).
+with a default: ``DistributedKV.get`` answers the default at once for a
+missing key, also one deleted while it reads (``TCPStore.get`` would
+block), so a missing step never hangs the leader, and nothing scans
+(``DistributedKV.keys`` raises).
 """
 
 import json

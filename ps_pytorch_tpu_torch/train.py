@@ -14,9 +14,13 @@ process group before any model is built and prints ``MESH data=<world>
 ... backend=<nccl|gloo>``; without the contract it trains alone
 (``backend=none``). ``--mode async`` trains ``--async-slices`` slices
 asynchronously in one process (``runtime/multislice.py``) and prints
-``SLICES`` in place of ``MESH``; it and the LM refuse a launch of several
-processes (ROADMAP.md). Example, ResNet-18 on CIFAR-10 geometry through the
-hand-written conv3x3 and fused-Adam kernels:
+``SLICES`` in place of ``MESH``; launched as several processes it trains
+one slice a process (``runtime/async_trainer.py``: gradients cross between
+processes as armoured bytes over the group's TCPStore, process 0 is the PS
+leader) and prints ``ASYNC process-slices <n> x 1 devices``. The LM
+refuses a launch of several processes (ROADMAP.md). Example, ResNet-18 on
+CIFAR-10 geometry through the hand-written conv3x3 and fused-Adam
+kernels:
 
     python -m ps_pytorch_tpu_torch.train --network ResNet18 \
         --dataset synthetic_cifar10 --batch-size 256 \
@@ -39,32 +43,42 @@ as int8 through the hand-written quantize kernel:
         --network ResNet18 --dataset synthetic_cifar10 --batch-size 256 \
         --compute-dtype bfloat16 --conv-impl pallas --fused-optimizer \
         --compress-grad --grad-codec int8 --max-steps 6 --eval-freq 0
+
+or by two processes, the int8 gradients crossing between them on the wire:
+
+    python -m ps_pytorch_tpu_torch.tools.launch launch --simulate 2 \
+        --wait -- --mode async --staleness-limit 8 --network ResNet18 \
+        --dataset synthetic_cifar10 --batch-size 256 \
+        --compute-dtype bfloat16 --conv-impl pallas --fused-optimizer \
+        --compress-grad --grad-codec int8 --max-steps 6 --eval-freq 3 \
+        --train-dir /tmp/td
 """
 
 import sys
 
-from ps_pytorch_tpu_torch.config import (
-    add_train_args, config_from_namespace, refuse_multi_process,
-)
+from ps_pytorch_tpu_torch.config import add_train_args, config_from_namespace
 
 
 def run(argv=None):
     """``main`` without the exit code: returns the trainer and its final
     evaluation, after the FINAL line, for scripts that read them."""
     from ps_pytorch_tpu_torch.parallel import dist
-    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer, Trainer
+    from ps_pytorch_tpu_torch.runtime import (
+        AsyncTrainer, MultiSliceTrainer, Trainer,
+    )
 
     parser = add_train_args()
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
     cfg = config_from_namespace(args)
-    if cfg.mode == "async":
-        refuse_multi_process("--mode async")
     try:
         dist.initialize_from_env(args.device)
         print(f"CONFIG {cfg.to_json()}")
-        if cfg.mode == "async":
+        if cfg.mode == "async" and dist.is_multiprocess():
+            trainer = AsyncTrainer(cfg, device=args.device)
+            print(f"ASYNC process-slices {trainer.n} x 1 devices")
+        elif cfg.mode == "async":
             trainer = MultiSliceTrainer(cfg, n_slices=cfg.async_slices,
                                         fetch_every=cfg.fetch_every,
                                         device=args.device)
@@ -78,6 +92,8 @@ def run(argv=None):
         result = trainer.evaluate()
         print(f"FINAL loss {result['loss']:.6f} prec1 {result['prec1']:.4f} "
               f"prec5 {result['prec5']:.4f}")
+        if isinstance(trainer, AsyncTrainer):
+            trainer.leave()     # process 0 keeps the store up till the last
         return trainer, result
     finally:
         dist.shutdown()

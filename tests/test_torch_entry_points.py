@@ -55,12 +55,13 @@ def test_a_launch_of_several_processes_raises_before_a_model_is_built(
     for name in ("WORLD_SIZE", "PS_TPU_NUM_PROCESSES", "PS_TPU_COORDINATOR"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(var, "2")
-    # The sync trainer runs one process a replica: it asks for the rest of
-    # the launch contract; the other entry points run in one process only.
-    match = {("train_sync", "WORLD_SIZE"): "WORLD_SIZE=2.*tools.launch",
-             ("train_sync", "PS_TPU_NUM_PROCESSES"):
-             "PS_TPU_NUM_PROCESSES=2 without PS_TPU_COORDINATOR"}.get(
-                 (entry, var), f"{var}=2.*ROADMAP.md")
+    # The CNN trainer runs one process a replica (sync) or a slice
+    # (async): it asks for the rest of the launch contract; the LM runs in
+    # one process only.
+    match = {"WORLD_SIZE": "WORLD_SIZE=2.*tools.launch",
+             "PS_TPU_NUM_PROCESSES":
+             "PS_TPU_NUM_PROCESSES=2 without PS_TPU_COORDINATOR"}[var] \
+        if entry != "train_lm" else f"{var}=2.*ROADMAP.md"
     out = io.StringIO()
     with pytest.raises(ValueError, match=match):
         with redirect_stdout(out):
