@@ -198,6 +198,7 @@ def test_the_jax_evaluator_scores_the_ports_async_checkpoint(tmp_path):
 _WORKER = r"""
 import json
 import sys
+import time
 
 from ps_pytorch_tpu_torch import train
 from ps_pytorch_tpu_torch.runtime import async_trainer
@@ -212,6 +213,36 @@ def counted(train_dir, step, *args, **kw):
 
 
 async_trainer.ckpt.save_checkpoint = counted
+
+# The leader ticks to --max-steps as soon as it has published, so a
+# follower that starts late under load would contribute nothing. Process 1
+# marks its first submission on the group's store, and process 0 waits for
+# the mark before its first apply (the trainers themselves have no such
+# barrier, as in the JAX package).
+submit = async_trainer.AsyncTrainer._compute_and_submit
+apply = async_trainer.AsyncTrainer._leader_apply
+
+
+def marked_submit(self, version_used):
+    out = submit(self, version_used)
+    if self.pid == 1:
+        self._kv.set(f"{self.run_id}/test/joined", "1")
+    return out
+
+
+def gated_apply(self):
+    if not getattr(self, "_follower_joined", False):
+        deadline = time.monotonic() + 120.0
+        while self._kv.get(f"{self.run_id}/test/joined") is None:
+            if time.monotonic() > deadline:
+                raise TimeoutError("process 1 made no submission in 120 s")
+            time.sleep(0.05)
+        self._follower_joined = True
+    return apply(self)
+
+
+async_trainer.AsyncTrainer._compute_and_submit = marked_submit
+async_trainer.AsyncTrainer._leader_apply = gated_apply
 trainer, result = train.run(sys.argv[1:])
 print("RESULT " + json.dumps({
     "pid": trainer.pid, "saves": saves, "version": trainer.version,
