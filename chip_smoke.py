@@ -43,8 +43,13 @@ exit and no result line, if any phase fails:
    gloo (MAIN-KOFN: K-of-N with process 0 slowed by 0.3 s a step, its
    masks, process 0's checkpoints scored by ``evaluate.main``, equal
    parameter hashes, and a sync run with the same straggler for its
-   cost), then two processes on the card as asynchronous slices over the
-   KV wire (MAIN-WIRE, ``--rank-wire``: ``train.run --mode async``, int8
+   cost), then two gloo ranks on the card each training twice in one
+   process group (MAIN-ZERO, ``--rank <run> --then <run>``: ZeRO-1 with
+   ``--sync-batchnorm --remat --loader-workers 4`` and heartbeats, then the
+   same replicated; equal parameter hashes across the runs and the ranks,
+   half the optimizer state a rank, process 0's ZeRO checkpoint in the JAX
+   layout scored by ``evaluate.main``), then two processes on the card as
+   asynchronous slices over the KV wire (MAIN-WIRE, ``--rank-wire``: ``train.run --mode async``, int8
    to version 6 with checkpoints every 3, resumed to 8 and scored by
    ``evaluate.main``, blosc on the bucketed wire, raw on the blocking one;
    equal FINAL lines, process 0's checkpoints, a quantize launch a tick a
@@ -60,7 +65,13 @@ exit and no result line, if any phase fails:
    full-width TransformerLM (d 512, 8 layers, 8 heads, vocab 32000, S
    2048, batch 8, f32, flash
    attention) for a few steps through the port's LMTrainer, evaluating 2
-   batches. Right after MAIN, the same ResNet-18 through ``train.run``
+   batches. After MAIN-CKPT, the same ResNet-18 through ``train.main``
+   with a crash, a corrupted checkpoint and KV drops under
+   ``--auto-resume 2`` (MAIN-CRASH: the resume past the corrupt checkpoint
+   ends bitwise where an uninterrupted run ends, retries equal drops, and
+   SIGTERM to a run of its own commits an emergency checkpoint), and its
+   step time and peak memory with and without ``--remat`` (REMAT). Right
+   after MAIN, the same ResNet-18 through ``train.run``
    with every flag of the ops plane (MAIN-TELEMETRY: 8 steps, the JSONL,
    the Chrome trace of its spans, a ``torch.profiler`` window over steps
    3-4 whose kernels include conv3x3's tensor-core kernel, the exporter
@@ -76,6 +87,9 @@ exit and no result line, if any phase fails:
    no other kernel ran, and every bf16 conv3x3 launch and every flash
    launch took the tensor-core kernel (``conv3x3_tc``, ``flash_fwd_tc``,
    ``flash_dq_tc``, ``flash_dkv_tc``);
+   Before MAIN-CKPT, the fused SGD and Adam kernels on each replica's
+   slice of a padded flat buffer, as the sharded update runs them (CHECK
+   zero slice);
 5. holds one small ResNet step in f32 (SIMT conv only) and one in bf16
    (tensor-core conv only), one small bf16 VGG step (the same injected
    Dropout masks) and one of a ResNet with the ImageNet stem, two small
@@ -99,7 +113,7 @@ import tempfile
 import threading
 import time
 import urllib.request
-from contextlib import redirect_stdout
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -184,12 +198,15 @@ WIRE_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
              "--weight-decay", "5e-4", "--test-batch-size", "4167",
              "--device", "cuda")
 WIRE_INT8 = ("--compress-grad", "true", "--grad-codec", "int8")
-WIRE_RUNS = (("int8", WIRE_INT8, 6, 3, False),
-             ("int8-resumed", WIRE_INT8, 8, 3, True),
-             ("blosc", ("--compress-grad", "true", "--grad-codec", "blosc"),
-              3, 0, False),
-             ("raw", ("--compress-grad", "false", "--wire-bucket-mb", "0"),
-              2, 0, False))
+# The launches, each a tuple of runs in one process group: blosc and raw
+# in one launch, raw under another seed, so that its wire keys
+# (``async-<seed>/...``) are not blosc's.
+WIRE_LAUNCHES = ((("int8", WIRE_INT8, 6, 3, False),),
+                 (("int8-resumed", WIRE_INT8, 8, 3, True),),
+                 (("blosc", ("--compress-grad", "true", "--grad-codec",
+                             "blosc"), 3, 0, False),
+                  ("raw", ("--compress-grad", "false", "--wire-bucket-mb",
+                           "0", "--seed", "43"), 2, 0, False)))
 WIRE_SAVES = {"int8": [3, 6], "int8-resumed": [8], "blosc": [], "raw": []}
 # VGG11 (with BatchNorm) on synthetic CIFAR-100, the JAX package's
 # vgg11_cifar100_kofn / vgg11_pallas_conv (bench_suite.py:1450, 1511):
@@ -221,6 +238,23 @@ IMAGENET_ARGS = ("--network", "ResNet50_ImageNet", "--dataset",
 # ResNet-50's 13 stride-1 3x3s at 224 px: (H=W, C, Co, count).
 RESNET50_GEOMETRIES = ((56, 64, 64, 3), (28, 128, 128, 3), (14, 256, 256, 5),
                        (7, 512, 512, 2))
+# MAIN-ZERO: the CNN path's ResNet-18 as two gloo ranks on the card, ZeRO-1
+# then replicated, with every step option of the slice. The heartbeat
+# deadline is long enough for the first step's kernel builds.
+ZERO_STEPS = 6
+ZERO_ARGS = (*DIST_ARGS, "--sync-batchnorm", "--remat", "--loader-workers",
+             "4", "--heartbeat-interval-s", "0.5", "--heartbeat-timeout-s",
+             "30", "--max-steps", str(ZERO_STEPS), "--eval-freq",
+             str(ZERO_STEPS))
+# MAIN-CRASH: the same network through train.main in this process.
+CRASH_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
+              "--batch-size", str(BATCH), "--test-batch-size", "4167",
+              "--compute-dtype", "bfloat16", "--conv-impl", "pallas",
+              "--fused-optimizer", "--momentum", "0.9", "--weight-decay",
+              "5e-4", "--eval-freq", "2", "--ckpt-keep", "3", "--device",
+              "cuda")
+CRASH_SPEC = "replica_crash:r=0,step=5;ckpt_corrupt:step=6;kv_drop:p=0.05,seed=7"
+REMAT_STEPS = 6
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 # The model's FLOPs a training step, the JAX package's count on the xla /
@@ -1792,14 +1826,72 @@ def kernel_wrappers() -> dict:
             "flash_dkv": fa.flash_dkv, "quantize": tq.quantize_int8}
 
 
+THEN = "--then"
+
+
+def reset_control_plane(max_steps: int) -> None:
+    """Between two synchronous runs in one process group: every rank at a
+    barrier, process 0 deletes the first run's Coordinator and heartbeat
+    keys from the store (a follower must not read a stale mask, nor the
+    leader a stale beat), a second barrier."""
+    import torch.distributed as tdist
+
+    from ps_pytorch_tpu_torch.parallel import dist
+
+    tdist.barrier()
+    if dist.rank() == 0:
+        store = dist.store()
+        keys = ["run/step"] + [f"run/mask/{s}"
+                               for s in range(1, max_steps + 1)]
+        for r in range(dist.world()):
+            keys += [f"run/dur/{r}", f"run/hb/{r}", f"run/kill/{r}"]
+        for key in keys:
+            store.delete_key(key)
+    tdist.barrier()
+
+
+def in_turn(argv, run_one) -> None:
+    """Run ``run_one(part)`` for each part of ``argv`` split at ``--then``,
+    in one process group: the group stays up between runs (``train.run``
+    leaves it only after the last), and the control plane is reset
+    between them."""
+    from ps_pytorch_tpu_torch.parallel import dist
+
+    parts, cur = [], []
+    for arg in argv:
+        if arg == THEN:
+            parts.append(cur)
+            cur = []
+        else:
+            cur.append(arg)
+    parts.append(cur)
+    shutdown = dist.shutdown
+    dist.shutdown = lambda: None
+    try:
+        for i, part in enumerate(parts):
+            trainer = run_one(part)
+            if i + 1 < len(parts):
+                reset_control_plane(trainer.cfg.max_steps)
+            del trainer
+    finally:
+        dist.shutdown = shutdown
+        shutdown()
+
+
 def rank_main(argv) -> int:
-    """One rank of MAIN-DIST or MAIN-KOFN, started by the launcher:
-    ``train.run(argv)`` with every launch count set to 0 just before, then
-    one ``RANK`` line: this process's launch counts, the checkpoints it
-    wrote, its step and peer-wait times, and a sha256 of its parameters."""
+    """One rank of MAIN-DIST, MAIN-KOFN or MAIN-ZERO, started by the
+    launcher: for each run of ``argv`` (runs split at ``--then``, one
+    process group), ``train.run`` with every launch count set to 0 just
+    before, then one ``RANK`` line: this process's launch counts, the
+    checkpoints it wrote, its step, peer-wait and loader times, a sha256 of
+    its parameters, the optimizer-state bytes it holds, the reduce-scatter
+    route of a sharded update, and its peak device memory."""
     import hashlib
 
+    import torch
+
     from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.parallel.zero import opt_state_bytes
     from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 
     saves = []
@@ -1811,16 +1903,33 @@ def rank_main(argv) -> int:
 
     ckpt.save_checkpoint = counted
     wrappers = kernel_wrappers()
-    zero_counts(wrappers)
-    trainer, result = train.run(argv)
-    launches = read_counts(wrappers)
-    digest = hashlib.sha256()
-    for _, p in sorted(trainer.model.named_parameters()):
-        digest.update(p.detach().float().cpu().numpy().tobytes())
-    print("RANK " + json.dumps({
-        "rank": trainer.rank, "launches": launches, "saves": saves,
-        "step_times": trainer.step_times, "wait_times": trainer.wait_times,
-        "params_sha256": digest.hexdigest(), "eval": result}), flush=True)
+
+    def run_one(part):
+        saves.clear()
+        zero_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        trainer, result = train.run(part)
+        launches = read_counts(wrappers)
+        digest = hashlib.sha256()
+        for _, p in sorted(trainer.model.named_parameters()):
+            digest.update(p.detach().float().cpu().numpy().tobytes())
+        path = trainer.metrics.jsonl_path
+        print("RANK " + json.dumps({
+            "rank": trainer.rank, "launches": launches, "saves": saves,
+            "step_times": trainer.step_times,
+            "wait_times": trainer.wait_times,
+            "data_times": [r["data_time"] for r in read_jsonl(path)]
+            if path else [],
+            "params_sha256": digest.hexdigest(),
+            "opt_state_bytes": opt_state_bytes(trainer.step_fn.opt_state),
+            "scatter": getattr(trainer.step_fn, "scatter", None),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "train_peak_bytes": read_jsonl(path)[-1].get(
+                "device_mem_peak_bytes") if path else None,
+            "eval": result}), flush=True)
+        return trainer
+
+    in_turn(argv, run_one)
     return 0
 
 
@@ -1939,6 +2048,14 @@ def dist_main_path(wrappers) -> dict:
     return rec["launches"]
 
 
+def run_sections(log: str, marker: str) -> list:
+    """A rank's log cut into its runs: each section starts at a line
+    that begins with ``marker`` (the trainer's MESH or ASYNC line)."""
+    starts = [m.start() for m in re.finditer(f"^{re.escape(marker)}", log,
+                                             re.M)]
+    return [log[a:b] for a, b in zip(starts, starts[1:] + [len(log)])]
+
+
 def kofn_main_path(wrappers) -> dict:
     """MAIN-KOFN: the same ResNet-18 (global batch 256, 128 a rank) as two
     ranks on the one card through the launcher (gloo), K-of-N with one
@@ -1946,27 +2063,34 @@ def kofn_main_path(wrappers) -> dict:
     must drop it from real durations over the KV; process 0 alone writes
     the checkpoints, the ranks end with equal parameters, every conv3x3
     launch takes the tensor cores; then ``evaluate.main`` scores process
-    0's last checkpoint, and a short sync run with the same straggler
-    gives the wait it costs when it is not masked out."""
+    0's last checkpoint. In the same launch, after it, a short sync run
+    with the same straggler gives the wait it costs when it is not masked
+    out."""
     from ps_pytorch_tpu_torch import evaluate
     from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
     from ps_pytorch_tpu_torch.tools.profile_capture import card_line
 
     root = tempfile.mkdtemp(prefix="chip_smoke_kofn_")
     td = f"{root}/td"
+    sync_steps = 4
+    mesh = "MESH data=2 model=1 devices=2 backend=gloo device=cuda:0"
     try:
-        logs = launch_ranks(root, 2, ["--rank", *DIST_ARGS, *KOFN_ARGS,
-                                      "--train-dir", td], "MAIN-KOFN")
-        for log in logs:
-            if "MESH data=2 model=1 devices=2 backend=gloo device=cuda:0" \
-                    not in log:
-                fail("MAIN-KOFN: MESH does not say backend=gloo on cuda:0")
-        masks = re.findall(r"^MASK step (\d+) (\[.*\])$", logs[0], re.M)
+        logs = launch_ranks(root, 2, [
+            "--rank", *DIST_ARGS, *KOFN_ARGS, "--train-dir", td, THEN,
+            *DIST_ARGS, "--inject-step-delay", "0.3",
+            "--inject-delay-process", "0", "--max-steps", str(sync_steps),
+            "--eval-freq", "0", "--train-dir", f"{root}/sync"], "MAIN-KOFN")
+        runs = [run_sections(log, mesh) for log in logs]
+        if any(len(r) != 2 for r in runs):
+            fail("MAIN-KOFN: MESH does not say backend=gloo on cuda:0 in "
+                 "both runs of both ranks")
+        kofn = [r[0] for r in runs]
+        masks = re.findall(r"^MASK step (\d+) (\[.*\])$", kofn[0], re.M)
         if not masks or masks[-1][1] != "[0, 1]":
             fail(f"MAIN-KOFN: the leader's last MASK is not [0, 1] ({masks})")
         flip = int(masks[-1][0])
-        recs = [rank_record(log, "MAIN-KOFN") for log in logs]
-        for r, log in enumerate(logs):
+        recs = [rank_record(log, "MAIN-KOFN") for log in kofn]
+        for r, log in enumerate(kofn):
             steps = [(int(a), float(b)) for a, b in re.findall(
                 r"^STEP (\d+) .* participating (\S+) ", log, re.M)]
             if [k for k, _ in steps] != list(range(1, KOFN_STEPS + 1)) or \
@@ -2001,13 +2125,7 @@ def kofn_main_path(wrappers) -> dict:
                  f"{KOFN_STEPS}")
         # The same straggler with process 0 in every step (sync): what
         # its 0.3 s costs the other rank before and after it is masked out.
-        sync_steps = 4
-        logs = launch_ranks(root, 2, [
-            "--rank", *DIST_ARGS, "--inject-step-delay", "0.3",
-            "--inject-delay-process", "0", "--max-steps", str(sync_steps),
-            "--eval-freq", "0", "--train-dir", f"{root}/sync"],
-            "MAIN-KOFN-SYNC")
-        sync = [rank_record(log, "MAIN-KOFN-SYNC") for log in logs]
+        sync = [rank_record(r[1], "MAIN-KOFN-SYNC") for r in runs]
         want = want_counts(wrappers, conv3x3=CONV_PER_STEP * sync_steps
                            + CONV_PER_EVAL_BATCH * 2, fused_sgd=sync_steps)
         if any(rec["launches"] != want for rec in sync) or \
@@ -2031,7 +2149,8 @@ def kofn_main_path(wrappers) -> dict:
 
 
 def wire_rank_main(argv) -> int:
-    """One process of MAIN-WIRE, started by the launcher: ``train.run``
+    """One process of MAIN-WIRE, started by the launcher: for each run of
+    ``argv`` (runs split at ``--then``, one process group), ``train.run``
     with every launch count set to 0 just before, then one ``WIRE`` line:
     its launch counts, the checkpoints it wrote, its versions and steps,
     its wire bytes, tick times, publish times and the median of each span
@@ -2048,29 +2167,38 @@ def wire_rank_main(argv) -> int:
 
     async_trainer.ckpt.save_checkpoint = counted
     wrappers = kernel_wrappers()
-    zero_counts(wrappers)
-    trainer, result = train.run(argv)
-    launches = read_counts(wrappers)
-    spans = {}
-    for ev in trainer.tracer.spans():
-        channel = ev.get("args", {}).get("channel", "")
-        kind = next((k for k in ("agrad", "aparams") if k in channel), "")
-        spans.setdefault(f"{ev['name']}/{kind}" if kind else ev["name"],
-                         []).append(ev["dur"])
-    rows = read_jsonl(trainer.metrics.jsonl_path)
-    own = trainer.transport.grad_ch[trainer.pid]
-    print("WIRE " + json.dumps({
-        "pid": trainer.pid, "launches": launches, "saves": saves,
-        "version": trainer.version, "applied": trainer.applied,
-        "own_steps": trainer.own_steps,
-        "dropped_stale": trainer.dropped_stale,
-        "wire": trainer.transport.wire_stats(),
-        "grad_bytes_per_submission": own.bytes_out / max(own.publishes, 1),
-        "tick_s": [r["step_time"] for r in rows],
-        "publish_s": [r["publish_s"] for r in rows],
-        "span_median_s": {k: float(np.median(v)) for k, v in spans.items()},
-        "span_count": {k: len(v) for k, v in spans.items()},
-        "eval": result}), flush=True)
+
+    def run_one(part):
+        saves.clear()
+        zero_counts(wrappers)
+        trainer, result = train.run(part)
+        launches = read_counts(wrappers)
+        spans = {}
+        for ev in trainer.tracer.spans():
+            channel = ev.get("args", {}).get("channel", "")
+            kind = next((k for k in ("agrad", "aparams") if k in channel),
+                        "")
+            spans.setdefault(f"{ev['name']}/{kind}" if kind else ev["name"],
+                             []).append(ev["dur"])
+        rows = read_jsonl(trainer.metrics.jsonl_path)
+        own = trainer.transport.grad_ch[trainer.pid]
+        print("WIRE " + json.dumps({
+            "pid": trainer.pid, "launches": launches, "saves": saves,
+            "version": trainer.version, "applied": trainer.applied,
+            "own_steps": trainer.own_steps,
+            "dropped_stale": trainer.dropped_stale,
+            "wire": trainer.transport.wire_stats(),
+            "grad_bytes_per_submission":
+            own.bytes_out / max(own.publishes, 1),
+            "tick_s": [r["step_time"] for r in rows],
+            "publish_s": [r["publish_s"] for r in rows],
+            "span_median_s": {k: float(np.median(v))
+                              for k, v in spans.items()},
+            "span_count": {k: len(v) for k, v in spans.items()},
+            "eval": result}), flush=True)
+        return trainer
+
+    in_turn(argv, run_one)
     return 0
 
 
@@ -2143,6 +2271,68 @@ def wire_int8_bytes_agree(torch, tq) -> None:
           f"{digests[0][1]} card {card_line()}", flush=True)
 
 
+def check_wire_run(wrappers, sizes, card, run, td, logs,
+                   wall: float) -> dict:
+    """One MAIN-WIRE run's checks on its two processes' log sections (see
+    ``wire_main_path``); returns its launches over both processes."""
+    name, _, steps, _, resume = run
+    codec = name.split("-")[0]
+    start = 6 if resume else 0
+    phase = f"MAIN-WIRE {name}"
+    recs = []
+    for log in logs:
+        found = re.findall(r"^WIRE (.*)$", log, re.M)
+        if len(found) != 1:
+            fail(f"{phase}: a process printed no WIRE line")
+        recs.append(json.loads(found[0]))
+    finals = [re.findall(r"^FINAL (.*)$", log, re.M) for log in logs]
+    if len(finals[0]) != 1 or finals[0] != finals[1] or not all(
+            math.isfinite(float(x)) for x in finals[0][0].split()[1::2]):
+        fail(f"{phase}: FINAL lines differ or are not finite ({finals})")
+    lead, follow = recs
+    if [r["pid"] for r in recs] != [0, 1] or lead["version"] != steps or \
+            lead["applied"] != steps - start:
+        fail(f"{phase}: leader version {lead['version']} applied "
+             f"{lead['applied']}, expected {steps} and {steps - start}")
+    if [r["saves"] for r in recs] != [WIRE_SAVES[name], []]:
+        fail(f"{phase}: checkpoints {[r['saves'] for r in recs]}, "
+             f"expected process 0 alone {WIRE_SAVES[name]}")
+    if resume and f"RESUME from {td}/model_step_6 at step 6" not in logs[0]:
+        fail(f"{phase}: the leader printed no RESUME at step 6")
+    total = {key: 0 for key in read_counts(wrappers)}
+    for r in recs:
+        want = want_counts(
+            wrappers, conv3x3=CONV_PER_STEP * r["own_steps"]
+            + CONV_PER_EVAL_BATCH * 2,
+            quantize=r["own_steps"] if codec == "int8" else 0,
+            fused_sgd=r["applied"] if r["pid"] == 0 else 0)
+        if r["launches"] != want:
+            fail(f"{phase} process {r['pid']}: launches {r['launches']}, "
+                 f"expected {want}")
+        for key, v in r["launches"].items():
+            total[key] += v
+        got = r["grad_bytes_per_submission"]
+        pred = sizes["int8_armoured" if codec == "int8" else codec]
+        if (abs(got / pred - 1) > 0.10 if codec == "raw"
+                else got > 1.10 * pred):
+            fail(f"{phase} process {r['pid']}: {got:.0f} armoured bytes a "
+                 f"submission against {pred:.0f} predicted")
+        print(f"{phase} process {r['pid']} own_steps {r['own_steps']} "
+              f"version {r['version']} applied {r['applied']} "
+              f"dropped_stale {r['dropped_stale']} tick_s {r['tick_s']} "
+              f"publish_s {r['publish_s']} card {card}", flush=True)
+        print(f"{phase} process {r['pid']} grad_bytes_per_submission "
+              f"{got:.0f} predicted {pred:.0f} ratio {got / pred:.4f} wire "
+              f"{r['wire']} card {card}", flush=True)
+        print(f"{phase} process {r['pid']} span_median_s "
+              f"{r['span_median_s']} span_count {r['span_count']} card "
+              f"{card}", flush=True)
+    print(f"{phase} launch_wall_s {wall:.2f} FINAL {finals[0][0]} (equal in "
+          f"both processes) launches {lead['launches']} and "
+          f"{follow['launches']} card {card}", flush=True)
+    return total
+
+
 def wire_main_path(wrappers) -> dict:
     """MAIN-WIRE: the CNN path's ResNet-18 at full width as two processes
     on the one card through the launcher, ``--mode async`` one slice a
@@ -2154,7 +2344,8 @@ def wire_main_path(wrappers) -> dict:
     int8 and fused SGD once an applied version on the leader; each
     process's armoured bytes a gradient submission match the sizes
     (``wire_sizes``). Then ``evaluate.main`` scores the last checkpoint.
-    Returns the launches over every run and both processes."""
+    Blosc and raw run in one launch (``WIRE_LAUNCHES``). Returns the
+    launches over every run and both processes."""
     from ps_pytorch_tpu_torch import evaluate
     from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
     from ps_pytorch_tpu_torch.tools.profile_capture import card_line
@@ -2169,79 +2360,32 @@ def wire_main_path(wrappers) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_wire_")
     total = {name: 0 for name in read_counts(wrappers)}
     try:
-        for name, flags, steps, eval_freq, resume in WIRE_RUNS:
-            codec = name.split("-")[0]
-            td = f"{root}/td_{codec}"
-            start = 6 if resume else 0
+        for runs in WIRE_LAUNCHES:
+            argv = ["--rank-wire"]
+            for name, flags, steps, eval_freq, resume in runs:
+                argv += [*([THEN] if len(argv) > 1 else []), *WIRE_ARGS,
+                         *flags, "--max-steps", str(steps), "--eval-freq",
+                         str(eval_freq), "--resume",
+                         "true" if resume else "false", "--train-dir",
+                         f"{root}/td_{name.split('-')[0]}", "--metrics-file",
+                         f"{root}/{name}.jsonl", "--trace-file",
+                         f"{root}/{name}.trace.json"]
+            label = " then ".join(run[0] for run in runs)
             t0 = time.monotonic()
-            logs = launch_ranks(f"{root}/{name}", 2, [
-                "--rank-wire", *WIRE_ARGS, *flags, "--max-steps", str(steps),
-                "--eval-freq", str(eval_freq), "--resume",
-                "true" if resume else "false", "--train-dir", td,
-                "--metrics-file", f"{root}/{name}.jsonl", "--trace-file",
-                f"{root}/{name}.trace.json"], f"MAIN-WIRE {name}")
+            logs = launch_ranks(f"{root}/{runs[0][0]}", 2, argv,
+                                f"MAIN-WIRE {label}")
             wall = time.monotonic() - t0
-            phase = f"MAIN-WIRE {name}"
-            if not all("ASYNC process-slices 2 x 1 devices" in log
-                       for log in logs):
-                fail(f"{phase}: a process did not print the ASYNC line")
-            recs = []
-            for log in logs:
-                found = re.findall(r"^WIRE (.*)$", log, re.M)
-                if len(found) != 1:
-                    fail(f"{phase}: a process printed no WIRE line")
-                recs.append(json.loads(found[0]))
-            finals = [re.findall(r"^FINAL (.*)$", log, re.M) for log in logs]
-            if len(finals[0]) != 1 or finals[0] != finals[1] or not all(
-                    math.isfinite(float(x))
-                    for x in finals[0][0].split()[1::2]):
-                fail(f"{phase}: FINAL lines differ or are not finite "
-                     f"({finals})")
-            lead, follow = recs
-            if [r["pid"] for r in recs] != [0, 1] or \
-                    lead["version"] != steps or \
-                    lead["applied"] != steps - start:
-                fail(f"{phase}: leader version {lead['version']} applied "
-                     f"{lead['applied']}, expected {steps} and "
-                     f"{steps - start}")
-            if [r["saves"] for r in recs] != [WIRE_SAVES[name], []]:
-                fail(f"{phase}: checkpoints {[r['saves'] for r in recs]}, "
-                     f"expected process 0 alone {WIRE_SAVES[name]}")
-            if resume and f"RESUME from {td}/model_step_6 at step 6" \
-                    not in logs[0]:
-                fail(f"{phase}: the leader printed no RESUME at step 6")
-            for r in recs:
-                want = want_counts(
-                    wrappers, conv3x3=CONV_PER_STEP * r["own_steps"]
-                    + CONV_PER_EVAL_BATCH * 2,
-                    quantize=r["own_steps"] if codec == "int8" else 0,
-                    fused_sgd=r["applied"] if r["pid"] == 0 else 0)
-                if r["launches"] != want:
-                    fail(f"{phase} process {r['pid']}: launches "
-                         f"{r['launches']}, expected {want}")
-                for k, v in r["launches"].items():
-                    total[k] += v
-                got = r["grad_bytes_per_submission"]
-                pred = sizes["int8_armoured" if codec == "int8" else codec]
-                if (abs(got / pred - 1) > 0.10 if codec == "raw"
-                        else got > 1.10 * pred):
-                    fail(f"{phase} process {r['pid']}: {got:.0f} armoured "
-                         f"bytes a submission against {pred:.0f} predicted")
-                print(f"{phase} process {r['pid']} own_steps "
-                      f"{r['own_steps']} version {r['version']} applied "
-                      f"{r['applied']} dropped_stale {r['dropped_stale']} "
-                      f"tick_s {r['tick_s']} publish_s {r['publish_s']} "
-                      f"card {card}", flush=True)
-                print(f"{phase} process {r['pid']} grad_bytes_per_submission "
-                      f"{got:.0f} predicted {pred:.0f} ratio "
-                      f"{got / pred:.4f} wire {r['wire']} card {card}",
-                      flush=True)
-                print(f"{phase} process {r['pid']} span_median_s "
-                      f"{r['span_median_s']} span_count {r['span_count']} "
-                      f"card {card}", flush=True)
-            print(f"{phase} launch_wall_s {wall:.2f} FINAL {finals[0][0]} "
-                  f"(equal in both processes) launches {lead['launches']} "
-                  f"and {follow['launches']} card {card}", flush=True)
+            sections = [run_sections(log, "ASYNC process-slices 2 x 1 "
+                                     "devices") for log in logs]
+            if any(len(x) != len(runs) for x in sections):
+                fail(f"MAIN-WIRE {label}: a process did not print the ASYNC "
+                     f"line for each of its {len(runs)} runs")
+            for k, run in enumerate(runs):
+                for name, v in check_wire_run(
+                        wrappers, sizes, card, run, f"{root}/td_"
+                        f"{run[0].split('-')[0]}", [x[k] for x in sections],
+                        wall).items():
+                    total[name] += v
         found = EVAL_RE.findall(run_entry(evaluate.main, [
             "--train-dir", f"{root}/td_int8", "--once", "8"]))
         if len(found) != 1 or found[0][0] != "8" or not all(
@@ -2255,6 +2399,358 @@ def wire_main_path(wrappers) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return total
+
+
+def check_zero_slices(torch, sgd_mod, adam_mod, n: int) -> dict:
+    """The fused SGD and Adam kernels on every replica's slice of a padded
+    flat buffer of ResNet-18's size, as the sharded update runs them: for
+    2 and 3 replicas (slices of ``4 * chunk`` bytes at offsets that are not
+    all 16-byte multiples), against the plain versions on the card at
+    ``check_sgd``'s and ``check_adam``'s tolerances; the padded tail stays
+    zero. These launches are the check's, not a path's."""
+    worst = 0.0
+    for world in (2, 3):
+        chunk = -(-n // world)
+        gen = torch.Generator(device="cuda").manual_seed(world)
+        flat = torch.zeros(chunk * world, device="cuda")
+        flat[:n] = torch.randn(n, device="cuda", generator=gen)
+        grad = torch.zeros_like(flat)
+        grad[:n] = torch.randn(n, device="cuda", generator=gen)
+        for rank in range(world):
+            lo = rank * chunk
+            p, g = flat[lo:lo + chunk], grad[lo:lo + chunk].clone()
+            b = torch.randn(chunk, device="cuda", generator=gen)
+            pr, br = p.clone(), b.clone()
+            sgd_mod.fused_sgd_update(p, b, g, 0.1, False, momentum=0.9,
+                                     dampening=0.0, weight_decay=5e-4,
+                                     nesterov=False)
+            sgd_mod.fused_sgd_reference(pr, br, g, 0.1, False, 0.9, 0.0,
+                                        5e-4, False)
+            sgd_ok = torch.allclose(p, pr, rtol=1e-6, atol=1e-6) and \
+                torch.allclose(b, br, rtol=1e-6, atol=1e-6)
+            sgd_err = max(float((p - pr).abs().max()),
+                          float((b - br).abs().max()))
+            m = torch.randn(chunk, device="cuda", generator=gen)
+            v = torch.rand(chunk, device="cuda", generator=gen)
+            vh = v + torch.rand(chunk, device="cuda", generator=gen)
+            ref = [t.clone() for t in (p, m, v, vh)]
+            adam_mod.fused_adam_update(p, m, v, vh, g, 1e-3, b1=0.9,
+                                       b2=0.999, eps=1e-8, weight_decay=0.0)
+            adam_mod.fused_adam_reference(*ref, g, 1e-3, 0.9, 0.999, 1e-8,
+                                          0.0)
+            adam_ok = all(torch.allclose(t, r, rtol=1e-6, atol=1e-7)
+                          for t, r in zip((p, m, v, vh), ref))
+            adam_err = max(float((t - r).abs().max())
+                           for t, r in zip((p, m, v, vh), ref))
+            tail = bool((flat[n:] == 0).all())
+            print(f"CHECK zero slice world {world} rank {rank} chunk "
+                  f"{chunk} offset_bytes % 16 = {(4 * lo) % 16}: fused_sgd "
+                  f"max abs err {sgd_err:.3e}, fused_adam {adam_err:.3e}, "
+                  f"padded tail zero {tail}", flush=True)
+            if not (tail and sgd_ok and adam_ok):
+                fail(f"zero slice world {world} rank {rank}: fused SGD err "
+                     f"{sgd_err} (rtol/atol 1e-6), fused Adam err "
+                     f"{adam_err} (rtol 1e-6, atol 1e-7), tail zero {tail}")
+            worst = max(worst, sgd_err, adam_err)
+    return {"max_abs_err": worst}
+
+
+def zero_main_path(wrappers, n_params: int) -> dict:
+    """MAIN-ZERO: the CNN path's ResNet-18 (global batch 256, 128 a rank)
+    as two gloo ranks on the one card through the launcher, one launch in
+    which each rank trains twice in turn: ZeRO-1 (``--shard-update``: the
+    fused SGD kernel on each rank's slice) with ``--sync-batchnorm
+    --remat --loader-workers 4 --heartbeat-interval-s 0.5``, then the same
+    without ``--shard-update``. Two ranks sum in one order either way, so
+    the two runs' parameters must agree bitwise, and every rank's hash
+    must be equal; masks all ones; conv3x3 launches 39 a step (remat
+    recomputes the 13 forwards in the backward) and 13 an eval batch; one
+    fused SGD launch a step a rank in both runs; process 0's ZeRO
+    checkpoint (the JAX layout: momentum ``[2, chunk]``) scored by
+    ``evaluate.main --once``. Prints the optimizer-state bytes a rank
+    against the replicated run's and the reduce-scatter route."""
+    import torch
+
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.parallel.zero import (
+        REDUCE_SCATTER, scatter_route,
+    )
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    card = card_line()
+    try:
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 2, [
+            "--rank", *ZERO_ARGS, "--shard-update", "--train-dir",
+            f"{root}/zero", "--metrics-file", f"{root}/zero.jsonl", THEN,
+            *ZERO_ARGS, "--train-dir", f"{root}/repl", "--metrics-file",
+            f"{root}/repl.jsonl"], "MAIN-ZERO")
+        wall = time.monotonic() - t0
+        recs = []
+        for r, log in enumerate(logs):
+            if log.count("MESH data=2 model=1 devices=2 backend=gloo "
+                         "device=cuda:0") != 2:
+                fail(f"MAIN-ZERO rank {r}: MESH does not say gloo on "
+                     "cuda:0 twice")
+            found = re.findall(r"^RANK (.*)$", log, re.M)
+            if len(found) != 2:
+                fail(f"MAIN-ZERO rank {r}: {len(found)} RANK lines, not 2")
+            recs.append([json.loads(x) for x in found])
+        masks = re.findall(r"^MASK step (\d+) (\[.*\])$", logs[0], re.M)
+        if [m for _, m in masks] != ["[1, 1]", "[1, 1]"]:
+            fail(f"MAIN-ZERO: masks {masks}, expected [1, 1] throughout")
+        shas = {rec["params_sha256"] for runs in recs for rec in runs}
+        if len(shas) != 1:
+            fail(f"MAIN-ZERO: the parameters differ between the ZeRO and "
+                 f"the replicated run or between ranks ({shas})")
+        want = want_counts(
+            wrappers, conv3x3=(CONV_PER_STEP + CONV_PER_EVAL_BATCH)
+            * ZERO_STEPS + CONV_PER_EVAL_BATCH * 2, fused_sgd=ZERO_STEPS)
+        for r, runs in enumerate(recs):
+            for run, rec in zip(("shard-update", "replicated"), runs):
+                if rec["launches"] != want:
+                    fail(f"MAIN-ZERO rank {r} {run}: launches "
+                         f"{rec['launches']}, expected {want}")
+        route = scatter_route("gloo", "cuda")
+        if any(runs[0]["scatter"] != route for runs in recs):
+            fail(f"MAIN-ZERO: reduce-scatter route "
+                 f"{[runs[0]['scatter'] for runs in recs]}, expected {route}")
+        if [runs[0]["saves"] for runs in recs] != [[ZERO_STEPS], []]:
+            fail(f"MAIN-ZERO: checkpoints {[x[0]['saves'] for x in recs]}")
+        chunk = -(-n_params // 2)
+        zero_b, repl_b = recs[0][0]["opt_state_bytes"], \
+            recs[0][1]["opt_state_bytes"]
+        if zero_b != 4 * chunk or repl_b != 4 * n_params:
+            fail(f"MAIN-ZERO: optimizer-state bytes {zero_b} and {repl_b}, "
+                 f"expected {4 * chunk} and {4 * n_params}")
+        tree = {}
+        ckpt.load_checkpoint(f"{root}/zero", ZERO_STEPS, tree.update)
+        if np.shape(tree["opt_state"]["momentum"]) != (2, chunk):
+            fail(f"MAIN-ZERO: the checkpoint's momentum is "
+                 f"{np.shape(tree['opt_state']['momentum'])}, not the JAX "
+                 f"layout (2, {chunk})")
+        for r, runs in enumerate(recs):
+            for run, rec in zip(("shard-update", "replicated"), runs):
+                print(f"MAIN-ZERO rank {r} {run} step_times_s "
+                      f"{rec['step_times']} wait_times_s "
+                      f"{rec['wait_times']} data_times_s "
+                      f"{rec['data_times']} peak_bytes {rec['peak_bytes']} "
+                      f"(training steps {rec['train_peak_bytes']}) "
+                      f"card {card}", flush=True)
+        print(f"MAIN-ZERO gloo reduce_scatter_tensor on CUDA tensors in "
+              f"torch {torch.__version__}: exists "
+              f"{('gloo', 'cuda') in REDUCE_SCATTER} and ran in every ZeRO "
+              f"step (the route, chosen once by the group's backend and "
+              f"device: {route}); "
+              f"optimizer-state bytes a rank {zero_b} against the "
+              f"replicated run's {repl_b} (ratio {zero_b / repl_b:.4f}); "
+              f"fused_sgd launches a rank by route: shard-update "
+              f"{recs[0][0]['launches']['fused_sgd']} (on slices of "
+              f"{chunk}), replicated {recs[0][1]['launches']['fused_sgd']} "
+              f"(on {n_params}); params_sha256 {shas.pop()} (equal in "
+              f"both runs, both ranks); launch_wall_s {wall:.2f} card "
+              f"{card}", flush=True)
+        found = EVAL_RE.findall(run_entry(evaluate.main, [
+            "--train-dir", f"{root}/zero", "--once", str(ZERO_STEPS)]))
+        if len(found) != 1 or not all(math.isfinite(float(x))
+                                      for x in found[0][1:]):
+            fail("MAIN-ZERO: evaluate.main printed no finite EVAL")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"shard-update": recs[0][0]["launches"],
+            "replicated": recs[0][1]["launches"]}
+
+
+@contextmanager
+def arrays_made_once():
+    """Inside: each (data set, split, seed) is made once and handed to
+    every later loader as it is (the loaders never write into it), so
+    the in-process runs of a phase do not each draw the synthetic set
+    anew."""
+    from ps_pytorch_tpu_torch.data import datasets
+
+    made, load = {}, datasets.load_arrays
+
+    def once(*args, **kw):
+        key = (args, tuple(sorted(kw.items())))
+        if key not in made:
+            made[key] = load(*args, **kw)
+        return made[key]
+
+    datasets.load_arrays = once
+    try:
+        yield
+    finally:
+        datasets.load_arrays = load
+
+
+def run_train(argv):
+    """``train.run(argv)`` with its output echoed: (trainer, text)."""
+    from ps_pytorch_tpu_torch import train
+
+    out = io.StringIO()
+    with redirect_stdout(out):
+        trainer, _ = train.run(argv)
+    for line in out.getvalue().splitlines():
+        print(line if len(line) < 400 else line[:200] + " ...", flush=True)
+    return trainer, out.getvalue()
+
+
+def state_of(trainer) -> dict:
+    return {k: v.detach().clone() for k, v in
+            trainer.model.state_dict().items()}
+
+
+def crash_main_path(torch, wrappers) -> dict:
+    """MAIN-CRASH: the CNN path's ResNet-18 through ``train.main`` in this
+    process with ``--fault-spec`` (a crash at step 5, the step-6
+    checkpoint corrupted after its commit, 5% KV drops) and
+    ``--auto-resume 2 --eval-freq 2 --ckpt-keep 3``: the crash prints
+    CRASH and the run resumes from step 4; a second run to step 8 walks
+    past the corrupt step 6 to step 4 and ends bitwise where an
+    uninterrupted 8-step run ends (the JAX package's RESILIENCE_r07
+    scenario); in the first run's JSONL each trainer's retries add up to
+    the injected drops, with no give-up. Then SIGTERM, sent to a run of
+    its own once its second step is logged, makes it commit an emergency
+    checkpoint at the next step boundary and leave."""
+    import os
+    import signal
+
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    chaos = f"{root}/chaos"
+    card = card_line()
+    try:
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        _, text = run_train([*CRASH_ARGS, "--max-steps", "6", "--train-dir",
+                             chaos, "--resume", "false", "--auto-resume",
+                             "2", "--fault-spec", CRASH_SPEC,
+                             "--metrics-file", f"{root}/chaos.jsonl"])
+        crash_s = time.monotonic() - t0
+        launches = read_counts(wrappers)
+        # Steps 1-4, the crash, 5-6 again from 4: 6 steps, and the final
+        # evaluation's 2 batches.
+        want = want_counts(wrappers, conv3x3=CONV_PER_STEP * 6
+                           + CONV_PER_EVAL_BATCH * 2, fused_sgd=6)
+        if launches != want:
+            fail(f"MAIN-CRASH launches {launches}, expected {want}")
+        if "CRASH InjectedCrash: injected replica_crash r=0 at step 5" \
+                not in text or \
+                f"RESUME from {chaos}/model_step_4 at step 4" not in text:
+            fail("MAIN-CRASH: no CRASH line, or no resume from step 4")
+        if ckpt.committed_steps(chaos) != [2, 4, 6] or \
+                ckpt.latest_valid_step(chaos) != 4:
+            fail(f"MAIN-CRASH: committed {ckpt.committed_steps(chaos)}, "
+                 f"newest valid {ckpt.latest_valid_step(chaos)}: expected "
+                 "[2, 4, 6] with step 6 corrupt")
+        rows = read_jsonl(f"{root}/chaos.jsonl")
+        runs = list({r["crashes"]: r for r in rows}.values())
+        retries = sum(r["kv_retries"] for r in runs)
+        if [r["crashes"] for r in runs] != [0, 1] or \
+                retries != runs[-1]["kv_drops"] or runs[-1]["kv_giveups"]:
+            fail(f"MAIN-CRASH: retries {retries} against drops "
+                 f"{runs[-1]['kv_drops']}, giveups {runs[-1]['kv_giveups']}"
+                 f" (trainers {[r['crashes'] for r in runs]})")
+        resumed, text = run_train([*CRASH_ARGS, "--max-steps", "8",
+                                   "--train-dir", chaos, "--fault-spec",
+                                   "kv_drop:p=0.05,seed=7"])
+        if "[ckpt] step 6 failed verification" not in text or \
+                f"RESUME from {chaos}/model_step_4 at step 4" not in text:
+            fail("MAIN-CRASH: the resumed run did not walk past the "
+                 "corrupt step 6 to step 4")
+        plain, _ = run_train([*CRASH_ARGS, "--max-steps", "8",
+                              "--train-dir", f"{root}/plain", "--resume",
+                              "false"])
+        got, ref = state_of(resumed), state_of(plain)
+        diff = max(float((got[k].float() - ref[k].float()).abs().max())
+                   for k in ref)
+        if diff != 0.0:
+            fail(f"MAIN-CRASH: the resumed run ends {diff} from the "
+                 "uninterrupted one, not bitwise")
+        del resumed, plain
+        print(f"MAIN-CRASH crash run {crash_s:.2f} s (crash at 5, resume "
+              f"from 4, step 6 corrupted); kv_drops "
+              f"{runs[-1]['kv_drops']} kv_retries {retries} (trainers "
+              f"{[r['kv_retries'] for r in runs]}) kv_giveups 0; the run "
+              f"resumed to step 8 past the corrupt step 6 ends bitwise "
+              f"where the uninterrupted 8-step run ends (max abs diff "
+              f"{diff:.1e}); launches {launches} card {card}", flush=True)
+        # SIGTERM to a run of its own, once its second step is logged.
+        rows_path = f"{root}/sigterm.jsonl"
+        sent = threading.Event()
+
+        def send():
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                if Path(rows_path).exists() and \
+                        len(Path(rows_path).read_text().splitlines()) >= 2:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    sent.set()
+                    return
+                time.sleep(0.02)
+
+        sender = threading.Thread(target=send, daemon=True)
+        sender.start()
+        _, text = run_train([*CRASH_ARGS, "--max-steps", "200",
+                             "--eval-freq", "0", "--train-dir",
+                             f"{root}/sigterm", "--resume", "false",
+                             "--metrics-file", rows_path])
+        sender.join()
+        found = re.findall(r"^PREEMPT emergency checkpoint at step (\d+)$",
+                           text, re.M)
+        if not sent.is_set() or len(found) != 1 or \
+                ckpt.latest_valid_step(f"{root}/sigterm") != int(found[0]):
+            fail(f"MAIN-CRASH: SIGTERM sent {sent.is_set()}, PREEMPT "
+                 f"{found}, newest valid "
+                 f"{ckpt.latest_valid_step(f'{root}/sigterm')}")
+        print(f"MAIN-CRASH SIGTERM sent once 2 steps were logged: "
+              f"emergency checkpoint at step {found[0]}, verified; card "
+              f"{card}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def remat_cost(torch, wrappers) -> None:
+    """``--remat`` against no remat on MAIN's single-process ResNet-18
+    (batch 256, 6 steps through ``train.run``): step times and peak
+    device memory; remat's conv3x3 launches are 39 a step (the 13
+    forwards run again in the backward)."""
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    out = {}
+    try:
+        for i, flags in enumerate(((), ("--remat",), ("--remat",), ())):
+            zero_counts(wrappers)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rows = f"{root}/m{i}.jsonl"
+            trainer, _ = run_train([*CRASH_ARGS, "--max-steps",
+                                    str(REMAT_STEPS), "--eval-freq", "0",
+                                    "--train-dir", f"{root}/td", "--resume",
+                                    "false", "--metrics-file", rows, *flags])
+            # The training steps' peak (the JSONL's, before the final
+            # evaluation's batches of 4,167 raise it).
+            peak = read_jsonl(rows)[-1]["device_mem_peak_bytes"]
+            convs = read_counts(wrappers)["conv3x3"]
+            per_step = CONV_PER_STEP + (CONV_PER_EVAL_BATCH if flags else 0)
+            if convs != per_step * REMAT_STEPS + CONV_PER_EVAL_BATCH * 2:
+                fail(f"REMAT {flags}: {convs} conv3x3 launches")
+            out.setdefault(bool(flags), []).append(
+                (float(np.median(trainer.step_times[1:])), peak))
+            del trainer
+        print(f"REMAT ResNet-18 batch 256: median step (steps 2 on) and "
+              f"the training steps' peak bytes, in turns: no remat "
+              f"{out[False]}, remat {out[True]}; card {card_line()}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -2342,7 +2838,11 @@ def main() -> int:
     async_launches = async_main_path(torch, wrappers, n_params)
     small_async_tick_agrees(torch, tq)
     adam = check_adam(torch, adam_mod, n_params)
+    slices = check_zero_slices(torch, sgd_mod, adam_mod, n_params)
     ckpt_launches = ckpt_main_path(torch, wrappers)
+    with arrays_made_once():
+        crash_launches = crash_main_path(torch, wrappers)
+        remat_cost(torch, wrappers)
     torch.cuda.empty_cache()
     vgg_conv = check_conv_geometries(torch, F, conv_mod, "VGG11", BATCH,
                                      VGG_GEOMETRIES)
@@ -2355,6 +2855,7 @@ def main() -> int:
     gloo_probe()
     dist_main_path(wrappers)
     kofn_main_path(wrappers)
+    zero_launches = zero_main_path(wrappers, n_params)
     wire_int8_bytes_agree(torch, tq)
     wire_launches = wire_main_path(wrappers)
     flash = check_flash(torch, F, fa)
@@ -2388,9 +2889,23 @@ def main() -> int:
                  for name, counts, timed in (
                      ("MAIN-VGG", vgg_launches, vgg_conv),
                      ("MAIN-IMAGENET", imagenet_launches, r50_conv))},
-             # MAIN-WIRE runs MAIN's geometry: its times are this row's.
-             launches_by_path={"MAIN-WIRE": wire_launches["conv3x3"]},
-             tc_launches_by_path={"MAIN-WIRE": wire_launches["conv3x3_tc"]}),
+             # MAIN-WIRE, MAIN-ZERO (a rank, each run; remat adds the 13
+             # forwards a step) and MAIN-CRASH run MAIN's geometry: their
+             # times are this row's.
+             launches_by_path={
+                 "MAIN-WIRE": wire_launches["conv3x3"],
+                 "MAIN-ZERO shard-update": zero_launches["shard-update"][
+                     "conv3x3"],
+                 "MAIN-ZERO replicated": zero_launches["replicated"][
+                     "conv3x3"],
+                 "MAIN-CRASH": crash_launches["conv3x3"]},
+             tc_launches_by_path={
+                 "MAIN-WIRE": wire_launches["conv3x3_tc"],
+                 "MAIN-ZERO shard-update": zero_launches["shard-update"][
+                     "conv3x3_tc"],
+                 "MAIN-ZERO replicated": zero_launches["replicated"][
+                     "conv3x3_tc"],
+                 "MAIN-CRASH": crash_launches["conv3x3_tc"]}),
         dict(name="fused_sgd", route="triton",
              source="ps_pytorch_tpu_torch/ops/_sgd_triton.py",
              replaces="ps_pytorch_tpu/ops/fused_sgd.py:34",
@@ -2398,8 +2913,14 @@ def main() -> int:
              launches_by_path={"MAIN-VGG": vgg_launches["fused_sgd"],
                                "MAIN-IMAGENET":
                                imagenet_launches["fused_sgd"],
-                               "MAIN-WIRE": wire_launches["fused_sgd"]},
+                               "MAIN-WIRE": wire_launches["fused_sgd"],
+                               "MAIN-ZERO shard-update (on a rank's slice)":
+                               zero_launches["shard-update"]["fused_sgd"],
+                               "MAIN-ZERO replicated":
+                               zero_launches["replicated"]["fused_sgd"],
+                               "MAIN-CRASH": crash_launches["fused_sgd"]},
              max_abs_err=sgd["max_abs_err"],
+             slices_max_abs_err=slices["max_abs_err"],
              ms=sgd["ms"], plain_ms=sgd["plain_ms"], bound_ms=sgd["bound_ms"],
              bound_by="bytes", library_ms=sgd["library_ms"]),
         dict(name="fused_adam", route="triton",

@@ -4,14 +4,20 @@ The same dataclass as the JAX package's ``config.py``: every field keeps its
 name and default, so ``to_json``/``from_json`` read and write the same keys
 and a config from either package loads in the other. The port runs some
 slices of the system (synchronous data-parallel CNN training, K-of-N
-included, one process a replica, with its checkpoints and evaluator,
-asynchronous stale-gradient training with its codecs, in one process or
-one process a slice over the KV wire, the KV retry plane, and the ops
-plane of the synchronous and LM trainers, see ROADMAP.md), so a
-field it does not run
+included, one process a replica, with cross-replica BatchNorm statistics,
+ZeRO-1, recomputation, the loader's worker pool, the fault plane,
+heartbeats and auto-resume, its checkpoints and evaluator; asynchronous
+stale-gradient training with its codecs, in one process or one process a
+slice over the KV wire; the KV retry plane; and the ops plane of the
+synchronous and LM trainers, see ROADMAP.md), so a field it does not run
 raises ``ValueError`` when it is set to anything but its default: it is
 never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
 one device (``runtime/lm_trainer.py``), without checkpoints.
+
+``donate`` takes ``true`` and ``false`` alike: the JAX step donates its
+input buffers to XLA, while the port's step updates the parameters, the
+optimizer state and the BatchNorm statistics in place, so neither value
+changes the port's arithmetic or its memory.
 """
 
 from __future__ import annotations
@@ -213,8 +219,23 @@ class TrainConfig:
                 f"{self.lm_attention!r}) is not ported yet (ROADMAP.md): the "
                 "kernels take float32 and bfloat16; use --conv-impl xla or "
                 "--lm-attention full")
+        if self.loader_workers < 0:
+            raise ValueError(f"loader_workers={self.loader_workers} "
+                             "(must be >= 0; 0 = one per CPU)")
         if self.nesterov and (self.momentum <= 0):
             raise ValueError("Nesterov momentum requires a momentum")
+        if self.fault_spec:
+            # Parsed here: a typo'd spec fails at config time, not when
+            # the fault would have fired.
+            from ps_pytorch_tpu_torch.resilience.faults import (
+                parse_fault_spec,
+            )
+            for fault in parse_fault_spec(self.fault_spec):
+                if fault["kind"] in UNPORTED_FAULT_KINDS:
+                    raise ValueError(
+                        f"fault kind {fault['kind']!r} is not ported yet "
+                        f"(ROADMAP.md): it needs "
+                        f"{UNPORTED_FAULT_KINDS[fault['kind']]}")
         if self.lm_parallelism not in ("sp", "tp", "pp", "ep"):
             raise ValueError(f"unknown lm_parallelism "
                              f"{self.lm_parallelism!r} (sp | tp | pp | ep)")
@@ -235,7 +256,7 @@ class TrainConfig:
                              "ported yet (ROADMAP.md); the LM trains in "
                              "mode 'sync' on one device")
         if self.network in LM_NETWORKS:
-            for name in SYNC_ONLY_FIELDS:
+            for name in SYNC_ONLY_FIELDS + ("loader_workers",):
                 if getattr(self, name) != _default(name):
                     raise ValueError(
                         f"{name}={getattr(self, name)!r} for {self.network} "
@@ -274,9 +295,22 @@ class TrainConfig:
         if self.kv_retry_attempts < 1:
             raise ValueError(f"kv_retry_attempts={self.kv_retry_attempts} "
                              "(must be >= 1; 1 = no retries)")
-        if self.kv_retry_base_s < 0:
-            raise ValueError("kv_retry_base_s must be >= 0")
-        if self.ckpt_keep < 0 or self.kv_retry_budget < 0:
+        for name in ("heartbeat_interval_s", "heartbeat_timeout_s",
+                     "kv_retry_base_s"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        if 0 < self.heartbeat_timeout_s <= self.heartbeat_interval_s:
+            # A deadline at or below the beat period can never be met:
+            # every process would look dead between its own beats.
+            raise ValueError(
+                f"heartbeat_timeout_s={self.heartbeat_timeout_s} <= "
+                f"heartbeat_interval_s={self.heartbeat_interval_s}: a beat "
+                f"can never land inside its own deadline, so liveness "
+                f"flaps instead of detecting death. Set heartbeat_timeout_s "
+                f"> heartbeat_interval_s (0 = 3x interval), or 0 for the "
+                f"default.")
+        if self.ckpt_keep < 0 or self.kv_retry_budget < 0 or \
+                self.auto_resume < 0:
             raise ValueError("ckpt_keep / kv_retry_budget / auto_resume "
                              "must be >= 0")
         if self.mode == "async" and \
@@ -304,6 +338,7 @@ class TrainConfig:
         for name in inert:
             if getattr(self, name) != _default(name):
                 runs = ("--mode kofn or async" if name == "num_aggregate"
+                        else "--mode sync or kofn" if name in SYNC_ONLY_FIELDS
                         else "--mode async only" if name in ASYNC_ONLY_FIELDS
                         else "--mode async across processes"
                         if name in WIRE_FIELDS
@@ -344,10 +379,25 @@ ASYNC_ONLY_FIELDS = ("async_slices", "fetch_every",
                      "staleness_limit", "staleness_decay", "grad_codec",
                      "grad_topk_frac", "ef", "ef_clip", "wire_bucket_mb",
                      "wire_workers")
-# Fields that only the synchronous trainer (sync and kofn) reads: the
-# straggler deadline and the injected straggler.
+# Fields that only the synchronous CNN trainer (sync and kofn) reads: the
+# straggler deadline and the injected straggler, the step's options
+# (cross-replica BatchNorm statistics, ZeRO-1, recomputation) and crash
+# containment (the fault plane, heartbeats, auto-resume). The fault plane
+# on the async wire waits for ROADMAP.md's queue 3.
 SYNC_ONLY_FIELDS = ("kill_threshold", "inject_step_delay",
-                    "inject_delay_process")
+                    "inject_delay_process", "sync_batchnorm",
+                    "shard_update", "remat", "fault_spec",
+                    "heartbeat_interval_s", "heartbeat_timeout_s",
+                    "auto_resume")
+# Fault kinds of the JAX grammar that no trainer of the port runs yet, and
+# what each needs (ROADMAP.md): the spec parses, the config refuses them.
+UNPORTED_FAULT_KINDS = {
+    "leader_kill": "leader elections (elastic/)",
+    "kv_backend_kill": "the replicated KV (runtime/kvrep.py)",
+    "kv_backend_wipe": "the replicated KV (runtime/kvrep.py)",
+    "replica_kill": "serving (serving/)",
+    "grad_poison": "the integrity screen on the async wire",
+}
 # The ops plane (telemetry/): the CNN Trainer and the LMTrainer read these;
 # of the asynchronous trainers, only the one across processes reads
 # trace_file, as in the JAX package.
@@ -362,7 +412,8 @@ LAUNCH_FIELDS = WIRE_FIELDS + ("trace_file",)
 # The fields the port runs. Every other field must keep its default.
 PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
                           + OPS_FIELDS + WIRE_FIELDS) | frozenset({
-    "num_aggregate", "compress_grad", "codec_level",
+    "num_aggregate", "compress_grad", "codec_level", "donate",
+    "loader_workers",
     "kv_retry_attempts", "kv_retry_base_s", "kv_retry_budget",
     "network", "dataset", "batch_size", "test_batch_size", "data_dir",
     "num_classes", "optimizer", "lr", "lr_schedule", "lr_warmup_steps",

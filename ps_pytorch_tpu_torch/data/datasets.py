@@ -1,14 +1,17 @@
-"""Dataset registry and a single-host prefetching loader: a copy of the JAX
-package's ``data/datasets.py`` with one worker (its worker pool,
-``loader_workers`` above 1, is not ported: ROADMAP.md).
+"""Dataset registry and the prefetching loader: a copy of the JAX
+package's ``data/datasets.py``, its worker pool (``loader_workers``)
+included.
 
 For the same seed the loader yields the same bytes as the JAX package's
-single-worker loader: the same shuffle (``default_rng((seed, epoch))``),
-the same augment stream (``default_rng((seed, epoch, host, 7))``) and the
-same draw order, and for the RRC sets the same counter-based rectangles
-and integer resize.
+loader at the same worker count: the same shuffle
+(``default_rng((seed, epoch))``), the same augment stream
+(``default_rng((seed, epoch, host, 7))`` with one worker,
+``default_rng((seed, epoch, host, 7, batch))`` a batch with several) and
+the same draw order, and for the RRC sets the same counter-based
+rectangles and integer resize at any worker count.
 """
 
+import os
 import queue
 import threading
 from typing import Iterator, Optional, Tuple
@@ -96,13 +99,15 @@ def load_arrays(dataset: str, data_dir: str = "./data", train: bool = True,
 
 class DataLoader:
     """Sharded, shuffled, augmented batch iterator with one prefetch
-    thread. ``next_batch`` yields forever, advancing epochs."""
+    thread, or a pool of ``workers`` threads (``_epoch_pool``).
+    ``next_batch`` yields forever, advancing epochs."""
 
     def __init__(self, x: np.ndarray, y: np.ndarray, batch_size: int,
                  dataset: str = "synthetic", train: bool = True,
                  shuffle: Optional[bool] = None, seed: int = 0,
                  host_id: int = 0, num_hosts: int = 1, prefetch: int = 2,
-                 drop_last: bool = True, device_normalize: bool = False):
+                 drop_last: bool = True, device_normalize: bool = False,
+                 workers: int = 1):
         if len(x) != len(y):
             raise ValueError(f"{len(x)} images but {len(y)} labels")
         self.x, self.y = x, y
@@ -114,6 +119,11 @@ class DataLoader:
         self.host_id, self.num_hosts = host_id, num_hosts
         self.prefetch = prefetch
         self.drop_last = drop_last
+        # workers > 1 assembles batches on a thread pool (the native RRC
+        # kernel and numpy's gathers release the interpreter lock); 0 is
+        # one worker a CPU.
+        self.workers = max(1, workers if workers > 0
+                           else (os.cpu_count() or 1))
         if batch_size % num_hosts != 0:
             raise ValueError(f"global batch {batch_size} not divisible by "
                              f"{num_hosts} hosts")
@@ -188,6 +198,9 @@ class DataLoader:
         """Yield (x, y) local batches for one epoch, prefetched."""
         order = self._epoch_order(epoch)
         n = len(self)
+        if self.workers > 1:
+            yield from self._epoch_pool(order, epoch, n)
+            return
         aug_rng = np.random.default_rng((self.seed, epoch, self.host_id, 7))
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         abandoned = threading.Event()
@@ -225,6 +238,68 @@ class DataLoader:
         finally:
             abandoned.set()
 
+    def _epoch_pool(self, order: np.ndarray, epoch: int,
+                    n: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """One epoch on ``workers`` threads: each claims the next batch
+        index, assembles it with a generator of its own,
+        ``default_rng((seed, epoch, host_id, 7, b))`` (so the crop / flip
+        draws differ from the one-worker stream; the RRC rectangles are
+        counter-based and do not), and parks it; batches are handed out
+        in order. At most ``prefetch + workers`` batches are claimed ahead
+        of the consumer. A worker's exception is raised in the consumer;
+        leaving the generator early releases the workers."""
+        window = self.prefetch + self.workers
+        cv = threading.Condition()
+        state = {"claim": 0, "emit": 0, "abandoned": False, "error": None}
+        done: dict = {}
+
+        def work():
+            while True:
+                with cv:
+                    while (state["claim"] - state["emit"] >= window
+                           and not state["abandoned"]
+                           and state["error"] is None):
+                        cv.wait()
+                    if (state["abandoned"] or state["error"] is not None
+                            or state["claim"] >= n):
+                        return
+                    b = state["claim"]
+                    state["claim"] += 1
+                try:
+                    rng = np.random.default_rng(
+                        (self.seed, epoch, self.host_id, 7, b))
+                    item = self._assemble(b, order, epoch, rng)
+                except BaseException as e:
+                    with cv:
+                        state["error"] = e
+                        cv.notify_all()
+                    return
+                with cv:
+                    done[b] = item
+                    cv.notify_all()
+
+        threads = [threading.Thread(target=work, daemon=True)
+                   for _ in range(min(self.workers, max(n, 1)))]
+        for t in threads:
+            t.start()
+        try:
+            for b in range(n):
+                with cv:
+                    while b not in done and state["error"] is None:
+                        cv.wait()
+                    if state["error"] is not None:
+                        raise state["error"]
+                    item = done.pop(b)
+                    state["emit"] = b + 1
+                    cv.notify_all()
+                yield item
+        finally:
+            with cv:
+                state["abandoned"] = True
+                cv.notify_all()
+            for t in threads:
+                t.join(timeout=5.0)
+
     def next_batch(self):
         while True:
             if self._epoch_iter is None:
@@ -261,7 +336,8 @@ def prepare_data(cfg, host_id: int = 0,
                            seed=cfg.seed)
     train = DataLoader(xtr, ytr, cfg.batch_size, cfg.dataset, train=True,
                        seed=cfg.seed, host_id=host_id, num_hosts=num_hosts,
-                       device_normalize=dev_norm)
+                       device_normalize=dev_norm,
+                       workers=cfg.loader_workers)
     test = DataLoader(xte, yte, cfg.test_batch_size, cfg.dataset,
                       train=False, shuffle=False, seed=cfg.seed,
                       drop_last=False, device_normalize=dev_norm)

@@ -151,7 +151,7 @@ def _moments_to_jax(moments) -> dict:
     return _sorted(to_jax(moments)[0]) if moments else {}
 
 
-def _opt_fields(opt_state) -> tuple:
+def opt_fields(opt_state) -> tuple:
     """The JAX optimizer state's fields, in their declared order:
     ``AdamState(step, exp_avg, exp_avg_sq, max_exp_avg_sq)`` and
     ``SGDState(step, momentum)``."""
@@ -169,18 +169,23 @@ def _stack(trees: list) -> dict:
 
 
 def state_to_jax(model: torch.nn.Module, opt_state, step: int,
-                 replica_buffers: Optional[list] = None) -> dict:
+                 replica_buffers: Optional[list] = None,
+                 opt_tree: Optional[dict] = None) -> dict:
     """The port's training state -> the JAX ``TrainState`` as the dict
     flax serializes: ``step`` int32 0-d, ``params``, ``opt_state`` and
     ``batch_stats`` with a replica axis, fields in declared order and
     every other dict sorted. The replica axis holds the model's own
     statistics, or each replica's from ``replica_buffers`` (one dict of
     BatchNorm buffers a replica, in replica order). The port's ``flat``
-    buffers are not written (the moments are views of them)."""
+    buffers are not written (the moments are views of them).
+    ``opt_tree`` replaces the optimizer state as it is given (the sharded
+    update's layout, ``parallel/zero.py:gather_opt_state``)."""
     params, stats = to_jax(model.state_dict())
-    opt = {"step": np.asarray(opt_state.step, np.int32)}
-    for field in _opt_fields(opt_state):
-        opt[field] = _moments_to_jax(getattr(opt_state, field))
+    opt = opt_tree
+    if opt is None:
+        opt = {"step": np.asarray(opt_state.step, np.int32)}
+        for field in opt_fields(opt_state):
+            opt[field] = _moments_to_jax(getattr(opt_state, field))
     stats = _stack([to_jax(b)[1] for b in replica_buffers or [
         dict(model.named_buffers())]])
     return {"step": np.asarray(step, np.int32), "params": _sorted(params),
@@ -214,12 +219,17 @@ def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None,
     pairs = [(own[k], sd[k]) for k in sd]
     if opt_state is not None:
         stored = tree["opt_state"]
-        fields = _opt_fields(opt_state)
+        fields = opt_fields(opt_state)
         if set(stored) != {"step", *fields}:
             raise ValueError(f"the checkpoint's optimizer state has "
                              f"{sorted(stored)}, this optimizer "
                              f"{sorted(('step',) + fields)}")
         for field in fields:
+            if not isinstance(stored[field], dict):
+                raise ValueError(
+                    f"{field}: the checkpoint holds the sharded update's "
+                    "layout (ZeRO-1, [world, chunk]); resume it with "
+                    "--shard-update")
             mine = getattr(opt_state, field) or {}
             got = from_jax(stored[field]) if stored[field] else {}
             _check_fits(got, mine, field)

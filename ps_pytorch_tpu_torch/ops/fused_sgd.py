@@ -100,7 +100,9 @@ def flat_base(tensors: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
 def flatten_params(params: Dict[str, torch.Tensor], optimizer: str
                    ) -> torch.Tensor:
     """Lay ``params`` out in one flat f32 buffer, in order, and rebind each
-    to its view (``p.data = view``). Returns the buffer."""
+    to its view (``p.data = view``). Returns the buffer. A single
+    contiguous 1-D tensor (the sharded update's slice) is its own flat
+    buffer and stays where it is."""
     if not params:
         raise ValueError("no parameters")
     ref = next(iter(params.values()))
@@ -108,6 +110,8 @@ def flatten_params(params: Dict[str, torch.Tensor], optimizer: str
         if p.dtype != torch.float32 or p.device != ref.device:
             raise ValueError(f"{name}: {optimizer} takes float32 "
                              "parameters on one device")
+    if len(params) == 1 and ref.dim() == 1 and ref.is_contiguous():
+        return ref
     total = sum(p.numel() for p in params.values())
     flat_p = torch.empty(total, dtype=torch.float32, device=ref.device)
     with torch.no_grad():

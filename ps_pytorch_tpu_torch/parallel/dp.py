@@ -7,7 +7,10 @@ local batch; gradients are averaged over the participating replicas with a
 masked mean ``sum(g*m)/max(sum(m),1)``, one ``all_reduce`` of one flat
 gradient buffer whenever a process group is given (at world 1 too, so a
 one-rank launch runs the same collective path). BatchNorm
-statistics stay local to each replica, as in the reference. An all-zero
+statistics stay local to each replica, as in the reference, unless
+``sync_batchnorm`` averages them after the update; ``remat`` recomputes
+the forward in the backward; ``shard_update`` shards the update
+(ZeRO-1, ``parallel/zero.py``). An all-zero
 mask leaves parameters and optimizer state untouched (``:217-226``), and
 ``skip_nonfinite`` does the same for a step whose gradient norm is not
 finite.
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:
@@ -77,30 +81,78 @@ class TrainStep:
     tensors (loss, accuracy, participating, grad_norm, nonfinite): reading
     one waits for the device. ``comm_s`` is the host time the last call
     spent in its all-reduces: waiting for the other replicas, and for the
-    device where the backend copies through host memory (gloo)."""
+    device where the backend copies through host memory (gloo).
+
+    ``sync_batchnorm``: after the update, every replica's new running
+    statistics become the masked mean over the replicas,
+    ``sum(bs * m) / max(sum(m), 1)`` in one all-reduce (the JAX step's
+    ``psum(a * m) / denom``, ``dp.py:227-230``); the forward's batch
+    statistics stay local. An all-zero mask zeroes them (``0 / 1``), as
+    in the JAX package.
+
+    ``remat``: the forward runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward (``jax.checkpoint(loss_fn)``, ``:195-197``).
+    The recompute draws the same Dropout masks (the draws' generator is
+    put back to its state before the forward) and leaves the BatchNorm
+    running statistics as the first forward wrote them."""
 
     def __init__(self, model: torch.nn.Module, opt, *,
                  group: Optional[dist.ProcessGroup] = None, input_norm=None,
-                 skip_nonfinite: bool = False):
+                 skip_nonfinite: bool = False, sync_batchnorm: bool = False,
+                 remat: bool = False):
         self.model, self.opt = model, opt
         self.group = group
         self.world = dist.get_world_size(group) if group is not None else 1
         self.rank = dist.get_rank(group) if group is not None else 0
         self.input_norm = input_norm
         self.skip_nonfinite = skip_nonfinite
+        self.sync_batchnorm = sync_batchnorm
+        self.remat = remat
         self.comm_s = 0.0
         self.device = _device_of(model)
         self.dropout = DropoutDraws(model, self.device)
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
-        self.opt_state = opt.init(self.params)
-        total = sum(p.numel() for p in self.params.values())
-        self.flat_grad = torch.zeros(total, dtype=torch.float32,
+        self.buffers = [b for _, b in model.named_buffers()]
+        self.size = sum(p.numel() for p in self.params.values())
+        self.opt_state = self._init_state()
+        self.flat_grad = torch.zeros(self._grad_size(), dtype=torch.float32,
                                      device=self.device)
         self.grads, off = {}, 0
         for name, p in self.params.items():
             self.grads[name] = self.flat_grad[off:off + p.numel()].view_as(p)
             off += p.numel()
+
+    def _init_state(self):
+        return self.opt.init(self.params)
+
+    def _grad_size(self) -> int:
+        return self.size
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.remat:
+            return self.model(x)
+        gen = self.dropout.generator
+        held = gen.get_state() if gen is not None else None
+
+        def forward(x):
+            # checkpoint restores only the default generators: the
+            # recompute puts the Dropout draws' own generator back.
+            if held is not None:
+                gen.set_state(held)
+            return self.model(x)
+
+        return checkpoint(forward, x, use_reentrant=False)
+
+    def _timed(self, collective, *args) -> None:
+        """Run a collective over the group, its host time into comm_s."""
+        t0 = time.monotonic()
+        collective(*args, group=self.group)
+        self.comm_s += time.monotonic() - t0
+
+    def _all_reduce(self, t: torch.Tensor) -> None:
+        if self.group is not None:          # even at world 1
+            self._timed(dist.all_reduce, t)
 
     def __call__(self, x, y, mask,
                  key: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -113,13 +165,22 @@ class TrainStep:
         x = _input(x, self.device, self.input_norm)
         y = torch.as_tensor(np.asarray(y)).to(self.device, non_blocking=True)
         self.model.train()
+        self.comm_s = 0.0
         self.flat_grad.zero_()
         for name, p in self.params.items():
             p.grad = self.grads[name]
         self.dropout.seed(key, self.rank)
-        logits = self.model(x)
+        logits = self._forward(x)
         loss = F.cross_entropy(logits, y.long())
+        if self.remat:
+            # The recompute in the backward writes the running statistics
+            # again: keep the first forward's.
+            written = [b.clone() for b in self.buffers]
         loss.backward()
+        if self.remat:
+            with torch.no_grad():
+                for b, w in zip(self.buffers, written):
+                    b.copy_(w)
         for name, p in self.params.items():
             if p.grad is None or p.grad.data_ptr() != \
                     self.grads[name].data_ptr():
@@ -129,22 +190,11 @@ class TrainStep:
             acc = (logits.argmax(-1) == y).float().mean()
             stats = torch.stack([loss.detach(), acc]) * m
             self.flat_grad.mul_(m)
-            if self.group is not None:      # even at world 1
-                t0 = time.monotonic()
-                dist.all_reduce(self.flat_grad, group=self.group)
-                dist.all_reduce(stats, group=self.group)
-                self.comm_s = time.monotonic() - t0
-            self.flat_grad.div_(denom)
+            self._all_reduce(stats)
             stats = stats / denom
-            # dot, not linalg.vector_norm: the CPU's f32 vector_norm over
-            # millions of elements is off by ~1e-4 relative.
-            gnorm = torch.dot(self.flat_grad, self.flat_grad).sqrt()
-            stepped = msum > 0
-            if stepped and self.skip_nonfinite:
-                stepped = bool(torch.isfinite(gnorm))
-            if stepped:
-                self.opt_state = self.opt.apply(self.params, self.opt_state,
-                                                self.grads)
+            gnorm = self._reduce_and_update(m, msum, denom)
+            if self.sync_batchnorm and self.buffers:
+                self._sync_buffers(m, denom)
             return {
                 "loss": stats[0], "accuracy": stats[1],
                 "participating": torch.tensor(msum),
@@ -152,16 +202,55 @@ class TrainStep:
                 "nonfinite": 1.0 - torch.isfinite(gnorm + stats[0]).float(),
             }
 
+    def _stepped(self, msum: float, gnorm: torch.Tensor) -> bool:
+        """An all-zero mask is a no-op (``:217-226``); ``skip_nonfinite``
+        also skips a step whose gradient norm is not finite."""
+        stepped = msum > 0
+        if stepped and self.skip_nonfinite:
+            stepped = bool(torch.isfinite(gnorm))
+        return stepped
+
+    def _reduce_and_update(self, m: float, msum: float,
+                           denom: float) -> torch.Tensor:
+        """The masked gradient (already times ``m``) -> its masked mean
+        over the group -> the update; returns the global gradient norm."""
+        self._all_reduce(self.flat_grad)
+        self.flat_grad.div_(denom)
+        # dot, not linalg.vector_norm: the CPU's f32 vector_norm over
+        # millions of elements is off by ~1e-4 relative.
+        gnorm = torch.dot(self.flat_grad, self.flat_grad).sqrt()
+        if self._stepped(msum, gnorm):
+            self.opt_state = self.opt.apply(self.params, self.opt_state,
+                                            self.grads)
+        return gnorm
+
+    def _sync_buffers(self, m: float, denom: float) -> None:
+        """The replicas' running statistics -> their masked mean."""
+        flat = torch.cat([b.reshape(-1) for b in self.buffers]) * m
+        self._all_reduce(flat)
+        flat.div_(denom)
+        for b, t in zip(self.buffers,
+                        flat.split([b.numel() for b in self.buffers])):
+            b.copy_(t.view_as(b))
+
 
 def make_train_step(model: torch.nn.Module, opt, *,
                     group: Optional[dist.ProcessGroup] = None,
-                    input_norm=None, skip_nonfinite: bool = False
-                    ) -> TrainStep:
+                    input_norm=None, skip_nonfinite: bool = False,
+                    sync_batchnorm: bool = False, remat: bool = False,
+                    shard_update: bool = False) -> TrainStep:
     """Build the step. ``opt.init`` runs here (FusedSGD lays the
     parameters out in its flat buffer); the step keeps the optimizer state
-    as ``step.opt_state``."""
-    return TrainStep(model, opt, group=group, input_norm=input_norm,
-                     skip_nonfinite=skip_nonfinite)
+    as ``step.opt_state``. ``shard_update`` builds the ZeRO-1 step
+    (``parallel/zero.py``): the same arguments, the update sharded over
+    the group."""
+    kind = TrainStep
+    if shard_update:
+        from ps_pytorch_tpu_torch.parallel.zero import ZeroTrainStep
+        kind = ZeroTrainStep
+    return kind(model, opt, group=group, input_norm=input_norm,
+                skip_nonfinite=skip_nonfinite,
+                sync_batchnorm=sync_batchnorm, remat=remat)
 
 
 def make_eval_step(model: torch.nn.Module, input_norm=None) -> Callable:

@@ -9,8 +9,8 @@ fatal errors, backs off exponentially with deterministic jitter, and
 charges a run-wide budget, so that a store that is down for good still
 fails fast. Only errors that look transient (connection, timeout, the
 coordination service's UNAVAILABLE family) are retried; programming errors
-surface at once. The fault plane's ``TransientKVError`` is not ported
-(ROADMAP.md).
+surface at once, and the fault plane's ``TransientKVError`` is always
+retried.
 """
 
 import time
@@ -18,6 +18,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import numpy as np
+
+from ps_pytorch_tpu_torch.resilience.faults import TransientKVError
 
 # Textual markers of transient store failures. NOT_FOUND is absent on
 # purpose: a missing key is an answer (the get() default), not an outage.
@@ -31,7 +33,7 @@ _TRANSIENT_MARKERS = (
 def is_retryable(exc: BaseException) -> bool:
     """True for errors worth retrying (transient service or transport),
     False for errors that retrying cannot fix."""
-    if isinstance(exc, (ConnectionError, TimeoutError)):
+    if isinstance(exc, (TransientKVError, ConnectionError, TimeoutError)):
         return True
     if isinstance(exc, (ValueError, TypeError, KeyError, AttributeError,
                         ArithmeticError)):

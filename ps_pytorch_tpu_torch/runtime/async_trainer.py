@@ -152,7 +152,7 @@ class AsyncTrainer:
             kv = DistributedKV(store) if store is not None else KVStore()
         # The retry plane around the store: the transport sees one
         # hardened KV.
-        kv, self._retrier = resilience.wrap_kv_with(kv, cfg)
+        kv, _, self._retrier = resilience.wrap_kv_with(kv, cfg, None)
         self._kv = kv
         self.run_id = f"async-{cfg.seed}"
 

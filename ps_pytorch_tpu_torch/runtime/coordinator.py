@@ -21,8 +21,10 @@ Policies:
 
 Keys and values are byte-equal to the JAX package's: ``{run}/step``,
 ``{run}/dur/{r}`` = ``json.dumps([step, seconds])``, ``{run}/mask/{step}``
-= ``json.dumps(mask.tolist())`` and ``{run}/kill/{r}``. The leader lease,
-elections, membership and heartbeat liveness are not ported yet
+= ``json.dumps(mask.tolist())`` and ``{run}/kill/{r}``. With a
+``liveness`` monitor (``resilience/heartbeat.py``) the leader folds missed
+heartbeats into the mask: a crashed replica is masked out, never everyone.
+The leader lease, elections and membership are not ported yet
 (ROADMAP.md): their arguments raise. ``FileKV`` waits for the replicated
 KV (``runtime/kvrep.py``), its only user.
 """
@@ -118,7 +120,7 @@ class Coordinator:
             raise ValueError(
                 f"kofn requires 0 < num_aggregate <= {n_replicas}, got "
                 f"{num_aggregate}")
-        unported = {"liveness": liveness, "election": election,
+        unported = {"election": election,
                     "membership": membership,
                     "liveness_factory": liveness_factory,
                     "lease_interval_s": lease_interval_s or None,
@@ -135,6 +137,7 @@ class Coordinator:
         self.kv = kv or KVStore()
         self.run_id = run_id
         self.leader = leader
+        self.liveness = liveness
         self.mask_gc_window = max(int(mask_gc_window), 2)
         self.stats: Dict[str, int] = {"mask_changes": 0}
         # Follower mask-wait backoff: from a 2 ms poll exponentially to
@@ -244,8 +247,19 @@ class Coordinator:
         # Kills issued on any process reach the leader through the KV.
         self._refresh_kills()
         mask = (~self._killed).astype(np.float32)
+        if self.liveness is not None:
+            # Missed-heartbeat eviction (dead, not slow); a view where
+            # everyone is dead falls through to the fallback below rather
+            # than masking everyone out.
+            alive = np.asarray(self.liveness.alive_mask(), bool)
+            if alive.any():
+                mask *= alive.astype(np.float32)
         if self.mode == "sync":
-            return mask if mask.sum() else np.ones(self.n, np.float32)
+            if mask.sum() == 0:
+                mask = (~self._killed).astype(np.float32)
+                if mask.sum() == 0:
+                    mask = np.ones(self.n, np.float32)
+            return mask
         dur = self.pull_durations()
         if self.kill_threshold > 0:
             mask *= (dur <= self.kill_threshold).astype(np.float32)

@@ -15,7 +15,8 @@ One ``OpsPlane`` a trainer, built before the train step (the
   ``<train_dir>/flightrec.json`` when a health spec or an exporter is
   on; rank i > 0 writes ``<path>.p<i>``;
 - the ``MetricsExporter`` on ``--metrics-port`` + rank, its memory
-  gauges refreshed on every scrape;
+  gauges, and the resilience counters when a fault or retry plane is on
+  (``resilience``: the live snapshot), refreshed on every scrape;
 - the cross-process timeline (``--timeline-file``, by default
   ``<metrics_file>.timeline`` when several processes run), published
   over the Coordinator's KV and merged by rank 0;
@@ -38,8 +39,9 @@ from ps_pytorch_tpu_torch.config import parse_profile_steps
 from ps_pytorch_tpu_torch.telemetry import (
     FlightRecorder, HealthMonitor, MetricsExporter, Registry,
     TelemetryAggregator, Tracer, aggregate_peak_flops,
-    declare_training_metrics, derive_step_record, device_memory_record,
-    host_rss_bytes, set_default_tracer, step_flops_of,
+    declare_resilience_metrics, declare_training_metrics,
+    derive_step_record, device_memory_record, host_rss_bytes,
+    set_default_tracer, step_flops_of,
 )
 
 
@@ -51,6 +53,7 @@ class OpsPlane:
     def __init__(self, cfg, *, device: torch.device, rank: int, world: int,
                  kv=None, run_id: str = "run",
                  health_extra: Optional[Callable[[], dict]] = None,
+                 resilience: Optional[Callable[[], dict]] = None,
                  printer=print):
         self.cfg, self.device = cfg, torch.device(device)
         self.rank, self.world = rank, world
@@ -87,10 +90,15 @@ class OpsPlane:
         self.profile_files: list = []
         self.exporter: Optional[MetricsExporter] = None
         if cfg.metrics_port > 0:
+            collect = [self.update_memory_gauges]
+            if resilience is not None:
+                # The fault and retry counters reach the scrape endpoint
+                # too: each render refreshes them from the live snapshots.
+                declare_resilience_metrics(self.registry)
+                collect.append(lambda: self._pump(resilience()))
             self.exporter = MetricsExporter(
                 self.registry, port=cfg.metrics_port + rank,
-                health_fn=self.health_status,
-                collect=[self.update_memory_gauges]).start()
+                health_fn=self.health_status, collect=collect).start()
         self._mem: dict = {}
         # Last: a port already taken raises above with nothing installed.
         self._prev_tracer = set_default_tracer(self.tracer)
@@ -111,6 +119,17 @@ class OpsPlane:
         body["process_index"] = self.rank
         body.update(self._health_extra())
         return body
+
+    def _pump(self, snapshot: dict) -> None:
+        """Counters up to a snapshot's values (registry counters only
+        rise; the snapshots are the source of truth)."""
+        for name, value in snapshot.items():
+            try:
+                delta = value - self.registry.get(name)
+            except KeyError:
+                continue            # a snapshot key with no declared metric
+            if delta > 0:
+                self.registry.inc(name, delta)
 
     # ---- the step loop's calls ----
     def count_flops(self) -> None:
@@ -205,15 +224,18 @@ class OpsPlane:
         rec.update(self._mem)
         return rec
 
-    def publish_step(self, step: int, step_time: float,
-                     data_time: float) -> None:
-        """This process's timeline row; rank 0 merges what has landed."""
+    def publish_step(self, step: int, step_time: float, data_time: float,
+                     resilience: Optional[dict] = None) -> None:
+        """This process's timeline row (with the resilience counters when
+        a plane is on); rank 0 merges what has landed."""
         if self.timeline is None:
             return
-        self.timeline.publish_step(step, {
-            "step_time": round(step_time, 6),
-            "data_time": round(data_time, 6),
-            "phases": self.tracer.step_summary(step)})
+        rec = {"step_time": round(step_time, 6),
+               "data_time": round(data_time, 6),
+               "phases": self.tracer.step_summary(step)}
+        if resilience:
+            rec["resilience"] = resilience
+        self.timeline.publish_step(step, rec)
         self.timeline.drain_to_file()
 
     def halt(self, step: int, checkpoint: Optional[Callable[[int], object]]

@@ -27,11 +27,28 @@ flight recorder and leaves the loop), the flight dump on a crash, the
 cross-process timeline and the ``torch.profiler`` window. The loop's one
 wait for the card, where the step's loss is read, reads the step's grad
 norm and nonfinite flag in the same copy, so the watchdogs add no device
-sync. The Coordinator's KV goes through the retry plane
-(``resilience.wrap_kv_with``, ``kv_retry_attempts``), as in the JAX
-trainer: a transient store error is retried, and the JSONL grows the
-``kv_retries`` / ``kv_giveups`` columns once one was. The fault plane, the
-lease and elections are not ported yet (ROADMAP.md).
+sync. The Coordinator's KV goes through the resilience shims
+(``resilience.wrap_kv_with``), as in the JAX trainer: the fault plane of
+``--fault-spec`` inside, the retry plane (``kv_retry_attempts``) outside,
+so an injected or real transient store error is retried.
+
+Crash containment, at the JAX trainer's hooks: the ``FaultInjector`` (one
+handed in by the auto-resume loop, ``train.py``, or one built from
+``--fault-spec``) may crash the process at the top of a step, poisons the
+step's mask with NaN (``grad_nan``) and corrupts a checkpoint right after
+its commit (``ckpt_corrupt``); with ``--heartbeat-interval-s`` every
+process beats on the KV and the leader's ``LivenessMonitor`` masks out a
+replica whose beats stopped; SIGTERM makes the loop commit an emergency
+checkpoint at the next step boundary and leave. The JSONL carries the
+resilience counters (``resilience_stats``) whenever a fault plane or
+heartbeats are on, or once the retry plane absorbed an error, and the
+exporter serves them. The lease and elections are not ported yet
+(ROADMAP.md).
+
+The step's options: ``--sync-batchnorm``, ``--remat`` and
+``--shard-update`` (ZeRO-1, ``parallel/zero.py``, whose checkpoints hold
+the optimizer state in the JAX ZeRO layout, gathered from every
+replica).
 """
 
 import time
@@ -81,7 +98,7 @@ def set_reference_numerics() -> None:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: Optional[str] = None,
-                 printer=print):
+                 printer=print, injector=None):
         set_reference_numerics()
         if cfg.mode not in ("sync", "kofn"):
             raise ValueError(f"the Trainer runs mode='sync' and 'kofn'; mode="
@@ -94,21 +111,49 @@ class Trainer:
         self.rank, self.world = dist.local_data_shard()
         self.group = dist.group()
         store = dist.store()
-        kv, self._retrier = resilience.wrap_kv_with(
-            DistributedKV(store) if store is not None else KVStore(), cfg)
+        # Fault plane: an injector handed in (the auto-resume loop keeps
+        # one across rebuilds, so once-only faults stay fired) wins over
+        # one built from --fault-spec.
+        if injector is None and cfg.fault_spec:
+            injector = resilience.FaultInjector(cfg.fault_spec,
+                                                process_index=self.rank)
+        kv, self.injector, self._retrier = resilience.wrap_kv_with(
+            DistributedKV(store) if store is not None else KVStore(), cfg,
+            injector)
         self.coordinator = Coordinator(
             self.world, mode=cfg.mode, num_aggregate=cfg.num_aggregate,
             kill_threshold=cfg.kill_threshold, kv=kv, leader=self.rank == 0)
+        # Liveness: every process beats for its replica; the leader folds
+        # missed beats into the mask (crashed is not slow).
+        self.heartbeat = None
+        if cfg.heartbeat_interval_s > 0:
+            self.heartbeat = resilience.Heartbeat(
+                kv, self.coordinator.run_id, [self.rank],
+                interval_s=cfg.heartbeat_interval_s)
+            if self.coordinator.leader:
+                self.coordinator.liveness = resilience.LivenessMonitor(
+                    kv, self.coordinator.run_id, self.world,
+                    timeout_s=(cfg.heartbeat_timeout_s
+                               or 3 * cfg.heartbeat_interval_s))
+        # SIGTERM (preemption): the handler only flags; the loop writes an
+        # emergency checkpoint at the next step boundary.
+        self._preempt = resilience.PreemptionGuard()
         # Before the step: the nonfinite:skip watchdog sets its gate. The
         # /healthz identity holds the coordinator, not the trainer, so the
         # trainer is freed (its tensors with it) when the last reference
         # goes, not at the next cycle collection.
         co = self.coordinator
-        self.ops = OpsPlane(cfg, device=self.device, rank=self.rank,
-                            world=self.world, kv=co.kv, run_id=co.run_id,
-                            health_extra=lambda: {"run_id": co.run_id,
-                                                  "leader": bool(co.leader)},
-                            printer=printer)
+        planes = [t for t in (self.injector, self._retrier)
+                  if t is not None]
+        self.ops = OpsPlane(
+            cfg, device=self.device, rank=self.rank, world=self.world,
+            kv=co.kv, run_id=co.run_id,
+            health_extra=lambda: {"run_id": co.run_id,
+                                  "leader": bool(co.leader)},
+            resilience=(lambda: {k: v for t in planes
+                                 for k, v in t.snapshot().items()})
+            if planes else None,
+            printer=printer)
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl,
                                  seed=cfg.seed).to(self.device)
@@ -118,7 +163,9 @@ class Trainer:
         input_norm = input_norm_for(cfg)
         self.step_fn = make_train_step(
             self.model, self.opt, group=self.group, input_norm=input_norm,
-            skip_nonfinite=self.ops.skip_nonfinite)
+            skip_nonfinite=self.ops.skip_nonfinite,
+            sync_batchnorm=cfg.sync_batchnorm, remat=cfg.remat,
+            shard_update=cfg.shard_update)
         self.eval_fn = make_eval_step(self.model, input_norm)
         self.metrics = MetricsLogger(cfg.metrics_file, cfg.log_every,
                                      printer=printer,
@@ -134,7 +181,13 @@ class Trainer:
 
     def _restore(self, tree: dict) -> None:
         """Put a checkpoint's state into the model and the optimizer, in
-        place; this replica's BatchNorm statistics where it has them."""
+        place; this replica's BatchNorm statistics where it has them, and
+        under ``--shard-update`` this replica's row of the sharded
+        optimizer state."""
+        if self.cfg.shard_update:
+            self.step_fn.restore_opt_state(tree["opt_state"])
+            state_from_jax(tree, self.model, replica=self.rank)
+            return
         self.step_fn.opt_state, _ = state_from_jax(
             tree, self.model, self.step_fn.opt_state, replica=self.rank)
 
@@ -165,27 +218,50 @@ class Trainer:
 
     def checkpoint(self, step: int) -> Optional[str]:
         """Commit ``model_step_<step>`` with every replica's BatchNorm
-        statistics, then keep the newest ``ckpt_keep`` when that is set.
-        Every process calls it; process 0 writes and returns the path, the
-        others return None."""
+        statistics (and, under ``--shard-update``, every replica's slice
+        of the optimizer state), let a ``ckpt_corrupt`` fault strike it,
+        then keep the newest ``ckpt_keep`` when that is set. Every process
+        calls it; process 0 writes and returns the path, the others return
+        None."""
         replica_buffers = self._replica_buffers()
+        opt_tree = (self.step_fn.gather_opt_state()
+                    if self.cfg.shard_update else None)
         if self.rank != 0:
             return None
         path = ckpt.save_checkpoint(
             self.cfg.train_dir, step,
             state_to_jax(self.model, self.step_fn.opt_state, step,
-                         replica_buffers),
+                         replica_buffers, opt_tree),
             config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
             codec_level=self.cfg.codec_level)
+        if self.injector is not None:
+            # After the atomic commit: the torn artifact the manifest
+            # check must catch, not a failed write.
+            self.injector.after_checkpoint(self.cfg.train_dir, step)
         if self.cfg.ckpt_keep > 0:
             ckpt.prune_checkpoints(self.cfg.train_dir, self.cfg.ckpt_keep)
         return path
 
-    def _retry_columns(self) -> dict:
-        """``kv_retries`` / ``kv_giveups`` once the retry plane absorbed an
-        error (the JAX trainer's schema gate), else nothing."""
+    def resilience_stats(self) -> dict:
+        """Flat counters of every resilience plane that is on: the fault
+        injector's, the retry plane's, the liveness monitor's, and the
+        leader's mask changes."""
+        out: dict = {}
+        for plane in (self.injector, self._retrier,
+                      self.coordinator.liveness):
+            if plane is not None:
+                out.update(plane.snapshot())
+        out["mask_changes"] = self.coordinator.stats.get("mask_changes", 0)
+        return out
+
+    def _resilience_active(self) -> bool:
+        """The JAX trainer's schema gate: a run with no fault plane and no
+        heartbeats keeps the plain JSONL until the retry plane absorbed an
+        error."""
+        if self.injector is not None or self.heartbeat is not None:
+            return True
         s = self._retrier.snapshot() if self._retrier is not None else {}
-        return s if s and (s["kv_retries"] or s["kv_giveups"]) else {}
+        return bool(s.get("kv_retries") or s.get("kv_giveups"))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -209,19 +285,36 @@ class Trainer:
         last_step = min(cfg.max_steps, epoch_budget)
         slow = cfg.inject_step_delay > 0 \
             and self.rank == cfg.inject_delay_process
-        step, halted = self.start_step, False
+        step, halted, preempted = self.start_step, False, False
+        self._preempt.install()
         try:
             while step < last_step:
                 step += 1
+                if self.injector is not None:
+                    # Before any KV or device work: a process dying
+                    # between steps, recovered from the last commit.
+                    self.injector.maybe_crash(step)
                 ops.count_flops()
                 ops.profile_step(step)
                 co.announce_step(step)
+                if self.heartbeat is not None:
+                    self.heartbeat.beat(step)
                 t0 = time.monotonic()
                 with tracer.span("data_wait", step=step):
                     x, y = self.train_loader.next_batch()
                 t_data = time.monotonic() - t0
                 mask = co.participation_mask(step)
                 t_mask = time.monotonic() - t0 - t_data
+                if self.injector is not None and \
+                        self.injector.maybe_poison(step):
+                    # grad_nan: the NaN rides the mask into the step's
+                    # reductions (loss, gradient, norm); the NaN mask also
+                    # fails the msum > 0 gate, so the parameters stay.
+                    mask = np.asarray(mask, np.float32) * np.nan
+                    print(f"FAULT grad_nan: poisoned mask at step {step}")
+                    if ops.flightrec is not None:
+                        ops.flightrec.record_event("fault_grad_nan",
+                                                   {"step": step})
                 with tracer.span("host_dispatch", step=step):
                     m = self.step_fn(x, y, mask,
                                      key=cfg.seed * 100003 + step)
@@ -247,7 +340,9 @@ class Trainer:
                     ops.halt(step, self.checkpoint)
                     halted = True
                     break
-                ops.publish_step(step, t_step, t_data)
+                resil = (self.resilience_stats()
+                         if self._resilience_active() else {})
+                ops.publish_step(step, t_step, t_data, resil)
                 if step % cfg.log_every == 0 or step == last_step:
                     with tracer.span("metrics_sync", step=step):
                         part = float(m["participating"])
@@ -258,19 +353,32 @@ class Trainer:
                         phases=tracer.step_summary(step),
                         **ops.derived(step_time=t_step, data_time=t_data,
                                       examples=cfg.batch_size),
-                        **self._retry_columns())
+                        **resil)
                 if cfg.eval_freq > 0 and step % cfg.eval_freq == 0:
                     with tracer.span("checkpoint", step=step):
                         self.checkpoint(step)
+                if self._preempt.triggered:
+                    # SIGTERM: an emergency checkpoint at this step
+                    # boundary, then leave, for auto-resume or the next
+                    # scheduling to restore.
+                    with tracer.span("checkpoint", step=step):
+                        self.checkpoint(step)
+                    print(f"PREEMPT emergency checkpoint at step {step}")
+                    if ops.flightrec is not None:
+                        ops.flightrec.dump("sigterm", extra={"step": step})
+                    preempted = True
+                    break
             self._sync()
             if cfg.eval_freq > 0 and step > self.start_step \
-                    and step % cfg.eval_freq != 0 and not halted:
+                    and step % cfg.eval_freq != 0 and not halted \
+                    and not preempted:
                 with tracer.span("checkpoint", step=step):
                     self.checkpoint(step)
         except BaseException as e:
             ops.crash(e)
             raise
         finally:
+            self._preempt.uninstall()
             self.metrics.close()
             ops.close(final_step=step)
 

@@ -23,8 +23,9 @@ from ps_pytorch_tpu_torch.telemetry.prometheus import (  # noqa: F401
     sanitize_name,
 )
 from ps_pytorch_tpu_torch.telemetry.registry import (  # noqa: F401
-    TRAINING_COUNTERS, TRAINING_GAUGES, TRAINING_HISTOGRAMS, MetricSpec,
-    Registry, aggregate_peak_flops, compute_mfu, data_stall_fraction,
+    RESILIENCE_COUNTERS, TRAINING_COUNTERS, TRAINING_GAUGES,
+    TRAINING_HISTOGRAMS, MetricSpec, Registry, aggregate_peak_flops,
+    compute_mfu, data_stall_fraction, declare_resilience_metrics,
     declare_training_metrics, derive_step_record, device_memory_record,
     host_rss_bytes, step_flops_of,
 )

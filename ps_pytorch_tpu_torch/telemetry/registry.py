@@ -15,9 +15,10 @@ arithmetic ``:523-603``).
   allocated bytes (``torch.cuda.memory_stats``), absent on the CPU.
 
 Metrics must be declared (name, kind, unit, help) before use, so the set
-of emitted names is a reviewable contract. The other planes' declarations
-(serving, router, replicated KV, hierarchy, elastic, integrity,
-resilience) come with their planes (ROADMAP.md).
+of emitted names is a reviewable contract. The resilience counters are
+declared here too; the other planes' declarations (serving, router,
+replicated KV, hierarchy, elastic, integrity) come with their planes
+(ROADMAP.md).
 """
 
 import threading
@@ -215,6 +216,47 @@ def declare_training_metrics(registry: Registry) -> Registry:
         registry.gauge(name, unit=unit, help=help_)
     for name, unit, help_ in TRAINING_HISTOGRAMS:
         registry.histogram(name, unit=unit, help=help_)
+    return registry
+
+
+# The resilience counters (resilience/): the fault plane's, the retry
+# plane's and the liveness monitor's, the JAX package's names. A trainer
+# declares them when a fault or retry plane is on, and its exporter pumps
+# them from the live snapshots.
+RESILIENCE_COUNTERS = (
+    ("kv_drops", "ops", "injected KV drops raised as transient errors"),
+    ("kv_delays", "ops", "injected KV delays applied"),
+    ("crashes", "events", "injected replica crashes fired"),
+    ("ckpt_corruptions", "events",
+     "injected post-commit checkpoint corruptions"),
+    ("grad_nans", "events", "injected NaN-gradient steps"),
+    ("kv_retries", "ops", "KV ops retried after a transient error"),
+    ("kv_giveups", "ops", "KV ops failed after retries/budget ran out"),
+    ("evictions", "events", "replicas evicted for missed heartbeats"),
+    ("readmissions", "events", "evicted replicas readmitted on recovery"),
+    ("mask_changes", "events", "leader participation-mask changes"),
+    ("leader_kills", "events", "injected leader SIGKILLs fired"),
+    ("kv_partition_drops", "ops",
+     "KV ops dropped inside an injected partition window"),
+    ("link_jitters", "ops", "injected per-link KV delays applied"),
+    ("payload_bitflips", "ops",
+     "injected in-alphabet chunk corruptions on KV reads"),
+    ("payload_truncates", "ops", "injected torn-read chunk truncations"),
+    ("grad_poisons", "steps",
+     "steps where an injected grad_poison window scaled local gradients"),
+    ("kv_backend_kills", "events",
+     "injected kv_backend_kill outage windows opened"),
+    ("kv_backend_wipes", "events",
+     "injected kv_backend_wipe keyspace losses fired"),
+    ("kv_backend_drops", "ops",
+     "single-backend ops dropped inside a kv_backend_kill window"),
+)
+
+
+def declare_resilience_metrics(registry: Registry) -> Registry:
+    """Declare every resilience counter on ``registry`` (all monotonic)."""
+    for name, unit, help_ in RESILIENCE_COUNTERS:
+        registry.counter(name, unit=unit, help=help_)
     return registry
 
 

@@ -18,9 +18,12 @@ asynchronously in one process (``runtime/multislice.py``) and prints
 one slice a process (``runtime/async_trainer.py``: gradients cross between
 processes as armoured bytes over the group's TCPStore, process 0 is the PS
 leader) and prints ``ASYNC process-slices <n> x 1 devices``. The LM
-refuses a launch of several processes (ROADMAP.md). Example, ResNet-18 on
-CIFAR-10 geometry through the hand-written conv3x3 and fused-Adam
-kernels:
+refuses a launch of several processes (ROADMAP.md). With
+``--auto-resume N`` a synchronous run that crashes (an injected
+``replica_crash`` of ``--fault-spec``, or any exception) is rebuilt from
+its newest valid checkpoint, up to N times, printing ``CRASH ...``.
+Example, ResNet-18 on CIFAR-10 geometry through the hand-written conv3x3
+and fused-Adam kernels:
 
     python -m ps_pytorch_tpu_torch.train --network ResNet18 \
         --dataset synthetic_cifar10 --batch-size 256 \
@@ -83,12 +86,14 @@ def run(argv=None):
                                         fetch_every=cfg.fetch_every,
                                         device=args.device)
             print(f"SLICES {cfg.async_slices} x 1 devices")
+        elif cfg.auto_resume > 0:
+            trainer = _train_with_auto_resume(
+                cfg, str(dist.local_device(args.device)))
         else:
             trainer = Trainer(cfg, device=str(dist.local_device(args.device)))
-            print(f"MESH data={trainer.world} model=1 devices="
-                  f"{trainer.world} backend={dist.backend()} "
-                  f"device={trainer.device}")
-        trainer.train()
+            _print_mesh(trainer)
+        if not cfg.auto_resume:     # else the restart loop trained it
+            trainer.train()
         result = trainer.evaluate()
         print(f"FINAL loss {result['loss']:.6f} prec1 {result['prec1']:.4f} "
               f"prec5 {result['prec5']:.4f}")
@@ -97,6 +102,46 @@ def run(argv=None):
         return trainer, result
     finally:
         dist.shutdown()
+
+
+def _print_mesh(trainer) -> None:
+    from ps_pytorch_tpu_torch.parallel import dist
+    print(f"MESH data={trainer.world} model=1 devices={trainer.world} "
+          f"backend={dist.backend()} device={trainer.device}")
+
+
+def _train_with_auto_resume(cfg, device: str):
+    """Crash containment (the root ``train.py:52-80``): a step loop that
+    raises is rebuilt, up to ``--auto-resume`` times, and the rebuilt
+    Trainer restores the newest checkpoint that verifies and replays its
+    data stream to it. One FaultInjector lives across the rebuilds, so a
+    once-only fault does not fire again. Returns the last Trainer,
+    trained."""
+    import dataclasses
+
+    from ps_pytorch_tpu_torch import resilience
+    from ps_pytorch_tpu_torch.parallel import dist
+    from ps_pytorch_tpu_torch.runtime import Trainer
+
+    injector = (resilience.FaultInjector(cfg.fault_spec,
+                                         process_index=dist.rank())
+                if cfg.fault_spec else None)
+    # The first build honours --resume; a rebuild always resumes.
+    rebuild_cfg = dataclasses.replace(cfg, resume=True)
+    last = []
+
+    def make_trainer():
+        trainer = Trainer(rebuild_cfg if last else cfg, device=device,
+                          injector=injector)
+        if not last:
+            _print_mesh(trainer)
+        last[:] = [trainer]     # a crashed trainer's tensors go with it
+        return trainer
+
+    resilience.run_with_auto_resume(make_trainer,
+                                    max_restarts=cfg.auto_resume,
+                                    exceptions=(Exception,))
+    return last[0]
 
 
 def main(argv=None) -> int:

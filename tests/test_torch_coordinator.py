@@ -160,7 +160,7 @@ def test_follower_receives_the_leaders_mask_and_retries_transient_errors():
 
 @pytest.mark.parametrize("kw", [
     dict(election=object()), dict(membership=object()),
-    dict(liveness=object()), dict(liveness_factory=object()),
+    dict(liveness_factory=object()),
     dict(lease_interval_s=1.0), dict(lease_timeout_s=3.0),
     dict(clock=time.time)])
 def test_unported_planes_raise(kw):

@@ -12,6 +12,10 @@ against the JAX package.
   from the port's initial weights, on the concatenation of the JAX
   loader's N shards: process 0's last checkpoint equals the JAX parameters
   within ``TOL``. Sync mode equals the same JAX run with all-ones masks.
+- ZeRO-1 (``--shard-update``) checkpoints: one the port's two ranks
+  wrote is resumed by the JAX ZeRO trainer on two CPU devices, and one the
+  JAX ZeRO trainer wrote is resumed by the port's ranks, each rank taking
+  its slice of the JAX layout ``[world, chunk]``.
 - BatchNorm and resume: ``test_torch_dist_state.py``, with this file's
   launcher.
 
@@ -36,6 +40,7 @@ from ps_pytorch_tpu.optim import build_optimizer as jax_build_optimizer
 from ps_pytorch_tpu.parallel import (
     create_train_state, make_mesh, make_train_step as jax_make_train_step,
 )
+from ps_pytorch_tpu.runtime.trainer import Trainer as JaxTrainer
 from ps_pytorch_tpu_torch.models import build_model, convert
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.tools import launch
@@ -70,6 +75,10 @@ trainer, result = train.run(sys.argv[1:])
 torch.save({k: v.detach().clone() for k, v in
             trainer.model.state_dict().items()},
            f"{os.environ['OUT_DIR']}/state_{trainer.rank}.pt")
+opt = trainer.step_fn.opt_state
+torch.save({f: {k: v.detach().clone() for k, v in (getattr(opt, f) or {}).items()}
+            for f in ("momentum", "exp_avg", "exp_avg_sq") if hasattr(opt, f)},
+           f"{os.environ['OUT_DIR']}/opt_{trainer.rank}.pt")
 print("RESULT " + json.dumps({"saves": saves, "eval": result}), flush=True)
 """
 
@@ -221,3 +230,102 @@ def test_sync_matches_jax_with_all_ones_masks(tmp_path):
     _assert_ranks_equal(tmp_path, logs)
     _assert_tree_close(_checkpoint_params(tmp_path / "td", STEPS),
                        _jax_params(2, 32, masks))
+
+
+# ---- the ZeRO-1 checkpoint across the two packages ----
+
+def _mesh(n):
+    return jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(n, 1),
+                             ("data", "model"))
+
+
+def _zero_cfg(train_dir, **kw):
+    base = dict(network="LeNet", dataset="synthetic_mnist", batch_size=32,
+                compute_dtype="float32", lr=0.05, momentum=0.9,
+                fused_optimizer=True, shard_update=True, max_steps=2,
+                eval_freq=2, train_dir=str(train_dir), seed=3)
+    base.update(kw)
+    return base
+
+
+def _flags(kw):
+    out = []
+    for k, v in kw.items():
+        out += ["--" + k.replace("_", "-"), str(v).lower()
+                if isinstance(v, bool) else str(v)]
+    return out
+
+
+def _tree(train_dir, step):
+    got = {}
+    ckpt.load_checkpoint(str(train_dir), step, got.update)
+    return got
+
+
+def _assert_tree_equal(a, b):
+    assert set(a) == set(b), (sorted(a), sorted(b))
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_tree_equal(a[k], b[k])
+        else:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                          err_msg=k)
+
+
+def _jax_flat(port_flat):
+    """LeNet's parameter-shaped vector in the port's flat order
+    (``named_parameters``, its layouts) -> the JAX flat order
+    (``ravel_pytree`` of the flax tree)."""
+    named, off = {}, 0
+    for name, p in build_model("LeNet").named_parameters():
+        named[name] = torch.from_numpy(
+            port_flat[off:off + p.numel()].reshape(p.shape))
+        off += p.numel()
+    tree = convert.to_jax(named)[0]
+    return np.concatenate([np.asarray(leaf).reshape(-1)
+                           for leaf in jax.tree.leaves(tree)])
+
+
+def test_port_zero_checkpoint_resumed_by_jax(tmp_path):
+    kw = _zero_cfg(tmp_path / "td")
+    _launch(tmp_path, 2, _flags({**kw, "resume": False}))
+    ours = _tree(tmp_path / "td", 2)
+    # The ranks' slices, joined in the port's order, are the checkpoint's
+    # [2, chunk] in the JAX order.
+    slices = [torch.load(tmp_path / f"opt_{r}.pt")["momentum"]["shard"]
+              for r in range(2)]
+    stored = ours["opt_state"]["momentum"]
+    size = sum(p.numel() for p in build_model("LeNet").parameters())
+    assert stored.shape == (2, -(-size // 2))
+    np.testing.assert_array_equal(
+        stored.reshape(-1)[:size],
+        _jax_flat(torch.cat(slices).numpy()[:size]))
+    trainer = JaxTrainer(jax_config.TrainConfig(**kw, resume=True),
+                         mesh=_mesh(2))
+    assert trainer.start_step == 2
+    state = jax.device_get(trainer.state)
+    _assert_tree_equal(ours["params"], state.params)
+    np.testing.assert_array_equal(stored,
+                                  np.asarray(state.opt_state.momentum))
+
+
+def test_jax_zero_checkpoint_resumed_by_the_port(tmp_path):
+    kw = _zero_cfg(tmp_path / "td")
+    JaxTrainer(jax_config.TrainConfig(**kw, resume=False),
+               mesh=_mesh(2)).train()
+    theirs = _tree(tmp_path / "td", 2)
+    # Resumed at its last step: every rank restores and trains no further.
+    logs = _launch(tmp_path, 2, _flags({**kw, "resume": True}),
+                   run="resumed")
+    for log in logs:
+        assert f"RESUME from {tmp_path / 'td'}/model_step_2 at step 2" in log
+    slices = []
+    for r in range(2):
+        state = torch.load(tmp_path / f"state_{r}.pt")
+        _assert_tree_equal(convert.to_jax(state)[0], theirs["params"])
+        slices.append(torch.load(tmp_path / f"opt_{r}.pt")
+                      ["momentum"]["shard"])
+    size = sum(p.numel() for p in build_model("LeNet").parameters())
+    np.testing.assert_array_equal(
+        _jax_flat(torch.cat(slices).numpy()[:size]),
+        np.asarray(theirs["opt_state"]["momentum"]).reshape(-1)[:size])

@@ -140,13 +140,14 @@ def test_float16_still_runs_without_a_kernel(kw):
 
 @pytest.mark.parametrize("argv,match", [
     (["--dataset", "ImageNet"], "ImageNet.*ROADMAP.md"),
-    (["--dataset", "synthetic_imagenet_rrc", "--loader-workers", "2"],
-     "loader_workers=2.*ROADMAP.md"),
+    (["--network", "TransformerLM", "--eval-freq", "0",
+      "--loader-workers", "2"], "loader_workers=2.*ROADMAP.md"),
 ])
 def test_the_real_imagenet_and_the_worker_pool_stay_refused(argv, match,
                                                              tmp_path):
     """Both raise before the CONFIG line: the real ImageNet's files are
-    not in the repo, and the loader's worker pool is not ported."""
+    not in the repo, and the LM's token loader has no worker pool (the CNN
+    loaders' pool runs: tests/test_torch_train.py)."""
     out = io.StringIO()
     with pytest.raises(ValueError, match=match):
         with redirect_stdout(out):

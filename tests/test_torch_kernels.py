@@ -183,6 +183,40 @@ def test_fused_adam_kernel_matches_plain(cuda, n, wd, amsgrad):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 3])
+def test_fused_kernels_on_the_sharded_updates_slices(cuda, world):
+    """Each rank's 1-D slice of a padded flat buffer, as the ZeRO-1 step
+    updates it in place (slices of 4 * chunk bytes at offsets that are not
+    all 16-byte multiples): both kernels match their plain versions and
+    leave the padded tail zero."""
+    n = 100_003
+    chunk = -(-n // world)
+    gen = torch.Generator(device=cuda).manual_seed(world)
+    flat = torch.zeros(chunk * world, device=cuda)
+    flat[:n] = torch.randn(n, device=cuda, generator=gen)
+    for rank in range(world):
+        p = flat[rank * chunk:(rank + 1) * chunk]
+        g = torch.randn(chunk, device=cuda, generator=gen)
+        b = torch.randn(chunk, device=cuda, generator=gen)
+        p_ref, b_ref = p.clone(), b.clone()
+        fused_sgd.fused_sgd_update(p, b, g, 0.05, False, momentum=0.9,
+                                   dampening=0.0, weight_decay=5e-4,
+                                   nesterov=False)
+        fused_sgd.fused_sgd_reference(p_ref, b_ref, g, 0.05, False, 0.9, 0.0,
+                                      5e-4, False)
+        torch.testing.assert_close(p, p_ref, rtol=SGD_TOL, atol=SGD_TOL)
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        ref = [p.clone(), m.clone(), v.clone()]
+        ss = adam_step_size(1e-3, 0.9, 0.999, 1)
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+        fused_adam.fused_adam_update(p, m, v, None, g, ss, **kw)
+        fused_adam.fused_adam_reference(*ref, None, g, ss, **kw)
+        for got, want in zip((p, m, v), ref):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    assert not flat[n:].any()
+
+
 def _flash_inputs(dev, bh, s, d, dtype, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(bh, s, d, device=dev, generator=gen).to(dtype)

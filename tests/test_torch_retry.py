@@ -212,22 +212,22 @@ class _Raises:
 def test_wrap_kv_identity_when_disabled(tmp_path):
     cfg = config.TrainConfig(kv_retry_attempts=1, dataset="synthetic_mnist")
     base = KVStore()
-    kv, retrier = resilience.wrap_kv_with(base, cfg)
-    assert kv is base and retrier is None
+    kv, injector, retrier = resilience.wrap_kv_with(base, cfg, None)
+    assert kv is base and injector is None and retrier is None
 
 
 def test_wrap_kv_takes_the_policy_from_the_config():
     cfg = config.TrainConfig(dataset="synthetic_mnist", kv_retry_attempts=7,
                              kv_retry_base_s=0.2, kv_retry_budget=9, seed=3)
     base = KVStore()
-    kv, retrier = resilience.wrap_kv_with(base, cfg)
+    kv, _, retrier = resilience.wrap_kv_with(base, cfg, None)
     assert kv is retrier and retrier.inner is base
     assert (retrier.policy.max_attempts, retrier.policy.base_s,
             retrier.policy.seed, retrier.budget.limit) == (7, 0.2, 3, 9)
     # A budget of 0 means unbounded, as in the JAX package.
-    _, unbounded = resilience.wrap_kv_with(
+    _, _, unbounded = resilience.wrap_kv_with(
         base, config.TrainConfig(dataset="synthetic_mnist",
-                                 kv_retry_budget=0))
+                                 kv_retry_budget=0), None)
     assert unbounded.budget is None
 
 

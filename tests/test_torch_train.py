@@ -84,10 +84,14 @@ def test_config_json_round_trips_with_jax():
 ])
 def test_unported_fields_raise(field, value):
     kw = {"eval_freq": 0, field: value}
-    if field in config.OPS_FIELDS:
-        # The ops plane runs in sync, kofn and the LM; --mode async, whose
-        # JAX trainer reads none of it, still refuses it.
+    if field in config.OPS_FIELDS + config.SYNC_ONLY_FIELDS:
+        # The ops plane runs in sync, kofn and the LM, the step's options
+        # and crash containment in sync and kofn; --mode async still
+        # refuses them (ROADMAP.md).
         kw["mode"] = "async"
+    if field == "loader_workers":
+        # The pool feeds every CNN trainer; the LM's loader has none.
+        kw["network"] = "TransformerLM"
     with pytest.raises(ValueError, match="ROADMAP.md"):
         config.TrainConfig(**kw)
 
@@ -160,6 +164,52 @@ def test_loader_batches_match_jax_bytes(dataset, device_normalize):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert a.tobytes() == b.tobytes()
             np.testing.assert_array_equal(ay, by)
+
+
+@pytest.mark.parametrize("workers", [4, 0])
+@pytest.mark.parametrize("dataset", ["synthetic_cifar10", "synthetic_mnist",
+                                     "synthetic_imagenet_rrc"])
+def test_loader_pool_matches_jax_bytes(dataset, workers):
+    """``--loader-workers 4`` and ``0`` (one a CPU): the pool's batches
+    (each from ``default_rng((seed, epoch, host, 7, b))``, the RRC sets'
+    from counters) equal the JAX pool's byte for byte, across an epoch
+    boundary, after a fast-forward, and on a second host."""
+    h, w, c = datasets.sample_shape(dataset)
+    if dataset == "synthetic_imagenet_rrc":
+        h = w = 256
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 256, size=(40, h, w, c), dtype=np.uint8)
+    if dataset == "synthetic_mnist":
+        x = (x / 255.0).astype(np.float32)
+    y = rng.integers(0, 10, 40).astype(np.int32)
+    for host, skip in ((0, 0), (1, 3)):
+        kw = dict(dataset=dataset, train=True, seed=7, host_id=host,
+                  num_hosts=2, device_normalize=True, workers=workers)
+        ours = datasets.DataLoader(x, y, 8, **kw)
+        theirs = jax_datasets.DataLoader(x, y, 8, **kw)
+        assert ours.workers == theirs.workers > 1
+        ours.fast_forward(skip)
+        theirs.fast_forward(skip)
+        for _ in range(4):              # 2 batches an epoch a host
+            (a, ay), (b, by) = ours.next_batch(), theirs.next_batch()
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.tobytes() == b.tobytes()
+            np.testing.assert_array_equal(ay, by)
+
+
+def test_loader_pool_raises_a_workers_error_and_stops():
+    x = np.zeros((16, 28, 28, 1), np.float32)
+    loader = datasets.DataLoader(x, np.zeros(16, np.int32), 4,
+                                 dataset="synthetic_mnist", workers=3)
+
+    def broken(*args):
+        raise RuntimeError("assembly failed")
+
+    loader._assemble = broken
+    with pytest.raises(RuntimeError, match="assembly failed"):
+        list(loader.epoch(0))
+    with pytest.raises(ValueError, match="loader_workers"):
+        config.TrainConfig(loader_workers=-1)
 
 
 @pytest.mark.parametrize("dataset", ["synthetic_cifar10", "synthetic_mnist"])
@@ -511,6 +561,31 @@ def test_train_entry_point_on_cpu(tmp_path):
     recs = [json.loads(ln) for ln in
             (tmp_path / "m.jsonl").read_text().splitlines()]
     assert [r["step"] for r in recs] == [1, 2, 3]
+
+
+def test_donate_and_loader_workers_run_on_the_cli(tmp_path):
+    """``--donate false`` changes nothing in the port's step (it updates
+    in place, where the JAX step donates its buffers); ``--loader-workers
+    4`` trains on the pool's batches. Both configs round-trip with the JAX
+    package's."""
+    args = ["--network", "LeNet", "--dataset", "synthetic_mnist",
+            "--batch-size", "32", "--test-batch-size", "2000",
+            "--max-steps", "3", "--eval-freq", "0", "--momentum", "0.9",
+            "--compute-dtype", "float32", "--device", "cpu"]
+    finals = []
+    for extra in (["--donate", "true"], ["--donate", "false"],
+                  ["--loader-workers", "4"]):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            trainer, _ = train.run([*args, *extra, "--train-dir",
+                                    str(tmp_path / extra[1])])
+        cfg = trainer.cfg
+        assert jax_config.TrainConfig.from_json(cfg.to_json()).to_json() \
+            == cfg.to_json()
+        finals.append([ln for ln in out.getvalue().splitlines()
+                       if ln.startswith("FINAL")])
+    assert finals[0] == finals[1] and len(finals[0]) == 1
+    assert len(finals[2]) == 1
 
 
 def test_trainer_refuses_what_it_cannot_do(tmp_path):
