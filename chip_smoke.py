@@ -56,7 +56,18 @@ exit and no result line, if any phase fails:
    process and a fused SGD launch an applied version, the armoured bytes
    a submission against the sizes, and, before it, one int8 ResNet-18
    gradient tree's chunks from the kernel and from the plain version
-   hashed equal); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
+   hashed equal), then leadership: three processes on the card as
+   asynchronous slices with the PS leader a lease (MAIN-ELECT,
+   ``--rank-elect``: ``--elastic --elastic-leader 1``, the int8 wire,
+   process 1 SIGKILLed by ``leader_kill`` at its fourth tick; one survivor
+   elected at epoch 2 finishes the run through the fused SGD kernel, both
+   survivors hash the same final parameters, ``evaluate.main`` scores the
+   new leader's last checkpoint), and two gloo ranks whose control plane
+   rides a quorum of three backends, two directories and an HTTP server
+   of ``python -m ps_pytorch_tpu_torch.runtime.kvrep`` (MAIN-KVREP: one
+   backend dead for two steps, another wiped, the parameters bitwise those
+   of the static run that follows in the same launch, ejections and
+   resyncs counted, no retry given up); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
    Dropout, synthetic CIFAR-100, batch 256) and ResNet-50 at 224 px on the
    random-resized-crop loader (MAIN-IMAGENET: batch 128, uint8 batches)
    through ``train.main`` and ``evaluate.main --once``, each after the
@@ -255,6 +266,36 @@ CRASH_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
               "cuda")
 CRASH_SPEC = "replica_crash:r=0,step=5;ckpt_corrupt:step=6;kv_drop:p=0.05,seed=7"
 REMAT_STEPS = 6
+# MAIN-ELECT: the same ResNet-18 as three processes on the card, async over
+# the KV wire with the int8 codec, the PS leader a lease (--elastic) held
+# first by process 1 (process 0 serves the TCPStore, as in the JAX
+# drill, tools/elastic_drill.py:61-80). Process 1 alone is armed with
+# leader_kill: the fault fires on whoever leads at a tick >= K, so armed
+# everywhere it would kill the winner too. A checkpoint every 2 versions
+# exists before the kill; the lease (3 s, stale after 9 s) outlasts a
+# leader tick.
+ELECT_STEPS = 10
+ELECT_KILL = 4
+ELECT_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
+              "ResNet18", "--dataset", "synthetic_cifar10", "--batch-size",
+              "128", "--compute-dtype", "bfloat16", "--conv-impl", "pallas",
+              "--fused-optimizer", "--momentum", "0.9", "--weight-decay",
+              "5e-4", "--test-batch-size", "4167", "--compress-grad", "true",
+              "--grad-codec", "int8", "--elastic", "--elastic-leader", "1",
+              "--leader-lease-s", "3", "--eval-freq", "2", "--max-steps",
+              str(ELECT_STEPS), "--resume", "false", "--device", "cuda")
+# MAIN-KVREP: the CNN path's ResNet-18 as two gloo ranks, K-of-N with both
+# counted, the control plane on three backends (two directories and an
+# HTTP server of runtime/kvrep.py in a process of its own): backend 2 dead
+# for steps 3-4, backend 1 wiped at step 5; then the same run on the
+# static control plane. A short probation (--kv-resync-s) lets the dead
+# backend rejoin within the run.
+KVREP_STEPS = 8
+KVREP_ARGS = (*DIST_ARGS, "--mode", "kofn", "--num-aggregate", "2",
+              "--max-steps", str(KVREP_STEPS), "--eval-freq",
+              str(KVREP_STEPS))
+KVREP_FAULTS = ("kv_backend_kill:backend=2,step=3,steps=2;"
+                "kv_backend_wipe:backend=1,step=5")
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 # The model's FLOPs a training step, the JAX package's count on the xla /
@@ -1963,9 +2004,11 @@ def probe_rank_main() -> int:
     return 0
 
 
-def launch_ranks(root: str, n: int, argv, phase: str) -> list:
+def launch_ranks(root: str, n: int, argv, phase: str,
+                 rc_ok: int = 0) -> list:
     """``tools.launch launch --simulate n --wait`` with this script as the
-    entry; echoes the ranks' logs and returns them."""
+    entry; echoes the ranks' logs and returns them. The launcher must
+    exit ``rc_ok`` (1 where a rank dies on purpose, without FINAL)."""
     import socket
 
     from ps_pytorch_tpu_torch.tools import launch
@@ -1985,8 +2028,9 @@ def launch_ranks(root: str, n: int, argv, phase: str) -> list:
         for line in log.splitlines():
             if not line.startswith(("CONFIG", "[W")):
                 print(f"{phase} [rank {r}] {line[:400]}", flush=True)
-    if rc != 0:
-        fail(f"{phase}: the launcher exited {rc} ({out.getvalue().strip()})")
+    if rc != rc_ok:
+        fail(f"{phase}: the launcher exited {rc}, not {rc_ok} "
+             f"({out.getvalue().strip()})")
     return logs
 
 
@@ -2200,6 +2244,261 @@ def wire_rank_main(argv) -> int:
 
     in_turn(argv, run_one)
     return 0
+
+
+def elect_rank_main(argv) -> int:
+    """One process of MAIN-ELECT, started by the launcher: process 1 is
+    armed with ``leader_kill``; ``train.run`` with every launch count set
+    to 0 just before; the counts when this process is promoted, and a
+    sha256 of the canonical final parameters taken as it evaluates them.
+    Then one ``ELECT`` line (a killed process prints none)."""
+    import hashlib
+    import os
+
+    from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.parallel.async_dp import tree_flatten
+    from ps_pytorch_tpu_torch.runtime import async_trainer
+
+    if os.environ["PS_TPU_PROCESS_ID"] == "1":
+        argv = [*argv, "--fault-spec", f"leader_kill:step={ELECT_KILL}"]
+    wrappers = kernel_wrappers()
+    seen = {"promoted": None, "sha": None, "saves": []}
+    cls = async_trainer.AsyncTrainer
+    promote, evaluate = cls._promote, cls.evaluate
+    save_checkpoint = async_trainer.ckpt.save_checkpoint
+
+    def promoted(self, my_version):
+        seen["promoted"] = {"ts": time.time(), "version": my_version,
+                            "launches": read_counts(wrappers)}
+        return promote(self, my_version)
+
+    def evaluated(self, max_batches=None):
+        got = self._fetch_canonical()
+        digest = hashlib.sha256()
+        for leaf in tree_flatten(got[1]["params"])[0]:
+            digest.update(np.ascontiguousarray(leaf).tobytes())
+        seen["sha"] = digest.hexdigest()
+        return evaluate(self, max_batches)
+
+    def counted(train_dir, step, *args, **kw):
+        seen["saves"].append(step)
+        return save_checkpoint(train_dir, step, *args, **kw)
+
+    cls._promote, cls.evaluate = promoted, evaluated
+    async_trainer.ckpt.save_checkpoint = counted
+    zero_counts(wrappers)
+    trainer, result = train.run(argv)
+    print("ELECT " + json.dumps({
+        "pid": trainer.pid, "launches": read_counts(wrappers),
+        "promoted": seen["promoted"], "params_sha256": seen["sha"],
+        "version": trainer.version, "applied": trainer.applied,
+        "own_steps": trainer.own_steps, "saves": seen["saves"],
+        "epoch": trainer.election.epoch, "eval": result}), flush=True)
+    return 0
+
+
+def elect_main_path(wrappers) -> dict:
+    """MAIN-ELECT: ResNet-18 at full width as three processes on the card
+    (``ELECT_ARGS``), the leader SIGKILLed at its tick ``ELECT_KILL``. The
+    launcher lets the survivors finish (it exits 1: the killed process has
+    no FINAL). Fails unless process 1's log ends at its ``FAULT
+    leader_kill`` line; exactly one ``ELECTED async leader`` line, from a
+    survivor, at an epoch above 1, and no ``DEPOSED`` line; both
+    survivors print one FINAL line, equal, and hash the same canonical
+    final parameters; the promoted process launched no fused SGD before
+    its promotion and one an applied version after it; every conv3x3
+    launch took the tensor cores and the quantize kernel ran once a tick
+    in each survivor; ``evaluate.main`` scores the new leader's last
+    checkpoint, whose meta names its epoch. Prints the election's latency,
+    the time from the dead leader's last tick to the takeover, and the
+    leader's tick before and after it."""
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_elect_")
+    td, card = f"{root}/td", card_line()
+    try:
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 3, [
+            "--rank-elect", *ELECT_ARGS, "--train-dir", td,
+            "--metrics-file", f"{root}/m.jsonl"], "MAIN-ELECT", rc_ok=1)
+        wall = time.monotonic() - t0
+        last = logs[1].strip().splitlines()[-1] if logs[1].strip() else ""
+        if not re.fullmatch(r"FAULT leader_kill: SIGKILL process 1 "
+                            r"\(leader\) at step \d+", last):
+            fail(f"MAIN-ELECT: process 1's log ends at {last!r}, not its "
+                 "FAULT leader_kill line")
+        elected = [(r, m) for r, log in enumerate(logs) for m in re.findall(
+            r"^ELECTED async leader process (\d+) epoch (\d+) at version "
+            r"(\d+) \(election (\S+)s\)$", log, re.M)]
+        if len(elected) != 1 or elected[0][0] not in (0, 2) or \
+                int(elected[0][1][0]) != elected[0][0] or \
+                int(elected[0][1][1]) < 2:
+            fail(f"MAIN-ELECT: elections {elected}; expected one, won by "
+                 "a survivor at an epoch above 1")
+        if any("DEPOSED" in log for log in logs):
+            fail("MAIN-ELECT: a leader was deposed")
+        winner, (_, epoch, at_version, latency) = elected[0]
+        other = 2 if winner == 0 else 0
+        recs = {}
+        for r in (0, 2):
+            found = re.findall(r"^ELECT (.*)$", logs[r], re.M)
+            if len(found) != 1:
+                fail(f"MAIN-ELECT: process {r} printed no ELECT line")
+            recs[r] = json.loads(found[0])
+        finals = [re.findall(r"^FINAL (.*)$", logs[r], re.M) for r in (0, 2)]
+        if len(finals[0]) != 1 or finals[0] != finals[1] or not all(
+                math.isfinite(float(x)) for x in finals[0][0].split()[1::2]):
+            fail(f"MAIN-ELECT: the survivors' FINAL lines {finals}")
+        if recs[0]["params_sha256"] != recs[2]["params_sha256"] or \
+                not recs[0]["params_sha256"]:
+            fail("MAIN-ELECT: the survivors hashed different final "
+                 "parameters")
+        lead, rest = recs[winner], recs[other]
+        if lead["promoted"] is None or rest["promoted"] is not None:
+            fail(f"MAIN-ELECT: promotions {lead['promoted']} and "
+                 f"{rest['promoted']}")
+        before = lead["promoted"]["launches"]["fused_sgd"]
+        if before != 0 or lead["launches"]["fused_sgd"] != lead["applied"] \
+                or lead["applied"] < 1 or lead["version"] != ELECT_STEPS:
+            fail(f"MAIN-ELECT: the promoted process launched fused SGD "
+                 f"{before} times before its promotion and "
+                 f"{lead['launches']['fused_sgd']} in all, applied "
+                 f"{lead['applied']} to version {lead['version']}")
+        for r, rec in recs.items():
+            want = want_counts(
+                wrappers, conv3x3=CONV_PER_STEP * rec["own_steps"]
+                + CONV_PER_EVAL_BATCH * 2, quantize=rec["own_steps"],
+                fused_sgd=rec["applied"] if r == winner else 0)
+            if rec["launches"] != want:
+                fail(f"MAIN-ELECT process {r}: launches {rec['launches']}, "
+                     f"expected {want}")
+        steps = ckpt.committed_steps(td)
+        meta = json.loads(Path(ckpt.checkpoint_path(td, steps[-1]),
+                               "meta.json").read_text())
+        if steps[-1] != ELECT_STEPS or lead["saves"][-1:] != [ELECT_STEPS] \
+                or meta.get("leader_epoch") != int(epoch):
+            fail(f"MAIN-ELECT: checkpoints {steps}, the new leader's "
+                 f"{lead['saves']}, meta {meta}")
+        found = EVAL_RE.findall(run_entry(evaluate.main, [
+            "--train-dir", td, "--once", str(ELECT_STEPS)]))
+        if len(found) != 1 or not all(math.isfinite(float(x))
+                                      for x in found[0][1:]):
+            fail("MAIN-ELECT: evaluate.main printed no finite EVAL")
+        rows = {r: read_jsonl(f"{root}/m.jsonl" + (f".p{r}" if r else ""))
+                for r in range(3)}
+        killed_last = max(row["ts"] for row in rows[1])
+        takeover = lead["promoted"]["ts"]
+        old_ticks = [row["step_time"] for row in rows[1][1:]]
+        new_ticks = [row["step_time"] for row in rows[winner]
+                     if row["ts"] > takeover][1:]
+        print(f"MAIN-ELECT process 1 (leader, epoch 1) killed at its tick "
+              f"{ELECT_KILL}; process {winner} ELECTED epoch {epoch} at "
+              f"version {at_version}: election_latency_s {latency} "
+              f"failover_s {takeover - killed_last:.3f} (the dead "
+              f"leader's last tick to the takeover; the lease is stale "
+              f"after 9 s); leader tick_s before {old_ticks} (median "
+              f"{np.median(old_ticks):.4f}) after {new_ticks} (median "
+              f"{np.median(new_ticks):.4f}); card {card}", flush=True)
+        print(f"MAIN-ELECT FINAL {finals[0][0]} params_sha256 "
+              f"{lead['params_sha256']} (equal in both survivors) EVAL "
+              f"step {ELECT_STEPS} {found[0][1:]} launches process "
+              f"{winner} {lead['launches']} (fused_sgd at promotion "
+              f"{before}) process {other} {rest['launches']} "
+              f"launch_wall_s {wall:.2f} card {card}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: lead["launches"][k] + rest["launches"][k]
+            for k in lead["launches"]}
+
+
+def kvrep_main_path(wrappers) -> dict:
+    """MAIN-KVREP: two gloo ranks of ResNet-18 with the control plane on
+    three backends (``KVREP_ARGS``, ``--elastic --elastic-leader 1``),
+    one of them an HTTP server of ``python -m
+    ps_pytorch_tpu_torch.runtime.kvrep`` in a process of its own, under
+    ``KVREP_FAULTS``; then, in the same launch, the same run on the static
+    control plane (the TCPStore, no election, no faults). Fails unless
+    the parameters hash alike on both ranks in both runs (the control
+    plane must not change the arithmetic), process 1 published every mask
+    of the first run, all ones, and each rank's JSONL ends with
+    ``kvrep_ejections`` >= 1, ``kvrep_resyncs`` >= 1, ``kv_giveups`` 0.
+    Prints the median step of both runs."""
+    import subprocess
+
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_kvrep_")
+    port, card = free_port(), card_line()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "ps_pytorch_tpu_torch.runtime.kvrep",
+         "--port", str(port)], stdout=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+    try:
+        ready = server.stdout.readline().strip()
+        if not ready.startswith(f"KVSERVER ready host=127.0.0.1 port={port}"):
+            fail(f"MAIN-KVREP: the HTTP backend printed {ready!r}")
+        replicas = f"dir:{root}/a,dir:{root}/b,http://127.0.0.1:{port}"
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 2, [
+            "--rank", *KVREP_ARGS, "--elastic", "--elastic-leader", "1",
+            "--leader-lease-s", "10", "--kv-replicas", replicas,
+            "--kv-resync-s", "0.05", "--fault-spec", KVREP_FAULTS,
+            "--train-dir", f"{root}/kvrep", "--metrics-file",
+            f"{root}/kvrep.jsonl", THEN, *KVREP_ARGS, "--train-dir",
+            f"{root}/static", "--metrics-file", f"{root}/static.jsonl"],
+            "MAIN-KVREP")
+        wall = time.monotonic() - t0
+        mesh = "MESH data=2 model=1 devices=2 backend=gloo device=cuda:0"
+        runs = [run_sections(log, mesh) for log in logs]
+        if any(len(r) != 2 for r in runs):
+            fail("MAIN-KVREP: MESH does not say gloo on cuda:0 in both runs "
+                 "of both ranks")
+        recs = [[rank_record(x, "MAIN-KVREP") for x in r] for r in runs]
+        masks = re.findall(r"^MASK step (\d+) (\[.*\])$", runs[1][0], re.M)
+        if [m for _, m in masks] != ["[1, 1]"] or \
+                re.search(r"^MASK", runs[0][0], re.M):
+            fail(f"MAIN-KVREP: process 1's masks {masks}; process 0 must "
+                 "publish none")
+        shas = {rec["params_sha256"] for r in recs for rec in r}
+        if len(shas) != 1:
+            fail(f"MAIN-KVREP: the parameters differ between the runs or "
+                 f"the ranks ({shas})")
+        want = want_counts(wrappers, conv3x3=CONV_PER_STEP * KVREP_STEPS
+                           + CONV_PER_EVAL_BATCH * 2, fused_sgd=KVREP_STEPS)
+        if any(rec["launches"] != want for r in recs for rec in r):
+            fail(f"MAIN-KVREP: launches "
+                 f"{[[x['launches'] for x in r] for r in recs]}, expected "
+                 f"{want}")
+        keys = ("kvrep_ejections", "kvrep_rejoins", "kvrep_resyncs",
+                "kvrep_resync_keys", "kvrep_read_repairs",
+                "kvrep_quorum_failures", "kv_backend_kills",
+                "kv_backend_wipes", "kv_backend_drops", "kv_retries",
+                "kv_giveups", "leader_epoch")
+        for r in range(2):
+            path = f"{root}/kvrep.jsonl" + (f".p{r}" if r else "")
+            row = read_jsonl(path)[-1]
+            got = {k: row.get(k) for k in keys}
+            if not (got["kvrep_ejections"] or 0) >= 1 or \
+                    not (got["kvrep_resyncs"] or 0) >= 1 or \
+                    got["kv_giveups"] != 0 or got["kv_backend_wipes"] != 1:
+                fail(f"MAIN-KVREP rank {r}: counters {got}")
+            print(f"MAIN-KVREP rank {r} counters {got} step_times_s "
+                  f"{recs[r][0]['step_times']} (static "
+                  f"{recs[r][1]['step_times']}) card {card}", flush=True)
+        med = [float(np.median(recs[1][k]["step_times"][1:]))
+               for k in (0, 1)]
+        print(f"MAIN-KVREP params_sha256 {shas.pop()} (equal in both runs, "
+              f"both ranks); median step over steps 2 on, rank 1: quorum "
+              f"{med[0]:.4f} s, static {med[1]:.4f} s (ratio "
+              f"{med[0] / med[1]:.4f}); launches a rank {want}; "
+              f"launch_wall_s {wall:.2f} card {card}", flush=True)
+    finally:
+        server.kill()
+        server.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    return recs[0][0]["launches"]
 
 
 def wire_sizes() -> dict:
@@ -2758,6 +3057,8 @@ def main() -> int:
         return rank_main(sys.argv[2:])
     if sys.argv[1:2] == ["--rank-wire"]:
         return wire_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--rank-elect"]:
+        return elect_rank_main(sys.argv[2:])
     if sys.argv[1:] == ["--rank-probe"]:
         return probe_rank_main()
     import torch
@@ -2819,50 +3120,63 @@ def main() -> int:
           flush=True)
 
     wrappers = kernel_wrappers()
+    t_start = time.monotonic()
+
+    def timed(fn, *args):
+        """``fn(*args)``, then a TIME line: its seconds, and the script's
+        so far past the builds (the budget of each phase)."""
+        t0 = time.monotonic()
+        out = fn(*args)
+        print(f"TIME {fn.__name__} {time.monotonic() - t0:.1f} s (at "
+              f"{time.monotonic() - t_start:.1f} s)", flush=True)
+        return out
+
     # Each path right after the checks of its own kernels, with the
     # allocator's cache emptied between the two: the ResNet steps ran
     # slower when they came after the flash checks.
-    conv = check_conv(torch, F, conv_mod)
-    time_weight_grad(torch, conv_mod)
+    conv = timed(check_conv, torch, F, conv_mod)
+    timed(time_weight_grad, torch, conv_mod)
     print(f"MEMORY allocated after the conv checks "
           f"{torch.cuda.memory_allocated()}", flush=True)
     leaf_sizes = [p.numel() for p in build_model("ResNet18").parameters()]
     n_params = sum(leaf_sizes)
-    sgd = check_sgd(torch, sgd_mod, n_params)
-    launches = main_path(torch, wrappers)
-    telemetry_main_path(torch, wrappers, launches["median_step_s"])
-    health_on_card(torch)
-    small_step_agrees(torch, conv_mod, "float32")
-    small_step_agrees(torch, conv_mod, "bfloat16")
-    quant = check_quantize(torch, tq, leaf_sizes)
-    async_launches = async_main_path(torch, wrappers, n_params)
-    small_async_tick_agrees(torch, tq)
-    adam = check_adam(torch, adam_mod, n_params)
-    slices = check_zero_slices(torch, sgd_mod, adam_mod, n_params)
-    ckpt_launches = ckpt_main_path(torch, wrappers)
+    sgd = timed(check_sgd, torch, sgd_mod, n_params)
+    launches = timed(main_path, torch, wrappers)
+    timed(telemetry_main_path, torch, wrappers, launches["median_step_s"])
+    timed(health_on_card, torch)
+    timed(small_step_agrees, torch, conv_mod, "float32")
+    timed(small_step_agrees, torch, conv_mod, "bfloat16")
+    quant = timed(check_quantize, torch, tq, leaf_sizes)
+    async_launches = timed(async_main_path, torch, wrappers, n_params)
+    timed(small_async_tick_agrees, torch, tq)
+    adam = timed(check_adam, torch, adam_mod, n_params)
+    slices = timed(check_zero_slices, torch, sgd_mod, adam_mod, n_params)
+    ckpt_launches = timed(ckpt_main_path, torch, wrappers)
     with arrays_made_once():
-        crash_launches = crash_main_path(torch, wrappers)
-        remat_cost(torch, wrappers)
+        crash_launches = timed(crash_main_path, torch, wrappers)
+        timed(remat_cost, torch, wrappers)
     torch.cuda.empty_cache()
-    vgg_conv = check_conv_geometries(torch, F, conv_mod, "VGG11", BATCH,
-                                     VGG_GEOMETRIES)
-    vgg_launches = vgg_main_path(torch, wrappers)
-    small_vgg_and_stem_steps_agree(torch, conv_mod)
-    r50_conv = check_conv_geometries(torch, F, conv_mod, "ResNet50_ImageNet",
-                                     IMAGENET_BATCH, RESNET50_GEOMETRIES)
-    imagenet_launches = imagenet_main_path(torch, wrappers)
+    vgg_conv = timed(check_conv_geometries, torch, F, conv_mod, "VGG11",
+                     BATCH, VGG_GEOMETRIES)
+    vgg_launches = timed(vgg_main_path, torch, wrappers)
+    timed(small_vgg_and_stem_steps_agree, torch, conv_mod)
+    r50_conv = timed(check_conv_geometries, torch, F, conv_mod,
+                     "ResNet50_ImageNet", IMAGENET_BATCH, RESNET50_GEOMETRIES)
+    imagenet_launches = timed(imagenet_main_path, torch, wrappers)
     torch.cuda.empty_cache()
-    gloo_probe()
-    dist_main_path(wrappers)
-    kofn_main_path(wrappers)
-    zero_launches = zero_main_path(wrappers, n_params)
-    wire_int8_bytes_agree(torch, tq)
-    wire_launches = wire_main_path(wrappers)
-    flash = check_flash(torch, F, fa)
+    timed(gloo_probe)
+    timed(dist_main_path, wrappers)
+    timed(kofn_main_path, wrappers)
+    zero_launches = timed(zero_main_path, wrappers, n_params)
+    timed(wire_int8_bytes_agree, torch, tq)
+    wire_launches = timed(wire_main_path, wrappers)
+    elect_launches = timed(elect_main_path, wrappers)
+    kvrep_launches = timed(kvrep_main_path, wrappers)
+    flash = timed(check_flash, torch, F, fa)
     torch.cuda.empty_cache()
-    lm_launches = lm_main_path(torch, wrappers)
-    small_lm_step_agrees(torch, fa)
-    digits_accuracy(torch)
+    lm_launches = timed(lm_main_path, torch, wrappers)
+    timed(small_lm_step_agrees, torch, fa)
+    timed(digits_accuracy, torch)
 
     kernels = [
         dict(name="conv3x3", route="cuda",
@@ -2894,6 +3208,8 @@ def main() -> int:
              # times are this row's.
              launches_by_path={
                  "MAIN-WIRE": wire_launches["conv3x3"],
+                 "MAIN-ELECT": elect_launches["conv3x3"],
+                 "MAIN-KVREP": kvrep_launches["conv3x3"],
                  "MAIN-ZERO shard-update": zero_launches["shard-update"][
                      "conv3x3"],
                  "MAIN-ZERO replicated": zero_launches["replicated"][
@@ -2901,6 +3217,8 @@ def main() -> int:
                  "MAIN-CRASH": crash_launches["conv3x3"]},
              tc_launches_by_path={
                  "MAIN-WIRE": wire_launches["conv3x3_tc"],
+                 "MAIN-ELECT": elect_launches["conv3x3_tc"],
+                 "MAIN-KVREP": kvrep_launches["conv3x3_tc"],
                  "MAIN-ZERO shard-update": zero_launches["shard-update"][
                      "conv3x3_tc"],
                  "MAIN-ZERO replicated": zero_launches["replicated"][
@@ -2914,6 +3232,9 @@ def main() -> int:
                                "MAIN-IMAGENET":
                                imagenet_launches["fused_sgd"],
                                "MAIN-WIRE": wire_launches["fused_sgd"],
+                               "MAIN-ELECT (the promoted process)":
+                               elect_launches["fused_sgd"],
+                               "MAIN-KVREP": kvrep_launches["fused_sgd"],
                                "MAIN-ZERO shard-update (on a rank's slice)":
                                zero_launches["shard-update"]["fused_sgd"],
                                "MAIN-ZERO replicated":
@@ -2934,7 +3255,8 @@ def main() -> int:
              source="ps_pytorch_tpu_torch/csrc/quantize.cu",
              replaces="ps_pytorch_tpu/ops/quantize.py:45",
              launches=async_launches["quantize"],
-             launches_by_path={"MAIN-WIRE": wire_launches["quantize"]},
+             launches_by_path={"MAIN-WIRE": wire_launches["quantize"],
+                               "MAIN-ELECT": elect_launches["quantize"]},
              **quant, bound_by="bytes", library_ms=None),
     ] + [
         dict(name=name, route="cuda",

@@ -8,8 +8,11 @@ included, one process a replica, with cross-replica BatchNorm statistics,
 ZeRO-1, recomputation, the loader's worker pool, the fault plane,
 heartbeats and auto-resume, its checkpoints and evaluator; asynchronous
 stale-gradient training with its codecs, in one process or one process a
-slice over the KV wire; the KV retry plane; and the ops plane of the
-synchronous and LM trainers, see ROADMAP.md), so a field it does not run
+slice over the KV wire; the KV retry plane; the elastic control plane
+(leader lease, elections, membership) and the quorum-replicated KV under
+the CNN trainer and the asynchronous one across processes; and the ops
+plane of the synchronous and LM trainers, see ROADMAP.md), so a field it
+does not run
 raises ``ValueError`` when it is set to anything but its default: it is
 never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
 one device (``runtime/lm_trainer.py``), without checkpoints.
@@ -236,6 +239,13 @@ class TrainConfig:
                         f"fault kind {fault['kind']!r} is not ported yet "
                         f"(ROADMAP.md): it needs "
                         f"{UNPORTED_FAULT_KINDS[fault['kind']]}")
+                if self.mode == "async" and \
+                        fault["kind"] in SYNC_FAULT_KINDS:
+                    raise ValueError(
+                        f"fault kind {fault['kind']!r} with mode='async' is "
+                        f"not ported yet (ROADMAP.md): it needs "
+                        f"{SYNC_FAULT_KINDS[fault['kind']]}; it runs with "
+                        f"--mode sync or kofn")
         if self.lm_parallelism not in ("sp", "tp", "pp", "ep"):
             raise ValueError(f"unknown lm_parallelism "
                              f"{self.lm_parallelism!r} (sp | tp | pp | ep)")
@@ -256,7 +266,8 @@ class TrainConfig:
                              "ported yet (ROADMAP.md); the LM trains in "
                              "mode 'sync' on one device")
         if self.network in LM_NETWORKS:
-            for name in SYNC_ONLY_FIELDS + ("loader_workers",):
+            for name in SYNC_ONLY_FIELDS + CONTROL_FIELDS + (
+                    "loader_workers",):
                 if getattr(self, name) != _default(name):
                     raise ValueError(
                         f"{name}={getattr(self, name)!r} for {self.network} "
@@ -309,10 +320,49 @@ class TrainConfig:
                 f"flaps instead of detecting death. Set heartbeat_timeout_s "
                 f"> heartbeat_interval_s (0 = 3x interval), or 0 for the "
                 f"default.")
+        if 0 < self.heartbeat_timeout_s <= self.leader_lease_s:
+            # The same inversion one layer up: the leader beats at the
+            # lease cadence, so this deadline evicts a healthy leader.
+            raise ValueError(
+                f"heartbeat_timeout_s={self.heartbeat_timeout_s} <= "
+                f"leader_lease_s={self.leader_lease_s}: the leader beats "
+                f"at the lease cadence, so this deadline evicts a healthy "
+                f"leader between refreshes. Set heartbeat_timeout_s > "
+                f"leader_lease_s (0 = derived default).")
+        if self.kv_replicas:
+            # The backend grammar and the quorum overlap, before anything
+            # is wired under the trainers.
+            from ps_pytorch_tpu_torch.runtime.kvrep import (
+                parse_backend_specs,
+            )
+            n_rep = len(parse_backend_specs(self.kv_replicas))
+            majority = n_rep // 2 + 1
+            if self.kv_quorum and not majority <= self.kv_quorum <= n_rep:
+                raise ValueError(
+                    f"kv_quorum={self.kv_quorum} is unsafe for {n_rep} "
+                    f"replicas: any two quorums must overlap, so it must "
+                    f"be in [{majority}, {n_rep}] (0 = majority).")
+        if self.kv_quorum < 0:
+            raise ValueError(f"kv_quorum={self.kv_quorum} (must be >= 0; "
+                             "0 = majority)")
+        if self.kv_resync_s <= 0:
+            raise ValueError(f"kv_resync_s={self.kv_resync_s} "
+                             "(must be > 0)")
         if self.ckpt_keep < 0 or self.kv_retry_budget < 0 or \
                 self.auto_resume < 0:
             raise ValueError("ckpt_keep / kv_retry_budget / auto_resume "
                              "must be >= 0")
+        if self.leader_lease_s < 0:
+            raise ValueError(f"leader_lease_s={self.leader_lease_s} "
+                             "(must be >= 0; 0 = lease off)")
+        if self.elastic and self.leader_lease_s <= 0:
+            # The election is driven by the lease going stale: without a
+            # lease there is no death signal to campaign on.
+            raise ValueError("elastic=True requires leader_lease_s > 0 "
+                             "(the lease is the failure detector)")
+        if self.elastic_leader < 0:
+            raise ValueError(f"elastic_leader={self.elastic_leader} "
+                             "(must be >= 0)")
         if self.mode == "async" and \
                 self.publish_every > max(self.staleness_limit, 1):
             # Followers see only published versions: a publish gap wider
@@ -327,13 +377,22 @@ class TrainConfig:
         # than being ignored. Asynchronous training runs in one process
         # (MultiSliceTrainer) unless the launch contract asks for several
         # (AsyncTrainer, one process a slice), which reads the wire's
-        # publish period and writes the trace of the wire's spans.
+        # publish period, writes the trace of the wire's spans and runs
+        # the control plane: the fault plane, the replicated KV and, with
+        # --elastic, the lease, the initial leader and the heartbeats of
+        # the membership.
         wire = self.mode == "async" and several_processes()
+        async_runs = WIRE_FIELDS + ("trace_file", "fault_spec",
+                                    "kv_replicas", "kv_quorum",
+                                    "kv_resync_s", "elastic")
+        if self.elastic:
+            async_runs += ELASTIC_ONLY_FIELDS
         inert = {"sync": ASYNC_ONLY_FIELDS + WIRE_FIELDS + ("num_aggregate",),
                  "kofn": ASYNC_ONLY_FIELDS + WIRE_FIELDS,
-                 "async": SYNC_ONLY_FIELDS + tuple(
-                     f for f in OPS_FIELDS + WIRE_FIELDS
-                     if not (wire and f in WIRE_FIELDS + ("trace_file",)))
+                 "async": tuple(
+                     f for f in SYNC_ONLY_FIELDS + CONTROL_FIELDS
+                     + OPS_FIELDS + WIRE_FIELDS
+                     if not (wire and f in async_runs))
                  }[self.mode]
         for name in inert:
             if getattr(self, name) != _default(name):
@@ -344,6 +403,11 @@ class TrainConfig:
                         if name in WIRE_FIELDS
                         else "--mode sync or kofn, the LM, and --mode async "
                         "across processes" if name == "trace_file"
+                        else "--mode sync or kofn, and --mode async across "
+                        "processes with --elastic"
+                        if name in ELASTIC_ONLY_FIELDS
+                        else "--mode sync or kofn, and --mode async across "
+                        "processes" if name in CONTROL_FIELDS
                         else "--mode sync or kofn, and the LM")
                 raise ValueError(
                     f"{name}={getattr(self, name)!r} with mode="
@@ -381,23 +445,32 @@ ASYNC_ONLY_FIELDS = ("async_slices", "fetch_every",
                      "wire_workers")
 # Fields that only the synchronous CNN trainer (sync and kofn) reads: the
 # straggler deadline and the injected straggler, the step's options
-# (cross-replica BatchNorm statistics, ZeRO-1, recomputation) and crash
-# containment (the fault plane, heartbeats, auto-resume). The fault plane
-# on the async wire waits for ROADMAP.md's queue 3.
+# (cross-replica BatchNorm statistics, ZeRO-1, recomputation) and the
+# auto-resume loop.
 SYNC_ONLY_FIELDS = ("kill_threshold", "inject_step_delay",
                     "inject_delay_process", "sync_batchnorm",
-                    "shard_update", "remat", "fault_spec",
-                    "heartbeat_interval_s", "heartbeat_timeout_s",
-                    "auto_resume")
+                    "shard_update", "remat", "auto_resume")
+# The control plane: the fault plane, heartbeats, the leader lease, the
+# elections and membership (elastic/) and the quorum-replicated KV
+# (runtime/kvrep.py). The CNN trainer (sync and kofn) reads all of them;
+# the asynchronous trainer across processes reads them too, those of
+# ELASTIC_ONLY_FIELDS only under --elastic, as in the JAX package; the
+# trainers in one process of --mode async and the LM read none.
+CONTROL_FIELDS = ("fault_spec", "heartbeat_interval_s",
+                  "heartbeat_timeout_s", "leader_lease_s", "elastic",
+                  "elastic_leader", "kv_replicas", "kv_quorum",
+                  "kv_resync_s")
+ELASTIC_ONLY_FIELDS = ("leader_lease_s", "elastic_leader",
+                       "heartbeat_interval_s", "heartbeat_timeout_s")
 # Fault kinds of the JAX grammar that no trainer of the port runs yet, and
 # what each needs (ROADMAP.md): the spec parses, the config refuses them.
 UNPORTED_FAULT_KINDS = {
-    "leader_kill": "leader elections (elastic/)",
-    "kv_backend_kill": "the replicated KV (runtime/kvrep.py)",
-    "kv_backend_wipe": "the replicated KV (runtime/kvrep.py)",
     "replica_kill": "serving (serving/)",
     "grad_poison": "the integrity screen on the async wire",
 }
+# Fault kinds that only the synchronous trainer fires, and what they need:
+# the asynchronous trainers have no participation mask to poison.
+SYNC_FAULT_KINDS = {"grad_nan": "a participation mask"}
 # The ops plane (telemetry/): the CNN Trainer and the LMTrainer read these;
 # of the asynchronous trainers, only the one across processes reads
 # trace_file, as in the JAX package.
@@ -407,11 +480,12 @@ OPS_FIELDS = ("trace_file", "timeline_file", "metrics_port", "health_spec",
 # (runtime/async_trainer.py).
 WIRE_FIELDS = ("publish_every",)
 # Fields whose validity depends on the launch (several processes or one).
-LAUNCH_FIELDS = WIRE_FIELDS + ("trace_file",)
+LAUNCH_FIELDS = WIRE_FIELDS + ("trace_file",) + CONTROL_FIELDS
 
 # The fields the port runs. Every other field must keep its default.
 PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
-                          + OPS_FIELDS + WIRE_FIELDS) | frozenset({
+                          + CONTROL_FIELDS + OPS_FIELDS
+                          + WIRE_FIELDS) | frozenset({
     "num_aggregate", "compress_grad", "codec_level", "donate",
     "loader_workers",
     "kv_retry_attempts", "kv_retry_base_s", "kv_retry_budget",

@@ -10,8 +10,8 @@ from ps_pytorch_tpu_torch.resilience.autoresume import (  # noqa: F401
     PreemptionGuard, run_with_auto_resume,
 )
 from ps_pytorch_tpu_torch.resilience.faults import (  # noqa: F401
-    FaultInjector, FaultyKV, InjectedCrash, ManualClock, TransientKVError,
-    corrupt_file, parse_fault_spec,
+    BackendFaultyKV, FaultInjector, FaultyKV, InjectedCrash, ManualClock,
+    TransientKVError, corrupt_file, parse_fault_spec,
 )
 from ps_pytorch_tpu_torch.resilience.heartbeat import (  # noqa: F401
     Heartbeat, LivenessMonitor,

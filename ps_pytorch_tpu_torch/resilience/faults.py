@@ -36,10 +36,23 @@ rejected here with the same message:
     payload_truncate:p=0.02,seed=4[,prefix=...]
         Reader-side corruption of a returned payload chunk (a key whose
         last two path components are numeric).
-    leader_kill, kv_backend_kill, kv_backend_wipe, replica_kill,
-    grad_poison
+    leader_kill:step=6
+        The process that holds leadership at a step >= ``step`` prints the
+        ``FAULT leader_kill`` line and SIGKILLs itself (once): no finally
+        blocks, no last beat; the election must recover.
+    kv_backend_kill:backend=1,step=5[,steps=0]
+        Every op routed to backend ``backend`` of a ``ReplicatedKV``
+        (``runtime/kvrep.py``) raises the transient error for the step
+        window [step, step+steps) (steps=0: to the end of the run): below
+        the quorum layer, so the replication, not the retry budget, must
+        absorb it.
+    kv_backend_wipe:backend=1,step=8
+        Backend ``backend`` loses its whole keyspace at step ``step``
+        (once) and keeps serving, empty; anti-entropy resync repairs it.
+    replica_kill, grad_poison
         Parsed and validated as in the JAX package; no trainer of the port
-        runs them yet, and the config refuses them (ROADMAP.md).
+        runs them yet (serving, the integrity screen), and the config
+        refuses them (ROADMAP.md).
 
 Drop and delay decisions come from ``numpy.default_rng(seed + 10007 *
 pid)``, the JAX package's stream: reproducible per process, uncorrelated
@@ -60,14 +73,19 @@ _KV_OPS = ("set", "get", "delete")
 # checkpoint / serving planes).
 _KV_FAULT_KINDS = ("kv_drop", "kv_delay", "kv_partition", "link_jitter",
                    "payload_bitflip", "payload_truncate")
-# The kinds the JAX package's BackendFaultyKV enforces inside its
-# replicated KV (not ported: ROADMAP.md); the grammar still validates them.
+# The kinds BackendFaultyKV enforces, scoped to ONE replica of a
+# ReplicatedKV, injected INSIDE the quorum layer via ``wrap_backend``.
 _BACKEND_FAULT_KINDS = ("kv_backend_kill", "kv_backend_wipe")
 # base64's b85 alphabet (spelled out; resilience/ stays a leaf): bitflips
 # substitute IN-alphabet so the armour still decodes and only the wire
 # digest can tell.
 _B85_CHARS = ("0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
               "abcdefghijklmnopqrstuvwxyz!#$%&()*+-;<=>?@^_`{|}~")
+
+
+# How a leader_kill fault's line starts; the launcher reads a log that
+# ends with it as a death that was asked for.
+LEADER_KILL_LINE = "FAULT leader_kill:"
 
 
 def _is_chunk_key(key: str) -> bool:
@@ -374,6 +392,63 @@ class FaultyKV:
         return self.inner.keys(prefix)
 
 
+class BackendFaultyKV:
+    """KVStore-shaped shim for ONE replica of a ReplicatedKV: enforces the
+    ``kv_backend_kill`` (step-windowed total outage) and
+    ``kv_backend_wipe`` (once: drop the whole keyspace, keep serving)
+    kinds for its backend index. Sits INSIDE the quorum layer, so the
+    replication math, not the retry plane, is what must absorb it."""
+
+    def __init__(self, inner, faults: List[Dict[str, Any]],
+                 injector: "FaultInjector", backend_index: int):
+        self.inner = inner
+        self._faults = [f for f in faults if f["backend"] == backend_index]
+        self._inj = injector
+        self.backend_index = int(backend_index)
+
+    def _roll(self, op: str) -> None:
+        step = self._inj.current_step
+        for i, f in enumerate(self._faults):
+            if f["kind"] == "kv_backend_wipe":
+                if ("bwipe", self.backend_index, i) in self._inj._fired or \
+                        step < f["step"]:
+                    continue
+                self._inj._fired.add(("bwipe", self.backend_index, i))
+                # Wipe FIRST, then serve the op against the emptied
+                # store: the lost-disk replica answers, wrongly.
+                for k in list(self.inner.keys("")):
+                    self.inner.delete(k)
+                self._inj.counters["kv_backend_wipes"] += 1
+            elif f["kind"] == "kv_backend_kill":
+                if step < f["step"]:
+                    continue
+                if f["steps"] > 0 and step >= f["step"] + f["steps"]:
+                    continue
+                if ("bkill", self.backend_index, i) not in self._inj._fired:
+                    self._inj._fired.add(("bkill", self.backend_index, i))
+                    self._inj.counters["kv_backend_kills"] += 1
+                self._inj.counters["kv_backend_drops"] += 1
+                raise TransientKVError(
+                    f"UNAVAILABLE: injected kv_backend_kill on backend "
+                    f"{self.backend_index} {op} (step {step})")
+
+    def set(self, key: str, value: str) -> None:
+        self._roll("set")
+        self.inner.set(key, value)
+
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        self._roll("get")
+        return self.inner.get(key, default)
+
+    def delete(self, key: str) -> None:
+        self._roll("delete")
+        self.inner.delete(key)
+
+    def keys(self, prefix: str = ""):
+        self._roll("keys")
+        return self.inner.keys(prefix)
+
+
 class FaultInjector:
     """One injector per process, owning the parsed spec, the fired-fault
     memory, and the fault counters the telemetry plane reports.
@@ -414,6 +489,22 @@ class FaultInjector:
             return kv
         return FaultyKV(kv, kv_faults, self, self.sleep)
 
+    @property
+    def has_backend_faults(self) -> bool:
+        return any(f["kind"] in _BACKEND_FAULT_KINDS for f in self.faults)
+
+    def wrap_backend(self, kv, backend_index: int):
+        """Per-replica shim for ReplicatedKV backends: only the
+        ``kv_backend_*`` kinds naming ``backend_index`` apply. Applied
+        INSIDE the quorum layer (``runtime/kvrep.py:build_replicated_kv``),
+        so a killed or wiped backend exercises ejection and anti-entropy,
+        never the caller-visible retry path."""
+        faults = [f for f in self.faults
+                  if f["kind"] in _BACKEND_FAULT_KINDS]
+        if not any(f["backend"] == backend_index for f in faults):
+            return kv
+        return BackendFaultyKV(kv, faults, self, backend_index)
+
     # ---- step loop plane ----
     def maybe_crash(self, step: int) -> None:
         """Raise InjectedCrash when a replica_crash fault matches this
@@ -429,6 +520,29 @@ class FaultInjector:
                 self.counters["crashes"] += 1
                 raise InjectedCrash(
                     f"injected replica_crash r={f['r']} at step {step}")
+
+    def maybe_kill_leader(self, step: int, is_leader: bool) -> None:
+        """SIGKILL this process when a leader_kill fault matches the step
+        AND this process holds leadership (once). Role-addressed: the
+        caller reports its live role each step, so with elections on the
+        victim is whoever holds the lease at that step. SIGKILL on
+        purpose: no atexit, no finally blocks, no last heartbeat, the
+        hardest death the election must recover from. The ``FAULT
+        leader_kill`` line is printed first, and the launcher reads a log
+        that ends with it as an intended death."""
+        for i, f in enumerate(self.faults):
+            if f["kind"] != "leader_kill" or ("lkill", i) in self._fired:
+                continue
+            if is_leader and step >= f["step"]:
+                self._fired.add(("lkill", i))
+                self.counters["leader_kills"] += 1
+                import signal
+                import sys
+                print(f"{LEADER_KILL_LINE} SIGKILL process "
+                      f"{self.process_index} (leader) at step {step}",
+                      flush=True)
+                sys.stdout.flush()
+                os.kill(os.getpid(), signal.SIGKILL)
 
     def maybe_poison(self, step: int) -> bool:
         """True when a grad_nan fault matches this process and step (once):

@@ -39,9 +39,29 @@ The gradient codecs:
   (``--ef``).
 
 Across processes the KV is the process group's TCPStore
-(``DistributedKV``), alone an in-process ``KVStore``, either behind the
-retry plane (``resilience.wrap_kv_with``). Process 0 serves the store:
-``leave()`` holds it until every process has read the final state.
+(``DistributedKV``), alone an in-process ``KVStore``, or with
+``--kv-replicas`` a ``ReplicatedKV`` (``runtime/kvrep.py``), either behind
+the fault plane (``--fault-spec``) and the retry plane
+(``resilience.wrap_kv_with``). Process 0 serves the store: ``leave()``
+holds it until every process has read the final state, and skips a
+process the membership evicted (one that died without leaving).
+
+With ``--elastic`` the PS leader is a lease, not process 0 (the JAX
+trainer's ``:125-160``, ``:644-723``): the initial leader is
+``--elastic-leader``, and it claims the epoch-numbered lease
+(``elastic/election.py``) after its first tick, once the kernels of that
+tick are built and loaded, so the first tick's build time cannot make the
+lease look stale. Every tick each process beats for itself
+(``MemberAnnouncer``); the leader refreshes the lease and folds the
+membership; a follower that finds the lease stale campaigns, and the
+winner promotes itself (``_promote``): it builds the optimizer and the
+pool, restores the optimizer state and the BatchNorm statistics from the
+newest valid checkpoint, moves forward to the freshest canonical publish
+on the KV, prints ``ELECTED async leader ...`` and publishes at once. A
+leader whose refresh finds a higher epoch demotes itself (``DEPOSED``).
+The fault plane fires ``replica_crash`` and ``leader_kill`` at the top of
+a tick (keyed on the process's own ticks) and ``ckpt_corrupt`` after a
+commit; the checkpoint's meta carries ``leader_epoch``.
 
 A resume restores the leader's parameters, optimizer state, BatchNorm
 statistics and error-feedback residuals, and, beyond the JAX trainer, its
@@ -49,9 +69,9 @@ sequence number and its data stream: the leader applies exactly one
 update a tick (its own contribution is always fresh), so its sequence
 number is the version, and a resumed run is bitwise the uninterrupted one.
 
-Not ported yet (ROADMAP.md): the elastic leader, the replicated KV, the
-hierarchical topology, the sharded wire, the integrity screen, the fault
-injector and the Prometheus exporter.
+Not ported yet (ROADMAP.md): the hierarchical topology, the sharded wire
+(and with it a promoted leader's sharded optimizer state), the integrity
+screen and the Prometheus exporter.
 """
 
 import time
@@ -61,7 +81,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ps_pytorch_tpu_torch import resilience
+from ps_pytorch_tpu_torch import elastic, resilience
 from ps_pytorch_tpu_torch.compression.codecs import (
     HOMOMORPHIC_GRAD_CODECS, ErrorFeedback, encode_leaves, is_payload,
 )
@@ -84,6 +104,7 @@ from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval, make_eval_step
 from ps_pytorch_tpu_torch.parallel.transport import KVGradientTransport
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import DistributedKV, KVStore
+from ps_pytorch_tpu_torch.runtime.kvrep import build_replicated_kv
 from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
 from ps_pytorch_tpu_torch.runtime.multislice import make_slice_grad_fn
 from ps_pytorch_tpu_torch.runtime.trainer import (
@@ -147,14 +168,52 @@ class AsyncTrainer:
                             + (stat_leaf[n.rsplit(".", 1)[1]],)
                             for n in self._stat_names]
 
+        # The injector comes before the KV, so the per-backend kinds
+        # (kv_backend_kill / wipe) go INSIDE the quorum layer while the
+        # logical kinds wrap outside it.
+        injector = None
+        if cfg.fault_spec:
+            injector = resilience.FaultInjector(cfg.fault_spec,
+                                                process_index=self.pid)
+        self._kvrep = None
         if kv is None:
-            store = dist.store()
-            kv = DistributedKV(store) if store is not None else KVStore()
-        # The retry plane around the store: the transport sees one
-        # hardened KV.
-        kv, _, self._retrier = resilience.wrap_kv_with(kv, cfg, None)
+            if cfg.kv_replicas:
+                kv = self._kvrep = build_replicated_kv(
+                    cfg, process_index=self.pid, injector=injector)
+            else:
+                store = dist.store()
+                kv = DistributedKV(store) if store is not None \
+                    else KVStore()
+        # The fault plane inside, the retry plane outside: the transport
+        # sees one hardened KV.
+        kv, self.injector, self._retrier = resilience.wrap_kv_with(
+            kv, cfg, injector)
         self._kv = kv
         self.run_id = f"async-{cfg.seed}"
+        # The elastic control plane: the PS-leader role becomes a lease.
+        self.election = None
+        self.membership = None
+        self.announcer = None
+        self.elect_latency_s = 0.0
+        self._claim_pending = False
+        if cfg.elastic:
+            initial = cfg.elastic_leader % max(self.n, 1)
+            self.leader = self.pid == initial
+            lease_s = cfg.leader_lease_s or 1.0
+            self.election = elastic.LeaderElection(
+                kv, self.run_id, self.pid, self.n, interval_s=lease_s,
+                preferred=initial)
+            self.announcer = elastic.MemberAnnouncer(
+                kv, self.run_id, self.pid, [self.pid],
+                interval_s=cfg.heartbeat_interval_s or lease_s)
+            self._hb_timeout = cfg.heartbeat_timeout_s or 3 * (
+                cfg.heartbeat_interval_s or lease_s)
+            # One "replica" a process: membership tracks processes.
+            self.membership = elastic.MembershipRegistry(
+                kv, self.run_id, self.n, self.n,
+                timeout_s=self._hb_timeout)
+            self._claim_pending = self.leader
+            self.announcer.join()
 
         # The gradient codec of the wire (--compress-grad / --grad-codec):
         # off -> raw npy framing; blosc -> the native lossless container;
@@ -224,17 +283,21 @@ class AsyncTrainer:
         self.own_steps = 0      # this process's contributions this run
         self._seq = 0
         if self.leader:
-            self.opt = build_optimizer(cfg)
-            self.opt_state = self.opt.init(self.params)
-            # Homomorphic payloads enter the pool as payloads and are
-            # summed in the compressed domain; every other codec is
-            # decoded to f32 on the device first, and the pool averages
-            # there.
-            self.aggregator = StaleGradientAggregator(
-                self.n, staleness_limit=cfg.staleness_limit,
-                staleness_decay=cfg.staleness_decay,
-                num_aggregate=cfg.num_aggregate, compress=self._wire_homo,
-                codec=cfg.grad_codec, topk_frac=cfg.grad_topk_frac)
+            self._build_leader()
+
+    def _build_leader(self) -> None:
+        """The leader's own machinery: the optimizer and its state, and the
+        pool. Homomorphic payloads enter the pool as payloads and are
+        summed in the compressed domain; every other codec is decoded to
+        f32 on the device first, and the pool averages there."""
+        cfg = self.cfg
+        self.opt = build_optimizer(cfg)
+        self.opt_state = self.opt.init(self.params)
+        self.aggregator = StaleGradientAggregator(
+            self.n, staleness_limit=cfg.staleness_limit,
+            staleness_decay=cfg.staleness_decay,
+            num_aggregate=cfg.num_aggregate, compress=self._wire_homo,
+            codec=cfg.grad_codec, topk_frac=cfg.grad_topk_frac)
 
     # ---- layouts between the port's parameters and the wire ----
     def _wire_leaves(self, tensors: Dict[str, torch.Tensor]
@@ -275,11 +338,19 @@ class AsyncTrainer:
         # followers restart with a zero residual.
         extra_state = {"ef": self._ef.state_dict()} \
             if (self.cfg.ef and self._ef is not None) else None
+        extra = None
+        if self.election is not None:
+            # Which leadership epoch committed these weights.
+            extra = {"leader_epoch": self.election.epoch,
+                     "leader_pid": self.pid}
         ckpt.save_checkpoint(
             self.cfg.train_dir, self.version,
             state_to_jax(self.model, self.opt_state, self.version),
             config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
-            codec_level=self.cfg.codec_level, extra_state=extra_state)
+            codec_level=self.cfg.codec_level, extra_meta=extra,
+            extra_state=extra_state)
+        if self.injector is not None:
+            self.injector.after_checkpoint(self.cfg.train_dir, self.version)
         if self.cfg.ckpt_keep > 0:
             ckpt.prune_checkpoints(self.cfg.train_dir, self.cfg.ckpt_keep)
 
@@ -355,6 +426,69 @@ class AsyncTrainer:
                                  int(np.prod(shape)))
             flat.append(dequantize_int8(qt))
         return self._port_tensors(flat)
+
+    # ---- elastic role transitions ----
+    def _promote(self, my_version: int) -> int:
+        """Take up PS duty mid-run after winning an election: build the
+        leader's machinery this process skipped at start, restore the
+        optimizer state and the BatchNorm statistics from the newest
+        valid checkpoint (the dead leader's momentum survives through its
+        last commit; its parameters too when they are newer than this
+        process's), move forward to the freshest canonical publish on the
+        KV, and publish at once so the followers re-anchor."""
+        cfg = self.cfg
+        self._build_leader()
+        self.version = my_version
+        held = {k: v.detach().clone() for k, v in self.params.items()}
+        got = ckpt.load_latest_valid(cfg.train_dir, self._restore)
+        if got is not None and int(got[1]["step"]) > self.version:
+            self.version = int(got[1]["step"])
+        else:
+            with torch.no_grad():
+                for name, p in self.params.items():
+                    p.copy_(held[name])
+        # The canonical publish is usually ahead of any checkpoint
+        # (publish_every against eval_freq): the freshest parameters win,
+        # though the momentum then lags a few versions, the skew async
+        # staleness already tolerates.
+        got = self._fetch_canonical(self.version)
+        if got is not None:
+            self.version = got[0]
+            self._load_params(got[1]["params"])
+        self.leader = True
+        print(f"ELECTED async leader process {self.pid} epoch "
+              f"{self.election.epoch} at version {self.version} "
+              f"(election {self.elect_latency_s:.3f}s)", flush=True)
+        self._publish_canonical()
+        return self.version
+
+    def _demote(self) -> None:
+        self.leader = False
+        print(f"DEPOSED async leader process {self.pid}: following epoch "
+              f"{self.election.epoch} owner {self.election.owner}",
+              flush=True)
+
+    def _elastic_control(self, own_steps: int, my_version: int) -> int:
+        """One control-plane beat a tick: the heartbeat, then the lease
+        refresh and the membership fold (leader) or the staleness check
+        (follower), and the campaign, promotion included, when the lease
+        went stale. Returns the version this process's next contribution
+        carries."""
+        self.announcer.beat(own_steps)
+        if self.leader:
+            try:
+                self.election.refresh(own_steps)
+                self.membership.update(own_steps)
+            except elastic.Deposed:
+                self._demote()
+            return self.version if self.leader else my_version
+        if self.election.check() == "stale":
+            t0 = time.monotonic()
+            won = self.election.campaign()
+            self.elect_latency_s = time.monotonic() - t0
+            if won:
+                return self._promote(my_version)
+        return my_version
 
     # ---- the two roles ----
     def _publish_canonical(self) -> None:
@@ -445,7 +579,21 @@ class AsyncTrainer:
             # Safety valve for a follower whose leader dies before
             # set_done: a bounded loop.
             self._train_loop(cfg, my_version, cfg.max_steps * 50 + 100)
+            if self.election is not None:
+                # One summary line of the control plane a process.
+                msnap = self.membership.snapshot()
+                print(f"ELASTIC pid {self.pid} epoch {self.election.epoch} "
+                      f"world {msnap['world_size']} membership_changes "
+                      f"{msnap['membership_changes']} wins "
+                      f"{self.election.stats['wins']}", flush=True)
         finally:
+            if self.announcer is not None:
+                try:
+                    # Graceful leave: the leader evicts on the
+                    # announcement, not at the heartbeat deadline.
+                    self.announcer.leave()
+                except Exception:
+                    pass            # the store may already be gone
             self.metrics.close()
             if cfg.trace_file:
                 path = cfg.trace_file
@@ -459,6 +607,14 @@ class AsyncTrainer:
         own_steps = 0
         while own_steps < max_own:
             t0 = time.monotonic()
+            if self.injector is not None:
+                # Keyed on this process's own ticks: a follower has no
+                # global step.
+                self.injector.maybe_crash(own_steps + 1)
+                self.injector.maybe_kill_leader(own_steps + 1,
+                                                is_leader=self.leader)
+            if self.election is not None:
+                my_version = self._elastic_control(own_steps, my_version)
             if self.transport.done() is not None and not self.leader:
                 break
             if self.leader and self.version >= cfg.max_steps:
@@ -475,15 +631,26 @@ class AsyncTrainer:
             m = self._compute_and_submit(my_version)
             own_steps += 1
             used = self._leader_apply() if self.leader else 0
+            if self._claim_pending:
+                # The initial leader claims epoch 1 once its first tick
+                # (kernel builds and loads included) is behind it.
+                self._claim_pending = False
+                self.election.claim_initial()
             step_for_log = self.version if self.leader else own_steps
             if step_for_log and step_for_log % cfg.log_every == 0:
                 wire = self.transport.wire_stats()
                 extra = {}
+                if self.election is not None:
+                    extra["leader_epoch"] = self.election.epoch
+                if self.injector is not None:
+                    extra.update(self.injector.snapshot())
                 if self._retrier is not None:
                     s = self._retrier.snapshot()
-                    # Schema gate: the resilience columns appear once the
-                    # retry plane absorbed an error.
-                    if s["kv_retries"] or s["kv_giveups"]:
+                    # Schema gate: the resilience columns appear with a
+                    # fault plane, or once the retry plane absorbed an
+                    # error.
+                    if self.injector is not None or s["kv_retries"] or \
+                            s["kv_giveups"]:
                         extra.update(s)
                 self.metrics.log_step(
                     step_for_log, 0, loss=m["loss"], acc=m["acc"],
@@ -530,19 +697,23 @@ class AsyncTrainer:
                         v.copy_(held[k])
 
     def leave(self, timeout_s: float = 300.0) -> None:
-        """Mark this process done with the store; process 0, which serves
-        the store, waits for every mark before it returns, so no process
-        loses the store while it reads the final state."""
+        """Mark this process done with the store. Process 0, which serves
+        the TCPStore whatever process leads, waits for every other
+        process's mark before it returns, so no process loses the store
+        while it reads the final state; it does not wait for a process
+        the membership evicted (dead without leaving, a ``leader_kill``)."""
         self._kv.set(f"{self.run_id}/aexit/{self.pid}", "1")
         self.transport.close()
         if self._enc_pool is not None:
             self._enc_pool.shutdown(wait=True)
             self._enc_pool = None
-        if not self.leader:
+        if self.pid != 0:
             return
         deadline = time.monotonic() + timeout_s
-        for p in range(self.n):
-            while self._kv.get(f"{self.run_id}/aexit/{p}") is None:
+        for p in range(1, self.n):
+            while self._kv.get(f"{self.run_id}/aexit/{p}") is None \
+                    and not (self.membership is not None
+                             and self.membership.evicted(p)):
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"process {p} did not leave within "
                                        f"{timeout_s} s")

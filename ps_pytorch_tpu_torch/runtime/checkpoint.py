@@ -67,21 +67,25 @@ def _as_device_get(tree: Any) -> Any:
 
 def save_checkpoint(train_dir: str, step: int, state: Any,
                     config_json: str = "{}", compress: bool = False,
-                    codec_level: int = 3,
+                    codec_level: int = 3, extra_meta: Optional[dict] = None,
                     extra_state: Optional[Any] = None) -> str:
     """Atomically write train_dir/model_step_<step>. Returns the final
-    path. Recorded as the ambient span ``checkpoint_write``."""
+    path. ``extra_meta``: keys added to ``meta.json`` (the leadership
+    epoch that committed the weights). Recorded as the ambient span
+    ``checkpoint_write``."""
     with _span("checkpoint_write", step=step):
         return _save_checkpoint(train_dir, step, state, config_json,
-                                compress, codec_level, extra_state)
+                                compress, codec_level, extra_meta,
+                                extra_state)
 
 
 def _save_checkpoint(train_dir: str, step: int, state: Any,
                      config_json: str, compress: bool, codec_level: int,
+                     extra_meta: Optional[dict],
                      extra_state: Optional[Any]) -> str:
     os.makedirs(train_dir, exist_ok=True)
     blob = msgpack_io.packb(state)
-    meta = {"step": step, "compressed": bool(compress)}
+    meta = {"step": step, "compressed": bool(compress), **(extra_meta or {})}
     if compress:
         blob = w_compress(np.frombuffer(blob, np.uint8), level=codec_level)
     # A restarted writer must not collide with a crashed predecessor's

@@ -15,8 +15,9 @@ One ``OpsPlane`` a trainer, built before the train step (the
   ``<train_dir>/flightrec.json`` when a health spec or an exporter is
   on; rank i > 0 writes ``<path>.p<i>``;
 - the ``MetricsExporter`` on ``--metrics-port`` + rank, its memory
-  gauges, and the resilience counters when a fault or retry plane is on
-  (``resilience``: the live snapshot), refreshed on every scrape;
+  gauges, the resilience counters when a fault or retry plane is on
+  (``resilience``: the live snapshot) and the replicated KV's counters
+  and gauges (``kvrep``), refreshed on every scrape;
 - the cross-process timeline (``--timeline-file``, by default
   ``<metrics_file>.timeline`` when several processes run), published
   over the Coordinator's KV and merged by rank 0;
@@ -39,8 +40,8 @@ from ps_pytorch_tpu_torch.config import parse_profile_steps
 from ps_pytorch_tpu_torch.telemetry import (
     FlightRecorder, HealthMonitor, MetricsExporter, Registry,
     TelemetryAggregator, Tracer, aggregate_peak_flops,
-    declare_resilience_metrics, declare_training_metrics,
-    derive_step_record, device_memory_record, host_rss_bytes,
+    declare_kvrep_metrics, declare_resilience_metrics,
+    declare_training_metrics, derive_step_record, device_memory_record, host_rss_bytes,
     set_default_tracer, step_flops_of,
 )
 
@@ -54,7 +55,7 @@ class OpsPlane:
                  kv=None, run_id: str = "run",
                  health_extra: Optional[Callable[[], dict]] = None,
                  resilience: Optional[Callable[[], dict]] = None,
-                 printer=print):
+                 kvrep=None, printer=print):
         self.cfg, self.device = cfg, torch.device(device)
         self.rank, self.world = rank, world
         self.printer = printer
@@ -96,6 +97,11 @@ class OpsPlane:
                 # too: each render refreshes them from the live snapshots.
                 declare_resilience_metrics(self.registry)
                 collect.append(lambda: self._pump(resilience()))
+            if kvrep is not None:
+                # The replicated KV's health on the same endpoint: quorum
+                # failures, ejections, rejoins, healthy backends.
+                declare_kvrep_metrics(self.registry)
+                collect.append(lambda: self.pump_kvrep_metrics(kvrep))
             self.exporter = MetricsExporter(
                 self.registry, port=cfg.metrics_port + rank,
                 health_fn=self.health_status, collect=collect).start()
@@ -130,6 +136,17 @@ class OpsPlane:
                 continue            # a snapshot key with no declared metric
             if delta > 0:
                 self.registry.inc(name, delta)
+
+    def pump_kvrep_metrics(self, kvrep) -> None:
+        """``kvrep_*`` counters up to a ``ReplicatedKV``'s snapshot and
+        its health gauges set (the JAX trainer's
+        ``_pump_kvrep_metrics``)."""
+        self._pump(kvrep.snapshot())
+        for name, value in kvrep.gauges().items():
+            try:
+                self.registry.set(name, value)
+            except KeyError:
+                continue            # a gauge with no declared metric
 
     # ---- the step loop's calls ----
     def count_flops(self) -> None:

@@ -42,8 +42,21 @@ replica whose beats stopped; SIGTERM makes the loop commit an emergency
 checkpoint at the next step boundary and leave. The JSONL carries the
 resilience counters (``resilience_stats``) whenever a fault plane or
 heartbeats are on, or once the retry plane absorbed an error, and the
-exporter serves them. The lease and elections are not ported yet
-(ROADMAP.md).
+exporter serves them.
+
+The control plane, at the JAX trainer's hooks (``:108-200``): with
+``--kv-replicas`` the Coordinator's KV is a ``ReplicatedKV``
+(``runtime/kvrep.py``) over N independent backends (the per-backend
+faults ``kv_backend_kill`` / ``kv_backend_wipe`` inside its quorum, the
+retry plane outside it), otherwise the group's TCPStore or an in-process
+dict. ``--leader-lease-s`` makes the leader refresh a lease; with
+``--elastic`` the initial leader is ``--elastic-leader``, the lease is an
+epoch-fenced election (``elastic/election.py``) any follower can win when
+it goes stale, a ``MemberAnnouncer`` owns this process's heartbeat and the
+leader folds the membership view into the mask. A ``leader_kill`` fault
+SIGKILLs whoever leads right after the step's mask is decided. The
+checkpoint's meta, the resilience counters and ``/healthz`` carry
+``leader_epoch``.
 
 The step's options: ``--sync-batchnorm``, ``--remat`` and
 ``--shard-update`` (ZeRO-1, ``parallel/zero.py``, whose checkpoints hold
@@ -57,7 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ps_pytorch_tpu_torch import resilience
+from ps_pytorch_tpu_torch import elastic, resilience
 from ps_pytorch_tpu_torch.config import TrainConfig
 from ps_pytorch_tpu_torch.data import prepare_data
 from ps_pytorch_tpu_torch.data.augment import input_norm_for
@@ -71,8 +84,10 @@ from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import (
     Coordinator, DistributedKV, KVStore,
 )
+from ps_pytorch_tpu_torch.runtime.kvrep import build_replicated_kv
 from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
 from ps_pytorch_tpu_torch.runtime.ops_plane import OpsPlane
+from ps_pytorch_tpu_torch.telemetry import declare_elastic_metrics
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -83,6 +98,16 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
                            "run the plain versions on the CPU")
     return dev
+
+
+def _leader_identity(co) -> dict:
+    """The /healthz identity: the run, whether this process leads and,
+    with elections, the epoch and its owner."""
+    body = {"run_id": co.run_id, "leader": bool(co.leader)}
+    if co.election is not None:
+        body["leader_epoch"] = co.election.epoch
+        body["leader_owner"] = co.election.owner
+    return body
 
 
 def set_reference_numerics() -> None:
@@ -117,24 +142,63 @@ class Trainer:
         if injector is None and cfg.fault_spec:
             injector = resilience.FaultInjector(cfg.fault_spec,
                                                 process_index=self.rank)
+        self._kvrep = None
+        if cfg.kv_replicas:
+            # Quorum replication: masks, lease, election and membership
+            # ride N independent backends, and losing a minority of them
+            # is a hiccup, not a dead control plane.
+            base = self._kvrep = build_replicated_kv(
+                cfg, process_index=self.rank, injector=injector)
+        else:
+            base = DistributedKV(store) if store is not None else KVStore()
         kv, self.injector, self._retrier = resilience.wrap_kv_with(
-            DistributedKV(store) if store is not None else KVStore(), cfg,
-            injector)
+            base, cfg, injector)
+        # Leadership is a lease under --elastic, not an address: the
+        # initial leader is --elastic-leader (keep it off process 0, which
+        # serves the TCPStore), and every process gets the election and a
+        # liveness factory, since any follower may be promoted.
+        leader = self.rank == 0
+        election = membership = liveness_factory = None
+        hb_timeout = cfg.heartbeat_timeout_s or 3 * (
+            cfg.heartbeat_interval_s or cfg.leader_lease_s)
+        if cfg.elastic:
+            initial = cfg.elastic_leader % self.world
+            leader = self.rank == initial
+            election = elastic.LeaderElection(
+                kv, "run", self.rank, self.world,
+                interval_s=cfg.leader_lease_s, preferred=initial)
+            membership = elastic.MembershipRegistry(
+                kv, "run", self.world, self.world, timeout_s=hb_timeout)
+            liveness_factory = lambda: resilience.LivenessMonitor(  # noqa
+                kv, "run", self.world, timeout_s=hb_timeout)
+            if leader:
+                election.claim_initial()
         self.coordinator = Coordinator(
             self.world, mode=cfg.mode, num_aggregate=cfg.num_aggregate,
-            kill_threshold=cfg.kill_threshold, kv=kv, leader=self.rank == 0)
+            kill_threshold=cfg.kill_threshold, kv=kv, leader=leader,
+            lease_interval_s=cfg.leader_lease_s, election=election,
+            membership=membership, liveness_factory=liveness_factory)
         # Liveness: every process beats for its replica; the leader folds
-        # missed beats into the mask (crashed is not slow).
+        # missed beats into the mask (crashed is not slow). Under
+        # --elastic the MemberAnnouncer owns the beat (the same hb/ keys,
+        # plus the join the membership registry folds in).
         self.heartbeat = None
-        if cfg.heartbeat_interval_s > 0:
+        self.announcer = None
+        if election is not None:
+            self.announcer = elastic.MemberAnnouncer(
+                kv, self.coordinator.run_id, self.rank, [self.rank],
+                interval_s=cfg.heartbeat_interval_s or cfg.leader_lease_s)
+            self.announcer.join()
+            self.heartbeat = self.announcer.heartbeat
+        elif cfg.heartbeat_interval_s > 0:
             self.heartbeat = resilience.Heartbeat(
                 kv, self.coordinator.run_id, [self.rank],
                 interval_s=cfg.heartbeat_interval_s)
-            if self.coordinator.leader:
-                self.coordinator.liveness = resilience.LivenessMonitor(
-                    kv, self.coordinator.run_id, self.world,
-                    timeout_s=(cfg.heartbeat_timeout_s
-                               or 3 * cfg.heartbeat_interval_s))
+        if self.heartbeat is not None and self.coordinator.leader and \
+                self.coordinator.liveness is None:
+            self.coordinator.liveness = resilience.LivenessMonitor(
+                kv, self.coordinator.run_id, self.world,
+                timeout_s=hb_timeout)
         # SIGTERM (preemption): the handler only flags; the loop writes an
         # emergency checkpoint at the next step boundary.
         self._preempt = resilience.PreemptionGuard()
@@ -148,12 +212,15 @@ class Trainer:
         self.ops = OpsPlane(
             cfg, device=self.device, rank=self.rank, world=self.world,
             kv=co.kv, run_id=co.run_id,
-            health_extra=lambda: {"run_id": co.run_id,
-                                  "leader": bool(co.leader)},
+            health_extra=lambda: _leader_identity(co),
             resilience=(lambda: {k: v for t in planes
                                  for k, v in t.snapshot().items()})
             if planes else None,
-            printer=printer)
+            kvrep=self._kvrep, printer=printer)
+        if election is not None:
+            declare_elastic_metrics(self.ops.registry)
+            self._elastic_drained = {"coord": 0, "member": 0, "elect": 0}
+            self._last_member_epoch = 0
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl,
                                  seed=cfg.seed).to(self.device)
@@ -228,12 +295,17 @@ class Trainer:
                     if self.cfg.shard_update else None)
         if self.rank != 0:
             return None
+        extra = None
+        if self.coordinator.election is not None:
+            # Which leadership epoch committed these weights.
+            extra = {"leader_epoch": self.coordinator.election.epoch,
+                     "leader_pid": self.rank}
         path = ckpt.save_checkpoint(
             self.cfg.train_dir, step,
             state_to_jax(self.model, self.step_fn.opt_state, step,
                          replica_buffers, opt_tree),
             config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
-            codec_level=self.cfg.codec_level)
+            codec_level=self.cfg.codec_level, extra_meta=extra)
         if self.injector is not None:
             # After the atomic commit: the torn artifact the manifest
             # check must catch, not a failed write.
@@ -244,24 +316,74 @@ class Trainer:
 
     def resilience_stats(self) -> dict:
         """Flat counters of every resilience plane that is on: the fault
-        injector's, the retry plane's, the liveness monitor's, and the
-        leader's mask changes."""
+        injector's, the retry plane's, the replicated KV's, the liveness
+        monitor's, the leader's mask changes and, under --elastic, the
+        leadership epoch, the elections, the membership changes and the
+        world size."""
+        co = self.coordinator
         out: dict = {}
-        for plane in (self.injector, self._retrier,
-                      self.coordinator.liveness):
+        for plane in (self.injector, self._retrier, self._kvrep,
+                      co.liveness):
             if plane is not None:
                 out.update(plane.snapshot())
-        out["mask_changes"] = self.coordinator.stats.get("mask_changes", 0)
+        out["mask_changes"] = co.stats.get("mask_changes", 0)
+        if co.election is not None:
+            out["leader_epoch"] = co.election.epoch
+            out["elections"] = co.stats.get("elections", 0)
+        if co.membership is not None:
+            m = co.membership.snapshot()
+            out["membership_changes"] = m["membership_changes"]
+            out["world_size"] = m["world_size"] or self.world
         return out
 
     def _resilience_active(self) -> bool:
-        """The JAX trainer's schema gate: a run with no fault plane and no
-        heartbeats keeps the plain JSONL until the retry plane absorbed an
-        error."""
-        if self.injector is not None or self.heartbeat is not None:
+        """The JAX trainer's schema gate: a run with no fault plane, no
+        heartbeats and no elections keeps the plain JSONL until the retry
+        plane absorbed an error."""
+        if self.injector is not None or self.heartbeat is not None or \
+                self.cfg.elastic:
             return True
         s = self._retrier.snapshot() if self._retrier is not None else {}
         return bool(s.get("kv_retries") or s.get("kv_giveups"))
+
+    def _elastic_step(self, step: int) -> None:
+        """A step's elastic bookkeeping (the JAX trainer's ``:426-460``):
+        the leader-epoch and world-size gauges, the membership-change and
+        election counters, and the election and membership events into
+        the flight recorder. On a membership-epoch change under
+        ``--shard-update`` the shard plan of the new member count is
+        printed and recorded."""
+        co, r = self.coordinator, self.ops.registry
+        el, mem = co.election, co.membership
+        r.set("leader_epoch", el.epoch)
+        snap = mem.snapshot()
+        r.set("world_size", snap["world_size"] or self.world)
+        for name, value in (("membership_changes",
+                             snap["membership_changes"]),
+                            ("elections", co.stats.get("elections", 0))):
+            if value > r.get(name):
+                r.inc(name, value - r.get(name))
+        flight = self.ops.flightrec
+        if flight is not None:
+            for src, events in (("coord", co.events),
+                                ("member", mem.events),
+                                ("elect", el.events)):
+                kind = "membership" if src == "member" else "election"
+                for ev in events[self._elastic_drained[src]:]:
+                    flight.record_event(kind, dict(ev))
+                self._elastic_drained[src] = len(events)
+        if mem.epoch != self._last_member_epoch:
+            self._last_member_epoch = mem.epoch
+            if self.cfg.shard_update and mem.members:
+                size = sum(p.numel() for p in self.model.parameters())
+                n = len(mem.members)
+                chunk = -(-size // n)
+                print(f"REBALANCE shard plan epoch {mem.epoch}: "
+                      f"{n} shards x {chunk} params")
+                if flight is not None:
+                    flight.record_event("shard_replan", {
+                        "epoch": mem.epoch, "n_shards": n, "chunk": chunk,
+                        "step": step})
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -305,6 +427,13 @@ class Trainer:
                 t_data = time.monotonic() - t0
                 mask = co.participation_mask(step)
                 t_mask = time.monotonic() - t0 - t_data
+                if self.injector is not None:
+                    # Role-addressed, after the mask decision: the leader
+                    # dies with this step's mask published, the worst
+                    # handoff (followers consume it, then find the lease
+                    # stale at the next step and elect).
+                    self.injector.maybe_kill_leader(step,
+                                                    is_leader=co.leader)
                 if self.injector is not None and \
                         self.injector.maybe_poison(step):
                     # grad_nan: the NaN rides the mask into the step's
@@ -336,6 +465,8 @@ class Trainer:
                 ops.ops_step(step, examples=cfg.batch_size, loss=loss,
                              grad_norm=grad_norm, nonfinite=nonfinite,
                              step_time=t_step, data_time=t_data)
+                if co.election is not None:
+                    self._elastic_step(step)
                 if ops.should_halt:
                     ops.halt(step, self.checkpoint)
                     halted = True

@@ -260,6 +260,72 @@ def declare_resilience_metrics(registry: Registry) -> Registry:
     return registry
 
 
+# ---- replicated-KV contract (runtime/kvrep.py) -------------
+#
+# The quorum-replicated coordination plane's reviewable surface: quorum
+# failures the retry plane saw, per-backend error/ejection/rejoin
+# lifecycle, steady-state read-repair traffic, and anti-entropy resync
+# volume — plus the two gauges a dashboard needs to see a degraded
+# replica set AT A GLANCE.
+KVREP_COUNTERS = (
+    ("kvrep_quorum_failures", "ops",
+     "logical KV ops that failed to reach a write/read quorum"),
+    ("kvrep_backend_errors", "ops",
+     "single-backend op failures absorbed below the quorum"),
+    ("kvrep_ejections", "events",
+     "backends ejected after consecutive failures"),
+    ("kvrep_rejoins", "events",
+     "ejected backends readmitted after probe + anti-entropy resync"),
+    ("kvrep_read_repairs", "ops",
+     "stale/absent replica copies overwritten during quorum reads"),
+    ("kvrep_resyncs", "events", "anti-entropy resync passes completed"),
+    ("kvrep_resync_keys", "keys",
+     "replica copies repaired by anti-entropy resync"),
+    ("kvrep_probes", "events", "probation probes sent to ejected backends"),
+)
+KVREP_GAUGES = (
+    ("kvrep_backends", "backends", "configured KV replica backends"),
+    ("kvrep_backends_healthy", "backends",
+     "KV replica backends currently in the quorum set"),
+)
+
+
+def declare_kvrep_metrics(registry: Registry) -> Registry:
+    """Declare the replicated-KV counters/gauges on ``registry``."""
+    for name, unit, help_ in KVREP_COUNTERS:
+        registry.counter(name, unit=unit, help=help_)
+    for name, unit, help_ in KVREP_GAUGES:
+        registry.gauge(name, unit=unit, help=help_)
+    return registry
+
+
+# ---- elastic control-plane contract (elastic/) ----
+#
+# Same discipline: the reviewable list of what the election/membership
+# planes surface. leader_epoch and world_size are GAUGES (the epoch is
+# monotonic but a freshly-promoted process starts from the observed value,
+# not zero); membership_changes/elections are cumulative counters, so the
+# Prometheus exposition renders them with the _total suffix.
+ELASTIC_COUNTERS = (
+    ("membership_changes", "events",
+     "membership-epoch bumps (joins, leaves, evictions folded in)"),
+    ("elections", "events", "leader campaigns run after a stale lease"),
+)
+ELASTIC_GAUGES = (
+    ("leader_epoch", "epoch", "current leader-lease epoch"),
+    ("world_size", "processes", "active members in the current view"),
+)
+
+
+def declare_elastic_metrics(registry: Registry) -> Registry:
+    """Declare the elastic counters/gauges on ``registry``."""
+    for name, unit, help_ in ELASTIC_COUNTERS:
+        registry.counter(name, unit=unit, help=help_)
+    for name, unit, help_ in ELASTIC_GAUGES:
+        registry.gauge(name, unit=unit, help=help_)
+    return registry
+
+
 def host_rss_bytes() -> int:
     """Peak resident-set watermark of this process (getrusage; KiB on
     Linux, bytes on macOS); 0 where the platform has neither."""

@@ -10,7 +10,10 @@
 - ``wait``: block until every process exits (``--timeout`` kills the
   fleet); ok when every log holds a FINAL line. A process that exits
   without one ends the wait at once and kills the rest, which would
-  otherwise wait for it in a collective or for a mask.
+  otherwise wait for it in a collective or for a mask, unless its log
+  ends at the fault plane's ``FAULT leader_kill`` line: that death was
+  asked for (``--fault-spec leader_kill:...``), and the survivors elect a
+  new leader and run on.
 - ``kill``: SIGTERM, then SIGKILL after ``--grace`` seconds.
 
 Host modes:
@@ -43,6 +46,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from ps_pytorch_tpu_torch.parallel import dist
+from ps_pytorch_tpu_torch.resilience.faults import LEADER_KILL_LINE
 
 PROCS_FILE = "procs.json"
 REPO = Path(__file__).resolve().parents[2]
@@ -160,13 +164,14 @@ def _alive(pid: int) -> bool:
         return True
 
 
-def _last_progress_line(log: str) -> str:
+def _last_progress_line(log: str, width: Optional[int] = 120) -> str:
     try:
         with open(log, "rb") as f:
             tail = f.read()[-4096:].decode(errors="replace").splitlines()
         for line in reversed(tail):
             if line.strip():
-                return line.strip()[-120:]
+                line = line.strip()
+                return line[-width:] if width else line
     except OSError:
         pass
     return "<no output>"
@@ -178,6 +183,13 @@ def _has_final(path: str) -> bool:
             return any(line.startswith("FINAL") for line in f)
     except OSError:
         return False
+
+
+def _killed_by_fault(path: str) -> bool:
+    """True when the log's last line is the fault plane's ``FAULT
+    leader_kill`` line: the process SIGKILLed itself on purpose."""
+    return _last_progress_line(path, width=None).startswith(
+        LEADER_KILL_LINE)
 
 
 def cmd_status(args) -> int:
@@ -196,13 +208,15 @@ def cmd_status(args) -> int:
 def cmd_wait(args) -> int:
     """Block until every process exits. 0 when every log holds a FINAL
     line; 1 when one does not (the rest of the fleet is killed as soon as
-    such a process exits); 2 at ``--timeout`` (the fleet is killed)."""
+    such a process exits, unless its log ends at the ``FAULT leader_kill``
+    line); 2 at ``--timeout`` (the fleet is killed)."""
     meta = _load_procs(args.run_dir)
     deadline = time.monotonic() + args.timeout if args.timeout else None
     while True:
         alive = [_alive(r["pid"]) for r in meta["procs"]]
         failed = [r["rank"] for r, a in zip(meta["procs"], alive)
-                  if not a and not _has_final(r["log"])]
+                  if not a and not _has_final(r["log"])
+                  and not _killed_by_fault(r["log"])]
         if failed and any(alive):
             print(f"WAIT rank {failed} exited without FINAL; killing fleet",
                   file=sys.stderr, flush=True)

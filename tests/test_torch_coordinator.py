@@ -164,8 +164,16 @@ def test_follower_receives_the_leaders_mask_and_retries_transient_errors():
     dict(lease_interval_s=1.0), dict(lease_timeout_s=3.0),
     dict(clock=time.time)])
 def test_unported_planes_raise(kw):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        coordinator.Coordinator(2, **kw)
+    """The planes the Coordinator once refused are ported: each argument
+    is taken and kept as the JAX Coordinator keeps it."""
+    ours = coordinator.Coordinator(2, **kw)
+    theirs = jax_coordinator.Coordinator(2, **kw)
+    for attr in ("election", "membership", "_liveness_factory",
+                 "lease_interval_s", "lease_timeout_s"):
+        assert getattr(ours, attr) is getattr(theirs, attr) or \
+            getattr(ours, attr) == getattr(theirs, attr), attr
+    if "clock" in kw:
+        assert ours.clock is kw["clock"]
 
 
 _FOLLOWER = r"""

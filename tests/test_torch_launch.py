@@ -96,6 +96,46 @@ def test_wait_ends_the_fleet_when_a_rank_dies(tmp_path, monkeypatch, capsys):
     assert not any(launch._alive(p["pid"]) for p in meta["procs"])
 
 
+_LEADER_KILL = r"""
+import os, sys, time
+from ps_pytorch_tpu_torch.resilience import FaultInjector
+rank = int(os.environ["PS_TPU_PROCESS_ID"])
+if rank == 1:
+    if os.environ.get("AFTER"):
+        print("FAULT leader_kill: SIGKILL process 1 (leader) at step 3")
+        print(os.environ["AFTER"], flush=True)
+        os.kill(os.getpid(), 9)
+    FaultInjector("leader_kill:step=3", process_index=1).maybe_kill_leader(
+        3, is_leader=True)
+time.sleep(float(os.environ["SLEEP_S"]))
+print("FINAL done")
+"""
+
+
+@pytest.mark.parametrize("after", ["", "a line after the fault"])
+def test_wait_lets_a_fleet_outlive_an_intended_leader_kill(
+        tmp_path, monkeypatch, capsys, after):
+    """A rank whose log ends at the fault plane's FAULT leader_kill line
+    died on purpose: wait lets the others finish (and reports 1, one log
+    lacking FINAL). Any other death without FINAL still ends the fleet."""
+    monkeypatch.setenv("SLEEP_S", "3" if not after else "60")
+    monkeypatch.setenv("AFTER", after)
+    t0 = time.monotonic()
+    rc, run_dir = _launch(tmp_path, _LEADER_KILL, 2, "--wait", "--timeout",
+                          "50", "--grace", "1")
+    out = capsys.readouterr()
+    assert rc == 1 and "DONE ok=False" in out.out
+    log0 = (run_dir / "proc_0.log").read_text()
+    last1 = (run_dir / "proc_1.log").read_text().strip().splitlines()[-1]
+    if after:
+        assert last1 == after and "killing fleet" in out.err
+        assert "FINAL" not in log0 and time.monotonic() - t0 < 30
+    else:
+        assert last1 == ("FAULT leader_kill: SIGKILL process 1 (leader) "
+                         "at step 3")
+        assert "killing fleet" not in out.err and "FINAL done" in log0
+
+
 def test_status_kill_and_wait_timeout(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("SLEEP_S", "60")
     rc, run_dir = _launch(tmp_path, _ENTRY, 2)

@@ -84,11 +84,15 @@ def test_config_json_round_trips_with_jax():
 ])
 def test_unported_fields_raise(field, value):
     kw = {"eval_freq": 0, field: value}
-    if field in config.OPS_FIELDS + config.SYNC_ONLY_FIELDS:
+    if field in config.OPS_FIELDS + config.SYNC_ONLY_FIELDS \
+            + config.CONTROL_FIELDS:
         # The ops plane runs in sync, kofn and the LM, the step's options
-        # and crash containment in sync and kofn; --mode async still
-        # refuses them (ROADMAP.md).
+        # in sync and kofn, the control plane in sync, kofn and async
+        # across processes; --mode async in one process still refuses
+        # them (ROADMAP.md).
         kw["mode"] = "async"
+    if field == "elastic":
+        kw["leader_lease_s"] = 1.0          # else the JAX check refuses
     if field == "loader_workers":
         # The pool feeds every CNN trainer; the LM's loader has none.
         kw["network"] = "TransformerLM"
