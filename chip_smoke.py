@@ -67,7 +67,20 @@ exit and no result line, if any phase fails:
    of ``python -m ps_pytorch_tpu_torch.runtime.kvrep`` (MAIN-KVREP: one
    backend dead for two steps, another wiped, the parameters bitwise those
    of the static run that follows in the same launch, ejections and
-   resyncs counted, no retry given up); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
+   resyncs counted, no retry given up); between those two, the sharded
+   wire update held bitwise across 1, 2 and 3 shards on ResNet-18's tree
+   from the card (CHECK zero-wire), three processes on ``--shard-wire``
+   whose leader is SIGKILLed, the promoted leader restoring the sharded
+   optimizer state from the dead leader's checkpoint (MAIN-SHARD,
+   ``--rank-shard``: one election, one final hash, the ``"zero"`` state in
+   the last checkpoint over all 3 shards, the channel carrying the
+   BatchNorm statistics only, no fused SGD, ``evaluate.main`` scoring it;
+   then two slices in one process resumed bitwise), the integrity screen
+   on the card held against its CPU copies (CHECK integrity), and four
+   processes with process 2 poisoning its int8lat gradients by 1e38
+   (MAIN-POISON, ``--rank-poison``: the leader quarantines and readmits
+   contributor 2, counts a caught bit-flip, its exporter shows the
+   quarantine, all four losses finite); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
    Dropout, synthetic CIFAR-100, batch 256) and ResNet-50 at 224 px on the
    random-resized-crop loader (MAIN-IMAGENET: batch 128, uint8 batches)
    through ``train.main`` and ``evaluate.main --once``, each after the
@@ -209,13 +222,14 @@ WIRE_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
              "--weight-decay", "5e-4", "--test-batch-size", "4167",
              "--device", "cuda")
 WIRE_INT8 = ("--compress-grad", "true", "--grad-codec", "int8")
-# The launches, each a tuple of runs in one process group: blosc and raw
-# in one launch, raw under another seed, so that its wire keys
-# (``async-<seed>/...``) are not blosc's.
+# The launches, each a tuple of runs in one process group: the resumed
+# int8 run, blosc and raw in one launch, blosc and raw under seeds of
+# their own, so that their wire keys (``async-<seed>/...``) are not those
+# of the run before them in the group.
 WIRE_LAUNCHES = ((("int8", WIRE_INT8, 6, 3, False),),
-                 (("int8-resumed", WIRE_INT8, 8, 3, True),),
-                 (("blosc", ("--compress-grad", "true", "--grad-codec",
-                             "blosc"), 3, 0, False),
+                 (("int8-resumed", WIRE_INT8, 8, 3, True),
+                  ("blosc", ("--compress-grad", "true", "--grad-codec",
+                             "blosc", "--seed", "44"), 3, 0, False),
                   ("raw", ("--compress-grad", "false", "--wire-bucket-mb",
                            "0", "--seed", "43"), 2, 0, False)))
 WIRE_SAVES = {"int8": [3, 6], "int8-resumed": [8], "blosc": [], "raw": []}
@@ -274,7 +288,7 @@ REMAT_STEPS = 6
 # everywhere it would kill the winner too. A checkpoint every 2 versions
 # exists before the kill; the lease (3 s, stale after 9 s) outlasts a
 # leader tick.
-ELECT_STEPS = 10
+ELECT_STEPS = 8
 ELECT_KILL = 4
 ELECT_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
               "ResNet18", "--dataset", "synthetic_cifar10", "--batch-size",
@@ -296,6 +310,61 @@ KVREP_ARGS = (*DIST_ARGS, "--mode", "kofn", "--num-aggregate", "2",
               str(KVREP_STEPS))
 KVREP_FAULTS = ("kv_backend_kill:backend=2,step=3,steps=2;"
                 "kv_backend_wipe:backend=1,step=5")
+# MAIN-SHARD: the same ResNet-18 as three processes on the card, async on
+# the sharded wire update (--shard-wire, the leader owning max(3, 2) = 3
+# shards, the update on the host), the blosc codec, the PS leader a lease
+# held first by process 1 and SIGKILLed at its tick SHARD_KILL (the JAX
+# drill, tools/elastic_drill.py:61-80); a checkpoint every 2 versions
+# carries the sharded optimizer state to the promoted leader.
+SHARD_STEPS = 8
+SHARD_KILL = 4
+SHARD_ARGS = ("--mode", "async", "--shard-wire", "--compress-grad", "true",
+              "--grad-codec", "blosc", "--staleness-limit", "8",
+              "--network", "ResNet18", "--dataset", "synthetic_cifar10",
+              "--batch-size", "128", "--compute-dtype", "bfloat16",
+              "--conv-impl", "pallas", "--fused-optimizer", "--momentum",
+              "0.9", "--weight-decay", "5e-4", "--test-batch-size", "4167",
+              "--elastic", "--elastic-leader", "1", "--leader-lease-s", "3",
+              "--eval-freq", "2", "--max-steps", str(SHARD_STEPS),
+              "--resume", "false", "--device", "cuda")
+# The raw f32 parameter payload of ResNet-18 on the replicated wire, the
+# transport's canonical publish as MAIN-WIRE measures it (PERF.md): what
+# --shard-wire moves off the transport's parameter channel.
+RAW_PARAM_PUBLISH_BYTES = 55.9e6
+# MAIN-SHARD's in-process leg: two slices on --shard-wire, 4 ticks
+# uninterrupted against 2 ticks, a checkpoint, and a resume to 4.
+SHARD_SLICE_ARGS = ("--mode", "async", "--async-slices", "2", "--shard-wire",
+                    "--network", "ResNet18", "--dataset",
+                    "synthetic_cifar10", "--batch-size", str(BATCH),
+                    "--compute-dtype", "bfloat16", "--conv-impl", "pallas",
+                    "--fused-optimizer", "--momentum", "0.9",
+                    "--weight-decay", "5e-4")
+# MAIN-POISON: the JAX poison drill's poison leg (tools/poison_drill.py:
+# 262-293) on ResNet-18: four processes of batch 64 (global 256), int8lat
+# without error feedback, the integrity screen on (the default); process 2
+# scales its own gradients by 1e38 for POISON_WINDOW of its steps, and 1%
+# of the leader's gradient chunk reads are bit-flipped. The drill's 16
+# poisoner steps of 40 versions are widened to 80 of 48: on the card a
+# follower takes ~3.75 steps a leader tick (0.3-0.4 s against 1.4 s), the
+# leader reads only each follower's newest contribution, and the digest
+# demotes about half of those reads (a ResNet-18 contribution is ~50
+# chunks, each read flipped at p = 0.01). 16 steps gave one strike and no
+# quarantine; 80 gave 5 and 8 strikes, the window closing near version
+# 20-24, and the readmission's three clean screens came at versions 28
+# and 37 of 40: 48 versions leave room for them.
+POISON_STEPS = 48
+POISON_WINDOW = 80
+POISON_SPEC = (f"grad_poison:scale=1e38,r=2,step=3,steps={POISON_WINDOW};"
+               "payload_bitflip:p=0.01,seed=11,prefix=async-42/agrad")
+POISON_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
+               "int8lat", "--staleness-limit", "4", "--network", "ResNet18",
+               "--dataset", "synthetic_cifar10", "--batch-size", "64",
+               "--compute-dtype", "bfloat16", "--conv-impl", "pallas",
+               "--fused-optimizer", "--momentum", "0.9", "--weight-decay",
+               "5e-4", "--test-batch-size", "4167", "--kv-retry-attempts",
+               "2", "--log-every", "4", "--max-steps", str(POISON_STEPS),
+               "--eval-freq", "0", "--resume", "false", "--fault-spec",
+               POISON_SPEC, "--device", "cuda")
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 # The model's FLOPs a training step, the JAX package's count on the xla /
@@ -2501,6 +2570,600 @@ def kvrep_main_path(wrappers) -> dict:
     return recs[0][0]["launches"]
 
 
+def resnet18_wire_trees(torch):
+    """ResNet-18 as the sharded updater and the screen see it: its
+    parameters and one training step's gradients on the card (bf16,
+    ``--conv-impl pallas``, a synthetic CIFAR-10 batch of 256, seeded), as
+    JAX-layout leaves in wire order (flax paths sorted, HWIO, [in,out]),
+    f32 tensors on the card. -> (paths, param leaves, gradient leaves)."""
+    from ps_pytorch_tpu_torch.config import TrainConfig
+    from ps_pytorch_tpu_torch.data.augment import input_norm_for
+    from ps_pytorch_tpu_torch.data.datasets import DataLoader, load_arrays
+    from ps_pytorch_tpu_torch.models import build_model
+    from ps_pytorch_tpu_torch.models.convert import jax_path, leaf_layout
+    from ps_pytorch_tpu_torch.runtime.multislice import make_slice_grad_fn
+
+    cfg = TrainConfig(network="ResNet18", dataset="synthetic_cifar10",
+                      batch_size=BATCH, compute_dtype="bfloat16",
+                      conv_impl="pallas", eval_freq=0)
+    model = build_model(cfg.network, cfg.num_classes, cfg.compute_dtype,
+                        cfg.conv_impl, seed=cfg.seed).cuda()
+    norm = input_norm_for(cfg)
+    xtr, ytr = load_arrays(cfg.dataset, cfg.data_dir, train=True,
+                           seed=cfg.seed)
+    loader = DataLoader(xtr, ytr, BATCH, cfg.dataset, train=True,
+                        seed=cfg.seed, device_normalize=norm is not None)
+    x, y = loader.next_batch()
+    grads, _ = make_slice_grad_fn(model, norm)(x, y, key=1)
+    params = dict(model.named_parameters())
+    names = sorted(params)
+    return ([jax_path(n, params[n].dim()) for n in names],
+            [leaf_layout(n, params[n].detach(), True).contiguous()
+             for n in names],
+            [leaf_layout(n, grads[n], True).contiguous() for n in names])
+
+
+def tree_sha256(tree) -> str:
+    import hashlib
+
+    from ps_pytorch_tpu_torch.parallel.async_dp import tree_flatten
+
+    digest = hashlib.sha256()
+    for leaf in tree_flatten(tree)[0]:
+        if hasattr(leaf, "detach"):
+            leaf = leaf.detach().cpu().numpy()
+        digest.update(np.ascontiguousarray(leaf, np.float32).tobytes())
+    return digest.hexdigest()
+
+
+def check_zero_wire(torch) -> dict:
+    """CHECK zero-wire: ResNet-18's parameters and one step's gradients
+    from the card, the same average fed for 3 rounds (scaled 1, 1/2, 1/4)
+    to the port's ZeroWireUpdater at 1, 2 and 3 shards, every owner in
+    this process over one in-memory KV (the default 4 MiB bucket edges and
+    4 workers): SGD (momentum 0.9, weight decay 5e-4), then Adam. Fails
+    unless each optimizer's assembled parameters hash the same at every
+    shard count and in every owner, and the largest owner holds at most
+    1/N of the optimizer state plus one bucket's. Prints the publish and
+    assemble seconds a round."""
+    from ps_pytorch_tpu_torch.models.convert import nest
+    from ps_pytorch_tpu_torch.parallel.buckets import plan_buckets
+    from ps_pytorch_tpu_torch.parallel.zero_wire import ZeroWireUpdater
+    from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    paths, params, grads = resnet18_wire_trees(torch)
+    host_p = [p.cpu().numpy() for p in params]
+    host_g = [g.cpu().numpy() for g in grads]
+    bucket = 4 << 20
+    max_bucket = max(b.nbytes for b in plan_buckets(host_p, bucket))
+    rounds = [nest(paths, [g * np.float32(scale) for g in host_g])
+              for scale in (1.0, 0.5, 0.25)]
+    out = {}
+    for optimizer, kw in (("sgd", dict(lr=0.1, momentum=0.9,
+                                       weight_decay=5e-4)),
+                          ("adam", dict(lr=1e-3, weight_decay=5e-4))):
+        shas = {}
+        for n in (1, 2, 3):
+            kv = KVStore()
+            ups = [ZeroWireUpdater(inner=None, kv=kv, run_id="zw-chip",
+                                   params=nest(paths, host_p),
+                                   optimizer=optimizer,
+                                   members=list(range(n)), me=m, n_shards=n,
+                                   bucket_bytes=bucket, workers=4, **kw)
+                   for m in range(n)]
+            publish_s, assemble_s = [], []
+            for rnd, g in enumerate(rounds):
+                t0 = time.perf_counter()
+                for u in ups:
+                    u.apply_and_publish(g, version=rnd + 1)
+                t1 = time.perf_counter()
+                trees = [u.assemble_round() for u in ups]
+                assemble_s.append(time.perf_counter() - t1)
+                publish_s.append(t1 - t0)
+            owners = {tree_sha256(t) for t in trees}
+            if len(owners) != 1:
+                fail(f"CHECK zero-wire {optimizer} {n} shards: the owners "
+                     f"assembled different parameters")
+            shas[n] = owners.pop()
+            state = [u.opt_state_nbytes() for u in ups]
+            fields = len(ups[0]._opt.fields)
+            limit = sum(state) / n + fields * max_bucket
+            if max(state) > limit:
+                fail(f"CHECK zero-wire {optimizer} {n} shards: the largest "
+                     f"owner holds {max(state)} B of optimizer state, more "
+                     f"than 1/N plus one bucket ({limit:.0f})")
+            print(f"CHECK zero-wire {optimizer} {n} shards: publish_s a "
+                  f"round {[round(t, 4) for t in publish_s]} assemble_s "
+                  f"{[round(t, 4) for t in assemble_s]} opt_state_nbytes "
+                  f"{state} (bound {limit:.0f}) zw_bytes_out "
+                  f"{[u.wire_stats()['zw_bytes_out'] for u in ups]} shard "
+                  f"bytes {ups[0].describe()} card {card}", flush=True)
+            out[f"{optimizer}_{n}"] = {"publish_s": publish_s,
+                                       "assemble_s": assemble_s,
+                                       "opt_state_nbytes": state}
+        if len(set(shas.values())) != 1:
+            fail(f"CHECK zero-wire {optimizer}: params sha256 by shard count "
+                 f"{shas}")
+        print(f"CHECK zero-wire {optimizer}: params sha256 {shas[1]} equal "
+              f"at 1, 2 and 3 shards", flush=True)
+    return out
+
+
+def check_integrity_on_device(torch) -> dict:
+    """CHECK integrity: ResNet-18's gradient tree from the card as four
+    CUDA contributions (contributor c scaled by 1 + c/100 + t/1000 in
+    round t): in round 0 contributor 2 has a NaN in leaf 7, in rounds 1-4
+    it is scaled by 1e8, rounds 5-7 are clean. The port's GradIntegrity
+    screens them on the card, a second instance their CPU copies (numpy):
+    fails unless the admitted ids, the reasons, the quarantine and
+    readmission events and the counters are the same, and every
+    contributor's norm agrees to a relative 1e-9. Prints the screen's
+    time a round on the card."""
+    from ps_pytorch_tpu_torch.resilience.integrity import (
+        GradIntegrity, contribution_norm,
+    )
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    _, _, grads = resnet18_wire_trees(torch)
+    events = {"cuda": [], "cpu": []}
+    ledgers = {dev: GradIntegrity(on_event=lambda *e, d=dev:
+                                  events[d].append(e))
+               for dev in events}
+    screen_ms, worst = [], 0.0
+    for t in range(8):
+        contrib = []
+        for cid in range(4):
+            leaves = [g * (1.0 + 0.01 * cid + 0.001 * t) for g in grads]
+            if cid == 2 and t == 0:
+                leaves[7][0] = float("nan")
+            if cid == 2 and 1 <= t <= 4:
+                leaves = [g * 1e8 for g in leaves]
+            contrib.append((cid, leaves))
+        host = [(cid, [g.cpu().numpy() for g in leaves])
+                for cid, leaves in contrib]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ledgers["cuda"].screen(contrib, step=t)
+        screen_ms.append(1e3 * (time.perf_counter() - t0))
+        want = ledgers["cpu"].screen(host, step=t)
+        if got != want:
+            fail(f"CHECK integrity round {t}: the card screened {got}, the "
+                 f"CPU {want}")
+        for (_, dev), (_, cpu) in zip(contrib, host):
+            a, b = contribution_norm(dev), contribution_norm(cpu)
+            if not (math.isnan(a) and math.isnan(b)):
+                worst = max(worst, abs(a - b) / b)
+    snaps = {dev: g.snapshot() for dev, g in ledgers.items()}
+    kinds = [e[0] for e in events["cuda"]]
+    if events["cuda"] != events["cpu"] or snaps["cuda"] != snaps["cpu"] or \
+            worst > 1e-9 or "quarantine" not in kinds or \
+            "readmit" not in kinds:
+        fail(f"CHECK integrity: events {events}, counters {snaps}, norm "
+             f"rel diff {worst:.3e}")
+    print(f"CHECK integrity ResNet-18 gradient tree x 4 contributors on the "
+          f"card vs CPU, 8 rounds: same verdicts, events "
+          f"{[(e[0], e[1], e[2]) for e in events['cuda'] if e[0] != 'strike']}"
+          f", counters {snaps['cuda']}, norm max rel diff {worst:.3e}; "
+          f"screen ms a round on the card {[round(x, 2) for x in screen_ms]}"
+          f" (median {np.median(screen_ms):.2f}) card {card_line()}",
+          flush=True)
+    return {"screen_ms": screen_ms}
+
+
+def shard_rank_main(argv) -> int:
+    """One process of MAIN-SHARD, started by the launcher: process 1 is
+    armed with ``leader_kill``; ``train.run`` with every launch count set
+    to 0 just before; when this process is promoted, its counts, and the
+    sharded step it restored; a sha256 of the canonical final parameters
+    as it evaluates them. Then one ``SHARD`` line (a killed process
+    prints none)."""
+    import os
+
+    from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.runtime import async_trainer
+
+    if os.environ["PS_TPU_PROCESS_ID"] == "1":
+        argv = [*argv, "--fault-spec", f"leader_kill:step={SHARD_KILL}"]
+    wrappers = kernel_wrappers()
+    seen = {"promoted": None, "sha": None, "saves": []}
+    cls = async_trainer.AsyncTrainer
+    promote, evaluate = cls._promote, cls.evaluate
+    save_checkpoint = async_trainer.ckpt.save_checkpoint
+
+    def promoted(self, my_version):
+        seen["promoted"] = {"ts": time.time(), "version": my_version,
+                            "launches": read_counts(wrappers)}
+        version = promote(self, my_version)
+        seen["promoted"].update(
+            zero_step=self.aggregator.step, at_version=version,
+            ckpt_step=async_trainer.ckpt.latest_step(self.cfg.train_dir))
+        return version
+
+    def evaluated(self, max_batches=None):
+        seen["sha"] = tree_sha256(self._fetch_canonical()[1]["params"])
+        return evaluate(self, max_batches)
+
+    def counted(train_dir, step, *args, **kw):
+        seen["saves"].append(step)
+        return save_checkpoint(train_dir, step, *args, **kw)
+
+    cls._promote, cls.evaluate = promoted, evaluated
+    async_trainer.ckpt.save_checkpoint = counted
+    zero_counts(wrappers)
+    trainer, result = train.run(argv)
+    ch = trainer.transport.param_ch
+    updater = trainer.aggregator if trainer.leader else trainer._zw_reader()
+    print("SHARD " + json.dumps({
+        "pid": trainer.pid, "launches": read_counts(wrappers),
+        "promoted": seen["promoted"], "params_sha256": seen["sha"],
+        "version": trainer.version, "applied": trainer.applied,
+        "own_steps": trainer.own_steps, "saves": seen["saves"],
+        "epoch": trainer.election.epoch, "leader": trainer.leader,
+        "zero_step": updater.step, "zw": updater.wire_stats(),
+        "param_publishes": ch.publishes,
+        "param_publish_bytes": ch.last_publish_bytes,
+        "eval": result}), flush=True)
+    return 0
+
+
+def shard_main_path(wrappers) -> dict:
+    """MAIN-SHARD: ResNet-18 at full width as three processes on the card
+    on the sharded wire update (``SHARD_ARGS``), the leader SIGKILLed at
+    its tick ``SHARD_KILL``. The launcher lets the survivors finish (it
+    exits 1). Fails unless process 1's log ends at its ``FAULT
+    leader_kill`` line; one ``ELECTED`` line, from a survivor, at an epoch
+    above 1, and no ``DEPOSED``; both survivors print one equal, finite
+    FINAL line and hash the same canonical parameters; the promoted
+    leader's last checkpoint carries ``extra_state["zero"]`` with the
+    sharded step it restored plus its applied updates, over all 3 shards;
+    its channel's parameter publish carries the BatchNorm statistics only;
+    no process launched fused SGD (the update runs on the host), every
+    conv3x3 launch took the tensor cores, no quantize ran; and
+    ``evaluate.main`` scores that checkpoint. Then the in-process leg
+    (``shard_slices_leg``). Prints the leader's tick before and after the
+    takeover and the publish bytes against the replicated wire's."""
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    td, card = f"{root}/td", card_line()
+    try:
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 3, [
+            "--rank-shard", *SHARD_ARGS, "--train-dir", td,
+            "--metrics-file", f"{root}/m.jsonl"], "MAIN-SHARD", rc_ok=1)
+        wall = time.monotonic() - t0
+        last = logs[1].strip().splitlines()[-1] if logs[1].strip() else ""
+        if not re.fullmatch(r"FAULT leader_kill: SIGKILL process 1 "
+                            r"\(leader\) at step \d+", last):
+            fail(f"MAIN-SHARD: process 1's log ends at {last!r}, not its "
+                 "FAULT leader_kill line")
+        elected = [(r, m) for r, log in enumerate(logs) for m in re.findall(
+            r"^ELECTED async leader process (\d+) epoch (\d+) at version "
+            r"(\d+) \(election (\S+)s\)$", log, re.M)]
+        if len(elected) != 1 or elected[0][0] not in (0, 2) or \
+                int(elected[0][1][0]) != elected[0][0] or \
+                int(elected[0][1][1]) < 2 or \
+                any("DEPOSED" in log for log in logs):
+            fail(f"MAIN-SHARD: elections {elected}; expected one, won by a "
+                 "survivor at an epoch above 1, and no DEPOSED")
+        winner, (_, epoch, at_version, latency) = elected[0]
+        other = 2 if winner == 0 else 0
+        recs = {}
+        for r in (0, 2):
+            found = re.findall(r"^SHARD (.*)$", logs[r], re.M)
+            if len(found) != 1:
+                fail(f"MAIN-SHARD: process {r} printed no SHARD line")
+            recs[r] = json.loads(found[0])
+        finals = [re.findall(r"^FINAL (.*)$", logs[r], re.M) for r in (0, 2)]
+        if len(finals[0]) != 1 or finals[0] != finals[1] or not all(
+                math.isfinite(float(x)) for x in finals[0][0].split()[1::2]):
+            fail(f"MAIN-SHARD: the survivors' FINAL lines {finals}")
+        lead, rest = recs[winner], recs[other]
+        if lead["params_sha256"] != rest["params_sha256"] or \
+                not lead["params_sha256"] or lead["promoted"] is None or \
+                rest["promoted"] is not None or not lead["leader"]:
+            fail(f"MAIN-SHARD: hashes {lead['params_sha256']} "
+                 f"{rest['params_sha256']}, promotions {lead['promoted']} "
+                 f"{rest['promoted']}")
+        for r, rec in recs.items():
+            want = want_counts(wrappers, conv3x3=CONV_PER_STEP
+                               * rec["own_steps"] + CONV_PER_EVAL_BATCH * 2)
+            if rec["launches"] != want:
+                fail(f"MAIN-SHARD process {r}: launches {rec['launches']}, "
+                     f"expected {want} (no fused SGD: the update is on the "
+                     "host)")
+        steps = ckpt.committed_steps(td)
+        zero = ckpt.load_extra_state(td, steps[-1])["zero"]
+        restored = lead["promoted"]["zero_step"]
+        if steps[-1] != SHARD_STEPS or lead["version"] != SHARD_STEPS or \
+                lead["saves"][-1:] != [SHARD_STEPS] or \
+                zero["step"] != restored + lead["applied"] or \
+                zero["step"] != lead["zero_step"] or \
+                sorted(zero["shards"]) != ["0", "1", "2"] or \
+                zero["optimizer"] != "sgd" or restored < 2:
+            fail(f"MAIN-SHARD: checkpoints {steps}, the new leader's saves "
+                 f"{lead['saves']} version {lead['version']} applied "
+                 f"{lead['applied']}, restored sharded step {restored}, "
+                 f"the last checkpoint's zero step {zero['step']} shards "
+                 f"{sorted(zero['shards'])}")
+        publish = lead["param_publish_bytes"]
+        if not 0 < publish < 1e6:
+            fail(f"MAIN-SHARD: the leader's channel publish is {publish} B, "
+                 "not the BatchNorm statistics alone")
+        found = EVAL_RE.findall(run_entry(evaluate.main, [
+            "--train-dir", td, "--once", str(SHARD_STEPS)]))
+        if len(found) != 1 or not all(math.isfinite(float(x))
+                                      for x in found[0][1:]):
+            fail("MAIN-SHARD: evaluate.main printed no finite EVAL")
+        rows = {r: read_jsonl(f"{root}/m.jsonl" + (f".p{r}" if r else ""))
+                for r in range(3)}
+        takeover = lead["promoted"]["ts"]
+        old_ticks = [row["step_time"] for row in rows[1][1:]]
+        new_ticks = [row["step_time"] for row in rows[winner]
+                     if row["ts"] > takeover][1:]
+        print(f"MAIN-SHARD process 1 (leader, epoch 1) killed at its tick "
+              f"{SHARD_KILL}; process {winner} ELECTED epoch {epoch} at "
+              f"version {at_version} (election {latency} s), restored the "
+              f"sharded state of checkpoint {lead['promoted']['ckpt_step']} "
+              f"(step {restored}), applied {lead['applied']} to version "
+              f"{lead['version']}; last checkpoint zero step {zero['step']} "
+              f"shards {sorted(zero['shards'])}; leader tick_s before "
+              f"{old_ticks} (median {np.median(old_ticks):.4f}) after "
+              f"{new_ticks} (median {np.median(new_ticks):.4f}); card {card}",
+              flush=True)
+        print(f"MAIN-SHARD canonical transport publish {publish} B (bs0 "
+              f"only) against the replicated wire's "
+              f"{RAW_PARAM_PUBLISH_BYTES:.0f} B of parameters: ratio "
+              f"{publish / RAW_PARAM_PUBLISH_BYTES:.2e}; zw shard bytes "
+              f"out (leader) {lead['zw']['zw_bytes_out']} in (follower) "
+              f"{rest['zw']['zw_bytes_in']}; card {card}", flush=True)
+        print(f"MAIN-SHARD FINAL {finals[0][0]} params_sha256 "
+              f"{lead['params_sha256']} (equal in both survivors) EVAL step "
+              f"{SHARD_STEPS} {found[0][1:]} launches process {winner} "
+              f"{lead['launches']} process {other} {rest['launches']} "
+              f"launch_wall_s {wall:.2f} card {card}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: lead["launches"][k] + rest["launches"][k]
+            for k in lead["launches"]}
+
+
+def shard_slices_leg(torch, wrappers) -> dict:
+    """MAIN-SHARD's in-process leg: two slices of ResNet-18 on
+    ``--shard-wire`` (``SHARD_SLICE_ARGS``) for 4 ticks, uninterrupted,
+    with the launch counts set to 0 before and read after; then 2 ticks
+    with a checkpoint at 2 and a second trainer resumed from it to 4, its
+    loaders positioned as the uninterrupted run's (a resume starts them
+    over, as in the JAX trainer). Fails unless the resumed trainer
+    restores the saved parameters and sharded state and ends bitwise
+    where the uninterrupted run ends, its last checkpoint's zero step is
+    4, conv3x3 ran 26 times a slice a tick on the tensor cores and fused
+    SGD never."""
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_slices_")
+    try:
+        def trainer(td, steps, eval_freq, resume):
+            cfg = config_from_args([
+                *SHARD_SLICE_ARGS, "--max-steps", str(steps),
+                "--eval-freq", str(eval_freq), "--resume",
+                "true" if resume else "false", "--train-dir", td])
+            return MultiSliceTrainer(cfg, n_slices=2, device="cuda",
+                                     printer=lambda line: None)
+
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        full = trainer(f"{root}/full", 4, 0, False)
+        full.train()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts(wrappers)
+        want = want_counts(wrappers, conv3x3=CONV_PER_STEP * 2 * 4)
+        if launches != want:
+            fail(f"MAIN-SHARD slices: launches {launches}, expected {want}")
+        first = trainer(f"{root}/r", 2, 2, False)
+        first.train()
+        saved = first.aggregator.state_dict()
+        mid = tree_sha256(first._wire_tree(first.params))
+        second = trainer(f"{root}/r", 4, 2, True)
+        with redirect_stdout(io.StringIO()):
+            if not second.maybe_resume() or second.step != 2:
+                fail("MAIN-SHARD slices: no resume at step 2")
+        restored = second.aggregator.state_dict()
+        if tree_sha256(second._wire_tree(second.params)) != mid or \
+                restored["step"] != saved["step"] or any(
+                    not np.array_equal(a, restored["shards"][k][f])
+                    for k, fields in saved["shards"].items()
+                    for f, a in fields.items()):
+            fail("MAIN-SHARD slices: the resumed trainer does not hold the "
+                 "saved parameters and sharded state")
+        for loader in second.train_loaders:
+            loader.fast_forward(2)
+        second.cfg.resume = False
+        second.train()
+        got = tree_sha256(second._wire_tree(second.params))
+        want_sha = tree_sha256(full._wire_tree(full.params))
+        zero = ckpt.load_extra_state(f"{root}/r", 4)["zero"]
+        if got != want_sha or zero["step"] != 4:
+            fail(f"MAIN-SHARD slices: resumed {got} vs uninterrupted "
+                 f"{want_sha}, last zero step {zero['step']}")
+        print(f"MAIN-SHARD slices 2 x 4 ticks on --shard-wire: resumed at 2 "
+              f"(sharded step {restored['step']}, {len(restored['shards'])} "
+              f"shards) ends bitwise the uninterrupted run, params sha256 "
+              f"{got}; uninterrupted wall {wall:.2f} s launches {launches} "
+              f"card {card_line()}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def poison_rank_main(argv) -> int:
+    """One process of MAIN-POISON, started by the launcher: ``train.run``
+    with every launch count set to 0 just before; the leader scrapes its
+    own exporter after its last tick (the exporter stops with the run);
+    every screen is timed. Then one ``POISON`` line."""
+    import urllib.request
+
+    from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.resilience import integrity
+    from ps_pytorch_tpu_torch.runtime import async_trainer
+
+    wrappers = kernel_wrappers()
+    seen = {"metrics": "", "screen_s": []}
+    cls, gi = async_trainer.AsyncTrainer, integrity.GradIntegrity
+    loop, screen = cls._train_loop, gi.screen
+
+    def scraped(self, *args, **kw):
+        out = loop(self, *args, **kw)
+        if self.leader and self.exporter is not None:
+            with urllib.request.urlopen(f"http://127.0.0.1:"
+                                        f"{self.exporter.port}/metrics",
+                                        timeout=30) as r:
+                seen["metrics"] = r.read().decode()
+        return out
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = screen(self, *args, **kw)
+        seen["screen_s"].append(time.perf_counter() - t0)
+        return out
+
+    cls._train_loop, gi.screen = scraped, timed
+    zero_counts(wrappers)
+    trainer, result = train.run(argv)
+    m = re.search(r"^integrity_quarantines_total (\S+)$", seen["metrics"],
+                  re.M)
+    rows = read_jsonl(trainer.metrics.jsonl_path)
+    print("POISON " + json.dumps({
+        "pid": trainer.pid, "launches": read_counts(wrappers),
+        "version": trainer.version, "applied": trainer.applied,
+        "own_steps": trainer.own_steps,
+        "integrity": trainer._integrity_snapshot()
+        if trainer._integrity is not None else None,
+        "faults": trainer.injector.snapshot(),
+        "metrics_quarantines": float(m.group(1)) if m else None,
+        "screen_s": seen["screen_s"],
+        "tick_s": [r["step_time"] for r in rows], "eval": result}),
+        flush=True)
+    return 0
+
+
+def poison_main_path(wrappers) -> dict:
+    """MAIN-POISON: ResNet-18 at full width as four processes on the card
+    (``POISON_ARGS``, global batch 256), process 2 poisoning its own
+    int8lat gradients and the leader's gradient reads bit-flipped. Fails
+    unless process 0's log has ``INTEGRITY quarantine contributor 2`` and
+    ``INTEGRITY readmit contributor 2``, and its ``INTEGRITY pid 0`` line
+    screen_rejects >= 3, quarantines >= 1, readmissions >= 1 and
+    wire_failures >= 1; its exporter's ``integrity_quarantines_total`` is
+    at least 1; all four FINAL losses are finite; every conv3x3 launch
+    took the tensor cores, fused SGD ran once an applied version on the
+    leader and nowhere else. Prints the screen's time a tick and the
+    leader's tick."""
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_poison_")
+    try:
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 4, [
+            "--rank-poison", *POISON_ARGS, "--train-dir", f"{root}/td",
+            "--metrics-file", f"{root}/m.jsonl", "--metrics-port",
+            str(free_port_run(4))], "MAIN-POISON")
+        wall = time.monotonic() - t0
+        lines = {k: re.findall(rf"^INTEGRITY {k} contributor (\d+) at "
+                               rf"version (\d+)", logs[0], re.M)
+                 for k in ("quarantine", "readmit")}
+        summary = re.search(
+            r"^INTEGRITY pid 0 screen_rejects (\d+) outlier_rejects (\d+) "
+            r"strikes (\d+) quarantines (\d+) readmissions (\d+) "
+            r"wire_failures (\d+)$", logs[0], re.M)
+        if not summary or not any(c == "2" for c, _ in lines["quarantine"]) \
+                or not any(c == "2" for c, _ in lines["readmit"]):
+            fail(f"MAIN-POISON: process 0 printed quarantines "
+                 f"{lines['quarantine']}, readmissions {lines['readmit']}, "
+                 f"summary {summary and summary.group(0)}")
+        rejects, outliers, strikes, quarantines, readmits, digests = map(
+            int, summary.groups())
+        if rejects < 3 or quarantines < 1 or readmits < 1 or digests < 1:
+            fail(f"MAIN-POISON: {summary.group(0)}")
+        recs = []
+        for r, log in enumerate(logs):
+            found = re.findall(r"^POISON (.*)$", log, re.M)
+            final = re.findall(r"^FINAL loss (\S+) ", log, re.M)
+            if len(found) != 1 or len(final) != 1 or \
+                    not math.isfinite(float(final[0])):
+                fail(f"MAIN-POISON: process {r} printed no POISON line or "
+                     f"no finite FINAL ({final})")
+            recs.append(json.loads(found[0]))
+        lead = recs[0]
+        if lead["metrics_quarantines"] is None or \
+                lead["metrics_quarantines"] < 1:
+            fail(f"MAIN-POISON: the leader's /metrics showed "
+                 f"integrity_quarantines_total "
+                 f"{lead['metrics_quarantines']}")
+        total = {k: 0 for k in lead["launches"]}
+        for rec in recs:
+            want = want_counts(
+                wrappers, conv3x3=CONV_PER_STEP * rec["own_steps"]
+                + CONV_PER_EVAL_BATCH * 2,
+                fused_sgd=rec["applied"] if rec["pid"] == 0 else 0)
+            if rec["launches"] != want:
+                fail(f"MAIN-POISON process {rec['pid']}: launches "
+                     f"{rec['launches']}, expected {want}")
+            for k, v in rec["launches"].items():
+                total[k] += v
+        screen_ms = [1e3 * x for x in lead["screen_s"]]
+        print(f"MAIN-POISON quarantine {lines['quarantine']} readmit "
+              f"{lines['readmit']} (contributor, version); screen_rejects "
+              f"{rejects} outlier_rejects {outliers} strikes {strikes} "
+              f"quarantines {quarantines} readmissions {readmits} "
+              f"wire_failures {digests}; /metrics "
+              f"integrity_quarantines_total {lead['metrics_quarantines']}; "
+              f"process 2 grad_poisons "
+              f"{recs[2]['faults'].get('grad_poisons')}, leader "
+              f"payload_bitflips {lead['faults'].get('payload_bitflips')}; "
+              f"card {card}", flush=True)
+        print(f"MAIN-POISON screen ms a tick on the leader (4 int8lat "
+              f"contributions on the host): median "
+              f"{np.median(screen_ms):.3f} max {max(screen_ms):.3f} over "
+              f"{len(screen_ms)} screens; leader tick_s median "
+              f"{np.median(lead['tick_s']):.4f}; own_steps "
+              f"{[r['own_steps'] for r in recs]} applied {lead['applied']} "
+              f"FINAL losses {[r['eval']['loss'] for r in recs]} "
+              f"launch_wall_s {wall:.2f} card {card}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def free_port_run(n: int) -> int:
+    """A base port with ``n`` consecutive free ports above it (one
+    exporter a process binds ``metrics_port + pid``)."""
+    for _ in range(50):
+        base = free_port()
+        try:
+            socks = []
+            for k in range(n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    fail(f"no {n} consecutive free ports")
+
+
 def wire_sizes() -> dict:
     """Armoured bytes a gradient submission of ResNet-18 should put on
     the wire, from its parameter sizes: base85 turns 4 bytes into 5; the
@@ -3059,6 +3722,10 @@ def main() -> int:
         return wire_rank_main(sys.argv[2:])
     if sys.argv[1:2] == ["--rank-elect"]:
         return elect_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--rank-shard"]:
+        return shard_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--rank-poison"]:
+        return poison_rank_main(sys.argv[2:])
     if sys.argv[1:] == ["--rank-probe"]:
         return probe_rank_main()
     import torch
@@ -3171,6 +3838,11 @@ def main() -> int:
     timed(wire_int8_bytes_agree, torch, tq)
     wire_launches = timed(wire_main_path, wrappers)
     elect_launches = timed(elect_main_path, wrappers)
+    timed(check_zero_wire, torch)
+    shard_launches = timed(shard_main_path, wrappers)
+    shard_slices = timed(shard_slices_leg, torch, wrappers)
+    timed(check_integrity_on_device, torch)
+    poison_launches = timed(poison_main_path, wrappers)
     kvrep_launches = timed(kvrep_main_path, wrappers)
     flash = timed(check_flash, torch, F, fa)
     torch.cuda.empty_cache()
@@ -3209,6 +3881,9 @@ def main() -> int:
              launches_by_path={
                  "MAIN-WIRE": wire_launches["conv3x3"],
                  "MAIN-ELECT": elect_launches["conv3x3"],
+                 "MAIN-SHARD": shard_launches["conv3x3"],
+                 "MAIN-SHARD slices": shard_slices["conv3x3"],
+                 "MAIN-POISON": poison_launches["conv3x3"],
                  "MAIN-KVREP": kvrep_launches["conv3x3"],
                  "MAIN-ZERO shard-update": zero_launches["shard-update"][
                      "conv3x3"],
@@ -3218,6 +3893,9 @@ def main() -> int:
              tc_launches_by_path={
                  "MAIN-WIRE": wire_launches["conv3x3_tc"],
                  "MAIN-ELECT": elect_launches["conv3x3_tc"],
+                 "MAIN-SHARD": shard_launches["conv3x3_tc"],
+                 "MAIN-SHARD slices": shard_slices["conv3x3_tc"],
+                 "MAIN-POISON": poison_launches["conv3x3_tc"],
                  "MAIN-KVREP": kvrep_launches["conv3x3_tc"],
                  "MAIN-ZERO shard-update": zero_launches["shard-update"][
                      "conv3x3_tc"],
@@ -3234,6 +3912,12 @@ def main() -> int:
                                "MAIN-WIRE": wire_launches["fused_sgd"],
                                "MAIN-ELECT (the promoted process)":
                                elect_launches["fused_sgd"],
+                               "MAIN-SHARD (the update on the host)":
+                               shard_launches["fused_sgd"],
+                               "MAIN-SHARD slices (the update on the host)":
+                               shard_slices["fused_sgd"],
+                               "MAIN-POISON (the leader)":
+                               poison_launches["fused_sgd"],
                                "MAIN-KVREP": kvrep_launches["fused_sgd"],
                                "MAIN-ZERO shard-update (on a rank's slice)":
                                zero_launches["shard-update"]["fused_sgd"],

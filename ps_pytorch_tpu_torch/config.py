@@ -8,7 +8,9 @@ included, one process a replica, with cross-replica BatchNorm statistics,
 ZeRO-1, recomputation, the loader's worker pool, the fault plane,
 heartbeats and auto-resume, its checkpoints and evaluator; asynchronous
 stale-gradient training with its codecs, in one process or one process a
-slice over the KV wire; the KV retry plane; the elastic control plane
+slice over the KV wire, with the sharded wire update (``--shard-wire``)
+and, across processes, the gradient integrity screen and the exporter;
+the KV retry plane; the elastic control plane
 (leader lease, elections, membership) and the quorum-replicated KV under
 the CNN trainer and the asynchronous one across processes; and the ops
 plane of the synchronous and LM trainers, see ROADMAP.md), so a field it
@@ -239,6 +241,13 @@ class TrainConfig:
                         f"fault kind {fault['kind']!r} is not ported yet "
                         f"(ROADMAP.md): it needs "
                         f"{UNPORTED_FAULT_KINDS[fault['kind']]}")
+                if self.mode != "async" and \
+                        fault["kind"] in ASYNC_FAULT_KINDS:
+                    raise ValueError(
+                        f"fault kind {fault['kind']!r} with mode="
+                        f"{self.mode!r} is not ported yet (ROADMAP.md): it "
+                        f"needs {ASYNC_FAULT_KINDS[fault['kind']]}; it runs "
+                        f"with --mode async across processes")
                 if self.mode == "async" and \
                         fault["kind"] in SYNC_FAULT_KINDS:
                     raise ValueError(
@@ -363,6 +372,51 @@ class TrainConfig:
         if self.elastic_leader < 0:
             raise ValueError(f"elastic_leader={self.elastic_leader} "
                              "(must be >= 0)")
+        if self.integrity_mad_threshold <= 0:
+            raise ValueError(
+                f"integrity_mad_threshold={self.integrity_mad_threshold} "
+                "(must be > 0)")
+        if self.integrity_strike_limit < 1 or self.integrity_readmit_clean < 1:
+            raise ValueError("integrity_strike_limit / "
+                             "integrity_readmit_clean must be >= 1")
+        if self.sync_topology not in ("flat", "hier"):
+            raise ValueError(f"unknown sync_topology {self.sync_topology!r} "
+                             "(flat | hier)")
+        if self.shard_wire:
+            # --shard-wire holds a bitwise guarantee (sharded update ==
+            # replicated update, exactly): every combination that cannot
+            # certify it is refused, with the JAX package's message.
+            if self.shard_update:
+                raise ValueError(
+                    "--shard-wire and --shard-update are two homes for the "
+                    "SAME ZeRO-1 state split: across KV replicas vs across "
+                    "the in-mesh data axis. Nesting them would shard "
+                    "already-sharded optimizer state; pick one.")
+            if self.mode != "async":
+                raise ValueError(
+                    f"--shard-wire shards the weight update on the async KV "
+                    f"plane; mode={self.mode!r} has no KV update path. Use "
+                    f"--mode async, or --shard-update for the in-mesh "
+                    f"(sync/kofn) form.")
+            if self.sync_topology == "hier":
+                raise ValueError(
+                    "--shard-wire requires sync_topology=flat: hierarchical "
+                    "multi-hop re-weighting aggregates per tier, so the "
+                    "per-shard update could not be certified bitwise-equal "
+                    "to the replicated update.")
+            if self.compress_grad and self.grad_codec == "int8":
+                raise ValueError(
+                    "--shard-wire cannot use grad_codec=int8: its on-device "
+                    "Pallas dequantize keeps per-contributor payloads "
+                    "device-resident, while the sharded update is applied "
+                    "host-side. Use blosc or a homomorphic codec "
+                    "(int8lat | topk | randk); --ef composes fine.")
+            if self.lr_schedule != "constant":
+                raise ValueError(
+                    f"--shard-wire supports lr_schedule=constant only (got "
+                    f"{self.lr_schedule!r}): the host-side sharded optimizer "
+                    f"pins the float32 step size; a jitted schedule would "
+                    f"break the bitwise sharded==replicated guarantee.")
         if self.mode == "async" and \
                 self.publish_every > max(self.staleness_limit, 1):
             # Followers see only published versions: a publish gap wider
@@ -377,21 +431,24 @@ class TrainConfig:
         # than being ignored. Asynchronous training runs in one process
         # (MultiSliceTrainer) unless the launch contract asks for several
         # (AsyncTrainer, one process a slice), which reads the wire's
-        # publish period, writes the trace of the wire's spans and runs
-        # the control plane: the fault plane, the replicated KV and, with
+        # publish period, writes the trace of the wire's spans, serves the
+        # exporter, screens its pool (the integrity fields) and runs the
+        # control plane: the fault plane, the replicated KV and, with
         # --elastic, the lease, the initial leader and the heartbeats of
-        # the membership.
+        # the membership. --shard-wire runs under --mode async in one
+        # process and across processes.
         wire = self.mode == "async" and several_processes()
-        async_runs = WIRE_FIELDS + ("trace_file", "fault_spec",
-                                    "kv_replicas", "kv_quorum",
-                                    "kv_resync_s", "elastic")
+        async_runs = WIRE_FIELDS + INTEGRITY_FIELDS + (
+            "trace_file", "metrics_port", "fault_spec", "kv_replicas",
+            "kv_quorum", "kv_resync_s", "elastic")
         if self.elastic:
             async_runs += ELASTIC_ONLY_FIELDS
-        inert = {"sync": ASYNC_ONLY_FIELDS + WIRE_FIELDS + ("num_aggregate",),
-                 "kofn": ASYNC_ONLY_FIELDS + WIRE_FIELDS,
+        inert = {"sync": ASYNC_ONLY_FIELDS + WIRE_FIELDS + INTEGRITY_FIELDS
+                 + ("num_aggregate",),
+                 "kofn": ASYNC_ONLY_FIELDS + WIRE_FIELDS + INTEGRITY_FIELDS,
                  "async": tuple(
                      f for f in SYNC_ONLY_FIELDS + CONTROL_FIELDS
-                     + OPS_FIELDS + WIRE_FIELDS
+                     + OPS_FIELDS + WIRE_FIELDS + INTEGRITY_FIELDS
                      if not (wire and f in async_runs))
                  }[self.mode]
         for name in inert:
@@ -400,9 +457,10 @@ class TrainConfig:
                         else "--mode sync or kofn" if name in SYNC_ONLY_FIELDS
                         else "--mode async only" if name in ASYNC_ONLY_FIELDS
                         else "--mode async across processes"
-                        if name in WIRE_FIELDS
+                        if name in WIRE_FIELDS + INTEGRITY_FIELDS
                         else "--mode sync or kofn, the LM, and --mode async "
-                        "across processes" if name == "trace_file"
+                        "across processes"
+                        if name in ("trace_file", "metrics_port")
                         else "--mode sync or kofn, and --mode async across "
                         "processes with --elastic"
                         if name in ELASTIC_ONLY_FIELDS
@@ -466,8 +524,11 @@ ELASTIC_ONLY_FIELDS = ("leader_lease_s", "elastic_leader",
 # what each needs (ROADMAP.md): the spec parses, the config refuses them.
 UNPORTED_FAULT_KINDS = {
     "replica_kill": "serving (serving/)",
-    "grad_poison": "the integrity screen on the async wire",
 }
+# Fault kinds that only the asynchronous trainer across processes fires,
+# and what they need: the synchronous trainers screen no contributions.
+ASYNC_FAULT_KINDS = {"grad_poison": "the integrity screen of the async "
+                                    "leader's pool"}
 # Fault kinds that only the synchronous trainer fires, and what they need:
 # the asynchronous trainers have no participation mask to poison.
 SYNC_FAULT_KINDS = {"grad_nan": "a participation mask"}
@@ -479,14 +540,19 @@ OPS_FIELDS = ("trace_file", "timeline_file", "metrics_port", "health_spec",
 # Fields that only asynchronous training across processes reads
 # (runtime/async_trainer.py).
 WIRE_FIELDS = ("publish_every",)
+# The gradient integrity screen (resilience/integrity.py): the leader of
+# the asynchronous trainer across processes screens its pool with them, as
+# in the JAX package; no other trainer reads them.
+INTEGRITY_FIELDS = ("grad_integrity", "integrity_mad_threshold",
+                    "integrity_strike_limit", "integrity_readmit_clean")
 # Fields whose validity depends on the launch (several processes or one).
 LAUNCH_FIELDS = WIRE_FIELDS + ("trace_file",) + CONTROL_FIELDS
 
 # The fields the port runs. Every other field must keep its default.
 PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
-                          + CONTROL_FIELDS + OPS_FIELDS
-                          + WIRE_FIELDS) | frozenset({
-    "num_aggregate", "compress_grad", "codec_level", "donate",
+                          + CONTROL_FIELDS + OPS_FIELDS + WIRE_FIELDS
+                          + INTEGRITY_FIELDS) | frozenset({
+    "num_aggregate", "compress_grad", "codec_level", "donate", "shard_wire",
     "loader_workers",
     "kv_retry_attempts", "kv_retry_base_s", "kv_retry_budget",
     "network", "dataset", "batch_size", "test_batch_size", "data_dir",

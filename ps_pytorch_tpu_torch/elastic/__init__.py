@@ -9,15 +9,15 @@ the worker set an epoch'd view the leader folds into the mask.
                      ``resilience/heartbeat.py``: processes announce join
                      and leave, the leader folds admissions and evictions
                      into the participation mask at step boundaries.
+- ``rebalance.py``   the ZeRO shard plan over the KV and its rebalance on
+                     membership change, re-exported from
+                     ``parallel/zero_wire.py`` as in the JAX package.
 
-The JAX package's third module, ``rebalance.py``, only re-exports its
-``parallel/zero_wire.py`` (the ZeRO shard plan over the KV), and waits
-with it for the async wire's second part (ROADMAP.md, queue 1 item 3).
-
-Both modules need only a duck-typed KV (set / get / delete) and an
+The modules need only a duck-typed KV (set / get / delete) and an
 optional shared clock: a ``ManualClock`` and the in-process ``KVStore``
 in tests, the process group's ``DistributedKV`` or a ``ReplicatedKV``
-(``runtime/kvrep.py``) across processes. Stdlib and numpy only.
+(``runtime/kvrep.py``) across processes. ``election.py`` and
+``membership.py`` are stdlib and numpy only.
 """
 
 from ps_pytorch_tpu_torch.elastic.election import (  # noqa: F401

@@ -11,7 +11,11 @@ The aggregator forms the update gradient from the freshest contributions:
   (``--num-aggregate``), the backup-worker cutoff across slices;
 - optional codec compression of the hop (``--compress-grad``): gradients
   are pooled compressed exactly as they would travel, and decompressed at
-  aggregation time.
+  aggregation time;
+- an optional integrity screen (``integrity=``, a
+  ``resilience.integrity.GradIntegrity``), run on the fresh contributions
+  before the K-of-N cutoff: a rejected or quarantined contributor is
+  absent this round.
 
 Codecs. ``int8`` quantizes the whole tree on its device in one launch of
 the hand-written kernel (``ops/quantize.py:quantize_tree``) and dequantizes
@@ -109,9 +113,6 @@ class StaleGradientAggregator:
         if error_feedback and codec not in EF_GRAD_CODECS:
             raise ValueError(f"error_feedback requires a lossy grad codec "
                              f"({' | '.join(EF_GRAD_CODECS)}), got {codec!r}")
-        if integrity is not None:
-            raise ValueError("the gradient integrity screen is not ported "
-                             "yet (ROADMAP.md); pass integrity=None")
         self.n = n_slices
         self.limit = staleness_limit
         self.decay = staleness_decay
@@ -136,6 +137,13 @@ class StaleGradientAggregator:
         # the int8 codec's rounding noise; None draws it inside the kernel
         # (Philox under ``noise_key``).
         self.noise_fn = noise_fn
+        # Layers 2 and 3 of resilience/integrity.py (a GradIntegrity, or
+        # None: no screen, bitwise the unscreened pool): collect() screens
+        # every fresh contribution BEFORE the K-of-N cutoff; validator and
+        # outlier rejects and quarantined contributors are demoted to
+        # "absent this round" and consumed, so one bad payload is one
+        # strike, not a strike a collect.
+        self.integrity = integrity
         # slice_id -> (step, leaves or encoded leaves, treedef)
         self._pool: Dict[int, Tuple[int, List[Any], Any]] = {}
 
@@ -260,6 +268,8 @@ class StaleGradientAggregator:
         """-> (weighted-average gradient tree or None, info).
 
         info: {"used": [slice ids], "dropped_stale": [...], "weights": {...}}
+        (+ "rejected": {slice id: reason} when an integrity screen is
+        attached).
         """
         fresh = []
         dropped = []
@@ -269,17 +279,35 @@ class StaleGradientAggregator:
                 dropped.append(sid)
                 continue
             fresh.append((staleness, sid, leaves, treedef))
+        rejected: Dict[int, str] = {}
+        if self.integrity is not None and fresh:
+            # Screen BEFORE the K-of-N cutoff, so a rejected contribution
+            # cannot take a backup worker's place, then consume the
+            # rejects (demoted to "absent this round").
+            admitted, rejected = self.integrity.screen(
+                [(sid, leaves) for _, sid, leaves, _ in fresh],
+                step=current_step)
+            if rejected:
+                ok = set(admitted)
+                fresh = [t for t in fresh if t[1] in ok]
+                for sid in rejected:
+                    self._pool.pop(sid, None)
         # K freshest (stalest dropped first); ties -> lower slice id.
         fresh.sort(key=lambda t: (t[0], t[1]))
         if self.k > 0:
             fresh = fresh[:self.k]
         if not fresh:
-            return None, {"used": [], "dropped_stale": dropped,
-                          "weights": {}}
+            info = {"used": [], "dropped_stale": dropped, "weights": {}}
+            if self.integrity is not None:
+                info["rejected"] = rejected
+            return None, info
         if self.compress and self._homomorphic:
             # Compressed-domain aggregation: the K-of-N cutoff already
             # happened above, so this is the SINGLE decode point.
-            return self._collect_homomorphic(fresh, dropped)
+            avg, info = self._collect_homomorphic(fresh, dropped)
+            if self.integrity is not None:
+                info["rejected"] = rejected
+            return avg, info
         weights = {}
         acc = None
         wsum = 0.0
@@ -302,6 +330,8 @@ class StaleGradientAggregator:
         avg = [a / wsum for a in acc]
         info = {"used": [sid for _, sid, _, _ in fresh],
                 "dropped_stale": dropped, "weights": weights}
+        if self.integrity is not None:
+            info["rejected"] = rejected
         return tree_unflatten(treedef_out, avg), info
 
     def _collect_homomorphic(self, fresh, dropped) -> Tuple[Any, dict]:

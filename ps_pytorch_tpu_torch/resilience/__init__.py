@@ -2,8 +2,10 @@
 ``resilience/``: deterministic fault injection (``faults.py``),
 jittered-backoff retries with a budget (``retry.py``), heartbeat liveness
 (``heartbeat.py``), crash auto-resume and preemption (``autoresume.py``),
-and the wire's chunk digests (``integrity.py``). A leaf package: stdlib,
-numpy and its own modules only.
+and gradient integrity (``integrity.py``: the wire's chunk digests, the
+screen before the sum and the quarantine). A leaf package: stdlib, numpy
+and its own modules only (``integrity.py`` reads a tensor it is handed
+through torch, imported then).
 """
 
 from ps_pytorch_tpu_torch.resilience.autoresume import (  # noqa: F401
@@ -15,6 +17,11 @@ from ps_pytorch_tpu_torch.resilience.faults import (  # noqa: F401
 )
 from ps_pytorch_tpu_torch.resilience.heartbeat import (  # noqa: F401
     Heartbeat, LivenessMonitor,
+)
+from ps_pytorch_tpu_torch.resilience.integrity import (  # noqa: F401
+    GradIntegrity, QuarantineManager, contribution_norm, mad_outliers,
+    payload_norm, validate_float_leaf, validate_payload, verify_digest,
+    wire_digest,
 )
 from ps_pytorch_tpu_torch.resilience.retry import (  # noqa: F401
     RetryBudget, RetryingKV, RetryPolicy, call_with_retry, is_retryable,

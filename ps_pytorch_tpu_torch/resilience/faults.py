@@ -49,10 +49,15 @@ rejected here with the same message:
     kv_backend_wipe:backend=1,step=8
         Backend ``backend`` loses its whole keyspace at step ``step``
         (once) and keeps serving, empty; anti-entropy resync repairs it.
-    replica_kill, grad_poison
+    grad_poison:scale=1000,r=2[,step=0][,steps=0]
+        Process ``r``'s OWN gradients are multiplied by ``scale`` before
+        encode for every step in [step, step+steps) (steps=0: to the end
+        of the run): the corruption rides the real wire, and the leader's
+        integrity screen must catch it (``resilience/integrity.py``).
+    replica_kill:served=20[,r=0]
         Parsed and validated as in the JAX package; no trainer of the port
-        runs them yet (serving, the integrity screen), and the config
-        refuses them (ROADMAP.md).
+        runs it yet (it needs serving), and the config refuses it
+        (ROADMAP.md).
 
 Drop and delay decisions come from ``numpy.default_rng(seed + 10007 *
 pid)``, the JAX package's stream: reproducible per process, uncorrelated
@@ -557,6 +562,23 @@ class FaultInjector:
                 self.counters["grad_nans"] += 1
                 return True
         return False
+
+    def poison_scale(self, step: int) -> Optional[float]:
+        """The grad_poison multiplier when a window is open for this
+        process at ``step``, else None. NOT once-only: the window
+        [step, step+steps) (steps=0: to the end of the run) stays open
+        every step, so the quarantine sees a repeat offender, and closes
+        on schedule, so readmission after healing is observable."""
+        for f in self.faults:
+            if f["kind"] != "grad_poison" or f["r"] != self.process_index:
+                continue
+            if step < f["step"]:
+                continue
+            if f["steps"] > 0 and step >= f["step"] + f["steps"]:
+                continue
+            self.counters["grad_poisons"] += 1
+            return float(f["scale"])
+        return None
 
     # ---- checkpoint plane ----
     def after_checkpoint(self, train_dir: str, step: int) -> None:

@@ -69,9 +69,31 @@ sequence number and its data stream: the leader applies exactly one
 update a tick (its own contribution is always fresh), so its sequence
 number is the version, and a resumed run is bitwise the uninterrupted one.
 
-Not ported yet (ROADMAP.md): the hierarchical topology, the sharded wire
-(and with it a promoted leader's sharded optimizer state), the integrity
-screen and the Prometheus exporter.
+The leader screens its pool before the sum (``--grad-integrity``, on by
+default as in the JAX package; ``resilience/integrity.py``): a
+contribution with a non-finite leaf, an int8lat exponent out of bounds or
+a norm the MAD gate flags is absent that round and earns its contributor
+a strike; three strikes quarantine it, three clean screens readmit it.
+The raw / blosc / int8 pools hold f32 tensors on the device, screened
+where they lie; the homomorphic pools hold host payloads. The quarantine
+and readmission lines (``INTEGRITY ...``) and a summary line at the end
+are the JAX trainer's, word for word. The fault ``grad_poison`` scales
+this process's own gradients before encode.
+
+``--shard-wire`` (``parallel/zero_wire.py``) replaces the leader's update
+with the sharded host-side one over the KV: the leader owns every one of
+``max(n, 2)`` shards, publishes the canonical parameters a shard a key
+(the transport's parameter channel then carries the BatchNorm statistics
+only), and checkpoints the sharded optimizer state as
+``extra_state["zero"]``, which a resume and a promoted leader restore. It
+runs on the JAX-layout wire tree and writes the result back into the
+port's layouts on the device.
+
+The registry of the JAX trainer is kept, and with ``--metrics-port`` its
+exporter serves it on ``metrics_port + pid`` (the integrity, resilience,
+replicated-KV and elastic counters pumped at each scrape).
+
+Not ported yet (ROADMAP.md): the hierarchical topology.
 """
 
 import time
@@ -102,6 +124,8 @@ from ps_pytorch_tpu_torch.parallel.async_dp import (
 )
 from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval, make_eval_step
 from ps_pytorch_tpu_torch.parallel.transport import KVGradientTransport
+from ps_pytorch_tpu_torch.parallel.zero_wire import updater_from_config
+from ps_pytorch_tpu_torch.resilience.integrity import GradIntegrity
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import DistributedKV, KVStore
 from ps_pytorch_tpu_torch.runtime.kvrep import build_replicated_kv
@@ -110,7 +134,12 @@ from ps_pytorch_tpu_torch.runtime.multislice import make_slice_grad_fn
 from ps_pytorch_tpu_torch.runtime.trainer import (
     resolve_device, set_reference_numerics,
 )
-from ps_pytorch_tpu_torch.telemetry import Tracer, set_default_tracer
+from ps_pytorch_tpu_torch.telemetry import (
+    MetricsExporter, Registry, Tracer, declare_elastic_metrics,
+    declare_integrity_metrics, declare_kvrep_metrics,
+    declare_resilience_metrics, declare_training_metrics,
+    device_memory_record, host_rss_bytes, set_default_tracer,
+)
 
 _U32 = 0xFFFFFFFF
 
@@ -188,7 +217,11 @@ class AsyncTrainer:
         # sees one hardened KV.
         kv, self.injector, self._retrier = resilience.wrap_kv_with(
             kv, cfg, injector)
+        # --shard-wire publishes the parameters a shard a key through this
+        # same hardened KV.
         self._kv = kv
+        self._zw_rd = None           # the followers' reader-mode updater
+        self._zw_ptr_version = -1    # the version whose shards are on the KV
         self.run_id = f"async-{cfg.seed}"
         # The elastic control plane: the PS-leader role becomes a lease.
         self.election = None
@@ -238,10 +271,12 @@ class AsyncTrainer:
                 for _ in self.names])
         else:
             grad_template = nest(self._paths, zeros)
-        param_template = {"params": nest(self._paths, zeros),
-                          "bs0": nest(self._stat_paths, [
-                              np.zeros(0, np.float32)
-                              for _ in self._stat_names])}
+        # Under --shard-wire the parameters travel as zw shard keys; only
+        # the BatchNorm statistics ride the transport's parameter channel.
+        param_template = {"bs0": nest(self._stat_paths, [
+            np.zeros(0, np.float32) for _ in self._stat_names])}
+        if not cfg.shard_wire:
+            param_template["params"] = nest(self._paths, zeros)
         wire_bucket_bytes = int(cfg.wire_bucket_mb * (1 << 20))
         self._wire_overlap = wire_bucket_bytes > 0
         self.transport = KVGradientTransport(
@@ -276,6 +311,28 @@ class AsyncTrainer:
         # loop's own.
         self.tracer = Tracer(pid=self.pid)
         self._prev_tracer = set_default_tracer(self.tracer)
+        # The JAX trainer's ops plane, lighter than the sync trainer's:
+        # gauges and the step counter, no watchdogs. The exporter binds
+        # metrics_port + pid, one endpoint a process.
+        self._integrity: Optional[GradIntegrity] = None   # leader's ledger
+        self.registry = declare_training_metrics(Registry())
+        if cfg.elastic:
+            declare_elastic_metrics(self.registry)
+        collect = []
+        if self.injector is not None or self._retrier is not None:
+            declare_resilience_metrics(self.registry)
+            collect.append(self._pump_resilience_metrics)
+        if self._kvrep is not None:
+            declare_kvrep_metrics(self.registry)
+            collect.append(self._pump_kvrep_metrics)
+        if cfg.grad_integrity:
+            declare_integrity_metrics(self.registry)
+            collect.append(self._pump_integrity_metrics)
+        self.exporter: Optional[MetricsExporter] = None
+        if cfg.metrics_port > 0:
+            self.exporter = MetricsExporter(
+                self.registry, port=cfg.metrics_port + self.pid,
+                health_fn=self._health_status, collect=collect).start()
         self.last_publish_s = 0.0
         self.version = 0        # canonical PS step (leader-owned)
         self.applied = 0
@@ -290,14 +347,109 @@ class AsyncTrainer:
         pool. Homomorphic payloads enter the pool as payloads and are
         summed in the compressed domain; every other codec is decoded to
         f32 on the device first, and the pool averages there."""
-        cfg = self.cfg
-        self.opt = build_optimizer(cfg)
+        self.opt = build_optimizer(self.cfg)
         self.opt_state = self.opt.init(self.params)
-        self.aggregator = StaleGradientAggregator(
+        self.aggregator = self._make_leader_aggregator()
+
+    def _make_integrity(self) -> Optional[GradIntegrity]:
+        """The leader's screening ledger (--grad-integrity): payload
+        validation, the MAD outlier gate and the strike / quarantine
+        bookkeeping, over contributor (process) ids."""
+        cfg = self.cfg
+        if not cfg.grad_integrity:
+            return None
+        return GradIntegrity(
+            mad_threshold=cfg.integrity_mad_threshold,
+            strike_limit=cfg.integrity_strike_limit,
+            readmit_clean=cfg.integrity_readmit_clean,
+            on_event=self._integrity_event)
+
+    def _make_leader_aggregator(self):
+        """The pool, screened by the integrity ledger before its sum, and
+        under --shard-wire wrapped in the sharded updater."""
+        cfg = self.cfg
+        self._integrity = self._make_integrity()
+        return self._wrap_shard_wire(StaleGradientAggregator(
             self.n, staleness_limit=cfg.staleness_limit,
             staleness_decay=cfg.staleness_decay,
             num_aggregate=cfg.num_aggregate, compress=self._wire_homo,
-            codec=cfg.grad_codec, topk_frac=cfg.grad_topk_frac)
+            codec=cfg.grad_codec, topk_frac=cfg.grad_topk_frac,
+            integrity=self._integrity))
+
+    def _wrap_shard_wire(self, agg):
+        """--shard-wire: the pool (staleness, K-of-N, the screen) stays
+        ``agg``; the update runs on the host a shard at a time and
+        publishes the parameters a shard a key. The leader owns every
+        shard."""
+        if not self.cfg.shard_wire:
+            return agg
+        return updater_from_config(
+            self.cfg, inner=agg, kv=self._kv, run_id=f"zw-{self.cfg.seed}",
+            params=self._wire_tree(self.params), members=[0], me=0,
+            n_shards=max(self.n, 2))
+
+    # ---- the ops plane ----
+    def _pump(self, snapshot: dict) -> None:
+        """Registry counters up to a live snapshot's values (counters only
+        rise; a key with no declared metric is skipped)."""
+        for name, value in snapshot.items():
+            try:
+                delta = value - self.registry.get(name)
+            except KeyError:
+                continue
+            if delta > 0:
+                self.registry.inc(name, delta)
+
+    def _pump_resilience_metrics(self) -> None:
+        snap = {}
+        if self.injector is not None:
+            snap.update(self.injector.snapshot())
+        if self._retrier is not None:
+            snap.update(self._retrier.snapshot())
+        self._pump(snap)
+
+    def _pump_kvrep_metrics(self) -> None:
+        self._pump(self._kvrep.snapshot())
+        for name, value in self._kvrep.gauges().items():
+            try:
+                self.registry.set(name, value)
+            except KeyError:
+                continue
+
+    def _integrity_event(self, kind: str, cid: int, step: int,
+                         detail: str) -> None:
+        """The quarantine's lifecycle: one line a transition (the JAX
+        trainer's words). Strikes stay silent; the counters carry them."""
+        if kind == "quarantine":
+            print(f"INTEGRITY quarantine contributor {cid} at version "
+                  f"{step} ({detail})", flush=True)
+        elif kind == "readmit":
+            print(f"INTEGRITY readmit contributor {cid} at version {step}",
+                  flush=True)
+
+    def _integrity_snapshot(self) -> dict:
+        """The ledger's counters and the transport's wire-digest
+        failures."""
+        snap = dict(self._integrity.snapshot()) \
+            if self._integrity is not None else {}
+        snap["wire_integrity_failures"] = self.transport.wire_stats()[
+            "wire_integrity_failures"]
+        return snap
+
+    def _pump_integrity_metrics(self) -> None:
+        snap = self._integrity_snapshot()
+        self.registry.set("integrity_quarantined",
+                          float(snap.pop("integrity_quarantined", 0)))
+        self._pump(snap)
+
+    def _health_status(self) -> dict:
+        body = {"ok": True, "process_index": self.pid,
+                "version": self.version, "leader": bool(self.leader),
+                "role": "leader" if self.leader else "follower"}
+        if self.election is not None:
+            body["leader_epoch"] = self.election.epoch
+            body["leader_owner"] = self.election.owner
+        return body
 
     # ---- layouts between the port's parameters and the wire ----
     def _wire_leaves(self, tensors: Dict[str, torch.Tensor]
@@ -306,6 +458,10 @@ class AsyncTrainer:
         their device."""
         return [leaf_layout(n, tensors[n].detach(), True).contiguous()
                 for n in self.names]
+
+    def _wire_tree(self, tensors: Dict[str, torch.Tensor]) -> dict:
+        """Parameter-shaped tensors as the JAX-layout flax tree."""
+        return nest(self._paths, self._wire_leaves(tensors))
 
     def _port_tensors(self, leaves) -> Dict[str, torch.Tensor]:
         """Wire-order JAX-layout leaves (numpy or tensors) -> name ->
@@ -338,6 +494,11 @@ class AsyncTrainer:
         # followers restart with a zero residual.
         extra_state = {"ef": self._ef.state_dict()} \
             if (self.cfg.ef and self._ef is not None) else None
+        if self.cfg.shard_wire:
+            # The sharded optimizer moments and step: without them a
+            # resumed or promoted leader restarts them from zero.
+            extra_state = dict(extra_state or {})
+            extra_state["zero"] = self.aggregator.state_dict()
         extra = None
         if self.election is not None:
             # Which leadership epoch committed these weights.
@@ -369,6 +530,13 @@ class AsyncTrainer:
         if extra and "ef" in extra:
             self._ef = ErrorFeedback(clip=self.cfg.ef_clip)
             self._ef.load_state_dict(extra["ef"])
+        if self.cfg.shard_wire:
+            # Re-anchor the owned shards on the restored parameters, then
+            # restore the sharded moments and step.
+            self.aggregator.reset_params(self._wire_tree(self.params))
+            if extra and "zero" in extra:
+                self.aggregator.load_state_dict(extra["zero"])
+            self._zw_ptr_version = -1      # publish the shards again
         # One contribution, one update a tick: the leader's sequence number
         # is the version, and its stream resumes where the run left it.
         self._seq = self.version
@@ -455,6 +623,17 @@ class AsyncTrainer:
         if got is not None:
             self.version = got[0]
             self._load_params(got[1]["params"])
+        if cfg.shard_wire:
+            # The new updater re-anchors on the adopted parameters; the
+            # dead leader's sharded moments survive through its last
+            # checkpoint (the same lag as above).
+            self.aggregator.reset_params(self._wire_tree(self.params))
+            step = ckpt.latest_step(cfg.train_dir)
+            extra = ckpt.load_extra_state(cfg.train_dir, step) \
+                if step is not None else None
+            if extra and "zero" in extra:
+                self.aggregator.load_state_dict(extra["zero"])
+            self._zw_ptr_version = -1      # a full shard publish below
         self.leader = True
         print(f"ELECTED async leader process {self.pid} epoch "
               f"{self.election.epoch} at version {self.version} "
@@ -486,6 +665,7 @@ class AsyncTrainer:
             t0 = time.monotonic()
             won = self.election.campaign()
             self.elect_latency_s = time.monotonic() - t0
+            self.registry.inc("elections")
             if won:
                 return self._promote(my_version)
         return my_version
@@ -493,16 +673,50 @@ class AsyncTrainer:
     # ---- the two roles ----
     def _publish_canonical(self) -> None:
         t0 = time.monotonic()
-        payload = {"params": nest(self._paths, self._wire_leaves(self.params)),
-                   "bs0": self._bs0()}
+        if self.cfg.shard_wire:
+            # The parameters go out as zw shard keys, which each update
+            # already published: a full publish only when the pointer lags
+            # (start, resume, promotion). The channel carries the
+            # BatchNorm statistics.
+            if self._zw_ptr_version != self.version:
+                self.aggregator.publish_full(self.version)
+                self._zw_ptr_version = self.version
+            payload = {"bs0": self._bs0()}
+        else:
+            payload = {"params": self._wire_tree(self.params),
+                       "bs0": self._bs0()}
         self.transport.publish_params(self.version, payload)
         self.last_publish_s = time.monotonic() - t0
+
+    def _zw_reader(self):
+        """The reader-mode sharded updater of a process that owns no
+        shard: ``fetch()`` assembles the newest consistent round."""
+        if self._zw_rd is None:
+            self._zw_rd = updater_from_config(
+                self.cfg, inner=None, kv=self._kv,
+                run_id=f"zw-{self.cfg.seed}",
+                params=nest(self._paths, [np.zeros(s, np.float32)
+                                          for s in self._jax_shapes]),
+                members=[0], me=None, n_shards=max(self.n, 2))
+        return self._zw_rd
 
     def _fetch_canonical(self, min_version: int = -1):
         """(version, {"params", "bs0"}) of the newest canonical publish
         above ``min_version``, else None. The pointer is read first, so a
-        follower reads no payload it already holds."""
+        follower reads no payload it already holds. Under --shard-wire the
+        parameters assemble from the shard keys and the statistics come
+        from the channel (their version may lag the parameters', the skew
+        of eval-only state)."""
         ch = self.transport.param_ch
+        if self.cfg.shard_wire:
+            got = self._zw_reader().fetch(min_version)
+            if got is None:
+                return None
+            v = ch.latest_version()
+            bs = ch.read(v) if v is not None else None
+            return got[0], {"params": got[1],
+                            "bs0": bs[1]["bs0"] if bs is not None
+                            else self._bs0()}
         v = ch.latest_version()
         if v is None or v <= min_version:
             return None
@@ -518,6 +732,13 @@ class AsyncTrainer:
                                     + self._seq * 13 + self.pid)
         self._seq += 1
         self.own_steps += 1
+        if self.injector is not None:
+            # --fault-spec grad_poison: this process's own gradients are
+            # scaled before encode, so the corruption rides the real wire
+            # and the leader's screen must catch it.
+            scale = self.injector.poison_scale(self._seq)
+            if scale is not None:
+                grads = {k: g * scale for k, g in grads.items()}
         self.transport.submit_grads(self.pid, self._seq, version_used,
                                     self._encode_grads(grads))
         with self.tracer.span("device_sync", step=self._seq):
@@ -535,10 +756,20 @@ class AsyncTrainer:
         avg, pool = self.aggregator.collect(self.version)
         used = 0
         if avg is not None and pool["used"]:
-            if self._wire_homo:
-                avg = self._port_tensors(
-                    tree_flatten(avg, is_leaf=is_payload)[0])
-            self.opt_state = self.opt.apply(self.params, self.opt_state, avg)
+            if self.cfg.shard_wire:
+                # The sharded host update on the JAX-layout tree, its
+                # shards published inside; the assembled tree comes back
+                # into the port's parameters on the device.
+                tree = avg if self._wire_homo else self._wire_tree(avg)
+                self._load_params(self.aggregator.update_from(
+                    tree, version=self.version + 1))
+                self._zw_ptr_version = self.version + 1
+            else:
+                if self._wire_homo:
+                    avg = self._port_tensors(
+                        tree_flatten(avg, is_leaf=is_payload)[0])
+                self.opt_state = self.opt.apply(self.params, self.opt_state,
+                                                avg)
             self.version += 1
             self.applied += 1
             used = len(pool["used"])
@@ -586,6 +817,18 @@ class AsyncTrainer:
                       f"world {msnap['world_size']} membership_changes "
                       f"{msnap['membership_changes']} wins "
                       f"{self.election.stats['wins']}", flush=True)
+            if self._integrity is not None:
+                # One summary line a screening process (the JAX
+                # trainer's).
+                s = self._integrity_snapshot()
+                print(f"INTEGRITY pid {self.pid} screen_rejects "
+                      f"{s.get('integrity_screen_rejects', 0)} "
+                      f"outlier_rejects "
+                      f"{s.get('integrity_outlier_rejects', 0)} strikes "
+                      f"{s.get('integrity_strikes', 0)} quarantines "
+                      f"{s.get('integrity_quarantines', 0)} readmissions "
+                      f"{s.get('integrity_readmissions', 0)} wire_failures "
+                      f"{s.get('wire_integrity_failures', 0)}", flush=True)
         finally:
             if self.announcer is not None:
                 try:
@@ -594,6 +837,8 @@ class AsyncTrainer:
                     self.announcer.leave()
                 except Exception:
                     pass            # the store may already be gone
+            if self.exporter is not None:
+                self.exporter.stop()
             self.metrics.close()
             if cfg.trace_file:
                 path = cfg.trace_file
@@ -637,11 +882,21 @@ class AsyncTrainer:
                 self._claim_pending = False
                 self.election.claim_initial()
             step_for_log = self.version if self.leader else own_steps
+            self.registry.inc("train_steps")
+            self.registry.observe("train_step_latency_s",
+                                  time.monotonic() - t0)
             if step_for_log and step_for_log % cfg.log_every == 0:
+                self._registry_step(step_for_log, m["loss"], t0)
                 wire = self.transport.wire_stats()
                 extra = {}
                 if self.election is not None:
                     extra["leader_epoch"] = self.election.epoch
+                if self._integrity is not None:
+                    isnap = self._integrity_snapshot()
+                    # Schema gate: the integrity columns appear with a
+                    # fault plane, or once a screen or a digest fired.
+                    if self.injector is not None or any(isnap.values()):
+                        extra.update(isnap)
                 if self.injector is not None:
                     extra.update(self.injector.snapshot())
                 if self._retrier is not None:
@@ -667,6 +922,24 @@ class AsyncTrainer:
             # publish_every (evaluate() and late followers read it).
             self._publish_canonical()
             self.transport.set_done(self.version)
+
+    def _registry_step(self, step: int, loss: float, t0: float) -> None:
+        """A logged step's gauges: step, loss, time, memory and, with
+        --elastic, the epoch, the world and the membership changes."""
+        r = self.registry
+        r.set("train_step", float(step))
+        r.set("train_loss", float(loss))
+        r.set("train_step_time_s", time.monotonic() - t0)
+        r.set("host_rss_bytes", float(host_rss_bytes()))
+        for k, v in device_memory_record(self.device).items():
+            r.set(k, float(v))
+        if self.election is not None:
+            r.set("leader_epoch", float(self.election.epoch))
+            snap = self.membership.snapshot()
+            r.set("world_size", float(snap["world_size"] or self.n))
+            delta = snap["membership_changes"] - r.get("membership_changes")
+            if delta > 0:
+                r.inc("membership_changes", delta)
 
     @property
     def fetch_every(self) -> int:

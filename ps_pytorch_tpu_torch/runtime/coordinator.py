@@ -94,16 +94,53 @@ class KVStore:
 _ABSENT = b"\x00ps_tpu_absent\x00"
 
 
+# The TCPStore's server (c10d's libuv backend) drops a message above
+# 8 MiB, and one --shard-wire shard of ResNet-18 is ~19 MB of base85: a
+# larger value is stored as parts of at most this many characters under
+# side keys, with a small header at the key itself.
+PART_CHARS = 4 << 20
+_PARTS = "\x00ps_tpu_parts:"
+
+
 class DistributedKV(KVStore):
     """KV over a ``torch.distributed`` store (the TCPStore of
     ``parallel/dist.py:initialize_from_env``), seen by every process. Keys
-    live on the raw store, byte-equal to the JAX package's."""
+    live on the raw store, byte-equal to the JAX package's.
+
+    A value longer than ``PART_CHARS`` goes in parts: each under
+    ``<key>\\x00<nonce>/<i>``, written first, then the header
+    ``\\x00ps_tpu_parts:<nonce>/<n>`` at the key (no base85 or JSON value
+    starts with a NUL). The logical key and value are what the caller
+    gave; a reader that finds a part gone (overwritten or deleted under
+    it) reads the key as absent, as it would a value deleted a moment
+    earlier. The writer deletes the parts it wrote when it overwrites or
+    deletes the key."""
 
     def __init__(self, store):
         self._store = store
+        self._parts: Dict[str, List[str]] = {}   # key -> part keys written
+        self._lock = threading.Lock()
 
     def set(self, key: str, value: str) -> None:
+        parts = []
+        if len(value) > PART_CHARS:
+            nonce = os.urandom(6).hex()
+            for i in range(0, len(value), PART_CHARS):
+                part = f"{key}\x00{nonce}/{i // PART_CHARS}"
+                self._store.set(part, value[i:i + PART_CHARS])
+                parts.append(part)
+            value = f"{_PARTS}{nonce}/{len(parts)}"
         self._store.set(key, value)        # overwrites
+        with self._lock:
+            old = self._parts.pop(key, [])
+            if parts:
+                self._parts[key] = parts
+        for part in old:
+            self._store.delete_key(part)
+
+    def _read(self, key: str) -> Optional[str]:
+        got = self._store.compare_set(key, _ABSENT, _ABSENT)
+        return None if got == _ABSENT else got.decode()
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         """The value, or ``default`` at once when the key is absent.
@@ -113,11 +150,26 @@ class DistributedKV(KVStore):
         it answers the stored value, or the expected one when the key is
         absent, and never creates or changes the key. Only a missing key
         maps to the default: a dead store raises here."""
-        got = self._store.compare_set(key, _ABSENT, _ABSENT)
-        return default if got == _ABSENT else got.decode()
+        got = self._read(key)
+        if got is None:
+            return default
+        if not got.startswith(_PARTS):
+            return got
+        nonce, n = got[len(_PARTS):].rsplit("/", 1)
+        out = []
+        for i in range(int(n)):
+            part = self._read(f"{key}\x00{nonce}/{i}")
+            if part is None:
+                return default
+            out.append(part)
+        return "".join(out)
 
     def delete(self, key: str) -> None:
         self._store.delete_key(key)
+        with self._lock:
+            old = self._parts.pop(key, [])
+        for part in old:
+            self._store.delete_key(part)
 
     def keys(self, prefix: str = "") -> List[str]:
         raise NotImplementedError("the distributed store has no scan")

@@ -29,6 +29,14 @@ wall-clock nondeterminism.
 As in the reference, a resumed run restores the canonical parameters, the
 optimizer state and slice 0's BatchNorm statistics; the loaders start over
 and the other slices keep fresh statistics.
+
+``--shard-wire`` (``parallel/zero_wire.py``) puts the sharded host-side
+update in place of the optimizer, as the JAX trainer does in one process:
+a single owner of ``max(n_slices, 2)`` shards over an in-memory
+``KVStore``, on the JAX-layout tree (the pooled average is laid out so
+before the update and back after it); the checkpoint carries its state as
+``extra_state["zero"]``. This trainer builds no integrity screen, as in
+the JAX package.
 """
 
 import time
@@ -43,14 +51,18 @@ from ps_pytorch_tpu_torch.data.augment import input_norm_for
 from ps_pytorch_tpu_torch.data.datasets import DataLoader, load_arrays
 from ps_pytorch_tpu_torch.models import build_model
 from ps_pytorch_tpu_torch.models.convert import (
-    from_jax, leaf_layout, state_from_jax, state_to_jax,
+    from_jax, jax_path, leaf_layout, nest, state_from_jax, state_to_jax,
 )
 from ps_pytorch_tpu_torch.optim import build_optimizer
-from ps_pytorch_tpu_torch.parallel.async_dp import StaleGradientAggregator
+from ps_pytorch_tpu_torch.parallel.async_dp import (
+    StaleGradientAggregator, tree_flatten,
+)
 from ps_pytorch_tpu_torch.parallel.dp import (
     DropoutDraws, _input, accumulate_eval, make_eval_step,
 )
+from ps_pytorch_tpu_torch.parallel.zero_wire import updater_from_config
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
 from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
 from ps_pytorch_tpu_torch.runtime.trainer import (
     resolve_device, set_reference_numerics,
@@ -141,6 +153,14 @@ class MultiSliceTrainer:
             wire_bucket_bytes=int(cfg.wire_bucket_mb * (1 << 20)),
             wire_workers=cfg.wire_workers, topk_frac=cfg.grad_topk_frac,
             error_feedback=cfg.ef, ef_clip=cfg.ef_clip, noise_fn=noise_fn)
+        if cfg.shard_wire:
+            # The same pool, decision for decision; the canonical update
+            # becomes the sharded host-side one, published a shard a key
+            # and assembled back. One owner, as in the JAX trainer.
+            self.aggregator = updater_from_config(
+                cfg, inner=self.aggregator, kv=KVStore(),
+                run_id=f"zw-{cfg.seed}", params=self._wire_tree(self.params),
+                members=[0], me=0, n_shards=max(n_slices, 2))
         self._input_norm = input_norm_for(cfg)
         self.grad_fns = [make_slice_grad_fn(m, self._input_norm, s)
                          for s, m in enumerate(self.slices)]
@@ -209,9 +229,13 @@ class MultiSliceTrainer:
             # gradient lay (or on the host, after a host codec).
             grads = {name: torch.as_tensor(g).to(self.device)
                      for name, g in avg.items()}
-            with torch.no_grad():
-                self.opt_state = self.opt.apply(self.params, self.opt_state,
-                                                grads)
+            if self.cfg.shard_wire:
+                self._load_wire_tree(self.aggregator.update_from(
+                    self._wire_tree(grads), version=self.step))
+            else:
+                with torch.no_grad():
+                    self.opt_state = self.opt.apply(self.params,
+                                                    self.opt_state, grads)
             self.applied += 1
             self.aggregator.consume(pool["used"])
         # GC every tick (collect only reports; unremoved entries would be
@@ -219,6 +243,21 @@ class MultiSliceTrainer:
         self.dropped_stale += self.aggregator.drop_older_than(self.step - 1)
         info["used"] = pool["used"]
         return info
+
+    def _wire_tree(self, tensors: Dict[str, torch.Tensor]) -> dict:
+        """Parameter-shaped tensors as the JAX-layout flax tree, the tree
+        the sharded updater runs on."""
+        names = sorted(self.params)
+        return nest([jax_path(n, self.params[n].dim()) for n in names],
+                    [leaf_layout(n, tensors[n].detach(), True)
+                     for n in names])
+
+    @torch.no_grad()
+    def _load_wire_tree(self, tree: dict) -> None:
+        """A JAX-layout tree (numpy) into the canonical parameters."""
+        for name, a in zip(sorted(self.params), tree_flatten(tree)[0]):
+            self.params[name].copy_(leaf_layout(
+                name, torch.as_tensor(np.ascontiguousarray(a)), False))
 
     @torch.no_grad()
     def _take_slice0_stats(self) -> None:
@@ -266,6 +305,11 @@ class MultiSliceTrainer:
         # stored in the JAX package's layouts.
         extra = {"ef": self._ef_layout(self.aggregator.ef_state_dict(),
                                        to_jax=True)} if self.cfg.ef else None
+        if self.cfg.shard_wire:
+            # The sharded optimizer state (each shard's fields and the
+            # step): without it a resumed run restarts the moments.
+            extra = dict(extra or {})
+            extra["zero"] = self.aggregator.state_dict()
         self._take_slice0_stats()
         return ckpt.save_checkpoint(
             self.cfg.train_dir, self.step,
@@ -295,6 +339,11 @@ class MultiSliceTrainer:
         if extra and "ef" in extra:
             self.aggregator.load_ef_state(
                 self._ef_layout(extra["ef"], to_jax=False))
+        if self.cfg.shard_wire and extra and "zero" in extra:
+            # Re-anchor the owned shards on the restored parameters, then
+            # restore the sharded moments and step.
+            self.aggregator.load_state_dict(
+                extra["zero"], params=self._wire_tree(self.params))
         print(f"RESUME from {ckpt.checkpoint_path(self.cfg.train_dir, step)} "
               f"at step {self.step}")
         return True

@@ -260,6 +260,43 @@ def declare_resilience_metrics(registry: Registry) -> Registry:
     return registry
 
 
+# ---- gradient-integrity contract (resilience/integrity.py) ----
+#
+# wire_integrity_failures comes from the transport's channels (digest,
+# decode and meta demotions); the rest from the leader's GradIntegrity
+# screen. Counters are cumulative (rendered with _total);
+# quarantined-now is a gauge.
+INTEGRITY_COUNTERS = (
+    ("wire_integrity_failures", "reads",
+     "channel reads demoted for digest mismatch / corrupt armour / torn "
+     "meta"),
+    ("integrity_screen_rejects", "contributions",
+     "contributions rejected by the compressed-domain payload validators"),
+    ("integrity_outlier_rejects", "contributions",
+     "contributions rejected by the cross-contributor MAD outlier gate"),
+    ("integrity_strikes", "events",
+     "screened-out contributions charged to a contributor"),
+    ("integrity_quarantines", "events",
+     "contributors quarantined after reaching the strike limit"),
+    ("integrity_readmissions", "events",
+     "quarantined contributors readmitted on probation after clean "
+     "screens"),
+)
+INTEGRITY_GAUGES = (
+    ("integrity_quarantined", "contributors",
+     "contributors currently quarantined"),
+)
+
+
+def declare_integrity_metrics(registry: Registry) -> Registry:
+    """Declare the gradient-integrity counters and gauge on ``registry``."""
+    for name, unit, help_ in INTEGRITY_COUNTERS:
+        registry.counter(name, unit=unit, help=help_)
+    for name, unit, help_ in INTEGRITY_GAUGES:
+        registry.gauge(name, unit=unit, help=help_)
+    return registry
+
+
 # ---- replicated-KV contract (runtime/kvrep.py) -------------
 #
 # The quorum-replicated coordination plane's reviewable surface: quorum

@@ -156,8 +156,26 @@ def test_aggregator_validates_like_jax(bad):
 
 
 def test_integrity_screen_is_refused():
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        async_dp.StaleGradientAggregator(2, integrity=object())
+    """A contribution the attached screen refuses (a NaN leaf) is absent
+    from the average and named in ``info["rejected"]``, as in the JAX
+    package; without a screen the info has no such key."""
+    from ps_pytorch_tpu.resilience.integrity import GradIntegrity as JaxGI
+    from ps_pytorch_tpu_torch.resilience.integrity import GradIntegrity
+    ours = async_dp.StaleGradientAggregator(2, integrity=GradIntegrity())
+    theirs = jax_async.StaleGradientAggregator(2, integrity=JaxGI())
+    bad = _grads(5)
+    bad["fc"]["bias"][3] = np.nan
+    for sid, g in ((0, _grads(4)), (1, bad)):
+        ours.submit(sid, 0, _to_torch(g))
+        theirs.submit(sid, 0, g)
+    (a, ia), (b, ib) = ours.collect(0), theirs.collect(0)
+    assert ia["used"] == ib["used"] == [0]
+    assert ia["rejected"] == ib["rejected"]
+    assert ia["rejected"][1].endswith(": non-finite gradient values")
+    for x, y in zip(_leaves(a), _leaves(b)):
+        np.testing.assert_array_equal(x, y)
+    assert "rejected" not in async_dp.StaleGradientAggregator(2).collect(
+        0)[1]
 
 
 @pytest.mark.parametrize("codec", ["int8lat", "topk"])
@@ -257,7 +275,7 @@ def _kw(**over):
 
 @pytest.mark.parametrize("kw", [
     dict(mode="async", network="TransformerLM", eval_freq=0),
-    dict(mode="async", publish_every=2), dict(mode="async", shard_wire=True),
+    dict(mode="async", publish_every=2), dict(mode="async", sync_group_size=2),
     dict(mode="async", sync_topology="hier", compress_grad=True,
          grad_codec="int8lat"),
     dict(mode="async", grad_integrity=False), dict(num_aggregate=1),

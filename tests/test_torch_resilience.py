@@ -98,8 +98,9 @@ def test_fault_spec_rejects_like_jax(spec):
     ("replica_kill:served=20", True), ("grad_poison:scale=1000,r=2", True)])
 def test_config_refuses_the_kinds_it_does_not_run(spec, refused):
     """leader_kill and the per-backend kinds run since the elections and
-    the replicated KV are ported; serving's and the integrity screen's
-    kinds are still refused."""
+    the replicated KV are ported; serving's kind is still refused, and so
+    is grad_poison under the synchronous trainer (the default mode here):
+    only the async leader's integrity screen runs it."""
     JaxConfig(fault_spec=spec)                  # the JAX config runs them
     if refused:
         with pytest.raises(ValueError, match="ROADMAP.md"):

@@ -80,7 +80,7 @@ def test_config_json_round_trips_with_jax():
     ("leader_lease_s", 1.0), ("sync_topology", "hier"), ("shard_update", True),
     ("fault_spec", "kv_drop:p=0.1"), ("health_spec", "nonfinite:halt"),
     ("elastic", True), ("kv_replicas", "dir:/a,dir:/b,dir:/c"),
-    ("shard_wire", True), ("sync_batchnorm", True), ("loader_workers", 4),
+    ("sync_group_size", 2), ("sync_batchnorm", True), ("loader_workers", 4),
 ])
 def test_unported_fields_raise(field, value):
     kw = {"eval_freq": 0, field: value}
