@@ -50,7 +50,7 @@ exit and no result line, if any phase fails:
    half the optimizer state a rank, process 0's ZeRO checkpoint in the JAX
    layout scored by ``evaluate.main``), then two processes on the card as
    asynchronous slices over the KV wire (MAIN-WIRE, ``--rank-wire``: ``train.run --mode async``, int8
-   to version 6 with checkpoints every 3, resumed to 8 and scored by
+   to version 4 with checkpoints every 2, resumed to 6 and scored by
    ``evaluate.main``, blosc on the bucketed wire, raw on the blocking one;
    equal FINAL lines, process 0's checkpoints, a quantize launch a tick a
    process and a fused SGD launch an applied version, the armoured bytes
@@ -80,7 +80,17 @@ exit and no result line, if any phase fails:
    processes with process 2 poisoning its int8lat gradients by 1e38
    (MAIN-POISON, ``--rank-poison``: the leader quarantines and readmits
    contributor 2, counts a caught bit-flip, its exporter shows the
-   quarantine, all four losses finite); before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
+   quarantine, all four losses finite), then the hierarchical topology:
+   ResNet-18's gradient tree from the card through the two-tier
+   aggregator against its CPU copies and the flat average, and the
+   hierarchy drill's bitwise phase at that width (CHECK hier), four
+   processes in two groups of two on ``--sync-topology hier`` with group
+   1 cut off the KV mid-run (MAIN-HIER, ``--rank-hier``: the root
+   declares the subtree partitioned, applies group 0's updates, re-grafts
+   group 1 after the heal, all four FINAL lines equal, ``evaluate.main``
+   scoring the leader's checkpoint) and four slices in one process on
+   it, resumed bitwise from a checkpoint with both tiers' error
+   feedback; before those, VGG11 (MAIN-VGG: BatchNorm, biased convs,
    Dropout, synthetic CIFAR-100, batch 256) and ResNet-50 at 224 px on the
    random-resized-crop loader (MAIN-IMAGENET: batch 128, uint8 batches)
    through ``train.main`` and ``evaluate.main --once``, each after the
@@ -213,7 +223,7 @@ RANK_TIMEOUT_S = 400
 # across processes (runtime/async_trainer.py): gradients and the canonical
 # weights cross between them as armoured chunks over process 0's TCPStore.
 # (name, codec flags, max steps, eval freq, resume): int8 with checkpoints
-# every 3 versions, resumed from 6 to 8; blosc on the default bucketed
+# every 2 versions, resumed from 4 to 6; blosc on the default bucketed
 # wire; raw on the blocking legacy wire.
 WIRE_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
              "ResNet18", "--dataset", "synthetic_cifar10", "--batch-size",
@@ -222,17 +232,20 @@ WIRE_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
              "--weight-decay", "5e-4", "--test-batch-size", "4167",
              "--device", "cuda")
 WIRE_INT8 = ("--compress-grad", "true", "--grad-codec", "int8")
+# The int8 run's versions before its resume (cut from 6 to 4, and blosc's
+# from 3 to 2, to make room for MAIN-HIER in the script's time).
+WIRE_INT8_STEPS = 4
 # The launches, each a tuple of runs in one process group: the resumed
 # int8 run, blosc and raw in one launch, blosc and raw under seeds of
 # their own, so that their wire keys (``async-<seed>/...``) are not those
 # of the run before them in the group.
-WIRE_LAUNCHES = ((("int8", WIRE_INT8, 6, 3, False),),
-                 (("int8-resumed", WIRE_INT8, 8, 3, True),
+WIRE_LAUNCHES = ((("int8", WIRE_INT8, WIRE_INT8_STEPS, 2, False),),
+                 (("int8-resumed", WIRE_INT8, WIRE_INT8_STEPS + 2, 2, True),
                   ("blosc", ("--compress-grad", "true", "--grad-codec",
-                             "blosc", "--seed", "44"), 3, 0, False),
+                             "blosc", "--seed", "44"), 2, 0, False),
                   ("raw", ("--compress-grad", "false", "--wire-bucket-mb",
                            "0", "--seed", "43"), 2, 0, False)))
-WIRE_SAVES = {"int8": [3, 6], "int8-resumed": [8], "blosc": [], "raw": []}
+WIRE_SAVES = {"int8": [2, 4], "int8-resumed": [6], "blosc": [], "raw": []}
 # VGG11 (with BatchNorm) on synthetic CIFAR-100, the JAX package's
 # vgg11_cifar100_kofn / vgg11_pallas_conv (bench_suite.py:1450, 1511):
 # batch 256, SGD lr 0.05 momentum 0.9; 8333 test images make 2 eval
@@ -365,6 +378,46 @@ POISON_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
                "2", "--log-every", "4", "--max-steps", str(POISON_STEPS),
                "--eval-freq", "0", "--resume", "false", "--fault-spec",
                POISON_SPEC, "--device", "cuda")
+# MAIN-HIER: the JAX hierarchy drill's partition phase
+# (tools/hierarchy_drill.py:51-80, RESILIENCE_r14) on ResNet-18 at
+# MAIN-POISON's width: four processes of batch 64 (global 256) in two
+# groups of two, int8lat with error feedback, the group lease at 3 s, two
+# KV attempts; kv_partition cuts group 1 (processes 2, 3) off the KV for
+# HIER_WINDOW of their own steps from their step HIER_CUT. The root counts
+# silence in leader versions and declares a partition after more than
+# staleness_limit (4) of them, while the window counts the partitioned
+# processes' own steps: on the card a follower takes ~3.75 steps a leader
+# tick (MAIN-POISON), ~4.6 while cut off (the first card run: 28 steps
+# spanned ~6 versions, the partition declared at 7 and the regraft at 8),
+# so the drill's 12 steps would span ~3 versions and no partition would
+# be declared. 40 steps span ~9 versions (13 at 3 steps a version), and
+# 20 versions leave room for the regraft after the heal.
+HIER_STEPS = 20
+HIER_CUT = 6
+HIER_WINDOW = 40
+HIER_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
+             "int8lat", "--ef", "--sync-topology", "hier",
+             "--sync-group-size", "2", "--staleness-limit", "4",
+             "--kv-retry-attempts", "2", "--leader-lease-s", "3",
+             "--network", "ResNet18", "--dataset", "synthetic_cifar10",
+             "--batch-size", "64", "--compute-dtype", "bfloat16",
+             "--conv-impl", "pallas", "--fused-optimizer", "--momentum",
+             "0.9", "--weight-decay", "5e-4", "--test-batch-size", "4167",
+             "--log-every", "1", "--max-steps", str(HIER_STEPS),
+             "--eval-freq", str(HIER_STEPS), "--resume", "false",
+             "--fault-spec", f"kv_partition:group=1,gsize=2,step={HIER_CUT},"
+             f"steps={HIER_WINDOW}", "--device", "cuda")
+# MAIN-HIER's in-process leg: four slices of batch 64 in two groups, the
+# same codec, 4 ticks uninterrupted against 2 ticks, a checkpoint and a
+# resume to 4.
+HIER_SLICE_ARGS = ("--mode", "async", "--async-slices", "4",
+                   "--compress-grad", "true", "--grad-codec", "int8lat",
+                   "--ef", "--sync-topology", "hier", "--sync-group-size",
+                   "2", "--network", "ResNet18", "--dataset",
+                   "synthetic_cifar10", "--batch-size", "64",
+                   "--compute-dtype", "bfloat16", "--conv-impl", "pallas",
+                   "--fused-optimizer", "--momentum", "0.9",
+                   "--weight-decay", "5e-4", "--test-batch-size", "4167")
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 # The model's FLOPs a training step, the JAX package's count on the xla /
@@ -3144,6 +3197,377 @@ def poison_main_path(wrappers) -> dict:
     return total
 
 
+def check_hier(torch) -> dict:
+    """CHECK hier: ResNet-18's gradient tree from the card (62 leaves,
+    11,173,962 f32) as four CUDA contributions (contributor c scaled by 1 +
+    c/100 + t/1000 in round t), int8lat. Fails unless the port's
+    HierarchicalAggregator(4, group_size=2) with member EF gives, over two
+    rounds, the same averages, info and EF state on them as on their CPU
+    copies, bitwise; its first round's average is within one lattice step
+    a hop (2^-6 of a leaf's largest value) of the flat
+    StaleGradientAggregator's; and the drill's bitwise phase
+    (tools/hierarchy_drill.py) passes at that width: group 1 silent for
+    steps 8-14, the partition declared at 12 and the regraft at 15, the
+    checkpoint at 15 resumed at 16 to 20 to the same bits. Prints the
+    group hop's and the root's times."""
+    from ps_pytorch_tpu_torch.parallel import hierarchy
+    from ps_pytorch_tpu_torch.parallel.async_dp import StaleGradientAggregator
+    from ps_pytorch_tpu_torch.tools import hierarchy_drill
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    paths, params, grads = resnet18_wire_trees(torch)
+    names = ["/".join(p) for p in paths]
+    size = sum(g.numel() for g in grads)
+    if len(grads) != 62 or size != 11_173_962:
+        fail(f"CHECK hier: ResNet-18's tree has {len(grads)} leaves, "
+             f"{size} values")
+
+    def contrib(c, t):
+        return {n: g * (1.0 + 0.01 * c + 0.001 * t)
+                for n, g in zip(names, grads)}
+
+    timing = {"hop_s": [], "root_s": []}
+    gcls, rcls = hierarchy.GroupAggregator, hierarchy.RootAggregator
+    hop, root = gcls.collect_and_reencode, rcls.collect
+
+    def timed_hop(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = hop(self, *args, **kw)
+        timing["hop_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_root(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = root(self, *args, **kw)
+        timing["root_s"].append(time.perf_counter() - t0)
+        return out
+
+    gcls.collect_and_reencode, rcls.collect = timed_hop, timed_root
+    try:
+        runs = {}
+        for where in ("cuda", "cpu"):
+            agg = hierarchy.HierarchicalAggregator(
+                4, group_size=2, codec="int8lat", error_feedback=True)
+            outs = []
+            for t in range(2):
+                for c in range(4):
+                    tree = contrib(c, t)
+                    if where == "cpu":
+                        tree = {k: v.cpu().numpy() for k, v in tree.items()}
+                    agg.submit(c, t, tree)
+                avg, info = agg.collect(t)
+                outs.append((tree_sha256(avg), info))
+            runs[where] = (outs, tree_sha256(_flat_ef(agg.ef_state_dict())))
+        if runs["cuda"] != runs["cpu"]:
+            fail(f"CHECK hier: CUDA contributions {runs['cuda']} against "
+                 f"their CPU copies {runs['cpu']}")
+        flat = StaleGradientAggregator(4, compress=True, codec="int8lat")
+        tree_h = hierarchy.HierarchicalAggregator(4, group_size=2,
+                                                  codec="int8lat")
+        for c in range(4):
+            flat.submit(c, 0, contrib(c, 0))
+            tree_h.submit(c, 0, contrib(c, 0))
+        want, _ = flat.collect(0)
+        got, _ = tree_h.collect(0)
+        worst = 0.0
+        for n in names:
+            bound = float(np.max(np.abs(want[n]))) * 2.0 ** -6 + 1e-7
+            worst = max(worst, float(np.max(np.abs(got[n] - want[n])))
+                        / bound)
+        if worst > 1.0:
+            fail(f"CHECK hier: the tree's average is {worst:.3f} lattice "
+                 "steps a hop from the flat average")
+        hop_s, root_s = list(timing["hop_s"]), list(timing["root_s"])
+        t0 = time.monotonic()
+        p0 = {n: p.cpu().numpy() for n, p in zip(names, params)}
+        drill = hierarchy_drill._phase_bitwise(
+            resume_step=16, total_steps=20, grad=contrib, params0=p0)
+        drill_s = time.monotonic() - t0
+    finally:
+        gcls.collect_and_reencode, rcls.collect = hop, root
+    want_events = [["partition", 1, 12, 5], ["regraft", 1, 15, 0]]
+    want_counters = {"hops": 20, "partitions": 1, "regrafts": 1,
+                     "degraded_steps": 7}
+    if not drill["ok"] or drill["events"] != want_events or \
+            drill["counters"] != want_counters:
+        fail(f"CHECK hier drill bitwise phase: ok {drill['ok']} events "
+             f"{drill['events']} counters {drill['counters']}")
+    print(f"CHECK hier ResNet-18 gradient tree x 4 CUDA contributions, "
+          f"int8lat, 2 groups of 2, member EF, 2 rounds: averages, info and "
+          f"EF state bitwise those of the CPU copies "
+          f"({runs['cuda'][0][-1][0][:16]}...); the tree within "
+          f"{worst:.3f} of a lattice step a hop of the flat average; "
+          f"card {card}", flush=True)
+    print(f"CHECK hier times: group hop (pool sum, decode, re-encode of "
+          f"{size} values) ms {[round(1e3 * x, 1) for x in hop_s]} median "
+          f"{1e3 * np.median(hop_s):.1f}; root (2 group payloads summed, "
+          f"decoded) ms {[round(1e3 * x, 1) for x in root_s]} median "
+          f"{1e3 * np.median(root_s):.1f}; card {card}", flush=True)
+    print(f"CHECK hier drill bitwise phase at ResNet-18 width: events "
+          f"{drill['events']} counters {drill['counters']}, resumed at 16 "
+          f"to 20 bitwise the uninterrupted run (final sha256 "
+          f"{drill['final_sha256'][:16]}...), {drill_s:.1f} s", flush=True)
+    return {"hop_s": hop_s, "root_s": root_s}
+
+
+def _flat_ef(state) -> dict:
+    """A hier EF state as one flat dict (tier/slice/leaf -> residual)."""
+    out = {}
+    for tier, d in state.items():
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update({f"{tier}/{k}/{i}": r for i, r in v.items()})
+            else:
+                out[f"{tier}/{k}"] = v
+    return out
+
+
+def hier_rank_main(argv) -> int:
+    """One process of MAIN-HIER, started by the launcher: ``train.run``
+    with every launch count set to 0 just before, its group hops and
+    publishing pumps timed. Then one ``HIERRANK`` line: counts, versions,
+    steps, the transport's and the fault plane's counters, the bytes the
+    root read from the up-links and one member payload's bytes."""
+    from ps_pytorch_tpu_torch import train
+    from ps_pytorch_tpu_torch.parallel import hierarchy
+
+    wrappers = kernel_wrappers()
+    seen = {"hop_s": [], "pump_s": []}
+    gcls, tcls = hierarchy.GroupAggregator, hierarchy.HierarchicalKVTransport
+    hop, pump = gcls.collect_and_reencode, tcls.pump
+
+    def timed_hop(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = hop(self, *args, **kw)
+        if out is not None:
+            seen["hop_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_pump(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = pump(self, *args, **kw)
+        if out:
+            seen["pump_s"].append(time.perf_counter() - t0)
+        return out
+
+    gcls.collect_and_reencode, tcls.pump = timed_hop, timed_pump
+    zero_counts(wrappers)
+    trainer, result = train.run(argv)
+    t = trainer.transport
+    rows = read_jsonl(trainer.metrics.jsonl_path)
+    faults = dict(trainer.injector.snapshot())
+    if trainer._retrier is not None:
+        faults.update(trainer._retrier.snapshot())
+    print("HIERRANK " + json.dumps({
+        "pid": trainer.pid, "launches": read_counts(wrappers),
+        "version": trainer.version, "applied": trainer.applied,
+        "own_steps": trainer.own_steps, "stats": t.stats,
+        "faults": faults, "hop_s": seen["hop_s"], "pump_s": seen["pump_s"],
+        "root_bytes_in": sum(ch.bytes_in for ch in t._agg_chans.values())
+        if trainer.leader else 0,
+        "member_payload_bytes": t._my_chan.bytes_out
+        / max(t._my_chan.publishes, 1),
+        "tick_s": [r["step_time"] for r in rows], "eval": result}),
+        flush=True)
+    return 0
+
+
+def hier_main_path(wrappers) -> dict:
+    """MAIN-HIER: ResNet-18 at full width as four processes on the card in
+    two groups of two (``HIER_ARGS``), group 1 cut off the KV mid-run.
+    Fails unless every process's HIER topology line names groups [[0, 1],
+    [2, 3]] with aggregators [0, 2]; process 0 prints ``HIER partition
+    group 1`` and then ``HIER regraft group 1``, and its HIERARCHY line
+    has partitions, regrafts and degraded_steps >= 1 and groups_healthy
+    2; processes 2 and 3 alone count kv_partition_drops; the four FINAL
+    lines are equal with a finite loss; every conv3x3 launch took the
+    tensor cores (26 an own step, 13 an eval batch) and fused SGD ran once
+    an applied root update on the leader and nowhere else; and
+    ``evaluate.main`` scores the leader's last checkpoint. Prints the
+    root's bytes a version against the flat wire's, the group hop's time
+    and the leader's tick."""
+    import ast
+
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    td = f"{root}/td"
+    try:
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 4, [
+            "--rank-hier", *HIER_ARGS, "--train-dir", td, "--metrics-file",
+            f"{root}/m.jsonl"], "MAIN-HIER")
+        wall = time.monotonic() - t0
+        for r, log in enumerate(logs):
+            m = re.search(rf"^HIER topology pid {r}: (\{{.*\}})$", log, re.M)
+            plan = ast.literal_eval(m.group(1)) if m else {}
+            groups = [list(range(a, min(a + plan.get("group_size", 0),
+                                        plan.get("n_slices", 0))))
+                      for a in plan.get("aggregators", [])]
+            if groups != [[0, 1], [2, 3]] or plan["gid"] != r // 2:
+                fail(f"MAIN-HIER process {r}: topology {plan}")
+        lines = [(k, int(g), int(v)) for k, g, v in re.findall(
+            r"^HIER (partition|regraft) group (\d+) at version (\d+)",
+            logs[0], re.M)]
+        kinds = [(k, g) for k, g, _ in lines]
+        if ("partition", 1) not in kinds or ("regraft", 1) not in kinds or \
+                kinds.index(("partition", 1)) > kinds.index(("regraft", 1)):
+            fail(f"MAIN-HIER: process 0's lifecycle lines {lines}")
+        summary = re.search(
+            r"^HIERARCHY pid 0 gid 0 aggregator (\d) hops (\d+) publishes "
+            r"(\d+) failovers (\d+) giveups (\d+) partitions (\d+) "
+            r"regrafts (\d+) degraded_steps (\d+) groups_healthy (\d+)$",
+            logs[0], re.M)
+        if not summary:
+            fail("MAIN-HIER: process 0 printed no HIERARCHY summary")
+        partitions, regrafts, degraded, healthy = map(
+            int, summary.groups()[5:])
+        if partitions < 1 or regrafts < 1 or degraded < 1 or healthy != 2:
+            fail(f"MAIN-HIER: {summary.group(0)}")
+        recs, finals = [], []
+        for r, log in enumerate(logs):
+            found = re.findall(r"^HIERRANK (.*)$", log, re.M)
+            final = re.findall(r"^FINAL (.*)$", log, re.M)
+            if len(found) != 1 or len(final) != 1:
+                fail(f"MAIN-HIER: process {r} printed no HIERRANK or FINAL")
+            recs.append(json.loads(found[0]))
+            finals.append(final[0])
+        loss = float(finals[0].split()[1])
+        if len(set(finals)) != 1 or not math.isfinite(loss):
+            fail(f"MAIN-HIER: FINAL lines {finals}")
+        drops = [rec["faults"].get("kv_partition_drops", 0) for rec in recs]
+        if [d > 0 for d in drops] != [False, False, True, True]:
+            fail(f"MAIN-HIER: kv_partition_drops by process {drops}")
+        total = {k: 0 for k in recs[0]["launches"]}
+        for rec in recs:
+            want = want_counts(
+                wrappers, conv3x3=CONV_PER_STEP * rec["own_steps"]
+                + CONV_PER_EVAL_BATCH * 2,
+                fused_sgd=rec["applied"] if rec["pid"] == 0 else 0)
+            if rec["launches"] != want:
+                fail(f"MAIN-HIER process {rec['pid']}: launches "
+                     f"{rec['launches']}, expected {want}")
+            for k, v in rec["launches"].items():
+                total[k] += v
+        lead = recs[0]
+        if lead["applied"] != lead["version"] or \
+                lead["version"] != HIER_STEPS:
+            fail(f"MAIN-HIER: the leader applied {lead['applied']} of "
+                 f"{lead['version']} versions")
+        found = EVAL_RE.findall(run_entry(evaluate.main, [
+            "--train-dir", td, "--once", str(HIER_STEPS)]))
+        if len(found) != 1 or not all(math.isfinite(float(x))
+                                      for x in found[0][1:]):
+            fail("MAIN-HIER: evaluate.main printed no finite EVAL")
+        root_per_version = lead["root_bytes_in"] / lead["applied"]
+        flat_per_version = 4 * np.mean([r["member_payload_bytes"]
+                                        for r in recs])
+        hop_ms = [1e3 * x for r in recs for x in r["hop_s"]]
+        pump_ms = [1e3 * x for r in recs for x in r["pump_s"]]
+        print(f"MAIN-HIER lifecycle {lines} (kind, group, version); "
+              f"{summary.group(0)}; kv_partition_drops by process {drops}, "
+              f"kv_giveups "
+              f"{[r['faults'].get('kv_giveups', 0) for r in recs]}, "
+              f"failovers {[r['stats']['failovers'] for r in recs]}; "
+              f"FINAL {finals[0]} (equal in all four); card {card}",
+              flush=True)
+        print(f"MAIN-HIER root bytes read a version {root_per_version:.0f} "
+              f"(two group payloads) against the flat wire's "
+              f"{flat_per_version:.0f} (four member payloads of "
+              f"{flat_per_version / 4:.0f}): ratio "
+              f"{root_per_version / flat_per_version:.3f}; group hop ms "
+              f"(pool sum, decode, re-encode) median "
+              f"{np.median(hop_ms):.1f} over {len(hop_ms)}, the publishing "
+              f"pump ms median {np.median(pump_ms):.1f}; leader tick_s "
+              f"median {np.median(lead['tick_s'][1:]):.4f}; own_steps "
+              f"{[r['own_steps'] for r in recs]} applied {lead['applied']} "
+              f"EVAL step {found[0][0]} loss {found[0][1]}; launch_wall_s "
+              f"{wall:.2f} card {card}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def hier_slices_leg(torch, wrappers) -> dict:
+    """MAIN-HIER's in-process leg: four slices of ResNet-18 on
+    ``--sync-topology hier`` (``HIER_SLICE_ARGS``) for 4 ticks,
+    uninterrupted, with the launch counts set to 0 before and read after;
+    its checkpoint at 2 resumed by a second trainer to 4, its loaders
+    positioned as the uninterrupted run's. Fails
+    unless the resumed trainer restores the saved parameters and both
+    tiers' EF residuals and ends bitwise where the uninterrupted run
+    ends, the last checkpoint's ``"ef"`` holds the members' and both
+    groups' residuals, conv3x3 ran 26 times a slice a tick on the tensor
+    cores and fused SGD once a tick."""
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_hier_slices_")
+    try:
+        def trainer(td, steps, eval_freq, resume):
+            cfg = config_from_args([
+                *HIER_SLICE_ARGS, "--max-steps", str(steps),
+                "--eval-freq", str(eval_freq), "--resume",
+                "true" if resume else "false", "--train-dir", td])
+            return MultiSliceTrainer(cfg, n_slices=4, device="cuda",
+                                     printer=lambda line: None)
+
+        # The uninterrupted run ticks to 4 and checkpoints at 2 on the
+        # way, as train() would with --eval-freq 2.
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        full = trainer(f"{root}/r", 4, 2, False)
+        for _ in range(2):
+            full.tick()
+        full._checkpoint()
+        saved = tree_sha256(_flat_ef(full.aggregator.ef_state_dict()))
+        mid = tree_sha256(full.params)
+        for _ in range(2):
+            full.tick()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts(wrappers)
+        want = want_counts(wrappers, conv3x3=CONV_PER_STEP * 4 * 4,
+                           fused_sgd=4)
+        if launches != want or full.applied != 4:
+            fail(f"MAIN-HIER slices: launches {launches}, expected {want}; "
+                 f"applied {full.applied}")
+        second = trainer(f"{root}/r", 4, 2, True)
+        with redirect_stdout(io.StringIO()):
+            if not second.maybe_resume() or second.step != 2:
+                fail("MAIN-HIER slices: no resume at step 2")
+        if tree_sha256(second.params) != mid or \
+                tree_sha256(_flat_ef(second.aggregator.ef_state_dict())) \
+                != saved:
+            fail("MAIN-HIER slices: the resumed trainer does not hold the "
+                 "saved parameters and EF residuals")
+        for loader in second.train_loaders:
+            loader.fast_forward(2)
+        second.cfg.resume = False
+        second.train()
+        got = tree_sha256(second.params)
+        want_sha = tree_sha256(full.params)
+        ef = ckpt.load_extra_state(f"{root}/r", 4)["ef"]
+        if got != want_sha or sorted(ef) != ["g0", "g1", "members"] or \
+                sorted(ef["members"]) != ["0", "1", "2", "3"]:
+            fail(f"MAIN-HIER slices: resumed {got} vs uninterrupted "
+                 f"{want_sha}, last checkpoint's ef {sorted(ef)}")
+        print(f"MAIN-HIER slices 4 x 4 ticks on --sync-topology hier (2 "
+              f"groups of 2, int8lat, --ef): resumed at 2 (EF of the "
+              f"members and both hops restored) ends bitwise the "
+              f"uninterrupted run, params sha256 {got}; uninterrupted wall "
+              f"{wall:.2f} s launches {launches} card {card_line()}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def free_port_run(n: int) -> int:
     """A base port with ``n`` consecutive free ports above it (one
     exporter a process binds ``metrics_port + pid``)."""
@@ -3239,7 +3663,7 @@ def check_wire_run(wrappers, sizes, card, run, td, logs,
     ``wire_main_path``); returns its launches over both processes."""
     name, _, steps, _, resume = run
     codec = name.split("-")[0]
-    start = 6 if resume else 0
+    start = WIRE_INT8_STEPS if resume else 0
     phase = f"MAIN-WIRE {name}"
     recs = []
     for log in logs:
@@ -3259,8 +3683,9 @@ def check_wire_run(wrappers, sizes, card, run, td, logs,
     if [r["saves"] for r in recs] != [WIRE_SAVES[name], []]:
         fail(f"{phase}: checkpoints {[r['saves'] for r in recs]}, "
              f"expected process 0 alone {WIRE_SAVES[name]}")
-    if resume and f"RESUME from {td}/model_step_6 at step 6" not in logs[0]:
-        fail(f"{phase}: the leader printed no RESUME at step 6")
+    if resume and f"RESUME from {td}/model_step_{start} at step {start}" \
+            not in logs[0]:
+        fail(f"{phase}: the leader printed no RESUME at step {start}")
     total = {key: 0 for key in read_counts(wrappers)}
     for r in recs:
         want = want_counts(
@@ -3348,16 +3773,19 @@ def wire_main_path(wrappers) -> dict:
                         f"{run[0].split('-')[0]}", [x[k] for x in sections],
                         wall).items():
                     total[name] += v
+        last = WIRE_INT8_STEPS + 2
         found = EVAL_RE.findall(run_entry(evaluate.main, [
-            "--train-dir", f"{root}/td_int8", "--once", "8"]))
-        if len(found) != 1 or found[0][0] != "8" or not all(
+            "--train-dir", f"{root}/td_int8", "--once", str(last)]))
+        if len(found) != 1 or found[0][0] != str(last) or not all(
                 math.isfinite(float(x)) for x in found[0][1:]):
-            fail("MAIN-WIRE: evaluate.main printed no finite EVAL step 8")
-        if ckpt.committed_steps(f"{root}/td_int8") != [3, 6, 8]:
+            fail(f"MAIN-WIRE: evaluate.main printed no finite EVAL step "
+                 f"{last}")
+        if ckpt.committed_steps(f"{root}/td_int8") != \
+                WIRE_SAVES["int8"] + WIRE_SAVES["int8-resumed"]:
             fail(f"MAIN-WIRE: committed "
                  f"{ckpt.committed_steps(f'{root}/td_int8')}")
-        print(f"MAIN-WIRE EVAL step 8 {found[0][1:]} launches over every "
-              f"run and both processes {total}", flush=True)
+        print(f"MAIN-WIRE EVAL step {last} {found[0][1:]} launches over "
+              f"every run and both processes {total}", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return total
@@ -3726,6 +4154,8 @@ def main() -> int:
         return shard_rank_main(sys.argv[2:])
     if sys.argv[1:2] == ["--rank-poison"]:
         return poison_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--rank-hier"]:
+        return hier_rank_main(sys.argv[2:])
     if sys.argv[1:] == ["--rank-probe"]:
         return probe_rank_main()
     import torch
@@ -3843,6 +4273,9 @@ def main() -> int:
     shard_slices = timed(shard_slices_leg, torch, wrappers)
     timed(check_integrity_on_device, torch)
     poison_launches = timed(poison_main_path, wrappers)
+    timed(check_hier, torch)
+    hier_launches = timed(hier_main_path, wrappers)
+    hier_slices = timed(hier_slices_leg, torch, wrappers)
     kvrep_launches = timed(kvrep_main_path, wrappers)
     flash = timed(check_flash, torch, F, fa)
     torch.cuda.empty_cache()
@@ -3884,6 +4317,8 @@ def main() -> int:
                  "MAIN-SHARD": shard_launches["conv3x3"],
                  "MAIN-SHARD slices": shard_slices["conv3x3"],
                  "MAIN-POISON": poison_launches["conv3x3"],
+                 "MAIN-HIER": hier_launches["conv3x3"],
+                 "MAIN-HIER slices": hier_slices["conv3x3"],
                  "MAIN-KVREP": kvrep_launches["conv3x3"],
                  "MAIN-ZERO shard-update": zero_launches["shard-update"][
                      "conv3x3"],
@@ -3896,6 +4331,8 @@ def main() -> int:
                  "MAIN-SHARD": shard_launches["conv3x3_tc"],
                  "MAIN-SHARD slices": shard_slices["conv3x3_tc"],
                  "MAIN-POISON": poison_launches["conv3x3_tc"],
+                 "MAIN-HIER": hier_launches["conv3x3_tc"],
+                 "MAIN-HIER slices": hier_slices["conv3x3_tc"],
                  "MAIN-KVREP": kvrep_launches["conv3x3_tc"],
                  "MAIN-ZERO shard-update": zero_launches["shard-update"][
                      "conv3x3_tc"],
@@ -3918,6 +4355,9 @@ def main() -> int:
                                shard_slices["fused_sgd"],
                                "MAIN-POISON (the leader)":
                                poison_launches["fused_sgd"],
+                               "MAIN-HIER (the root's applied updates)":
+                               hier_launches["fused_sgd"],
+                               "MAIN-HIER slices": hier_slices["fused_sgd"],
                                "MAIN-KVREP": kvrep_launches["fused_sgd"],
                                "MAIN-ZERO shard-update (on a rank's slice)":
                                zero_launches["shard-update"]["fused_sgd"],

@@ -8,8 +8,9 @@ included, one process a replica, with cross-replica BatchNorm statistics,
 ZeRO-1, recomputation, the loader's worker pool, the fault plane,
 heartbeats and auto-resume, its checkpoints and evaluator; asynchronous
 stale-gradient training with its codecs, in one process or one process a
-slice over the KV wire, with the sharded wire update (``--shard-wire``)
-and, across processes, the gradient integrity screen and the exporter;
+slice over the KV wire, with the sharded wire update (``--shard-wire``),
+the hierarchical topology (``--sync-topology hier``) and, across
+processes, the gradient integrity screen and the exporter;
 the KV retry plane; the elastic control plane
 (leader lease, elections, membership) and the quorum-replicated KV under
 the CNN trainer and the asynchronous one across processes; and the ops
@@ -382,6 +383,30 @@ class TrainConfig:
         if self.sync_topology not in ("flat", "hier"):
             raise ValueError(f"unknown sync_topology {self.sync_topology!r} "
                              "(flat | hier)")
+        if self.sync_topology == "hier":
+            # The group aggregators sum member payloads in the compressed
+            # domain and re-encode once a hop: only the homomorphic codecs
+            # support that (the JAX package's check and message).
+            from ps_pytorch_tpu_torch.compression.codecs import (
+                HOMOMORPHIC_GRAD_CODECS,
+            )
+            if not self.compress_grad or \
+                    self.grad_codec not in HOMOMORPHIC_GRAD_CODECS:
+                raise ValueError(
+                    "sync_topology=hier requires compress_grad=True and a "
+                    f"homomorphic grad_codec "
+                    f"({' | '.join(HOMOMORPHIC_GRAD_CODECS)}), got "
+                    f"compress_grad={self.compress_grad} "
+                    f"grad_codec={self.grad_codec!r}")
+        if self.sync_group_size < 0:
+            raise ValueError(f"sync_group_size={self.sync_group_size} "
+                             "(must be >= 0; 0 = auto)")
+        if self.sync_intra_every < 1 or self.sync_inter_every < 1:
+            raise ValueError("sync_intra_every / sync_inter_every must be "
+                             ">= 1")
+        if self.hier_hop_retries < 1:
+            raise ValueError(f"hier_hop_retries={self.hier_hop_retries} "
+                             "(must be >= 1; 1 = no retries)")
         if self.shard_wire:
             # --shard-wire holds a bitwise guarantee (sharded update ==
             # replicated update, exactly): every combination that cannot
@@ -435,14 +460,20 @@ class TrainConfig:
         # exporter, screens its pool (the integrity fields) and runs the
         # control plane: the fault plane, the replicated KV and, with
         # --elastic, the lease, the initial leader and the heartbeats of
-        # the membership. --shard-wire runs under --mode async in one
-        # process and across processes.
+        # the membership (the lease's interval also with --sync-topology
+        # hier, for the group lease). --shard-wire and the hierarchical
+        # topology run under --mode async in one process and across
+        # processes.
         wire = self.mode == "async" and several_processes()
         async_runs = WIRE_FIELDS + INTEGRITY_FIELDS + (
             "trace_file", "metrics_port", "fault_spec", "kv_replicas",
             "kv_quorum", "kv_resync_s", "elastic")
         if self.elastic:
             async_runs += ELASTIC_ONLY_FIELDS
+        elif self.sync_topology == "hier":
+            # The group aggregator's lease interval (the JAX trainer's
+            # ``cfg.leader_lease_s or 1.0``), with or without --elastic.
+            async_runs += ("leader_lease_s",)
         inert = {"sync": ASYNC_ONLY_FIELDS + WIRE_FIELDS + INTEGRITY_FIELDS
                  + ("num_aggregate",),
                  "kofn": ASYNC_ONLY_FIELDS + WIRE_FIELDS + INTEGRITY_FIELDS,
@@ -461,6 +492,9 @@ class TrainConfig:
                         else "--mode sync or kofn, the LM, and --mode async "
                         "across processes"
                         if name in ("trace_file", "metrics_port")
+                        else "--mode sync or kofn, and --mode async across "
+                        "processes with --elastic or --sync-topology hier"
+                        if name == "leader_lease_s"
                         else "--mode sync or kofn, and --mode async across "
                         "processes with --elastic"
                         if name in ELASTIC_ONLY_FIELDS
@@ -497,10 +531,15 @@ def _default(name: str):
 # Fields that only the asynchronous trainer reads. ``num_aggregate`` is
 # read by it too (the freshest K slices) and by K-of-N (the fastest K
 # replicas).
+# The hierarchical topology (``parallel/hierarchy.py``): both asynchronous
+# trainers read it, in one process and across processes; the synchronous
+# trainers ignore it in the JAX package, so the port refuses it there.
+HIER_FIELDS = ("sync_topology", "sync_group_size", "sync_intra_every",
+               "sync_inter_every", "hier_hop_retries")
 ASYNC_ONLY_FIELDS = ("async_slices", "fetch_every",
                      "staleness_limit", "staleness_decay", "grad_codec",
                      "grad_topk_frac", "ef", "ef_clip", "wire_bucket_mb",
-                     "wire_workers")
+                     "wire_workers") + HIER_FIELDS
 # Fields that only the synchronous CNN trainer (sync and kofn) reads: the
 # straggler deadline and the injected straggler, the step's options
 # (cross-replica BatchNorm statistics, ZeRO-1, recomputation) and the
@@ -512,8 +551,10 @@ SYNC_ONLY_FIELDS = ("kill_threshold", "inject_step_delay",
 # elections and membership (elastic/) and the quorum-replicated KV
 # (runtime/kvrep.py). The CNN trainer (sync and kofn) reads all of them;
 # the asynchronous trainer across processes reads them too, those of
-# ELASTIC_ONLY_FIELDS only under --elastic, as in the JAX package; the
-# trainers in one process of --mode async and the LM read none.
+# ELASTIC_ONLY_FIELDS only under --elastic (``leader_lease_s`` also under
+# --sync-topology hier, as the group lease's interval), as in the JAX
+# package; the trainers in one process of --mode async and the LM read
+# none.
 CONTROL_FIELDS = ("fault_spec", "heartbeat_interval_s",
                   "heartbeat_timeout_s", "leader_lease_s", "elastic",
                   "elastic_leader", "kv_replicas", "kv_quorum",

@@ -93,7 +93,17 @@ The registry of the JAX trainer is kept, and with ``--metrics-port`` its
 exporter serves it on ``metrics_port + pid`` (the integrity, resilience,
 replicated-KV and elastic counters pumped at each scrape).
 
-Not ported yet (ROADMAP.md): the hierarchical topology.
+``--sync-topology hier`` (``parallel/hierarchy.py``) puts the
+``HierarchicalKVTransport`` in place of the flat wire: each process
+publishes to its group's channel, whoever holds the group's lease (the
+lowest member first, ``--leader-lease-s`` its interval) screens its
+members with a member-space ledger, re-encodes the group's average once
+and publishes it up, and the leader's pool is a ``RootAggregator`` over
+the group ids with a ledger of its own. The leader applies the root
+average through the same optimizer (the fused SGD / Adam kernel). The
+root's partition and regraft of a silent subtree, the failovers and a
+summary at the end print the JAX trainer's ``HIER`` / ``HIERARCHY``
+lines, and the ``hierarchy_*`` counters reach the registry and the JSONL.
 """
 
 import time
@@ -123,6 +133,9 @@ from ps_pytorch_tpu_torch.parallel.async_dp import (
     StaleGradientAggregator, tree_flatten,
 )
 from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval, make_eval_step
+from ps_pytorch_tpu_torch.parallel.hierarchy import (
+    HierarchicalKVTransport, RootAggregator,
+)
 from ps_pytorch_tpu_torch.parallel.transport import KVGradientTransport
 from ps_pytorch_tpu_torch.parallel.zero_wire import updater_from_config
 from ps_pytorch_tpu_torch.resilience.integrity import GradIntegrity
@@ -136,7 +149,8 @@ from ps_pytorch_tpu_torch.runtime.trainer import (
 )
 from ps_pytorch_tpu_torch.telemetry import (
     MetricsExporter, Registry, Tracer, declare_elastic_metrics,
-    declare_integrity_metrics, declare_kvrep_metrics,
+    declare_hierarchy_metrics, declare_integrity_metrics,
+    declare_kvrep_metrics,
     declare_resilience_metrics, declare_training_metrics,
     device_memory_record, host_rss_bytes, set_default_tracer,
 )
@@ -279,11 +293,37 @@ class AsyncTrainer:
             param_template["params"] = nest(self._paths, zeros)
         wire_bucket_bytes = int(cfg.wire_bucket_mb * (1 << 20))
         self._wire_overlap = wire_bucket_bytes > 0
-        self.transport = KVGradientTransport(
-            kv, self.n, grad_template=grad_template,
-            param_template=param_template, run_id=self.run_id,
-            level=cfg.codec_level, codec=chan_codec,
-            bucket_bytes=wire_bucket_bytes, workers=cfg.wire_workers)
+        self._hier = cfg.sync_topology == "hier"
+        # The screens (--grad-integrity): the leader's ledger over the
+        # contributors of its pool and, under hier, a member-space ledger
+        # on the group hop (whichever process holds the group's lease
+        # screens its members).
+        self._integrity: Optional[GradIntegrity] = None
+        self._group_integrity: Optional[GradIntegrity] = None
+        if self._hier:
+            # Members publish to their group's channels, the group
+            # aggregator re-encodes one payload a group upward, the root
+            # (the PS leader) pools the group aggregates. The config
+            # already holds the codec homomorphic.
+            self._group_integrity = self._make_integrity()
+            self.transport = HierarchicalKVTransport(
+                kv, self.n, grad_template=grad_template,
+                param_template=param_template, run_id=self.run_id,
+                pid=self.pid, group_size=cfg.sync_group_size,
+                codec=cfg.grad_codec, staleness_limit=cfg.staleness_limit,
+                topk_frac=cfg.grad_topk_frac, chan_codec=chan_codec,
+                level=cfg.codec_level, bucket_bytes=wire_bucket_bytes,
+                workers=cfg.wire_workers, hop_retries=cfg.hier_hop_retries,
+                lease_interval_s=cfg.leader_lease_s or 1.0,
+                integrity=self._group_integrity)
+            print(f"HIER topology pid {self.pid}: "
+                  f"{self.transport.describe()}", flush=True)
+        else:
+            self.transport = KVGradientTransport(
+                kv, self.n, grad_template=grad_template,
+                param_template=param_template, run_id=self.run_id,
+                level=cfg.codec_level, codec=chan_codec,
+                bucket_bytes=wire_bucket_bytes, workers=cfg.wire_workers)
 
         # This process is shard pid of n over the shared-seed shuffle and
         # draws cfg.batch_size a step, like a reference worker.
@@ -314,10 +354,11 @@ class AsyncTrainer:
         # The JAX trainer's ops plane, lighter than the sync trainer's:
         # gauges and the step counter, no watchdogs. The exporter binds
         # metrics_port + pid, one endpoint a process.
-        self._integrity: Optional[GradIntegrity] = None   # leader's ledger
         self.registry = declare_training_metrics(Registry())
         if cfg.elastic:
             declare_elastic_metrics(self.registry)
+        if self._hier:
+            declare_hierarchy_metrics(self.registry)
         collect = []
         if self.injector is not None or self._retrier is not None:
             declare_resilience_metrics(self.registry)
@@ -352,9 +393,10 @@ class AsyncTrainer:
         self.aggregator = self._make_leader_aggregator()
 
     def _make_integrity(self) -> Optional[GradIntegrity]:
-        """The leader's screening ledger (--grad-integrity): payload
-        validation, the MAD outlier gate and the strike / quarantine
-        bookkeeping, over contributor (process) ids."""
+        """One screening ledger (--grad-integrity): payload validation,
+        the MAD outlier gate and the strike / quarantine bookkeeping, over
+        one id space: the leader's pool and the hier group hop each get
+        their own (process ids, or group ids at the root)."""
         cfg = self.cfg
         if not cfg.grad_integrity:
             return None
@@ -366,9 +408,19 @@ class AsyncTrainer:
 
     def _make_leader_aggregator(self):
         """The pool, screened by the integrity ledger before its sum, and
-        under --shard-wire wrapped in the sharded updater."""
+        under --shard-wire wrapped in the sharded updater. Under hier the
+        root tier: it pools GROUP aggregates, with num_aggregate clamped
+        to the group count (K-of-N a tier)."""
         cfg = self.cfg
         self._integrity = self._make_integrity()
+        if cfg.sync_topology == "hier":
+            plan = self.transport.plan
+            return RootAggregator(
+                plan.n_groups, cfg.grad_codec,
+                staleness_limit=cfg.staleness_limit,
+                staleness_decay=cfg.staleness_decay,
+                num_aggregate=min(cfg.num_aggregate, plan.n_groups),
+                on_event=self._hier_event, integrity=self._integrity)
         return self._wrap_shard_wire(StaleGradientAggregator(
             self.n, staleness_limit=cfg.staleness_limit,
             staleness_decay=cfg.staleness_decay,
@@ -428,19 +480,64 @@ class AsyncTrainer:
                   flush=True)
 
     def _integrity_snapshot(self) -> dict:
-        """The ledger's counters and the transport's wire-digest
-        failures."""
-        snap = dict(self._integrity.snapshot()) \
-            if self._integrity is not None else {}
+        """The counters of every ledger this process runs (the leader's
+        pool and the hier group hop), summed, and the transport's
+        wire-digest failures."""
+        snap: dict = {}
+        for ledger in (self._integrity, self._group_integrity):
+            if ledger is not None:
+                for k, v in ledger.snapshot().items():
+                    snap[k] = snap.get(k, 0) + v
         snap["wire_integrity_failures"] = self.transport.wire_stats()[
             "wire_integrity_failures"]
         return snap
+
+    def _screens(self) -> bool:
+        return self._integrity is not None or \
+            self._group_integrity is not None
 
     def _pump_integrity_metrics(self) -> None:
         snap = self._integrity_snapshot()
         self.registry.set("integrity_quarantined",
                           float(snap.pop("integrity_quarantined", 0)))
         self._pump(snap)
+
+    def _hier_telemetry(self) -> dict:
+        """The hierarchy_* registry metrics up to the transport's and the
+        root's counters; -> the JSONL's columns."""
+        st = self.transport.stats
+        counts = {"hierarchy_group_publishes": st["group_publishes"],
+                  "hierarchy_failovers": st["failovers"]}
+        hops = st["hops"]
+        extra = {"hier_group_publishes": st["group_publishes"],
+                 "hier_failovers": st["failovers"],
+                 "hier_hop_giveups": st["hop_giveups"]}
+        self.registry.set("hierarchy_groups",
+                          float(self.transport.plan.n_groups))
+        if self.leader:
+            snap = self.aggregator.snapshot()
+            hops += snap["hops"]
+            self.registry.set("hierarchy_groups_healthy",
+                              float(snap["groups_healthy"]))
+            counts["hierarchy_degraded_steps"] = snap["degraded_steps"]
+            extra["hier_groups_healthy"] = snap["groups_healthy"]
+            extra["hier_degraded_steps"] = snap["degraded_steps"]
+        counts["hierarchy_hops"] = hops
+        self._pump(counts)
+        return extra
+
+    def _hier_event(self, kind: str, gid: int, step: int,
+                    staleness: int) -> None:
+        """The root's subtree lifecycle: one line a transition (the JAX
+        trainer's words) and its counter."""
+        if kind == "partition":
+            self.registry.inc("hierarchy_partitions")
+            print(f"HIER partition group {gid} at version {step} "
+                  f"(silent {staleness})", flush=True)
+        elif kind == "regraft":
+            self.registry.inc("hierarchy_regrafts")
+            print(f"HIER regraft group {gid} at version {step} "
+                  f"staleness {staleness}", flush=True)
 
     def _health_status(self) -> dict:
         body = {"ok": True, "process_index": self.pid,
@@ -747,12 +844,19 @@ class AsyncTrainer:
 
     def _leader_apply(self) -> int:
         """Pool new wire contributions and apply at most one update.
-        Returns the number of contributions used."""
-        for s, step, wire in self.transport.poll_new_grads():
-            if self._wire_homo:
-                self.aggregator.submit_encoded(s, step, wire)
-            else:
-                self.aggregator.submit(s, step, self._decode_grads(wire))
+        Returns the number of contributions used (groups, under hier)."""
+        if self._hier:
+            # The root tier: one payload tree a group, with its (step,
+            # wsum).
+            for gid, step, wsum, tree in self.transport.poll_new_aggs():
+                self.aggregator.submit_group(gid, step, wsum, tree)
+        else:
+            for s, step, wire in self.transport.poll_new_grads():
+                if self._wire_homo:
+                    self.aggregator.submit_encoded(s, step, wire)
+                else:
+                    self.aggregator.submit(s, step,
+                                           self._decode_grads(wire))
         avg, pool = self.aggregator.collect(self.version)
         used = 0
         if avg is not None and pool["used"]:
@@ -817,7 +921,23 @@ class AsyncTrainer:
                       f"world {msnap['world_size']} membership_changes "
                       f"{msnap['membership_changes']} wins "
                       f"{self.election.stats['wins']}", flush=True)
-            if self._integrity is not None:
+            if self._hier:
+                # One hierarchy summary line a process (the JAX
+                # trainer's).
+                st = self.transport.stats
+                line = (f"HIERARCHY pid {self.pid} gid {self.transport.gid} "
+                        f"aggregator {int(self.transport.is_aggregator)} "
+                        f"hops {st['hops']} publishes "
+                        f"{st['group_publishes']} failovers "
+                        f"{st['failovers']} giveups {st['hop_giveups']}")
+                if self.leader:
+                    root = self.aggregator.snapshot()
+                    line += (f" partitions {root['partitions']} regrafts "
+                             f"{root['regrafts']} degraded_steps "
+                             f"{root['degraded_steps']} groups_healthy "
+                             f"{root['groups_healthy']}")
+                print(line, flush=True)
+            if self._screens():
                 # One summary line a screening process (the JAX
                 # trainer's).
                 s = self._integrity_snapshot()
@@ -875,6 +995,17 @@ class AsyncTrainer:
                     self._load_params(got[1]["params"])
             m = self._compute_and_submit(my_version)
             own_steps += 1
+            if self._hier:
+                # Every process pumps: the group lease stays fresh, and
+                # its holder drains the member channels and publishes the
+                # group's aggregate up (after the submit above, so it
+                # pools its own contribution of this round).
+                before = self.transport.stats["failovers"]
+                self.transport.pump(my_version)
+                if self.transport.stats["failovers"] > before:
+                    print(f"HIER failover: process {self.pid} adopted "
+                          f"aggregator role for group {self.transport.gid} "
+                          f"at own step {own_steps}", flush=True)
             used = self._leader_apply() if self.leader else 0
             if self._claim_pending:
                 # The initial leader claims epoch 1 once its first tick
@@ -891,7 +1022,9 @@ class AsyncTrainer:
                 extra = {}
                 if self.election is not None:
                     extra["leader_epoch"] = self.election.epoch
-                if self._integrity is not None:
+                if self._hier:
+                    extra.update(self._hier_telemetry())
+                if self._screens():
                     isnap = self._integrity_snapshot()
                     # Schema gate: the integrity columns appear with a
                     # fault plane, or once a screen or a digest fired.

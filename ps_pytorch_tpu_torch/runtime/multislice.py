@@ -37,6 +37,13 @@ a single owner of ``max(n_slices, 2)`` shards over an in-memory
 before the update and back after it); the checkpoint carries its state as
 ``extra_state["zero"]``. This trainer builds no integrity screen, as in
 the JAX package.
+
+``--sync-topology hier`` puts ``parallel/hierarchy.py``'s
+``HierarchicalAggregator`` in place of the pool: members route to group
+aggregators that re-encode once a hop, the root pools the group
+aggregates. Its error feedback (the members' with ``--ef``, the hops'
+always) rides every checkpoint as ``extra_state["ef"]``, in the JAX
+layouts.
 """
 
 import time
@@ -60,6 +67,7 @@ from ps_pytorch_tpu_torch.parallel.async_dp import (
 from ps_pytorch_tpu_torch.parallel.dp import (
     DropoutDraws, _input, accumulate_eval, make_eval_step,
 )
+from ps_pytorch_tpu_torch.parallel.hierarchy import HierarchicalAggregator
 from ps_pytorch_tpu_torch.parallel.zero_wire import updater_from_config
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
@@ -145,14 +153,29 @@ class MultiSliceTrainer:
             m.load_state_dict(self.model.state_dict())
             self.slices.append(m)
 
-        self.aggregator = StaleGradientAggregator(
-            n_slices, staleness_limit=cfg.staleness_limit,
-            staleness_decay=cfg.staleness_decay,
-            num_aggregate=cfg.num_aggregate, compress=cfg.compress_grad,
-            codec=cfg.grad_codec, codec_level=cfg.codec_level,
-            wire_bucket_bytes=int(cfg.wire_bucket_mb * (1 << 20)),
-            wire_workers=cfg.wire_workers, topk_frac=cfg.grad_topk_frac,
-            error_feedback=cfg.ef, ef_clip=cfg.ef_clip, noise_fn=noise_fn)
+        if cfg.sync_topology == "hier":
+            # Two tiers behind the same surface (parallel/hierarchy.py):
+            # submit, collect, consume, GC and EF keep their meaning, so
+            # tick() does not know the topology. num_aggregate counts
+            # groups there, clamped to their number.
+            self.aggregator = HierarchicalAggregator(
+                n_slices, group_size=cfg.sync_group_size,
+                staleness_limit=cfg.staleness_limit,
+                staleness_decay=cfg.staleness_decay,
+                num_aggregate=cfg.num_aggregate, codec=cfg.grad_codec,
+                topk_frac=cfg.grad_topk_frac, error_feedback=cfg.ef,
+                ef_clip=cfg.ef_clip, intra_every=cfg.sync_intra_every,
+                inter_every=cfg.sync_inter_every)
+        else:
+            self.aggregator = StaleGradientAggregator(
+                n_slices, staleness_limit=cfg.staleness_limit,
+                staleness_decay=cfg.staleness_decay,
+                num_aggregate=cfg.num_aggregate, compress=cfg.compress_grad,
+                codec=cfg.grad_codec, codec_level=cfg.codec_level,
+                wire_bucket_bytes=int(cfg.wire_bucket_mb * (1 << 20)),
+                wire_workers=cfg.wire_workers, topk_frac=cfg.grad_topk_frac,
+                error_feedback=cfg.ef, ef_clip=cfg.ef_clip,
+                noise_fn=noise_fn)
         if cfg.shard_wire:
             # The same pool, decision for decision; the canonical update
             # becomes the sharded host-side one, published a shard a key
@@ -290,21 +313,35 @@ class MultiSliceTrainer:
             model.load_state_dict(from_jax({}, stats[s]), strict=False)
 
     def _ef_layout(self, state: dict, to_jax: bool) -> dict:
-        """The aggregator's EF state (slice -> leaf index -> residual)
-        between the port's parameter layouts and the JAX package's. Leaf i
-        is the i-th parameter by sorted name in both."""
+        """The aggregator's EF state between the port's parameter layouts
+        and the JAX package's. Flat: slice -> leaf index -> residual;
+        under hier, ``{"members": {slice: {i: r}}, "g<gid>": {i: r}}``,
+        the members' and each group hop's residuals, both over the
+        gradient's leaves. Leaf i is the i-th parameter by sorted name in
+        both packages."""
         names = sorted(self.params)
-        return {sid: {i: leaf_layout(names[int(i)], np.asarray(r), to_jax)
-                      for i, r in leaves.items()}
-                for sid, leaves in state.items()}
+
+        def leaves(d):
+            return {i: leaf_layout(names[int(i)], np.asarray(r), to_jax)
+                    for i, r in d.items()}
+
+        def slices(d):
+            return {sid: leaves(v) for sid, v in d.items()}
+
+        if "members" in state or any(k.startswith("g") for k in state):
+            return {k: slices(v) if k == "members" else leaves(v)
+                    for k, v in state.items()}
+        return slices(state)
 
     # ---- checkpoint/resume (same contract and format as the Trainer) ----
     def _checkpoint(self) -> str:
         # EF residuals are sender state: without them a resumed lossy-codec
         # run re-sends error the accumulator had already banked. They are
-        # stored in the JAX package's layouts.
+        # stored in the JAX package's layouts, under hier always (its hop
+        # EF is on without --ef), as the JAX trainer does.
         extra = {"ef": self._ef_layout(self.aggregator.ef_state_dict(),
-                                       to_jax=True)} if self.cfg.ef else None
+                                       to_jax=True)} \
+            if (self.cfg.ef or self.cfg.sync_topology == "hier") else None
         if self.cfg.shard_wire:
             # The sharded optimizer state (each shard's fields and the
             # step): without it a resumed run restarts the moments.

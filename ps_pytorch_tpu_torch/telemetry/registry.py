@@ -15,10 +15,9 @@ arithmetic ``:523-603``).
   allocated bytes (``torch.cuda.memory_stats``), absent on the CPU.
 
 Metrics must be declared (name, kind, unit, help) before use, so the set
-of emitted names is a reviewable contract. The resilience counters are
-declared here too; the other planes' declarations (serving, router,
-replicated KV, hierarchy, elastic, integrity) come with their planes
-(ROADMAP.md).
+of emitted names is a reviewable contract. The resilience, integrity,
+replicated-KV, hierarchy and elastic counters are declared here too; the
+serving and router declarations come with their planes (ROADMAP.md).
 """
 
 import threading
@@ -332,6 +331,38 @@ def declare_kvrep_metrics(registry: Registry) -> Registry:
     for name, unit, help_ in KVREP_COUNTERS:
         registry.counter(name, unit=unit, help=help_)
     for name, unit, help_ in KVREP_GAUGES:
+        registry.gauge(name, unit=unit, help=help_)
+    return registry
+
+
+# ---- hierarchical sync (parallel/hierarchy.py): per-hop traffic, the
+# subtree partition / regraft lifecycle, aggregator failovers and the group
+# health gauges (the JAX package's names, units and kinds) ----
+HIERARCHY_COUNTERS = (
+    ("hierarchy_hops", "ops", "aggregation hops completed (any tier)"),
+    ("hierarchy_group_publishes", "ops",
+     "group aggregates re-encoded and published upward"),
+    ("hierarchy_partitions", "events",
+     "subtrees declared partitioned (went stale past the limit)"),
+    ("hierarchy_regrafts", "events",
+     "partitioned subtrees re-grafted after healing"),
+    ("hierarchy_degraded_steps", "steps",
+     "root updates applied with at least one subtree missing"),
+    ("hierarchy_failovers", "events",
+     "group aggregator roles adopted by another member"),
+)
+HIERARCHY_GAUGES = (
+    ("hierarchy_groups", "groups", "sync groups in the topology"),
+    ("hierarchy_groups_healthy", "groups",
+     "groups contributing within the staleness limit"),
+)
+
+
+def declare_hierarchy_metrics(registry: Registry) -> Registry:
+    """Declare the hierarchical-sync counters/gauges on ``registry``."""
+    for name, unit, help_ in HIERARCHY_COUNTERS:
+        registry.counter(name, unit=unit, help=help_)
+    for name, unit, help_ in HIERARCHY_GAUGES:
         registry.gauge(name, unit=unit, help=help_)
     return registry
 

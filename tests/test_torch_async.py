@@ -275,9 +275,9 @@ def _kw(**over):
 
 @pytest.mark.parametrize("kw", [
     dict(mode="async", network="TransformerLM", eval_freq=0),
-    dict(mode="async", publish_every=2), dict(mode="async", sync_group_size=2),
+    dict(mode="async", publish_every=2), dict(mode="sync", sync_group_size=2),
     dict(mode="async", sync_topology="hier", compress_grad=True,
-         grad_codec="int8lat"),
+         grad_codec="int8lat", leader_lease_s=3.0),
     dict(mode="async", grad_integrity=False), dict(num_aggregate=1),
     dict(staleness_limit=2), dict(grad_codec="int8"),
 ])

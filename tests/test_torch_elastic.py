@@ -565,7 +565,7 @@ def test_config_async_takes_the_control_plane_across_processes(
     # grad_poison runs here since the integrity screen is ported.
     assert config.TrainConfig(**dict(kw, fault_spec="grad_poison:scale=9"))
     for bad, why in ((dict(fault_spec="grad_nan:step=3"), "mask"),
-                     (dict(sync_group_size=2), "ROADMAP.md"),
+                     (dict(serve_slots=4), "ROADMAP.md"),
                      (dict(fault_spec="replica_kill:served=2"), "serving"),
                      (dict(elastic=False), "--elastic"),
                      (dict(auto_resume=1), "sync or kofn")):

@@ -93,6 +93,10 @@ def test_unported_fields_raise(field, value):
         kw["mode"] = "async"
     if field == "elastic":
         kw["leader_lease_s"] = 1.0          # else the JAX check refuses
+    if field == "sync_topology":
+        # The hierarchical topology runs under --mode async only; the
+        # JAX check refuses it without a homomorphic codec first.
+        kw.update(compress_grad=True, grad_codec="int8lat")
     if field == "loader_workers":
         # The pool feeds every CNN trainer; the LM's loader has none.
         kw["network"] = "TransformerLM"
