@@ -45,11 +45,24 @@ def _both(train_dir, step):
     return got, ours[0], want, theirs[0]
 
 
+def _assert_lines_agree(line, jline, rtol=1e-5, atol=1e-5):
+    """Two ``NAME key value key value ...`` lines: the same tag and keys,
+    and each printed value within ``rtol`` / ``atol`` plus one unit in
+    its last printed place (two values that agree at 1e-5 can still
+    round to different last digits)."""
+    ours, theirs = line.split(), jline.split()
+    assert ours[:1] + ours[1::2] == theirs[:1] + theirs[1::2]
+    for a, b in zip(ours[2::2], theirs[2::2]):
+        places = len(b.partition(".")[2])
+        np.testing.assert_allclose(float(a), float(b), rtol=rtol,
+                                   atol=atol + 10.0 ** -places)
+
+
 def _assert_agree(got, line, want, jline):
     assert got["step"] == want["step"]
     for k in ("loss", "prec1", "prec5"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
-    assert line.split()[::2] == jline.split()[::2]      # the same fields
+    _assert_lines_agree(line, jline)
     assert line == evaluator.EVAL_LINE.format(**got)
 
 
