@@ -99,7 +99,16 @@ exit and no result line, if any phase fails:
    full-width TransformerLM (d 512, 8 layers, 8 heads, vocab 32000, S
    2048, batch 8, f32, flash
    attention) for a few steps through the port's LMTrainer, evaluating 2
-   batches. After MAIN-CKPT, the same ResNet-18 through ``train.main``
+   batches, then its checkpoint lifecycle through the entry points
+   (MAIN-LMCKPT: ``train_lm.main --remat --eval-freq 2`` with the step-4
+   checkpoint corrupted, a resume that walks back to step 2 and trains to
+   6, ``evaluate.main --once 6``'s EVAL_LM line, greedy
+   ``generate.main`` against the full forward's argmax on the card, the
+   checkpoint's bytes and save and load seconds, 2-step peak memory
+   without and with remat) and the JAX package's ACCURACY_LM recipe on
+   the flash kernels (ACCURACY-LM: 2000 steps on the ``.py`` bytes of
+   ``ps_pytorch_tpu/`` and ``tests/``, read as files, then
+   ``evaluate.main``; perplexity at most 16). After MAIN-CKPT, the same ResNet-18 through ``train.main``
    with a crash, a corrupted checkpoint and KV drops under
    ``--auto-resume 2`` (MAIN-CRASH: the resume past the corrupt checkpoint
    ends bitwise where an uninterrupted run ends, retries equal drops, and
@@ -139,6 +148,7 @@ exit and no result line, if any phase fails:
 import io
 import json
 import math
+import os
 import re
 import shutil
 import socket
@@ -175,13 +185,15 @@ FLASH_TOL = {"float32": (2e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
 FLASH_MATMULS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}
 # Beside the LM's shape: the widest head dim, causal, in both types; a head
 # dim whose bf16 depth is padded from 40 to 48; a full (non-causal) shape;
-# an S that is not a multiple of the kernels' 64-row tile.
+# an S that is not a multiple of the kernels' 64-row tile; ACCURACY-LM's
+# [batch 16, 4 heads, S 256, head dim 32].
 FLASH_CASES = ((FLASH_SHAPE, True, "float32"), (FLASH_SHAPE, True, "bfloat16"),
                ((2, 4, 512, 128), True, "float32"),
                ((2, 4, 512, 128), True, "bfloat16"),
                ((2, 4, 1000, 40), True, "bfloat16"),
                ((2, 4, 512, 64), False, "float32"),
-               ((2, 4, 1000, 64), True, "float32"))
+               ((2, 4, 1000, 64), True, "float32"),
+               ((16, 4, 256, 32), True, "float32"))
 # ResNet-18 with fused Adam through the entry points: checkpoints every 3
 # of 6 steps, then a resume to step 8.
 CKPT_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
@@ -420,6 +432,31 @@ HIER_SLICE_ARGS = ("--mode", "async", "--async-slices", "4",
                    "--weight-decay", "5e-4", "--test-batch-size", "4167")
 EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
+EVAL_LM_RE = re.compile(r"^EVAL_LM step (\d+) loss (\S+) perplexity (\S+)$",
+                        re.M)
+# MAIN-LMCKPT: the full-width LM of LM_ARGS through the entry points, with
+# remat and a corrupted checkpoint: 4 steps checkpointed every 2 (step 4
+# corrupted), a resume that walks back to step 2 and trains to 6,
+# evaluate.main --once 6, then greedy generate.main of 64 tokens. The
+# validation tail of the 1M-token stream is 48 windows of 2048: 6 batches
+# of 8, which train_lm's FINAL evaluation (up to 8 batches) runs.
+LMCKPT_STEPS = 4
+LMCKPT_RESUMED = 6
+LM_FINAL_BATCHES = 6
+LMCKPT_NEW = 64
+# ACCURACY-LM: the JAX package's ACCURACY_LM recipe
+# (tools/accuracy_run.py:85-132) on the framework's own source bytes, with
+# the flash kernels: 2000 steps, one checkpoint at 2000, scored by
+# evaluate.main; perplexity at most 16 (ACCURACY_LM_r03's target).
+ACC_LM_STEPS = 2000
+ACC_LM_LAYERS = 2
+ACC_LM_ARGS = ("--lm-seq-len", "256", "--lm-d-model", "128", "--lm-layers",
+               str(ACC_LM_LAYERS), "--lm-heads", "4", "--batch-size", "16",
+               "--momentum", "0.9", "--lr", "0.1", "--lr-schedule", "cosine",
+               "--lr-warmup-steps", "50", "--max-steps", str(ACC_LM_STEPS),
+               "--eval-freq", str(ACC_LM_STEPS), "--log-every", "100",
+               "--lm-attention", "flash")
+ACC_LM_TARGET_PPL = 16.0
 # The model's FLOPs a training step, the JAX package's count on the xla /
 # full-attention route at each path's shapes (utils/flops.py), and the
 # H100 SXM's dense bf16 peak that mfu divides by (NVIDIA's data sheet,
@@ -1973,6 +2010,251 @@ def small_lm_step_agrees(torch, fa) -> None:
     worst = max((sc[k] - sp[k]).abs().max().item() for k in sc)
     print(f"CHECK small LM step card vs CPU: losses {lc} vs {lp}, max abs "
           f"weight diff {worst:.3e}", flush=True)
+
+
+def lm_flash_counts(wrappers, steps: int, eval_batches: int, layers: int,
+                    remat: bool) -> dict:
+    """The counts an LM run should read: a forward launch a layer a step
+    (two under remat: the backward recomputes it) and an eval batch, a dq
+    and a dk/dv launch a layer a step, nothing else."""
+    return want_counts(wrappers,
+                       flash_fwd=layers * (steps * (2 if remat else 1)
+                                           + eval_batches),
+                       flash_dq=layers * steps, flash_dkv=layers * steps)
+
+
+def flash_by_kind(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if k.startswith("flash")}
+
+
+def lm_peak_bytes(torch, wrappers, remat: bool) -> int:
+    """Peak device memory of a 2-step full-width LM run (LMTrainer, no
+    checkpoint), the model built inside the measured window."""
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lmmem_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        trainer = LMTrainer(config_from_args(
+            [*LM_ARGS, "--max-steps", "2", "--eval-freq", "0", "--resume",
+             "false", "--train-dir", f"{root}/td",
+             *(("--remat",) if remat else ())]), device="cuda",
+            printer=lambda line: None)
+        trainer.metrics.printer = lambda line: None
+        trainer.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts(wrappers)
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = lm_flash_counts(wrappers, 2, 0, LM_LAYERS, remat)
+    if counts != want:
+        fail(f"MAIN-LMCKPT memory run remat={remat}: launches {counts}, "
+             f"expected {want}")
+    return peak
+
+
+def lm_ckpt_main_path(torch, wrappers) -> dict:
+    """The full-width LM's checkpoint lifecycle through the entry points a
+    user calls: ``train_lm.main --remat --eval-freq 2`` with
+    ``ckpt_corrupt`` at step 4, a second ``train_lm.main`` that walks back
+    past it to step 2 and trains to 6, ``evaluate.main --once 6``
+    (EVAL_LM), greedy ``generate.main`` held against the argmax of the
+    full forward over each prefix on the card; checkpoint bytes, save and
+    load seconds, and flash launches by kind. Then peak memory of a
+    2-step run without and with remat."""
+    from ps_pytorch_tpu_torch import evaluate, generate, train_lm
+    from ps_pytorch_tpu_torch.models import generate as gen_mod
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lmckpt_")
+    td = f"{root}/td"
+    saves, loads, decoded = [], [], []
+    real_ckpt, real_resume = LMTrainer.checkpoint, LMTrainer.maybe_resume
+    real_generate = gen_mod.generate
+
+    def timed_checkpoint(self, step):
+        t0 = time.monotonic()
+        path = real_ckpt(self, step)
+        saves.append(round(time.monotonic() - t0, 3))
+        return path
+
+    def timed_resume(self):
+        t0 = time.monotonic()
+        resumed = real_resume(self)
+        torch.cuda.synchronize()
+        if resumed:
+            loads.append(round(time.monotonic() - t0, 3))
+        return resumed
+
+    def recorded(model, prompt, **kw):
+        out = real_generate(model, prompt, **kw)
+        decoded.append((model, prompt, out))
+        return out
+
+    LMTrainer.checkpoint, LMTrainer.maybe_resume = (timed_checkpoint,
+                                                    timed_resume)
+    gen_mod.generate = recorded
+    runs = {}
+    try:
+        common = [*LM_ARGS, "--eval-freq", "2", "--remat", "--train-dir",
+                  td, "--device", "cuda"]
+        zero_counts(wrappers)
+        out = run_entry(train_lm.main, [
+            *common, "--max-steps", str(LMCKPT_STEPS), "--fault-spec",
+            "ckpt_corrupt:step=4"])
+        runs["run"] = read_counts(wrappers)
+        if [int(x) for x in re.findall(r"^STEP (\d+) ", out, re.M)] != \
+                list(range(1, LMCKPT_STEPS + 1)):
+            fail("MAIN-LMCKPT: the first run did not print STEP 1..4")
+        if ckpt.committed_steps(td) != [2, 4] or \
+                not ckpt.verify_checkpoint(td, 2) or \
+                ckpt.verify_checkpoint(td, 4):
+            fail(f"MAIN-LMCKPT: checkpoints {ckpt.committed_steps(td)}; "
+                 "expected 2 (verified) and 4 (corrupted)")
+        nbytes = sum(f.stat().st_size
+                     for f in Path(ckpt.checkpoint_path(td, 2)).iterdir())
+        zero_counts(wrappers)
+        out = run_entry(train_lm.main, [*common, "--max-steps",
+                                        str(LMCKPT_RESUMED)])
+        runs["resumed"] = read_counts(wrappers)
+        if "[ckpt] step 4 failed verification" not in out or \
+                "RESUME lm at step 2" not in out:
+            fail("MAIN-LMCKPT: the resume did not walk back past the "
+                 "corrupt step 4 to step 2")
+        if [int(x) for x in re.findall(r"^STEP (\d+) ", out, re.M)] != \
+                list(range(3, LMCKPT_RESUMED + 1)):
+            fail("MAIN-LMCKPT: the resumed run did not print STEP 3..6")
+        if ckpt.committed_steps(td) != [2, 4, 6] or not all(
+                ckpt.verify_checkpoint(td, k) for k in (2, 4, 6)):
+            fail(f"MAIN-LMCKPT: checkpoints {ckpt.committed_steps(td)} "
+                 "after the resume; expected 2, 4, 6, verified")
+        zero_counts(wrappers)
+        out = run_entry(evaluate.main, ["--train-dir", td, "--once",
+                                        str(LMCKPT_RESUMED)])
+        found = EVAL_LM_RE.findall(out)
+        if len(found) != 1 or found[0][0] != str(LMCKPT_RESUMED):
+            fail(f"MAIN-LMCKPT: evaluate.main printed {found}")
+        loss, ppl = float(found[0][1]), float(found[0][2])
+        want_ppl = math.exp(min(loss, 30.0))
+        # The line rounds loss to 1e-6 and perplexity to 1e-3.
+        if not (math.isfinite(ppl) and abs(ppl - want_ppl)
+                <= 5e-4 + 1e-6 * want_ppl):
+            fail(f"MAIN-LMCKPT: perplexity {ppl} is not exp(min({loss}, "
+                 f"30)) = {want_ppl}")
+        zero_counts(wrappers)
+        out = run_entry(generate.main, [
+            "--train-dir", td, "--prompt", "def ", "--n-new",
+            str(LMCKPT_NEW), "--temperature", "0"])
+        runs["evaluate+generate"] = read_counts(wrappers)
+        model, prompt, tokens = decoded[-1]
+        toks = torch.as_tensor(prompt).cuda().long()
+        gaps = []
+        with torch.no_grad():
+            for _ in range(LMCKPT_NEW):
+                logits = model(toks)[:, -1]
+                top2 = torch.topk(logits, 2, dim=-1).values[0]
+                gaps.append(float(top2[0] - top2[1]))
+                toks = torch.cat([toks, logits.argmax(-1)[:, None]], dim=1)
+        if not torch.equal(toks, tokens):
+            at = int((toks != tokens).nonzero()[0, 1])
+            fail(f"MAIN-LMCKPT: greedy generate differs from the full "
+                 f"forward's argmax at position {at} (top-2 logit gap "
+                 f"{gaps[at - prompt.shape[1]]:.3e})")
+        text = bytes(tokens[0].cpu().numpy().astype(np.uint8)).decode(
+            "utf-8", "replace")
+        head, _, body = out.partition("\n")
+        if body != text + "\n" or json.loads(head) != {
+                "step": LMCKPT_RESUMED, "prompt_bytes": 4,
+                "generated_bytes": LMCKPT_NEW}:
+            fail("MAIN-LMCKPT: generate.main printed another JSON line or "
+                 "text than its tokens")
+    finally:
+        LMTrainer.checkpoint, LMTrainer.maybe_resume = (real_ckpt,
+                                                        real_resume)
+        gen_mod.generate = real_generate
+        shutil.rmtree(root, ignore_errors=True)
+    want = lm_flash_counts(wrappers, LMCKPT_STEPS, LM_FINAL_BATCHES,
+                           LM_LAYERS, remat=True)
+    for name in ("run", "resumed"):
+        if runs[name] != want:
+            fail(f"MAIN-LMCKPT {name} launches {runs[name]}, expected "
+                 f"{want}")
+    if runs["evaluate+generate"] != want_counts(wrappers):
+        fail("MAIN-LMCKPT: evaluate and generate launched kernels "
+             f"{runs['evaluate+generate']} (the oracle and the decode are "
+             "plain torch)")
+    print(f"MAIN-LMCKPT checkpoint_bytes {nbytes} save_s {saves} load_s "
+          f"{loads} eval {found[0]} greedy {LMCKPT_NEW} tokens equal the "
+          f"full forward's argmax (min top-2 gap {min(gaps):.3e}) flash "
+          f"launches a run by kind {flash_by_kind(runs['run'])} resumed "
+          f"{flash_by_kind(runs['resumed'])} (remat: 2 forwards a layer a "
+          f"step)", flush=True)
+    peaks = {remat: lm_peak_bytes(torch, wrappers, remat)
+             for remat in (False, True)}
+    print(f"MAIN-LMCKPT peak device bytes of 2 steps: no remat "
+          f"{peaks[False]} remat {peaks[True]}", flush=True)
+    return dict(runs["run"], resumed=runs["resumed"], saves=saves,
+                loads=loads, checkpoint_bytes=nbytes, peaks=peaks)
+
+
+def write_source_corpus(path: str) -> int:
+    """The ACCURACY_LM corpus (``tools/accuracy_run.py:45-58``): the
+    ``.py`` bytes under ``ps_pytorch_tpu/`` and ``tests/``, read as files
+    (never imported), joined by newlines."""
+    repo = Path(__file__).resolve().parent
+    parts = []
+    for top in ("ps_pytorch_tpu", "tests"):
+        for root, _, files in sorted(os.walk(repo / top)):
+            for name in sorted(files):
+                if name.endswith(".py"):
+                    parts.append((Path(root) / name).read_bytes())
+    data = b"\n".join(parts)
+    Path(path).write_bytes(data)
+    return len(data)
+
+
+def accuracy_lm(torch, wrappers) -> dict:
+    """ACCURACY_LM on the card: the recipe's 2000 steps through
+    ``train_lm.main`` on the flash kernels, the checkpoint at 2000 scored
+    by ``evaluate.main``; perplexity at most 16."""
+    from ps_pytorch_tpu_torch import evaluate, train_lm
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_acclm_")
+    try:
+        corpus = f"{root}/corpus.bin"
+        nbytes = write_source_corpus(corpus)
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        run_entry(train_lm.main, [*ACC_LM_ARGS, "--lm-corpus-file", corpus,
+                                  "--train-dir", f"{root}/td", "--device",
+                                  "cuda"])
+        wall = time.monotonic() - t0
+        launches = read_counts(wrappers)
+        found = EVAL_LM_RE.findall(run_entry(
+            evaluate.main, ["--train-dir", f"{root}/td", "--once",
+                            str(ACC_LM_STEPS)]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if len(found) != 1 or not float(found[0][2]) <= ACC_LM_TARGET_PPL:
+        fail(f"ACCURACY-LM: EVAL_LM {found}, perplexity above "
+             f"{ACC_LM_TARGET_PPL}")
+    # train_lm's FINAL evaluation: 8 of the 24 validation batches.
+    want = lm_flash_counts(wrappers, ACC_LM_STEPS, 8, ACC_LM_LAYERS,
+                           remat=False)
+    if launches != want:
+        fail(f"ACCURACY-LM launches {launches}, expected {want}")
+    print(f"ACCURACY-LM TransformerLM d 128 x 2 layers S 256 batch 16 "
+          f"flash, framework source bytes ({nbytes} B), {ACC_LM_STEPS} "
+          f"steps: perplexity {found[0][2]} loss {found[0][1]} "
+          f"train_wall_s {wall:.2f} launches {flash_by_kind(launches)}",
+          flush=True)
+    return launches
 
 
 def kernel_wrappers() -> dict:
@@ -4281,6 +4563,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_launches = timed(lm_main_path, torch, wrappers)
     timed(small_lm_step_agrees, torch, fa)
+    torch.cuda.empty_cache()
+    lmckpt = timed(lm_ckpt_main_path, torch, wrappers)
+    acc_lm = timed(accuracy_lm, torch, wrappers)
     timed(digits_accuracy, torch)
 
     kernels = [
@@ -4388,7 +4673,17 @@ def main() -> int:
              replaces=f"ps_pytorch_tpu/ops/flash_attention.py:{line}",
              launches=lm_launches[name], **flash[name],
              **({"tc_launches": lm_launches[f"{name}_tc"]}
-                if f"{name}_tc" in lm_launches else {}))
+                if f"{name}_tc" in lm_launches else {}),
+             # MAIN-LMCKPT (remat: the forward again in the backward) a
+             # run, and ACCURACY-LM at its [16, 4, 256, 32].
+             launches_by_path={
+                 "MAIN-LMCKPT run": lmckpt[name],
+                 "MAIN-LMCKPT resumed": lmckpt["resumed"][name],
+                 "ACCURACY-LM": acc_lm[name]},
+             tc_launches_by_path={
+                 "MAIN-LMCKPT run": lmckpt[f"{name}_tc"],
+                 "MAIN-LMCKPT resumed": lmckpt["resumed"][f"{name}_tc"],
+                 "ACCURACY-LM": acc_lm[f"{name}_tc"]})
         for name, line in (("flash_fwd", 95), ("flash_dq", 164),
                            ("flash_dkv", 189))
     ]

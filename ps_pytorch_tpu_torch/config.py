@@ -18,7 +18,8 @@ plane of the synchronous and LM trainers, see ROADMAP.md), so a field it
 does not run
 raises ``ValueError`` when it is set to anything but its default: it is
 never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
-one device (``runtime/lm_trainer.py``), without checkpoints.
+one device (``runtime/lm_trainer.py``), with its checkpoints, remat and
+the fault plane's crash and checkpoint corruption.
 
 ``donate`` takes ``true`` and ``false`` alike: the JAX step donates its
 input buffers to XLA, while the port's step updates the parameters, the
@@ -266,23 +267,35 @@ class TrainConfig:
             raise ValueError(f"lm_parallelism={self.lm_parallelism!r} is not "
                              "ported yet (ROADMAP.md); only sp on one "
                              "device runs")
-        if self.eval_freq > 0 and self.network in LM_NETWORKS:
-            raise ValueError(
-                f"eval_freq={self.eval_freq} checkpoints every N steps, and "
-                "LM checkpoints are not ported yet (ROADMAP.md); pass "
-                "--eval-freq 0")
         if self.mode != "sync" and self.network in LM_NETWORKS:
             raise ValueError(f"mode={self.mode!r} for {self.network} is not "
                              "ported yet (ROADMAP.md); the LM trains in "
                              "mode 'sync' on one device")
         if self.network in LM_NETWORKS:
+            # The JAX LMTrainer reads remat and the fault plane's
+            # replica_crash and ckpt_corrupt, and none of the other
+            # step options or control fields.
             for name in SYNC_ONLY_FIELDS + CONTROL_FIELDS + (
                     "loader_workers",):
+                if name in LM_FIELDS:
+                    continue
                 if getattr(self, name) != _default(name):
                     raise ValueError(
                         f"{name}={getattr(self, name)!r} for {self.network} "
                         "is not ported yet (ROADMAP.md); the CNN trainer "
                         "runs it")
+            if self.fault_spec:
+                from ps_pytorch_tpu_torch.resilience.faults import (
+                    parse_fault_spec,
+                )
+                for fault in parse_fault_spec(self.fault_spec):
+                    if fault["kind"] not in LM_FAULT_KINDS:
+                        raise ValueError(
+                            f"fault kind {fault['kind']!r} for "
+                            f"{self.network} is not ported yet "
+                            f"(ROADMAP.md): the LM trainer fires "
+                            f"{' and '.join(LM_FAULT_KINDS)}; the CNN "
+                            f"trainer runs it")
         from ps_pytorch_tpu_torch.compression.codecs import (
             EF_GRAD_CODECS, GRAD_CODECS, require_codec,
         )
@@ -561,6 +574,11 @@ CONTROL_FIELDS = ("fault_spec", "heartbeat_interval_s",
                   "kv_resync_s")
 ELASTIC_ONLY_FIELDS = ("leader_lease_s", "elastic_leader",
                        "heartbeat_interval_s", "heartbeat_timeout_s")
+# Of the step options and the control plane, what the LM trainer reads
+# (``runtime/lm_trainer.py``, as the JAX ``LMTrainer``): per-block remat and
+# the fault plane, which fires the LM_FAULT_KINDS only.
+LM_FIELDS = ("remat", "fault_spec")
+LM_FAULT_KINDS = ("replica_crash", "ckpt_corrupt")
 # Fault kinds of the JAX grammar that no trainer of the port runs yet, and
 # what each needs (ROADMAP.md): the spec parses, the config refuses them.
 UNPORTED_FAULT_KINDS = {

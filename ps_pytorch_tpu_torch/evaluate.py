@@ -4,7 +4,8 @@ ps_pytorch_tpu_torch.evaluate``.
 Takes the root ``evaluate.py``'s flags plus ``--device`` (default
 ``cuda``): it watches ``--train-dir`` and prints an ``EVAL`` line (loss,
 Prec@1, Prec@5 on the test set) for each new ``model_step_<k>``, written by
-either package.
+either package; for an LM checkpoint the ``EVAL_LM`` line (held-out
+next-token loss and perplexity).
 
     python -m ps_pytorch_tpu_torch.evaluate --train-dir ./train_dir \\
         [--poll-s 10] [--once STEP] [--stop-after STEP] [--idle-timeout-s S]

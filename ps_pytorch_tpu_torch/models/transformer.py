@@ -1,5 +1,6 @@
 """Decoder-only transformer LM: the JAX package's ``models/transformer.py``
-(``Block`` and ``TransformerLM``) for training on one device.
+(``Block``, ``TransformerLM``, ``cached_attention`` and
+``migrate_packed_qkv``) on one device.
 
 Submodule and parameter names follow the flax tree, so ``models/convert.py``
 maps weights mechanically: ``tok_embed`` and ``pos_embed`` (``embedding``),
@@ -15,13 +16,22 @@ kept here:
 Parameters and activations are f32 (the LM trainer passes no dtype), and
 logits come out in f32. ``attention_impl`` is ``full`` (materialises
 [S, S]) or ``flash`` (the hand-written kernels, ``ops/flash_attention.py``).
+
+``remat`` recomputes each block's interior in the backward
+(``torch.utils.checkpoint``, the JAX ``nn.remat(Block)``): the backward
+keeps the block boundaries only, and under ``flash`` the recompute
+launches the forward kernel again. Decoding passes a ``DecodeCache``: a
+fixed-length k/v cache a block (``cached_attention``), plain torch as the
+JAX decode path is ``jnp`` outside any Pallas kernel. Neither changes the
+parameters, so any checkpoint trains with remat and decodes as it is.
 """
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ps_pytorch_tpu_torch.models.layers import Linear, lecun_normal_
 from ps_pytorch_tpu_torch.ops.flash_attention import flash_attention
@@ -62,6 +72,56 @@ class LayerNorm(nn.Module):
             + self.bias
 
 
+class KVCache:
+    """One block's cache: ``k``, ``v`` [B, heads, length, head dim] and
+    ``idx``, the number of slots written (the JAX ``"cache"`` collection's
+    ``k``, ``v`` and ``idx``)."""
+
+    def __init__(self, b: int, heads: int, length: int, head_dim: int,
+                 dtype: torch.dtype, device):
+        shape = (b, heads, length, head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=device)
+        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.idx = 0
+
+
+class DecodeCache:
+    """A ``KVCache`` for each block of a ``TransformerLM``, ``length``
+    slots long (the prompt plus the tokens to generate)."""
+
+    def __init__(self, model: "TransformerLM", batch: int, length: int):
+        p = model.tok_embed.embedding
+        blocks = [getattr(model, f"block_{i}") for i in range(model.n_layers)]
+        self.length = length
+        self.blocks: List[KVCache] = [
+            KVCache(batch, b.n_heads, length, b.Dense_0.weight.shape[0]
+                    // b.n_heads, p.dtype, p.device) for b in blocks]
+
+
+@torch.no_grad()
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache: KVCache) -> torch.Tensor:
+    """Causal attention over a running k/v cache (the JAX
+    ``cached_attention``): q/k/v [B, h, S, hd] with any S >= 1 are written
+    at the cache's offset i; query t sees slots <= i + t. S = 1 is a
+    sampling step, S > 1 a prefill in one pass. The numerics are
+    ``full_attention``'s: ``q * scale``, -inf above the mask, softmax."""
+    b, h, s, hd = q.shape
+    i, length = cache.idx, cache.k.shape[2]
+    if i + s > length:
+        raise ValueError(f"cache of {length} slots holds {i}; {s} more "
+                         "do not fit")
+    cache.k[:, :, i:i + s] = k
+    cache.v[:, :, i:i + s] = v
+    cache.idx = i + s
+    att = torch.einsum("bhqd,bhkd->bhqk", q * hd ** -0.5, cache.k)
+    q_pos = i + torch.arange(s, device=q.device)
+    ok = torch.arange(length, device=q.device)[None, :] <= q_pos[:, None]
+    att = att.masked_fill(~ok[None, None], float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(att, dim=-1),
+                        cache.v)
+
+
 class Block(nn.Module):
     """Pre-LN block: causal self-attention, then a 4x GELU MLP."""
 
@@ -87,7 +147,8 @@ class Block(nn.Module):
         self.Dense_4 = Linear(d, 4 * d, f32, generator)
         self.Dense_5 = Linear(4 * d, d, f32, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                cache: Optional[KVCache] = None) -> torch.Tensor:
         b, s, d = x.shape
         h = self.n_heads
         y = self.LayerNorm_0(x)
@@ -97,9 +158,12 @@ class Block(nn.Module):
 
         q, k, v = (to_heads(f(y)) for f in (self.Dense_0, self.Dense_1,
                                             self.Dense_2))
-        attend = flash_attention if self.attention_impl == "flash" \
-            else full_attention
-        o = attend(q, k, v, causal=True)
+        if cache is not None:
+            o = cached_attention(q, k, v, cache)
+        else:
+            attend = flash_attention if self.attention_impl == "flash" \
+                else full_attention
+            o = attend(q, k, v, causal=True)
         x = x + self.Dense_3(o.transpose(1, 2).reshape(b, s, d))
         y = F.gelu(self.Dense_4(self.LayerNorm_1(x)), approximate="tanh")
         return x + self.Dense_5(y)
@@ -109,10 +173,11 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int = 256, n_layers: int = 2,
                  n_heads: int = 4, d_model: int = 128,
                  max_seq_len: int = 2048, attention_impl: str = "full",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         self.vocab_size, self.n_layers = vocab_size, n_layers
-        self.attention_impl = attention_impl
+        self.attention_impl, self.remat = attention_impl, remat
         self.tok_embed = Embed(vocab_size, d_model, generator)
         self.pos_embed = Embed(max_seq_len, d_model, generator)
         for i in range(n_layers):
@@ -123,13 +188,60 @@ class TransformerLM(nn.Module):
                               bias=False)
 
     def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[DecodeCache] = None) -> torch.Tensor:
         """tokens [B, S] int -> logits [B, S, vocab] f32; ``positions``
-        [S] defaults to 0..S-1."""
+        [S] defaults to 0..S-1. With ``cache`` the tokens continue the
+        cached prefix (their positions must too)."""
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self.tok_embed(tokens) + self.pos_embed(positions)[None]
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.n_layers):
-            x = getattr(self, f"block_{i}")(x)
+            block = getattr(self, f"block_{i}")
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x, cache.blocks[i] if cache is not None else None)
         return self.lm_head(self.ln_f(x)).float()
+
+
+def migrate_packed_qkv(tree):
+    """A tree of a checkpoint written before the q/k/v projections were
+    split (one packed ``Dense(3d)`` a block, ``Dense_0..3``) -> (the tree
+    in the current layout, the number of nodes rewritten); the JAX
+    package's ``migrate_packed_qkv``, on nested dicts of numpy arrays.
+
+    The packed [d, 3d] kernel is split column-wise into the q, k and v
+    [d, d] kernels (the packed layout was their concatenation, so the
+    split is exact) and ``Dense_1..3`` move to ``Dense_3..5``. Momentum
+    trees mirror the parameters and migrate the same way. 0 nodes
+    rewritten: nothing legacy was found."""
+    n_changed = 0
+
+    def walk(node):
+        nonlocal n_changed
+        if not isinstance(node, dict):
+            return node
+        node = {k: walk(v) for k, v in node.items()}
+        d0 = node.get("Dense_0")
+        dense_keys = {k for k in node if k.startswith("Dense_")}
+        if (isinstance(d0, dict)
+                and dense_keys == {"Dense_0", "Dense_1", "Dense_2", "Dense_3"}
+                and getattr(d0.get("kernel"), "ndim", 0) == 2
+                and d0["kernel"].shape[1] == 3 * d0["kernel"].shape[0]):
+            kern = d0["kernel"]
+            d = kern.shape[0]
+            out = dict(node)
+            out["Dense_0"] = {**d0, "kernel": kern[:, :d]}
+            out["Dense_1"] = {**d0, "kernel": kern[:, d:2 * d]}
+            out["Dense_2"] = {**d0, "kernel": kern[:, 2 * d:]}
+            out["Dense_3"] = node["Dense_1"]
+            out["Dense_4"] = node["Dense_2"]
+            out["Dense_5"] = node["Dense_3"]
+            n_changed += 1
+            return out
+        return node
+
+    return walk(tree), n_changed
 

@@ -1,30 +1,42 @@
 """The standalone polling evaluator: the JAX package's
-``runtime/evaluator.py`` for CNN checkpoints.
+``runtime/evaluator.py``.
 
 A separate process watches ``train_dir`` for ``model_step_<k>``, loads each
 new checkpoint and prints loss, Prec@1 and Prec@5 on the test set as the
 ``EVAL`` line. The model and the test loader are built from the
 checkpoint's own ``config.json``; the BatchNorm statistics are replica 0's.
-It reads checkpoints of either package. LM checkpoints (``EVAL_LM``) are
-not ported yet.
+An LM checkpoint gets the ``EVAL_LM`` line instead: the held-out
+next-token loss, averaged over the validation tail's batches
+(``TokenLoader(seed=0, shuffle=False)`` of ``lm_streams``), and its
+perplexity, through the full-attention oracle (``runtime/lm_eval.py``).
+It reads checkpoints of either package. The JAX evaluator's
+sequence-sharded LM branch runs over several devices; the port's
+evaluator is one process on one device, and a launch of several raises.
 """
 
 import time
 from typing import Callable, Optional
 
-from ps_pytorch_tpu_torch.config import LM_NETWORKS, checkpoint_config
+from ps_pytorch_tpu_torch.config import (
+    LM_NETWORKS, checkpoint_config, several_processes,
+)
 from ps_pytorch_tpu_torch.data import prepare_data
 from ps_pytorch_tpu_torch.data.augment import input_norm_for
+from ps_pytorch_tpu_torch.data.text import TokenLoader, lm_streams
 from ps_pytorch_tpu_torch.models import build_model
 from ps_pytorch_tpu_torch.models.convert import state_from_jax
 from ps_pytorch_tpu_torch.parallel import make_eval_step
 from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+from ps_pytorch_tpu_torch.runtime.lm_eval import (
+    build_lm_oracle, build_lm_template, perplexity, restore_lm,
+)
 from ps_pytorch_tpu_torch.runtime.trainer import (
     resolve_device, set_reference_numerics,
 )
 
 EVAL_LINE = "EVAL step {step} loss {loss:.6f} prec1 {prec1:.4f} prec5 {prec5:.4f}"
+EVAL_LM_LINE = "EVAL_LM step {step} loss {loss:.6f} perplexity {perplexity:.3f}"
 
 
 class Evaluator:
@@ -36,12 +48,15 @@ class Evaluator:
         self.printer = printer
         self.device = resolve_device(device)
         self._built_for: Optional[str] = None
+        self._lm = False
 
     def _build(self, config_json: str) -> None:
         cfg = checkpoint_config(config_json)
-        if cfg.network in LM_NETWORKS:
-            raise ValueError(f"{cfg.network} checkpoints (EVAL_LM) are not "
-                             "ported yet (ROADMAP.md)")
+        self._lm = cfg.network in LM_NETWORKS
+        if self._lm:
+            self._build_lm(cfg)
+            self._built_for = config_json
+            return
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl
                                  ).to(self.device)
@@ -49,12 +64,39 @@ class Evaluator:
         self.eval_fn = make_eval_step(self.model, input_norm_for(cfg))
         self._built_for = config_json
 
+    def _build_lm(self, cfg) -> None:
+        """The oracle model, its training-state template and the
+        validation batches of an LM checkpoint's config."""
+        if several_processes():
+            raise ValueError(
+                "an LM checkpoint evaluated over several devices is "
+                "sequence-sharded (ring attention) in the JAX evaluator, "
+                "which is not ported yet (ROADMAP.md); run the evaluator "
+                "as one process")
+        self.model, self._lm_loss = build_lm_oracle(cfg, self.device)
+        self._lm_opt_state = build_lm_template(cfg, self.model)
+        _, val = lm_streams(cfg)
+        self._lm_val = TokenLoader(val, cfg.batch_size, cfg.lm_seq_len,
+                                   seed=0, shuffle=False)
+
+    def _evaluate_lm_step(self, step: int) -> dict:
+        ckpt.load_checkpoint(self.train_dir, step, lambda tree: restore_lm(
+            tree, self.model, self._lm_opt_state, step=step))
+        losses = [self._lm_loss(t) for t in self._lm_val.epoch(0)]
+        loss = sum(losses) / max(len(losses), 1)
+        result = {"step": step, "loss": loss,
+                  "perplexity": perplexity(loss)}
+        self.printer(EVAL_LM_LINE.format(**result))
+        return result
+
     def evaluate_step(self, step: int) -> dict:
         with open(f"{ckpt.checkpoint_path(self.train_dir, step)}/"
                   "config.json") as f:
             config_json = f.read()
         if config_json != self._built_for:
             self._build(config_json)
+        if self._lm:
+            return self._evaluate_lm_step(step)
         ckpt.load_checkpoint(self.train_dir, step,
                              lambda tree: state_from_jax(tree, self.model))
         result = accumulate_eval(self.eval_fn, self.test_loader.epoch(0))

@@ -1,0 +1,95 @@
+"""The LM evaluation oracle: the JAX package's ``runtime/lm_eval.py``.
+
+One definition of a checkpointed LM's held-out next-token loss, shared by
+the standalone evaluator (``EVAL_LM``) and ``generate.py``: the
+full-attention ``TransformerLM`` of the checkpoint's geometry, its loss
+``logits[:, :-1]`` against ``tokens[:, 1:]``, and the perplexity clamp.
+The checkpoint's config is self-describing (``network``, the LM fields).
+
+MoE checkpoints (``MoETransformerLM``) and pipeline-parallel ones
+(``lm_parallelism="pp"``, stage-stacked blocks) raise: those model
+families are not ported (ROADMAP.md).
+"""
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ps_pytorch_tpu_torch.models.convert import state_from_jax
+from ps_pytorch_tpu_torch.models.transformer import (
+    TransformerLM, migrate_packed_qkv,
+)
+from ps_pytorch_tpu_torch.optim import SGD, build_schedule
+from ps_pytorch_tpu_torch.optim.sgd import SGDState
+
+
+def perplexity(loss: float) -> float:
+    """``exp(min(loss, 30))`` in f32, as the JAX package's ``jnp.exp``."""
+    return float(np.exp(np.float32(min(loss, 30.0))))
+
+
+def lm_geometry(cfg) -> dict:
+    return dict(vocab_size=cfg.lm_vocab, d_model=cfg.lm_d_model,
+                n_layers=cfg.lm_layers, n_heads=cfg.lm_heads,
+                max_seq_len=cfg.lm_seq_len)
+
+
+def _refuse_unported(cfg) -> None:
+    if cfg.network == "MoETransformerLM":
+        raise ValueError("MoETransformerLM checkpoints are not ported yet "
+                         "(ROADMAP.md): models/moe.py has no port")
+    if cfg.lm_parallelism == "pp":
+        raise ValueError("pp checkpoints (stage-stacked blocks) are not "
+                         "ported yet (ROADMAP.md)")
+
+
+def build_lm_oracle(cfg, device="cpu"
+                    ) -> Tuple[TransformerLM, Callable[[np.ndarray], float]]:
+    """-> (the full-attention model of the checkpoint's geometry on
+    ``device``, ``loss_fn(tokens [B, S]) -> mean next-token loss``). Put
+    a checkpoint into the model with ``restore_lm``."""
+    _refuse_unported(cfg)
+    model = TransformerLM(**lm_geometry(cfg)).to(device)
+    model.eval()
+
+    @torch.no_grad()
+    def loss_fn(tokens) -> float:
+        t = torch.as_tensor(np.asarray(tokens)).to(device).long()
+        logits = model(t)
+        return float(F.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]),
+            t[:, 1:].reshape(-1)))
+
+    return model, loss_fn
+
+
+def build_lm_template(cfg, model: TransformerLM) -> SGDState:
+    """The optimizer state ``LMTrainer`` builds for ``model`` (plain SGD
+    with the run's momentum): with the model, the training state a
+    checkpoint's tree must fit, as the JAX template ``TrainState``."""
+    _refuse_unported(cfg)
+    opt = SGD(lr=build_schedule(cfg), momentum=cfg.momentum,
+              weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
+    return opt.init(dict(model.named_parameters()))
+
+
+def restore_lm(tree: dict, model: TransformerLM,
+               opt_state: Optional[SGDState] = None,
+               step: Optional[int] = None) -> Tuple[Optional[SGDState], int]:
+    """``state_from_jax`` of an LM checkpoint's tree; a tree in the
+    layout before the q/k/v split that does not fit is migrated
+    (``migrate_packed_qkv``) and put in again, as the JAX
+    ``load_checkpoint(..., migrate=...)`` does."""
+    try:
+        return state_from_jax(tree, model, opt_state)
+    except (ValueError, KeyError):
+        migrated, n_changed = migrate_packed_qkv(tree)
+        if not n_changed:
+            raise
+        out = state_from_jax(migrated, model, opt_state)
+        at = "" if step is None else f" at step {step}"
+        print(f"[ckpt] migrated legacy checkpoint layout{at} "
+              f"({n_changed} tree nodes rewritten)")
+        return out

@@ -255,22 +255,17 @@ class OpsPlane:
         self.timeline.publish_step(step, rec)
         self.timeline.drain_to_file()
 
-    def halt(self, step: int, checkpoint: Optional[Callable[[int], object]]
-             ) -> None:
-        """The halt action: commit a checkpoint (``checkpoint`` None: the
-        trainer has none), dump the flight recorder with reason
-        ``watchdog:<detector>``, print the HEALTH halt line."""
+    def halt(self, step: int, checkpoint: Callable[[int], object]) -> None:
+        """The halt action: commit a checkpoint (``checkpoint(step)``),
+        dump the flight recorder with reason ``watchdog:<detector>``,
+        print the HEALTH halt line."""
         ev = self.health.halt_event
-        if checkpoint is not None:
-            with self.tracer.span("checkpoint", step=step):
-                checkpoint(step)
+        with self.tracer.span("checkpoint", step=step):
+            checkpoint(step)
         if self.flightrec is not None:
             self.flightrec.dump(f"watchdog:{ev.detector}",
                                 extra={"halt": ev.to_dict()})
-        note = "" if checkpoint is not None else (
-            " (no checkpoint: LM checkpoints are not ported yet, "
-            "ROADMAP.md)")
-        self.printer(f"HEALTH halt at step {step}: {ev.message}{note}")
+        self.printer(f"HEALTH halt at step {step}: {ev.message}")
 
     def crash(self, e: BaseException) -> None:
         """Dump the flight recorder while an exception is in flight."""

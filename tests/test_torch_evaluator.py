@@ -134,11 +134,13 @@ def test_evaluator_refuses_what_it_cannot_do(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Evaluator(str(tmp_path))
+    # LM checkpoints are scored (tests/test_torch_lm_ckpt.py); the MoE
+    # model family is not ported.
     td = str(tmp_path / "lm")
     path = ckpt.checkpoint_path(td, 1)
     os.makedirs(path)
     with open(os.path.join(path, "config.json"), "w") as f:
-        f.write(config.TrainConfig(network="TransformerLM",
+        f.write(config.TrainConfig(network="MoETransformerLM",
                                    eval_freq=0).to_json())
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Evaluator(td, device="cpu").evaluate_step(1)

@@ -246,6 +246,10 @@ def test_auto_attention_resolves_to_full_on_one_device():
     assert result["batches"] == 1 and np.isfinite(result["perplexity"])
 
 
+# Fields the LM trainer runs (remat, checkpoints); the others raise.
+LM_RUNS = {"remat", "eval_freq"}
+
+
 @pytest.mark.parametrize("field,value", [
     ("lm_parallelism", "tp"), ("lm_parallelism", "pp"),
     ("lm_parallelism", "ep"), ("remat", True), ("lm_model_axis", 2),
@@ -253,9 +257,15 @@ def test_auto_attention_resolves_to_full_on_one_device():
     ("eval_freq", 10),
 ])
 def test_unported_lm_fields_raise(field, value):
+    kw = {"eval_freq": 0, "network": "TransformerLM", field: value}
+    if field in LM_RUNS:
+        cfg = config.TrainConfig(**kw)
+        assert getattr(cfg, field) == value
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jax_config.TrainConfig(**kw))
+        return
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        config.TrainConfig(**{"eval_freq": 0, "network": "TransformerLM",
-                              field: value})
+        config.TrainConfig(**kw)
 
 
 def test_lm_config_validates_like_jax():
@@ -269,10 +279,18 @@ def test_lm_config_validates_like_jax():
 
 
 def test_lm_trainer_refuses_what_it_cannot_do(tmp_path):
+    """No CUDA, no silent CPU run; a train_dir with a checkpoint is
+    resumed, not refused."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             LMTrainer(_cfg(config))
-    td = tmp_path / "td"
-    (td / "model_step_3").mkdir(parents=True)
-    with pytest.raises(ValueError, match="resum"):
-        LMTrainer(_cfg(config, train_dir=str(td), resume=True), device="cpu")
+    td = str(tmp_path / "td")
+    first = LMTrainer(_cfg(config, train_dir=td, max_steps=1, eval_freq=1),
+                      device="cpu", printer=lambda line: None)
+    first.train()
+    lines = []
+    again = LMTrainer(_cfg(config, train_dir=td, resume=True, max_steps=1),
+                      device="cpu", printer=lines.append)
+    again.train()
+    assert again.start_step == 1 and "RESUME lm at step 1" in lines
+    assert again.step_times == []
