@@ -108,7 +108,14 @@ exit and no result line, if any phase fails:
    without and with remat) and the JAX package's ACCURACY_LM recipe on
    the flash kernels (ACCURACY-LM: 2000 steps on the ``.py`` bytes of
    ``ps_pytorch_tpu/`` and ``tests/``, read as files, then
-   ``evaluate.main``; perplexity at most 16). After MAIN-CKPT, the same ResNet-18 through ``train.main``
+   ``evaluate.main``; perplexity at most 16); between those two, MAIN-LMCKPT's
+   checkpoints served (MAIN-SERVE: ``ServingEngine`` at 1, 4 and 8 slots,
+   every stream equal to ``generate`` token for token and no kernel
+   launched, its tokens/s, TTFT, latency and ms a tick; ``python -m
+   ps_pytorch_tpu_torch.serve`` over HTTP with a reload past a corrupt
+   checkpoint under load and a SIGTERM drain; two replicas behind the
+   router, one SIGKILLed by ``replica_kill``, every request answered).
+   After MAIN-CKPT, the same ResNet-18 through ``train.main``
    with a crash, a corrupted checkpoint and KV drops under
    ``--auto-resume 2`` (MAIN-CRASH: the resume past the corrupt checkpoint
    ends bitwise where an uninterrupted run ends, retries equal drops, and
@@ -156,6 +163,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
@@ -403,8 +411,9 @@ POISON_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
 # spanned ~6 versions, the partition declared at 7 and the regraft at 8),
 # so the drill's 12 steps would span ~3 versions and no partition would
 # be declared. 40 steps span ~9 versions (13 at 3 steps a version), and
-# 20 versions leave room for the regraft after the heal.
-HIER_STEPS = 20
+# 16 versions leave room for the regraft after the heal (on the card it
+# came at version 8 to 10; 20 versions until MAIN-SERVE needed the time).
+HIER_STEPS = 16
 HIER_CUT = 6
 HIER_WINDOW = 40
 HIER_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
@@ -444,6 +453,31 @@ LMCKPT_STEPS = 4
 LMCKPT_RESUMED = 6
 LM_FINAL_BATCHES = 6
 LMCKPT_NEW = 64
+# MAIN-SERVE: MAIN-LMCKPT's checkpoints of the full-width LM served
+# (nothing new is trained). In process, 16 requests with prompts of 16 to
+# 512 tokens and 64 new tokens each, the even ones greedy, the odd ones
+# sampled (temperature 0.8, top-k 40), through ServingEngine at 1, 4 and 8
+# slots, every stream held token for token against generate (the logits
+# compared at 4 and 8, the runs at 1 and 8 timed); then
+# ``python -m ps_pytorch_tpu_torch.serve`` over HTTP (step 2, then a
+# reload to step 6 past a corrupt step 8 while a request is in flight,
+# SIGTERM), and a fleet of two replicas, replica 1 armed with
+# replica_kill, behind an in-process Router.
+SERVE_SLOTS = (1, 4, 8)
+SERVE_COMPARED = (4, 8)
+SERVE_TIMED = (1, 8)
+SERVE_PROMPTS = tuple(int(x) for x in np.linspace(16, 512, 16))
+SERVE_NEW = 64
+SERVE_SPEC = "ttft_p99<30s;latency_p99<60s;availability>=99"
+SERVE_FIRST_KEYS = ["serving", "metrics", "model_step", "slots", "vocab",
+                    "seq_len", "replica_id", "slo_spec", "reqtrace_keep"]
+# The reload lands while 8 requests of 1024 new tokens fill the 8 slots
+# (on the card a tick took 6.5 ms and the reload 2.5 s).
+SERVE_INFLIGHT = 8
+SERVE_INFLIGHT_NEW = 1024
+FLEET_REQUESTS = 24
+FLEET_NEW = 16
+FLEET_KILL_AFTER = 5
 # ACCURACY-LM: the JAX package's ACCURACY_LM recipe
 # (tools/accuracy_run.py:85-132) on the framework's own source bytes, with
 # the flash kernels: 2000 steps, one checkpoint at 2000, scored by
@@ -2174,6 +2208,11 @@ def lm_ckpt_main_path(torch, wrappers) -> dict:
                 "generated_bytes": LMCKPT_NEW}:
             fail("MAIN-LMCKPT: generate.main printed another JSON line or "
                  "text than its tokens")
+        # MAIN-SERVE serves these checkpoints (steps 2 and 6).
+        kept = tempfile.mkdtemp(prefix="chip_smoke_served_")
+        for step in (2, LMCKPT_RESUMED):
+            os.rename(ckpt.checkpoint_path(td, step),
+                      ckpt.checkpoint_path(kept, step))
     finally:
         LMTrainer.checkpoint, LMTrainer.maybe_resume = (real_ckpt,
                                                         real_resume)
@@ -2200,7 +2239,418 @@ def lm_ckpt_main_path(torch, wrappers) -> dict:
     print(f"MAIN-LMCKPT peak device bytes of 2 steps: no remat "
           f"{peaks[False]} remat {peaks[True]}", flush=True)
     return dict(runs["run"], resumed=runs["resumed"], saves=saves,
-                loads=loads, checkpoint_bytes=nbytes, peaks=peaks)
+                loads=loads, checkpoint_bytes=nbytes, peaks=peaks,
+                served_dir=kept)
+
+
+def http_json(url: str, path: str, body=None, timeout: float = 120.0):
+    """(status, JSON body or text) of one GET (``body`` None) or POST."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, payload, ctype = (resp.status, resp.read(),
+                                    resp.headers.get("Content-Type", ""))
+    except urllib.error.HTTPError as e:
+        code, payload, ctype = (e.code, e.read(),
+                                e.headers.get("Content-Type", ""))
+    return code, (json.loads(payload) if "json" in ctype
+                  else payload.decode())
+
+
+def start_server(root: str, name: str, args) -> tuple:
+    """``python -m ps_pytorch_tpu_torch.serve <args>`` from the checkout,
+    its output to ``<root>/<name>.log``."""
+    import subprocess
+    log = f"{root}/{name}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ps_pytorch_tpu_torch.serve", *args],
+            cwd=str(Path(__file__).resolve().parent), stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def server_first_line(proc, log: str, name: str,
+                      timeout_s: float = 240.0) -> dict:
+    """The first JSON line a serve process printed (its URL and step)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for line in Path(log).read_text().splitlines():
+            if line.startswith("{"):
+                return json.loads(line)
+        if proc.poll() is not None:
+            fail(f"MAIN-SERVE: {name} exited {proc.returncode}: "
+                 f"{Path(log).read_text()[-2000:]}")
+        time.sleep(0.2)
+    fail(f"MAIN-SERVE: {name} printed no JSON line in {timeout_s} s")
+
+
+def serve_requests(Request) -> list:
+    """MAIN-SERVE's 16 requests: prompts of ``SERVE_PROMPTS`` tokens drawn
+    from seed 17 over the vocabulary, 64 new tokens, even ones greedy and
+    odd ones sampled at temperature 0.8, top-k 40; seed i."""
+    rng = np.random.default_rng(17)
+    return [Request(prompt=rng.integers(0, 32000, n).astype(np.int32),
+                    n_new=SERVE_NEW, temperature=0.0 if i % 2 == 0 else 0.8,
+                    top_k=40, seed=i, rid=f"s{i}")
+            for i, n in enumerate(SERVE_PROMPTS)]
+
+
+def serve_main_path(torch, wrappers, served_dir: str) -> dict:
+    """MAIN-SERVE: the full-width LM of MAIN-LMCKPT served on the card.
+
+    In process: MAIN-LMCKPT's step-2 weights in a ``ServingEngine`` at 1,
+    4 and 8 slots over ``serve_requests``; every stream must equal the
+    port's ``generate`` for the same request token for token, and no
+    kernel may launch (the decode is plain torch, full attention). Prints
+    the largest |logit difference| between an engine row and generate's
+    row for the same token, the smallest greedy top-2 gap, tokens/s at 1
+    and 8 slots with TTFT and latency p50/p99 (loadgen's closed loop), ms
+    a tick with 1 and 8 live slots, the slot cache's bytes and the peak
+    device memory. Over HTTP: ``python -m ps_pytorch_tpu_torch.serve`` on
+    a train dir holding step 2: its first line's keys, /v1/generate greedy
+    tokens equal to the engine's, /readyz, /healthz, /metrics, /slo,
+    /debug/requests; then steps 6 and a corrupt 8 land, and /admin/reload
+    while a request is in flight moves the served step 2 -> 6 past 8 and
+    the request finishes; SIGTERM drains and exits 0. Fleet: two replicas
+    registered in a FileKV directory, replica 1 armed with
+    ``replica_kill:served=5``, behind an in-process Router: every request
+    completes, the router failed over at least once and ejected the
+    killed replica, which died by SIGKILL."""
+    import signal
+
+    from ps_pytorch_tpu_torch.config import checkpoint_config
+    from ps_pytorch_tpu_torch.models import generate as gen_mod
+    from ps_pytorch_tpu_torch.resilience.faults import corrupt_file
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.runtime.coordinator import FileKV
+    from ps_pytorch_tpu_torch.runtime.lm_eval import (
+        build_lm_oracle, restore_lm,
+    )
+    from ps_pytorch_tpu_torch.serving import engine as engine_mod
+    from ps_pytorch_tpu_torch.serving.engine import Request, ServingEngine
+    from ps_pytorch_tpu_torch.serving.loadgen import run_closed_loop
+    from ps_pytorch_tpu_torch.serving.router import FleetView, Router
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    procs = []
+    try:
+        # One train dir a server, hard links of MAIN-LMCKPT's step 2.
+        serve_td, fleet_td, kv_dir = (f"{root}/serve", f"{root}/fleet",
+                                      f"{root}/kv")
+        for td in (serve_td, fleet_td):
+            shutil.copytree(ckpt.checkpoint_path(served_dir, 2),
+                            ckpt.checkpoint_path(td, 2),
+                            copy_function=os.link)
+        # The three processes start while this one decodes in process.
+        single, single_log = start_server(root, "serve", [
+            "--train-dir", serve_td, "--serve-port", "0", "--serve-slots",
+            "8", "--serve-reload-s", "0", "--slo-spec", SERVE_SPEC,
+            "--reqtrace-keep", "64", "--reqtrace-sample", "1.0",
+            "--device", "cuda"])
+        fleet = [start_server(root, f"replica_{rid}", [
+            "--train-dir", fleet_td, "--serve-port", "0", "--serve-slots",
+            "4", "--serve-reload-s", "0", "--serve-kv-dir", kv_dir,
+            "--serve-fleet", "f", "--serve-replica-id", str(rid),
+            "--device", "cuda",
+            *(("--fault-spec", f"replica_kill:served={FLEET_KILL_AFTER},"
+               f"r=1") if rid == 1 else ())]) for rid in (0, 1)]
+        procs = [single] + [p for p, _ in fleet]
+
+        with open(f"{ckpt.checkpoint_path(serve_td, 2)}/config.json") as f:
+            cfg = checkpoint_config(f.read())
+        model, _ = build_lm_oracle(cfg, "cuda")
+        ckpt.load_checkpoint(serve_td, 2, lambda tree: restore_lm(
+            tree, model))
+        param_bytes = sum(p.numel() * 4 for p in model.parameters())
+
+        # generate's streams and logits, request by request.
+        ref_logits, ref_tokens = {}, {}
+        real_sample = gen_mod._sample
+
+        def recorded(logits, *a):
+            ref_logits[current].append(logits[0].clone())
+            return real_sample(logits, *a)
+
+        gen_mod._sample = recorded
+        try:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for req in serve_requests(Request):
+                current = req.rid
+                ref_logits[current] = []
+                out = gen_mod.generate(
+                    model, req.prompt[None], n_new=SERVE_NEW,
+                    temperature=req.temperature, top_k=req.top_k,
+                    seed=req.seed)
+                ref_tokens[req.rid] = out[0, len(req.prompt):].tolist()
+            generate_s = time.monotonic() - t0
+        finally:
+            gen_mod._sample = real_sample
+        gaps = []
+        for req in serve_requests(Request)[::2]:
+            top2 = torch.topk(torch.stack(ref_logits[req.rid]), 2).values
+            gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+
+        def check_streams(reqs, what):
+            for req in reqs:
+                want = ref_tokens[req.rid]
+                if req.state != "done" or req.tokens != want:
+                    at = next((i for i, (a, b) in enumerate(zip(
+                        req.tokens, want)) if a != b), None)
+                    fail(f"MAIN-SERVE {what}: request {req.rid} "
+                         f"(temperature {req.temperature}) state "
+                         f"{req.state} differs from generate at token "
+                         f"{at}: {req.tokens[:8]}... against {want[:8]}...")
+
+        torch.cuda.reset_peak_memory_stats()
+        deltas, counts = {}, {}
+        for slots in SERVE_COMPARED:
+            eng = ServingEngine(model, slots=slots)
+            rows = {}
+            real_draw = eng._draw
+
+            def draw(req, row, rows=rows, real_draw=real_draw):
+                rows.setdefault(req.rid, []).append(row[0].clone())
+                return real_draw(req, row)
+
+            eng._draw = draw
+            reqs = serve_requests(Request)
+            zero_counts(wrappers)
+            eng.run_to_completion(reqs)
+            torch.cuda.synchronize()
+            counts[slots] = read_counts(wrappers)
+            check_streams(reqs, f"{slots} slots")
+            deltas[slots] = max(float((torch.stack(rows[r.rid])
+                                       - torch.stack(ref_logits[r.rid]))
+                                      .abs().max()) for r in reqs)
+            if slots == max(SERVE_SLOTS):
+                cache_bytes = eng.cache_bytes
+            del eng, rows
+        for slots, got in counts.items():
+            if got != want_counts(wrappers):
+                fail(f"MAIN-SERVE {slots} slots launched kernels {got}: the "
+                     "decode is plain torch")
+        # The servers have loaded before anything is timed here.
+        first = server_first_line(single, single_log, "serve")
+        firsts = [server_first_line(p, log, f"replica {rid}")
+                  for rid, (p, log) in enumerate(fleet)]
+        timed = {}
+        for slots in SERVE_TIMED:
+            eng = ServingEngine(model, slots=slots)
+            reqs = serve_requests(Request)
+            zero_counts(wrappers)
+            timed[slots] = run_closed_loop(eng, reqs)
+            counts[slots] = read_counts(wrappers)
+            if counts[slots] != want_counts(wrappers):
+                fail(f"MAIN-SERVE timed {slots} slots launched kernels")
+            check_streams(reqs, f"timed {slots} slots")
+            timed[slots]["ticks"] = eng.ticks
+            live = [Request(prompt=reqs[8].prompt, n_new=80,
+                            temperature=0.0) for _ in range(slots)]
+            for r in live:
+                eng.admit(r)
+            for _ in range(5):
+                eng.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                eng.step()
+            timed[slots]["tick_ms"] = (time.perf_counter() - t0) * 20.0
+            # Least time of a tick: the parameters and the whole slot
+            # cache read once (the attention reads every slot's 2048
+            # rows, masked or not).
+            timed[slots]["tick_bound_ms"] = (
+                param_bytes + eng.cache_bytes) / HBM_BYTES_PER_S * 1e3
+            while eng.active_count:
+                eng.step()
+            del eng
+        peak = torch.cuda.max_memory_allocated()
+        print(f"MAIN-SERVE streams at slots {list(SERVE_SLOTS)} equal "
+              f"generate token for token ({len(SERVE_PROMPTS)} requests, "
+              f"prompts {SERVE_PROMPTS[0]}-{SERVE_PROMPTS[-1]}, "
+              f"{SERVE_NEW} new, half greedy, half temperature 0.8 top-k "
+              f"40); max |engine logit - generate logit| by slots "
+              f"{ {k: f'{v:.3e}' for k, v in deltas.items()} } (1 slot "
+              f"timed, not compared); smallest "
+              f"greedy top-2 gap {min(gaps):.3e}; kernel launches 0 "
+              f"(flash {flash_by_kind(counts[max(SERVE_SLOTS)])}); card "
+              f"{card}", flush=True)
+        for slots, st in timed.items():
+            print(f"MAIN-SERVE slots {slots}: tokens_per_sec "
+                  f"{st['tokens_per_sec']:.1f} wall_s {st['wall_s']:.3f} "
+                  f"ticks {st['ticks']} ttft_p50_ms {st['ttft_p50_ms']:.2f} "
+                  f"ttft_p99_ms {st['ttft_p99_ms']:.2f} latency_p50_ms "
+                  f"{st['latency_p50_ms']:.2f} latency_p99_ms "
+                  f"{st['latency_p99_ms']:.2f}; ms a tick with {slots} "
+                  f"live {st['tick_ms']:.3f} (bytes bound of a tick "
+                  f"{st['tick_bound_ms']:.3f}: parameters and the whole "
+                  f"slot cache at {HBM_BYTES_PER_S / 1e12} TB/s); card "
+                  f"{card}",
+                  flush=True)
+        print(f"MAIN-SERVE generate one request at a time: "
+              f"{len(SERVE_PROMPTS) * SERVE_NEW / generate_s:.1f} tokens/s; "
+              f"slot cache bytes at {max(SERVE_SLOTS)} slots {cache_bytes}, "
+              f"parameter bytes {param_bytes}, peak device bytes {peak}",
+              flush=True)
+
+        # ---- over HTTP ----
+        if list(first) != SERVE_FIRST_KEYS or first["model_step"] != 2 or \
+                first["slots"] != 8 or first["slo_spec"] != SERVE_SPEC:
+            fail(f"MAIN-SERVE: serve printed {first}")
+        url = first["serving"]
+        greedy = serve_requests(Request)[2]
+        code, out = http_json(url, "/v1/generate", {
+            "tokens": greedy.prompt.tolist(), "n_new": SERVE_NEW,
+            "temperature": 0.0, "seed": greedy.seed})
+        if code != 200 or out["tokens"] != ref_tokens[greedy.rid] or \
+                out["model_step"] != 2:
+            fail(f"MAIN-SERVE: /v1/generate answered {code} "
+                 f"{str(out)[:300]}")
+        http_ttft = out["ttft_ms"]
+        for path, want in (("/readyz", 200), ("/healthz", 200),
+                           ("/metrics", 200), ("/slo", 200),
+                           ("/debug/requests", 200)):
+            code, body = http_json(url, path)
+            if code != want:
+                fail(f"MAIN-SERVE: GET {path} answered {code}")
+            if path == "/healthz" and (not body["ok"]
+                                       or body["model_step"] != 2):
+                fail(f"MAIN-SERVE: /healthz {body}")
+            if path == "/metrics" and not all(
+                    name in body for name in (
+                        "serve_requests_total 1", "serve_tokens_total 64",
+                        "serve_ttft_s_bucket", "slo_compliance")):
+                fail(f"MAIN-SERVE: /metrics lacks the serving counters")
+            if path == "/slo" and body["state"] != "ok":
+                fail(f"MAIN-SERVE: /slo {body}")
+            if path == "/debug/requests" and [
+                    r["rid"] for r in body["requests"]] != [out["rid"]]:
+                fail(f"MAIN-SERVE: /debug/requests {body}")
+        for step in (LMCKPT_RESUMED,):
+            shutil.copytree(ckpt.checkpoint_path(served_dir, step),
+                            ckpt.checkpoint_path(serve_td, step),
+                            copy_function=os.link)
+        bad = ckpt.checkpoint_path(serve_td, 8)
+        shutil.copytree(ckpt.checkpoint_path(served_dir, LMCKPT_RESUMED),
+                        bad, copy_function=os.link)
+        os.remove(f"{bad}/state.msgpack")
+        shutil.copyfile(
+            f"{ckpt.checkpoint_path(served_dir, LMCKPT_RESUMED)}/"
+            "state.msgpack", f"{bad}/state.msgpack")
+        corrupt_file(f"{bad}/state.msgpack", "flip")
+        done = [None] * SERVE_INFLIGHT
+
+        def long_request(i):
+            out = http_json(url, "/v1/generate", {
+                "tokens": [i + 1] * 16, "n_new": SERVE_INFLIGHT_NEW,
+                "temperature": 0.0})
+            done[i] = (time.monotonic(), out)
+
+        workers = [threading.Thread(target=long_request, args=(i,))
+                   for i in range(SERVE_INFLIGHT)]
+        for w in workers:
+            w.start()
+        deadline = time.monotonic() + 60
+        while http_json(url, "/readyz")[1]["active_slots"] == 0:
+            if time.monotonic() > deadline:
+                fail("MAIN-SERVE: no request took a slot")
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        code, reload = http_json(url, "/admin/reload", {})
+        reloaded_t = time.monotonic()
+        reload_s = reloaded_t - t0
+        for w in workers:
+            w.join(timeout=180)
+        stats = http_json(url, "/stats")[1]
+        # A request admitted under step 2 that finished after the swap
+        # was in flight across it.
+        across = [d for d in done if d and d[0] > reloaded_t
+                  and d[1][1].get("model_step") == 2]
+        if reload != {"reloaded": True, "model_step": LMCKPT_RESUMED} or \
+                not across or not all(
+                    d and d[1][0] == 200
+                    and len(d[1][1]["tokens"]) == SERVE_INFLIGHT_NEW
+                    for d in done) or \
+                stats["model_step"] != LMCKPT_RESUMED or \
+                stats["skipped_corrupt"] != 1 or stats["reloads"] != 1:
+            codes = [(d[1][0], d[1][1].get("model_step")) if d else None
+                     for d in done]
+            fail(f"MAIN-SERVE: reload {reload}; requests (code, step) "
+                 f"{codes} ({len(across)} across the swap); stats {stats}")
+        out_in = across[0][1][1]
+        single.send_signal(signal.SIGTERM)
+        rc = single.wait(timeout=120)
+        log = Path(single_log).read_text()
+        if rc != 0 or "[ckpt] step 8 failed verification" not in log:
+            fail(f"MAIN-SERVE: serve exited {rc}: {log[-2000:]}")
+        print(f"MAIN-SERVE HTTP: first line keys {list(first)}; greedy "
+              f"{SERVE_NEW} tokens equal the engine's (ttft_ms "
+              f"{http_ttft:.2f}); /readyz /healthz /metrics /slo "
+              f"/debug/requests answered; /admin/reload {reload} past the "
+              f"corrupt step 8 in {reload_s:.3f} s under "
+              f"{SERVE_INFLIGHT} requests of {SERVE_INFLIGHT_NEW} tokens, "
+              f"all finished, {len(across)} admitted at step 2 finished "
+              f"after the swap (latency_ms {out_in['latency_ms']:.1f}); "
+              f"SIGTERM exit {rc}; card {card}", flush=True)
+
+        # ---- the fleet ----
+        if [f["replica_id"] for f in firsts] != [0, 1]:
+            fail(f"MAIN-SERVE: replicas printed {firsts}")
+        view = FleetView(FileKV(kv_dir), "f", lease_timeout_s=60.0)
+        router = Router(view, retries=3, backoff_s=0.01)
+        if len(view.poll()) != 2:
+            fail("MAIN-SERVE: the fleet view does not see two replicas")
+        lat, failover_s = [], []
+        rng = np.random.default_rng(23)
+        for i in range(FLEET_REQUESTS):
+            before = router.counters["retries"]
+            t0 = time.monotonic()
+            code, out = router.route({
+                "tokens": rng.integers(0, 32000, 64).tolist(),
+                "n_new": FLEET_NEW, "temperature": 0.8, "top_k": 40,
+                "seed": i})
+            lat.append(time.monotonic() - t0)
+            if router.counters["retries"] > before:
+                failover_s.append(lat[-1])
+            if code != 200 or len(out["tokens"]) != FLEET_NEW:
+                fail(f"MAIN-SERVE fleet request {i}: {code} "
+                     f"{str(out)[:200]}")
+        killed = fleet[1][0].wait(timeout=60)
+        kill_log = Path(fleet[1][1]).read_text()
+        ejected = [b.id for b in view.backends() if not b.ready]
+        if killed != -signal.SIGKILL or (
+                f"FAULT replica_kill: SIGKILL replica 1 after "
+                f"{FLEET_KILL_AFTER} served") not in kill_log or \
+                router.counters["retries"] < 1 or \
+                router.counters["failed"] != 0 or ejected != [1]:
+            fail(f"MAIN-SERVE fleet: replica 1 exited {killed}, router "
+                 f"{router.counters}, ejected {ejected}: "
+                 f"{kill_log[-1000:]}")
+        fleet[0][0].send_signal(signal.SIGTERM)
+        if fleet[0][0].wait(timeout=120) != 0:
+            fail("MAIN-SERVE: replica 0 did not drain to exit 0")
+        print(f"MAIN-SERVE fleet: {FLEET_REQUESTS} requests through the "
+              f"router all 200, replica 1 SIGKILLed after "
+              f"{FLEET_KILL_AFTER} served (exit {killed}), router "
+              f"{router.counters}, ejections {view.ejections}, failover "
+              f"request s {[round(x, 3) for x in failover_s]}, routed "
+              f"latency s median {np.median(lat):.3f}; card {card}",
+              flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(served_dir, ignore_errors=True)
+    return dict(counts[max(SERVE_SLOTS)], timed=timed, deltas=deltas,
+                gap=min(gaps), cache_bytes=cache_bytes, peak=peak,
+                reload_s=reload_s, failover_s=failover_s)
 
 
 def write_source_corpus(path: str) -> int:
@@ -4565,6 +5015,8 @@ def main() -> int:
     timed(small_lm_step_agrees, torch, fa)
     torch.cuda.empty_cache()
     lmckpt = timed(lm_ckpt_main_path, torch, wrappers)
+    torch.cuda.empty_cache()
+    served = timed(serve_main_path, torch, wrappers, lmckpt["served_dir"])
     acc_lm = timed(accuracy_lm, torch, wrappers)
     timed(digits_accuracy, torch)
 
@@ -4679,7 +5131,8 @@ def main() -> int:
              launches_by_path={
                  "MAIN-LMCKPT run": lmckpt[name],
                  "MAIN-LMCKPT resumed": lmckpt["resumed"][name],
-                 "ACCURACY-LM": acc_lm[name]},
+                 "ACCURACY-LM": acc_lm[name],
+                 "MAIN-SERVE (decode: full attention)": served[name]},
              tc_launches_by_path={
                  "MAIN-LMCKPT run": lmckpt[f"{name}_tc"],
                  "MAIN-LMCKPT resumed": lmckpt["resumed"][f"{name}_tc"],

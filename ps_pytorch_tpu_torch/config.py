@@ -238,11 +238,6 @@ class TrainConfig:
                 parse_fault_spec,
             )
             for fault in parse_fault_spec(self.fault_spec):
-                if fault["kind"] in UNPORTED_FAULT_KINDS:
-                    raise ValueError(
-                        f"fault kind {fault['kind']!r} is not ported yet "
-                        f"(ROADMAP.md): it needs "
-                        f"{UNPORTED_FAULT_KINDS[fault['kind']]}")
                 if self.mode != "async" and \
                         fault["kind"] in ASYNC_FAULT_KINDS:
                     raise ValueError(
@@ -257,6 +252,7 @@ class TrainConfig:
                         f"not ported yet (ROADMAP.md): it needs "
                         f"{SYNC_FAULT_KINDS[fault['kind']]}; it runs with "
                         f"--mode sync or kofn")
+        self._check_serving()
         if self.lm_parallelism not in ("sp", "tp", "pp", "ep"):
             raise ValueError(f"unknown lm_parallelism "
                              f"{self.lm_parallelism!r} (sp | tp | pp | ep)")
@@ -289,7 +285,8 @@ class TrainConfig:
                     parse_fault_spec,
                 )
                 for fault in parse_fault_spec(self.fault_spec):
-                    if fault["kind"] not in LM_FAULT_KINDS:
+                    if fault["kind"] not in LM_FAULT_KINDS \
+                            + SERVING_FAULT_KINDS:
                         raise ValueError(
                             f"fault kind {fault['kind']!r} for "
                             f"{self.network} is not ported yet "
@@ -496,6 +493,8 @@ class TrainConfig:
                      if not (wire and f in async_runs))
                  }[self.mode]
         for name in inert:
+            if name == "fault_spec" and self._serving_faults_only():
+                continue        # serve.py's kinds: no trainer reads them
             if getattr(self, name) != _default(name):
                 runs = ("--mode kofn or async" if name == "num_aggregate"
                         else "--mode sync or kofn" if name in SYNC_ONLY_FIELDS
@@ -525,6 +524,44 @@ class TrainConfig:
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"(ROADMAP.md); leave it at its default "
                     f"{_default(name)!r}")
+
+    def _serving_faults_only(self) -> bool:
+        from ps_pytorch_tpu_torch.resilience.faults import parse_fault_spec
+        return all(f["kind"] in SERVING_FAULT_KINDS
+                   for f in parse_fault_spec(self.fault_spec))
+
+    def _check_serving(self) -> None:
+        """The serving fields (``serve.py``), the JAX checks and
+        messages. No trainer reads them."""
+        if self.serve_slots < 1:
+            raise ValueError(f"serve_slots={self.serve_slots} (must be >= 1)")
+        if self.serve_max_queue < 1:
+            raise ValueError(f"serve_max_queue={self.serve_max_queue} "
+                             "(must be >= 1)")
+        if self.serve_max_new < 1:
+            raise ValueError(f"serve_max_new={self.serve_max_new} "
+                             "(must be >= 1)")
+        if self.serve_reload_s < 0 or self.serve_deadline_s <= 0:
+            raise ValueError("serve_reload_s must be >= 0 and "
+                             "serve_deadline_s > 0")
+        if self.serve_port < 0:
+            raise ValueError(f"serve_port={self.serve_port} "
+                             "(must be >= 0; 0 = ephemeral)")
+        if self.serve_max_body_bytes < 1:
+            raise ValueError(f"serve_max_body_bytes="
+                             f"{self.serve_max_body_bytes} (must be >= 1)")
+        if self.serve_replica_id < 0:
+            raise ValueError(f"serve_replica_id={self.serve_replica_id} "
+                             "(must be >= 0)")
+        if self.slo_spec:
+            from ps_pytorch_tpu_torch.telemetry.slo import parse_slo_spec
+            parse_slo_spec(self.slo_spec)
+        if self.reqtrace_keep < 0:
+            raise ValueError(f"reqtrace_keep={self.reqtrace_keep} "
+                             "(must be >= 0; 0 = tracing off)")
+        if not 0.0 <= self.reqtrace_sample <= 1.0:
+            raise ValueError(f"reqtrace_sample={self.reqtrace_sample} "
+                             "(must be in [0, 1])")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
@@ -579,11 +616,9 @@ ELASTIC_ONLY_FIELDS = ("leader_lease_s", "elastic_leader",
 # the fault plane, which fires the LM_FAULT_KINDS only.
 LM_FIELDS = ("remat", "fault_spec")
 LM_FAULT_KINDS = ("replica_crash", "ckpt_corrupt")
-# Fault kinds of the JAX grammar that no trainer of the port runs yet, and
-# what each needs (ROADMAP.md): the spec parses, the config refuses them.
-UNPORTED_FAULT_KINDS = {
-    "replica_kill": "serving (serving/)",
-}
+# Fault kinds that only ``serve.py`` fires; every trainer passes them by,
+# as in the JAX package.
+SERVING_FAULT_KINDS = ("replica_kill",)
 # Fault kinds that only the asynchronous trainer across processes fires,
 # and what they need: the synchronous trainers screen no contributions.
 ASYNC_FAULT_KINDS = {"grad_poison": "the integrity screen of the async "
@@ -604,13 +639,20 @@ WIRE_FIELDS = ("publish_every",)
 # in the JAX package; no other trainer reads them.
 INTEGRITY_FIELDS = ("grad_integrity", "integrity_mad_threshold",
                     "integrity_strike_limit", "integrity_readmit_clean")
+# The serving fields: ``serve.py`` reads them, no trainer does (the JAX
+# trainers ignore them too).
+SERVING_FIELDS = ("serve_slots", "serve_max_queue", "serve_reload_s",
+                  "serve_port", "serve_host", "serve_deadline_s",
+                  "serve_max_new", "slo_spec", "reqtrace_keep",
+                  "reqtrace_sample", "serve_max_body_bytes", "serve_kv_dir",
+                  "serve_fleet", "serve_replica_id", "serve_advertise")
 # Fields whose validity depends on the launch (several processes or one).
 LAUNCH_FIELDS = WIRE_FIELDS + ("trace_file",) + CONTROL_FIELDS
 
 # The fields the port runs. Every other field must keep its default.
 PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
                           + CONTROL_FIELDS + OPS_FIELDS + WIRE_FIELDS
-                          + INTEGRITY_FIELDS) | frozenset({
+                          + INTEGRITY_FIELDS + SERVING_FIELDS) | frozenset({
     "num_aggregate", "compress_grad", "codec_level", "donate", "shard_wire",
     "loader_workers",
     "kv_retry_attempts", "kv_retry_base_s", "kv_retry_budget",

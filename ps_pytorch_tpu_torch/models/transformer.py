@@ -75,7 +75,12 @@ class LayerNorm(nn.Module):
 class KVCache:
     """One block's cache: ``k``, ``v`` [B, heads, length, head dim] and
     ``idx``, the number of slots written (the JAX ``"cache"`` collection's
-    ``k``, ``v`` and ``idx``)."""
+    ``k``, ``v`` and ``idx``).
+
+    ``idx`` is an int, one offset for every row (``generate``), or a [B]
+    int64 tensor on the cache's device, an offset a row: the JAX serving
+    engine's ``vmap`` over one-row caches, where each slot sits at its own
+    position (``serving/engine.py``)."""
 
     def __init__(self, b: int, heads: int, length: int, head_dim: int,
                  dtype: torch.dtype, device):
@@ -87,7 +92,8 @@ class KVCache:
 
 class DecodeCache:
     """A ``KVCache`` for each block of a ``TransformerLM``, ``length``
-    slots long (the prompt plus the tokens to generate)."""
+    slots long (the prompt plus the tokens to generate).
+    ``set_offsets(idx)`` puts every block in the per-row form."""
 
     def __init__(self, model: "TransformerLM", batch: int, length: int):
         p = model.tok_embed.embedding
@@ -97,6 +103,11 @@ class DecodeCache:
             KVCache(batch, b.n_heads, length, b.Dense_0.weight.shape[0]
                     // b.n_heads, p.dtype, p.device) for b in blocks]
 
+    def set_offsets(self, idx: torch.Tensor) -> None:
+        """Row b of every block writes next at ``idx[b]`` ([B] int64)."""
+        for block in self.blocks:
+            block.idx = idx
+
 
 @torch.no_grad()
 def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,9 +116,15 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cached_attention``): q/k/v [B, h, S, hd] with any S >= 1 are written
     at the cache's offset i; query t sees slots <= i + t. S = 1 is a
     sampling step, S > 1 a prefill in one pass. The numerics are
-    ``full_attention``'s: ``q * scale``, -inf above the mask, softmax."""
+    ``full_attention``'s: ``q * scale``, -inf above the mask, softmax.
+
+    With a [B] tensor offset, row b writes at ``idx[b]`` and its query t
+    sees slots <= idx[b] + t; the caller keeps ``idx[b] + S`` within the
+    cache (the check would wait for the card)."""
     b, h, s, hd = q.shape
     i, length = cache.idx, cache.k.shape[2]
+    if isinstance(i, torch.Tensor):
+        return _rowwise_cached_attention(q, k, v, cache)
     if i + s > length:
         raise ValueError(f"cache of {length} slots holds {i}; {s} more "
                          "do not fit")
@@ -118,6 +135,24 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos = i + torch.arange(s, device=q.device)
     ok = torch.arange(length, device=q.device)[None, :] <= q_pos[:, None]
     att = att.masked_fill(~ok[None, None], float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(att, dim=-1),
+                        cache.v)
+
+
+def _rowwise_cached_attention(q, k, v, cache: KVCache) -> torch.Tensor:
+    b, h, s, hd = q.shape
+    length = cache.k.shape[2]
+    pos = cache.idx[:, None] + torch.arange(s, device=q.device)    # [B, S]
+    rows = torch.arange(b, device=q.device)[:, None]
+    # [B, S] advanced indices around the head slice: the value is
+    # [B, S, h, hd].
+    cache.k[rows, :, pos] = k.transpose(1, 2)
+    cache.v[rows, :, pos] = v.transpose(1, 2)
+    cache.idx = cache.idx + s
+    att = torch.einsum("bhqd,bhkd->bhqk", q * hd ** -0.5, cache.k)
+    ok = torch.arange(length, device=q.device)[None, None, :] \
+        <= pos[:, :, None]                                         # [B, S, L]
+    att = att.masked_fill(~ok[:, None], float("-inf"))
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(att, dim=-1),
                         cache.v)
 
@@ -191,11 +226,14 @@ class TransformerLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[DecodeCache] = None) -> torch.Tensor:
         """tokens [B, S] int -> logits [B, S, vocab] f32; ``positions``
-        [S] defaults to 0..S-1. With ``cache`` the tokens continue the
-        cached prefix (their positions must too)."""
+        [S] (every row's) or [B, S] (a row's own, with a per-row cache)
+        defaults to 0..S-1. With ``cache`` the tokens continue the cached
+        prefix (their positions must too)."""
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self.tok_embed(tokens) + self.pos_embed(positions)[None]
+        pos = self.pos_embed(positions)
+        x = self.tok_embed(tokens) + (pos if positions.dim() == 2
+                                      else pos[None])
         remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.n_layers):
             block = getattr(self, f"block_{i}")

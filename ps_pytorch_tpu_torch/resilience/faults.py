@@ -55,9 +55,9 @@ rejected here with the same message:
         of the run): the corruption rides the real wire, and the leader's
         integrity screen must catch it (``resilience/integrity.py``).
     replica_kill:served=20[,r=0]
-        Parsed and validated as in the JAX package; no trainer of the port
-        runs it yet (it needs serving), and the config refuses it
-        (ROADMAP.md).
+        SIGKILL serving replica r once it has served >= N requests
+        (``maybe_kill_replica``, beaten by ``serving/engine.serve_loop``);
+        the trainers pass it by.
 
 Drop and delay decisions come from ``numpy.default_rng(seed + 10007 *
 pid)``, the JAX package's stream: reproducible per process, uncorrelated
@@ -545,6 +545,26 @@ class FaultInjector:
                 import sys
                 print(f"{LEADER_KILL_LINE} SIGKILL process "
                       f"{self.process_index} (leader) at step {step}",
+                      flush=True)
+                sys.stdout.flush()
+                os.kill(os.getpid(), signal.SIGKILL)
+
+    def maybe_kill_replica(self, served: int) -> None:
+        """SIGKILL this serving replica when a replica_kill fault matches
+        this process and it has served >= ``served`` requests (once).
+        The serving-plane analogue of ``maybe_kill_leader``: SIGKILL on
+        purpose — no drain, no deregistration, no final heartbeat — so
+        the router must notice via lease staleness/connection errors."""
+        for i, f in enumerate(self.faults):
+            if f["kind"] != "replica_kill" or ("rkill", i) in self._fired:
+                continue
+            if f["r"] == self.process_index and served >= f["served"]:
+                self._fired.add(("rkill", i))
+                self.counters["replica_kills"] += 1
+                import signal
+                import sys
+                print(f"FAULT replica_kill: SIGKILL replica "
+                      f"{self.process_index} after {served} served",
                       flush=True)
                 sys.stdout.flush()
                 os.kill(os.getpid(), signal.SIGKILL)

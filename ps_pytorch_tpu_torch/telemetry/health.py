@@ -32,57 +32,12 @@ recorder and leaves the loop). State surfaces as ``status()`` (the
 
 import math
 import statistics
-import threading
 import time
 from collections import deque
 from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
-
-class WindowPercentile:
-    """Sliding time-window sample reservoir with percentile queries: the
-    JAX package's ``telemetry/slo.py:WindowPercentile``, which the
-    steptime detector uses (the SLO plane itself is not ported,
-    ROADMAP.md). Samples older than ``window_s`` are pruned on every
-    touch; at most ``max_samples`` are kept."""
-
-    def __init__(self, window_s: float, *,
-                 clock: Callable[[], float] = time.monotonic,
-                 max_samples: int = 8192):
-        if window_s <= 0:
-            raise ValueError(f"window_s={window_s} (need > 0)")
-        self.window_s = float(window_s)
-        self.clock = clock
-        self._samples: deque = deque(maxlen=int(max_samples))
-        self._lock = threading.Lock()
-
-    def _prune(self, now: float) -> None:
-        horizon = now - self.window_s
-        while self._samples and self._samples[0][0] < horizon:
-            self._samples.popleft()
-
-    def observe(self, value: float, now: Optional[float] = None) -> None:
-        now = self.clock() if now is None else now
-        with self._lock:
-            self._prune(now)
-            self._samples.append((now, float(value)))
-
-    def percentile(self, q: float, now: Optional[float] = None,
-                   min_n: int = 1) -> Optional[float]:
-        """Interpolated nearest-rank percentile over the window; None
-        below ``min_n`` samples."""
-        now = self.clock() if now is None else now
-        with self._lock:
-            self._prune(now)
-            vals = sorted(v for _, v in self._samples)
-        n = len(vals)
-        if n < max(1, min_n):
-            return None
-        pos = (q / 100.0) * (n - 1)
-        lo = int(pos)
-        hi = min(lo + 1, n - 1)
-        return vals[lo] + (vals[hi] - vals[lo]) * (pos - lo)
-
+from ps_pytorch_tpu_torch.telemetry.slo import WindowPercentile
 
 DETECTORS = ("nonfinite", "spike", "divergence", "stall", "steptime")
 ACTIONS = ("warn", "skip", "halt")

@@ -1,7 +1,7 @@
-"""Typed metric registry and the derived per-step record: the training
-part of the JAX package's ``telemetry/registry.py`` (``MetricSpec``,
-``Registry`` ``:34-192``, the training contract ``:485-520``, the derived
-arithmetic ``:523-603``).
+"""Typed metric registry and the derived per-step record: the JAX
+package's ``telemetry/registry.py`` (``MetricSpec``, ``Registry``
+``:34-192``, the serving and router contracts ``:366-455``, the training
+contract ``:485-520``, the derived arithmetic ``:523-603``).
 
 - ``mfu``: the model's FLOPs a step (``utils/flops.py``) over the step's
   wall time and the cards' aggregate dense bf16 peak
@@ -16,8 +16,8 @@ arithmetic ``:523-603``).
 
 Metrics must be declared (name, kind, unit, help) before use, so the set
 of emitted names is a reviewable contract. The resilience, integrity,
-replicated-KV, hierarchy and elastic counters are declared here too; the
-serving and router declarations come with their planes (ROADMAP.md).
+replicated-KV, hierarchy, elastic, serving and router metrics are
+declared here too (the JAX package's names, units and kinds).
 """
 
 import threading
@@ -391,6 +391,96 @@ def declare_elastic_metrics(registry: Registry) -> Registry:
         registry.counter(name, unit=unit, help=help_)
     for name, unit, help_ in ELASTIC_GAUGES:
         registry.gauge(name, unit=unit, help=help_)
+    return registry
+
+
+# ---- serving metric contract (serving/) ----
+#
+# Same discipline as RESILIENCE_COUNTERS: the one reviewable list of what
+# the serving plane emits. Counters/gauges are (name, unit, help);
+# histograms observe seconds with the DEFAULT_BUCKETS latency ladder.
+SERVING_COUNTERS = (
+    ("serve_requests", "requests", "requests completed"),
+    ("serve_tokens", "tokens", "tokens sampled across all requests"),
+    ("serve_rejected", "requests", "requests rejected at admission (queue full)"),
+    ("serve_shed", "requests", "requests shed for a passed deadline"),
+    ("serve_reloads", "events", "hot checkpoint reloads applied"),
+    ("serve_resolve_races", "events", "terminal resolutions that lost the "
+                                      "first-wins CAS (double-resolve "
+                                      "attempts suppressed)"),
+    ("serve_rejected_oversize", "requests", "requests rejected for an "
+                                            "oversized or malformed body"),
+    ("slo_violations", "events", "per-request SLO objective violations"),
+)
+SERVING_GAUGES = (
+    ("serve_active_slots", "slots", "decode slots currently occupied"),
+    ("serve_queue_depth", "requests", "admission queue depth"),
+    ("serve_model_step", "step", "checkpoint step currently served"),
+    ("slo_compliance", "", "fraction of SLO objectives met over the "
+                           "slow window (1.0 = all)"),
+    ("slo_burn_rate", "", "worst per-objective slow-window error-budget "
+                          "burn rate (1.0 = budget exactly)"),
+)
+SERVING_HISTOGRAMS = (
+    ("serve_request_latency_s", "s", "submit -> last token latency"),
+    ("serve_ttft_s", "s", "submit -> first token latency (TTFT)"),
+    ("serve_queue_wait_s", "s", "submit -> admission queue wait"),
+)
+
+
+def declare_serving_metrics(registry: Registry) -> Registry:
+    """Declare the serving counters/gauges/histograms on ``registry``."""
+    for name, unit, help_ in SERVING_COUNTERS:
+        registry.counter(name, unit=unit, help=help_)
+    for name, unit, help_ in SERVING_GAUGES:
+        registry.gauge(name, unit=unit, help=help_)
+    for name, unit, help_ in SERVING_HISTOGRAMS:
+        registry.histogram(name, unit=unit, help=help_)
+    return registry
+
+
+# ---- router metric contract (serving/router.py) ----
+#
+# The fleet front-end's view: routed request outcomes, failover retries,
+# hedged backups, and backend health transitions. Routed availability
+# (router_requests vs router_failed) is what the SLO burn-rate engine
+# consumes at the router — the client-visible number, not any one
+# replica's.
+ROUTER_COUNTERS = (
+    ("router_requests", "requests", "requests routed to completion"),
+    ("router_failed", "requests", "requests that exhausted retries and "
+                                  "surfaced an error to the client"),
+    ("router_retries", "attempts", "failover re-dispatches to a different "
+                                   "replica after a retryable failure"),
+    ("router_hedges", "requests", "hedged backup requests issued past the "
+                                  "tail-latency threshold"),
+    ("router_hedge_wins", "requests", "hedged backups that beat the "
+                                      "primary attempt"),
+    ("router_hedge_cancelled", "requests", "hedge losers cancelled after "
+                                           "the first response won"),
+    ("router_backend_ejections", "events", "backends marked unhealthy "
+                                           "(probe/lease/forward failure)"),
+)
+ROUTER_GAUGES = (
+    ("router_backends_ready", "replicas", "backends currently health-gated "
+                                          "ready"),
+    ("router_outstanding", "requests", "requests in flight across all "
+                                       "backends"),
+)
+ROUTER_HISTOGRAMS = (
+    ("router_request_latency_s", "s", "routed submit -> response latency "
+                                      "(includes retries and hedges)"),
+)
+
+
+def declare_router_metrics(registry: Registry) -> Registry:
+    """Declare the router counters/gauges/histograms on ``registry``."""
+    for name, unit, help_ in ROUTER_COUNTERS:
+        registry.counter(name, unit=unit, help=help_)
+    for name, unit, help_ in ROUTER_GAUGES:
+        registry.gauge(name, unit=unit, help=help_)
+    for name, unit, help_ in ROUTER_HISTOGRAMS:
+        registry.histogram(name, unit=unit, help=help_)
     return registry
 
 

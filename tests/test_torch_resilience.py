@@ -95,12 +95,13 @@ def test_fault_spec_rejects_like_jax(spec):
 @pytest.mark.parametrize("spec,refused", [
     ("leader_kill:step=6", False), ("kv_backend_kill:backend=1,step=5", False),
     ("kv_backend_wipe:backend=1,step=8", False),
-    ("replica_kill:served=20", True), ("grad_poison:scale=1000,r=2", True)])
+    ("replica_kill:served=20", False), ("grad_poison:scale=1000,r=2", True)])
 def test_config_refuses_the_kinds_it_does_not_run(spec, refused):
     """leader_kill and the per-backend kinds run since the elections and
-    the replicated KV are ported; serving's kind is still refused, and so
-    is grad_poison under the synchronous trainer (the default mode here):
-    only the async leader's integrity screen runs it."""
+    the replicated KV are ported, and serving's replica_kill since serving
+    is (the trainers pass it by, as the JAX ones do); grad_poison is still
+    refused under the synchronous trainer (the default mode here): only
+    the async leader's integrity screen runs it."""
     JaxConfig(fault_spec=spec)                  # the JAX config runs them
     if refused:
         with pytest.raises(ValueError, match="ROADMAP.md"):
