@@ -114,7 +114,17 @@ exit and no result line, if any phase fails:
    launched, its tokens/s, TTFT, latency and ms a tick; ``python -m
    ps_pytorch_tpu_torch.serve`` over HTTP with a reload past a corrupt
    checkpoint under load and a SIGTERM drain; two replicas behind the
-   router, one SIGKILLed by ``replica_kill``, every request answered).
+   router, one SIGKILLed by ``replica_kill``, every request answered),
+   and before MAIN-SERVE the same model across two gloo ranks sharing the
+   card, one launch of three runs (MAIN-LMDIST, ``--rank-lmdist``:
+   ``train_lm.run`` with ``--lm-parallelism sp`` over both ranks on ring
+   attention, ``tp`` over the model axis, and ``pp`` of 2 stages x 4
+   microbatches on the flash kernels under remat, 3 steps and a
+   checkpoint at 3 each; every run's FINAL line equal on both ranks, rank
+   0 alone writing, the bytes each rank hands gloo a step equal to the
+   shapes' count, pp's flash launches those of its schedule,
+   ``evaluate.main`` scoring pp's stage-stacked checkpoint, each run's
+   step-1 loss and step-2 parameters held against the one-rank LM).
    After MAIN-CKPT, the same ResNet-18 through ``train.main``
    with a crash, a corrupted checkpoint and KV drops under
    ``--auto-resume 2`` (MAIN-CRASH: the resume past the corrupt checkpoint
@@ -152,6 +162,7 @@ exit and no result line, if any phase fails:
    ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import io
 import json
 import math
@@ -165,6 +176,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
@@ -239,6 +251,15 @@ KOFN_ARGS = ("--mode", "kofn", "--num-aggregate", "1", "--inject-step-delay",
              "0.3", "--inject-delay-process", "0", "--max-steps",
              str(KOFN_STEPS), "--eval-freq", "4")
 RANK_TIMEOUT_S = 400
+# The directory where the script's processes share the synthetic data sets
+# (``arrays_made_once``), and the sets the phases draw (data set, train
+# split, seed), made while the kernels build.
+ARRAYS_ENV = "CHIP_SMOKE_ARRAYS"
+PHASE_ARRAYS = tuple((name, train, seed) for name, seed in (
+    ("synthetic_cifar10", 42), ("synthetic_cifar10", 43),
+    ("synthetic_cifar10", 44), ("synthetic_mnist", 42),
+    ("synthetic_cifar100", 42), ("synthetic_imagenet_rrc", 42))
+    for train in (True, False)) + (("synthetic_cifar10", False, 0),)
 # MAIN-WIRE: the same ResNet-18 as two processes on the one card, async
 # across processes (runtime/async_trainer.py): gradients and the canonical
 # weights cross between them as armoured chunks over process 0's TCPStore.
@@ -375,20 +396,22 @@ SHARD_SLICE_ARGS = ("--mode", "async", "--async-slices", "2", "--shard-wire",
 # MAIN-POISON: the JAX poison drill's poison leg (tools/poison_drill.py:
 # 262-293) on ResNet-18: four processes of batch 64 (global 256), int8lat
 # without error feedback, the integrity screen on (the default); process 2
-# scales its own gradients by 1e38 for POISON_WINDOW of its steps, and 1%
-# of the leader's gradient chunk reads are bit-flipped. The drill's 16
-# poisoner steps of 40 versions are widened to 80 of 48: on the card a
-# follower takes ~3.75 steps a leader tick (0.3-0.4 s against 1.4 s), the
-# leader reads only each follower's newest contribution, and the digest
-# demotes about half of those reads (a ResNet-18 contribution is ~50
-# chunks, each read flipped at p = 0.01). 16 steps gave one strike and no
-# quarantine; 80 gave 5 and 8 strikes, the window closing near version
-# 20-24, and the readmission's three clean screens came at versions 28
-# and 37 of 40: 48 versions leave room for them.
-POISON_STEPS = 48
-POISON_WINDOW = 80
+# scales its own gradients by 1e38 for POISON_WINDOW of its steps, and the
+# leader's gradient chunk reads are bit-flipped at p = 0.002. The leader
+# reads only each follower's newest contribution, and a ResNet-18
+# contribution is ~50 chunks: at the drill's p = 0.01 the digest demoted
+# about half of those reads, so strikes came at the host's pace (2 to 9
+# over a window of 80 poisoner steps, 48 versions; one run quarantined
+# nothing). At p = 0.002 a read fails ~10% of the time (1 - 0.998^50), a
+# screen comes about once a version, and the quarantine (3 strikes) and
+# readmission (3 clean screens) each take ~3-4 versions. The window of 40
+# steps spans ~9-13 versions (a follower takes 3-4.6 steps a leader tick),
+# so the readmission comes by version ~20 of 28, and the bit-flips still
+# fail ~8 reads a run.
+POISON_STEPS = 28
+POISON_WINDOW = 40
 POISON_SPEC = (f"grad_poison:scale=1e38,r=2,step=3,steps={POISON_WINDOW};"
-               "payload_bitflip:p=0.01,seed=11,prefix=async-42/agrad")
+               "payload_bitflip:p=0.002,seed=11,prefix=async-42/agrad")
 POISON_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
                "int8lat", "--staleness-limit", "4", "--network", "ResNet18",
                "--dataset", "synthetic_cifar10", "--batch-size", "64",
@@ -453,9 +476,30 @@ LMCKPT_STEPS = 4
 LMCKPT_RESUMED = 6
 LM_FINAL_BATCHES = 6
 LMCKPT_NEW = 64
+# MAIN-LMDIST: the LM path's model as two gloo ranks sharing the card
+# (NCCL refuses two ranks on one device), one launch, three runs in one
+# process group: sp over both ranks (ring attention, 1024 tokens a rank),
+# tp over the model axis, and pp of 2 stages x 4 microbatches with its
+# stages on the flash kernels under remat. Each run takes 3 steps and a
+# checkpoint at 3; its step-1 loss and its parameters after 2 steps
+# (gathered) are held against the one-rank LM on the same weights and
+# batches (full attention for sp and tp, flash for pp) at the JAX parity
+# tolerances (tests/test_tp.py:112-115, tests/test_pp.py:99-103).
+LMDIST_STEPS = 3
+LMDIST_HELD = 2
+LMDIST_MICRO = 4
+LMDIST_RUNS = (
+    ("sp", ("--lm-parallelism", "sp", "--lm-attention", "auto"), "full"),
+    ("tp", ("--lm-parallelism", "tp", "--lm-model-axis", "2",
+            "--lm-attention", "full"), "full"),
+    ("pp", ("--lm-parallelism", "pp", "--lm-model-axis", "2",
+            "--lm-microbatches", str(LMDIST_MICRO), "--lm-attention",
+            "flash", "--remat"), "flash"))
+LMDIST_LOSS_TOL, LMDIST_RTOL, LMDIST_ATOL = 2e-5, 2e-4, 2e-5
 # MAIN-SERVE: MAIN-LMCKPT's checkpoints of the full-width LM served
 # (nothing new is trained). In process, 16 requests with prompts of 16 to
-# 512 tokens and 64 new tokens each, the even ones greedy, the odd ones
+# 512 tokens and 32 new tokens each (64 until MAIN-LMDIST took the time),
+# the even ones greedy, the odd ones
 # sampled (temperature 0.8, top-k 40), through ServingEngine at 1, 4 and 8
 # slots, every stream held token for token against generate (the logits
 # compared at 4 and 8, the runs at 1 and 8 timed); then
@@ -467,7 +511,7 @@ SERVE_SLOTS = (1, 4, 8)
 SERVE_COMPARED = (4, 8)
 SERVE_TIMED = (1, 8)
 SERVE_PROMPTS = tuple(int(x) for x in np.linspace(16, 512, 16))
-SERVE_NEW = 64
+SERVE_NEW = 32
 SERVE_SPEC = "ttft_p99<30s;latency_p99<60s;availability>=99"
 SERVE_FIRST_KEYS = ["serving", "metrics", "model_step", "slots", "vocab",
                     "seq_len", "replica_id", "slo_spec", "reqtrace_keep"]
@@ -2243,6 +2287,253 @@ def lm_ckpt_main_path(torch, wrappers) -> dict:
                 served_dir=kept)
 
 
+class _WatchedStep:
+    """An LMTrainer's step, watched for MAIN-LMDIST: the bytes this rank
+    hands gloo during each step (``parallel/collectives.stats``), each
+    step's loss and, after step ``LMDIST_HELD``, the whole model's
+    parameters (every rank takes part in the gather; rank 0 saves them to
+    ``<out_dir>/<mode>_held.pt``). Everything else is the step's."""
+
+    def __init__(self, trainer, rec: dict, out_dir: str):
+        self.trainer, self.inner = trainer, trainer.step_fn
+        self.rec, self.out_dir = rec, out_dir
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, tokens):
+        import torch
+
+        from ps_pytorch_tpu_torch.parallel import collectives
+        before = collectives.stats["bytes_sent"]
+        out = self.inner(tokens)
+        self.rec["step_bytes"].append(collectives.stats["bytes_sent"]
+                                      - before)
+        self.rec["losses"].append(float(out["loss"]))
+        if len(self.rec["losses"]) == LMDIST_HELD:
+            params, _ = self.trainer.full_state()
+            if not isinstance(params, dict):
+                params = params.state_dict()
+            if self.trainer.rank == 0:
+                torch.save({k: v.detach().cpu() for k, v in params.items()},
+                           f"{self.out_dir}/{self.trainer.mode}_held.pt")
+        return out
+
+
+def lmdist_rank_main(argv) -> int:
+    """One rank of MAIN-LMDIST, started by the launcher: ``argv`` is the
+    output directory, then the runs split at ``--then`` (one process
+    group); for each, ``train_lm.run`` with every launch count set to 0
+    just before, its steps watched (``_WatchedStep``), then one ``LMDIST``
+    line: launches, checkpoints written, losses, step times, bytes a step,
+    peak device memory and the evaluation."""
+    import torch
+
+    from ps_pytorch_tpu_torch import train_lm
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.runtime import lm_trainer
+
+    out_dir, argv = argv[0], argv[1:]
+    wrappers = kernel_wrappers()
+    saves, rec = [], {}
+    save_checkpoint = ckpt.save_checkpoint
+
+    def counted(train_dir, step, *args, **kw):
+        saves.append(step)
+        return save_checkpoint(train_dir, step, *args, **kw)
+
+    ckpt.save_checkpoint = counted
+    cls = lm_trainer.LMTrainer
+    build = cls.__init__
+
+    def watched(self, *args, **kw):
+        build(self, *args, **kw)
+        self.step_fn = _WatchedStep(self, rec, out_dir)
+
+    cls.__init__ = watched
+
+    def run_one(part):
+        saves.clear()
+        rec.clear()
+        rec.update(losses=[], step_bytes=[])
+        zero_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        trainer, result = train_lm.run(part)
+        print("LMDIST " + json.dumps({
+            "rank": trainer.rank, "mode": trainer.mode,
+            "attention": trainer.model.attention_impl,
+            "launches": read_counts(wrappers), "saves": saves,
+            "losses": rec["losses"], "step_bytes": rec["step_bytes"],
+            "step_times": trainer.step_times,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "eval": result}), flush=True)
+        return trainer
+
+    in_turn(argv, run_one)
+    return 0
+
+
+def lmdist_step_bytes(mode: str) -> int:
+    """What a rank of MAIN-LMDIST hands gloo a step, counted from the
+    shapes (two ranks, f32): sp, one K/V hop a layer forward and one of
+    their gradients backward ([2, B, H, S/2, D] each), the boundary
+    token, the gradient all-reduce of every parameter and the loss; tp
+    (model axis 2, data 1), two all-reduces of [B, S, d] a block forward
+    and two backward, the one in front of ``lm_head`` backward, the
+    vocab-parallel cross-entropy's row max and its two row sums; pp (2
+    stages, data 1), a [B/M, S, d] activation or its gradient a
+    microbatch, the edges' gradients over both ranks and the loss."""
+    flags = dict(zip(LM_ARGS[::2], LM_ARGS[1::2]))
+    d, heads, vocab, layers, b, s = (int(flags[f"--{k}"]) for k in (
+        "lm-d-model", "lm-heads", "lm-vocab", "lm-layers", "batch-size",
+        "lm-seq-len"))
+    block = 4 * d * d + 2 * (d * 4 * d) + 4 * d + d + 2 * 2 * d
+    edges = vocab * d + s * d + 2 * d + vocab * d
+    params = edges + layers * block
+    rows = b * (s - 1)
+    if mode == "sp":
+        kv = 2 * b * heads * (s // 2) * (d // heads) * 4
+        return 2 * layers * kv + b * 8 + params * 4 + 4
+    if mode == "tp":
+        act = b * s * d * 4
+        return (4 * layers + 1) * act + rows * 4 + 2 * rows * 4
+    act = (b // LMDIST_MICRO) * s * d * 4
+    return LMDIST_MICRO * act + edges * 4 + 4
+
+
+def lmdist_main_path(torch, wrappers) -> dict:
+    """MAIN-LMDIST: the LM path's model (LM_ARGS) as two gloo ranks on the
+    card through the launcher, one launch, three runs (LMDIST_RUNS): sp
+    over both ranks (ring attention), tp, and pp of 2 stages x 4
+    microbatches on the flash kernels with remat. Fails unless every run
+    prints the same FINAL line on both ranks; rank 0 alone commits the
+    step-3 checkpoint; the bytes each rank hands gloo a step are the
+    shapes' count; pp launches the flash kernels as its schedule says
+    (per rank per step: forward layers_per_stage x M, doubled under remat,
+    dq and dk/dv layers_per_stage x M) and sp and tp none;
+    ``evaluate.main --once 3`` scores pp's stage-stacked checkpoint to its
+    FINAL loss; and each run's step-1 loss and step-2 parameters agree
+    with the one-rank LM's. Prints each mode's median step, bytes a step,
+    peak memory and the largest differences."""
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_lmdist_")
+    try:
+        argv = ["--rank-lmdist", root]
+        for i, (mode, flags, _) in enumerate(LMDIST_RUNS):
+            argv += ([THEN] if i else []) + [
+                *LM_ARGS, *flags, "--max-steps", str(LMDIST_STEPS),
+                "--eval-freq", str(LMDIST_STEPS), "--log-every", "1",
+                "--resume", "false", "--train-dir", f"{root}/{mode}",
+                "--device", "cuda"]
+        t0 = time.monotonic()
+        logs = launch_ranks(root, 2, argv, "MAIN-LMDIST")
+        wall = time.monotonic() - t0
+        recs = {}
+        for r, log in enumerate(logs):
+            sections = run_sections(log, "LM mesh")
+            if len(sections) != len(LMDIST_RUNS):
+                fail(f"MAIN-LMDIST: rank {r} ran {len(sections)} runs")
+            for (mode, _, _), sec in zip(LMDIST_RUNS, sections):
+                found = re.findall(r"^LMDIST (.*)$", sec, re.M)
+                final = re.findall(r"^FINAL .*$", sec, re.M)
+                if len(found) != 1 or len(final) != 1:
+                    fail(f"MAIN-LMDIST {mode}: rank {r} printed no LMDIST "
+                         "or no FINAL line")
+                recs.setdefault(mode, []).append(
+                    dict(json.loads(found[0]), final=final[0]))
+        per = int(dict(zip(LM_ARGS[::2], LM_ARGS[1::2]))["--lm-layers"]) // 2
+        out = {}
+        for mode, _, ref_impl in LMDIST_RUNS:
+            a, b = recs[mode]
+            if a["final"] != b["final"]:
+                fail(f"MAIN-LMDIST {mode}: FINAL differs across ranks "
+                     f"({a['final']} / {b['final']})")
+            if [a["saves"], b["saves"]] != [[LMDIST_STEPS], []] or \
+                    ckpt.committed_steps(f"{root}/{mode}") != [LMDIST_STEPS]:
+                fail(f"MAIN-LMDIST {mode}: checkpoints {a['saves']} / "
+                     f"{b['saves']}, committed "
+                     f"{ckpt.committed_steps(f'{root}/{mode}')}")
+            want_bytes = lmdist_step_bytes(mode)
+            if any(n != want_bytes for rec in (a, b)
+                   for n in rec["step_bytes"]):
+                fail(f"MAIN-LMDIST {mode}: bytes a step {a['step_bytes']} /"
+                     f" {b['step_bytes']}, the shapes count {want_bytes}")
+            fwd = per * LMDIST_MICRO * LMDIST_STEPS
+            want = want_counts(wrappers, **(dict(
+                flash_fwd=2 * fwd, flash_dq=fwd, flash_dkv=fwd)
+                if mode == "pp" else {}))
+            for rec in (a, b):
+                if rec["launches"] != want:
+                    fail(f"MAIN-LMDIST {mode} rank {rec['rank']}: launches "
+                         f"{rec['launches']}, expected {want}")
+            out[mode] = a
+        # pp's stage-stacked checkpoint through the evaluator.
+        printed = run_entry(evaluate.main, [
+            "--train-dir", f"{root}/pp", "--once", str(LMDIST_STEPS),
+            "--device", "cuda"])
+        m = EVAL_LM_RE.search(printed)
+        pp_final = float(out["pp"]["final"].split()[2])
+        if not m or int(m.group(1)) != LMDIST_STEPS or \
+                abs(float(m.group(2)) - pp_final) > 1e-5:
+            fail(f"MAIN-LMDIST: EVAL_LM of pp's checkpoint "
+                 f"{m and m.group(0)} against its FINAL {pp_final}")
+        # The one-rank LM on the same weights and batches, once an
+        # attention kernel.
+        refs = {}
+        for impl in sorted({impl for _, _, impl in LMDIST_RUNS}):
+            torch.cuda.empty_cache()
+            ref = LMTrainer(config_from_args(
+                [*LM_ARGS, "--lm-attention", impl, "--resume", "false",
+                 "--eval-freq", "0", "--train-dir", f"{root}/ref"]),
+                device="cuda", printer=lambda line: None)
+            refs[impl] = ([float(ref.step_fn(ref.train_loader.next_batch())
+                                 ["loss"]) for _ in range(LMDIST_HELD)],
+                          {k: v.detach().cpu()
+                           for k, v in ref.model.state_dict().items()})
+            del ref
+        for mode, _, ref_impl in LMDIST_RUNS:
+            losses, want = refs[ref_impl]
+            got = torch.load(f"{root}/{mode}_held.pt")
+            rec = out[mode]
+            loss_diff = abs(rec["losses"][0] - losses[0])
+            if set(got) != set(want) or loss_diff > LMDIST_LOSS_TOL * (
+                    1 + abs(losses[0])):
+                fail(f"MAIN-LMDIST {mode}: step-1 loss {rec['losses'][0]} "
+                     f"against the one-rank {losses[0]}")
+            worst = max((got[k] - want[k]).abs().max().item() for k in got)
+            for k in got:
+                if not torch.allclose(got[k], want[k], rtol=LMDIST_RTOL,
+                                      atol=LMDIST_ATOL):
+                    fail(f"MAIN-LMDIST {mode}: {k} after {LMDIST_HELD} "
+                         f"steps differs from the one-rank LM by "
+                         f"{(got[k] - want[k]).abs().max().item():.3e}")
+            a, b = recs[mode]
+            print(f"MAIN-LMDIST {mode} 2 gloo ranks attention "
+                  f"{rec['attention']}: median step "
+                  f"{np.median(a['step_times']):.4f} / "
+                  f"{np.median(b['step_times']):.4f} s (steps "
+                  f"{a['step_times']} / {b['step_times']}); bytes a rank a "
+                  f"step {a['step_bytes'][0]} / {b['step_bytes'][0]}; peak "
+                  f"{a['peak_bytes']} / {b['peak_bytes']} B; {a['final']}; "
+                  f"step-1 loss {rec['losses'][0]!r} vs one-rank "
+                  f"{ref_impl} {losses[0]!r} (|diff| {loss_diff:.3e}); max "
+                  f"|param diff| after {LMDIST_HELD} steps {worst:.3e}; "
+                  f"launches {flash_by_kind(a['launches'])} / "
+                  f"{flash_by_kind(b['launches'])}; card {card}", flush=True)
+        print(f"MAIN-LMDIST EVAL_LM of pp's stacked checkpoint "
+              f"{m.group(0)}; launch_wall_s {wall:.2f}; card {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {mode: recs[mode][0]["launches"] for mode, _, _ in LMDIST_RUNS}
+
+
 def http_json(url: str, path: str, body=None, timeout: float = 120.0):
     """(status, JSON body or text) of one GET (``body`` None) or POST."""
     data = None if body is None else json.dumps(body).encode()
@@ -2289,8 +2580,8 @@ def server_first_line(proc, log: str, name: str,
 
 def serve_requests(Request) -> list:
     """MAIN-SERVE's 16 requests: prompts of ``SERVE_PROMPTS`` tokens drawn
-    from seed 17 over the vocabulary, 64 new tokens, even ones greedy and
-    odd ones sampled at temperature 0.8, top-k 40; seed i."""
+    from seed 17 over the vocabulary, ``SERVE_NEW`` new tokens, even ones
+    greedy and odd ones sampled at temperature 0.8, top-k 40; seed i."""
     rng = np.random.default_rng(17)
     return [Request(prompt=rng.integers(0, 32000, n).astype(np.int32),
                     n_new=SERVE_NEW, temperature=0.0 if i % 2 == 0 else 0.8,
@@ -2523,7 +2814,8 @@ def serve_main_path(torch, wrappers, served_dir: str) -> dict:
                 fail(f"MAIN-SERVE: /healthz {body}")
             if path == "/metrics" and not all(
                     name in body for name in (
-                        "serve_requests_total 1", "serve_tokens_total 64",
+                        "serve_requests_total 1",
+                        f"serve_tokens_total {SERVE_NEW}",
                         "serve_ttft_s_bucket", "slo_compliance")):
                 fail(f"MAIN-SERVE: /metrics lacks the serving counters")
             if path == "/slo" and body["state"] != "ok":
@@ -3403,7 +3695,7 @@ def tree_sha256(tree) -> str:
 
 def check_zero_wire(torch) -> dict:
     """CHECK zero-wire: ResNet-18's parameters and one step's gradients
-    from the card, the same average fed for 3 rounds (scaled 1, 1/2, 1/4)
+    from the card, the same average fed for 2 rounds (scaled 1, 1/2)
     to the port's ZeroWireUpdater at 1, 2 and 3 shards, every owner in
     this process over one in-memory KV (the default 4 MiB bucket edges and
     4 workers): SGD (momentum 0.9, weight decay 5e-4), then Adam. Fails
@@ -3424,7 +3716,7 @@ def check_zero_wire(torch) -> dict:
     bucket = 4 << 20
     max_bucket = max(b.nbytes for b in plan_buckets(host_p, bucket))
     rounds = [nest(paths, [g * np.float32(scale) for g in host_g])
-              for scale in (1.0, 0.5, 0.25)]
+              for scale in (1.0, 0.5)]
     out = {}
     for optimizer, kw in (("sgd", dict(lr=0.1, momentum=0.9,
                                        weight_decay=5e-4)),
@@ -4685,27 +4977,54 @@ def zero_main_path(wrappers, n_params: int) -> dict:
             "replicated": recs[0][1]["launches"]}
 
 
+def saved_arrays(make, root: str, name: str, train: bool, seed: int):
+    """The files of a synthetic set's x and y under ``root``, made by
+    ``make`` (the port's ``datasets._synthetic``) and saved first if no
+    process has saved them yet."""
+    stem = Path(root, f"{name}-{int(train)}-{seed}")
+    paths = (Path(f"{stem}.x.npy"), Path(f"{stem}.y.npy"))
+    if not all(p.exists() for p in paths):
+        t0 = time.monotonic()
+        arrays = make(name, train, seed)
+        print(f"ARRAYS {name} train={train} seed {seed}: made in "
+              f"{time.monotonic() - t0:.2f} s", flush=True)
+        for path, a in zip(paths, arrays):
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            with open(tmp, "wb") as f:
+                np.save(f, a)
+            os.replace(tmp, path)   # a reader never sees half a file
+    return paths
+
+
 @contextmanager
 def arrays_made_once():
-    """Inside: each (data set, split, seed) is made once and handed to
-    every later loader as it is (the loaders never write into it), so
-    the in-process runs of a phase do not each draw the synthetic set
-    anew."""
+    """Inside: each synthetic (data set, split, seed) is made once, by the
+    port's own ``datasets._synthetic``, and handed to every later loader as
+    a read-only array (the loaders never write into it), so that runs do
+    not each draw the synthetic set anew. Where $CHIP_SMOKE_ARRAYS names a
+    directory (the script's first process sets it, and every process it
+    starts inherits it), the arrays are saved there once and read back by
+    the other processes."""
     from ps_pytorch_tpu_torch.data import datasets
 
-    made, load = {}, datasets.load_arrays
+    root = os.environ.get(ARRAYS_ENV)
+    made, make = {}, datasets._synthetic
 
-    def once(*args, **kw):
-        key = (args, tuple(sorted(kw.items())))
+    def once(name, train, seed=0):
+        key = (name, bool(train), int(seed))
         if key not in made:
-            made[key] = load(*args, **kw)
+            arrays = tuple(np.load(p) for p in saved_arrays(
+                make, root, *key)) if root else make(*key)
+            for a in arrays:
+                a.flags.writeable = False
+            made[key] = arrays
         return made[key]
 
-    datasets.load_arrays = once
+    datasets._synthetic = once
     try:
         yield
     finally:
-        datasets.load_arrays = load
+        datasets._synthetic = make
 
 
 def run_train(argv):
@@ -4875,25 +5194,43 @@ def remat_cost(torch, wrappers) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def cache_bytecode() -> None:
+    """Compile Python sources once for all the processes this script
+    starts. Where the environment says not to write bytecode
+    (``PYTHONDONTWRITEBYTECODE``), every rank and server process would
+    compile torch's sources anew, seconds of each start. The bytecode goes
+    under the package's build directory, beside the kernels; the processes
+    started later inherit the setting through the environment."""
+    pkg = Path(__file__).resolve().parent / "ps_pytorch_tpu_torch"
+    if not pkg.is_dir():
+        return
+    prefix = str(pkg / "build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+
+
+RANK_MODES = {"--rank": rank_main, "--rank-wire": wire_rank_main,
+              "--rank-elect": elect_rank_main,
+              "--rank-shard": shard_rank_main,
+              "--rank-poison": poison_rank_main,
+              "--rank-hier": hier_rank_main,
+              "--rank-lmdist": lmdist_rank_main}
+
+
 def main() -> int:
-    if sys.argv[1:2] == ["--rank"]:
-        return rank_main(sys.argv[2:])
-    if sys.argv[1:2] == ["--rank-wire"]:
-        return wire_rank_main(sys.argv[2:])
-    if sys.argv[1:2] == ["--rank-elect"]:
-        return elect_rank_main(sys.argv[2:])
-    if sys.argv[1:2] == ["--rank-shard"]:
-        return shard_rank_main(sys.argv[2:])
-    if sys.argv[1:2] == ["--rank-poison"]:
-        return poison_rank_main(sys.argv[2:])
-    if sys.argv[1:2] == ["--rank-hier"]:
-        return hier_rank_main(sys.argv[2:])
+    rank_mode = RANK_MODES.get(sys.argv[1] if len(sys.argv) > 1 else "")
+    if rank_mode is not None:
+        with arrays_made_once():
+            return rank_mode(sys.argv[2:])
     if sys.argv[1:] == ["--rank-probe"]:
         return probe_rank_main()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "an NVIDIA card")
+    cache_bytecode()
     import torch.nn.functional as F
     from ps_pytorch_tpu_torch.models import build_model
     from ps_pytorch_tpu_torch.ops import _build
@@ -4912,16 +5249,38 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # The RRC loader's g++ build runs beside the nvcc builds.
-    from ps_pytorch_tpu_torch.data import augment
-    rrc = {}
+    # The RRC loader's g++ build runs beside the nvcc builds, and this
+    # process makes the synthetic sets of the phases meanwhile (the
+    # compilers are processes of their own): once for the whole script,
+    # its ranks included (arrays_made_once).
+    from ps_pytorch_tpu_torch.data import augment, datasets
+    arrays_dir = tempfile.mkdtemp(prefix="chip_smoke_arrays_")
+    atexit.register(shutil.rmtree, arrays_dir, True)
+    os.environ[ARRAYS_ENV] = arrays_dir
+    rrc, nvcc = {}, {}
     t0 = time.monotonic()
-    loader_build = threading.Thread(target=lambda: rrc.update(
-        backend=augment.rrc_backend(), s=time.monotonic() - t0))
-    loader_build.start()
-    took = _build.build()
-    print(f"BUILD nvcc {took} wall {time.monotonic() - t0:.2f} s", flush=True)
-    loader_build.join()
+
+    def kernels_built():
+        try:
+            nvcc["took"] = _build.build()
+        except Exception as e:  # raised in this thread after the join
+            nvcc["error"] = e
+        nvcc["s"] = time.monotonic() - t0
+
+    builds = [threading.Thread(target=lambda: rrc.update(
+        backend=augment.rrc_backend(), s=time.monotonic() - t0)),
+        threading.Thread(target=kernels_built)]
+    for thread in builds:
+        thread.start()
+    with ThreadPoolExecutor(4) as pool:    # numpy draws without the GIL
+        list(pool.map(lambda key: saved_arrays(
+            datasets._synthetic, arrays_dir, *key), PHASE_ARRAYS))
+    for thread in builds:
+        thread.join()
+    if "error" in nvcc:
+        raise nvcc["error"]
+    took = nvcc["took"]
+    print(f"BUILD nvcc {took} wall {nvcc['s']:.2f} s", flush=True)
     if rrc["backend"] != "native":
         fail("the native RRC loader (native/loader.cpp) did not build")
     print(f"BUILD g++ RRC loader {rrc['s']:.2f} s "
@@ -4963,62 +5322,69 @@ def main() -> int:
     # Each path right after the checks of its own kernels, with the
     # allocator's cache emptied between the two: the ResNet steps ran
     # slower when they came after the flash checks.
-    conv = timed(check_conv, torch, F, conv_mod)
-    timed(time_weight_grad, torch, conv_mod)
-    print(f"MEMORY allocated after the conv checks "
-          f"{torch.cuda.memory_allocated()}", flush=True)
-    leaf_sizes = [p.numel() for p in build_model("ResNet18").parameters()]
-    n_params = sum(leaf_sizes)
-    sgd = timed(check_sgd, torch, sgd_mod, n_params)
-    launches = timed(main_path, torch, wrappers)
-    timed(telemetry_main_path, torch, wrappers, launches["median_step_s"])
-    timed(health_on_card, torch)
-    timed(small_step_agrees, torch, conv_mod, "float32")
-    timed(small_step_agrees, torch, conv_mod, "bfloat16")
-    quant = timed(check_quantize, torch, tq, leaf_sizes)
-    async_launches = timed(async_main_path, torch, wrappers, n_params)
-    timed(small_async_tick_agrees, torch, tq)
-    adam = timed(check_adam, torch, adam_mod, n_params)
-    slices = timed(check_zero_slices, torch, sgd_mod, adam_mod, n_params)
-    ckpt_launches = timed(ckpt_main_path, torch, wrappers)
     with arrays_made_once():
+        conv = timed(check_conv, torch, F, conv_mod)
+        timed(time_weight_grad, torch, conv_mod)
+        print(f"MEMORY allocated after the conv checks "
+              f"{torch.cuda.memory_allocated()}", flush=True)
+        leaf_sizes = [p.numel()
+                      for p in build_model("ResNet18").parameters()]
+        n_params = sum(leaf_sizes)
+        sgd = timed(check_sgd, torch, sgd_mod, n_params)
+        launches = timed(main_path, torch, wrappers)
+        timed(telemetry_main_path, torch, wrappers,
+              launches["median_step_s"])
+        timed(health_on_card, torch)
+        timed(small_step_agrees, torch, conv_mod, "float32")
+        timed(small_step_agrees, torch, conv_mod, "bfloat16")
+        quant = timed(check_quantize, torch, tq, leaf_sizes)
+        async_launches = timed(async_main_path, torch, wrappers, n_params)
+        timed(small_async_tick_agrees, torch, tq)
+        adam = timed(check_adam, torch, adam_mod, n_params)
+        slices = timed(check_zero_slices, torch, sgd_mod, adam_mod,
+                       n_params)
+        ckpt_launches = timed(ckpt_main_path, torch, wrappers)
         crash_launches = timed(crash_main_path, torch, wrappers)
         timed(remat_cost, torch, wrappers)
-    torch.cuda.empty_cache()
-    vgg_conv = timed(check_conv_geometries, torch, F, conv_mod, "VGG11",
-                     BATCH, VGG_GEOMETRIES)
-    vgg_launches = timed(vgg_main_path, torch, wrappers)
-    timed(small_vgg_and_stem_steps_agree, torch, conv_mod)
-    r50_conv = timed(check_conv_geometries, torch, F, conv_mod,
-                     "ResNet50_ImageNet", IMAGENET_BATCH, RESNET50_GEOMETRIES)
-    imagenet_launches = timed(imagenet_main_path, torch, wrappers)
-    torch.cuda.empty_cache()
-    timed(gloo_probe)
-    timed(dist_main_path, wrappers)
-    timed(kofn_main_path, wrappers)
-    zero_launches = timed(zero_main_path, wrappers, n_params)
-    timed(wire_int8_bytes_agree, torch, tq)
-    wire_launches = timed(wire_main_path, wrappers)
-    elect_launches = timed(elect_main_path, wrappers)
-    timed(check_zero_wire, torch)
-    shard_launches = timed(shard_main_path, wrappers)
-    shard_slices = timed(shard_slices_leg, torch, wrappers)
-    timed(check_integrity_on_device, torch)
-    poison_launches = timed(poison_main_path, wrappers)
-    timed(check_hier, torch)
-    hier_launches = timed(hier_main_path, wrappers)
-    hier_slices = timed(hier_slices_leg, torch, wrappers)
-    kvrep_launches = timed(kvrep_main_path, wrappers)
-    flash = timed(check_flash, torch, F, fa)
-    torch.cuda.empty_cache()
-    lm_launches = timed(lm_main_path, torch, wrappers)
-    timed(small_lm_step_agrees, torch, fa)
-    torch.cuda.empty_cache()
-    lmckpt = timed(lm_ckpt_main_path, torch, wrappers)
-    torch.cuda.empty_cache()
-    served = timed(serve_main_path, torch, wrappers, lmckpt["served_dir"])
-    acc_lm = timed(accuracy_lm, torch, wrappers)
-    timed(digits_accuracy, torch)
+        torch.cuda.empty_cache()
+        vgg_conv = timed(check_conv_geometries, torch, F, conv_mod,
+                         "VGG11", BATCH, VGG_GEOMETRIES)
+        vgg_launches = timed(vgg_main_path, torch, wrappers)
+        timed(small_vgg_and_stem_steps_agree, torch, conv_mod)
+        r50_conv = timed(check_conv_geometries, torch, F, conv_mod,
+                         "ResNet50_ImageNet", IMAGENET_BATCH,
+                         RESNET50_GEOMETRIES)
+        imagenet_launches = timed(imagenet_main_path, torch, wrappers)
+        torch.cuda.empty_cache()
+        timed(gloo_probe)
+        timed(dist_main_path, wrappers)
+        timed(kofn_main_path, wrappers)
+        zero_launches = timed(zero_main_path, wrappers, n_params)
+        timed(wire_int8_bytes_agree, torch, tq)
+        wire_launches = timed(wire_main_path, wrappers)
+        elect_launches = timed(elect_main_path, wrappers)
+        timed(check_zero_wire, torch)
+        shard_launches = timed(shard_main_path, wrappers)
+        shard_slices = timed(shard_slices_leg, torch, wrappers)
+        timed(check_integrity_on_device, torch)
+        poison_launches = timed(poison_main_path, wrappers)
+        timed(check_hier, torch)
+        hier_launches = timed(hier_main_path, wrappers)
+        hier_slices = timed(hier_slices_leg, torch, wrappers)
+        kvrep_launches = timed(kvrep_main_path, wrappers)
+        flash = timed(check_flash, torch, F, fa)
+        torch.cuda.empty_cache()
+        lm_launches = timed(lm_main_path, torch, wrappers)
+        timed(small_lm_step_agrees, torch, fa)
+        torch.cuda.empty_cache()
+        lmckpt = timed(lm_ckpt_main_path, torch, wrappers)
+        torch.cuda.empty_cache()
+        lmdist = timed(lmdist_main_path, torch, wrappers)
+        torch.cuda.empty_cache()
+        served = timed(serve_main_path, torch, wrappers,
+                       lmckpt["served_dir"])
+        acc_lm = timed(accuracy_lm, torch, wrappers)
+        timed(digits_accuracy, torch)
 
     kernels = [
         dict(name="conv3x3", route="cuda",
@@ -5132,11 +5498,16 @@ def main() -> int:
                  "MAIN-LMCKPT run": lmckpt[name],
                  "MAIN-LMCKPT resumed": lmckpt["resumed"][name],
                  "ACCURACY-LM": acc_lm[name],
-                 "MAIN-SERVE (decode: full attention)": served[name]},
+                 "MAIN-SERVE (decode: full attention)": served[name],
+                 "MAIN-LMDIST pp (a rank, 3 steps)": lmdist["pp"][name],
+                 "MAIN-LMDIST sp and tp (a rank)": lmdist["sp"][name]
+                 + lmdist["tp"][name]},
              tc_launches_by_path={
                  "MAIN-LMCKPT run": lmckpt[f"{name}_tc"],
                  "MAIN-LMCKPT resumed": lmckpt["resumed"][f"{name}_tc"],
-                 "ACCURACY-LM": acc_lm[f"{name}_tc"]})
+                 "ACCURACY-LM": acc_lm[f"{name}_tc"],
+                 "MAIN-LMDIST pp (a rank, 3 steps)":
+                 lmdist["pp"][f"{name}_tc"]})
         for name, line in (("flash_fwd", 95), ("flash_dq", 164),
                            ("flash_dkv", 189))
     ]

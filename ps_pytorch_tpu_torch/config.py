@@ -17,9 +17,11 @@ the CNN trainer and the asynchronous one across processes; and the ops
 plane of the synchronous and LM trainers, see ROADMAP.md), so a field it
 does not run
 raises ``ValueError`` when it is set to anything but its default: it is
-never silently ignored. The LM fields run for ``lm_parallelism="sp"`` on
-one device (``runtime/lm_trainer.py``), with its checkpoints, remat and
-the fault plane's crash and checkpoint corruption.
+never silently ignored. The LM fields run for ``lm_parallelism`` sp, tp
+and pp, on one rank or across ranks (``runtime/lm_trainer.py``), with
+``lm_model_axis``, ``lm_microbatches``, the checkpoints, remat and the
+fault plane's crash and checkpoint corruption; ep and its fields
+(``lm_experts``, ``lm_moe_top_k``) are not ported.
 
 ``donate`` takes ``true`` and ``false`` alike: the JAX step donates its
 input buffers to XLA, while the port's step updates the parameters, the
@@ -213,9 +215,9 @@ class TrainConfig:
         if self.compute_dtype not in ("float32", "bfloat16", "float16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         # The hand-written kernels take f32 and bf16. float16 runs where no
-        # kernel is on the path: --conv-impl xla, and the LM with full
-        # attention (lm_attention "auto" is full on the one device the LM
-        # runs on, runtime/lm_trainer.py).
+        # kernel is on the path: --conv-impl xla, and the LM with full or
+        # ring attention (lm_attention "auto" resolves to one of them,
+        # runtime/lm_trainer.py).
         if self.compute_dtype == "float16" and (
                 self.conv_impl != "xla" and self.network not in LM_NETWORKS
                 or self.network in LM_NETWORKS
@@ -259,14 +261,18 @@ class TrainConfig:
         if self.lm_attention not in ("auto", "full", "flash"):
             raise ValueError(f"unknown lm_attention "
                              f"{self.lm_attention!r} (auto | full | flash)")
-        if self.lm_parallelism != "sp":
-            raise ValueError(f"lm_parallelism={self.lm_parallelism!r} is not "
-                             "ported yet (ROADMAP.md); only sp on one "
-                             "device runs")
+        if self.lm_microbatches < 1:
+            # 0 reaches the pp step as a division by zero.
+            raise ValueError(f"lm_microbatches={self.lm_microbatches} "
+                             "(must be >= 1)")
+        if self.lm_parallelism == "ep":
+            raise ValueError("lm_parallelism='ep' is not ported yet "
+                             "(ROADMAP.md): models/moe.py and parallel/ep.py "
+                             "have no port; sp, tp and pp run")
         if self.mode != "sync" and self.network in LM_NETWORKS:
             raise ValueError(f"mode={self.mode!r} for {self.network} is not "
                              "ported yet (ROADMAP.md); the LM trains in "
-                             "mode 'sync' on one device")
+                             "mode 'sync' (sp, tp or pp)")
         if self.network in LM_NETWORKS:
             # The JAX LMTrainer reads remat and the fault plane's
             # replica_crash and ckpt_corrupt, and none of the other
@@ -665,6 +671,7 @@ PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
     "conv_impl", "log_every", "metrics_file",
     "lm_vocab", "lm_d_model", "lm_layers", "lm_heads", "lm_seq_len",
     "lm_corpus_tokens", "lm_corpus_file", "lm_parallelism", "lm_attention",
+    "lm_model_axis", "lm_microbatches",
 })
 
 
@@ -698,22 +705,6 @@ def several_processes() -> bool:
     """True when the launch contract (``parallel/dist.py``) asks for more
     than one process."""
     return int(os.environ.get("PS_TPU_NUM_PROCESSES", "1") or "1") > 1
-
-
-def refuse_multi_process(what: str) -> None:
-    """Raise when the environment asks for more than one process, by
-    torch's launcher contract (``WORLD_SIZE``) or the JAX package's
-    (``PS_TPU_NUM_PROCESSES``, ``parallel/dist.py``), for a path that runs
-    in one process only (``what``): each process would train a model of
-    its own, unrelated to the others."""
-    for name in ("WORLD_SIZE", "PS_TPU_NUM_PROCESSES"):
-        n = int(os.environ.get(name, "1") or "1")
-        if n > 1:
-            raise ValueError(
-                f"{name}={n}: {what} across several processes is not "
-                "ported yet (ROADMAP.md); each would train its own model. "
-                "Run one process (the CNN trainer runs one process a "
-                "replica, or a slice with --mode async)")
 
 
 def _parse_bool(s: str) -> bool:

@@ -17,9 +17,21 @@ replica 0's unless told otherwise.
 ``state_to_jax``/``state_from_jax`` carry a whole training state across:
 the JAX ``TrainState`` (``parallel/dp.py:36-40``) as the dict that flax
 serializes, with ``opt_state`` in the JAX optimizers' structures.
+
+The LM's sharded layouts, for a params tree or a momentum tree alike (the
+momentum mirrors the parameters):
+
+- tensor parallelism (``parallel/tp.py``): ``tp_shard_from_jax`` maps a
+  JAX TransformerLM tree to one rank's column and row shards,
+  ``tp_shards_to_jax`` every rank's shards back to the tree;
+- the pipeline (``parallel/pp.py``): ``pp_stage_from_jax`` maps the JAX
+  stage-stacked tree (``blocks`` [n_stages, layers_per_stage, ...]) to one
+  stage's blocks and the edges, ``pp_stages_to_jax`` every stage's state
+  back to the stacked tree.
 """
 
-from typing import Dict, Optional, Tuple
+import re
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,7 +180,7 @@ def _stack(trees: list) -> dict:
             for k, v in trees[0].items()}
 
 
-def state_to_jax(model: torch.nn.Module, opt_state, step: int,
+def state_to_jax(model, opt_state, step: int,
                  replica_buffers: Optional[list] = None,
                  opt_tree: Optional[dict] = None) -> dict:
     """The port's training state -> the JAX ``TrainState`` as the dict
@@ -179,15 +191,17 @@ def state_to_jax(model: torch.nn.Module, opt_state, step: int,
     BatchNorm buffers a replica, in replica order). The port's ``flat``
     buffers are not written (the moments are views of them).
     ``opt_tree`` replaces the optimizer state as it is given (the sharded
-    update's layout, ``parallel/zero.py:gather_opt_state``)."""
-    params, stats = to_jax(model.state_dict())
+    update's layout, ``parallel/zero.py:gather_opt_state``). ``model``
+    may be a state dict, which has no buffers (the gathered LM)."""
+    held = isinstance(model, dict)
+    params, stats = to_jax(model if held else model.state_dict())
     opt = opt_tree
     if opt is None:
         opt = {"step": np.asarray(opt_state.step, np.int32)}
         for field in opt_fields(opt_state):
             opt[field] = _moments_to_jax(getattr(opt_state, field))
     stats = _stack([to_jax(b)[1] for b in replica_buffers or [
-        dict(model.named_buffers())]])
+        {} if held else dict(model.named_buffers())]])
     return {"step": np.asarray(step, np.int32), "params": _sorted(params),
             "opt_state": opt, "batch_stats": _sorted(stats)}
 
@@ -204,7 +218,9 @@ def _check_fits(got: Dict[str, torch.Tensor], own: Dict[str, torch.Tensor],
 
 
 def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None,
-                   replica: int = 0) -> Tuple[Optional[tuple], int]:
+                   replica: int = 0,
+                   local: Optional[Callable] = None
+                   ) -> Tuple[Optional[tuple], int]:
     """A JAX ``TrainState`` dict (``state_to_jax``'s layout, or one the
     JAX package wrote: replica ``replica``'s BatchNorm statistics are
     taken, as ``from_jax`` picks them) -> the
@@ -212,9 +228,18 @@ def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None,
     all copied INTO the existing storage (the fused optimizers hold the
     parameters as views of their flat buffer). Everything is checked
     before anything is copied. Returns (the optimizer state with the
-    stored step, or None; the stored training step)."""
+    stored step, or None; the stored training step). ``local(name,
+    tensor)`` gives this rank's part of a whole tensor, or None for a
+    tensor the rank does not hold (a tp shard, a pp stage)."""
     own = model.state_dict()
-    sd = from_jax(tree["params"], tree.get("batch_stats"), replica)
+
+    def part(sd):
+        if local is None:
+            return sd
+        out = {k: local(k, v) for k, v in sd.items()}
+        return {k: v for k, v in out.items() if v is not None}
+
+    sd = part(from_jax(tree["params"], tree.get("batch_stats"), replica))
     _check_fits(sd, own, "model")
     pairs = [(own[k], sd[k]) for k in sd]
     if opt_state is not None:
@@ -231,7 +256,7 @@ def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None,
                     "layout (ZeRO-1, [world, chunk]); resume it with "
                     "--shard-update")
             mine = getattr(opt_state, field) or {}
-            got = from_jax(stored[field]) if stored[field] else {}
+            got = part(from_jax(stored[field])) if stored[field] else {}
             _check_fits(got, mine, field)
             pairs += [(mine[k], got[k]) for k in got]
         opt_state = opt_state._replace(step=int(stored["step"]))
@@ -239,3 +264,89 @@ def state_from_jax(tree: dict, model: torch.nn.Module, opt_state=None,
         for dst, src in pairs:
             dst.copy_(src)
     return opt_state, int(tree["step"])
+
+
+# ---- the LM's sharded layouts ----
+
+# The parameters tensor parallelism shards, and the dimension of the torch
+# tensor it shards (the JAX ``tp.py:_KERNEL_RULES`` in the [out, in]
+# layout): column-parallel kernels and bias along out, row-parallel
+# kernels along in.
+_TP_RULES = ((re.compile(r"Dense_[012]\.weight$"), 0),
+             (re.compile(r"Dense_3\.weight$"), 1),
+             (re.compile(r"Dense_4\.weight$"), 0),
+             (re.compile(r"Dense_5\.weight$"), 1),
+             (re.compile(r"lm_head\.weight$"), 0),
+             (re.compile(r"Dense_4\.bias$"), 0))
+
+
+def tp_shard_dim(name: str) -> Optional[int]:
+    """The dimension of the port's parameter ``name`` that tensor
+    parallelism shards, or None for a replicated one."""
+    for pat, dim in _TP_RULES:
+        if pat.search(name):
+            return dim
+    return None
+
+
+def tp_shard(name: str, full: torch.Tensor, index: int,
+             size: int) -> torch.Tensor:
+    """Rank ``index`` of ``size``'s part of the whole tensor of parameter
+    ``name`` (a view; the whole tensor when it is replicated)."""
+    dim = tp_shard_dim(name)
+    if dim is None:
+        return full
+    chunk = full.shape[dim] // size
+    return full.narrow(dim, index * chunk, chunk)
+
+
+def tp_unshard(name: str, parts: List[torch.Tensor]) -> torch.Tensor:
+    """The whole tensor of parameter ``name`` from every rank's part, in
+    rank order."""
+    dim = tp_shard_dim(name)
+    return parts[0] if dim is None else torch.cat(parts, dim=dim)
+
+
+def tp_shard_from_jax(params: dict, index: int,
+                      size: int) -> Dict[str, torch.Tensor]:
+    """A JAX TransformerLM tree -> rank ``index`` of ``size``'s state dict
+    of column and row shards."""
+    return {name: tp_shard(name, t, index, size).clone()
+            for name, t in from_jax(params).items()}
+
+
+def tp_shards_to_jax(shards: List[Dict[str, torch.Tensor]]) -> dict:
+    """Every rank's shard state dict, in rank order -> the JAX tree."""
+    full = {name: tp_unshard(name, [s[name] for s in shards])
+            for name in shards[0]}
+    return _sorted(to_jax(full)[0])
+
+
+def _pp_stage_names(names, stage: int, n_stages: int, n_layers: int):
+    per = n_layers // n_stages
+    mine = {f"block_{i}" for i in range(stage * per, (stage + 1) * per)}
+    return [k for k in names
+            if not k.startswith("block_") or k.split(".")[0] in mine]
+
+
+def pp_stage_from_jax(pp_params: dict, stage: int
+                      ) -> Dict[str, torch.Tensor]:
+    """A JAX stage-stacked tree -> stage ``stage``'s state dict: its
+    blocks under their global names (``block_{i}``) and the edges
+    (``tok_embed``, ``pos_embed``, ``ln_f``, ``lm_head``)."""
+    from ps_pytorch_tpu_torch.parallel.pp import unstack_stage_params
+    n_stages = next(_walk(pp_params["blocks"]))[1].shape[0]
+    plain = unstack_stage_params(pp_params)
+    n_layers = sum(k.startswith("block_") for k in plain)
+    sd = from_jax(plain)
+    return {k: sd[k] for k in _pp_stage_names(sd, stage, n_stages, n_layers)}
+
+
+def pp_stages_to_jax(stages: List[Dict[str, torch.Tensor]]) -> dict:
+    """Every stage's state dict, in stage order -> the JAX stage-stacked
+    tree (the edges from stage 0)."""
+    from ps_pytorch_tpu_torch.parallel.pp import stack_stage_params
+    full = dict(stages[0])
+    for sd in stages[1:]:
+        full.update({k: v for k, v in sd.items() if k.startswith("block_")})
+    return stack_stage_params(_sorted(to_jax(full)[0]), len(stages))

@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: the JAX package's ``models/transformer.py``
 (``Block``, ``TransformerLM``, ``cached_attention`` and
-``migrate_packed_qkv``) on one device.
+``migrate_packed_qkv``).
 
 Submodule and parameter names follow the flax tree, so ``models/convert.py``
 maps weights mechanically: ``tok_embed`` and ``pos_embed`` (``embedding``),
@@ -15,12 +15,18 @@ kept here:
 
 Parameters and activations are f32 (the LM trainer passes no dtype), and
 logits come out in f32. ``attention_impl`` is ``full`` (materialises
-[S, S]) or ``flash`` (the hand-written kernels, ``ops/flash_attention.py``).
+[S, S]), ``flash`` (the hand-written kernels, ``ops/flash_attention.py``)
+or ``ring`` (the sequence sharded over the ranks of ``axis``, a grid axis
+of ``parallel/mesh.py``: ``parallel/ring.py:ring_attention``, the JAX
+``attention_impl="ring"`` bound to its ``axis_name``).
 
 ``remat`` recomputes each block's interior in the backward
 (``torch.utils.checkpoint``, the JAX ``nn.remat(Block)``): the backward
 keeps the block boundaries only, and under ``flash`` the recompute
-launches the forward kernel again. Decoding passes a ``DecodeCache``: a
+launches the forward kernel again; under ``ring`` the recompute runs the
+block's hops again, on every rank, to the end of the block (early stop
+off: a rank whose skipped blocks need fewer saved tensors would otherwise
+stop before a hop its neighbour waits on). Decoding passes a ``DecodeCache``: a
 fixed-length k/v cache a block (``cached_attention``), plain torch as the
 JAX decode path is ``jnp`` outside any Pallas kernel. Neither changes the
 parameters, so any checkpoint trains with remat and decodes as it is.
@@ -31,13 +37,13 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ps_pytorch_tpu_torch.models.layers import Linear, lecun_normal_
 from ps_pytorch_tpu_torch.ops.flash_attention import flash_attention
-from ps_pytorch_tpu_torch.parallel.ring import full_attention
+from ps_pytorch_tpu_torch.parallel.ring import full_attention, ring_attention
 
-ATTENTION_IMPLS = ("full", "flash")
+ATTENTION_IMPLS = ("full", "flash", "ring")
 
 
 class Embed(nn.Module):
@@ -162,7 +168,7 @@ class Block(nn.Module):
 
     def __init__(self, n_heads: int, d_model: int,
                  attention_impl: str = "full",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, axis=None):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {attention_impl!r} is not "
@@ -172,7 +178,11 @@ class Block(nn.Module):
             raise ValueError(f"d_model {d_model} not divisible by "
                              f"{n_heads} heads")
         d, f32 = d_model, torch.float32
+        if attention_impl == "ring" and axis is None:
+            raise ValueError("attention_impl='ring' needs the grid axis "
+                             "the sequence is sharded over")
         self.n_heads, self.attention_impl = n_heads, attention_impl
+        self.axis = axis
         self.LayerNorm_0 = LayerNorm(d)
         self.Dense_0 = Linear(d, d, f32, generator, bias=False)     # q
         self.Dense_1 = Linear(d, d, f32, generator, bias=False)     # k
@@ -195,6 +205,8 @@ class Block(nn.Module):
                                             self.Dense_2))
         if cache is not None:
             o = cached_attention(q, k, v, cache)
+        elif self.attention_impl == "ring":
+            o = ring_attention(q, k, v, self.axis, causal=True)
         else:
             attend = flash_attention if self.attention_impl == "flash" \
                 else full_attention
@@ -209,7 +221,7 @@ class TransformerLM(nn.Module):
                  n_heads: int = 4, d_model: int = 128,
                  max_seq_len: int = 2048, attention_impl: str = "full",
                  generator: Optional[torch.Generator] = None,
-                 remat: bool = False):
+                 remat: bool = False, axis=None):
         super().__init__()
         self.vocab_size, self.n_layers = vocab_size, n_layers
         self.attention_impl, self.remat = attention_impl, remat
@@ -217,7 +229,8 @@ class TransformerLM(nn.Module):
         self.pos_embed = Embed(max_seq_len, d_model, generator)
         for i in range(n_layers):
             self.add_module(f"block_{i}", Block(n_heads, d_model,
-                                                attention_impl, generator))
+                                                attention_impl, generator,
+                                                axis))
         self.ln_f = LayerNorm(d_model)
         self.lm_head = Linear(d_model, vocab_size, torch.float32, generator,
                               bias=False)
@@ -237,7 +250,10 @@ class TransformerLM(nn.Module):
         remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.n_layers):
             block = getattr(self, f"block_{i}")
-            if remat:
+            if remat and self.attention_impl == "ring":
+                with set_checkpoint_early_stop(False):
+                    x = checkpoint(block, x, use_reentrant=False)
+            elif remat:
                 x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x, cache.blocks[i] if cache is not None else None)

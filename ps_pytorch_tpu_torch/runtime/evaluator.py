@@ -71,7 +71,8 @@ class Evaluator:
             raise ValueError(
                 "an LM checkpoint evaluated over several devices is "
                 "sequence-sharded (ring attention) in the JAX evaluator, "
-                "which is not ported yet (ROADMAP.md); run the evaluator "
+                "whose launch across processes is not ported yet "
+                "(ROADMAP.md); run the evaluator "
                 "as one process")
         self.model, self._lm_loss = build_lm_oracle(cfg, self.device)
         self._lm_opt_state = build_lm_template(cfg, self.model)

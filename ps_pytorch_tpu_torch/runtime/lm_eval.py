@@ -5,10 +5,12 @@ the standalone evaluator (``EVAL_LM``) and ``generate.py``: the
 full-attention ``TransformerLM`` of the checkpoint's geometry, its loss
 ``logits[:, :-1]`` against ``tokens[:, 1:]``, and the perplexity clamp.
 The checkpoint's config is self-describing (``network``, the LM fields).
-
-MoE checkpoints (``MoETransformerLM``) and pipeline-parallel ones
-(``lm_parallelism="pp"``, stage-stacked blocks) raise: those model
-families are not ported (ROADMAP.md).
+A pipeline-parallel checkpoint (``lm_parallelism="pp"``) stores its
+blocks stage-stacked; ``restore_lm`` unstacks them, and the momentum,
+into the plain model (``parallel/pp.py:plain_state_tree``, the JAX
+``unstack_stage_params`` of ``lm_eval.py:55-62, 97-99``). A tensor-parallel
+checkpoint is written whole. MoE checkpoints (``MoETransformerLM``) raise:
+that model family is not ported (ROADMAP.md).
 """
 
 from typing import Callable, Optional, Tuple
@@ -23,6 +25,7 @@ from ps_pytorch_tpu_torch.models.transformer import (
 )
 from ps_pytorch_tpu_torch.optim import SGD, build_schedule
 from ps_pytorch_tpu_torch.optim.sgd import SGDState
+from ps_pytorch_tpu_torch.parallel.pp import plain_state_tree
 
 
 def perplexity(loss: float) -> float:
@@ -40,9 +43,11 @@ def _refuse_unported(cfg) -> None:
     if cfg.network == "MoETransformerLM":
         raise ValueError("MoETransformerLM checkpoints are not ported yet "
                          "(ROADMAP.md): models/moe.py has no port")
-    if cfg.lm_parallelism == "pp":
-        raise ValueError("pp checkpoints (stage-stacked blocks) are not "
-                         "ported yet (ROADMAP.md)")
+    if cfg.lm_parallelism == "pp" and cfg.lm_model_axis <= 0:
+        raise ValueError(
+            "pp checkpoint config has unresolved lm_model_axis=0 "
+            "(written before stage counts were recorded) — evaluate "
+            "in-trainer or pass the stage count explicitly")
 
 
 def build_lm_oracle(cfg, device="cpu"
@@ -75,20 +80,23 @@ def build_lm_template(cfg, model: TransformerLM) -> SGDState:
     return opt.init(dict(model.named_parameters()))
 
 
-def restore_lm(tree: dict, model: TransformerLM,
-               opt_state: Optional[SGDState] = None,
-               step: Optional[int] = None) -> Tuple[Optional[SGDState], int]:
-    """``state_from_jax`` of an LM checkpoint's tree; a tree in the
-    layout before the q/k/v split that does not fit is migrated
-    (``migrate_packed_qkv``) and put in again, as the JAX
-    ``load_checkpoint(..., migrate=...)`` does."""
+def restore_lm(tree: dict, model, opt_state: Optional[SGDState] = None,
+               step: Optional[int] = None,
+               local=None) -> Tuple[Optional[SGDState], int]:
+    """``state_from_jax`` of an LM checkpoint's tree (a pp tree
+    unstacked first) into ``model``, a ``TransformerLM`` or a rank's part
+    of one (``local``: ``state_from_jax``'s); a tree in the layout before
+    the q/k/v split that does not fit is migrated (``migrate_packed_qkv``)
+    and put in again, as the JAX ``load_checkpoint(..., migrate=...)``
+    does."""
+    tree = plain_state_tree(tree)
     try:
-        return state_from_jax(tree, model, opt_state)
+        return state_from_jax(tree, model, opt_state, local=local)
     except (ValueError, KeyError):
         migrated, n_changed = migrate_packed_qkv(tree)
         if not n_changed:
             raise
-        out = state_from_jax(migrated, model, opt_state)
+        out = state_from_jax(migrated, model, opt_state, local=local)
         at = "" if step is None else f" at step {step}"
         print(f"[ckpt] migrated legacy checkpoint layout{at} "
               f"({n_changed} tree nodes rewritten)")

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ps_pytorch_tpu_torch.models.convert import state_from_jax
+from ps_pytorch_tpu_torch.parallel.pp import plain_state_tree
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 
 
@@ -26,12 +27,14 @@ def restore_params(tree: dict, template: Any,
     """A checkpoint's tree -> the weights to serve, a ``state_dict`` of
     host tensors: the tree is restored into ``template`` (a staging
     ``TransformerLM`` and its optimizer state, or the model alone; see
-    ``CheckpointWatcher``), which checks every name and shape; a tree that
-    does not fit is rewritten by ``migrate`` and restored again when
+    ``CheckpointWatcher``), which checks every name and shape; a pp tree's
+    stage-stacked blocks are unstacked first (``parallel/pp.py``); a tree
+    that does not fit is rewritten by ``migrate`` and restored again when
     ``migrate`` changed something, as the JAX ``load_checkpoint(...,
     migrate=...)`` does."""
     model, opt_state = template if isinstance(template, tuple) \
         else (template, None)
+    tree = plain_state_tree(tree)
     try:
         state_from_jax(tree, model, opt_state)
     except (ValueError, KeyError):

@@ -18,7 +18,8 @@ asynchronously in one process (``runtime/multislice.py``) and prints
 one slice a process (``runtime/async_trainer.py``: gradients cross between
 processes as armoured bytes over the group's TCPStore, process 0 is the PS
 leader) and prints ``ASYNC process-slices <n> x 1 devices``. The LM
-refuses a launch of several processes (ROADMAP.md). With
+trains across processes through ``python -m
+ps_pytorch_tpu_torch.train_lm``. With
 ``--auto-resume N`` a synchronous run that crashes (an injected
 ``replica_crash`` of ``--fault-spec``, or any exception) is rebuilt from
 its newest valid checkpoint, up to N times, printing ``CRASH ...``.

@@ -55,13 +55,12 @@ def test_a_launch_of_several_processes_raises_before_a_model_is_built(
     for name in ("WORLD_SIZE", "PS_TPU_NUM_PROCESSES", "PS_TPU_COORDINATOR"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(var, "2")
-    # The CNN trainer runs one process a replica (sync) or a slice
-    # (async): it asks for the rest of the launch contract; the LM runs in
-    # one process only.
+    # Every trainer runs one process a rank (the CNN trainer a replica or
+    # a slice, the LM a place of its grid): each asks for the rest of the
+    # launch contract.
     match = {"WORLD_SIZE": "WORLD_SIZE=2.*tools.launch",
              "PS_TPU_NUM_PROCESSES":
-             "PS_TPU_NUM_PROCESSES=2 without PS_TPU_COORDINATOR"}[var] \
-        if entry != "train_lm" else f"{var}=2.*ROADMAP.md"
+             "PS_TPU_NUM_PROCESSES=2 without PS_TPU_COORDINATOR"}[var]
     out = io.StringIO()
     with pytest.raises(ValueError, match=match):
         with redirect_stdout(out):
