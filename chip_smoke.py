@@ -116,7 +116,7 @@ exit and no result line, if any phase fails:
    checkpoint under load and a SIGTERM drain; two replicas behind the
    router, one SIGKILLed by ``replica_kill``, every request answered),
    and before MAIN-SERVE the same model across two gloo ranks sharing the
-   card, one launch of three runs (MAIN-LMDIST, ``--rank-lmdist``:
+   card, one launch of four runs (MAIN-LMDIST, ``--rank-lmdist``:
    ``train_lm.run`` with ``--lm-parallelism sp`` over both ranks on ring
    attention, ``tp`` over the model axis, and ``pp`` of 2 stages x 4
    microbatches on the flash kernels under remat, 3 steps and a
@@ -124,7 +124,16 @@ exit and no result line, if any phase fails:
    0 alone writing, the bytes each rank hands gloo a step equal to the
    shapes' count, pp's flash launches those of its schedule,
    ``evaluate.main`` scoring pp's stage-stacked checkpoint, each run's
-   step-1 loss and step-2 parameters held against the one-rank LM).
+   step-1 loss and step-2 parameters held against the one-rank LM; and
+   as a fourth run the MoE LM of the JAX ``moe_lm_2k`` row, 8 experts a
+   block, with ``--lm-parallelism ep``, its experts sharded over the two
+   ranks and its tokens crossing by all-to-all (MAIN-MOE: the bytes a
+   step, the flash launches, step 1 and step 2 against the one-rank MoE
+   in two capacity groups, ``evaluate.main`` against the one-group
+   full-attention oracle, greedy ``generate.main`` against the full
+   forward's argmax in one capacity group a token); its ranks also probe
+   that gloo all-reduces a CUDA tensor between two ranks on the card
+   (PROBE-GLOO, a launch of its own until MAIN-MOE needed the time).
    After MAIN-CKPT, the same ResNet-18 through ``train.main``
    with a crash, a corrupted checkpoint and KV drops under
    ``--auto-resume 2`` (MAIN-CRASH: the resume past the corrupt checkpoint
@@ -406,9 +415,11 @@ SHARD_SLICE_ARGS = ("--mode", "async", "--async-slices", "2", "--shard-wire",
 # screen comes about once a version, and the quarantine (3 strikes) and
 # readmission (3 clean screens) each take ~3-4 versions. The window of 40
 # steps spans ~9-13 versions (a follower takes 3-4.6 steps a leader tick),
-# so the readmission comes by version ~20 of 28, and the bit-flips still
-# fail ~8 reads a run.
-POISON_STEPS = 28
+# so the readmission comes by version ~20, and the bit-flips still fail
+# ~8 reads a run. On the card it came at version 15 in both runs that
+# measured it, so 24 versions (28 until MAIN-MOE needed the time) leave
+# nine to spare.
+POISON_STEPS = 24
 POISON_WINDOW = 40
 POISON_SPEC = (f"grad_poison:scale=1e38,r=2,step=3,steps={POISON_WINDOW};"
                "payload_bitflip:p=0.002,seed=11,prefix=async-42/agrad")
@@ -477,8 +488,9 @@ LMCKPT_RESUMED = 6
 LM_FINAL_BATCHES = 6
 LMCKPT_NEW = 64
 # MAIN-LMDIST: the LM path's model as two gloo ranks sharing the card
-# (NCCL refuses two ranks on one device), one launch, three runs in one
-# process group: sp over both ranks (ring attention, 1024 tokens a rank),
+# (NCCL refuses two ranks on one device), one launch, four runs in one
+# process group (the fourth is MAIN-MOE, below), first sp over both ranks
+# (ring attention, 1024 tokens a rank),
 # tp over the model axis, and pp of 2 stages x 4 microbatches with its
 # stages on the flash kernels under remat. Each run takes 3 steps and a
 # checkpoint at 3; its step-1 loss and its parameters after 2 steps
@@ -488,14 +500,28 @@ LMCKPT_NEW = 64
 LMDIST_STEPS = 3
 LMDIST_HELD = 2
 LMDIST_MICRO = 4
+# MAIN-MOE is the fourth run: the JAX bench_suite.py row moe_lm_2k
+# (bench_suite.py:341-391, 1491), the LM above with 8 switch experts in
+# every block (top-1, capacity factor 1.25), ep over both ranks; its
+# reference is the one-rank MoE in two capacity groups, the exact oracle
+# of tests/test_ep.py:114-158, held at that test's tolerances. Then
+# evaluate.main and greedy generate.main of MOE_NEW tokens on its
+# checkpoint (moe_checks).
+MOE_EXPERTS = 8
+MOE_FLAGS = ("--lm-parallelism", "ep", "--lm-experts", str(MOE_EXPERTS),
+             "--lm-attention", "flash")
+MOE_NEW = 32
 LMDIST_RUNS = (
-    ("sp", ("--lm-parallelism", "sp", "--lm-attention", "auto"), "full"),
+    ("sp", ("--lm-parallelism", "sp", "--lm-attention", "auto"),
+     ("--lm-attention", "full")),
     ("tp", ("--lm-parallelism", "tp", "--lm-model-axis", "2",
-            "--lm-attention", "full"), "full"),
+            "--lm-attention", "full"), ("--lm-attention", "full")),
     ("pp", ("--lm-parallelism", "pp", "--lm-model-axis", "2",
             "--lm-microbatches", str(LMDIST_MICRO), "--lm-attention",
-            "flash", "--remat"), "flash"))
+            "flash", "--remat"), ("--lm-attention", "flash")),
+    ("ep", MOE_FLAGS, MOE_FLAGS))
 LMDIST_LOSS_TOL, LMDIST_RTOL, LMDIST_ATOL = 2e-5, 2e-4, 2e-5
+LMDIST_TOLS = {"ep": (2e-5, 5e-4, 5e-5)}
 # MAIN-SERVE: MAIN-LMCKPT's checkpoints of the full-width LM served
 # (nothing new is trained). In process, 16 requests with prompts of 16 to
 # 512 tokens and 32 new tokens each (64 until MAIN-LMDIST took the time),
@@ -2335,12 +2361,15 @@ def lmdist_rank_main(argv) -> int:
 
     out_dir, argv = argv[0], argv[1:]
     wrappers = kernel_wrappers()
-    saves, rec = [], {}
+    saves, rec, probed = [], {}, []
     save_checkpoint = ckpt.save_checkpoint
 
     def counted(train_dir, step, *args, **kw):
         saves.append(step)
-        return save_checkpoint(train_dir, step, *args, **kw)
+        t0 = time.monotonic()
+        path = save_checkpoint(train_dir, step, *args, **kw)
+        rec["save_s"] = round(time.monotonic() - t0, 3)
+        return path
 
     ckpt.save_checkpoint = counted
     cls = lm_trainer.LMTrainer
@@ -2358,13 +2387,19 @@ def lmdist_rank_main(argv) -> int:
         rec.update(losses=[], step_bytes=[])
         zero_counts(wrappers)
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
         trainer, result = train_lm.run(part)
+        run_s = time.monotonic() - t0
+        if not probed:
+            probe_all_reduce()
+            probed.append(True)
         print("LMDIST " + json.dumps({
+            "run_s": round(run_s, 3),
             "rank": trainer.rank, "mode": trainer.mode,
             "attention": trainer.model.attention_impl,
             "launches": read_counts(wrappers), "saves": saves,
             "losses": rec["losses"], "step_bytes": rec["step_bytes"],
-            "step_times": trainer.step_times,
+            "save_s": rec.get("save_s"), "step_times": trainer.step_times,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "eval": result}), flush=True)
         return trainer
@@ -2382,13 +2417,24 @@ def lmdist_step_bytes(mode: str) -> int:
     and two backward, the one in front of ``lm_head`` backward, the
     vocab-parallel cross-entropy's row max and its two row sums; pp (2
     stages, data 1), a [B/M, S, d] activation or its gradient a
-    microbatch, the edges' gradients over both ranks and the loss."""
+    microbatch, the edges' gradients over both ranks and the loss; ep
+    (MAIN-MOE), two all-to-alls of the [E, C, d] slot buffer a layer
+    forward and two backward (C the capacity of a rank's B/2 x S tokens),
+    the replicated gradients (all but the experts) and the loss and aux
+    sums."""
+    from ps_pytorch_tpu_torch.models.moe import capacity
+
     flags = dict(zip(LM_ARGS[::2], LM_ARGS[1::2]))
     d, heads, vocab, layers, b, s = (int(flags[f"--{k}"]) for k in (
         "lm-d-model", "lm-heads", "lm-vocab", "lm-layers", "batch-size",
         "lm-seq-len"))
     block = 4 * d * d + 2 * (d * 4 * d) + 4 * d + d + 2 * 2 * d
     edges = vocab * d + s * d + 2 * d + vocab * d
+    if mode == "ep":
+        slots = MOE_EXPERTS * capacity(1, b // 2 * s, MOE_EXPERTS, 1.25)
+        replicated = edges + layers * (4 * d * d + 2 * 2 * d
+                                       + d * MOE_EXPERTS)
+        return layers * 4 * slots * d * 4 + replicated * 4 + 8
     params = edges + layers * block
     rows = b * (s - 1)
     if mode == "sp":
@@ -2403,18 +2449,22 @@ def lmdist_step_bytes(mode: str) -> int:
 
 def lmdist_main_path(torch, wrappers) -> dict:
     """MAIN-LMDIST: the LM path's model (LM_ARGS) as two gloo ranks on the
-    card through the launcher, one launch, three runs (LMDIST_RUNS): sp
-    over both ranks (ring attention), tp, and pp of 2 stages x 4
-    microbatches on the flash kernels with remat. Fails unless every run
-    prints the same FINAL line on both ranks; rank 0 alone commits the
-    step-3 checkpoint; the bytes each rank hands gloo a step are the
-    shapes' count; pp launches the flash kernels as its schedule says
-    (per rank per step: forward layers_per_stage x M, doubled under remat,
-    dq and dk/dv layers_per_stage x M) and sp and tp none;
-    ``evaluate.main --once 3`` scores pp's stage-stacked checkpoint to its
-    FINAL loss; and each run's step-1 loss and step-2 parameters agree
-    with the one-rank LM's. Prints each mode's median step, bytes a step,
-    peak memory and the largest differences."""
+    card through the launcher, one launch, four runs (LMDIST_RUNS): sp
+    over both ranks (ring attention), tp, pp of 2 stages x 4 microbatches
+    on the flash kernels with remat, and MAIN-MOE, the MoE LM under ep on
+    the flash kernels. Fails unless every run prints the same FINAL line
+    on both ranks; rank 0 alone commits the step-3 checkpoint; the bytes
+    each rank hands gloo a step are the shapes' count; pp and ep launch
+    the flash kernels as their schedules say (pp per rank per step:
+    forward layers_per_stage x M, doubled under remat, dq and dk/dv
+    layers_per_stage x M; ep a layer a step each, and the forward again a
+    layer for each batch of the FINAL evaluation, which keeps flash) and
+    sp and tp none; ``evaluate.main --once 3`` scores pp's stage-stacked
+    checkpoint to its FINAL loss; each run's step-1 loss and step-2
+    parameters agree with the one-rank model's (for ep the one-rank MoE in
+    two capacity groups); and MAIN-MOE's checks (``moe_checks``). Prints
+    each mode's median step, bytes a step, peak memory and the largest
+    differences."""
     from ps_pytorch_tpu_torch import evaluate
     from ps_pytorch_tpu_torch.config import config_from_args
     from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
@@ -2434,6 +2484,7 @@ def lmdist_main_path(torch, wrappers) -> dict:
         t0 = time.monotonic()
         logs = launch_ranks(root, 2, argv, "MAIN-LMDIST")
         wall = time.monotonic() - t0
+        gloo_probe(logs)
         recs = {}
         for r, log in enumerate(logs):
             sections = run_sections(log, "LM mesh")
@@ -2447,9 +2498,9 @@ def lmdist_main_path(torch, wrappers) -> dict:
                          "or no FINAL line")
                 recs.setdefault(mode, []).append(
                     dict(json.loads(found[0]), final=final[0]))
-        per = int(dict(zip(LM_ARGS[::2], LM_ARGS[1::2]))["--lm-layers"]) // 2
+        per = LM_LAYERS // 2
         out = {}
-        for mode, _, ref_impl in LMDIST_RUNS:
+        for mode, _, _ in LMDIST_RUNS:
             a, b = recs[mode]
             if a["final"] != b["final"]:
                 fail(f"MAIN-LMDIST {mode}: FINAL differs across ranks "
@@ -2465,9 +2516,13 @@ def lmdist_main_path(torch, wrappers) -> dict:
                 fail(f"MAIN-LMDIST {mode}: bytes a step {a['step_bytes']} /"
                      f" {b['step_bytes']}, the shapes count {want_bytes}")
             fwd = per * LMDIST_MICRO * LMDIST_STEPS
-            want = want_counts(wrappers, **(dict(
-                flash_fwd=2 * fwd, flash_dq=fwd, flash_dkv=fwd)
-                if mode == "pp" else {}))
+            moe = LM_LAYERS * LMDIST_STEPS
+            want = want_counts(wrappers, **(
+                dict(flash_fwd=2 * fwd, flash_dq=fwd, flash_dkv=fwd)
+                if mode == "pp" else dict(
+                    flash_fwd=moe + LM_LAYERS * LM_FINAL_BATCHES,
+                    flash_dq=moe, flash_dkv=moe)
+                if mode == "ep" else {}))
             for rec in (a, b):
                 if rec["launches"] != want:
                     fail(f"MAIN-LMDIST {mode} rank {rec['rank']}: launches "
@@ -2483,55 +2538,163 @@ def lmdist_main_path(torch, wrappers) -> dict:
                 abs(float(m.group(2)) - pp_final) > 1e-5:
             fail(f"MAIN-LMDIST: EVAL_LM of pp's checkpoint "
                  f"{m and m.group(0)} against its FINAL {pp_final}")
-        # The one-rank LM on the same weights and batches, once an
-        # attention kernel.
-        refs = {}
-        for impl in sorted({impl for _, _, impl in LMDIST_RUNS}):
+        moe = moe_checks(torch, wrappers, f"{root}/ep")
+        # The one-rank model on the same weights and batches, once a
+        # reference (ep's in two capacity groups, one a rank).
+        refs, ref_s = {}, {}
+        for ref_flags in dict.fromkeys(flags for _, _, flags in LMDIST_RUNS):
+            t0 = time.monotonic()
             torch.cuda.empty_cache()
             ref = LMTrainer(config_from_args(
-                [*LM_ARGS, "--lm-attention", impl, "--resume", "false",
+                [*LM_ARGS, *ref_flags, "--resume", "false",
                  "--eval-freq", "0", "--train-dir", f"{root}/ref"]),
                 device="cuda", printer=lambda line: None)
-            refs[impl] = ([float(ref.step_fn(ref.train_loader.next_batch())
-                                 ["loss"]) for _ in range(LMDIST_HELD)],
-                          {k: v.detach().cpu()
-                           for k, v in ref.model.state_dict().items()})
+            for mlp in getattr(ref.model, "moe_layers", list)():
+                mlp.n_groups = 2
+            refs[ref_flags] = (
+                [float(ref.step_fn(ref.train_loader.next_batch())["loss"])
+                 for _ in range(LMDIST_HELD)],
+                {k: v.detach().cpu()
+                 for k, v in ref.model.state_dict().items()})
             del ref
-        for mode, _, ref_impl in LMDIST_RUNS:
-            losses, want = refs[ref_impl]
+            ref_s[ref_flags] = time.monotonic() - t0
+        for mode, _, ref_flags in LMDIST_RUNS:
+            losses, want = refs[ref_flags]
+            loss_tol, rtol, atol = LMDIST_TOLS.get(
+                mode, (LMDIST_LOSS_TOL, LMDIST_RTOL, LMDIST_ATOL))
             got = torch.load(f"{root}/{mode}_held.pt")
             rec = out[mode]
             loss_diff = abs(rec["losses"][0] - losses[0])
-            if set(got) != set(want) or loss_diff > LMDIST_LOSS_TOL * (
+            if set(got) != set(want) or loss_diff > loss_tol * (
                     1 + abs(losses[0])):
                 fail(f"MAIN-LMDIST {mode}: step-1 loss {rec['losses'][0]} "
                      f"against the one-rank {losses[0]}")
             worst = max((got[k] - want[k]).abs().max().item() for k in got)
             for k in got:
-                if not torch.allclose(got[k], want[k], rtol=LMDIST_RTOL,
-                                      atol=LMDIST_ATOL):
+                if not torch.allclose(got[k], want[k], rtol=rtol, atol=atol):
                     fail(f"MAIN-LMDIST {mode}: {k} after {LMDIST_HELD} "
-                         f"steps differs from the one-rank LM by "
+                         f"steps differs from the one-rank model by "
                          f"{(got[k] - want[k]).abs().max().item():.3e}")
             a, b = recs[mode]
-            print(f"MAIN-LMDIST {mode} 2 gloo ranks attention "
-                  f"{rec['attention']}: median step "
+            print(f"{'MAIN-MOE' if mode == 'ep' else 'MAIN-LMDIST'} {mode} "
+                  f"2 gloo ranks attention {rec['attention']}: median step "
                   f"{np.median(a['step_times']):.4f} / "
                   f"{np.median(b['step_times']):.4f} s (steps "
                   f"{a['step_times']} / {b['step_times']}); bytes a rank a "
                   f"step {a['step_bytes'][0]} / {b['step_bytes'][0]}; peak "
                   f"{a['peak_bytes']} / {b['peak_bytes']} B; {a['final']}; "
                   f"step-1 loss {rec['losses'][0]!r} vs one-rank "
-                  f"{ref_impl} {losses[0]!r} (|diff| {loss_diff:.3e}); max "
-                  f"|param diff| after {LMDIST_HELD} steps {worst:.3e}; "
-                  f"launches {flash_by_kind(a['launches'])} / "
-                  f"{flash_by_kind(b['launches'])}; card {card}", flush=True)
+                  f"{' '.join(ref_flags[1::2])} {losses[0]!r} (|diff| "
+                  f"{loss_diff:.3e}); max |param diff| after {LMDIST_HELD} "
+                  f"steps {worst:.3e}; launches {flash_by_kind(a['launches'])}"
+                  f" / {flash_by_kind(b['launches'])}; run_s {a['run_s']} / "
+                  f"{b['run_s']}; reference_s {ref_s[ref_flags]:.2f}; card "
+                  f"{card}", flush=True)
         print(f"MAIN-LMDIST EVAL_LM of pp's stacked checkpoint "
               f"{m.group(0)}; launch_wall_s {wall:.2f}; card {card}",
               flush=True)
+        print(f"MAIN-MOE checkpoint_bytes {moe['bytes']} save_s "
+              f"{out['ep']['save_s']} (rank 0); run_s "
+              f"{out['ep']['run_s']} (rank 0, train_lm.run); checks_s "
+              f"{moe['s']:.2f}; "
+              f"{moe['eval']} vs the one-group full-attention oracle "
+              f"{moe['oracle']!r} (|diff| {moe['eval_diff']:.3e}); greedy "
+              f"{MOE_NEW} tokens equal the full forward's argmax in one "
+              f"capacity group a token (min top-2 gap {moe['gap']:.3e}); "
+              f"card {card}", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {mode: recs[mode][0]["launches"] for mode, _, _ in LMDIST_RUNS}
+
+
+def moe_checks(torch, wrappers, td: str) -> dict:
+    """MAIN-MOE's checkpoint through the entry points: ``evaluate.main
+    --once 3`` prints a finite EVAL_LM equal at 1e-4 to the mean
+    next-token loss of the validation batches under the one-group,
+    full-attention MoE computed here; greedy ``generate.main`` of
+    MOE_NEW tokens equals the argmax of the full forward over each
+    prefix in one capacity group a token (decode's grouping, so nothing
+    drops). Neither launches a kernel (full attention, plain decode)."""
+    import torch.nn.functional as F
+
+    from ps_pytorch_tpu_torch import evaluate, generate
+    from ps_pytorch_tpu_torch.config import checkpoint_config
+    from ps_pytorch_tpu_torch.data.text import TokenLoader, lm_streams
+    from ps_pytorch_tpu_torch.models import generate as gen_mod
+    from ps_pytorch_tpu_torch.models.moe import MoETransformerLM
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.runtime.lm_eval import restore_lm
+
+    t0 = time.monotonic()
+    step = LMDIST_STEPS
+    nbytes = sum(f.stat().st_size
+                 for f in Path(ckpt.checkpoint_path(td, step)).iterdir())
+    zero_counts(wrappers)
+    printed = run_entry(evaluate.main, ["--train-dir", td, "--once",
+                                        str(step), "--device", "cuda"])
+    m = EVAL_LM_RE.search(printed)
+    with open(f"{ckpt.checkpoint_path(td, step)}/config.json") as f:
+        cfg = checkpoint_config(f.read())
+    with torch.device("cuda"):      # drawn on the card, then overwritten
+        model = MoETransformerLM(
+            vocab_size=cfg.lm_vocab, n_layers=cfg.lm_layers,
+            n_heads=cfg.lm_heads, d_model=cfg.lm_d_model,
+            n_experts=cfg.lm_experts, top_k=cfg.lm_moe_top_k,
+            max_seq_len=cfg.lm_seq_len)
+    ckpt.load_checkpoint(td, step, lambda tree: restore_lm(tree, model))
+    _, val = lm_streams(cfg)
+    losses = []
+    with torch.no_grad():
+        for tokens in TokenLoader(val, cfg.batch_size, cfg.lm_seq_len,
+                                  seed=0, shuffle=False).epoch(0):
+            t = torch.as_tensor(tokens).cuda().long()
+            logits, _ = model(t)
+            losses.append(float(F.cross_entropy(
+                logits[:, :-1].reshape(-1, cfg.lm_vocab),
+                t[:, 1:].reshape(-1))))
+    oracle = sum(losses) / len(losses)
+    if not m or int(m.group(1)) != step or \
+            not math.isfinite(float(m.group(2))) or \
+            abs(float(m.group(2)) - oracle) > 1e-4:
+        fail(f"MAIN-MOE: EVAL_LM {m and m.group(0)} against the one-group "
+             f"full-attention oracle {oracle}")
+    decoded = []
+    real_generate = gen_mod.generate
+
+    def recorded(model, prompt, **kw):
+        out = real_generate(model, prompt, **kw)
+        decoded.append((model, prompt, out))
+        return out
+
+    gen_mod.generate = recorded
+    try:
+        run_entry(generate.main, [
+            "--train-dir", td, "--prompt", "def ", "--n-new", str(MOE_NEW),
+            "--temperature", "0", "--device", "cuda"])
+    finally:
+        gen_mod.generate = real_generate
+    if read_counts(wrappers) != want_counts(wrappers):
+        fail(f"MAIN-MOE: evaluate and generate launched kernels "
+             f"{read_counts(wrappers)}")
+    model, prompt, tokens = decoded[-1]
+    toks = torch.as_tensor(prompt).cuda().long()
+    gaps = []
+    with torch.no_grad():
+        for _ in range(MOE_NEW):
+            for mlp in model.moe_layers():
+                mlp.n_groups = toks.numel()
+            logits = model(toks)[0][:, -1]
+            top2 = torch.topk(logits, 2, dim=-1).values[0]
+            gaps.append(float(top2[0] - top2[1]))
+            toks = torch.cat([toks, logits.argmax(-1)[:, None]], dim=1)
+    if not torch.equal(toks, tokens):
+        at = int((toks != tokens).nonzero()[0, 1])
+        fail(f"MAIN-MOE: greedy generate differs from the full forward's "
+             f"argmax at position {at} (top-2 logit gap "
+             f"{gaps[at - prompt.shape[1]]:.3e})")
+    return {"bytes": nbytes, "eval": m.group(0), "oracle": oracle,
+            "eval_diff": abs(float(m.group(2)) - oracle), "gap": min(gaps),
+            "s": time.monotonic() - t0}
 
 
 def http_json(url: str, path: str, body=None, timeout: float = 120.0):
@@ -3120,34 +3283,27 @@ def rank_main(argv) -> int:
     return 0
 
 
-def probe_rank_main() -> int:
-    """One rank of the gloo probe: join the group through the env
-    contract, all-reduce ResNet-18's gradient size of f32 on the card, and
-    check the sum."""
+def probe_all_reduce() -> None:
+    """The gloo probe, on one rank of a group already joined: all-reduce
+    ResNet-18's gradient size of f32 on the card three times, and print
+    the times and whether the sum came out right (a PROBE line)."""
     import torch
     from ps_pytorch_tpu_torch.parallel import dist
 
-    dist.initialize_from_env("cuda")
-    try:
-        n = 11_173_962
-        x = torch.full((n,), float(dist.rank() + 1),
-                       device=dist.local_device())
-        times = []
-        for _ in range(3):
-            t0 = time.monotonic()
-            torch.distributed.all_reduce(x)
-            torch.cuda.synchronize()
-            times.append(time.monotonic() - t0)
-        want = float(sum(range(1, dist.world() + 1))) * dist.world() ** 2
-        print("PROBE " + json.dumps({
-            "backend": dist.backend(), "rank": dist.rank(),
-            "device": str(x.device), "elements": n,
-            "ok": bool((x == want).all()), "all_reduce_s": times}),
-            flush=True)
-    finally:
-        dist.shutdown()
-    print("FINAL probe", flush=True)
-    return 0
+    n = 11_173_962
+    x = torch.full((n,), float(dist.rank() + 1),
+                   device=dist.local_device())
+    times = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    want = float(sum(range(1, dist.world() + 1))) * dist.world() ** 2
+    print("PROBE " + json.dumps({
+        "backend": dist.backend(), "rank": dist.rank(),
+        "device": str(x.device), "elements": n,
+        "ok": bool((x == want).all()), "all_reduce_s": times}), flush=True)
 
 
 def launch_ranks(root: str, n: int, argv, phase: str,
@@ -3187,16 +3343,13 @@ def rank_record(log: str, phase: str) -> dict:
     return json.loads(found[0])
 
 
-def gloo_probe() -> None:
-    """Two ranks on the one card through the launcher: gloo all-reduces a
-    CUDA tensor in this torch build, the sum right on both."""
+def gloo_probe(logs) -> None:
+    """PROBE-GLOO, on the logs of a launch of two ranks on the one card
+    whose ranks ran ``probe_all_reduce`` (MAIN-LMDIST's, where it costs
+    no launch of its own): gloo all-reduces a CUDA tensor in this torch
+    build, the sum right on both."""
     from ps_pytorch_tpu_torch.tools.profile_capture import card_line
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_probe_")
-    try:
-        logs = launch_ranks(root, 2, ["--rank-probe"], "PROBE-GLOO")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
     probes = [json.loads(re.findall(r"^PROBE (.*)$", log, re.M)[0])
               for log in logs]
     if not all(p["ok"] and p["backend"] == "gloo" and p["device"] ==
@@ -5224,8 +5377,6 @@ def main() -> int:
     if rank_mode is not None:
         with arrays_made_once():
             return rank_mode(sys.argv[2:])
-    if sys.argv[1:] == ["--rank-probe"]:
-        return probe_rank_main()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -5356,7 +5507,6 @@ def main() -> int:
                          RESNET50_GEOMETRIES)
         imagenet_launches = timed(imagenet_main_path, torch, wrappers)
         torch.cuda.empty_cache()
-        timed(gloo_probe)
         timed(dist_main_path, wrappers)
         timed(kofn_main_path, wrappers)
         zero_launches = timed(zero_main_path, wrappers, n_params)
@@ -5501,13 +5651,17 @@ def main() -> int:
                  "MAIN-SERVE (decode: full attention)": served[name],
                  "MAIN-LMDIST pp (a rank, 3 steps)": lmdist["pp"][name],
                  "MAIN-LMDIST sp and tp (a rank)": lmdist["sp"][name]
-                 + lmdist["tp"][name]},
+                 + lmdist["tp"][name],
+                 "MAIN-MOE (a rank, 3 steps and FINAL)":
+                 lmdist["ep"][name]},
              tc_launches_by_path={
                  "MAIN-LMCKPT run": lmckpt[f"{name}_tc"],
                  "MAIN-LMCKPT resumed": lmckpt["resumed"][f"{name}_tc"],
                  "ACCURACY-LM": acc_lm[f"{name}_tc"],
                  "MAIN-LMDIST pp (a rank, 3 steps)":
-                 lmdist["pp"][f"{name}_tc"]})
+                 lmdist["pp"][f"{name}_tc"],
+                 "MAIN-MOE (a rank, 3 steps and FINAL)":
+                 lmdist["ep"][f"{name}_tc"]})
         for name, line in (("flash_fwd", 95), ("flash_dq", 164),
                            ("flash_dkv", 189))
     ]

@@ -17,11 +17,11 @@ the CNN trainer and the asynchronous one across processes; and the ops
 plane of the synchronous and LM trainers, see ROADMAP.md), so a field it
 does not run
 raises ``ValueError`` when it is set to anything but its default: it is
-never silently ignored. The LM fields run for ``lm_parallelism`` sp, tp
-and pp, on one rank or across ranks (``runtime/lm_trainer.py``), with
-``lm_model_axis``, ``lm_microbatches``, the checkpoints, remat and the
-fault plane's crash and checkpoint corruption; ep and its fields
-(``lm_experts``, ``lm_moe_top_k``) are not ported.
+never silently ignored. The LM fields run for ``lm_parallelism`` sp, tp,
+pp and ep, on one rank or across ranks (``runtime/lm_trainer.py``), with
+``lm_model_axis``, ``lm_microbatches``, ``lm_experts``,
+``lm_moe_top_k``, the checkpoints, remat and the fault plane's crash and
+checkpoint corruption.
 
 ``donate`` takes ``true`` and ``false`` alike: the JAX step donates its
 input buffers to XLA, while the port's step updates the parameters, the
@@ -261,18 +261,17 @@ class TrainConfig:
         if self.lm_attention not in ("auto", "full", "flash"):
             raise ValueError(f"unknown lm_attention "
                              f"{self.lm_attention!r} (auto | full | flash)")
+        if self.lm_moe_top_k not in (1, 2):
+            raise ValueError(f"lm_moe_top_k={self.lm_moe_top_k} (must be 1 "
+                             "[switch] or 2 [GShard top-2])")
         if self.lm_microbatches < 1:
             # 0 reaches the pp step as a division by zero.
             raise ValueError(f"lm_microbatches={self.lm_microbatches} "
                              "(must be >= 1)")
-        if self.lm_parallelism == "ep":
-            raise ValueError("lm_parallelism='ep' is not ported yet "
-                             "(ROADMAP.md): models/moe.py and parallel/ep.py "
-                             "have no port; sp, tp and pp run")
         if self.mode != "sync" and self.network in LM_NETWORKS:
             raise ValueError(f"mode={self.mode!r} for {self.network} is not "
                              "ported yet (ROADMAP.md); the LM trains in "
-                             "mode 'sync' (sp, tp or pp)")
+                             "mode 'sync' (sp, tp, pp or ep)")
         if self.network in LM_NETWORKS:
             # The JAX LMTrainer reads remat and the fault plane's
             # replica_crash and ckpt_corrupt, and none of the other
@@ -671,7 +670,7 @@ PORTED_FIELDS = frozenset(ASYNC_ONLY_FIELDS + SYNC_ONLY_FIELDS
     "conv_impl", "log_every", "metrics_file",
     "lm_vocab", "lm_d_model", "lm_layers", "lm_heads", "lm_seq_len",
     "lm_corpus_tokens", "lm_corpus_file", "lm_parallelism", "lm_attention",
-    "lm_model_axis", "lm_microbatches",
+    "lm_model_axis", "lm_microbatches", "lm_experts", "lm_moe_top_k",
 })
 
 

@@ -7,6 +7,9 @@ The port's module names are the flax names, so the map is mechanical:
 - BatchNorm and LayerNorm ``scale``/``bias`` <-> ``weight``/``bias``;
 - Embed ``embedding`` <-> ``embedding`` (the port's ``Embed`` keeps the
   flax name, so a 2-D ``weight`` is always a Dense kernel);
+- the MoE experts' raw parameters ``experts_w1/b1/w2/b2``
+  (``models/moe.py``) cross as they are, in the flax layout [E, D, H] /
+  [E, H] / [E, H, D] / [E, D];
 - ``batch_stats`` ``mean``/``var`` <-> ``running_mean``/``running_var``.
 
 Trees are nested dicts of numpy arrays (``jax.device_get`` of the flax
@@ -27,7 +30,11 @@ momentum mirrors the parameters):
 - the pipeline (``parallel/pp.py``): ``pp_stage_from_jax`` maps the JAX
   stage-stacked tree (``blocks`` [n_stages, layers_per_stage, ...]) to one
   stage's blocks and the edges, ``pp_stages_to_jax`` every stage's state
-  back to the stacked tree.
+  back to the stacked tree;
+- expert parallelism (``parallel/ep.py``): ``ep_shard_from_jax`` maps a
+  JAX MoETransformerLM tree to one rank's state dict, the ``experts_*``
+  leaves sliced along their expert axis, ``ep_shards_to_jax`` every
+  rank's back to the tree (the JAX ``ep_param_specs``).
 """
 
 import re
@@ -37,6 +44,10 @@ import numpy as np
 import torch
 
 from ps_pytorch_tpu_torch.optim.adam import AdamState
+
+# The stacked expert parameters of ``models/moe.py`` (the JAX
+# ``ep.py:_EXPERT_KEY``).
+EXPERTS = "experts_"
 
 
 def _walk(tree, prefix=()):
@@ -61,8 +72,8 @@ def from_jax(params, batch_stats=None,
             sd[f"{mod}.weight"] = a.T
         elif leaf == "scale":
             sd[f"{mod}.weight"] = a
-        elif leaf in ("bias", "embedding"):
-            sd[f"{mod}.{leaf}"] = a
+        elif leaf in ("bias", "embedding") or leaf.startswith(EXPERTS):
+            sd[".".join(path)] = a
         else:
             raise ValueError(f"unknown param {'/'.join(path)} {a.shape}")
     for path, a in _walk(batch_stats or {}):
@@ -84,20 +95,20 @@ def to_jax(state_dict) -> Tuple[dict, dict]:
 
     def put(tree, key, leaf, value):
         node = tree
-        for part in key.split("."):
+        for part in key.split(".") if key else ():
             node = node.setdefault(part, {})
         node[leaf] = value
 
     for name, t in state_dict.items():
         a = t.detach().cpu().float().numpy()
-        mod, leaf = name.rsplit(".", 1)
+        mod, _, leaf = name.rpartition(".")
         if leaf == "weight" and a.ndim == 4:
             put(params, mod, "kernel", a.transpose(2, 3, 1, 0))
         elif leaf == "weight" and a.ndim == 2:
             put(params, mod, "kernel", a.T)
         elif leaf == "weight":
             put(params, mod, "scale", a)
-        elif leaf in ("bias", "embedding"):
+        elif leaf in ("bias", "embedding") or leaf.startswith(EXPERTS):
             put(params, mod, leaf, a)
         elif leaf == "running_mean":
             put(stats, mod, "mean", a)
@@ -129,7 +140,7 @@ def jax_path(name: str, ndim: int) -> Tuple[str, ...]:
     mod, leaf = name.rsplit(".", 1)
     if leaf == "weight":
         leaf = "kernel" if ndim in (2, 4) else "scale"
-    elif leaf not in ("bias", "embedding"):
+    elif leaf not in ("bias", "embedding") and not leaf.startswith(EXPERTS):
         raise ValueError(f"unknown param {name}")
     return tuple(mod.split(".")) + (leaf,)
 
@@ -289,22 +300,27 @@ def tp_shard_dim(name: str) -> Optional[int]:
     return None
 
 
-def tp_shard(name: str, full: torch.Tensor, index: int,
-             size: int) -> torch.Tensor:
-    """Rank ``index`` of ``size``'s part of the whole tensor of parameter
-    ``name`` (a view; the whole tensor when it is replicated)."""
-    dim = tp_shard_dim(name)
+def shard(full: torch.Tensor, dim: Optional[int], index: int,
+          size: int) -> torch.Tensor:
+    """Rank ``index`` of ``size``'s part of ``full`` sharded along ``dim``
+    (a view; ``full`` itself when ``dim`` is None: replicated)."""
     if dim is None:
         return full
     chunk = full.shape[dim] // size
     return full.narrow(dim, index * chunk, chunk)
 
 
-def tp_unshard(name: str, parts: List[torch.Tensor]) -> torch.Tensor:
-    """The whole tensor of parameter ``name`` from every rank's part, in
-    rank order."""
-    dim = tp_shard_dim(name)
+def unshard(parts: List[torch.Tensor], dim: Optional[int]) -> torch.Tensor:
+    """The whole tensor from every rank's part along ``dim``, in rank
+    order (rank 0's when replicated)."""
     return parts[0] if dim is None else torch.cat(parts, dim=dim)
+
+
+def tp_shard(name: str, full: torch.Tensor, index: int,
+             size: int) -> torch.Tensor:
+    """Rank ``index`` of ``size``'s part of the whole tensor of parameter
+    ``name`` under tensor parallelism."""
+    return shard(full, tp_shard_dim(name), index, size)
 
 
 def tp_shard_from_jax(params: dict, index: int,
@@ -317,7 +333,7 @@ def tp_shard_from_jax(params: dict, index: int,
 
 def tp_shards_to_jax(shards: List[Dict[str, torch.Tensor]]) -> dict:
     """Every rank's shard state dict, in rank order -> the JAX tree."""
-    full = {name: tp_unshard(name, [s[name] for s in shards])
+    full = {name: unshard([s[name] for s in shards], tp_shard_dim(name))
             for name in shards[0]}
     return _sorted(to_jax(full)[0])
 
@@ -350,3 +366,33 @@ def pp_stages_to_jax(stages: List[Dict[str, torch.Tensor]]) -> dict:
     for sd in stages[1:]:
         full.update({k: v for k, v in sd.items() if k.startswith("block_")})
     return stack_stage_params(_sorted(to_jax(full)[0]), len(stages))
+
+
+def ep_shard_dim(name: str) -> Optional[int]:
+    """The dimension of the port's parameter ``name`` that expert
+    parallelism shards: the expert axis of an ``experts_*`` leaf, None for
+    a replicated one."""
+    return 0 if name.rpartition(".")[2].startswith(EXPERTS) else None
+
+
+def ep_shard(name: str, full: torch.Tensor, index: int,
+             size: int) -> torch.Tensor:
+    """Rank ``index`` of ``size``'s part of the whole tensor of parameter
+    ``name`` under expert parallelism."""
+    return shard(full, ep_shard_dim(name), index, size)
+
+
+def ep_shard_from_jax(params: dict, index: int,
+                      size: int) -> Dict[str, torch.Tensor]:
+    """A JAX MoETransformerLM tree (or its momentum) -> rank ``index`` of
+    ``size``'s state dict."""
+    return {name: ep_shard(name, t, index, size).clone()
+            for name, t in from_jax(params).items()}
+
+
+def ep_shards_to_jax(shards: List[Dict[str, torch.Tensor]]) -> dict:
+    """Every rank's state dict, in rank order -> the JAX tree, the experts
+    stacked whole."""
+    full = {name: unshard([s[name] for s in shards], ep_shard_dim(name))
+            for name in shards[0]}
+    return _sorted(to_jax(full)[0])

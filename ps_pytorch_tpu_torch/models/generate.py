@@ -1,5 +1,5 @@
-"""Autoregressive generation for the TransformerLM: the JAX package's
-``models/generate.py``.
+"""Autoregressive generation for the TransformerLM and the
+MoETransformerLM: the JAX package's ``models/generate.py``.
 
 One prefill of the whole prompt fills a fixed-length k/v cache a block
 (``models/transformer.py:DecodeCache``), then one token a step, each step
@@ -11,7 +11,9 @@ path is ``jnp`` outside any Pallas kernel.
                    seed=0)
 
 ``prompt``: int [B, S0]; returns int64 [B, S0 + n_new] on the model's
-device. Any training checkpoint decodes as it is. Greedy decoding
+device. Any training checkpoint decodes as it is. An MoE model
+dispatches each token as its own capacity group (``models/moe.py``), so
+no assignment drops and batch rows decode independently. Greedy decoding
 (``temperature=0``) is the JAX package's token for token; sampling draws
 from a ``torch.Generator`` seeded by ``seed``, not from threefry, so its
 tokens are the port's own (ROADMAP.md, "RNG").
@@ -20,6 +22,7 @@ tokens are the port's own (ROADMAP.md, "RNG").
 import numpy as np
 import torch
 
+from ps_pytorch_tpu_torch.models.moe import logits_of
 from ps_pytorch_tpu_torch.models.transformer import DecodeCache
 
 
@@ -67,17 +70,17 @@ def generate(model, prompt, *, n_new: int, temperature: float = 1.0,
     model.eval()
     try:
         cache = DecodeCache(model, b, total)
-        logits = model(prompt, positions=torch.arange(s0, device=device),
-                       cache=cache)[:, -1]
+        logits = logits_of(model(prompt, cache=cache, positions=torch.arange(
+            s0, device=device)))[:, -1]
         generator = torch.Generator(device=device).manual_seed(seed)
         out = [prompt]
         for pos in range(s0, total):
             tok = _sample(logits, generator, temperature, top_k)
             out.append(tok[:, None])
             if pos + 1 < total:     # the last token's logits are not used
-                logits = model(tok[:, None],
-                               positions=torch.tensor([pos], device=device),
-                               cache=cache)[:, 0]
+                logits = logits_of(model(
+                    tok[:, None], positions=torch.tensor([pos], device=device),
+                    cache=cache))[:, 0]
     finally:
         model.train(training)
     return torch.cat(out, dim=1)

@@ -97,11 +97,13 @@ class KVCache:
 
 
 class DecodeCache:
-    """A ``KVCache`` for each block of a ``TransformerLM``, ``length``
-    slots long (the prompt plus the tokens to generate).
-    ``set_offsets(idx)`` puts every block in the per-row form."""
+    """A ``KVCache`` for each block of a ``TransformerLM`` or a
+    ``models/moe.py:MoETransformerLM`` (its blocks hold the same
+    ``Dense_0`` q projection and ``n_heads``), ``length`` slots long (the
+    prompt plus the tokens to generate). ``set_offsets(idx)`` puts every
+    block in the per-row form."""
 
-    def __init__(self, model: "TransformerLM", batch: int, length: int):
+    def __init__(self, model: nn.Module, batch: int, length: int):
         p = model.tok_embed.embedding
         blocks = [getattr(model, f"block_{i}") for i in range(model.n_layers)]
         self.length = length
@@ -170,50 +172,69 @@ class Block(nn.Module):
                  attention_impl: str = "full",
                  generator: Optional[torch.Generator] = None, axis=None):
         super().__init__()
-        if attention_impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attention_impl {attention_impl!r} is not "
-                             f"ported (ROADMAP.md); choose from "
-                             f"{ATTENTION_IMPLS}")
-        if d_model % n_heads:
-            raise ValueError(f"d_model {d_model} not divisible by "
-                             f"{n_heads} heads")
+        init_attention(self, n_heads, d_model, attention_impl, generator,
+                       axis)
         d, f32 = d_model, torch.float32
-        if attention_impl == "ring" and axis is None:
-            raise ValueError("attention_impl='ring' needs the grid axis "
-                             "the sequence is sharded over")
-        self.n_heads, self.attention_impl = n_heads, attention_impl
-        self.axis = axis
-        self.LayerNorm_0 = LayerNorm(d)
-        self.Dense_0 = Linear(d, d, f32, generator, bias=False)     # q
-        self.Dense_1 = Linear(d, d, f32, generator, bias=False)     # k
-        self.Dense_2 = Linear(d, d, f32, generator, bias=False)     # v
-        self.Dense_3 = Linear(d, d, f32, generator, bias=False)     # out
-        self.LayerNorm_1 = LayerNorm(d)
         self.Dense_4 = Linear(d, 4 * d, f32, generator)
         self.Dense_5 = Linear(4 * d, d, f32, generator)
 
     def forward(self, x: torch.Tensor,
                 cache: Optional[KVCache] = None) -> torch.Tensor:
-        b, s, d = x.shape
-        h = self.n_heads
-        y = self.LayerNorm_0(x)
-
-        def to_heads(t):
-            return t.reshape(b, s, h, d // h).transpose(1, 2)
-
-        q, k, v = (to_heads(f(y)) for f in (self.Dense_0, self.Dense_1,
-                                            self.Dense_2))
-        if cache is not None:
-            o = cached_attention(q, k, v, cache)
-        elif self.attention_impl == "ring":
-            o = ring_attention(q, k, v, self.axis, causal=True)
-        else:
-            attend = flash_attention if self.attention_impl == "flash" \
-                else full_attention
-            o = attend(q, k, v, causal=True)
-        x = x + self.Dense_3(o.transpose(1, 2).reshape(b, s, d))
+        x = self_attention(self, x, cache)
         y = F.gelu(self.Dense_4(self.LayerNorm_1(x)), approximate="tanh")
         return x + self.Dense_5(y)
+
+
+def init_attention(blk: nn.Module, n_heads: int, d_model: int,
+                   attention_impl: str,
+                   generator: Optional[torch.Generator], axis) -> None:
+    """The attention half's modules and settings of a pre-LN block
+    (``Block`` or ``models/moe.py:MoEBlock``): ``LayerNorm_0``, the q, k,
+    v and out projections ``Dense_0..3`` (no bias) and ``LayerNorm_1``."""
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl {attention_impl!r} is not "
+                         f"ported (ROADMAP.md); choose from "
+                         f"{ATTENTION_IMPLS}")
+    if d_model % n_heads:
+        raise ValueError(f"d_model {d_model} not divisible by "
+                         f"{n_heads} heads")
+    if attention_impl == "ring" and axis is None:
+        raise ValueError("attention_impl='ring' needs the grid axis "
+                         "the sequence is sharded over")
+    d, f32 = d_model, torch.float32
+    blk.n_heads, blk.attention_impl, blk.axis = n_heads, attention_impl, axis
+    blk.LayerNorm_0 = LayerNorm(d)
+    blk.Dense_0 = Linear(d, d, f32, generator, bias=False)      # q
+    blk.Dense_1 = Linear(d, d, f32, generator, bias=False)      # k
+    blk.Dense_2 = Linear(d, d, f32, generator, bias=False)      # v
+    blk.Dense_3 = Linear(d, d, f32, generator, bias=False)      # out
+    blk.LayerNorm_1 = LayerNorm(d)
+
+
+def self_attention(blk: nn.Module, x: torch.Tensor,
+                   cache: Optional[KVCache] = None) -> torch.Tensor:
+    """The attention half of a pre-LN block (``Block`` or
+    ``models/moe.py:MoEBlock``, which share its names): ``x`` plus the
+    out-projection of causal attention over ``LayerNorm_0(x)``, through the
+    cache, the ring or the block's ``attention_impl``."""
+    b, s, d = x.shape
+    h = blk.n_heads
+    y = blk.LayerNorm_0(x)
+
+    def to_heads(t):
+        return t.reshape(b, s, h, d // h).transpose(1, 2)
+
+    q, k, v = (to_heads(f(y)) for f in (blk.Dense_0, blk.Dense_1,
+                                        blk.Dense_2))
+    if cache is not None:
+        o = cached_attention(q, k, v, cache)
+    elif blk.attention_impl == "ring":
+        o = ring_attention(q, k, v, blk.axis, causal=True)
+    else:
+        attend = flash_attention if blk.attention_impl == "flash" \
+            else full_attention
+        o = attend(q, k, v, causal=True)
+    return x + blk.Dense_3(o.transpose(1, 2).reshape(b, s, d))
 
 
 class TransformerLM(nn.Module):

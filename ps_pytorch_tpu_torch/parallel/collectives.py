@@ -11,6 +11,11 @@ its tensor-parallel step (Megatron's ``f`` and ``g``).
   backward (Megatron's ``f``, in front of a column-parallel layer).
 - ``reduce_from(x, axis)``: all-reduce forward, identity backward
   (Megatron's ``g``, behind a row-parallel layer).
+- ``all_to_all(x, axis, split_axis, concat_axis)``: the tiled
+  ``jax.lax.all_to_all``: ``x`` is split along ``split_axis`` into
+  ``axis.size`` chunks, chunk ``j`` goes to axis index ``j``, and the
+  chunks received are concatenated along ``concat_axis`` in source order.
+  Its backward is the reverse all-to-all (the two axes swapped).
 - ``all_reduce_(x, axis, op)``: an in-place all-reduce outside autograd
   (gradients, loss sums, the row max of the vocab-parallel
   cross-entropy); ``all_reduce_flat_`` does a list of tensors as one flat
@@ -24,11 +29,14 @@ The port's functions are written here rather than taken from
 between releases. Point-to-point transfers post the send and the receive
 together (``isend`` + ``irecv``), so a ring of two ranks cannot deadlock.
 gloo moves point-to-point buffers from host memory only, so a CUDA tensor
-is staged through a host copy on a gloo group; an all-reduce hands gloo
-the CUDA tensor, which gloo reduces through host memory itself.
+is staged through a host copy on a gloo group, and so is an
+all-to-all's buffer; an all-reduce hands gloo the CUDA tensor, which gloo
+reduces through host memory itself.
 
 ``stats`` counts what this rank hands the backend: ``bytes_sent`` is the
-payload of every send, all-reduce and all-gather (an all-reduce of ``b``
+payload of every send, all-reduce, all-to-all and all-gather (an
+all-to-all counts its whole buffer, the chunk it keeps included; an
+all-reduce of ``b``
 bytes counts ``b``; a ring all-reduce over ``n`` ranks puts ``2 (n-1) /
 n`` times that on the wire), ``calls`` the number of collectives; a
 reader takes the difference across the work it measures. A collective
@@ -101,6 +109,46 @@ class _Permute(torch.autograd.Function):
 
 def permute(x: torch.Tensor, axis, shift: int) -> torch.Tensor:
     return x if axis.size == 1 else _Permute.apply(x, axis, shift)
+
+
+def all_to_all_plain(x: torch.Tensor, axis, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """``all_to_all`` outside autograd."""
+    n = axis.size
+    if n == 1:
+        return x
+    moved = x.detach().movedim(split_axis, 0)
+    if moved.shape[0] % n:
+        raise ValueError(f"all_to_all: dimension {split_axis} of "
+                         f"{tuple(x.shape)} does not split into {n} chunks")
+    send = moved.reshape(n, moved.shape[0] // n, *moved.shape[1:])
+    send = send.cpu().contiguous() if _staged(x, axis) else send.contiguous()
+    recv = torch.empty_like(send)
+    _count(send)
+    tdist.all_to_all_single(recv, send, group=axis.group)
+    recv = recv.to(x.device)
+    return torch.cat([c.movedim(0, split_axis) for c in recv.unbind(0)],
+                     dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis):
+        ctx.axis, ctx.axes = axis, (split_axis, concat_axis)
+        return all_to_all_plain(x, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (all_to_all_plain(g, ctx.axis, concat_axis, split_axis),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all over ``axis``, differentiable."""
+    return x if axis.size == 1 else _AllToAll.apply(x, axis, split_axis,
+                                                    concat_axis)
 
 
 def all_reduce_(x: torch.Tensor, axis,

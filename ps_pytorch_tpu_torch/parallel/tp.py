@@ -41,7 +41,7 @@ axis runs in the JAX package, where GSPMD reshards; the port refuses it
 (ROADMAP.md).
 """
 
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -50,7 +50,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ps_pytorch_tpu_torch.models.convert import (
-    tp_shard, tp_shard_dim, tp_unshard,
+    tp_shard, tp_shard_dim, unshard,
 )
 from ps_pytorch_tpu_torch.parallel.collectives import (
     all_gather_host, all_reduce_, all_reduce_flat_, copy_to, reduce_from,
@@ -210,18 +210,21 @@ class TPTrainStep:
         return {"loss": loss / total}
 
 
-def gather_full(tensors: Dict[str, torch.Tensor], axis
+def gather_full(tensors: Dict[str, torch.Tensor], axis,
+                shard_dim: Callable = tp_shard_dim
                 ) -> Dict[str, torch.Tensor]:
     """Name -> this rank's part (parameters, or a mirror of them such as
     the momentum) -> name -> the whole tensor on the host, on every rank
-    of ``axis`` (each takes part)."""
+    of ``axis`` (each takes part); ``shard_dim(name)`` is the dimension a
+    tensor is sharded along (tensor parallelism's by default)."""
     out = {}
     for name, t in tensors.items():
         host = t.detach().cpu()
-        if tp_shard_dim(name) is None or axis.size == 1:
+        dim = shard_dim(name)
+        if dim is None or axis.size == 1:
             out[name] = host.clone()
         else:
-            out[name] = tp_unshard(name, all_gather_host(host, axis))
+            out[name] = unshard(all_gather_host(host, axis), dim)
     return out
 
 

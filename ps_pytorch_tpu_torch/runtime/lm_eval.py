@@ -9,8 +9,13 @@ A pipeline-parallel checkpoint (``lm_parallelism="pp"``) stores its
 blocks stage-stacked; ``restore_lm`` unstacks them, and the momentum,
 into the plain model (``parallel/pp.py:plain_state_tree``, the JAX
 ``unstack_stage_params`` of ``lm_eval.py:55-62, 97-99``). A tensor-parallel
-checkpoint is written whole. MoE checkpoints (``MoETransformerLM``) raise:
-that model family is not ported (ROADMAP.md).
+checkpoint is written whole. An MoE checkpoint (``network``
+``MoETransformerLM``, written by ep) builds the MoE model with the
+config's ``lm_moe_top_k`` (the gates and second choices change the
+forward, not the parameters' shapes), one capacity group and full
+attention, as the JAX oracle; its loss is the logits', not the
+load-balance term's. The trainer's own ep evaluation asks for one group a
+rank and its attention kernel (``LMTrainer.evaluate``).
 """
 
 from typing import Callable, Optional, Tuple
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ps_pytorch_tpu_torch.models.convert import state_from_jax
+from ps_pytorch_tpu_torch.models.moe import MoETransformerLM, logits_of
 from ps_pytorch_tpu_torch.models.transformer import (
     TransformerLM, migrate_packed_qkv,
 )
@@ -39,10 +45,7 @@ def lm_geometry(cfg) -> dict:
                 max_seq_len=cfg.lm_seq_len)
 
 
-def _refuse_unported(cfg) -> None:
-    if cfg.network == "MoETransformerLM":
-        raise ValueError("MoETransformerLM checkpoints are not ported yet "
-                         "(ROADMAP.md): models/moe.py has no port")
+def _refuse_unresolved(cfg) -> None:
     if cfg.lm_parallelism == "pp" and cfg.lm_model_axis <= 0:
         raise ValueError(
             "pp checkpoint config has unresolved lm_model_axis=0 "
@@ -50,19 +53,33 @@ def _refuse_unported(cfg) -> None:
             "in-trainer or pass the stage count explicitly")
 
 
-def build_lm_oracle(cfg, device="cpu"
-                    ) -> Tuple[TransformerLM, Callable[[np.ndarray], float]]:
-    """-> (the full-attention model of the checkpoint's geometry on
-    ``device``, ``loss_fn(tokens [B, S]) -> mean next-token loss``). Put
-    a checkpoint into the model with ``restore_lm``."""
-    _refuse_unported(cfg)
-    model = TransformerLM(**lm_geometry(cfg)).to(device)
+def build_lm_oracle(cfg, device="cpu", n_groups: int = 1,
+                    attention_impl: str = "full"
+                    ) -> Tuple[torch.nn.Module, Callable[[np.ndarray], float]]:
+    """-> (the model of the checkpoint's geometry on ``device``: the
+    ``TransformerLM``, or the ``MoETransformerLM`` of ``lm_experts`` and
+    ``lm_moe_top_k`` in ``n_groups`` capacity groups; full attention
+    unless told otherwise; and ``loss_fn(tokens [B, S]) -> mean next-token
+    loss``). Put a checkpoint into the model with ``restore_lm``: its
+    weights are drawn on ``device`` and only stand in until then (on the
+    host, the MoE LM's 177M draws take seconds)."""
+    _refuse_unresolved(cfg)
+    with torch.device(device):
+        if cfg.network == "MoETransformerLM":
+            model = MoETransformerLM(n_experts=cfg.lm_experts,
+                                     top_k=cfg.lm_moe_top_k,
+                                     n_groups=n_groups,
+                                     attention_impl=attention_impl,
+                                     **lm_geometry(cfg))
+        else:
+            model = TransformerLM(attention_impl=attention_impl,
+                                  **lm_geometry(cfg))
     model.eval()
 
     @torch.no_grad()
     def loss_fn(tokens) -> float:
         t = torch.as_tensor(np.asarray(tokens)).to(device).long()
-        logits = model(t)
+        logits = logits_of(model(t))
         return float(F.cross_entropy(
             logits[:, :-1].reshape(-1, logits.shape[-1]),
             t[:, 1:].reshape(-1)))
@@ -70,11 +87,11 @@ def build_lm_oracle(cfg, device="cpu"
     return model, loss_fn
 
 
-def build_lm_template(cfg, model: TransformerLM) -> SGDState:
+def build_lm_template(cfg, model: torch.nn.Module) -> SGDState:
     """The optimizer state ``LMTrainer`` builds for ``model`` (plain SGD
     with the run's momentum): with the model, the training state a
     checkpoint's tree must fit, as the JAX template ``TrainState``."""
-    _refuse_unported(cfg)
+    _refuse_unresolved(cfg)
     opt = SGD(lr=build_schedule(cfg), momentum=cfg.momentum,
               weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
     return opt.init(dict(model.named_parameters()))

@@ -12,14 +12,18 @@ parallelism is ``--lm-parallelism``:
 - ``tp``: Megatron tensor parallelism over ``model`` (``parallel/tp.py``),
   ``--lm-attention full`` only (the JAX refusal of flash);
 - ``pp``: the GPipe pipeline over ``model`` with ``--lm-microbatches``
-  (``parallel/pp.py``), each stage's blocks on ``full`` or ``flash``.
+  (``parallel/pp.py``), each stage's blocks on ``full`` or ``flash``;
+- ``ep``: the MoE LM (``models/moe.py``, ``--lm-experts``,
+  ``--lm-moe-top-k``) with its experts sharded over every rank
+  (``parallel/ep.py``), attention ``full`` or ``flash``.
 
 tp and pp lay the ranks out as ``data x model`` with ``model =
---lm-model-axis`` (0: every rank), the batch sharded over ``data``. Every
-rank draws the same shared-seed batch and takes its slice (sp by the
-sequence, tp and pp by rows), as the JAX ``globalize_replicated`` places
-it. The optimizer is the plain ``optim.SGD`` with the configured schedule
-whatever ``--fused-optimizer`` says, as ``lm_trainer.py:59-63``. STEP lines
+--lm-model-axis`` (0: every rank), ep as ``data = world, model = 1``; the
+batch is sharded over ``data``. Every rank draws the same shared-seed
+batch and takes its slice (sp by the sequence, tp, pp and ep by rows), as
+the JAX ``globalize_replicated`` places it. The optimizer is the plain
+``optim.SGD`` with the configured schedule whatever ``--fused-optimizer``
+says, as ``lm_trainer.py:59-63``. STEP lines
 carry ``acc 0.0 participating 1.0`` (``:403-407``); the JSONL record adds
 ``tokens_per_sec``. ``--remat`` recomputes each block in the backward.
 
@@ -29,24 +33,27 @@ ends at dispatch.
 
 Checkpoints are the JAX LM's: the ``TrainState`` (step, params, the SGD
 state, ``batch_stats={}``) in the JAX layout (``models/convert.py``), with
-the config (``network`` and, for tp and pp, the resolved ``lm_model_axis``
-recorded), under ``--compress-grad``'s container and ``--ckpt-keep``;
-written every ``eval_freq`` steps, at the last step and at a health halt.
-For tp and pp every rank takes part in gathering the state (tp writes the
-plain TransformerLM tree, pp the stage-stacked ``blocks`` with its
-momentum mirrored) and rank 0 alone writes. ``train`` resumes from the
-newest checkpoint that verifies, walking back past corrupt ones, refuses
-one of another geometry (``lm_parallelism`` and ``lm_model_axis``
-included) with the JAX message, takes this rank's slice of it, and prints
-``RESUME lm at step k``. As in the JAX package the token loader is not
+the config (``network``, ``MoETransformerLM`` for ep, and, for tp and pp,
+the resolved ``lm_model_axis`` recorded), under ``--compress-grad``'s
+container and ``--ckpt-keep``; written every ``eval_freq`` steps, at the
+last step and at a health halt. For tp, pp and ep every rank takes part in
+gathering the state (tp writes the plain TransformerLM tree, pp the
+stage-stacked ``blocks`` with its momentum mirrored, ep the whole MoE
+tree with the experts stacked [E, ...]) and rank 0 alone writes.
+``train`` resumes from the newest checkpoint that verifies, walking back
+past corrupt ones, refuses one of another geometry (``lm_parallelism``
+and ``lm_model_axis`` included) with the JAX message, takes this rank's
+slice of it, and prints ``RESUME lm at step k``. As in the JAX package the token loader is not
 fast-forwarded: a resumed run draws its batches from the start of the
 stream. The fault plane fires ``replica_crash`` at the top of a step and
 ``ckpt_corrupt`` after a commit.
 
 ``evaluate`` runs sp through the same sharded ring forward as training
-(never a full-attention model at the global length), and tp and pp through
+(never a full-attention model at the global length), tp and pp through
 the full-attention oracle (``runtime/lm_eval.py``) on the gathered
-parameters, so every rank reports the same loss.
+parameters, and ep through the JAX ``_oracle_eval_fn``: the whole MoE
+model on the gathered parameters with one capacity group a rank and the
+trainer's attention kernel; so every rank reports the same loss.
 
 The ops plane is the CNN Trainer's (``runtime/ops_plane.py``), as the JAX
 LM trainer's is: spans ``data_wait``, ``host_dispatch``,
@@ -70,10 +77,13 @@ import torch
 from ps_pytorch_tpu_torch import resilience
 from ps_pytorch_tpu_torch.config import TrainConfig
 from ps_pytorch_tpu_torch.data.text import TokenLoader, lm_streams
-from ps_pytorch_tpu_torch.models.convert import state_to_jax, tp_shard
+from ps_pytorch_tpu_torch.models.convert import (
+    ep_shard, state_to_jax, tp_shard,
+)
+from ps_pytorch_tpu_torch.models.moe import MoETransformerLM
 from ps_pytorch_tpu_torch.models.transformer import TransformerLM
 from ps_pytorch_tpu_torch.optim import SGD, build_schedule
-from ps_pytorch_tpu_torch.parallel import dist, pp, tp
+from ps_pytorch_tpu_torch.parallel import dist, ep, pp, tp
 from ps_pytorch_tpu_torch.parallel.mesh import make_grid
 from ps_pytorch_tpu_torch.parallel.sp import (
     LMTrainStep, make_lm_eval_fn, sequence_shard,
@@ -132,18 +142,24 @@ class LMTrainer:
                 raise ValueError(f"lm_layers={cfg.lm_layers} not "
                                  f"divisible into {deg} stages")
             resolved["lm_model_axis"] = deg
-        else:       # ep: TrainConfig refuses it (ROADMAP.md)
-            raise ValueError(f"lm_parallelism={mode!r}")
+        else:
+            self.grid = make_grid(data=world, model=1)
+            resolved["network"] = "MoETransformerLM"
         self.cfg = cfg = dataclasses.replace(cfg, **resolved)
         axis = self.grid.data if world > 1 and mode == "sp" else None
         # Every rank builds the whole model from the seed, as the JAX
         # trainer inits the unsharded tree, then keeps its part of it.
-        model = TransformerLM(
-            vocab_size=cfg.lm_vocab, n_layers=cfg.lm_layers,
-            n_heads=cfg.lm_heads, d_model=cfg.lm_d_model,
-            max_seq_len=cfg.lm_seq_len, attention_impl=impl,
-            generator=torch.Generator().manual_seed(cfg.seed),
-            remat=cfg.remat, axis=axis).to(self.device)
+        geometry = dict(vocab_size=cfg.lm_vocab, n_layers=cfg.lm_layers,
+                        n_heads=cfg.lm_heads, d_model=cfg.lm_d_model,
+                        max_seq_len=cfg.lm_seq_len, attention_impl=impl,
+                        generator=torch.Generator().manual_seed(cfg.seed),
+                        remat=cfg.remat)
+        if mode == "ep":
+            model = MoETransformerLM(n_experts=cfg.lm_experts,
+                                     top_k=cfg.lm_moe_top_k, **geometry)
+        else:
+            model = TransformerLM(axis=axis, **geometry)
+        model = model.to(self.device)
         self.opt = SGD(lr=build_schedule(cfg), momentum=cfg.momentum,
                        weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
         if mode == "sp":
@@ -154,6 +170,9 @@ class LMTrainer:
             self.model = tp.shard_model_(model, self.grid.model)
             self.step_fn = tp.TPTrainStep(model, self.opt, self.grid,
                                           remat=cfg.remat)
+        elif mode == "ep":
+            self.model = ep.shard_model_(model, self.grid.data)
+            self.step_fn = ep.EPTrainStep(model, self.opt, self.grid.data)
         else:
             self.model = pp.PipelineStage(model, self.grid.model.index, deg)
             self.step_fn = pp.PPTrainStep(self.model, self.opt, self.grid,
@@ -194,10 +213,14 @@ class LMTrainer:
 
     def full_state(self) -> tuple:
         """(the whole model's parameters, its SGD state) on this rank:
-        collective for tp and pp, whose every rank must call it."""
+        collective for tp, pp and ep, whose every rank must call it."""
         opt_state = self.step_fn.opt_state
         if self.mode == "sp":
             return self.model, opt_state
+        if self.mode == "ep":
+            params, momentum = ep.full_state(self.model, opt_state,
+                                             self.grid.data)
+            return params, opt_state._replace(momentum=momentum)
         gather = tp.full_state if self.mode == "tp" else pp.full_state
         params, momentum = gather(self.model, opt_state, self.grid)
         return params, opt_state._replace(momentum=momentum)
@@ -234,6 +257,9 @@ class LMTrainer:
         if self.mode == "pp":
             held = set(self.model.state_dict())
             return lambda name, t: t if name in held else None
+        if self.mode == "ep":
+            d = self.grid.data
+            return lambda name, t: ep_shard(name, t, d.index, d.size)
         return None
 
     def maybe_resume(self) -> bool:
@@ -348,7 +374,9 @@ class LMTrainer:
         """Held-out next-token loss and perplexity over the validation
         tail (its first ``max_batches`` batches): sp through the train
         step's sharded forward, tp and pp through the full-attention
-        oracle on the gathered parameters (every rank takes part)."""
+        oracle on the gathered parameters, ep through the MoE oracle with
+        one capacity group a rank and the trainer's attention (every rank
+        takes part)."""
         cfg = self.cfg
         val = TokenLoader(self.val_tokens, cfg.batch_size, cfg.lm_seq_len,
                           seed=0, shuffle=False)
@@ -357,7 +385,11 @@ class LMTrainer:
                 return float(self.eval_fn(self._local(tokens)))
         else:
             params, _ = self.full_state()
-            oracle, loss_of = build_lm_oracle(cfg, self.device)
+            extra = {}
+            if self.mode == "ep":
+                extra = dict(n_groups=self.grid.data.size,
+                             attention_impl=self.model.attention_impl)
+            oracle, loss_of = build_lm_oracle(cfg, self.device, **extra)
             oracle.load_state_dict(params)
         losses = []
         for i, tokens in enumerate(val.epoch(0)):

@@ -151,9 +151,10 @@ class OpsPlane:
     # ---- the step loop's calls ----
     def count_flops(self) -> None:
         """The model's FLOPs a step at the global batch, once, before the
-        first step is timed."""
+        first step is timed (an MoE LM in one capacity group a rank, as
+        ep dispatches it)."""
         if self.flops_per_step is None:
-            self.flops_per_step = step_flops_of(self.cfg)
+            self.flops_per_step = step_flops_of(self.cfg, groups=self.world)
 
     def profile_step(self, step: int) -> None:
         """Start the torch.profiler window at its first step, stop it

@@ -560,12 +560,13 @@ def derive_step_record(*, step_time_s: float, data_time_s: float = 0.0,
     return rec
 
 
-def step_flops_of(cfg, batch: Optional[int] = None) -> int:
+def step_flops_of(cfg, batch: Optional[int] = None, groups: int = 1) -> int:
     """The model's FLOPs a training step of ``cfg`` at the global batch
-    (``utils/flops.training_flops``): counted on the ``meta`` device,
-    once, and divided by every step's time."""
+    (``utils/flops.training_flops``; ``groups``: the MoE LM's capacity
+    groups): counted on the ``meta`` device, once, and divided by every
+    step's time."""
     from ps_pytorch_tpu_torch.utils.flops import training_flops
-    return training_flops(cfg, batch)
+    return training_flops(cfg, batch, groups)
 
 
 def aggregate_peak_flops(device) -> Optional[float]:

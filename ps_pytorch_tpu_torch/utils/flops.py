@@ -15,7 +15,16 @@ global batch, by the JAX package's rules (``flops.py:31-56``):
   7.2 MFLOP an image where the useful work is 3.2);
 - the first layer has no input gradient: the images take none;
 - elementwise ops, reductions, pooling, BatchNorm, Dropout and the
-  optimizer count nothing.
+  optimizer count nothing;
+- the MoE LM (``models/moe.py``) gathers its tokens into the experts'
+  slots and gathers the outputs back, which counts nothing here; the JAX
+  ``MoEMLP`` computes both as one-hot einsums (``moe.py:126, 166``),
+  ``2 * T * E * C * D`` each, the dispatch once forward and once backward
+  and the combine once forward and twice backward: ``10 * T * E * C * D``
+  a layer, added to the count. At the LM's full width with 8 experts
+  this is most of the step's count (by this module: 13.7 of 19.9 TFLOP
+  at global batch 8 x 2048 in one capacity group, 6.9 of 13.0 in two, as
+  ep on two ranks dispatches it), work the port's step does not do.
 
 The count is of the model's work, not of the kernels that run: the model
 is built with the library route (``conv_impl="xla"``, full attention for
@@ -116,15 +125,50 @@ def lm_training_flops(*, vocab: int, d_model: int, layers: int, heads: int,
     return _count(lambda: nexttoken_loss(model, tokens)[0].backward())
 
 
-def training_flops(cfg, batch: Optional[int] = None) -> int:
+def moe_lm_training_flops(*, vocab: int, d_model: int, layers: int,
+                          heads: int, seq_len: int, batch: int,
+                          experts: int, top_k: int, groups: int = 1) -> int:
+    """FLOPs of one forward + next-token loss (with the load-balance
+    term) + backward of the MoETransformerLM with full attention on a
+    [batch, seq_len] batch dispatched in ``groups`` capacity groups, the
+    JAX one-hot dispatch and combine einsums included."""
+    from ps_pytorch_tpu_torch.models.moe import MoETransformerLM, capacity
+
+    with torch.device("meta"):
+        model = MoETransformerLM(vocab_size=vocab, n_layers=layers,
+                                 n_heads=heads, d_model=d_model,
+                                 n_experts=experts, top_k=top_k,
+                                 n_groups=groups, max_seq_len=seq_len,
+                                 attention_impl="full")
+        tokens = torch.zeros((batch, seq_len), dtype=torch.long)
+    model.train()
+
+    def step():
+        logits, aux = model(tokens)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                               tokens[:, 1:].reshape(-1))
+        (loss + 0.01 * aux).backward()
+
+    t = batch * seq_len
+    cap = capacity(top_k, t // groups, experts, 1.25)
+    return _count(step) + layers * 10 * t * experts * cap * d_model
+
+
+def training_flops(cfg, batch: Optional[int] = None, groups: int = 1) -> int:
     """FLOPs of one training step of ``cfg`` (a ``TrainConfig``) at the
     global batch ``batch`` (default ``cfg.batch_size``), on the xla /
     full-attention route whatever ``cfg.conv_impl`` and
-    ``cfg.lm_attention`` say."""
+    ``cfg.lm_attention`` say; an MoE LM dispatched in ``groups`` capacity
+    groups (one a rank under ep)."""
     from ps_pytorch_tpu_torch.config import LM_NETWORKS
     from ps_pytorch_tpu_torch.data.datasets import sample_shape
 
     batch = cfg.batch_size if batch is None else batch
+    if cfg.network == "MoETransformerLM":
+        return moe_lm_training_flops(
+            vocab=cfg.lm_vocab, d_model=cfg.lm_d_model, layers=cfg.lm_layers,
+            heads=cfg.lm_heads, seq_len=cfg.lm_seq_len, batch=batch,
+            experts=cfg.lm_experts, top_k=cfg.lm_moe_top_k, groups=groups)
     if cfg.network in LM_NETWORKS:
         return lm_training_flops(vocab=cfg.lm_vocab, d_model=cfg.lm_d_model,
                                  layers=cfg.lm_layers, heads=cfg.lm_heads,

@@ -130,17 +130,37 @@ def test_evaluate_entry_point_on_cpu(tmp_path):
                           "--stop-after", "2", "--poll-s", "0.01"]) == 0
 
 
-def test_evaluator_refuses_what_it_cannot_do(tmp_path):
+def test_evaluator_refuses_what_it_cannot_do(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Evaluator(str(tmp_path))
-    # LM checkpoints are scored (tests/test_torch_lm_ckpt.py); the MoE
-    # model family is not ported.
+    # LM checkpoints are scored (tests/test_torch_lm_ckpt.py), MoE ones
+    # too (test_evaluators_agree_on_an_moe_checkpoint); the JAX
+    # evaluator's sequence-sharded branch across processes is not ported.
     td = str(tmp_path / "lm")
     path = ckpt.checkpoint_path(td, 1)
     os.makedirs(path)
     with open(os.path.join(path, "config.json"), "w") as f:
         f.write(config.TrainConfig(network="MoETransformerLM",
                                    eval_freq=0).to_json())
+    monkeypatch.setenv("PS_TPU_NUM_PROCESSES", "2")
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Evaluator(td, device="cpu").evaluate_step(1)
+
+
+def test_evaluators_agree_on_an_moe_checkpoint(tmp_path):
+    """An ep checkpoint of the port's LM trainer (one rank, top-2): both
+    evaluators print the same EVAL_LM line."""
+    from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+    td = str(tmp_path / "moe")
+    cfg = config.TrainConfig(
+        lm_parallelism="ep", lm_experts=4, lm_moe_top_k=2, batch_size=4,
+        lr=0.1, momentum=0.9, max_steps=2, eval_freq=2, log_every=10,
+        lm_seq_len=32, lm_d_model=32, lm_layers=2, lm_heads=2, lm_vocab=256,
+        lm_corpus_tokens=4000, train_dir=td)
+    LMTrainer(cfg, device="cpu", printer=lambda line: None).train()
+    got, line, want, jline = _both(td, 2)
+    assert line.startswith("EVAL_LM step 2 loss ")
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4,
+                               atol=1e-4)
+    _assert_lines_agree(line, jline, rtol=1e-4, atol=1e-4)

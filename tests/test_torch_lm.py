@@ -246,10 +246,11 @@ def test_auto_attention_resolves_to_full_on_one_device():
     assert result["batches"] == 1 and np.isfinite(result["perplexity"])
 
 
-# Fields the LM trainer runs (remat, checkpoints, tp and pp with their
-# model axis and microbatches); the others (ep and MoE) raise.
+# Fields the LM trainer runs: remat, checkpoints, tp and pp with their
+# model axis and microbatches, ep with its experts and top-k; every one of
+# them builds the config the JAX package builds.
 LM_RUNS = {"remat", "eval_freq", "lm_parallelism", "lm_model_axis",
-           "lm_microbatches"}
+           "lm_microbatches", "lm_experts", "lm_moe_top_k"}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -260,14 +261,11 @@ LM_RUNS = {"remat", "eval_freq", "lm_parallelism", "lm_model_axis",
 ])
 def test_unported_lm_fields_raise(field, value):
     kw = {"eval_freq": 0, "network": "TransformerLM", field: value}
-    if field in LM_RUNS and value != "ep":
-        cfg = config.TrainConfig(**kw)
-        assert getattr(cfg, field) == value
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(
-            jax_config.TrainConfig(**kw))
-        return
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        config.TrainConfig(**kw)
+    assert field in LM_RUNS
+    cfg = config.TrainConfig(**kw)
+    assert getattr(cfg, field) == value
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jax_config.TrainConfig(**kw))
 
 
 def test_lm_config_validates_like_jax():
