@@ -18,16 +18,23 @@ exit and no result line, if any phase fails:
    calls them; no single PyTorch call computes the int8 stochastic-rounding
    quantizer, so it has none) and the bound (bytes over 3.35 TB/s or operations over the
    peak rate of their type, whichever is larger); conv3x3 runs f32 through
-   its SIMT kernel and bf16 through its tensor-core kernel, and the bf16
+   its SIMT kernel and bf16 and f16 through its tensor-core kernel (an f16
+   view off a 16-byte boundary through the SIMT one), and the 16-bit
    rows also time the SIMT kernel on the same inputs; the three flash
-   kernels run on the tensor cores (f32 as 3xTF32) and print a second
+   kernels run on the tensor cores (f32 as 3xTF32; bf16 and f16 as the
+   JAX op's 16-bit forms) and print a second
    bound at that route's rate, ``bound_tc_ms``; the tree quantizer runs a
    whole gradient tree in one launch, with its noise drawn in the kernel
    (Philox) and with the caller's; then times the conv's weight gradient
    (torch ops) over one step's calls;
 4. trains full-width ResNet-18 (synthetic CIFAR-10, batch 256, bf16, conv
    ``pallas``, fused SGD) for a few steps through the port's Trainer, then
-   evaluates 2 batches; then the same network trained asynchronously by 2
+   evaluates 2 batches; then the same network in float16 through the
+   entry points (MAIN-F16: ``train.main`` with checkpoints at 2 and 4 of 4
+   steps, ``evaluate.main --once 4``, a resume from step 2 equal to the
+   uninterrupted run bit for bit, and the step-1 loss of one
+   ``--conv-impl xla`` step, cuDNN in f16, within rtol 1e-2); then the same
+   network trained asynchronously by 2
    slices through ``train.main --mode async`` with every gradient tree
    through one launch of the int8 quantize kernel on submit, a mixed-rate
    schedule with
@@ -94,7 +101,7 @@ exit and no result line, if any phase fails:
    Dropout, synthetic CIFAR-100, batch 256) and ResNet-50 at 224 px on the
    random-resized-crop loader (MAIN-IMAGENET: batch 128, uint8 batches)
    through ``train.main`` and ``evaluate.main --once``, each after the
-   bf16 conv3x3 checks at its geometries (VGG11's channel ladder from
+   bf16 and f16 conv3x3 checks at its geometries (VGG11's channel ladder from
    16x16 down to 2x2, ResNet-50's 56, 28, 14 and 7 px stages); then the
    full-width TransformerLM (d 512, 8 layers, 8 heads, vocab 32000, S
    2048, batch 8, f32, flash
@@ -159,8 +166,9 @@ exit and no result line, if any phase fails:
    Before MAIN-CKPT, the fused SGD and Adam kernels on each replica's
    slice of a padded flat buffer, as the sharded update runs them (CHECK
    zero slice);
-5. holds one small ResNet step in f32 (SIMT conv only) and one in bf16
-   (tensor-core conv only), one small bf16 VGG step (the same injected
+5. holds one small ResNet step in f32 (SIMT conv only) and one each in
+   bf16 and f16 (tensor-core conv only), one small bf16 VGG step (the same
+   injected
    Dropout masks) and one of a ResNet with the ImageNet stem, two small
    asynchronous ticks (the same
    injected rounding noise) and one small LM step on the card against the
@@ -199,7 +207,13 @@ GEOMETRIES = ((32, 64, 4), (16, 128, 3), (8, 256, 3), (4, 512, 3))
 CONV_PER_STEP = 2 * sum(n for _, _, n in GEOMETRIES)     # fwd + input grad
 CONV_PER_EVAL_BATCH = sum(n for _, _, n in GEOMETRIES)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # tensor-core bf16; f32 FMA
+# Tensor-core bf16 and f16 (dense); f32 FMA on the CUDA cores.
+PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+ELEMENT_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
+# conv3x3 against its plain version on the card: f32 sums in another order
+# (1e-4); bf16 rounded once from f32 sums (2e-2, about one ulp at 2-4); f16
+# likewise (5e-3, about 2.5 ulp of f16 at 2).
+CONV_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 TF32_OPS = 495e12                  # tensor-core TF32; 3xTF32 takes 3 of them
 # The LM of the JAX package's transformer_lm_2k_flash benchmark: its one
 # attention call per layer is [batch 8, 8 heads, S 2048, head dim 64].
@@ -209,18 +223,26 @@ LM_ARGS = ("--lm-attention", "flash", "--lm-d-model", "512", "--lm-layers",
 LM_LAYERS, LM_BATCH, LM_SEQ = 8, 8, 2048
 FLASH_SHAPE = (8, 8, 2048, 64)
 # Kernel against plain version: forward 2e-5 and gradients 5e-4 in f32,
-# 2e-2 in bf16 (outputs rounded once from f32): the JAX package's own.
-FLASH_TOL = {"float32": (2e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
+# 2e-2 in bf16 (outputs rounded once from f32): the JAX package's own; f16
+# 1e-2 (p and ds rounded to f16 on the tiles, as bf16 rounds them to bf16).
+FLASH_TOL = {"float32": (2e-5, 5e-4), "bfloat16": (2e-2, 2e-2),
+             "float16": (1e-2, 1e-2)}
 FLASH_MATMULS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}
-# Beside the LM's shape: the widest head dim, causal, in both types; a head
-# dim whose bf16 depth is padded from 40 to 48; a full (non-causal) shape;
-# an S that is not a multiple of the kernels' 64-row tile; ACCURACY-LM's
-# [batch 16, 4 heads, S 256, head dim 32].
+# Beside the LM's shape: the widest head dim, causal, in all types; a head
+# dim whose 16-bit depth is padded from 40 to 48; a full (non-causal)
+# shape; an S that is not a multiple of the kernels' 64-row tile;
+# ACCURACY-LM's [batch 16, 4 heads, S 256, head dim 32]. f16 is the JAX
+# op's f16 form (no trainer path computes attention in f16): the LM's
+# shape, D 128, the padded D 40, and full.
 FLASH_CASES = ((FLASH_SHAPE, True, "float32"), (FLASH_SHAPE, True, "bfloat16"),
+               (FLASH_SHAPE, True, "float16"),
                ((2, 4, 512, 128), True, "float32"),
                ((2, 4, 512, 128), True, "bfloat16"),
+               ((2, 4, 512, 128), True, "float16"),
                ((2, 4, 1000, 40), True, "bfloat16"),
+               ((2, 4, 1000, 40), True, "float16"),
                ((2, 4, 512, 64), False, "float32"),
+               ((2, 4, 512, 64), False, "float16"),
                ((2, 4, 1000, 64), True, "float32"),
                ((16, 4, 256, 32), True, "float32"))
 # ResNet-18 with fused Adam through the entry points: checkpoints every 3
@@ -283,7 +305,8 @@ WIRE_ARGS = ("--mode", "async", "--staleness-limit", "8", "--network",
              "--device", "cuda")
 WIRE_INT8 = ("--compress-grad", "true", "--grad-codec", "int8")
 # The int8 run's versions before its resume (cut from 6 to 4, and blosc's
-# from 3 to 2, to make room for MAIN-HIER in the script's time).
+# from 3 to 2, to make room for MAIN-HIER in the script's time; blosc's and
+# raw's to 1 each for MAIN-F16's).
 WIRE_INT8_STEPS = 4
 # The launches, each a tuple of runs in one process group: the resumed
 # int8 run, blosc and raw in one launch, blosc and raw under seeds of
@@ -292,9 +315,9 @@ WIRE_INT8_STEPS = 4
 WIRE_LAUNCHES = ((("int8", WIRE_INT8, WIRE_INT8_STEPS, 2, False),),
                  (("int8-resumed", WIRE_INT8, WIRE_INT8_STEPS + 2, 2, True),
                   ("blosc", ("--compress-grad", "true", "--grad-codec",
-                             "blosc", "--seed", "44"), 2, 0, False),
+                             "blosc", "--seed", "44"), 1, 0, False),
                   ("raw", ("--compress-grad", "false", "--wire-bucket-mb",
-                           "0", "--seed", "43"), 2, 0, False)))
+                           "0", "--seed", "43"), 1, 0, False)))
 WIRE_SAVES = {"int8": [2, 4], "int8-resumed": [6], "blosc": [], "raw": []}
 # VGG11 (with BatchNorm) on synthetic CIFAR-100, the JAX package's
 # vgg11_cifar100_kofn / vgg11_pallas_conv (bench_suite.py:1450, 1511):
@@ -326,6 +349,17 @@ IMAGENET_ARGS = ("--network", "ResNet50_ImageNet", "--dataset",
 # ResNet-50's 13 stride-1 3x3s at 224 px: (H=W, C, Co, count).
 RESNET50_GEOMETRIES = ((56, 64, 64, 3), (28, 128, 128, 3), (14, 256, 256, 5),
                        (7, 512, 512, 2))
+# MAIN-F16: MAIN's ResNet-18 in float16 (the JAX package's --compute-dtype
+# float16, models/__init__.py:20) through the entry points: 4 steps with
+# checkpoints at 2 and 4, evaluate.main on step 4, a resume from step 2 to
+# 4, and one step of the same run with --conv-impl xla (cuDNN in f16) for
+# the step-1 loss. 8333 test images make 2 eval batches of 4167.
+F16_STEPS = 4
+F16_EVAL_BATCHES = 2
+F16_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
+            "--batch-size", str(BATCH), "--test-batch-size", "4167",
+            "--compute-dtype", "float16", "--fused-optimizer", "--momentum",
+            "0.9", "--weight-decay", "5e-4", "--device", "cuda")
 # MAIN-ZERO: the CNN path's ResNet-18 as two gloo ranks on the card, ZeRO-1
 # then replicated, with every step option of the slice. The heartbeat
 # deadline is long enough for the first step's kernel builds.
@@ -416,10 +450,10 @@ SHARD_SLICE_ARGS = ("--mode", "async", "--async-slices", "2", "--shard-wire",
 # readmission (3 clean screens) each take ~3-4 versions. The window of 40
 # steps spans ~9-13 versions (a follower takes 3-4.6 steps a leader tick),
 # so the readmission comes by version ~20, and the bit-flips still fail
-# ~8 reads a run. On the card it came at version 15 in both runs that
-# measured it, so 24 versions (28 until MAIN-MOE needed the time) leave
-# nine to spare.
-POISON_STEPS = 24
+# ~8 reads a run. On the card it came at version 15 in the three runs that
+# measured it, so 20 versions (28 until MAIN-MOE needed the time, 24 until
+# MAIN-F16 did) leave five to spare.
+POISON_STEPS = 20
 POISON_WINDOW = 40
 POISON_SPEC = (f"grad_poison:scale=1e38,r=2,step=3,steps={POISON_WINDOW};"
                "payload_bitflip:p=0.002,seed=11,prefix=async-42/agrad")
@@ -445,9 +479,10 @@ POISON_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
 # spanned ~6 versions, the partition declared at 7 and the regraft at 8),
 # so the drill's 12 steps would span ~3 versions and no partition would
 # be declared. 40 steps span ~9 versions (13 at 3 steps a version), and
-# 16 versions leave room for the regraft after the heal (on the card it
-# came at version 8 to 10; 20 versions until MAIN-SERVE needed the time).
-HIER_STEPS = 16
+# 13 versions leave room for the regraft after the heal (on the card it
+# came at version 8 to 10; 20 versions until MAIN-SERVE needed the time,
+# 16 until MAIN-F16 did).
+HIER_STEPS = 13
 HIER_CUT = 6
 HIER_WINDOW = 40
 HIER_ARGS = ("--mode", "async", "--compress-grad", "true", "--grad-codec",
@@ -592,9 +627,9 @@ def fail(msg: str) -> None:
 
 
 def kernel_name(ptxas_line: str) -> str:
-    """``conv3x3_tc_kernel<256,64,1>`` from ptxas's line naming a mangled
-    entry function (template integers and bf16 / f32 only); the name as
-    it stands where it is not a ``*_kernel`` one."""
+    """``conv3x3_tc_kernel<f16,256,64>`` from ptxas's line naming a mangled
+    entry function (template integers and bf16 / f16 / f32 only); the name
+    as it stands where it is not a ``*_kernel`` one."""
     for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", ptxas_line):
         size, text = int(m.group(1)), m.group(2)
         name = text[:size]
@@ -602,8 +637,10 @@ def kernel_name(ptxas_line: str) -> str:
             args = text[size:].split("Ev", 1)[0] + "E"
             if not args.startswith("I"):
                 return name
-            kinds = re.findall(r"Li(\d+)E|(__nv_bfloat16)|I(f)E", args)
-            params = [n or ("bf16" if b else "f32") for n, b, _ in kinds]
+            kinds = re.findall(r"Li(\d+)E|(__nv_bfloat16)|(__half)|I(f)E",
+                               args)
+            params = [n or ("bf16" if b else "f16" if h else "f32")
+                      for n, b, h, _ in kinds]
             return f"{name}<{','.join(params)}>"
     found = re.search(r"entry function '(\w+)'", ptxas_line)
     return found.group(1) if found else ""
@@ -662,7 +699,7 @@ def host_us(fn, iters: int = 100) -> float:
 def conv_bound_ms(n, h, c, co, dtype_name) -> tuple:
     """(ms for the operations at peak, ms for the bytes at the memory
     rate) of one conv: each input read once, the output written once."""
-    size = 2 if dtype_name == "bfloat16" else 4
+    size = ELEMENT_BYTES[dtype_name]
     ops = 2.0 * n * h * h * c * co * 9
     nbytes = (n * h * h * c + 9 * c * co + n * h * h * co) * size
     return 1e3 * ops / PEAK_OPS[dtype_name], 1e3 * nbytes / HBM_BYTES_PER_S
@@ -671,17 +708,20 @@ def conv_bound_ms(n, h, c, co, dtype_name) -> tuple:
 def check_conv(torch, F, conv_mod) -> dict:
     """The conv3x3 kernels against their plain version, forward and input
     gradient, at the four ResNet-18 geometries, batch 256: f32 through the
-    SIMT kernel, bf16 through the tensor-core kernel (its route is counted);
-    bf16 rows also time the SIMT kernel on the same inputs, the kernel that
-    route replaced."""
-    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    SIMT kernel, bf16 and f16 through the tensor-core kernel (its route is
+    counted); the 16-bit rows also time the SIMT kernel on the same inputs,
+    the kernel that route replaced. Returns one step's sums (26 launches)
+    for bf16, and for f16 under ``"float16"``; an f16 view 2 bytes off a
+    16-byte boundary takes the SIMT kernel."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    step = {"ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
-    max_err = 0.0
-    for dtype_name in ("float32", "bfloat16"):
+    steps = {}
+    for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
-        want_route = "tc" if dtype_name == "bfloat16" else "simt"
+        tol = CONV_TOL[dtype_name]
+        want_route = "simt" if dtype_name == "float32" else "tc"
+        step = {"ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
+                "bytes_ms": 0.0, "max_abs_err": 0.0}
         for h, c, count in GEOMETRIES:
             x = torch.randn(BATCH, h, h, c, device="cuda", generator=gen)
             w = torch.randn(3, 3, c, c, device="cuda", generator=gen) \
@@ -701,11 +741,10 @@ def check_conv(torch, F, conv_mod) -> dict:
                 ref = conv_mod.conv3x3_reference(x, w_eff)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                if not torch.allclose(out.float(), ref.float(),
-                                      rtol=tol[dtype_name],
-                                      atol=tol[dtype_name]):
+                if not torch.allclose(out.float(), ref.float(), rtol=tol,
+                                      atol=tol):
                     fail(f"conv3x3 {kind} {dtype_name} {h}x{h}x{c}: max abs "
-                         f"err {err} above {tol[dtype_name]}")
+                         f"err {err} above {tol}")
                 # Times of the kernel alone (on w_eff, without the input
                 # gradient's flip), device time from graph replays.
                 x_cl = x.permute(0, 3, 1, 2)          # channels_last NCHW
@@ -720,44 +759,66 @@ def check_conv(torch, F, conv_mod) -> dict:
                         f"{c} route {route} ms {ms:.4f} plain_ms {plain:.4f} "
                         f"library_ms {lib:.4f} bound_ms {bound:.4f} "
                         f"max_abs_err {err:.3e}")
-                if dtype_name == "bfloat16":
+                if dtype_name != "float32":
                     simt = graph_ms(
                         lambda: conv_mod._launch(x, w_eff, "simt"), iters=3)
                     line += (f" simt_ms {simt:.4f} tflops "
                              f"{2 * 9 * BATCH * h * h * c * c / ms / 1e9:.1f}")
-                    if kind == "fwd":
+                    if kind == "fwd" and dtype_name == "bfloat16":
                         us = host_us(lambda: fn(x, w))
                         lib_us = host_us(
                             lambda: F.conv2d(x_cl, w_oihw, padding=1))
                         line += f" host_us {us:.1f} library_host_us " \
                                 f"{lib_us:.1f}"
-                    max_err = max(max_err, err)
-                    step["ms"] += count * ms
-                    step["simt_ms"] += count * simt
-                    step["plain_ms"] += count * plain
-                    step["library_ms"] += count * lib
-                    step["bound_ms"] += count * bound
-                    step["ops_ms"] += count * ops_ms
-                    step["bytes_ms"] += count * bytes_ms
+                    step["max_abs_err"] = max(step["max_abs_err"], err)
+                    for key, value in (("ms", ms), ("simt_ms", simt),
+                                       ("plain_ms", plain),
+                                       ("library_ms", lib),
+                                       ("bound_ms", bound),
+                                       ("ops_ms", ops_ms),
+                                       ("bytes_ms", bytes_ms)):
+                        step[key] += count * value
                 print(line, flush=True)
-    print(f"KERNEL conv3x3 one step's {CONV_PER_STEP} launches (bf16, batch "
-          f"{BATCH}, route tc): ms {step['ms']:.4f} simt_ms "
-          f"{step['simt_ms']:.4f} plain_ms {step['plain_ms']:.4f} "
-          f"library_ms {step['library_ms']:.4f} bound_ms "
-          f"{step['bound_ms']:.4f} ratio_to_library "
-          f"{step['ms'] / step['library_ms']:.3f}", flush=True)
-    return dict(step, max_abs_err=max_err)
+        if dtype_name != "float32":
+            steps[dtype_name] = step
+            print(f"KERNEL conv3x3 one step's {CONV_PER_STEP} launches "
+                  f"({dtype_name}, batch {BATCH}, route tc): ms "
+                  f"{step['ms']:.4f} simt_ms {step['simt_ms']:.4f} "
+                  f"plain_ms {step['plain_ms']:.4f} library_ms "
+                  f"{step['library_ms']:.4f} bound_ms "
+                  f"{step['bound_ms']:.4f} ratio_to_library "
+                  f"{step['ms'] / step['library_ms']:.3f}", flush=True)
+    # An f16 view 2 bytes off a 16-byte boundary: route picks SIMT, which
+    # computes it; nothing goes through the tensor cores.
+    x = torch.randn(2, 8, 8, 16, device="cuda", generator=gen).half()
+    w = (torch.randn(3, 3, 16, 16, device="cuda", generator=gen) / 12).half()
+    odd = torch.empty(x.numel() + 1, dtype=torch.float16, device="cuda")[1:]
+    odd = odd.view(x.shape).copy_(x)
+    tc_before = conv_mod.conv3x3.tc_launches
+    out = conv_mod.conv3x3(odd, w)
+    err = (out.float() - conv_mod.conv3x3_reference(odd, w).float()) \
+        .abs().max().item()
+    if conv_mod.conv3x3.tc_launches != tc_before or \
+            conv_mod.route(odd.dtype, 16, 16, odd.data_ptr(), w.data_ptr(),
+                           out.data_ptr()) != "simt" \
+            or err > CONV_TOL["float16"]:
+        fail(f"conv3x3 f16 view off 16 bytes: route or result (max abs err "
+             f"{err})")
+    print(f"KERNEL conv3x3 fwd float16 2x8x8x16 view 2 bytes off 16 route "
+          f"simt max_abs_err {err:.3e}", flush=True)
+    return dict(steps["bfloat16"], float16=steps["float16"])
 
 
 def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
-                          geometries) -> dict:
-    """The bf16 tensor-core conv3x3 against its plain version at a model's
-    stride-1 geometries, forward (C -> Co) and input gradient (Co -> C),
-    within the bf16 tolerance of ``check_conv``; every launch must take the
-    tensor-core kernel. Times the kernel, the plain version and
+                          geometries, dtype_name: str = "bfloat16") -> dict:
+    """The tensor-core conv3x3 (bf16 or f16) against its plain version at
+    a model's stride-1 geometries, forward (C -> Co) and input gradient
+    (Co -> C), within the tolerance of ``check_conv``; every launch must
+    take the tensor-core kernel. Times the kernel, the plain version and
     ``F.conv2d`` by graph replay beside the bound, and sums one step's
     launches (each geometry times its count)."""
-    tol = 2e-2
+    tol = CONV_TOL[dtype_name]
+    dt = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(7)
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
             "ops_ms": 0.0, "bytes_ms": 0.0}
@@ -767,7 +828,7 @@ def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
         g = torch.randn(batch, h, h, co, device="cuda", generator=gen)
         w = torch.randn(3, 3, c, co, device="cuda", generator=gen) \
             / math.sqrt(9 * c)
-        x, g, w = x.bfloat16(), g.bfloat16(), w.bfloat16()
+        x, g, w = x.to(dt), g.to(dt), w.to(dt)
         wt = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()
         for kind, fn, inp, w_eff in (
                 ("fwd", conv_mod.conv3x3, x, w),
@@ -782,7 +843,7 @@ def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
             err = (out.float() - ref.float()).abs().max().item()
             if not torch.allclose(out.float(), ref.float(), rtol=tol,
                                   atol=tol):
-                fail(f"conv3x3 {label} {kind} bf16 {batch}x{h}x{h} "
+                fail(f"conv3x3 {label} {kind} {dtype_name} {batch}x{h}x{h} "
                      f"{c}->{co}: max abs err {err} above {tol}")
             c_in, c_out = w_eff.shape[2], w_eff.shape[3]
             in_cl = inp.permute(0, 3, 1, 2)          # channels_last NCHW
@@ -792,11 +853,12 @@ def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
                              iters=3)
             lib = graph_ms(lambda: F.conv2d(in_cl, w_oihw, padding=1))
             ops_ms, bytes_ms = conv_bound_ms(batch, h, c_in, c_out,
-                                             "bfloat16")
+                                             dtype_name)
             bound = max(ops_ms, bytes_ms)
-            print(f"KERNEL conv3x3 {label} {kind} bfloat16 {batch}x{h}x{h} "
-                  f"{c_in}->{c_out} x{count} route tc ms {ms:.4f} plain_ms "
-                  f"{plain:.4f} library_ms {lib:.4f} bound_ms {bound:.4f} "
+            print(f"KERNEL conv3x3 {label} {kind} {dtype_name} "
+                  f"{batch}x{h}x{h} {c_in}->{c_out} x{count} route tc ms "
+                  f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+                  f"bound_ms {bound:.4f} "
                   f"ratio_to_library {ms / lib:.3f} tflops "
                   f"{2 * 9 * batch * h * h * c_in * c_out / ms / 1e9:.1f} "
                   f"max_abs_err {err:.3e}", flush=True)
@@ -806,9 +868,10 @@ def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
                                ("library_ms", lib), ("bound_ms", bound),
                                ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
                 step[key] += count * value
-    print(f"KERNEL conv3x3 {label} one step's {launches} launches (bf16, "
-          f"batch {batch}, route tc): ms {step['ms']:.4f} plain_ms "
-          f"{step['plain_ms']:.4f} library_ms {step['library_ms']:.4f} "
+    print(f"KERNEL conv3x3 {label} one step's {launches} launches "
+          f"({dtype_name}, batch {batch}, route tc): ms {step['ms']:.4f} "
+          f"plain_ms {step['plain_ms']:.4f} library_ms "
+          f"{step['library_ms']:.4f} "
           f"bound_ms {step['bound_ms']:.4f} ratio_to_library "
           f"{step['ms'] / step['library_ms']:.3f}", flush=True)
     return dict(step, max_abs_err=max_err, launches_a_step=launches)
@@ -818,7 +881,9 @@ def time_weight_grad(torch, conv_mod) -> None:
     """The weight gradient's time in one ResNet-18 step: torch ops (a pad,
     9 tap copies and matmuls, a stack) at the four geometries, each times
     its count of convs, bf16, batch 256; device time from graph replays,
-    and the host's time to enqueue one call."""
+    and the host's time to enqueue one call. Then, at each geometry, the
+    bf16 and f16 weight gradient with cuBLAS's reduced-precision reduction
+    on and off."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     total, host, parts = 0.0, 0.0, []
     for h, c, count in GEOMETRIES:
@@ -835,6 +900,35 @@ def time_weight_grad(torch, conv_mod) -> None:
           f"(bf16, batch {BATCH}): device ms {total:.4f} "
           f"({', '.join(parts)}); host ms to enqueue them {host:.4f}",
           flush=True)
+    # The reference numerics turn off cuBLAS's reduced-precision reduction
+    # of split-K partials in f16 and bf16 (the JAX conv's dW sums in f32):
+    # what that costs and changes, in turns (on, off, off, on), against
+    # the f32 weight gradient of the same 16-bit inputs.
+    matmul = torch.backends.cuda.matmul
+    for dt, flag in ((torch.bfloat16,
+                      "allow_bf16_reduced_precision_reduction"),
+                     (torch.float16,
+                      "allow_fp16_reduced_precision_reduction")):
+        kept, parts = getattr(matmul, flag), []
+        for h, c, _ in GEOMETRIES:
+            x = torch.randn(BATCH, h, h, c, device="cuda",
+                            generator=gen).to(dt)
+            g = torch.randn(BATCH, h, h, c, device="cuda",
+                            generator=gen).to(dt)
+            ref = conv_mod.conv3x3_weight_grad(x.float(), g.float())
+            runs = []
+            for on in (True, False, False, True):
+                setattr(matmul, flag, on)
+                rel = (conv_mod.conv3x3_weight_grad(x, g).float() - ref) \
+                    .abs().max().item() / ref.abs().max().item()
+                ms = graph_ms(lambda: conv_mod.conv3x3_weight_grad(x, g),
+                              iters=5)
+                runs.append(f"{'on' if on else 'off'} {ms:.4f} ms rel err "
+                            f"{rel:.3e}")
+            parts.append(f"{h}x{h}x{c} " + ", ".join(runs))
+        setattr(matmul, flag, kept)
+        print(f"DW {flag} ({dt}, batch {BATCH}, ms by graph replay, max "
+              f"abs err over max |f32 dW|): {'; '.join(parts)}", flush=True)
 
 
 def check_sgd(torch, sgd_mod, n: int) -> dict:
@@ -949,8 +1043,8 @@ def flash_bound_ms(name, bh, s, d, causal, dtype_name) -> tuple:
     reaches (the causal lower triangle only); the bytes read every input
     once and write every output once. The route's rate: the f32 kernels
     run 3xTF32 on the tensor cores, three TF32 operations for each f32
-    one; bf16 at the bf16 peak."""
-    size = 2 if dtype_name == "bfloat16" else 4
+    one; bf16 and f16 at their peak."""
+    size = ELEMENT_BYTES[dtype_name]
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     ops = 2.0 * d * FLASH_MATMULS[name] * pairs
     tensors = {"flash_fwd": 4, "flash_dq": 5, "flash_dkv": 6}[name]
@@ -965,9 +1059,11 @@ def flash_bound_ms(name, bh, s, d, causal, dtype_name) -> tuple:
 def check_flash(torch, F, fa) -> dict:
     """The three flash kernels against their plain versions at
     ``FLASH_CASES``, each launch's route read from the tensor-core counts;
-    timed, with SDPA beside them, at the LM's shape."""
+    timed, with SDPA beside them, at the LM's shape. Returns the f32
+    figures of each kernel, and its f16 ones under ``"float16"``."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    out = {name: {"max_abs_err": 0.0} for name in FLASH_MATMULS}
+    out = {name: {"max_abs_err": 0.0, "float16": {"max_abs_err": 0.0}}
+           for name in FLASH_MATMULS}
     fns = {"flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
            "flash_dkv": fa.flash_dkv}
     for (b, h, s, d), causal, dtype_name in FLASH_CASES:
@@ -1019,8 +1115,10 @@ def check_flash(torch, F, fa) -> dict:
                     else tol
                 if not torch.allclose(g.float(), w.float(), rtol=t, atol=t):
                     fail(f"{name} {kind}: max abs err {err} above {t}")
-            if dtype_name == "float32":
-                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            if dtype_name in ("float32", "float16"):
+                rec = out[name] if dtype_name == "float32" \
+                    else out[name]["float16"]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
             line = (f"KERNEL {name} {kind} route {routes[name]} "
                     f"max_abs_err {err:.3e}")
             if timed:
@@ -1042,13 +1140,16 @@ def check_flash(torch, F, fa) -> dict:
                          f"{lib:.4f} bound_ms {max(ops_ms, bytes_ms):.4f} "
                          f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}) "
                          f"bound_tc_ms {max(route_ms, bytes_ms):.4f}")
+                figures = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=max(ops_ms, bytes_ms),
+                    bound_by=("operations" if ops_ms >= bytes_ms
+                              else "bytes"))
                 if dtype_name == "float32":
-                    out[name].update(
-                        ms=ms, plain_ms=plain, library_ms=lib,
-                        bound_ms=max(ops_ms, bytes_ms),
-                        bound_by=("operations" if ops_ms >= bytes_ms
-                                  else "bytes"),
-                        bound_tc_ms=max(route_ms, bytes_ms))
+                    out[name].update(figures,
+                                     bound_tc_ms=max(route_ms, bytes_ms))
+                elif dtype_name == "float16":
+                    out[name]["float16"].update(figures)
             print(line, flush=True)
     print("KERNEL flash library_ms: SDPA forward for flash_fwd, SDPA's whole "
           "backward (dq, dk and dv together) for flash_dq and flash_dkv; "
@@ -1418,8 +1519,8 @@ def read_counts(wrappers) -> dict:
 
 def want_counts(wrappers, **launches) -> dict:
     """The counts a path should read: the given launches, every other
-    wrapper 0, and every conv3x3 (the paths run bf16) and flash launch
-    through the tensor cores."""
+    wrapper 0, and every conv3x3 (the paths run bf16 or f16) and flash
+    launch through the tensor cores."""
     want = dict({name: 0 for name in wrappers}, **launches)
     for name in TC_COUNTED:
         want[f"{name}_tc"] = want[name]
@@ -1684,6 +1785,105 @@ def check_mfu(phase: str, lines, rows, flops, peak) -> None:
     print(f"{phase} flops_per_step {flops} peak_flops_per_s {peak:.6g} "
           f"mfu {[r['mfu'] for r in recs]} (JSONL {len(rows)} rows, each "
           f"within 1e-6 of count / (step_time * peak))", flush=True)
+
+
+def f16_main_path(torch, wrappers, main_median_s: float) -> dict:
+    """MAIN-F16: ResNet-18 in float16 with ``--conv-impl pallas`` through
+    ``train.main`` (4 steps, checkpoints at 2 and 4), ``evaluate.main
+    --once 4``, ``train.main`` resumed from a copy of step 2 to step 4, and
+    one step with ``--conv-impl xla``. Every launch count is set to 0 just
+    before each run and read just after: 26 f16 conv3x3 launches a step
+    and 13 an eval batch, all through the tensor-core kernel, a fused SGD
+    a step, none in the xla run's convs. The losses are finite, the
+    step-1 loss within rtol 1e-2 of the xla run's (cuDNN in f16, the same
+    weights and batch), the EVAL line finite, and the resumed steps and
+    step-4 checkpoint equal the uninterrupted run's bit for bit."""
+    from ps_pytorch_tpu_torch import evaluate, train
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_f16_")
+    td, td2 = f"{root}/td", f"{root}/resumed"
+    pallas = (*F16_ARGS, "--conv-impl", "pallas", "--resume", "false")
+    step_re = re.compile(r"^STEP (\d+) .*? loss (\S+)", re.M)
+    counts = {}
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        t0 = time.monotonic()
+        out = run_entry(train.main, [
+            *pallas, "--max-steps", str(F16_STEPS), "--eval-freq", "2",
+            "--train-dir", td, "--metrics-file", f"{root}/m.jsonl"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts["run"] = read_counts(wrappers)
+        whole = step_re.findall(out)
+        rows = read_jsonl(f"{root}/m.jsonl")
+        zero_counts(wrappers)
+        found = EVAL_RE.findall(run_entry(
+            evaluate.main, ["--train-dir", td, "--once", str(F16_STEPS)]))
+        counts["evaluate"] = read_counts(wrappers)
+        shutil.copytree(ckpt.checkpoint_path(td, 2),
+                        ckpt.checkpoint_path(td2, 2))
+        zero_counts(wrappers)
+        resumed_out = run_entry(train.main, [
+            *F16_ARGS, "--conv-impl", "pallas", "--max-steps",
+            str(F16_STEPS), "--eval-freq", "2", "--train-dir", td2])
+        counts["resumed"] = read_counts(wrappers)
+        resumed = step_re.findall(resumed_out)
+        same_bytes = all(
+            Path(ckpt.checkpoint_path(td, F16_STEPS), name).read_bytes()
+            == Path(ckpt.checkpoint_path(td2, F16_STEPS), name).read_bytes()
+            for name in ("state.msgpack", "meta.json"))
+        zero_counts(wrappers)
+        xla = step_re.findall(run_entry(train.main, [
+            *F16_ARGS, "--conv-impl", "xla", "--resume", "false",
+            "--max-steps", "1", "--eval-freq", "0", "--train-dir",
+            f"{root}/xla"]))
+        counts["xla"] = read_counts(wrappers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if [int(k) for k, _ in whole] != list(range(1, F16_STEPS + 1)) or \
+            not all(math.isfinite(float(v)) for _, v in whole):
+        fail(f"MAIN-F16: STEP lines {whole}, expected {F16_STEPS} finite")
+    if len(found) != 1 or found[0][0] != str(F16_STEPS) or not all(
+            math.isfinite(float(v)) for v in found[0][1:]):
+        fail(f"MAIN-F16: evaluate.main printed no finite EVAL step "
+             f"{F16_STEPS}")
+    if f"RESUME from {ckpt.checkpoint_path(td2, 2)} at step 2" \
+            not in resumed_out or resumed != whole[2:] or not same_bytes:
+        fail(f"MAIN-F16: the run resumed at step 2 printed {resumed} "
+             f"against {whole[2:]}, checkpoint bytes equal {same_bytes}")
+    loss1, loss1_xla = float(whole[0][1]), float(xla[0][1])
+    if not np.isclose(loss1, loss1_xla, rtol=1e-2, atol=0.0):
+        fail(f"MAIN-F16: step-1 loss {loss1} on the conv3x3 kernel, "
+             f"{loss1_xla} on cuDNN (rtol 1e-2)")
+    eval_launches = CONV_PER_EVAL_BATCH * F16_EVAL_BATCHES
+    wants = {
+        "run": want_counts(wrappers, fused_sgd=F16_STEPS,
+                           conv3x3=CONV_PER_STEP * F16_STEPS
+                           + eval_launches),
+        "evaluate": want_counts(wrappers, conv3x3=eval_launches),
+        "resumed": want_counts(wrappers, fused_sgd=F16_STEPS - 2,
+                               conv3x3=CONV_PER_STEP * (F16_STEPS - 2)
+                               + eval_launches),
+        "xla": want_counts(wrappers, fused_sgd=1)}
+    for run, want in wants.items():
+        if counts[run] != want:
+            fail(f"MAIN-F16 {run} launches {counts[run]}, expected {want}")
+    times = [r["step_time"] for r in rows]
+    median = float(np.median(times[1:]))
+    print(f"MAIN-F16 step_times_s {times} images_per_s "
+          f"{[r['examples_per_sec'] for r in rows]} median_step_s "
+          f"{median:.5f} ({BATCH / median:.1f} images/s; bf16 MAIN "
+          f"{main_median_s:.5f} s, ratio {median / main_median_s:.3f}) "
+          f"train_main_s {wall:.2f} max_memory_allocated {peak} step1_loss "
+          f"{loss1} xla {loss1_xla} eval {found[0]} launches {counts}",
+          flush=True)
+    total = {name: sum(c[name] for c in counts.values())
+             for name in counts["run"]}
+    return dict(total, median_step_s=median, by_run=counts)
 
 
 def lm_main_path(torch, wrappers) -> dict:
@@ -2031,9 +2231,10 @@ def small_step_agrees(torch, conv_mod, dtype_name: str) -> None:
     """One small ResNet (one BasicBlock a stage, conv pallas, fused SGD), 2
     train steps on the card and on the CPU from the same weights and
     batches. f32 runs the SIMT kernel only; losses and weights agree at
-    rtol 1e-3, atol 1e-4 (sums run in another order on the card). bf16 runs
-    every conv3x3 launch through the tensor cores; losses agree at rtol
-    1e-2 (bf16 activations round at other places in another order)."""
+    rtol 1e-3, atol 1e-4 (sums run in another order on the card). bf16 and
+    f16 run every conv3x3 launch through the tensor cores; losses agree at
+    rtol 1e-2 (16-bit activations round at other places in another
+    order)."""
     from ps_pytorch_tpu_torch.models.resnet import BasicBlock, ResNet
     from ps_pytorch_tpu_torch.ops.fused_sgd import FusedSGD
     from ps_pytorch_tpu_torch.parallel import make_train_step
@@ -2057,16 +2258,17 @@ def small_step_agrees(torch, conv_mod, dtype_name: str) -> None:
                               in model.state_dict().items()})
     launches = conv_mod.conv3x3.launches - before[0]
     tc = conv_mod.conv3x3.tc_launches - before[1]
-    if launches == 0 or tc != (launches if dtype_name == "bfloat16" else 0):
+    if launches == 0 or tc != (launches if dtype_name != "float32" else 0):
         fail(f"small step {dtype_name}: {launches} conv3x3 launches, {tc} "
              "through the tensor cores")
     (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
     worst = max((sc[k].float() - sp[k].float()).abs().max().item()
                 for k in sc)
-    if dtype_name == "bfloat16":
+    if dtype_name != "float32":
         if not (np.all(np.isfinite(lc))
                 and np.allclose(lc, lp, rtol=1e-2, atol=0.0)):
-            fail(f"small step bf16: losses on the card {lc} vs CPU {lp}")
+            fail(f"small step {dtype_name}: losses on the card {lc} vs CPU "
+                 f"{lp}")
     else:
         if not np.allclose(lc, lp, rtol=1e-3, atol=1e-4):
             fail(f"small step: losses on the card {lc} vs CPU {lp}")
@@ -5488,6 +5690,9 @@ def main() -> int:
         timed(health_on_card, torch)
         timed(small_step_agrees, torch, conv_mod, "float32")
         timed(small_step_agrees, torch, conv_mod, "bfloat16")
+        timed(small_step_agrees, torch, conv_mod, "float16")
+        f16_launches = timed(f16_main_path, torch, wrappers,
+                             launches["median_step_s"])
         quant = timed(check_quantize, torch, tq, leaf_sizes)
         async_launches = timed(async_main_path, torch, wrappers, n_params)
         timed(small_async_tick_agrees, torch, tq)
@@ -5500,11 +5705,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         vgg_conv = timed(check_conv_geometries, torch, F, conv_mod,
                          "VGG11", BATCH, VGG_GEOMETRIES)
+        vgg_conv16 = timed(check_conv_geometries, torch, F, conv_mod,
+                           "VGG11", BATCH, VGG_GEOMETRIES, "float16")
         vgg_launches = timed(vgg_main_path, torch, wrappers)
         timed(small_vgg_and_stem_steps_agree, torch, conv_mod)
         r50_conv = timed(check_conv_geometries, torch, F, conv_mod,
                          "ResNet50_ImageNet", IMAGENET_BATCH,
                          RESNET50_GEOMETRIES)
+        r50_conv16 = timed(check_conv_geometries, torch, F, conv_mod,
+                           "ResNet50_ImageNet", IMAGENET_BATCH,
+                           RESNET50_GEOMETRIES, "float16")
         imagenet_launches = timed(imagenet_main_path, torch, wrappers)
         torch.cuda.empty_cache()
         timed(dist_main_path, wrappers)
@@ -5548,6 +5758,23 @@ def main() -> int:
              bound_by=("operations" if conv["ops_ms"] >= conv["bytes_ms"]
                        else "bytes"),
              library_ms=conv["library_ms"],
+             # f16 (tc): MAIN-F16's launches, all of them, by run; one
+             # step's 26 at MAIN's geometry and the other models' steps.
+             float16=dict(
+                 launches=f16_launches["conv3x3"],
+                 tc_launches=f16_launches["conv3x3_tc"],
+                 launches_by_run={run: c["conv3x3"] for run, c
+                                  in f16_launches["by_run"].items()},
+                 **{key: conv["float16"][key] for key in (
+                     "ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+                     "max_abs_err")},
+                 bound_by=("operations" if conv["float16"]["ops_ms"]
+                           >= conv["float16"]["bytes_ms"] else "bytes"),
+                 paths={name: {key: timed[key] for key in (
+                     "ms", "bound_ms", "plain_ms", "library_ms",
+                     "max_abs_err", "launches_a_step")}
+                     for name, timed in (("VGG11", vgg_conv16),
+                                         ("ResNet50_ImageNet", r50_conv16))}),
              # The slice's other paths: launches of each run, and one
              # train step's launches at its geometries (kernel, bound,
              # plain version and F.conv2d, ms).
@@ -5597,6 +5824,7 @@ def main() -> int:
              replaces="ps_pytorch_tpu/ops/fused_sgd.py:34",
              launches=launches["fused_sgd"],
              launches_by_path={"MAIN-VGG": vgg_launches["fused_sgd"],
+                               "MAIN-F16": f16_launches["fused_sgd"],
                                "MAIN-IMAGENET":
                                imagenet_launches["fused_sgd"],
                                "MAIN-WIRE": wire_launches["fused_sgd"],
@@ -5639,7 +5867,11 @@ def main() -> int:
         dict(name=name, route="cuda",
              source="ps_pytorch_tpu_torch/csrc/flash_attention.cu",
              replaces=f"ps_pytorch_tpu/ops/flash_attention.py:{line}",
-             launches=lm_launches[name], **flash[name],
+             launches=lm_launches[name],
+             **dict(flash[name], float16=dict(
+                 flash[name]["float16"], launches=f16_launches[name],
+                 note="op level only: no trainer computes attention in "
+                      "f16 (MAIN-F16 launches none)")),
              **({"tc_launches": lm_launches[f"{name}_tc"]}
                 if f"{name}_tc" in lm_launches else {}),
              # MAIN-LMCKPT (remat: the forward again in the backward) a

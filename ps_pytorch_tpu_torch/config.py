@@ -212,22 +212,11 @@ class TrainConfig:
         if self.conv_impl not in ("xla", "pallas", "pallas_im2col"):
             raise ValueError(f"unknown conv_impl {self.conv_impl!r} "
                              "(xla | pallas | pallas_im2col)")
+        # Every compute type runs with every conv_impl and lm_attention, as
+        # in the JAX package: the hand-written kernels take f32, bf16 and
+        # f16, and the LM trainers compute in f32 whatever the field says.
         if self.compute_dtype not in ("float32", "bfloat16", "float16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
-        # The hand-written kernels take f32 and bf16. float16 runs where no
-        # kernel is on the path: --conv-impl xla, and the LM with full or
-        # ring attention (lm_attention "auto" resolves to one of them,
-        # runtime/lm_trainer.py).
-        if self.compute_dtype == "float16" and (
-                self.conv_impl != "xla" and self.network not in LM_NETWORKS
-                or self.network in LM_NETWORKS
-                and self.lm_attention == "flash"):
-            raise ValueError(
-                "compute_dtype='float16' with a hand-written kernel on the "
-                f"path (conv_impl={self.conv_impl!r}, lm_attention="
-                f"{self.lm_attention!r}) is not ported yet (ROADMAP.md): the "
-                "kernels take float32 and bfloat16; use --conv-impl xla or "
-                "--lm-attention full")
         if self.loader_workers < 0:
             raise ValueError(f"loader_workers={self.loader_workers} "
                              "(must be >= 0; 0 = one per CPU)")

@@ -4,7 +4,9 @@
 // kernel behind conv3x3 / conv3x3_input_grad / conv3x3_op). It computes
 //     out[n,h,w,co] = sum_{dy,dx,c} x[n,h+dy-1,w+dx-1,c] * wt[dy,dx,c,co]
 // in NHWC / HWIO, with zero padding outside each image, f32 accumulation,
-// and one round-to-nearest-even into the input's type (float or bfloat16).
+// and one round-to-nearest-even into the input's type (float, bfloat16 or
+// half). A half sum above 65504 rounds to inf, as XLA's convert does: no
+// clamp.
 // The input gradient of the conv is the same kernel on
 // flip(wt,(0,1)).swapaxes(2,3) (ops/conv3x3.py).
 //
@@ -16,14 +18,19 @@
 //
 // Two kernels, picked by shape before the launch (ops/conv3x3.py:route):
 //
-// conv3x3_tc_kernel, bf16 with C % 8 == 0, Co % 8 == 0 and 16-byte aligned
-// pointers (every ResNet stride-1 3x3). An implicit GEMM on the tensor
-// cores: M = output pixels, N = Co, K = 9*C in tap-major order, through
-// Hopper's warpgroup product wgmma.mma_async m64nBNk16 (bf16 x bf16 -> f32,
-// the sums in registers). The batch is one tall image of N*H rows; a block
-// owns TH rows x TW columns of it (TW = min(W, 64), TH = BM / TW, so 8x8 and
-// 4x4 images still fill a tile) and BN output channels, with 2 warpgroups
-// of BM/2 pixels each. The tile, by geometry:
+// conv3x3_tc_kernel, bf16 or f16 with C % 8 == 0, Co % 8 == 0 and 16-byte
+// aligned pointers (every ResNet stride-1 3x3). An implicit GEMM on the
+// tensor cores: M = output pixels, N = Co, K = 9*C in tap-major order,
+// through Hopper's warpgroup product wgmma.mma_async m64nBNk16 (bf16 x
+// bf16 or f16 x f16 -> f32, the sums in registers; both 16-bit types run
+// at 989 TFLOP/s). The element type is a template parameter: the halo and
+// weight layouts, the cp.async ring, the ldmatrix addressing, the swizzle
+// and the descriptors are the same bytes for both, and only the wgmma
+// instruction's type and the epilogue's rounding differ. The batch is one
+// tall image of N*H rows; a block owns TH rows x TW columns of it (TW =
+// min(W, 64), TH = BM / TW, so 8x8 and 4x4 images still fill a tile) and
+// BN output channels, with 2 warpgroups of BM/2 pixels each. The tile, by
+// geometry:
 //     BN = 64 for Co <= 64, else 128;
 //     BM = 256 where that still makes about a wave of blocks (128 for the
 //     132 SMs) and fits in shared memory (not at W = 1), else 128.
@@ -47,23 +54,28 @@
 // ldmatrix meets no bank conflicts. TMA's tiled mode cannot gather a halo
 // with per-image padding, so cp.async copies both. Channels and pixels past
 // C, Co or the image are zero-filled on load (cp.async src-size 0) and
-// skipped on store. The epilogue rounds f32 to bf16 once
-// (__floats2bfloat162_rn), stages the tile in shared memory and writes it
-// with 16-byte stores. Offsets into x, w and out are 64-bit.
+// skipped on store. The epilogue rounds f32 to the element type once
+// (__floats2bfloat162_rn, __floats2half2_rn), stages the tile in shared
+// memory and writes it with 16-byte stores. Offsets into x, w and out are
+// 64-bit.
 //
-// conv3x3_simt_kernel, every f32 call and any other bf16 shape: the first
-// port of the kernel, exact f32 FMA on the CUDA cores (67 TFLOP/s). The f32
-// path stays here on purpose: the tensor cores would take f32 inputs only
-// as TF32 (10-bit mantissa), which breaks the f32 parity the port is held
-// to (1e-4 against the plain version, 1e-3 over two training steps). A
-// block computes TH*TW <= 64 pixels x 64 channels, 4 x 4 a thread, staging
-// 8 input channels of the halo and the 9 weight slices at a time in shared
-// memory as f32.
+// conv3x3_simt_kernel, every f32 call and any other bf16 or f16 shape: the
+// first port of the kernel, exact f32 FMA on the CUDA cores (67 TFLOP/s).
+// The f32 path stays here on purpose: the tensor cores would take f32
+// inputs only as TF32 (10-bit mantissa), which breaks the f32 parity the
+// port is held to (1e-4 against the plain version, 1e-3 over two training
+// steps). A block computes TH*TW <= 64 pixels x 64 channels, 4 x 4 a
+// thread, staging 8 input channels of the halo and the 9 weight slices at
+// a time in shared memory as f32. 16-bit values convert through the
+// intrinsics only (__bfloat162float, __half2float, __float2half_rn), never
+// __half arithmetic.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -82,10 +94,16 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
+  return __half2float(v);
+}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as XLA's convert
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);  // the same; above 65504 it is inf
 }
 
 template <typename T>
@@ -223,7 +241,7 @@ namespace tc {
 constexpr int BK = 32;             // input channels per stage
 constexpr int STAGES = 2;          // cp.async ring depth
 constexpr int THREADS = 256;       // 2 warpgroups
-constexpr int ROW_BYTES = BK * 2;  // one halo pixel's BK channels in bf16
+constexpr int ROW_BYTES = BK * 2;  // one halo pixel's BK channels, 16-bit
 constexpr int HALF_BYTES = 9 * BK * 128;  // 64 channels of a chunk's weights
 // A block may use 227 KB of the SM's shared memory (H100).
 constexpr int MAX_SMEM = 232448;
@@ -272,67 +290,74 @@ template <int R> __device__ __forceinline__ void pin(float (&d)[R]) {
   for (int r = 0; r < R; ++r) asm volatile("" : "+f"(d[r])::"memory");
 }
 
-// d (64 x N, f32) += a (64 x 16 bf16, this warp's 16 rows in registers, the
-// mma.m16n8k16 A layout) * B (16 x N bf16 in shared memory, N-major, 128-byte
-// swizzle, described by desc).
-__device__ __forceinline__ void wgmma_n64(float (&d)[32],
-                                          const unsigned (&a)[4],
-                                          unsigned long long desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
-      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
+// d (64 x N, f32) += a (64 x 16 of T, this warp's 16 rows in registers,
+// the mma.m16n8k16 A layout) * B (16 x N of T in shared memory, N-major,
+// 128-byte swizzle, described by desc). The instruction names the type, and
+// an asm string is a literal: each width is one macro over the type's
+// name, instantiated once for bf16 and once for f16.
+#define PSK_WGMMA_N64(TY)                                                     \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"            \
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"                \
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"       \
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1))
 
-__device__ __forceinline__ void wgmma_n128(float (&d)[64],
-                                          const unsigned (&a)[4],
-                                          unsigned long long desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
-      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
-      "}, {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
+#define PSK_WGMMA_N128(TY)                                                    \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"           \
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"                \
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"      \
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"      \
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"       \
+      "}, {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1))
 
-template <int BN>
+template <typename T, int BN>
 __device__ __forceinline__ void wgmma(float (&d)[BN / 2],
                                       const unsigned (&a)[4],
                                       unsigned long long desc) {
-  if constexpr (BN == 64)
-    wgmma_n64(d, a, desc);
-  else
-    wgmma_n128(d, a, desc);
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  if constexpr (BN == 64) {
+    if constexpr (f16) PSK_WGMMA_N64("f16"); else PSK_WGMMA_N64("bf16");
+  } else {
+    if constexpr (f16) PSK_WGMMA_N128("f16"); else PSK_WGMMA_N128("bf16");
+  }
+}
+
+// Two f32 sums rounded once to the element type, stored as one pair.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 // Byte offset of 16-byte chunk kc (channels 8kc..8kc+7) of halo row r: a
@@ -362,12 +387,11 @@ __device__ __forceinline__ unsigned long long b_desc(unsigned addr) {
 // of each tile.
 // Two 128 x 64 blocks fit an SM (126 registers, 99 KB of shared memory at
 // 32x32); every larger tile takes one.
-template <int BM, int BN>
+template <typename T, int BM, int BN>
 __global__ void __launch_bounds__(THREADS, BM * BN <= 128 * 64 ? 2 : 1)
-conv3x3_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ out, int N, int H, int W, int C,
-                  int Co, int TH, int TW, int a_bytes) {
+conv3x3_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                  T* __restrict__ out, int N, int H, int W, int C, int Co,
+                  int TH, int TW, int a_bytes) {
   constexpr int MT = BM / 128;            // m64 tiles a warpgroup
   constexpr int NACC = BN / 2;            // f32 sums a thread per m64 tile
   constexpr int NC = BN / 8;              // 16-byte chunks in a weight row
@@ -425,8 +449,7 @@ conv3x3_tc_kernel(const __nv_bfloat16* __restrict__ x,
     for (int q = tid >> 2; q < halo; q += THREADS / 4) {
       const int r = row0 - 1 + q / HW2, col = col0 - 1 + q % HW2;
       const bool ok = ch < C && r >= 0 && r < rows && col >= 0 && col < W;
-      const __nv_bfloat16* src =
-          ok ? x + (((long long)r * W + col) * C + ch) : x;
+      const T* src = ok ? x + (((long long)r * W + col) * C + ch) : x;
       cp_async16(sa + a_off(q, kc), src, ok);
     }
     const int nc = tid % NC;
@@ -434,8 +457,7 @@ conv3x3_tc_kernel(const __nv_bfloat16* __restrict__ x,
     for (int row = tid / NC; row < 9 * BK; row += THREADS / NC) {
       const int t = row / BK, c = c0 + row % BK;
       const bool ok = co < Co && c < C;
-      const __nv_bfloat16* src =
-          ok ? w + (((long long)t * C + c) * Co + co) : w;
+      const T* src = ok ? w + (((long long)t * C + c) * Co + co) : w;
       cp_async16(sb + b_off(row, nc), src, ok);
     }
   };
@@ -472,7 +494,8 @@ conv3x3_tc_kernel(const __nv_bfloat16* __restrict__ x,
       wgmma_fence();
       const unsigned long long desc = b_desc(sb + (t * BK + ks * 16) * 128);
 #pragma unroll
-      for (int i = 0; i < MT; ++i) wgmma<BN>(acc[i], af[step & 1][i], desc);
+      for (int i = 0; i < MT; ++i)
+        wgmma<T, BN>(acc[i], af[step & 1][i], desc);
       wgmma_commit();
       wgmma_wait<1>();
     }
@@ -481,23 +504,21 @@ conv3x3_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < MT; ++i) pin(acc[i]);
 
-  // Epilogue: f32 -> bf16 once, staged as a [BM][BN+8] tile in shared
+  // Epilogue: f32 -> T once, staged as a [BM][BN+8] tile in shared
   // memory, then 16-byte stores of whole 8-channel chunks. Sum 4j..4j+3 of
   // a thread is (row g, columns 8j+2q, +1) and (row g+8, the same).
   cp_async_wait_all();
   __syncthreads();
   constexpr int CS = BN + 8;
-  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* cs = reinterpret_cast<T*>(smem);
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int r = wg * (BM / 2) + i * 64 + wq * 16 + g, c = j * 8 + q * 2;
-      *reinterpret_cast<__nv_bfloat162*>(&cs[r * CS + c]) =
-          __floats2bfloat162_rn(acc[i][4 * j], acc[i][4 * j + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(&cs[(r + 8) * CS + c]) =
-          __floats2bfloat162_rn(acc[i][4 * j + 2], acc[i][4 * j + 3]);
+      store_pair(&cs[r * CS + c], acc[i][4 * j], acc[i][4 * j + 1]);
+      store_pair(&cs[(r + 8) * CS + c], acc[i][4 * j + 2], acc[i][4 * j + 3]);
     }
   __syncthreads();
   for (int e = tid; e < BM * NC; e += THREADS) {
@@ -524,10 +545,10 @@ int smem_bytes(int W, int* a_bytes) {
   return (ring > tile ? ring : tile) + 1024;
 }
 
-template <int BM, int BN>
+template <typename T, int BM, int BN>
 int launch(const void* x, const void* w, void* out, int N, int H, int W,
            int C, int Co, void* stream) {
-  auto kernel = conv3x3_tc_kernel<BM, BN>;
+  auto kernel = conv3x3_tc_kernel<T, BM, BN>;
   int a_bytes = 0;
   const int smem = smem_bytes<BM, BN>(W, &a_bytes);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -551,22 +572,35 @@ int launch(const void* x, const void* w, void* out, int N, int H, int W,
   }
   const dim3 grid((unsigned)blocks, (unsigned)((Co + BN - 1) / BN));
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      N, H, W, C, Co, TH, TW, a_bytes);
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<T*>(out), N, H, W, C, Co, TH, TW, a_bytes);
   return (int)cudaGetLastError();
 }
 
 // The tile, from the table in the header.
-template <int BN>
+template <typename T, int BN>
 int launch_bn(const void* x, const void* w, void* out, int N, int H, int W,
               int C, int Co, void* stream) {
   const long long pixels = (long long)N * H * W;
   int unused = 0;
   if ((pixels + 255) / 256 * ((Co + BN - 1) / BN) >= 128 &&
       smem_bytes<256, BN>(W, &unused) <= MAX_SMEM)
-    return launch<256, BN>(x, w, out, N, H, W, C, Co, stream);
-  return launch<128, BN>(x, w, out, N, H, W, C, Co, stream);
+    return launch<T, 256, BN>(x, w, out, N, H, W, C, Co, stream);
+  return launch<T, 128, BN>(x, w, out, N, H, W, C, Co, stream);
+}
+
+// The shape and alignment checks of the tensor-core kernel, then its tile.
+template <typename T>
+int launch_any(const void* x, const void* w, void* out, int N, int H, int W,
+               int C, int Co, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 || Co % 8 ||
+      (reinterpret_cast<unsigned long long>(x) |
+       reinterpret_cast<unsigned long long>(w) |
+       reinterpret_cast<unsigned long long>(out)) % 16 ||
+      (long long)N * H > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return Co <= 64 ? launch_bn<T, 64>(x, w, out, N, H, W, C, Co, stream)
+                  : launch_bn<T, 128>(x, w, out, N, H, W, C, Co, stream);
 }
 
 }  // namespace tc
@@ -584,18 +618,21 @@ extern "C" int psk_conv3x3_bf16_simt(const void* x, const void* w, void* out,
   return simt::launch<__nv_bfloat16>(x, w, out, N, H, W, C, Co, stream);
 }
 
-// The tensor-core kernel. Takes C % 8 == 0, Co % 8 == 0 and 16-byte aligned
-// pointers, and refuses anything else (cudaErrorInvalidValue): the caller
-// picks the kernel by shape before the launch.
+extern "C" int psk_conv3x3_f16_simt(const void* x, const void* w, void* out,
+                                    int N, int H, int W, int C, int Co,
+                                    void* stream) {
+  return simt::launch<__half>(x, w, out, N, H, W, C, Co, stream);
+}
+
+// The tensor-core kernels. Each takes C % 8 == 0, Co % 8 == 0 and 16-byte
+// aligned pointers, and refuses anything else (cudaErrorInvalidValue): the
+// caller picks the kernel by shape before the launch.
 extern "C" int psk_conv3x3_bf16(const void* x, const void* w, void* out, int N,
                                 int H, int W, int C, int Co, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 8 || Co % 8 ||
-      (reinterpret_cast<unsigned long long>(x) |
-       reinterpret_cast<unsigned long long>(w) |
-       reinterpret_cast<unsigned long long>(out)) % 16 ||
-      (long long)N * H > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  return Co <= 64
-             ? tc::launch_bn<64>(x, w, out, N, H, W, C, Co, stream)
-             : tc::launch_bn<128>(x, w, out, N, H, W, C, Co, stream);
+  return tc::launch_any<__nv_bfloat16>(x, w, out, N, H, W, C, Co, stream);
+}
+
+extern "C" int psk_conv3x3_f16(const void* x, const void* w, void* out, int N,
+                               int H, int W, int C, int Co, void* stream) {
+  return tc::launch_any<__half>(x, w, out, N, H, W, C, Co, stream);
 }

@@ -10,9 +10,9 @@
 //   p    = exp(s - lse)             dp  = dO v^T          ds = p (dp - delta)
 //   dq   = ds k * scale             dv  = p^T dO          dk = ds^T (q * scale)
 // with delta = rowsum(dO * o) computed outside (ops/flash_attention.py), as
-// the JAX package does outside Pallas. Inputs are float or bfloat16, all
-// sums are f32, outputs are in the input type and lse is f32. The forward
-// rounds p to the value type before p v, as the Pallas kernel does
+// the JAX package does outside Pallas. Inputs are float, bfloat16 or half,
+// all sums are f32, outputs are in the input type and lse is f32. The
+// forward rounds p to the value type before p v, as the Pallas kernel does
 // (p.astype(v.dtype)).
 //
 // What bounds them on this card. Each (query, key) pair costs 2 D
@@ -21,7 +21,8 @@
 // head) that is 34.4, 51.5 and 68.7 GFLOP: 0.51, 0.77 and 1.03 ms at the
 // 67 TFLOP/s f32 peak of the CUDA cores; 0.21, 0.31 and 0.42 ms as 3xTF32
 // on the tensor cores (three 495 TFLOP/s TF32 products for one f32
-// product); 0.035, 0.052 and 0.070 ms in bf16 at 989 TFLOP/s. The bytes
+// product); 0.035, 0.052 and 0.070 ms in bf16 or f16 at 989 TFLOP/s. The
+// bytes
 // (q, k, v, dO, o once each, 34 MB a tensor in f32) take about 0.04 ms at
 // 3.35 TB/s: every kernel is bound by operations.
 //
@@ -44,7 +45,7 @@
 // dk. The block's own tiles (q in the forward; q and dO in dq; k and v in
 // dk/dv) are loaded once; the other axis's tiles (and in dk/dv their lse
 // and delta) are staged in shared memory by 16-byte cp.async,
-// double-buffered in bf16 so the next tile loads during this tile's
+// double-buffered in bf16 and f16 so the next tile loads during this tile's
 // products; f32 loads one tile at a time and spends the shared memory saved
 // on more blocks an SM, which its long chains of dependent products need
 // more (the launch section). Shared-memory rows are padded by 16 bytes,
@@ -100,10 +101,17 @@
 //   B tiles read down their rows come from ldmatrix.trans. p and ds are
 //   rounded to bf16 for their products, as the tensor cores take bf16
 //   operands (the plain version keeps them f32: within the bf16 2e-2).
+//   f16 is the bf16 route's twin: the same tiles, cp.async staging and
+//   ldmatrix reads (both are 16-bit), mma m16n8k16 .f16.f16 with f32 sums,
+//   p and ds packed to f16 pairs (round to nearest even: 3 more mantissa
+//   bits than bf16, so within the f16 1e-2), outputs rounded once to f16.
+//   f16's range ends at 65504: p <= 1, and an output past it is inf, as
+//   XLA's convert gives.
 // D is padded to a multiple of 16 in shared memory (zero-filled); the
 // products run to D rounded up to the k step (8 f32, 16 bf16) and skip the
 // rest. Tiles: the forward and dq own 64 queries and loop over 64 keys;
-// dk/dv owns 64 keys and loops over 64 queries in bf16 and 32 in f32 (and
+// dk/dv owns 64 keys and loops over 64 queries in bf16 and f16 and 32 in
+// f32 (and
 // in both at D > 64, where dk and dv take 64 f32 registers each). The
 // forward reads q's fragments from its shared-memory tile at every key
 // tile, as dq does, rather than holding them split in registers beside its
@@ -119,6 +127,7 @@
 // y = tile).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -176,13 +185,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // Fragment layouts (lane = 4 g + t). An accumulator c[4] of an m16n8 tile
 // holds (row g, cols 2t, 2t+1) and (row g+8, cols 2t, 2t+1).
 //   m16n8k8 tf32:  A (g, t) (g+8, t) (g, t+4) (g+8, t+4); B (k t, n g)
 //                  (k t+4, n g).
-//   m16n8k16 bf16: A pairs (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..);
-//                  B pairs (k 2t.., n g) (k 2t+8.., n g).
+//   m16n8k16 bf16 and f16: A pairs (g, 2t..) (g+8, 2t..) (g, 2t+8..)
+//                  (g+8, 2t+8..); B pairs (k 2t.., n g) (k 2t+8.., n g).
 template <typename T> struct Mma;
 
 template <> struct Mma<float> {
@@ -234,8 +247,12 @@ template <> struct Mma<float> {
   }
 };
 
-template <> struct Mma<__nv_bfloat16> {
+// The 16-bit types: one m16n8k16 product on the same fragments. The
+// accumulators of column tiles 2 kk and 2 kk + 1 pack to the A fragment of
+// k step kk; the instruction names the type.
+template <typename H> struct Mma16 {
   static constexpr int KS = 16;
+  static constexpr bool F16 = std::is_same<H, __half>::value;
   struct A { uint32_t v[4]; };
   struct B { uint32_t v[2]; };
   static __device__ __forceinline__ A a(const uint32_t r[4]) {
@@ -244,22 +261,34 @@ template <> struct Mma<__nv_bfloat16> {
   static __device__ __forceinline__ B b(uint32_t r0, uint32_t r1) {
     return B{{r0, r1}};
   }
-  // k step kk spans the accumulators of column tiles 2 kk and 2 kk + 1.
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    if constexpr (F16) return pack_f16(lo, hi);
+    else return pack_bf16(lo, hi);
+  }
   static __device__ __forceinline__ A a_acc(const float (*acc)[4], int kk) {
     const float* c = acc[2 * kk];
     const float* d = acc[2 * kk + 1];
-    return A{{pack_bf16(c[0], c[1]), pack_bf16(c[2], c[3]),
-              pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3])}};
+    return A{{pack(c[0], c[1]), pack(c[2], c[3]), pack(d[0], d[1]),
+              pack(d[2], d[3])}};
   }
   static __device__ __forceinline__ void run(float c[4], const A& a,
                                              const B& b) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(b.v[0]),
-          "r"(b.v[1]));
+    if constexpr (F16)
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+          : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(b.v[0]),
+            "r"(b.v[1]));
+    else
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+          : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(b.v[0]),
+            "r"(b.v[1]));
   }
 };
+template <> struct Mma<__nv_bfloat16> : Mma16<__nv_bfloat16> {};
+template <> struct Mma<__half> : Mma16<__half> {};
 
 // A shared-memory tile: ROWS rows of DP elements (D zero-padded to DP),
 // each row RB = DP * sizeof(T) + 16 bytes.
@@ -355,7 +384,7 @@ __device__ __forceinline__ void mma_pb(float (*out)[4], const float (*p)[4],
       }
     }
   } else {
-    // bf16: ldmatrix.trans of (k rows 0-7, n 0-7), (8-15, 0-7), (0-7,
+    // bf16, f16: ldmatrix.trans of (k rows 0-7, n 0-7), (8-15, 0-7), (0-7,
     // 8-15), (8-15, 8-15): two n tiles.
     const int lr = lane & 7, lm = lane >> 3;
     const uint32_t x_addr = x + (lr + 8 * (lm & 1)) * RB + 16 * (lm >> 1);
@@ -385,6 +414,10 @@ template <>
 __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
                                                       float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__half>(__half* dst, float a, float b) {
+  *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(a, b);
 }
 
 // A warp's 16 output rows (r and r + 8 in this lane) of [S, D] times mul.
@@ -757,8 +790,9 @@ int tiles(int S) { return (S + BT - 1) / BT; }
 // and two stages at the LM's shape on the card (PERF.md §6). f32 is
 // bound by latency more than by shared memory: one stage (70 KB a dq block
 // at D = 64, three blocks an SM) beat two, and dk/dv's 32-query tiles beat
-// 64. bf16 keeps two stages of 64 rows (one stage was slower). dk/dv takes
-// 32 queries at D > 64 in both types (registers). The forward takes the
+// 64. bf16 keeps two stages of 64 rows (one stage was slower); f16 takes
+// bf16's tiles, untimed apart. dk/dv takes 32 queries at D > 64 in every
+// type (registers). The forward takes the
 // same stages; PSK_FLASH_FWD_STAGES overrides them at build time, for
 // tools/flash_fwd_stages.py, which times both.
 template <typename T> constexpr int stages() {
@@ -905,4 +939,27 @@ extern "C" int psk_flash_dkv_bf16(const void* q, const void* k, const void* v,
                                   void* stream) {
   return dkv_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, BH, S, D,
                                 causal, scale, stream);
+}
+
+extern "C" int psk_flash_fwd_f16(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int BH, int S, int D,
+                                 int causal, float scale, void* stream) {
+  return fwd_any<__half>(q, k, v, o, lse, BH, S, D, causal, scale, stream);
+}
+
+extern "C" int psk_flash_dq_f16(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq_out, int BH, int S,
+                                int D, int causal, float scale, void* stream) {
+  return dq_any<__half>(q, k, v, dout, lse, delta, dq_out, BH, S, D, causal,
+                        scale, stream);
+}
+
+extern "C" int psk_flash_dkv_f16(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv, int BH,
+                                 int S, int D, int causal, float scale,
+                                 void* stream) {
+  return dkv_any<__half>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, causal,
+                         scale, stream);
 }

@@ -8,14 +8,14 @@ the same kernel on ``flip(w,(0,1)).swapaxes(2,3)``; the weight gradient is
 9 tap contractions in torch ops, as ``pallas_conv.py:_conv_op_bwd`` leaves
 it to XLA. ``Conv3x3Function`` ties the three together for autograd.
 
-Bound on an H100 (bf16, batch 256): each ResNet-18 stride-1 3x3 is about
-19.3 GFLOP, 0.020 ms a launch at 989 TFLOP/s (0.51 ms for a step's 26); the
-32x32x64 one also moves about 67 MB, 0.020 ms at 3.35 TB/s.
+Bound on an H100 (bf16 or f16, batch 256): each ResNet-18 stride-1 3x3 is
+about 19.3 GFLOP, 0.020 ms a launch at 989 TFLOP/s (0.51 ms for a step's
+26); the 32x32x64 one also moves about 67 MB, 0.020 ms at 3.35 TB/s.
 
 Two kernels, picked by ``route`` before the launch:
 
-- ``"tc"``: bf16 with C and Co multiples of 8 and 16-byte aligned pointers
-  (every ResNet stride-1 3x3). An implicit GEMM on the tensor cores (M
+- ``"tc"``: bf16 or f16 with C and Co multiples of 8 and 16-byte aligned
+  pointers (every ResNet stride-1 3x3). An implicit GEMM on the tensor cores (M
   pixels, N = Co, K = 9C tap-major) through Hopper's ``wgmma``, f32 sums in
   registers: a block of BM pixels (TW = min(W, 64) columns x BM / TW rows
   of the batch stacked as one tall image) and BN channels, from a table by
@@ -25,7 +25,8 @@ Two kernels, picked by ``route`` before the launch:
   from that one halo (a tap in the padding reads a row of zeros), and the
   tensor cores read the weights from shared memory.
   ``conv3x3.tc_launches`` counts these launches.
-- ``"simt"``: every f32 call and any other bf16 shape. Exact f32 FMA on the
+- ``"simt"``: every f32 call and any other bf16 or f16 shape. Exact f32 FMA
+  on the
   CUDA cores; f32 stays here because the tensor cores would round f32
   inputs to TF32 and break the f32 tolerances the port is held to.
 
@@ -50,7 +51,8 @@ VARIANTS = ("taps9", "im2col")
 
 def _configure(lib: ctypes.CDLL) -> None:
     for fn in (lib.psk_conv3x3_f32, lib.psk_conv3x3_bf16,
-               lib.psk_conv3x3_bf16_simt):
+               lib.psk_conv3x3_bf16_simt, lib.psk_conv3x3_f16,
+               lib.psk_conv3x3_f16_simt):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -82,10 +84,11 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def route(dtype: torch.dtype, c: int, co: int, *pointers: int) -> str:
-    """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 with
-    C and Co multiples of 8 and every pointer 16-byte aligned, else
-    ``"simt"``."""
-    if dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0 \
+    """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 or
+    f16 with C and Co multiples of 8 and every pointer 16-byte aligned,
+    else ``"simt"``."""
+    if dtype in (torch.bfloat16, torch.float16) and c % 8 == 0 \
+            and co % 8 == 0 \
             and all(p % 16 == 0 for p in pointers):
         return "tc"
     return "simt"
@@ -95,9 +98,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
             kernel: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel ``route`` picks (``kernel`` names one, for timing
     the two side by side)."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"conv3x3 kernel takes float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv3x3 kernel needs contiguous NHWC x and HWIO w")
     if x.device != w.device:
@@ -110,7 +113,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
                              out.data_ptr())
     fn = {(torch.float32, "simt"): lib.psk_conv3x3_f32,
           (torch.bfloat16, "simt"): lib.psk_conv3x3_bf16_simt,
-          (torch.bfloat16, "tc"): lib.psk_conv3x3_bf16}.get((x.dtype, kernel))
+          (torch.bfloat16, "tc"): lib.psk_conv3x3_bf16,
+          (torch.float16, "simt"): lib.psk_conv3x3_f16_simt,
+          (torch.float16, "tc"): lib.psk_conv3x3_f16}.get((x.dtype, kernel))
     if fn is None:
         raise ValueError(f"no {kernel!r} conv3x3 kernel for {x.dtype}")
     with torch.cuda.device(x.device):

@@ -17,8 +17,8 @@ tile is 64 rows whatever the blocks say; a ragged last tile is masked.
 
 ``route`` names the kernel a launch takes, before the launch: all three
 run on the tensor cores (``"tc"``) at every shape the wrappers take, f32 as
-3xTF32 (each operand split into two TF32 parts, three products) and bf16
-as one bf16 product. The forward keeps its online softmax in registers and
+3xTF32 (each operand split into two TF32 parts, three products), bf16 and
+f16 as one product of their type. The forward keeps its online softmax in registers and
 feeds p to ``p v`` from the accumulator. ``flash_fwd.tc_launches``,
 ``flash_dq.tc_launches`` and ``flash_dkv.tc_launches`` count the
 tensor-core launches. A launch that fails raises; nothing retries it on
@@ -110,12 +110,15 @@ def flash_dkv_reference(q3, k3, v3, do3, lse, delta, causal: bool,
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+# The kernels' entry-point suffix by input type.
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     # BH, S, D, causal, scale, stream
     tail = [_INT, _INT, _INT, _INT, ctypes.c_float, _PTR]
-    for suffix in ("f32", "bf16"):
+    for suffix in _SUFFIX.values():
         getattr(lib, f"psk_flash_fwd_{suffix}").argtypes = [_PTR] * 5 + tail
         getattr(lib, f"psk_flash_dq_{suffix}").argtypes = [_PTR] * 7 + tail
         getattr(lib, f"psk_flash_dkv_{suffix}").argtypes = [_PTR] * 8 + tail
@@ -154,9 +157,9 @@ def _launch(name: str, tensors, outs, causal: bool, scale: float) -> str:
     device tensors; raises on any type, layout or launch error. Returns the
     route it took."""
     q3 = tensors[0]
-    if q3.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash kernels take float32 or bfloat16, got "
-                        f"{q3.dtype}")
+    if q3.dtype not in _SUFFIX:
+        raise TypeError(f"flash kernels take float32, bfloat16 or float16, "
+                        f"got {q3.dtype}")
     if q3.shape[0] > 65535:
         raise ValueError(f"B*H = {q3.shape[0]} above the grid's 65535")
     for t in (*tensors, *outs):
@@ -170,8 +173,7 @@ def _launch(name: str, tensors, outs, causal: bool, scale: float) -> str:
     # wrapper's own allocations).
     tensors = [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
     lib = _build.load("flash_attention", _configure)
-    fn = getattr(lib, f"psk_flash_{name}_"
-                 f"{'bf16' if q3.dtype == torch.bfloat16 else 'f32'}")
+    fn = getattr(lib, f"psk_flash_{name}_{_SUFFIX[q3.dtype]}")
     bh, s, d = q3.shape
     with torch.cuda.device(q3.device):
         err = fn(*(t.data_ptr() for t in (*tensors, *outs)), bh, s, d,

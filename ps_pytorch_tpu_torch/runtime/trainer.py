@@ -113,10 +113,17 @@ def _leader_identity(co) -> dict:
 def set_reference_numerics() -> None:
     """The arithmetic the port is held to, set where a trainer or the
     evaluator is built: float32 matmuls and cuDNN convolutions in full f32
-    (torch runs f32 cuDNN convolutions in TF32 by default), and
-    deterministic cuDNN algorithms, so that a resumed run equals an
-    uninterrupted one bitwise. Process-wide torch flags."""
+    (torch runs f32 cuDNN convolutions in TF32 by default); f16 and bf16
+    matmuls summed in f32 to the end, as the JAX conv's weight gradient
+    (``preferred_element_type=f32``), with no split-K partial reduced in
+    the 16-bit type by cuBLAS (on an H100 at ResNet-18's shapes it gave
+    the same bf16 weight gradients at the same speed either way, and f16
+    ones closer to f32); and deterministic cuDNN algorithms, so that a
+    resumed run equals an uninterrupted one bitwise. Process-wide torch
+    flags."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
 

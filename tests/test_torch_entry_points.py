@@ -2,9 +2,9 @@
 several processes without the whole launch contract (or for a path that
 runs in one process only) is refused before any model is built, every
 trainer and the evaluator set the arithmetic the port is held to (no TF32,
-deterministic cuDNN), float16 is refused at config time wherever a
-hand-written kernel (f32 and bf16 only) would meet it, and so are the real
-ImageNet and the loader's worker pool.
+16-bit matmuls summed in f32, deterministic cuDNN), float16 is accepted
+wherever the JAX package accepts it (the kernels take it), and the real
+ImageNet and the loader's worker pool stay refused.
 """
 
 import io
@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from ps_pytorch_tpu_torch import config, train, train_lm
+from ps_pytorch_tpu_torch.models import build_model
+from ps_pytorch_tpu_torch.models.layers import Conv3x3
 from ps_pytorch_tpu_torch.runtime import (
     Evaluator, MultiSliceTrainer, Trainer, lm_trainer,
 )
@@ -74,13 +76,19 @@ def test_a_launch_of_several_processes_raises_before_a_model_is_built(
 
 @pytest.fixture
 def numerics_flags():
-    """Sets the three flags to the opposite of the reference's, and puts
+    """Sets the five flags to the opposite of the reference's, and puts
     back what they were after the test."""
     flags = (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cuda.matmul,
+         "allow_fp16_reduced_precision_reduction"), \
+        (torch.backends.cuda.matmul,
+         "allow_bf16_reduced_precision_reduction"), \
         (torch.backends.cudnn, "allow_tf32"), \
         (torch.backends.cudnn, "deterministic")
     saved = [getattr(mod, name) for mod, name in flags]
     torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.deterministic = False
     yield
@@ -106,6 +114,10 @@ def test_building_a_trainer_sets_the_reference_numerics(kind, numerics_flags,
     else:
         Evaluator(str(tmp_path / "td"), device="cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction \
+        is False
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+        is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cudnn.deterministic is True
 
@@ -119,11 +131,21 @@ def test_building_a_trainer_sets_the_reference_numerics(kind, numerics_flags,
          conv_impl="pallas"),
     dict(network="TransformerLM", eval_freq=0, lm_attention="flash"),
 ])
-def test_float16_is_refused_where_a_kernel_would_meet_it(kw):
-    with pytest.raises(ValueError, match="float16.*ROADMAP.md"):
-        config.TrainConfig(compute_dtype="float16", **kw)
-    config.TrainConfig(compute_dtype="bfloat16", **kw)
-    config.TrainConfig(compute_dtype="float32", **kw)
+def test_float16_is_accepted_where_a_kernel_meets_it(kw):
+    """As in the JAX package: float16 with the conv kernel builds every
+    stride-1 3x3 of the ResNets and VGGs as the kernel's module in f16
+    (LeNet has none and ignores conv_impl); the LM trainer computes in f32
+    whatever the field says, so flash meets no f16 there."""
+    cfg = config.TrainConfig(compute_dtype="float16", **kw)
+    assert cfg.compute_dtype == "float16"
+    if cfg.network == "TransformerLM":
+        assert cfg.lm_attention == "flash"
+        return
+    model = build_model(cfg.network, cfg.num_classes, cfg.compute_dtype,
+                        cfg.conv_impl)
+    convs = [m for m in model.modules() if isinstance(m, Conv3x3)]
+    assert (len(convs) > 0) == (cfg.network != "LeNet")
+    assert all(m.dtype == torch.float16 for m in convs)
 
 
 @pytest.mark.parametrize("kw", [

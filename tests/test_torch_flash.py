@@ -120,6 +120,64 @@ def test_plain_versions_match_jax_kernel_calls(causal):
                                    atol=GRAD_TOL, err_msg=name)
 
 
+F16_TOL = 2e-3   # both sides sum in f32 and round once to f16
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_f16_plain_versions_match_jax_kernel_calls(causal):
+    """The three plain versions in f16 against the JAX calls of the three
+    Pallas kernels in f16 (interpret mode): the same f16 inputs, the
+    outputs in f16 on both sides; the backward of both from the JAX
+    forward's o and lse."""
+    q, k, v, do = (t.reshape(4, 128, 32).astype(np.float16)
+                   for t in _qkv(n=4, seed=3))
+    scale = 32 ** -0.5
+    jo, jlse = jax_fa._fwd_call(*map(jnp.asarray, (q, k, v)), causal, scale,
+                                64, 32, True)
+    assert jo.dtype == jnp.float16
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = fa.flash_attention_reference(tq, tk, tv, causal, scale)
+    assert o.dtype == torch.float16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(), np.asarray(jo, np.float32),
+                               rtol=F16_TOL, atol=F16_TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, rtol=F16_TOL, atol=F16_TOL)
+    jdq, jdk, jdv = jax_fa._bwd_call(*map(jnp.asarray, (q, k, v)), jo, jlse,
+                                     jnp.asarray(do), causal, scale, 64, 32,
+                                     True)
+    to = torch.from_numpy(np.array(jo))
+    tlse = torch.from_numpy(np.array(jlse))
+    delta = (tdo.float() * to.float()).sum(-1, keepdim=True)
+    dq = fa.flash_dq(tq, tk, tv, tdo, tlse, delta, causal, scale)
+    dk, dv = fa.flash_dkv(tq, tk, tv, tdo, tlse, delta, causal, scale)
+    for got, want, name in ((dq, jdq, "dq"), (dk, jdk, "dk"), (dv, jdv, "dv")):
+        assert got.dtype == torch.float16 and want.dtype == jnp.float16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=F16_TOL, atol=F16_TOL, err_msg=name)
+
+
+def test_f16_flash_attention_and_its_gradient_match_jax():
+    """The op as a user calls it, ``flash_attention(q, k, v)`` on f16
+    [1, 2, 128, 64]: f16 out and f16 gradients on both sides."""
+    q, k, v, w = (t.astype(np.float16) for t in _qkv(b=1, h=2, s=128, d=64,
+                                                     n=4, seed=4))
+    want_o, vjp = jax.vjp(lambda a, b, c: _jax_flash(a, b, c, True),
+                          *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(w))
+    ts = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    o = fa.flash_attention(*ts, causal=True)
+    o.backward(torch.from_numpy(w))
+    assert o.dtype == torch.float16
+    np.testing.assert_allclose(o.detach().float().numpy(),
+                               np.asarray(want_o, np.float32),
+                               rtol=F16_TOL, atol=F16_TOL)
+    for t, g, name in zip(ts, want, "qkv"):
+        assert t.grad.dtype == torch.float16 and g.dtype == jnp.float16
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   np.asarray(g, np.float32), rtol=F16_TOL,
+                                   atol=F16_TOL, err_msg=f"d{name}")
+
+
 def test_odd_seq_goes_to_full_attention():
     """S with no power-of-two block >= 8 takes full_attention, as in the
     JAX package; neither plain kernel version runs."""

@@ -20,15 +20,17 @@ from ps_pytorch_tpu_torch.optim.adam import adam_step_size
 
 # Kernel against plain version, both on the card: f32 sums in another
 # order (1e-4), bf16 outputs rounded once from f32 (2e-2, about one ulp at
-# outputs of 2-4); the SGD and Adam updates are the same arithmetic (1e-6;
-# Adam's atol 1e-7, the JAX package's own).
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# outputs of 2-4), f16 likewise (5e-3, about 2.5 ulp at 2); the SGD and
+# Adam updates are the same arithmetic (1e-6; Adam's atol 1e-7, the JAX
+# package's own).
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 SGD_TOL = 1e-6
 # The quantize kernel is its plain version bit for bit (values and scales).
 # Flash kernels against their plain versions: the JAX package's own
 # tolerances (forward 2e-5 and gradients 5e-4 in f32; bf16 outputs rounded
-# once from f32, 2e-2).
-FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
+# once from f32, 2e-2); f16 1e-2 (p and ds rounded to f16 on the tiles).
+FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2),
+             torch.float16: (1e-2, 1e-2)}
 
 
 @pytest.fixture
@@ -49,7 +51,8 @@ def _conv_inputs(dev, n, h, w, c, co, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fwd", "input_grad"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("shape", [
     (3, 8, 8, 16, 8),        # Co of 8, below one channel tile
     (2, 32, 32, 64, 64),     # ResNet-18's four stride-1 geometries
@@ -75,9 +78,9 @@ def _conv_inputs(dev, n, h, w, c, co, dtype, seed=0):
     (5, 7, 7, 512, 512),
 ])
 def test_conv3x3_kernel_matches_plain(cuda, shape, dtype, kind):
-    """Forward and input gradient against the plain version; bf16 with C
-    and Co multiples of 8 goes through the tensor cores, everything else
-    through the SIMT kernel."""
+    """Forward and input gradient against the plain version; bf16 and f16
+    with C and Co multiples of 8 go through the tensor cores, everything
+    else through the SIMT kernel."""
     n, h, wd, c, co = shape
     x, w = _conv_inputs(cuda, *shape, dtype)
     fn, w_eff, c_out = conv.conv3x3, w, co
@@ -88,7 +91,7 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype, kind):
     before, tc_before = conv.conv3x3.launches, conv.conv3x3.tc_launches
     got = fn(x, w)
     assert conv.conv3x3.launches == before + 1
-    tensor_cores = dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0
+    tensor_cores = dtype != torch.float32 and c % 8 == 0 and co % 8 == 0
     assert conv.conv3x3.tc_launches == tc_before + tensor_cores
     assert got.dtype == dtype and got.shape == (n, h, wd, c_out)
     want = conv.conv3x3_reference(x, w_eff)
@@ -119,22 +122,29 @@ def test_conv3x3_function_grads_on_card_match_cpu(cuda):
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     x, w = _conv_inputs(cuda, 1, 4, 4, 8, 8, torch.float32)
     with pytest.raises(TypeError):
-        conv.conv3x3(x.half(), w.half())
+        conv.conv3x3(x.double(), w.double())
     with pytest.raises(ValueError, match="contiguous"):
         conv.conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError):
         conv.conv3x3(x, w.cpu())
     with pytest.raises(ValueError, match="tc"):    # no f32 tensor-core kernel
         conv._launch(x, w, "tc")
-    # A bf16 view 2 bytes off a 16-byte boundary: route picks SIMT, and the
-    # tensor-core kernel, named, refuses it rather than running elsewhere.
-    xb, wb = x.bfloat16(), w.bfloat16()
-    odd = torch.empty(xb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:]
-    odd = odd.view(xb.shape).copy_(xb)
-    assert conv.route(odd.dtype, 8, 8, odd.data_ptr(), wb.data_ptr()) \
-        == "simt"
-    with pytest.raises(RuntimeError, match="tc kernel launch failed"):
-        conv._launch(odd, wb, "tc")
+    # A bf16 or f16 view 2 bytes off a 16-byte boundary: route picks SIMT,
+    # which computes it, and the tensor-core kernel, named, refuses it
+    # rather than running elsewhere.
+    for dtype in (torch.bfloat16, torch.float16):
+        xb, wb = x.to(dtype), w.to(dtype)
+        odd = torch.empty(xb.numel() + 1, dtype=dtype, device=cuda)[1:]
+        odd = odd.view(xb.shape).copy_(xb)
+        assert conv.route(odd.dtype, 8, 8, odd.data_ptr(), wb.data_ptr()) \
+            == "simt"
+        tc_before = conv.conv3x3.tc_launches
+        torch.testing.assert_close(conv.conv3x3(odd, wb).float(),
+                                   conv.conv3x3_reference(odd, wb).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        assert conv.conv3x3.tc_launches == tc_before
+        with pytest.raises(RuntimeError, match="tc kernel launch failed"):
+            conv._launch(odd, wb, "tc")
 
 
 @pytest.mark.cuda
@@ -189,7 +199,8 @@ def test_fused_kernels_on_the_sharded_updates_slices(cuda, world):
     """Each rank's 1-D slice of a padded flat buffer, as the ZeRO-1 step
     updates it in place (slices of 4 * chunk bytes at offsets that are not
     all 16-byte multiples): both kernels match their plain versions and
-    leave the padded tail zero."""
+    leave the padded tail zero. As in the step (``parallel/zero.py``), the
+    gradient and the momentum are zero past the tree's n elements."""
     n = 100_003
     chunk = -(-n // world)
     gen = torch.Generator(device=cuda).manual_seed(world)
@@ -199,6 +210,8 @@ def test_fused_kernels_on_the_sharded_updates_slices(cuda, world):
         p = flat[rank * chunk:(rank + 1) * chunk]
         g = torch.randn(chunk, device=cuda, generator=gen)
         b = torch.randn(chunk, device=cuda, generator=gen)
+        tail = max(n - rank * chunk, 0)     # the slice's padding from here
+        g[tail:], b[tail:] = 0.0, 0.0
         p_ref, b_ref = p.clone(), b.clone()
         fused_sgd.fused_sgd_update(p, b, g, 0.05, False, momentum=0.9,
                                    dampening=0.0, weight_decay=5e-4,
@@ -224,7 +237,8 @@ def _flash_inputs(dev, bh, s, d, dtype, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,s,d", [
     (4, 128, 16),        # the CPU tests' head dim, two whole tiles
@@ -310,7 +324,7 @@ def test_flash_attention_grads_on_card_match_cpu(cuda):
 def test_flash_wrappers_raise_on_what_they_do_not_take(cuda):
     q, k, v, _ = _flash_inputs(cuda, 2, 64, 16, torch.float32)
     with pytest.raises(TypeError):
-        fa.flash_fwd(q.half(), k.half(), v.half(), True, 0.25)
+        fa.flash_fwd(q.double(), k.double(), v.double(), True, 0.25)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q.transpose(0, 1), k.transpose(0, 1),
                      v.transpose(0, 1), True, 0.25)

@@ -31,9 +31,14 @@ from ps_pytorch_tpu_torch.ops import conv3x3 as conv
 from ps_pytorch_tpu_torch.ops import fused_adam, fused_sgd
 from ps_pytorch_tpu_torch.optim import SGD, Adam, schedules
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float16: both sides sum in f32 and round once, so they differ by at most
+# one f16 rounding of sums that agree to f32 order (2e-3 holds ~2 ulp of f16
+# at the outputs' magnitude, ~1).
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-3}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+       "float16": jnp.float16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+         "float16": torch.float16}
 
 
 def _conv_inputs(seed, n=2, hw=8, c=16, co=8):
@@ -59,7 +64,7 @@ def _np(a):
 
 # ------------------------------------------------------------ conv3x3 --
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("variant", ["taps9", "im2col"])
 @pytest.mark.parametrize("kind", ["forward", "input_grad"])
 def test_conv3x3_matches_jax(kind, variant, dtype):
@@ -126,6 +131,12 @@ def test_conv3x3_rejects_unknown_variant_and_mixed_dtypes():
     (torch.bfloat16, 64, 64, (2, 256, 4096), "simt"),  # x off 16 bytes
     (torch.bfloat16, 64, 64, (0, 8, 4096), "simt"),    # w off 16 bytes
     (torch.bfloat16, 64, 64, (0, 256, 4104), "simt"),  # out off 16 bytes
+    (torch.float16, 64, 64, (0, 256, 4096), "tc"),     # f16 as bf16
+    (torch.float16, 24, 72, (16, 48, 80), "tc"),
+    (torch.float16, 12, 16, (0, 0, 0), "simt"),        # C % 8
+    (torch.float16, 16, 12, (0, 0, 0), "simt"),        # Co % 8
+    (torch.float16, 64, 64, (2, 256, 4096), "simt"),   # x off 16 bytes
+    (torch.float16, 64, 64, (0, 256, 4104), "simt"),   # out off 16 bytes
 ])
 def test_conv3x3_route_by_dtype_channels_and_alignment(dtype, c, co,
                                                        pointers, want):

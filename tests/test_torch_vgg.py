@@ -273,6 +273,27 @@ def test_conv3x3_bias_is_added_after_the_kernel_in_the_compute_type():
     assert torch.equal(got, want)
 
 
+def test_conv3x3_bias_is_added_after_the_kernel_in_float16():
+    """The f16 twin: the kernel's output rounded once to f16, then ``+
+    bias.to(f16)`` rounded again; the conv's own sums are f32, so the f16
+    output agrees with the f32 conv plus bias to one rounding of each."""
+    conv = Conv3x3(16, 24, torch.float16, bias=True,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        conv.bias.copy_(torch.linspace(-1, 1, 24))
+    x = torch.from_numpy(_x((2, 16, 5, 5))).to(memory_format=torch.channels_last)
+    got = conv(x)
+    w = conv.weight.half().permute(2, 3, 1, 0).contiguous()
+    core = conv3x3(x.half().permute(0, 2, 3, 1).contiguous(), w)
+    want = (core + conv.bias.half()).permute(0, 3, 1, 2)
+    assert got.dtype == torch.float16
+    assert torch.equal(got, want)
+    exact = conv3x3(x.half().permute(0, 2, 3, 1).contiguous().float(),
+                    w.float()) + conv.bias.half().float()
+    torch.testing.assert_close(got.float(), exact.permute(0, 3, 1, 2),
+                               rtol=2e-3, atol=2e-3)
+
+
 def test_conv_init_is_he_fan_out():
     """flax's ``variance_scaling(2.0, "fan_out", "normal")``: an
     untruncated normal of std sqrt(2 / (9 Co)); biases zero."""
