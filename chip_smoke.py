@@ -39,7 +39,9 @@ exit and no result line, if any phase fails:
    through one launch of the int8 quantize kernel on submit, a mixed-rate
    schedule with
    stale gradients, and a compressed checkpoint that is resumed and scored
-   by ``evaluate.main``; then the same network with fused Adam through the
+   by ``evaluate.main``, and LeNet in slices of two devices a slice
+   (``MultiSliceTrainer(devices=["cuda:0"] * 4, n_slices=2)``) held against
+   the same trainer on the CPU; then the same network with fused Adam through the
    entry points a user calls: ``train.main`` checkpointing every 3 of 6
    steps, a resumed Trainer to step 8 held against an uninterrupted one,
    and ``evaluate.main --once 6``; then the same ResNet-18 as processes
@@ -106,7 +108,12 @@ exit and no result line, if any phase fails:
    full-width TransformerLM (d 512, 8 layers, 8 heads, vocab 32000, S
    2048, batch 8, f32, flash
    attention) for a few steps through the port's LMTrainer, evaluating 2
-   batches, then its checkpoint lifecycle through the entry points
+   batches, then the same model at S 8192 and batch 1, the JAX
+   ``transformer_lm_8k_flash`` row (MAIN-LM8K: the flash kernels at [1, 8,
+   8192, 64] against their plain versions and SDPA, ``train_lm.run`` for 3
+   steps, ``evaluate.main`` through the flash oracle and the same
+   checkpoint through the full-attention oracle, the two EVAL_LM lines and
+   FINAL's batches within 1e-4), then its checkpoint lifecycle through the entry points
    (MAIN-LMCKPT: ``train_lm.main --remat --eval-freq 2`` with the step-4
    checkpoint corrupted, a resume that walks back to step 2 and trains to
    6, ``evaluate.main --once 6``'s EVAL_LM line, greedy
@@ -123,7 +130,7 @@ exit and no result line, if any phase fails:
    checkpoint under load and a SIGTERM drain; two replicas behind the
    router, one SIGKILLed by ``replica_kill``, every request answered),
    and before MAIN-SERVE the same model across two gloo ranks sharing the
-   card, one launch of four runs (MAIN-LMDIST, ``--rank-lmdist``:
+   card, one launch of five runs (MAIN-LMDIST, ``--rank-lmdist``:
    ``train_lm.run`` with ``--lm-parallelism sp`` over both ranks on ring
    attention, ``tp`` over the model axis, and ``pp`` of 2 stages x 4
    microbatches on the flash kernels under remat, 3 steps and a
@@ -138,7 +145,11 @@ exit and no result line, if any phase fails:
    step, the flash launches, step 1 and step 2 against the one-rank MoE
    in two capacity groups, ``evaluate.main`` against the one-group
    full-attention oracle, greedy ``generate.main`` against the full
-   forward's argmax in one capacity group a token); its ranks also probe
+   forward's argmax in one capacity group a token); as a fifth, tp with 7
+   heads at d 448, which the model axis does not divide, held like tp;
+   then sp's checkpoint scored by ``evaluate.main`` on both ranks (the
+   ring over them) and in this process (the flash oracle), within 1e-4 of
+   sp's FINAL; its ranks also probe
    that gloo all-reduces a CUDA tensor between two ranks on the card
    (PROBE-GLOO, a launch of its own until MAIN-MOE needed the time).
    After MAIN-CKPT, the same ResNet-18 through ``train.main``
@@ -512,6 +523,21 @@ EVAL_RE = re.compile(r"^EVAL step (\d+) loss (\S+) prec1 (\S+) prec5 (\S+)$",
                      re.M)
 EVAL_LM_RE = re.compile(r"^EVAL_LM step (\d+) loss (\S+) perplexity (\S+)$",
                         re.M)
+# MAIN-LM8K: the JAX package's long-context row transformer_lm_8k_flash
+# (bench_suite.py:1485-1490): the LM above at S 8192 and batch 1, f32,
+# through train_lm.main (3 steps, a checkpoint at 3, FINAL over the first
+# 8 of the validation tail's 12 windows of 8192), then evaluate.main
+# --once 3 through the flash oracle, then the same checkpoint through the
+# full-attention oracle on the card, whose [1, 8, 8192, 8192] f32 scores
+# (2.15 GB a layer) fit at batch 1. Its attention call is [1, 8, 8192,
+# 64], causal.
+LM8K_STEPS, LM8K_FINAL_BATCHES = 3, 8
+LM8K_ARGS = ("--lm-attention", "flash", "--lm-d-model", "512", "--lm-layers",
+             "8", "--lm-heads", "8", "--lm-vocab", "32000", "--lm-seq-len",
+             "8192", "--batch-size", "1", "--lr", "0.01", "--momentum",
+             "0.9")
+LM8K_FLASH_SHAPE = (1, 8, 8192, 64)
+LM8K_FLASH_CASES = ((LM8K_FLASH_SHAPE, True, "float32"),)
 # MAIN-LMCKPT: the full-width LM of LM_ARGS through the entry points, with
 # remat and a corrupted checkpoint: 4 steps checkpointed every 2 (step 4
 # corrupted), a resume that walks back to step 2 and trains to 6,
@@ -546,6 +572,12 @@ MOE_EXPERTS = 8
 MOE_FLAGS = ("--lm-parallelism", "ep", "--lm-experts", str(MOE_EXPERTS),
              "--lm-attention", "flash")
 MOE_NEW = 32
+# The fifth, tp7: tp over the 2-rank model axis with 7 heads of 64 (d 448),
+# which the axis does not divide: each rank's q/k/v columns straddle a
+# head (parallel/tp.py gathers them), 2 steps, no checkpoint. Then, in
+# the same launch, sp's step-3 checkpoint scored by evaluate.main on both
+# ranks: the ring over them (LMDIST_EVAL).
+ODD_HEADS = ("--lm-heads", "7", "--lm-d-model", "448")
 LMDIST_RUNS = (
     ("sp", ("--lm-parallelism", "sp", "--lm-attention", "auto"),
      ("--lm-attention", "full")),
@@ -554,7 +586,12 @@ LMDIST_RUNS = (
     ("pp", ("--lm-parallelism", "pp", "--lm-model-axis", "2",
             "--lm-microbatches", str(LMDIST_MICRO), "--lm-attention",
             "flash", "--remat"), ("--lm-attention", "flash")),
-    ("ep", MOE_FLAGS, MOE_FLAGS))
+    ("ep", MOE_FLAGS, MOE_FLAGS),
+    ("tp7", ("--lm-parallelism", "tp", "--lm-model-axis", "2",
+             "--lm-attention", "full", *ODD_HEADS),
+     ("--lm-attention", "full", *ODD_HEADS)))
+LMDIST_RUN_STEPS = {"tp7": LMDIST_HELD}
+LMDIST_EVAL = "--evaluate"
 LMDIST_LOSS_TOL, LMDIST_RTOL, LMDIST_ATOL = 2e-5, 2e-4, 2e-5
 LMDIST_TOLS = {"ep": (2e-5, 5e-4, 5e-5)}
 # MAIN-SERVE: MAIN-LMCKPT's checkpoints of the full-width LM served
@@ -1056,17 +1093,19 @@ def flash_bound_ms(name, bh, s, d, causal, dtype_name) -> tuple:
     return ops_ms, 1e3 * nbytes / HBM_BYTES_PER_S, route_ms
 
 
-def check_flash(torch, F, fa) -> dict:
-    """The three flash kernels against their plain versions at
-    ``FLASH_CASES``, each launch's route read from the tensor-core counts;
-    timed, with SDPA beside them, at the LM's shape. Returns the f32
-    figures of each kernel, and its f16 ones under ``"float16"``."""
+def check_flash(torch, F, fa, cases=FLASH_CASES,
+                timed_shape=FLASH_SHAPE) -> dict:
+    """The three flash kernels against their plain versions at ``cases``
+    (``FLASH_CASES``), each launch's route read from the tensor-core
+    counts; timed, with SDPA beside them, at ``timed_shape`` (the LM's).
+    Returns the f32 figures of each kernel, and its f16 ones under
+    ``"float16"``."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {name: {"max_abs_err": 0.0, "float16": {"max_abs_err": 0.0}}
            for name in FLASH_MATMULS}
     fns = {"flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
            "flash_dkv": fa.flash_dkv}
-    for (b, h, s, d), causal, dtype_name in FLASH_CASES:
+    for (b, h, s, d), causal, dtype_name in cases:
         dt = getattr(torch, dtype_name)
         bh, scale = b * h, d ** -0.5
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
@@ -1091,7 +1130,7 @@ def check_flash(torch, F, fa) -> dict:
         torch.cuda.synchronize()
         fwd_tol, grad_tol = FLASH_TOL[dtype_name]
         kind = f"{'causal' if causal else 'full'} {dtype_name} {b}x{h}x{s}x{d}"
-        timed = (b, h, s, d) == FLASH_SHAPE
+        timed = (b, h, s, d) == timed_shape
         if timed:
             # SDPA under torch's default flags, not the deterministic cuDNN
             # that the trainers leave set.
@@ -1403,7 +1442,62 @@ def async_main_path(torch, wrappers, n_params: int) -> dict:
             fail("MAIN-ASYNC: evaluate.main printed no finite EVAL step 4")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    multi_device_slices_agree(torch, wrappers)
     return launches
+
+
+# Slices of two devices a slice (the JAX trainer's device groups) on the
+# one card: LeNet on synthetic MNIST, int8 codec and fused SGD, held
+# against the same trainer on the CPU (whose slices are CPU devices).
+SLICES_TICKS = 3
+SLICES_CFG = dict(network="LeNet", dataset="synthetic_mnist", batch_size=64,
+                  lr=0.05, momentum=0.9, compute_dtype="float32",
+                  mode="async", eval_freq=0, fused_optimizer=True,
+                  compress_grad=True, grad_codec="int8", resume=False)
+
+
+def multi_device_slices_agree(torch, wrappers) -> None:
+    """MAIN-ASYNC's slices of several devices: ``MultiSliceTrainer(devices=
+    ["cuda:0"] * 4, n_slices=2)``, two replicas a slice on the card, 3
+    ticks, against ``devices=["cpu"] * 4`` from the same seed. The int8
+    noise is the same Philox draw on both (the kernel's and its plain
+    version's), so the ``used`` lists must be equal, the tick losses
+    within 1e-4 and the parameters within 1e-3; the card quantizes each
+    slice's averaged tree in one launch and applies each tick's update
+    in one fused SGD launch."""
+    from ps_pytorch_tpu_torch.config import TrainConfig
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        zero_counts(wrappers)
+        tr = MultiSliceTrainer(TrainConfig(**SLICES_CFG), n_slices=2,
+                               devices=[torch.device(dev, 0)] * 4,
+                               device=dev, printer=lambda line: None)
+        t0 = time.monotonic()
+        infos = [tr.tick() for _ in range(SLICES_TICKS)]
+        wall = time.monotonic() - t0
+        runs[dev] = ([i["used"] for i in infos], [i["loss"] for i in infos],
+                     {k: v.detach().cpu() for k, v
+                      in tr.model.state_dict().items()},
+                     read_counts(wrappers), tr.per, wall)
+        del tr
+    (uc, lc, sc, counts, per, wall), (up, lp, sp, _, _, _) = \
+        runs["cuda"], runs["cpu"]
+    want = want_counts(wrappers, quantize=2 * SLICES_TICKS,
+                       fused_sgd=SLICES_TICKS)
+    worst = max((sc[k] - sp[k]).abs().max().item() for k in sc)
+    print(f"MAIN-ASYNC slices of {per} devices (2 x {per} on cuda:0) card "
+          f"vs CPU: used {uc} / {up} losses {lc} / {lp} max abs weight "
+          f"diff {worst:.3e} card ticks {wall:.2f} s launches "
+          f"{counts}", flush=True)
+    if per != 2 or uc != up or not np.allclose(lc, lp, rtol=1e-4,
+                                               atol=1e-4) or worst > 1e-3:
+        fail("MAIN-ASYNC: slices of two devices on the card disagree with "
+             "the CPU")
+    if counts != want:
+        fail(f"MAIN-ASYNC slices of two devices: launches {counts}, "
+             f"expected {want}")
 
 
 def async_tick_breakdown(torch, cfg) -> None:
@@ -1933,6 +2027,123 @@ def lm_main_path(torch, wrappers) -> dict:
     return launches
 
 
+def lm8k_main_path(torch, F, fa, wrappers) -> dict:
+    """MAIN-LM8K (``LM8K_ARGS``): the three flash kernels at [1, 8, 8192,
+    64] f32 against their plain versions and SDPA; ``train_lm.run`` for 3
+    steps with a checkpoint at 3; ``evaluate.main --once 3`` through the
+    flash oracle; the same checkpoint through the full-attention oracle
+    (the evaluator with ``scoring_attention`` set to full). Fails unless
+    both oracles' EVAL_LM agree at 1e-4 and the full oracle's mean over
+    FINAL's batches is FINAL's loss at 1e-4, the flash kernels launched
+    as the run says (all ``tc``: 8 forwards a step and an eval batch, 8
+    dq and dk/dv a step) and the full oracle none. Prints the median step,
+    tokens a second and the peak device memory of training and of each
+    oracle."""
+    from ps_pytorch_tpu_torch import evaluate, train_lm
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.data.text import TokenLoader, lm_streams
+    from ps_pytorch_tpu_torch.runtime import evaluator as ev_mod
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card = card_line()
+    figures = check_flash(torch, F, fa, LM8K_FLASH_CASES, LM8K_FLASH_SHAPE)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm8k_")
+    td = f"{root}/td"
+    try:
+        cfg = config_from_args([*LM8K_ARGS, "--train-dir", td])
+        seq = cfg.lm_seq_len
+        val_batches = sum(1 for _ in TokenLoader(
+            lm_streams(cfg)[1], cfg.batch_size, seq, seed=0,
+            shuffle=False).epoch(0))
+        final_batches = min(LM8K_FINAL_BATCHES, val_batches)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(wrappers)
+        out = io.StringIO()
+        with redirect_stdout(out):
+            trainer, result = train_lm.run([
+                *LM8K_ARGS, "--max-steps", str(LM8K_STEPS), "--eval-freq",
+                str(LM8K_STEPS), "--resume", "false", "--train-dir", td,
+                "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated()
+        runs = {"train": read_counts(wrappers)}
+        steps = trainer.step_times
+        del trainer
+        for line in out.getvalue().splitlines():
+            if line.startswith(("STEP", "FINAL", "LM mesh")):
+                print(line, flush=True)
+        peaks, lines, batch_losses = {}, {}, []
+        for oracle in ("flash", "full"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(wrappers)
+            chosen = ev_mod.scoring_attention
+            if oracle == "full":
+                ev_mod.scoring_attention = lambda cfg: "full"
+                build_lm = ev_mod.Evaluator._build_lm
+
+                def recorded(self, cfg):
+                    build_lm(self, cfg)
+                    inner = self._lm_loss
+
+                    def each(tokens):
+                        batch_losses.append(inner(tokens))
+                        return batch_losses[-1]
+
+                    self._lm_loss = each
+
+                ev_mod.Evaluator._build_lm = recorded
+            try:
+                printed = run_entry(evaluate.main, [
+                    "--train-dir", td, "--once", str(LM8K_STEPS),
+                    "--device", "cuda"])
+            finally:
+                ev_mod.scoring_attention = chosen
+                if oracle == "full":
+                    ev_mod.Evaluator._build_lm = build_lm
+            torch.cuda.synchronize()
+            peaks[oracle] = torch.cuda.max_memory_allocated()
+            runs[oracle] = read_counts(wrappers)
+            found = EVAL_LM_RE.findall(printed)
+            if len(found) != 1 or found[0][0] != str(LM8K_STEPS):
+                fail(f"MAIN-LM8K: the {oracle} oracle printed {found}")
+            lines[oracle] = found[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    final = result["loss"]
+    flash_loss, full_loss = (float(lines[k][1]) for k in ("flash", "full"))
+    head = float(np.mean(batch_losses[:final_batches]))
+    if len(batch_losses) != val_batches or abs(flash_loss - full_loss) > \
+            1e-4 or abs(head - final) > 1e-4 or not math.isfinite(final):
+        fail(f"MAIN-LM8K: EVAL_LM flash {flash_loss} / full {full_loss} "
+             f"over {len(batch_losses)} batches, FINAL {final} against the "
+             f"full oracle's first {final_batches} batches {head}")
+    want = {"train": lm_flash_counts(wrappers, LM8K_STEPS, final_batches,
+                                     LM_LAYERS, remat=False),
+            "flash": want_counts(wrappers,
+                                 flash_fwd=LM_LAYERS * val_batches),
+            "full": want_counts(wrappers)}
+    for name, counts in runs.items():
+        if counts != want[name]:
+            fail(f"MAIN-LM8K {name} launches {counts}, expected "
+                 f"{want[name]}")
+    median = float(np.median(steps[1:]))
+    print(f"MAIN-LM8K S {seq} batch 1 f32 flash: step_times_s {steps} "
+          f"median (steps 2 on) {median:.4f} s tokens_per_s "
+          f"{seq / median:.1f} train peak {train_peak} B; FINAL "
+          f"{final:.6f} over {final_batches} batches; EVAL_LM flash "
+          f"{lines['flash']} peak {peaks['flash']} B, full {lines['full']} "
+          f"peak {peaks['full']} B over {val_batches} batches (|flash - "
+          f"full| {abs(flash_loss - full_loss):.3e}; full over FINAL's "
+          f"batches {head:.6f}, |diff| {abs(head - final):.3e}); launches "
+          f"train {flash_by_kind(runs['train'])} flash oracle "
+          f"{flash_by_kind(runs['flash'])} full oracle "
+          f"{flash_by_kind(runs['full'])}; card {card}", flush=True)
+    return dict(figures=figures, launches=runs["train"],
+                oracle_launches=runs["flash"])
+
+
 def run_entry(main, argv) -> str:
     """Run an entry point's ``main``; echo and return what it printed."""
     out = io.StringIO()
@@ -2369,7 +2580,8 @@ def lm_ckpt_main_path(torch, wrappers) -> dict:
     user calls: ``train_lm.main --remat --eval-freq 2`` with
     ``ckpt_corrupt`` at step 4, a second ``train_lm.main`` that walks back
     past it to step 2 and trains to 6, ``evaluate.main --once 6``
-    (EVAL_LM), greedy ``generate.main`` held against the argmax of the
+    (EVAL_LM, through the flash oracle), greedy ``generate.main`` held
+    against the argmax of the
     full forward over each prefix on the card; checkpoint bytes, save and
     load seconds, and flash launches by kind. Then peak memory of a
     2-step run without and with remat."""
@@ -2453,11 +2665,12 @@ def lm_ckpt_main_path(torch, wrappers) -> dict:
                 <= 5e-4 + 1e-6 * want_ppl):
             fail(f"MAIN-LMCKPT: perplexity {ppl} is not exp(min({loss}, "
                  f"30)) = {want_ppl}")
+        runs["evaluate"] = read_counts(wrappers)
         zero_counts(wrappers)
         out = run_entry(generate.main, [
             "--train-dir", td, "--prompt", "def ", "--n-new",
             str(LMCKPT_NEW), "--temperature", "0"])
-        runs["evaluate+generate"] = read_counts(wrappers)
+        runs["generate"] = read_counts(wrappers)
         model, prompt, tokens = decoded[-1]
         toks = torch.as_tensor(prompt).cuda().long()
         gaps = []
@@ -2496,23 +2709,26 @@ def lm_ckpt_main_path(torch, wrappers) -> dict:
         if runs[name] != want:
             fail(f"MAIN-LMCKPT {name} launches {runs[name]}, expected "
                  f"{want}")
-    if runs["evaluate+generate"] != want_counts(wrappers):
-        fail("MAIN-LMCKPT: evaluate and generate launched kernels "
-             f"{runs['evaluate+generate']} (the oracle and the decode are "
-             "plain torch)")
+    # The evaluator's oracle runs flash (a forward a layer an eval
+    # batch); the decode is plain torch.
+    if runs["evaluate"] != want_counts(
+            wrappers, flash_fwd=LM_LAYERS * LM_FINAL_BATCHES):
+        fail(f"MAIN-LMCKPT: evaluate launched {runs['evaluate']}")
+    if runs["generate"] != want_counts(wrappers):
+        fail(f"MAIN-LMCKPT: generate launched kernels {runs['generate']}")
     print(f"MAIN-LMCKPT checkpoint_bytes {nbytes} save_s {saves} load_s "
           f"{loads} eval {found[0]} greedy {LMCKPT_NEW} tokens equal the "
           f"full forward's argmax (min top-2 gap {min(gaps):.3e}) flash "
           f"launches a run by kind {flash_by_kind(runs['run'])} resumed "
           f"{flash_by_kind(runs['resumed'])} (remat: 2 forwards a layer a "
-          f"step)", flush=True)
+          f"step) evaluate {flash_by_kind(runs['evaluate'])}", flush=True)
     peaks = {remat: lm_peak_bytes(torch, wrappers, remat)
              for remat in (False, True)}
     print(f"MAIN-LMCKPT peak device bytes of 2 steps: no remat "
           f"{peaks[False]} remat {peaks[True]}", flush=True)
-    return dict(runs["run"], resumed=runs["resumed"], saves=saves,
-                loads=loads, checkpoint_bytes=nbytes, peaks=peaks,
-                served_dir=kept)
+    return dict(runs["run"], resumed=runs["resumed"],
+                evaluate=runs["evaluate"], saves=saves, loads=loads,
+                checkpoint_bytes=nbytes, peaks=peaks, served_dir=kept)
 
 
 class _WatchedStep:
@@ -2520,7 +2736,8 @@ class _WatchedStep:
     hands gloo during each step (``parallel/collectives.stats``), each
     step's loss and, after step ``LMDIST_HELD``, the whole model's
     parameters (every rank takes part in the gather; rank 0 saves them to
-    ``<out_dir>/<mode>_held.pt``). Everything else is the step's."""
+    ``<out_dir>/<run>_held.pt``, the run named by its train dir).
+    Everything else is the step's."""
 
     def __init__(self, trainer, rec: dict, out_dir: str):
         self.trainer, self.inner = trainer, trainer.step_fn
@@ -2543,8 +2760,9 @@ class _WatchedStep:
             if not isinstance(params, dict):
                 params = params.state_dict()
             if self.trainer.rank == 0:
+                run = os.path.basename(self.trainer.cfg.train_dir)
                 torch.save({k: v.detach().cpu() for k, v in params.items()},
-                           f"{self.out_dir}/{self.trainer.mode}_held.pt")
+                           f"{self.out_dir}/{run}_held.pt")
         return out
 
 
@@ -2554,10 +2772,14 @@ def lmdist_rank_main(argv) -> int:
     group); for each, ``train_lm.run`` with every launch count set to 0
     just before, its steps watched (``_WatchedStep``), then one ``LMDIST``
     line: launches, checkpoints written, losses, step times, bytes a step,
-    peak device memory and the evaluation."""
+    peak device memory and the evaluation. A part that starts with
+    ``LMDIST_EVAL`` is ``evaluate.main`` of the rest instead (the last
+    part), then one ``LMDIST-EVAL`` line: its EVAL_LM line, the
+    collectives it called and its launches."""
     import torch
 
-    from ps_pytorch_tpu_torch import train_lm
+    from ps_pytorch_tpu_torch import evaluate, train_lm
+    from ps_pytorch_tpu_torch.parallel import collectives
     from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
     from ps_pytorch_tpu_torch.runtime import lm_trainer
 
@@ -2584,6 +2806,18 @@ def lmdist_rank_main(argv) -> int:
     cls.__init__ = watched
 
     def run_one(part):
+        if part[0] == LMDIST_EVAL:
+            zero_counts(wrappers)
+            calls = collectives.stats["calls"]
+            out = io.StringIO()
+            with redirect_stdout(out):
+                evaluate.main(part[1:])
+            print(out.getvalue().strip(), flush=True)
+            print("LMDIST-EVAL " + json.dumps({
+                "line": out.getvalue().strip(),
+                "collectives": collectives.stats["calls"] - calls,
+                "launches": read_counts(wrappers)}), flush=True)
+            return None
         saves.clear()
         rec.clear()
         rec.update(losses=[], step_bytes=[])
@@ -2610,7 +2844,7 @@ def lmdist_rank_main(argv) -> int:
     return 0
 
 
-def lmdist_step_bytes(mode: str) -> int:
+def lmdist_step_bytes(mode: str, run_flags=()) -> int:
     """What a rank of MAIN-LMDIST hands gloo a step, counted from the
     shapes (two ranks, f32): sp, one K/V hop a layer forward and one of
     their gradients backward ([2, B, H, S/2, D] each), the boundary
@@ -2623,10 +2857,14 @@ def lmdist_step_bytes(mode: str) -> int:
     (MAIN-MOE), two all-to-alls of the [E, C, d] slot buffer a layer
     forward and two backward (C the capacity of a rank's B/2 x S tokens),
     the replicated gradients (all but the experts) and the loss and aux
-    sums."""
+    sums. With a head count the model axis does not divide (tp7), a tp
+    block also all-reduces the zero-padded [B, S, d] q, k and v forward
+    (the gather of its column shards) and their gradients backward.
+    ``run_flags`` override LM_ARGS' geometry."""
     from ps_pytorch_tpu_torch.models.moe import capacity
 
     flags = dict(zip(LM_ARGS[::2], LM_ARGS[1::2]))
+    flags.update(zip(run_flags[::2], run_flags[1::2]))
     d, heads, vocab, layers, b, s = (int(flags[f"--{k}"]) for k in (
         "lm-d-model", "lm-heads", "lm-vocab", "lm-layers", "batch-size",
         "lm-seq-len"))
@@ -2644,7 +2882,8 @@ def lmdist_step_bytes(mode: str) -> int:
         return 2 * layers * kv + b * 8 + params * 4 + 4
     if mode == "tp":
         act = b * s * d * 4
-        return (4 * layers + 1) * act + rows * 4 + 2 * rows * 4
+        gathers = 0 if heads % 2 == 0 else 6 * layers
+        return (4 * layers + gathers + 1) * act + rows * 4 + 2 * rows * 4
     act = (b // LMDIST_MICRO) * s * d * 4
     return LMDIST_MICRO * act + edges * 4 + 4
 
@@ -2678,11 +2917,15 @@ def lmdist_main_path(torch, wrappers) -> dict:
     try:
         argv = ["--rank-lmdist", root]
         for i, (mode, flags, _) in enumerate(LMDIST_RUNS):
+            steps = LMDIST_RUN_STEPS.get(mode, LMDIST_STEPS)
             argv += ([THEN] if i else []) + [
-                *LM_ARGS, *flags, "--max-steps", str(LMDIST_STEPS),
-                "--eval-freq", str(LMDIST_STEPS), "--log-every", "1",
+                *LM_ARGS, *flags, "--max-steps", str(steps), "--eval-freq",
+                str(LMDIST_STEPS if steps == LMDIST_STEPS else 0),
+                "--log-every", "1",
                 "--resume", "false", "--train-dir", f"{root}/{mode}",
                 "--device", "cuda"]
+        argv += [THEN, LMDIST_EVAL, "--train-dir", f"{root}/sp", "--once",
+                 str(LMDIST_STEPS), "--device", "cuda"]
         t0 = time.monotonic()
         logs = launch_ranks(root, 2, argv, "MAIN-LMDIST")
         wall = time.monotonic() - t0
@@ -2702,29 +2945,34 @@ def lmdist_main_path(torch, wrappers) -> dict:
                     dict(json.loads(found[0]), final=final[0]))
         per = LM_LAYERS // 2
         out = {}
-        for mode, _, _ in LMDIST_RUNS:
+        for mode, flags, _ in LMDIST_RUNS:
             a, b = recs[mode]
             if a["final"] != b["final"]:
                 fail(f"MAIN-LMDIST {mode}: FINAL differs across ranks "
                      f"({a['final']} / {b['final']})")
-            if [a["saves"], b["saves"]] != [[LMDIST_STEPS], []] or \
-                    ckpt.committed_steps(f"{root}/{mode}") != [LMDIST_STEPS]:
+            saved = [LMDIST_STEPS] if mode not in LMDIST_RUN_STEPS else []
+            if [a["saves"], b["saves"]] != [saved, []] or \
+                    ckpt.committed_steps(f"{root}/{mode}") != saved:
                 fail(f"MAIN-LMDIST {mode}: checkpoints {a['saves']} / "
                      f"{b['saves']}, committed "
                      f"{ckpt.committed_steps(f'{root}/{mode}')}")
-            want_bytes = lmdist_step_bytes(mode)
+            want_bytes = lmdist_step_bytes(a["mode"], flags)
             if any(n != want_bytes for rec in (a, b)
                    for n in rec["step_bytes"]):
                 fail(f"MAIN-LMDIST {mode}: bytes a step {a['step_bytes']} /"
                      f" {b['step_bytes']}, the shapes count {want_bytes}")
+            # FINAL: tp and pp score through the flash oracle on each
+            # rank, ep through its own flash forward, sp through the ring.
+            oracle = LM_LAYERS * LM_FINAL_BATCHES
             fwd = per * LMDIST_MICRO * LMDIST_STEPS
             moe = LM_LAYERS * LMDIST_STEPS
             want = want_counts(wrappers, **(
-                dict(flash_fwd=2 * fwd, flash_dq=fwd, flash_dkv=fwd)
+                dict(flash_fwd=2 * fwd + oracle, flash_dq=fwd,
+                     flash_dkv=fwd)
                 if mode == "pp" else dict(
-                    flash_fwd=moe + LM_LAYERS * LM_FINAL_BATCHES,
-                    flash_dq=moe, flash_dkv=moe)
-                if mode == "ep" else {}))
+                    flash_fwd=moe + oracle, flash_dq=moe, flash_dkv=moe)
+                if mode == "ep" else dict(flash_fwd=oracle)
+                if a["mode"] == "tp" else {}))
             for rec in (a, b):
                 if rec["launches"] != want:
                     fail(f"MAIN-LMDIST {mode} rank {rec['rank']}: launches "
@@ -2740,6 +2988,39 @@ def lmdist_main_path(torch, wrappers) -> dict:
                 abs(float(m.group(2)) - pp_final) > 1e-5:
             fail(f"MAIN-LMDIST: EVAL_LM of pp's checkpoint "
                  f"{m and m.group(0)} against its FINAL {pp_final}")
+        # sp's checkpoint: evaluate.main on both ranks (the ring over
+        # them, in the launch) and in this process (the flash oracle).
+        sp_final = float(out["sp"]["final"].split()[2])
+        ring = []
+        for r, log in enumerate(logs):
+            found = re.findall(r"^LMDIST-EVAL (.*)$", log, re.M)
+            rec = json.loads(found[0]) if len(found) == 1 else {}
+            em = EVAL_LM_RE.search(rec.get("line", ""))
+            if not em or int(em.group(1)) != LMDIST_STEPS or \
+                    abs(float(em.group(2)) - sp_final) > 1e-4 or \
+                    rec["collectives"] < 1 or \
+                    rec["launches"] != want_counts(wrappers):
+                fail(f"MAIN-LMDIST: rank {r}'s ring evaluation of sp's "
+                     f"checkpoint {rec} against its FINAL {sp_final}")
+            ring.append(em.group(0))
+        zero_counts(wrappers)
+        em = EVAL_LM_RE.search(run_entry(evaluate.main, [
+            "--train-dir", f"{root}/sp", "--once", str(LMDIST_STEPS),
+            "--device", "cuda"]))
+        sp_oracle = read_counts(wrappers)
+        if not em or abs(float(em.group(2)) - sp_final) > 1e-4 or \
+                sp_oracle != want_counts(wrappers, flash_fwd=LM_LAYERS
+                                         * LM_FINAL_BATCHES):
+            fail(f"MAIN-LMDIST: one process's EVAL_LM of sp's checkpoint "
+                 f"{em and em.group(0)} (launches {sp_oracle}) against its "
+                 f"FINAL {sp_final}")
+        ring_diff = max(abs(float(EVAL_LM_RE.search(x).group(2))
+                            - sp_final) for x in ring)
+        print(f"MAIN-LMDIST sp's checkpoint scored across the 2 ranks "
+              f"(ring) {ring} and in one process (flash oracle) "
+              f"{em.group(0)} against FINAL {sp_final:.6f}: |diff| "
+              f"{ring_diff:.3e} / {abs(float(em.group(2)) - sp_final):.3e};"
+              f" card {card}", flush=True)
         moe = moe_checks(torch, wrappers, f"{root}/ep")
         # The one-rank model on the same weights and batches, once a
         # reference (ep's in two capacity groups, one a rank).
@@ -2806,14 +3087,16 @@ def lmdist_main_path(torch, wrappers) -> dict:
               f"card {card}", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {mode: recs[mode][0]["launches"] for mode, _, _ in LMDIST_RUNS}
+    return dict({mode: recs[mode][0]["launches"]
+                 for mode, _, _ in LMDIST_RUNS}, sp_oracle=sp_oracle)
 
 
 def moe_checks(torch, wrappers, td: str) -> dict:
     """MAIN-MOE's checkpoint through the entry points: ``evaluate.main
     --once 3`` prints a finite EVAL_LM equal at 1e-4 to the mean
     next-token loss of the validation batches under the one-group,
-    full-attention MoE computed here; greedy ``generate.main`` of
+    full-attention MoE computed here (on ``generate.main``'s model, that
+    MoE with the checkpoint in it); greedy ``generate.main`` of
     MOE_NEW tokens equals the argmax of the full forward over each
     prefix in one capacity group a token (decode's grouping, so nothing
     drops). Neither launches a kernel (full attention, plain decode)."""
@@ -2825,7 +3108,6 @@ def moe_checks(torch, wrappers, td: str) -> dict:
     from ps_pytorch_tpu_torch.models import generate as gen_mod
     from ps_pytorch_tpu_torch.models.moe import MoETransformerLM
     from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
-    from ps_pytorch_tpu_torch.runtime.lm_eval import restore_lm
 
     t0 = time.monotonic()
     step = LMDIST_STEPS
@@ -2837,29 +3119,6 @@ def moe_checks(torch, wrappers, td: str) -> dict:
     m = EVAL_LM_RE.search(printed)
     with open(f"{ckpt.checkpoint_path(td, step)}/config.json") as f:
         cfg = checkpoint_config(f.read())
-    with torch.device("cuda"):      # drawn on the card, then overwritten
-        model = MoETransformerLM(
-            vocab_size=cfg.lm_vocab, n_layers=cfg.lm_layers,
-            n_heads=cfg.lm_heads, d_model=cfg.lm_d_model,
-            n_experts=cfg.lm_experts, top_k=cfg.lm_moe_top_k,
-            max_seq_len=cfg.lm_seq_len)
-    ckpt.load_checkpoint(td, step, lambda tree: restore_lm(tree, model))
-    _, val = lm_streams(cfg)
-    losses = []
-    with torch.no_grad():
-        for tokens in TokenLoader(val, cfg.batch_size, cfg.lm_seq_len,
-                                  seed=0, shuffle=False).epoch(0):
-            t = torch.as_tensor(tokens).cuda().long()
-            logits, _ = model(t)
-            losses.append(float(F.cross_entropy(
-                logits[:, :-1].reshape(-1, cfg.lm_vocab),
-                t[:, 1:].reshape(-1))))
-    oracle = sum(losses) / len(losses)
-    if not m or int(m.group(1)) != step or \
-            not math.isfinite(float(m.group(2))) or \
-            abs(float(m.group(2)) - oracle) > 1e-4:
-        fail(f"MAIN-MOE: EVAL_LM {m and m.group(0)} against the one-group "
-             f"full-attention oracle {oracle}")
     decoded = []
     real_generate = gen_mod.generate
 
@@ -2878,7 +3137,30 @@ def moe_checks(torch, wrappers, td: str) -> dict:
     if read_counts(wrappers) != want_counts(wrappers):
         fail(f"MAIN-MOE: evaluate and generate launched kernels "
              f"{read_counts(wrappers)}")
+    # The oracle: generate's model, the checkpoint in the one-group
+    # full-attention MoE, checked to be that before it is used.
     model, prompt, tokens = decoded[-1]
+    if not isinstance(model, MoETransformerLM) or any(
+            mlp.n_groups != 1 for mlp in model.moe_layers()) or \
+            model.attention_impl != "full":
+        fail("MAIN-MOE: generate's model is not the one-group "
+             "full-attention MoE")
+    _, val = lm_streams(cfg)
+    losses = []
+    with torch.no_grad():
+        for batch in TokenLoader(val, cfg.batch_size, cfg.lm_seq_len,
+                                 seed=0, shuffle=False).epoch(0):
+            t = torch.as_tensor(batch).cuda().long()
+            logits, _ = model(t)
+            losses.append(float(F.cross_entropy(
+                logits[:, :-1].reshape(-1, cfg.lm_vocab),
+                t[:, 1:].reshape(-1))))
+    oracle = sum(losses) / len(losses)
+    if not m or int(m.group(1)) != step or \
+            not math.isfinite(float(m.group(2))) or \
+            abs(float(m.group(2)) - oracle) > 1e-4:
+        fail(f"MAIN-MOE: EVAL_LM {m and m.group(0)} against the one-group "
+             f"full-attention oracle {oracle}")
     toks = torch.as_tensor(prompt).cuda().long()
     gaps = []
     with torch.no_grad():
@@ -5382,6 +5664,49 @@ def arrays_made_once():
         datasets._synthetic = make
 
 
+@contextmanager
+def flops_counted_once():
+    """Inside: each configuration's model FLOPs a step (``runtime/
+    ops_plane.py``'s ``step_flops_of``: the model run on the ``meta``
+    device under a dispatch mode, whose first use in a process imports
+    ``torch._dynamo``, about 2 s) are counted once for the script and its
+    ranks, keyed by what the count reads; where $CHIP_SMOKE_ARRAYS names a
+    directory they are saved there as JSON and read back by the other
+    processes. The count is a function of its key, so every reader gets
+    the number it would have counted."""
+    import hashlib
+
+    from ps_pytorch_tpu_torch.runtime import ops_plane
+
+    root = os.environ.get(ARRAYS_ENV)
+    count, made = ops_plane.step_flops_of, {}
+
+    def once(cfg, batch=None, groups=1):
+        key = json.dumps([cfg.network, cfg.dataset, cfg.num_classes,
+                          cfg.batch_size if batch is None else batch,
+                          cfg.lm_vocab, cfg.lm_d_model, cfg.lm_layers,
+                          cfg.lm_heads, cfg.lm_seq_len, cfg.lm_experts,
+                          cfg.lm_moe_top_k, groups])
+        if key not in made:
+            path = root and Path(root, "flops-" + hashlib.sha256(
+                key.encode()).hexdigest()[:16] + ".json")
+            if path and path.exists():
+                made[key] = json.loads(path.read_text())
+            else:
+                made[key] = count(cfg, batch, groups)
+                if path:
+                    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                    tmp.write_text(json.dumps(made[key]))
+                    os.replace(tmp, path)
+        return made[key]
+
+    ops_plane.step_flops_of = once
+    try:
+        yield
+    finally:
+        ops_plane.step_flops_of = count
+
+
 def run_train(argv):
     """``train.run(argv)`` with its output echoed: (trainer, text)."""
     from ps_pytorch_tpu_torch import train
@@ -5577,7 +5902,7 @@ RANK_MODES = {"--rank": rank_main, "--rank-wire": wire_rank_main,
 def main() -> int:
     rank_mode = RANK_MODES.get(sys.argv[1] if len(sys.argv) > 1 else "")
     if rank_mode is not None:
-        with arrays_made_once():
+        with arrays_made_once(), flops_counted_once():
             return rank_mode(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
@@ -5675,7 +6000,7 @@ def main() -> int:
     # Each path right after the checks of its own kernels, with the
     # allocator's cache emptied between the two: the ResNet steps ran
     # slower when they came after the flash checks.
-    with arrays_made_once():
+    with arrays_made_once(), flops_counted_once():
         conv = timed(check_conv, torch, F, conv_mod)
         timed(time_weight_grad, torch, conv_mod)
         print(f"MEMORY allocated after the conv checks "
@@ -5736,6 +6061,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         lm_launches = timed(lm_main_path, torch, wrappers)
         timed(small_lm_step_agrees, torch, fa)
+        torch.cuda.empty_cache()
+        lm8k = timed(lm8k_main_path, torch, F, fa, wrappers)
         torch.cuda.empty_cache()
         lmckpt = timed(lm_ckpt_main_path, torch, wrappers)
         torch.cuda.empty_cache()
@@ -5872,6 +6199,15 @@ def main() -> int:
                  flash[name]["float16"], launches=f16_launches[name],
                  note="op level only: no trainer computes attention in "
                       "f16 (MAIN-F16 launches none)")),
+             # MAIN-LM8K's [1, 8, 8192, 64] f32 causal: its figures and
+             # its training run's launches (3 steps and FINAL's 8 eval
+             # batches; the evaluator's flash oracle in flash_oracle).
+             s8192=dict({key: lm8k["figures"][name][key] for key in (
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "bound_tc_ms", "max_abs_err")},
+                 launches=lm8k["launches"][name],
+                 tc_launches=lm8k["launches"][f"{name}_tc"],
+                 flash_oracle=lm8k["oracle_launches"][name]),
              **({"tc_launches": lm_launches[f"{name}_tc"]}
                 if f"{name}_tc" in lm_launches else {}),
              # MAIN-LMCKPT (remat: the forward again in the backward) a
@@ -5881,16 +6217,27 @@ def main() -> int:
                  "MAIN-LMCKPT resumed": lmckpt["resumed"][name],
                  "ACCURACY-LM": acc_lm[name],
                  "MAIN-SERVE (decode: full attention)": served[name],
-                 "MAIN-LMDIST pp (a rank, 3 steps)": lmdist["pp"][name],
-                 "MAIN-LMDIST sp and tp (a rank)": lmdist["sp"][name]
-                 + lmdist["tp"][name],
+                 "MAIN-LMCKPT evaluate (flash oracle)":
+                 lmckpt["evaluate"][name],
+                 "MAIN-LM8K (3 steps and FINAL)": lm8k["launches"][name],
+                 "MAIN-LMDIST pp (a rank, 3 steps and FINAL)":
+                 lmdist["pp"][name],
+                 "MAIN-LMDIST sp (a rank; ring)": lmdist["sp"][name],
+                 "MAIN-LMDIST tp (a rank, FINAL's flash oracle)":
+                 lmdist["tp"][name],
+                 "MAIN-LMDIST tp7 (a rank, FINAL's flash oracle)":
+                 lmdist["tp7"][name],
+                 "MAIN-LMDIST sp's checkpoint, evaluate.main in one "
+                 "process": lmdist["sp_oracle"][name],
                  "MAIN-MOE (a rank, 3 steps and FINAL)":
                  lmdist["ep"][name]},
              tc_launches_by_path={
                  "MAIN-LMCKPT run": lmckpt[f"{name}_tc"],
                  "MAIN-LMCKPT resumed": lmckpt["resumed"][f"{name}_tc"],
                  "ACCURACY-LM": acc_lm[f"{name}_tc"],
-                 "MAIN-LMDIST pp (a rank, 3 steps)":
+                 "MAIN-LM8K (3 steps and FINAL)":
+                 lm8k["launches"][f"{name}_tc"],
+                 "MAIN-LMDIST pp (a rank, 3 steps and FINAL)":
                  lmdist["pp"][f"{name}_tc"],
                  "MAIN-MOE (a rank, 3 steps and FINAL)":
                  lmdist["ep"][f"{name}_tc"]})

@@ -9,6 +9,15 @@ next-token loss and perplexity).
 
     python -m ps_pytorch_tpu_torch.evaluate --train-dir ./train_dir \\
         [--poll-s 10] [--once STEP] [--stop-after STEP] [--idle-timeout-s S]
+
+Started by the launcher (or under the JAX env contract), each process
+joins the process group first, as the root ``evaluate.py`` does, and an
+``sp`` checkpoint is scored through the ring over the ranks; every rank
+prints the line:
+
+    python -m ps_pytorch_tpu_torch.tools.launch launch --simulate 2 \\
+        --wait --entry ps_pytorch_tpu_torch.evaluate -- \\
+        --train-dir ./train_dir --once STEP
 """
 
 import argparse
@@ -31,11 +40,23 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device to evaluate on (default cuda)")
     args = p.parse_args(argv)
-    ev = Evaluator(args.train_dir, poll_s=args.poll_s, device=args.device)
-    if args.once is not None:
-        ev.evaluate_step(args.once)
-        return 0
-    ev.run(stop_after=args.stop_after, idle_timeout_s=args.idle_timeout_s)
+    import torch
+
+    from ps_pytorch_tpu_torch.parallel import dist
+    try:
+        dist.initialize_from_env(args.device)
+        ev = Evaluator(args.train_dir, poll_s=args.poll_s,
+                       device=str(dist.local_device(args.device)))
+        if args.once is not None:
+            ev.evaluate_step(args.once)
+        else:
+            ev.run(stop_after=args.stop_after,
+                   idle_timeout_s=args.idle_timeout_s)
+        if dist.is_multiprocess():
+            # Process 0 serves the store: it leaves after the others.
+            torch.distributed.barrier()
+    finally:
+        dist.shutdown()
     return 0
 
 

@@ -8,8 +8,10 @@ Layout over the ``model`` axis of the grid (``parallel/mesh.py``), in the
 torch layout (``Linear.weight`` is [out, in]; ``models/convert.py:
 tp_shard_dim``):
 
-- q/k/v (``Dense_0..2``): column-parallel, rows of the weight sharded, so
-  a rank's heads are whole (``n_heads`` must divide by the axis);
+- q/k/v (``Dense_0..2``): column-parallel, rows of the weight sharded;
+  when ``n_heads`` divides by the axis a rank's heads are whole, else its
+  columns straddle heads and attention runs on the gathered heads
+  (``_gather_columns``);
 - the attention out-projection (``Dense_3``): row-parallel, its output a
   partial sum all-reduced over ``model``;
 - the MLP up-projection (``Dense_4``): column-parallel, with its bias;
@@ -34,11 +36,19 @@ batch is sharded over ``data`` (``P("data", None)``); a rank
 differentiates its local loss sum, the gradients are summed over
 ``data`` and divided by the global token count.
 
-What the JAX package refuses is refused here with its messages: flash
-under tp (``runtime/lm_trainer.py``) and ring (``make_tp_train_step``). A
-head count, ``4 * d_model`` or vocabulary that does not divide by the
-axis runs in the JAX package, where GSPMD reshards; the port refuses it
-(ROADMAP.md).
+What the JAX package refuses is refused here: flash under tp
+(``runtime/lm_trainer.py``) and ring (``make_tp_train_step``) with its
+messages, and a ``d_model`` or vocabulary that does not divide by the axis (GSPMD cannot
+lay ``P(None, 'model')`` over it: ``create_tp_train_state`` raises). A
+head count that does not divide runs, as there: GSPMD reshards inside
+attention, and so does ``_block`` here. Each rank all-gathers the q/k/v
+column shards into every head (``_gather_columns``), runs full causal
+attention over all heads, and feeds its own columns of the output to the
+row-parallel ``Dense_3``. The gather's backward sums the full-width
+gradient over the model ranks and keeps this rank's columns: rank r's
+``dq``, ``dk``, ``dv`` hold only what flows through its columns of the
+output, so a head that straddles two ranks gets part of its gradient on
+each.
 """
 
 from typing import Callable, Dict
@@ -60,15 +70,18 @@ from ps_pytorch_tpu_torch.parallel.ring import full_attention
 
 def check_divisible(n_heads: int, d_model: int, vocab: int,
                     size: int) -> None:
+    """Refuse the splits the JAX ``create_tp_train_state`` refuses:
+    ``d_model`` (so ``4 * d_model``) or ``vocab`` not divisible by the
+    model axis. Any head count is taken."""
     bad = [f"{name}={value}" for name, value in (
-        ("lm_heads", n_heads), ("4*lm_d_model", 4 * d_model),
-        ("lm_vocab", vocab)) if value % size]
+        ("lm_d_model", d_model), ("lm_vocab", vocab)) if value % size]
     if bad:
         raise ValueError(
             f"lm_parallelism='tp' over {size} model ranks needs "
-            f"{', '.join(bad)} divisible by {size}: the port shards heads, "
-            "the MLP and the vocabulary evenly and does not reshard as "
-            "GSPMD does (ROADMAP.md)")
+            f"{', '.join(bad)} divisible by {size}: the column and row "
+            "shards split that dimension evenly, and the JAX package "
+            "refuses it too (its P(None, 'model') sharding needs the "
+            "dimension divisible by the axis)")
 
 
 def shard_model_(model: nn.Module, axis) -> nn.Module:
@@ -89,20 +102,48 @@ def shard_model_(model: nn.Module, axis) -> nn.Module:
     return model
 
 
+class _GatherColumns(torch.autograd.Function):
+    """[..., n / m] on each of the ``m`` ranks of ``axis`` -> [..., n],
+    the ranks' columns in axis order, as one all-reduce of the
+    zero-padded tensor (gloo reduces a CUDA tensor but gathers only host
+    ones). Backward: the full-width gradient summed over the ranks, then
+    this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.width = axis, x.shape[-1]
+        full = x.new_zeros(*x.shape[:-1], x.shape[-1] * axis.size)
+        full.narrow(-1, axis.index * ctx.width, ctx.width).copy_(x)
+        return all_reduce_(full, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_(g.contiguous().clone(), ctx.axis)
+        return g.narrow(-1, ctx.axis.index * ctx.width,
+                        ctx.width).contiguous(), None
+
+
+def _gather_columns(x: torch.Tensor, axis) -> torch.Tensor:
+    return x if axis.size == 1 else _GatherColumns.apply(x, axis)
+
+
 def _block(blk, x, axis):
-    """One pre-LN block with its heads and MLP columns sharded."""
+    """One pre-LN block with its q/k/v and MLP columns sharded."""
     b, s, d = x.shape
     hd = d // blk.n_heads
-    heads = blk.Dense_0.weight.shape[0] // hd
-
-    def to_heads(t):
-        return t.reshape(b, s, heads, hd).transpose(1, 2)
-
+    # Whole heads a rank when the axis divides them; else this rank's
+    # columns straddle heads, and attention runs on the gathered ones.
+    whole = blk.n_heads % axis.size == 0
     y = copy_to(blk.LayerNorm_0(x), axis)
-    q, k, v = (to_heads(f(y)) for f in (blk.Dense_0, blk.Dense_1,
-                                        blk.Dense_2))
+    q, k, v = (f(y) if whole else _gather_columns(f(y), axis)
+               for f in (blk.Dense_0, blk.Dense_1, blk.Dense_2))
+    heads = q.shape[-1] // hd
+    q, k, v = (t.reshape(b, s, heads, hd).transpose(1, 2) for t in (q, k, v))
     o = full_attention(q, k, v, causal=True)
     o = o.transpose(1, 2).reshape(b, s, heads * hd)
+    if not whole:
+        width = d // axis.size
+        o = o.narrow(-1, axis.index * width, width)
     x = x + reduce_from(blk.Dense_3(o), axis)
     y = copy_to(blk.LayerNorm_1(x), axis)
     y = F.gelu(blk.Dense_4(y), approximate="tanh")

@@ -8,28 +8,36 @@ checkpoint's own ``config.json``; the BatchNorm statistics are replica 0's.
 An LM checkpoint gets the ``EVAL_LM`` line instead: the held-out
 next-token loss, averaged over the validation tail's batches
 (``TokenLoader(seed=0, shuffle=False)`` of ``lm_streams``), and its
-perplexity, through the full-attention oracle (``runtime/lm_eval.py``).
-It reads checkpoints of either package. The JAX evaluator's
-sequence-sharded LM branch runs over several devices; the port's
-evaluator is one process on one device, and a launch of several raises.
+perplexity. As in the JAX evaluator (``runtime/evaluator.py:80-104``), an
+``sp`` checkpoint launched over N processes whose ``lm_seq_len`` divides
+by N is scored through the ring forward over the N ranks
+(``parallel/sp.py:make_lm_eval_fn`` over the world group, each rank its
+shard of the sequence); every other LM checkpoint through the one-device
+oracle (``runtime/lm_eval.py``, flash where the kernels take the head
+dim) on every rank. Every rank prints the line. It reads checkpoints of
+either package.
 """
 
 import time
 from typing import Callable, Optional
 
-from ps_pytorch_tpu_torch.config import (
-    LM_NETWORKS, checkpoint_config, several_processes,
-)
+import torch
+
+from ps_pytorch_tpu_torch.config import LM_NETWORKS, checkpoint_config
 from ps_pytorch_tpu_torch.data import prepare_data
 from ps_pytorch_tpu_torch.data.augment import input_norm_for
 from ps_pytorch_tpu_torch.data.text import TokenLoader, lm_streams
 from ps_pytorch_tpu_torch.models import build_model
 from ps_pytorch_tpu_torch.models.convert import state_from_jax
-from ps_pytorch_tpu_torch.parallel import make_eval_step
+from ps_pytorch_tpu_torch.models.transformer import TransformerLM
+from ps_pytorch_tpu_torch.parallel import dist, make_eval_step
 from ps_pytorch_tpu_torch.parallel.dp import accumulate_eval
+from ps_pytorch_tpu_torch.parallel.mesh import Axis
+from ps_pytorch_tpu_torch.parallel.sp import make_lm_eval_fn, sequence_shard
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.lm_eval import (
-    build_lm_oracle, build_lm_template, perplexity, restore_lm,
+    build_lm_oracle, build_lm_template, lm_geometry, perplexity, restore_lm,
+    scoring_attention,
 )
 from ps_pytorch_tpu_torch.runtime.trainer import (
     resolve_device, set_reference_numerics,
@@ -65,16 +73,25 @@ class Evaluator:
         self._built_for = config_json
 
     def _build_lm(self, cfg) -> None:
-        """The oracle model, its training-state template and the
-        validation batches of an LM checkpoint's config."""
-        if several_processes():
-            raise ValueError(
-                "an LM checkpoint evaluated over several devices is "
-                "sequence-sharded (ring attention) in the JAX evaluator, "
-                "whose launch across processes is not ported yet "
-                "(ROADMAP.md); run the evaluator "
-                "as one process")
-        self.model, self._lm_loss = build_lm_oracle(cfg, self.device)
+        """The scoring model, its training-state template and the
+        validation batches of an LM checkpoint's config: the ring model
+        over every rank for an sp checkpoint whose sequence shards
+        evenly, else the oracle."""
+        n = dist.world()
+        if cfg.lm_parallelism == "sp" and n > 1 and cfg.lm_seq_len % n == 0:
+            axis = Axis("data", list(range(n)), dist.rank(), dist.group())
+            with torch.device(self.device):
+                self.model = TransformerLM(attention_impl="ring", axis=axis,
+                                           **lm_geometry(cfg))
+            eval_fn = make_lm_eval_fn(self.model, axis)
+
+            def loss_fn(tokens) -> float:
+                return float(eval_fn(sequence_shard(tokens, axis)))
+
+            self._lm_loss = loss_fn
+        else:
+            self.model, self._lm_loss = build_lm_oracle(
+                cfg, self.device, attention_impl=scoring_attention(cfg))
         self._lm_opt_state = build_lm_template(cfg, self.model)
         _, val = lm_streams(cfg)
         self._lm_val = TokenLoader(val, cfg.batch_size, cfg.lm_seq_len,

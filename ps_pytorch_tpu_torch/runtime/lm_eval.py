@@ -2,8 +2,12 @@
 
 One definition of a checkpointed LM's held-out next-token loss, shared by
 the standalone evaluator (``EVAL_LM``) and ``generate.py``: the
-full-attention ``TransformerLM`` of the checkpoint's geometry, its loss
-``logits[:, :-1]`` against ``tokens[:, 1:]``, and the perplexity clamp.
+``TransformerLM`` of the checkpoint's geometry, its loss ``logits[:, :-1]``
+against ``tokens[:, 1:]``, and the perplexity clamp. The JAX oracle runs
+full attention; the evaluator and the trainer's tp / pp evaluation score
+through flash where the kernels take the head dim (``scoring_attention``),
+the same function without the [B, H, S, S] scores (2.15 GB a layer at
+S 8192); ``generate.py`` and serving keep full attention.
 The checkpoint's config is self-describing (``network``, the LM fields).
 A pipeline-parallel checkpoint (``lm_parallelism="pp"``) stores its
 blocks stage-stacked; ``restore_lm`` unstacks them, and the momentum,
@@ -29,6 +33,7 @@ from ps_pytorch_tpu_torch.models.moe import MoETransformerLM, logits_of
 from ps_pytorch_tpu_torch.models.transformer import (
     TransformerLM, migrate_packed_qkv,
 )
+from ps_pytorch_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
 from ps_pytorch_tpu_torch.optim import SGD, build_schedule
 from ps_pytorch_tpu_torch.optim.sgd import SGDState
 from ps_pytorch_tpu_torch.parallel.pp import plain_state_tree
@@ -43,6 +48,20 @@ def lm_geometry(cfg) -> dict:
     return dict(vocab_size=cfg.lm_vocab, d_model=cfg.lm_d_model,
                 n_layers=cfg.lm_layers, n_heads=cfg.lm_heads,
                 max_seq_len=cfg.lm_seq_len)
+
+
+def scoring_attention(cfg) -> str:
+    """The attention a checkpoint's loss is scored through: for the dense
+    LM the port's flash op (the hand-written kernels on CUDA, their plain
+    version on the CPU), which holds no [S, S] scores, wherever the
+    kernels take the head dim (a multiple of 8 up to ``MAX_HEAD_DIM``);
+    else, and for the MoE LM, full attention. Chosen by shape, never by
+    catching a failure."""
+    head_dim = cfg.lm_d_model // cfg.lm_heads
+    if cfg.network == "MoETransformerLM" or head_dim % 8 \
+            or head_dim > MAX_HEAD_DIM:
+        return "full"
+    return "flash"
 
 
 def _refuse_unresolved(cfg) -> None:

@@ -90,7 +90,9 @@ from ps_pytorch_tpu_torch.parallel.sp import (
 )
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import DistributedKV, KVStore
-from ps_pytorch_tpu_torch.runtime.lm_eval import build_lm_oracle, restore_lm
+from ps_pytorch_tpu_torch.runtime.lm_eval import (
+    build_lm_oracle, restore_lm, scoring_attention,
+)
 from ps_pytorch_tpu_torch.runtime.metrics import MetricsLogger
 from ps_pytorch_tpu_torch.runtime.ops_plane import OpsPlane
 from ps_pytorch_tpu_torch.runtime.trainer import (
@@ -373,8 +375,9 @@ class LMTrainer:
     def evaluate(self, max_batches: Optional[int] = None) -> dict:
         """Held-out next-token loss and perplexity over the validation
         tail (its first ``max_batches`` batches): sp through the train
-        step's sharded forward, tp and pp through the full-attention
-        oracle on the gathered parameters, ep through the MoE oracle with
+        step's sharded forward, tp and pp through the oracle on the
+        gathered parameters (flash where the kernels take the head dim,
+        ``lm_eval.scoring_attention``), ep through the MoE oracle with
         one capacity group a rank and the trainer's attention (every rank
         takes part)."""
         cfg = self.cfg
@@ -385,10 +388,11 @@ class LMTrainer:
                 return float(self.eval_fn(self._local(tokens)))
         else:
             params, _ = self.full_state()
-            extra = {}
             if self.mode == "ep":
                 extra = dict(n_groups=self.grid.data.size,
                              attention_impl=self.model.attention_impl)
+            else:
+                extra = dict(attention_impl=scoring_attention(cfg))
             oracle, loss_of = build_lm_oracle(cfg, self.device, **extra)
             oracle.load_state_dict(params)
         losses = []

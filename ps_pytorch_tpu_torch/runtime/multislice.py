@@ -8,17 +8,23 @@ the canonical parameters advance from whatever fresh-enough contributions
 exist: parameter-server semantics with the "master" reduced to an optimizer
 over a gradient pool.
 
-Slices on one card. The JAX trainer splits its devices into ``n_slices``
-groups; here every slice lies on the one selected device unless ``devices``
-names one device per slice. A slice is its own copy of the model: its own
-BatchNorm statistics, its own last-fetched parameters, its own shard of the
-data (``host_id=s`` of ``n_slices`` over a shared-seed shuffle). "Fetch" is
-a copy from the canonical parameters. The canonical parameters and the
-optimizer state stay on the device for the whole run; with
-``--fused-optimizer`` they live in the fused optimizer's flat buffer. A
-gradient visits the host only when a host codec is configured (blosc,
-int8lat, topk, randk); the ``int8`` codec quantizes, dequantizes and
-averages on the device.
+Slices and their devices. The JAX trainer splits its devices into
+``n_slices`` groups of ``per``; so does this one: ``devices`` (every slice
+on the one selected device when not given) holds ``n_slices * per``
+devices, and slice ``s`` holds one replica of the model on each of
+``devices[s * per:(s + 1) * per]`` (several may name one card). A slice's
+batch is split into ``per`` contiguous row blocks, one a replica (the
+JAX ``P("data")``); each replica keeps its own BatchNorm statistics (the
+JAX ``[per, ...]`` stack); the gradients, loss and accuracy are averaged
+over the replicas (the JAX ``psum / n``) and the slice submits that one
+gradient. A slice has its own last-fetched parameters and its own shard
+of the data (``host_id=s`` of ``n_slices`` over a shared-seed shuffle).
+"Fetch" is a copy from the canonical parameters into every replica. The
+canonical parameters and the optimizer state stay on the device for the
+whole run; with ``--fused-optimizer`` they live in the fused optimizer's
+flat buffer. A gradient visits the host only when a host codec is
+configured (blosc, int8lat, topk, randk); the ``int8`` codec quantizes,
+dequantizes and averages on the device.
 
 Scheduling model (deterministic, testable): slice i advances every
 ``slice_periods[i]`` global ticks and re-fetches canonical params every
@@ -27,8 +33,11 @@ computed on stale weights and exercises the drop/decay paths without
 wall-clock nondeterminism.
 
 As in the reference, a resumed run restores the canonical parameters, the
-optimizer state and slice 0's BatchNorm statistics; the loaders start over
-and the other slices keep fresh statistics.
+optimizer state and slice 0's BatchNorm statistics (a replica's each);
+the loaders start over and the other slices keep fresh statistics.
+``evaluate()`` reads slice 0's first replica's statistics, and the
+checkpoint's ``batch_stats`` carry slice 0's ``[per, ...]`` stack, as the
+JAX trainer's do.
 
 ``--shard-wire`` (``parallel/zero_wire.py``) puts the sharded host-side
 update in place of the optimizer, as the JAX trainer does in one process:
@@ -46,6 +55,7 @@ always) rides every checkpoint as ``extra_state["ef"]``, in the JAX
 layouts.
 """
 
+import copy
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -77,25 +87,34 @@ from ps_pytorch_tpu_torch.runtime.trainer import (
 )
 
 
-def make_slice_grad_fn(model: torch.nn.Module, input_norm=None,
-                       index: int = 0) -> Callable:
-    """``fn(x, y, key=None) -> (grads, metrics)`` of slice ``index``:
-    forward and backward on the slice's own model in train mode (its
-    BatchNorm statistics move; its Dropout draws seeded from the tick's
-    ``key`` and ``index``, as ``parallel/dp.py`` seeds a replica's),
-    ``grads`` a fresh ``name -> tensor`` dict on the model's device,
-    ``metrics`` the 0-d loss and accuracy."""
-    params = dict(model.named_parameters())
-    device = next(iter(params.values())).device
-    dropout = DropoutDraws(model, device)
+def make_slice_grad_fn(models, input_norm=None, index: int = 0) -> Callable:
+    """``fn(x, y, key=None) -> (grads, metrics)`` of slice ``index`` over
+    its replicas ``models`` (one a device, or a single model): the batch
+    split into ``len(models)`` contiguous row blocks, each replica's
+    forward and backward on its block in train mode (its BatchNorm
+    statistics move; its Dropout draws seeded from the tick's ``key`` and
+    its place ``index * len(models) + r``, as ``parallel/dp.py`` seeds a
+    replica's); ``grads`` a fresh ``name -> tensor`` dict, ``metrics`` the
+    0-d loss and accuracy, each the mean over the replicas, on the first
+    replica's device."""
+    if isinstance(models, torch.nn.Module):
+        models = [models]
+    per = len(models)
+    replicas = []
+    for r, model in enumerate(models):
+        params = dict(model.named_parameters())
+        device = next(iter(params.values())).device
+        replicas.append((model, params, device, DropoutDraws(model, device),
+                         index * per + r))
 
-    def grad_fn(x, y, key=None):
+    def one(replica, x, y, key):
+        model, params, device, dropout, place = replica
         x = _input(x, device, input_norm)
         y = torch.as_tensor(np.asarray(y)).to(device, non_blocking=True)
         model.train()
         for p in params.values():
             p.grad = None
-        dropout.seed(key, index)
+        dropout.seed(key, place)
         logits = model(x)
         loss = F.cross_entropy(logits, y.long())
         loss.backward()
@@ -105,6 +124,21 @@ def make_slice_grad_fn(model: torch.nn.Module, input_norm=None,
         for p in params.values():
             p.grad = None
         return grads, {"loss": loss.detach(), "accuracy": acc}
+
+    def grad_fn(x, y, key=None):
+        if per == 1:
+            return one(replicas[0], x, y, key)
+        rows = len(x) // per
+        outs = [one(rep, x[r * rows:(r + 1) * rows],
+                    y[r * rows:(r + 1) * rows], key)
+                for r, rep in enumerate(replicas)]
+        device = replicas[0][2]
+        with torch.no_grad():
+            grads = {name: sum(g[name].to(device) for g, _ in outs) / per
+                     for name in outs[0][0]}
+            metrics = {k: sum(m[k].to(device) for _, m in outs) / per
+                       for k in ("loss", "accuracy")}
+        return grads, metrics
 
     return grad_fn
 
@@ -125,9 +159,10 @@ class MultiSliceTrainer:
         if len(devices) % n_slices:
             raise ValueError(f"{len(devices)} devices not divisible by "
                              f"{n_slices} slices")
-        if len(devices) != n_slices:
-            raise ValueError("a slice of several devices is not ported yet "
-                             "(ROADMAP.md); name one device per slice")
+        self.per = per = len(devices) // n_slices
+        if cfg.batch_size % per:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                             f"by the {per} devices of a slice")
         self.cfg = cfg
         self.n_slices = n_slices
         self.slice_periods = list(slice_periods or [1] * n_slices)
@@ -137,21 +172,20 @@ class MultiSliceTrainer:
 
         # Canonical parameters and optimizer state: on the device for the
         # whole run. Its BatchNorm buffers only carry slice 0's statistics
-        # into evaluate() and the checkpoint.
+        # into evaluate().
         self.model = build_model(cfg.network, cfg.num_classes,
                                  cfg.compute_dtype, cfg.conv_impl,
                                  seed=cfg.seed).to(self.device)
+        # Each slice's replicas, one a device: copies of the canonical
+        # model, made before the fused optimizer takes its parameters
+        # into its flat buffer.
+        self.replicas = [[copy.deepcopy(self.model).to(dev)
+                          for dev in devices[s * per:(s + 1) * per]]
+                         for s in range(n_slices)]
         self.opt = build_optimizer(cfg)
         self.params: Dict[str, torch.nn.Parameter] = dict(
             self.model.named_parameters())
         self.opt_state = self.opt.init(self.params)
-        # Per-slice replicas: same initial weights and statistics.
-        self.slices = []
-        for dev in devices:
-            m = build_model(cfg.network, cfg.num_classes, cfg.compute_dtype,
-                            cfg.conv_impl, seed=cfg.seed).to(dev)
-            m.load_state_dict(self.model.state_dict())
-            self.slices.append(m)
 
         if cfg.sync_topology == "hier":
             # Two tiers behind the same surface (parallel/hierarchy.py):
@@ -185,8 +219,8 @@ class MultiSliceTrainer:
                 run_id=f"zw-{cfg.seed}", params=self._wire_tree(self.params),
                 members=[0], me=0, n_shards=max(n_slices, 2))
         self._input_norm = input_norm_for(cfg)
-        self.grad_fns = [make_slice_grad_fn(m, self._input_norm, s)
-                         for s, m in enumerate(self.slices)]
+        self.grad_fns = [make_slice_grad_fn(reps, self._input_norm, s)
+                         for s, reps in enumerate(self.replicas)]
         self.eval_fn = make_eval_step(self.model, self._input_norm)
         # Each slice's last-fetched version step and its own step count.
         self._slice_version = [0] * n_slices
@@ -217,11 +251,13 @@ class MultiSliceTrainer:
 
     @torch.no_grad()
     def _fetch(self, s: int) -> None:
-        """Slice ``s`` takes the canonical parameters (not the BatchNorm
-        statistics, which stay its own): the weight-distribution hop."""
-        own = dict(self.slices[s].named_parameters())
-        for name, p in self.params.items():
-            own[name].copy_(p)
+        """Slice ``s``'s replicas take the canonical parameters (not the
+        BatchNorm statistics, which stay their own): the weight-distribution
+        hop."""
+        for model in self.replicas[s]:
+            own = dict(model.named_parameters())
+            for name, p in self.params.items():
+                own[name].copy_(p)
 
     def tick(self) -> dict:
         """One global tick: scheduled slices compute and submit; the
@@ -284,11 +320,19 @@ class MultiSliceTrainer:
 
     @torch.no_grad()
     def _take_slice0_stats(self) -> None:
-        """Slice 0's BatchNorm statistics into the canonical model, which
-        evaluate() and the checkpoint read."""
+        """Slice 0's first replica's BatchNorm statistics into the
+        canonical model, which evaluate() reads (the JAX ``_bs[0][0]``)."""
         own = dict(self.model.named_buffers())
-        for name, b in self.slices[0].named_buffers():
+        for name, b in self.replicas[0][0].named_buffers():
             own[name].copy_(b)
+
+    def _load_stats(self, s: int, stats: Optional[dict]) -> None:
+        """A JAX batch_stats tree into slice ``s``'s replicas: replica r
+        takes entry r of a ``[per, ...]`` stack (entry 0 when the stack
+        is shorter), or the tree as it is without one."""
+        for r, model in enumerate(self.replicas[s]):
+            model.load_state_dict(from_jax({}, stats, replica=r),
+                                  strict=False)
 
     def evaluate(self, max_batches: Optional[int] = None) -> dict:
         """Top-1/top-5/loss on the canonical params with slice 0's
@@ -303,14 +347,15 @@ class MultiSliceTrainer:
         """A JAX ``MultiSliceTrainer``'s state into this one: ``tree`` is
         its ``TrainState`` as the dict flax serializes (canonical params,
         optimizer state, slice 0's statistics), ``slice_batch_stats`` the
-        per-slice BatchNorm statistics (``_bs``, numpy). Every slice takes
-        the canonical parameters and its own statistics."""
+        per-slice BatchNorm statistics (``_bs``, numpy, each with its
+        ``[per, ...]`` axis). Every slice takes the canonical parameters
+        and each replica its own statistics."""
         self._restore(tree)
         self.step = int(tree["step"])
         stats = slice_batch_stats or [tree.get("batch_stats")] * self.n_slices
-        for s, model in enumerate(self.slices):
+        for s in range(self.n_slices):
             self._fetch(s)
-            model.load_state_dict(from_jax({}, stats[s]), strict=False)
+            self._load_stats(s, stats[s])
 
     def _ef_layout(self, state: dict, to_jax: bool) -> dict:
         """The aggregator's EF state between the port's parameter layouts
@@ -347,19 +392,22 @@ class MultiSliceTrainer:
             # step): without it a resumed run restarts the moments.
             extra = dict(extra or {})
             extra["zero"] = self.aggregator.state_dict()
-        self._take_slice0_stats()
         return ckpt.save_checkpoint(
             self.cfg.train_dir, self.step,
-            state_to_jax(self.model, self.opt_state, self.step),
+            state_to_jax(self.model, self.opt_state, self.step,
+                         replica_buffers=[dict(m.named_buffers())
+                                          for m in self.replicas[0]]),
             config_json=self.cfg.to_json(), compress=self.cfg.compress_grad,
             codec_level=self.cfg.codec_level, extra_state=extra)
 
     def _restore(self, tree: dict) -> None:
         self.opt_state, _ = state_from_jax(tree, self.model, self.opt_state)
+        self._restored_stats = tree.get("batch_stats")
 
     def maybe_resume(self) -> bool:
         """Restore canonical params and optimizer state (and slice 0's
-        BatchNorm statistics; other slices keep fresh ones), from the
+        BatchNorm statistics, a replica's each; other slices keep fresh
+        ones), from the
         newest checkpoint that verifies: a corrupt newest one is skipped."""
         if ckpt.latest_step(self.cfg.train_dir) is None:
             return False
@@ -367,7 +415,7 @@ class MultiSliceTrainer:
         if got is None:
             return False
         _, meta, _, step = got
-        self.slices[0].load_state_dict(self.model.state_dict())
+        self._load_stats(0, self._restored_stats)
         self.step = int(meta["step"])
         for s in range(self.n_slices):
             self._fetch(s)

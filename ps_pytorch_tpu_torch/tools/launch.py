@@ -8,7 +8,9 @@
   master rank: process 0 serves the TCPStore and leads the Coordinator.
 - ``status``: liveness and the last line of each process's log.
 - ``wait``: block until every process exits (``--timeout`` kills the
-  fleet); ok when every log holds a FINAL line. A process that exits
+  fleet); ok when every log holds a FINAL line (an EVAL or EVAL_LM line
+  for the evaluator's entry, ``ps_pytorch_tpu_torch.evaluate``, which
+  prints no FINAL). A process that exits
   without one ends the wait at once and kills the rest, which would
   otherwise wait for it in a collective or for a mask, unless its log
   ends at the fault plane's ``FAULT leader_kill`` line: that death was
@@ -112,7 +114,7 @@ def cmd_launch(args, train_argv: List[str]) -> int:
                                      env=_env_for(rank, n, coordinator),
                                      cwd=args.cwd or None)
             records.append({"rank": rank, "host": "local", "pid": p.pid,
-                            "log": log_path})
+                            "log": log_path, "entry": args.entry})
         else:
             # Export the contract inline; `echo REMOTE_PID $$` + `exec`
             # publishes the remote trainer's own pid into the local log.
@@ -177,10 +179,14 @@ def _last_progress_line(log: str, width: Optional[int] = 120) -> str:
     return "<no output>"
 
 
-def _has_final(path: str) -> bool:
+def _has_final(record: dict) -> bool:
+    """True when the process's log holds its entry's closing line: FINAL,
+    or the evaluator's EVAL / EVAL_LM line."""
+    entry = record.get("entry", DEFAULT_ENTRY)
+    done = ("EVAL",) if entry.endswith("evaluate") else ("FINAL",)
     try:
-        with open(path, errors="replace") as f:
-            return any(line.startswith("FINAL") for line in f)
+        with open(record["log"], errors="replace") as f:
+            return any(line.startswith(done) for line in f)
     except OSError:
         return False
 
@@ -215,7 +221,7 @@ def cmd_wait(args) -> int:
     while True:
         alive = [_alive(r["pid"]) for r in meta["procs"]]
         failed = [r["rank"] for r, a in zip(meta["procs"], alive)
-                  if not a and not _has_final(r["log"])
+                  if not a and not _has_final(r)
                   and not _killed_by_fault(r["log"])]
         if failed and any(alive):
             print(f"WAIT rank {failed} exited without FINAL; killing fleet",
@@ -229,7 +235,7 @@ def cmd_wait(args) -> int:
             cmd_kill(args)
             return 2
         time.sleep(0.2)
-    ok = all(_has_final(r["log"]) for r in meta["procs"])
+    ok = all(_has_final(r) for r in meta["procs"])
     print(f"DONE ok={ok}", flush=True)
     return 0 if ok else 1
 

@@ -14,7 +14,10 @@ process group before any model is built and prints ``MESH data=<world>
 ... backend=<nccl|gloo>``; without the contract it trains alone
 (``backend=none``). ``--mode async`` trains ``--async-slices`` slices
 asynchronously in one process (``runtime/multislice.py``) and prints
-``SLICES`` in place of ``MESH``; launched as several processes it trains
+``SLICES <n> x <devices a slice>`` in place of ``MESH``: with several
+visible cards the slices split them all, as the JAX entry splits every
+local device (their count must divide by the slices), with one every
+slice shares it; launched as several processes it trains
 one slice a process (``runtime/async_trainer.py``: gradients cross between
 processes as armoured bytes over the group's TCPStore, process 0 is the PS
 leader) and prints ``ASYNC process-slices <n> x 1 devices``. The LM
@@ -83,10 +86,11 @@ def run(argv=None):
             trainer = AsyncTrainer(cfg, device=args.device)
             print(f"ASYNC process-slices {trainer.n} x 1 devices")
         elif cfg.mode == "async":
-            trainer = MultiSliceTrainer(cfg, n_slices=cfg.async_slices,
-                                        fetch_every=cfg.fetch_every,
-                                        device=args.device)
-            print(f"SLICES {cfg.async_slices} x 1 devices")
+            trainer = MultiSliceTrainer(
+                cfg, n_slices=cfg.async_slices, fetch_every=cfg.fetch_every,
+                devices=_slice_devices(args.device, cfg.async_slices),
+                device=args.device)
+            print(f"SLICES {cfg.async_slices} x {trainer.per} devices")
         elif cfg.auto_resume > 0:
             trainer = _train_with_auto_resume(
                 cfg, str(dist.local_device(args.device)))
@@ -103,6 +107,26 @@ def run(argv=None):
         return trainer, result
     finally:
         dist.shutdown()
+
+
+def _slice_devices(device: str, n_slices: int):
+    """The devices of the one-process async trainer, as the JAX entry
+    hands it every local device: every visible card when ``device`` is
+    ``cuda`` without an index and there are several (their count must
+    divide into ``n_slices`` slices), else None (every slice on
+    ``device``; with one card every slice shares it)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None \
+            or not torch.cuda.is_available():
+        return None
+    n = torch.cuda.device_count()
+    if n == 1:
+        return None
+    if n % n_slices:
+        raise ValueError(f"{n} devices not divisible by {n_slices} slices")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 def _print_mesh(trainer) -> None:

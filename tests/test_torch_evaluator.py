@@ -3,7 +3,11 @@
 Both evaluators score the same checkpoint, one written by the port's
 trainer and one by the JAX package, to the same loss, Prec@1 and Prec@5 and
 the same ``EVAL`` line. The poll picks up every committed step, and the
-entry point runs with ``--device cpu``.
+entry point runs with ``--device cpu``. An LM checkpoint is scored through
+the flash oracle where the kernels take the head dim; launched over two
+gloo ranks, an ``sp`` checkpoint goes through the ring over them (held
+against the JAX evaluator's ring branch over two CPU devices) and a
+``tp`` one through the oracle on each rank, every rank printing EVAL_LM.
 """
 
 import os
@@ -22,12 +26,15 @@ from ps_pytorch_tpu.optim import sgd as jax_sgd
 from ps_pytorch_tpu.parallel import create_train_state, make_mesh
 from ps_pytorch_tpu.runtime import checkpoint as jax_ckpt
 from ps_pytorch_tpu.runtime import evaluator as jax_evaluator
+from conftest import free_port
 from ps_pytorch_tpu_torch import config, evaluate
 from ps_pytorch_tpu_torch.models import convert, lenet
+from ps_pytorch_tpu_torch.models.transformer import TransformerLM
 from ps_pytorch_tpu_torch.optim import SGD
 from ps_pytorch_tpu_torch.runtime import Evaluator, Trainer
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
-from ps_pytorch_tpu_torch.runtime import evaluator
+from ps_pytorch_tpu_torch.runtime import evaluator, lm_eval
+from ps_pytorch_tpu_torch.tools import launch
 
 REPO = Path(__file__).resolve().parent.parent
 KW = dict(network="LeNet", dataset="Digits", batch_size=32,
@@ -131,21 +138,132 @@ def test_evaluate_entry_point_on_cpu(tmp_path):
 
 
 def test_evaluator_refuses_what_it_cannot_do(tmp_path, monkeypatch):
+    """No silent CPU run, and a launch of several processes needs the
+    whole env contract; an LM checkpoint under a launch of several
+    processes is scored, not refused (the MoE oracle keeps full
+    attention)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Evaluator(str(tmp_path))
-    # LM checkpoints are scored (tests/test_torch_lm_ckpt.py), MoE ones
-    # too (test_evaluators_agree_on_an_moe_checkpoint); the JAX
-    # evaluator's sequence-sharded branch across processes is not ported.
     td = str(tmp_path / "lm")
     path = ckpt.checkpoint_path(td, 1)
     os.makedirs(path)
     with open(os.path.join(path, "config.json"), "w") as f:
-        f.write(config.TrainConfig(network="MoETransformerLM",
+        f.write(config.TrainConfig(network="MoETransformerLM", lm_experts=2,
                                    eval_freq=0).to_json())
     monkeypatch.setenv("PS_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        Evaluator(td, device="cpu").evaluate_step(1)
+    with pytest.raises(ValueError, match="without PS_TPU_COORDINATOR.*"
+                       "tools.launch launch"):
+        evaluate.main(["--train-dir", td, "--once", "1", "--device", "cpu"])
+    ev = Evaluator(td, device="cpu")
+    with open(os.path.join(path, "config.json")) as f:
+        ev._build(f.read())
+    assert type(ev.model).__name__ == "MoETransformerLM"
+    assert ev.model.attention_impl == "full"
+
+
+LM_KW = dict(network="TransformerLM", lm_vocab=64, lm_d_model=32,
+             lm_layers=2, lm_heads=2, lm_seq_len=64, batch_size=4,
+             lm_corpus_tokens=4000, lr=0.1, momentum=0.9, eval_freq=0)
+
+
+def _save_lm(td, step, **over):
+    """A seeded TransformerLM checkpoint with the port's layout and the
+    config ``over`` sets (an sp or a tp run's)."""
+    cfg = config.TrainConfig(train_dir=td, **dict(LM_KW, **over))
+    model = TransformerLM(generator=torch.Generator().manual_seed(5),
+                          **lm_eval.lm_geometry(cfg))
+    state = convert.state_to_jax(model, lm_eval.build_lm_template(cfg, model),
+                                 step)
+    ckpt.save_checkpoint(td, step, state, config_json=cfg.to_json())
+
+
+def _jax_line(td, step, devices, monkeypatch):
+    """The JAX evaluator's EVAL_LM line over ``devices`` CPU devices (its
+    ring branch for an sp checkpoint when there are several)."""
+    chosen = jax.devices()[:devices]
+    with monkeypatch.context() as m:
+        m.setattr(jax, "devices", lambda *a, **k: chosen)
+        lines = []
+        jax_evaluator.Evaluator(td, printer=lines.append).evaluate_step(step)
+    return lines[0]
+
+
+def test_scoring_attention_is_flash_where_the_kernels_take_the_head_dim():
+    def cfg(**kw):
+        return config.TrainConfig(**dict(LM_KW, **kw))
+    assert lm_eval.scoring_attention(cfg()) == "flash"              # 16
+    assert lm_eval.scoring_attention(cfg(lm_d_model=36,
+                                         lm_heads=3)) == "full"    # 12
+    assert lm_eval.scoring_attention(cfg(lm_d_model=272,
+                                         lm_heads=2)) == "full"    # 136
+    assert lm_eval.scoring_attention(cfg(network="MoETransformerLM",
+                                         lm_experts=2)) == "full"
+
+
+def test_flash_oracle_prints_the_jax_eval_lm(tmp_path, monkeypatch):
+    """One process: the oracle scores through flash (head dim 16), the
+    JAX evaluator's full-attention line by field at 1e-4."""
+    td = str(tmp_path / "td")
+    _save_lm(td, 2)
+    lines = []
+    ev = Evaluator(td, device="cpu", printer=lines.append)
+    ev.evaluate_step(2)
+    assert ev.model.attention_impl == "flash"
+    _assert_lines_agree(lines[0], _jax_line(td, 2, 1, monkeypatch),
+                        rtol=1e-4, atol=1e-4)
+
+
+_RING_WORKER = r"""
+import sys
+from ps_pytorch_tpu_torch import evaluate
+from ps_pytorch_tpu_torch.parallel import collectives
+evaluate.main(["--train-dir", sys.argv[1], "--once", "2", "--device", "cpu"])
+print(f"COLLECTIVES {collectives.stats['calls']}", flush=True)
+print("FINAL ok", flush=True)
+"""
+
+
+def _launch(tmp_path, name, entry, argv):
+    """Two gloo ranks of ``entry`` through the port's launcher; each
+    rank's log."""
+    run = tmp_path / name
+    rc = launch.main(["launch", "--run-dir", str(run), "--simulate", "2",
+                      "--port", str(free_port()), "--entry", entry,
+                      "--cwd", str(REPO), "--wait", "--timeout", "150",
+                      "--", *argv])
+    logs = [(run / f"proc_{r}.log").read_text() for r in range(2)]
+    assert rc == 0, "\n\n".join(log[-3000:] for log in logs)
+    return logs
+
+
+def _eval_lm_line(log: str) -> str:
+    return next(ln for ln in log.splitlines() if ln.startswith("EVAL_LM"))
+
+
+def test_checkpoints_scored_across_two_ranks(tmp_path, monkeypatch):
+    """An sp checkpoint launched over two ranks goes through the ring over
+    them (collectives on both ranks), a tp one through the oracle on each
+    rank (the entry point itself under the launcher); each rank prints
+    the JAX evaluator's line by field at 1e-4, the sp one its ring
+    branch's over two devices."""
+    sp, tp = str(tmp_path / "sp"), str(tmp_path / "tp")
+    _save_lm(sp, 2)
+    _save_lm(tp, 2, lm_parallelism="tp", lm_model_axis=2)
+    (tmp_path / "worker.py").write_text(_RING_WORKER)
+    ring_logs = _launch(tmp_path, "ring", str(tmp_path / "worker.py"), [sp])
+    tp_logs = _launch(tmp_path, "tp", "ps_pytorch_tpu_torch.evaluate",
+                      ["--train-dir", tp, "--once", "2", "--device", "cpu"])
+    want_sp = _jax_line(sp, 2, 2, monkeypatch)
+    want_tp = _jax_line(tp, 2, 2, monkeypatch)
+    for log in ring_logs:
+        assert int(log.split("COLLECTIVES ")[1].split()[0]) > 0
+        _assert_lines_agree(_eval_lm_line(log), want_sp, rtol=1e-4,
+                            atol=1e-4)
+    for log in tp_logs:
+        _assert_lines_agree(_eval_lm_line(log), want_tp, rtol=1e-4,
+                            atol=1e-4)
+    assert _eval_lm_line(tp_logs[0]) == _eval_lm_line(tp_logs[1])
 
 
 def test_evaluators_agree_on_an_moe_checkpoint(tmp_path):

@@ -3,13 +3,17 @@ the CPU.
 
 ``runtime/multislice.py``'s ``MultiSliceTrainer`` is held against the JAX
 trainer (LeNet on ``synthetic_mnist``, batch 64, 2 slices of one CPU device
-each) from converted weights: losses and canonical parameters within 1e-4
-(f32 sums run in another order in the two packages; the tolerance of the
-synchronous step's tests), the schedule's ``used`` lists identical.
-Compressed checkpoints and ``extra_state.msgpack`` are byte-equal and load
-both ways; a resumed trainer restores the saved parameters bitwise and
+each, and of two) from converted weights: losses and canonical parameters
+within 1e-4 (f32 sums run in another order in the two packages; the
+tolerance of the synchronous step's tests), the schedule's ``used`` lists
+identical. Compressed checkpoints and ``extra_state.msgpack`` are
+byte-equal and load both ways, a ResNet's with each device's BatchNorm
+statistics; a resumed trainer restores the saved parameters bitwise and
 walks back past a corrupt newest checkpoint; the entry point prints the
 reference's lines.
+
+Every trainer of a package draws the same synthetic sets, so each is made
+once for the module (``_arrays_made_once``) and handed read-only to all.
 """
 
 import io
@@ -24,6 +28,7 @@ import torch
 from flax import serialization
 
 from ps_pytorch_tpu import config as jax_config
+from ps_pytorch_tpu.optim.sgd import SGDState as JaxSGDState
 from ps_pytorch_tpu.resilience.faults import corrupt_file
 from ps_pytorch_tpu.runtime import checkpoint as jax_ckpt
 from ps_pytorch_tpu.runtime import evaluator as jax_evaluator
@@ -39,6 +44,37 @@ from ps_pytorch_tpu_torch.runtime.trainer import Trainer
 TOL = 1e-4      # f32 sums in another order in the two packages
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _arrays_made_once():
+    """Each package's ``load_arrays``, memoized for the module: the
+    synthetic sets are a function of their arguments, and drawing them
+    anew took more time than the trainers' ticks. The arrays are
+    read-only, so a loader that wrote into one would raise."""
+    import ps_pytorch_tpu.data.datasets as jax_datasets
+    import ps_pytorch_tpu_torch.data.datasets as port_datasets
+    from ps_pytorch_tpu_torch.runtime import multislice
+
+    patch = pytest.MonkeyPatch()
+    for owners, load in (((jax_datasets,), jax_datasets.load_arrays),
+                         ((port_datasets, multislice),
+                          port_datasets.load_arrays)):
+        made = {}
+
+        def once(*args, _load=load, _made=made, **kw):
+            key = (args, tuple(sorted(kw.items())))
+            if key not in _made:
+                arrays = _load(*args, **kw)
+                for a in arrays:
+                    a.flags.writeable = False
+                _made[key] = arrays
+            return _made[key]
+
+        for owner in owners:
+            patch.setattr(owner, "load_arrays", once)
+    yield
+    patch.undo()
+
+
 # ------------------------------------------------------------ trainer --
 
 def _kw(**over):
@@ -49,18 +85,19 @@ def _kw(**over):
     return base
 
 
-def _pair_of_trainers(tmp_path, slice_periods=None, fetch_every=1, **over):
-    """A JAX trainer over 2 slices of one CPU device each and the port's,
-    from the JAX trainer's weights."""
+def _pair_of_trainers(tmp_path, slice_periods=None, fetch_every=1, per=1,
+                      **over):
+    """A JAX trainer over 2 slices of ``per`` CPU devices each and the
+    port's, from the JAX trainer's weights."""
     kw = _kw(train_dir=str(tmp_path / "none"), **over)
     jt = jax_multislice.MultiSliceTrainer(
         jax_config.TrainConfig(**kw), n_slices=2,
         slice_periods=slice_periods, fetch_every=fetch_every,
-        devices=jax.devices()[:2])
+        devices=jax.devices()[:2 * per])
     pt = MultiSliceTrainer(config.TrainConfig(**kw), n_slices=2,
                            slice_periods=slice_periods,
-                           fetch_every=fetch_every, device="cpu",
-                           printer=lambda line: None)
+                           fetch_every=fetch_every, devices=["cpu"] * 2 * per,
+                           device="cpu", printer=lambda line: None)
     pt.load_jax(serialization.to_state_dict(
         jax.device_get(jt._as_train_state())),
         [jax.device_get(bs) for bs in jt._bs])
@@ -77,15 +114,14 @@ def _assert_params_close(pt, jt, tol=TOL):
                                        err_msg=f"{mod}.{leaf}")
 
 
-@pytest.mark.parametrize("codec", ["none", "blosc"])
-@pytest.mark.parametrize("fused", [False, True])
-def test_multislice_ticks_match_jax(tmp_path, codec, fused):
+def _ticks_match(tmp_path, codec, fused, per):
     """4 ticks: losses, accuracies and canonical params at 1e-4, the
     lossless codec included."""
     over = dict(fused_optimizer=fused)
     if codec == "blosc":
         over.update(compress_grad=True, grad_codec="blosc")
-    jt, pt = _pair_of_trainers(tmp_path, **over)
+    jt, pt = _pair_of_trainers(tmp_path, per=per, **over)
+    assert pt.per == per and len(jt.meshes[0].devices.flat) == per
     for (a, b) in zip(pt.train_loaders, jt.train_loaders):
         assert a.host_id == b.host_id and a.local_batch == b.local_batch
     for _ in range(4):
@@ -101,14 +137,22 @@ def test_multislice_ticks_match_jax(tmp_path, codec, fused):
     np.testing.assert_allclose(r["loss"], jr["loss"], rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("periods,fetch,limit", [
-    ([1, 2], 2, 4),         # the slow slice's stale gradients are used
-    ([2, 1], 1, 4),         # ticks where only slice 1 contributes
-    ([1, 1], 4, 0),         # stale submissions dropped
-])
-def test_multislice_schedule_matches_jax(tmp_path, periods, fetch, limit):
+@pytest.mark.parametrize("codec", ["none", "blosc"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_multislice_ticks_match_jax(tmp_path, codec, fused):
+    _ticks_match(tmp_path, codec, fused, per=1)
+
+
+def test_slices_of_two_devices_tick_like_jax(tmp_path):
+    """Each slice's batch split over its two devices and its gradient
+    averaged over them, as the JAX slice's ``psum / n``."""
+    _ticks_match(tmp_path, "none", True, per=2)
+
+
+def _schedule_matches(tmp_path, periods, fetch, limit, per):
     jt, pt = _pair_of_trainers(tmp_path, slice_periods=periods,
-                               fetch_every=fetch, staleness_limit=limit)
+                               fetch_every=fetch, staleness_limit=limit,
+                               per=per)
     used = []
     for _ in range(8):
         ji, pi = jt.tick(), pt.tick()
@@ -122,6 +166,20 @@ def test_multislice_schedule_matches_jax(tmp_path, periods, fetch, limit):
     if limit == 0:
         assert pt.dropped_stale > 0 and pt.applied > 0
     _assert_params_close(pt, jt, tol=5 * TOL)      # 8 ticks
+
+
+@pytest.mark.parametrize("periods,fetch,limit", [
+    ([1, 2], 2, 4),         # the slow slice's stale gradients are used
+    ([2, 1], 1, 4),         # ticks where only slice 1 contributes
+    ([1, 1], 4, 0),         # stale submissions dropped
+])
+def test_multislice_schedule_matches_jax(tmp_path, periods, fetch, limit):
+    _schedule_matches(tmp_path, periods, fetch, limit, per=1)
+
+
+def test_slices_of_two_devices_follow_the_jax_schedule(tmp_path):
+    """The slow slice's stale gradients, on slices of two devices."""
+    _schedule_matches(tmp_path, [1, 2], 2, 4, per=2)
 
 
 def test_slices_draw_the_jax_loaders_batches(tmp_path):
@@ -160,35 +218,64 @@ def test_int8_ticks_quantize_every_leaf_and_train(tmp_path):
 
 
 def test_resnet_slices_keep_their_own_batchnorm_statistics(tmp_path):
-    """ResNet-18 at batch 4: each slice moves its own statistics,
-    evaluate() and the checkpoint read slice 0's, and a JAX trainer's
-    per-slice statistics load slice by slice."""
+    """ResNet-18 at batch 4 over 2 slices of 2 devices: each device moves
+    its own statistics, evaluate() reads slice 0's first device's, the
+    checkpoint carries slice 0's [2, ...] stack byte-equal to the JAX
+    trainer's checkpoint of the same state, and a JAX trainer's
+    per-slice statistics load device by device."""
     kw = _kw(network="ResNet18", dataset="synthetic_cifar10", batch_size=4,
-             test_batch_size=8, train_dir=str(tmp_path), lr=0.01,
+             test_batch_size=8, train_dir=str(tmp_path / "port"), lr=0.01,
              fused_optimizer=True, conv_impl="pallas")
     pt = MultiSliceTrainer(config.TrainConfig(**kw), n_slices=2,
-                           device="cpu", printer=lambda line: None)
+                           devices=["cpu"] * 4, device="cpu",
+                           printer=lambda line: None)
     info = pt.tick()
     assert info["used"] == [0, 1] and np.isfinite(info["loss"])
-    s0 = pt.slices[0].state_dict()["bn1.running_mean"]
-    s1 = pt.slices[1].state_dict()["bn1.running_mean"]
-    assert not torch.equal(s0, s1)
+    means = [[m.state_dict()["bn1.running_mean"] for m in reps]
+             for reps in pt.replicas]
+    s0 = means[0][0]
+    flat = [m for reps in means for m in reps]
+    for i in range(4):
+        for j in range(i):
+            assert not torch.equal(flat[i], flat[j])
     for name, p in pt.params.items():           # slices fetch at next tick
-        assert not torch.equal(p, dict(pt.slices[0].named_parameters())[name])
+        assert not torch.equal(
+            p, dict(pt.replicas[0][0].named_parameters())[name])
     r = pt.evaluate(max_batches=1)
     assert r["count"] == 8 and np.isfinite(r["loss"])
     assert torch.equal(pt.model.state_dict()["bn1.running_mean"], s0)
-    tree = convert.state_to_jax(pt.model, pt.opt_state, pt.step)
-    stats = [convert._map(lambda a: a + k, tree["batch_stats"])
-             for k in (0.0, 1.0)]
-    other = MultiSliceTrainer(config.TrainConfig(**kw), n_slices=2,
-                              device="cpu", printer=lambda line: None)
-    other.load_jax(tree, stats)
-    assert other.step == 1
-    for k, m in enumerate(other.slices):
-        assert torch.equal(m.state_dict()["bn1.running_mean"], s0 + k)
-        for name, p in m.named_parameters():
-            assert torch.equal(p, pt.params[name])
+    # The checkpoint: slice 0's two devices' statistics, as the JAX
+    # trainer writes the same state.
+    pt._checkpoint()
+    tree, _, _ = ckpt.load_checkpoint(kw["train_dir"], 1)
+    np.testing.assert_array_equal(
+        tree["batch_stats"]["bn1"]["mean"],
+        np.stack([m.numpy() for m in means[0]]))
+    # The JAX trainer's own _checkpoint on the same state (a trainer that
+    # only writes: its model and loaders are never used, so none is built).
+    jt = object.__new__(jax_multislice.MultiSliceTrainer)
+    jt.cfg = jax_config.TrainConfig(**dict(kw,
+                                            train_dir=str(tmp_path / "jax")))
+    jt.step, jt.params, jt._bs = 1, tree["params"], [tree["batch_stats"]]
+    jt.opt_state = JaxSGDState(**tree["opt_state"])
+    jt._checkpoint()
+    a = _files(ckpt.checkpoint_path(kw["train_dir"], 1))
+    b = _files(jax_ckpt.checkpoint_path(str(tmp_path / "jax"), 1))
+    assert list(a) == list(b)
+    assert a["state.msgpack"] == b["state.msgpack"]
+    assert a["meta.json"] == b["meta.json"]
+    # A JAX trainer's per-slice [2, ...] statistics, device by device.
+    stats = [convert._map(lambda a, k=k: a + k, tree["batch_stats"])
+             for k in (0.0, 2.0)]
+    tree = dict(tree, step=np.asarray(3, np.int32))
+    pt.load_jax(tree, stats)
+    assert pt.step == 3
+    for k, reps in enumerate(pt.replicas):
+        for r, m in enumerate(reps):
+            assert torch.equal(m.state_dict()["bn1.running_mean"],
+                               means[0][r] + 2 * k)
+            for name, p in m.named_parameters():
+                assert torch.equal(p, pt.params[name])
 
 
 def test_trainer_refuses_what_it_cannot_do(tmp_path):
@@ -198,8 +285,10 @@ def test_trainer_refuses_what_it_cannot_do(tmp_path):
             MultiSliceTrainer(cfg)                  # no silent CPU run
     with pytest.raises(ValueError, match="divisible"):
         MultiSliceTrainer(cfg, n_slices=2, devices=["cpu"] * 3, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        MultiSliceTrainer(cfg, n_slices=2, devices=["cpu"] * 4, device="cpu")
+    with pytest.raises(ValueError, match="divisible by the 3 devices"):
+        MultiSliceTrainer(cfg, n_slices=2, devices=["cpu"] * 6, device="cpu")
+    assert MultiSliceTrainer(cfg, n_slices=2, devices=["cpu"] * 4,
+                             device="cpu", printer=lambda line: None).per == 2
     with pytest.raises(ValueError, match="period"):
         MultiSliceTrainer(cfg, n_slices=2, slice_periods=[1], device="cpu")
     with pytest.raises(ValueError, match="MultiSliceTrainer"):
@@ -313,8 +402,8 @@ def test_async_resume_restores_and_matches_the_jax_resume(tmp_path, capsys):
     assert "RESUME from" in capsys.readouterr().out
     for k, v in p2.model.state_dict().items():
         assert torch.equal(v, saved[k]), k
-    for m in p2.slices:
-        for name, p in m.named_parameters():
+    for reps in p2.replicas:
+        for name, p in reps[0].named_parameters():
             assert torch.equal(p, p2.params[name])
     assert p2._slice_version == [6, 6]
     assert p2.opt_state.step == pt.opt_state.step == 6
@@ -430,6 +519,26 @@ def test_async_entry_point_prints_the_reference_lines(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="WORLD_SIZE=2.*tools.launch"):
         train.main([*ASYNC_ARGS, "--max-steps", "1", "--eval-freq", "0",
                     "--train-dir", td, "--device", "cpu"])
+
+
+def test_async_entry_point_spreads_slices_over_every_card(monkeypatch):
+    """One process takes every visible card when their count divides
+    into the slices, as the JAX entry takes every local device; one card
+    is shared by every slice; another count raises the JAX message."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for n, want in ((4, [f"cuda:{i}" for i in range(4)]), (1, None)):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda n=n: n)
+        assert train._slice_devices("cuda", 2) == want
+    assert train._slice_devices("cuda:1", 2) is None
+    assert train._slice_devices("cpu", 2) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(ValueError, match="^3 devices not divisible by 2 "
+                       "slices$"):
+        train._slice_devices("cuda", 2)
+    with pytest.raises(ValueError, match="3 devices not divisible by 2"):
+        jax_multislice.MultiSliceTrainer(
+            jax_config.TrainConfig(**_kw()), n_slices=2,
+            devices=jax.devices()[:3])
 
 
 def test_async_entry_point_needs_a_card_unless_asked_for_the_cpu(tmp_path):
