@@ -52,7 +52,10 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from ps_pytorch_tpu_torch.tools import _drill
+
 ARTIFACT_NOT_WRITTEN = "RESILIENCE_r14.json"
+ENTRY = "ps_pytorch_tpu_torch.tools.hierarchy_drill"
 
 
 # ---------------------------------------------------------------- workers
@@ -178,31 +181,7 @@ def _phase_bench() -> dict:
         "not ported yet (ROADMAP.md)")
 
 
-# ---------------------------------------------------------------- driver
-
-def _launch(run_dir: pathlib.Path, port: int, worker, cwd: str) -> int:
-    from ps_pytorch_tpu_torch.tools import launch
-    return launch.main([
-        "launch", "--run-dir", str(run_dir), "--simulate", "4",
-        "--devices-per-host", "1", "--port", str(port), "--entry",
-        "ps_pytorch_tpu_torch.tools.hierarchy_drill", "--cwd", cwd,
-        "--wait", "--timeout", "420", "--", *worker])
-
-
-def _logs(run_dir: pathlib.Path, n: int = 4):
-    out = []
-    for i in range(n):
-        p = run_dir / f"proc_{i}.log"
-        out.append(p.read_text() if p.exists() else "")
-    return out
-
-
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
+# ----------------------------------------------------------------- drill
 
 def parse_partition(logs, rc: int) -> dict:
     """The partition phase's evidence from the four logs: the root's
@@ -266,10 +245,8 @@ def main(argv=None) -> int:
         _phase_bench()
     base = pathlib.Path(args.run_dir or tempfile.mkdtemp(
         prefix="hierarchy_drill_"))
-    out = pathlib.Path(args.out or base / "hierarchy_drill.json")
-    if out.name == ARTIFACT_NOT_WRITTEN:
-        raise ValueError(f"{out.name} is the JAX drill's artifact; write "
-                         "this drill's elsewhere")
+    out = _drill.artifact_path(args.out, base, "hierarchy_drill.json",
+                               ARTIFACT_NOT_WRITTEN)
     art = {"platform": args.device, "processes": 4,
            "scenario": "hier_subtree_partition_degrade_regraft + "
                        "bitwise_ef_resume",
@@ -283,9 +260,8 @@ def main(argv=None) -> int:
                   "--max-steps", str(args.max_steps),
                   "--cut-step", str(args.cut_step),
                   "--cut-steps", str(args.cut_steps)]
-        rc = _launch(d1, _free_port(), worker,
-                     str(pathlib.Path(__file__).resolve().parents[2]))
-        logs = _logs(d1)
+        rc = _drill.launch(d1, 4, ENTRY, worker)
+        logs = _drill.logs(d1, 4)
         p1 = parse_partition(logs, rc)
         p1.update(cut_step=args.cut_step, cut_steps=args.cut_steps,
                   max_steps=args.max_steps)
@@ -297,8 +273,7 @@ def main(argv=None) -> int:
               f"{p1['kv_partition_drops']} hop_giveups={p1['hop_giveups']}",
               flush=True)
         if not p1["ok"]:
-            print("\n\n".join(f"== proc_{i} ==\n{t[-3000:]}"
-                              for i, t in enumerate(logs)))
+            print(_drill.dump(logs))
         art["phases"]["partition"] = p1
         art["hierarchy"] = {k: p1[k] for k in (
             "partitions", "regrafts", "degraded_steps",

@@ -39,6 +39,7 @@ from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.async_trainer import AsyncTrainer
 from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 TOL = 1e-4          # the train step's tolerance against the JAX package
 CODECS = {"raw": {}, "blosc": dict(compress_grad=True),

@@ -11,6 +11,8 @@ bitwise the uninterrupted one, for SGD and for Adam.
 import hashlib
 import json
 import os
+import shutil
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -39,6 +41,7 @@ from ps_pytorch_tpu_torch.runtime import Evaluator
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime import msgpack_io
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # name -> (JAX transform, port optimizer), both from the same settings.
 OPTIMIZERS = {
@@ -327,22 +330,38 @@ def _vgg_cfg(td, data_dir, **kw):
 
 
 def _both_evaluators(td, step):
-    got = Evaluator(td, device="cpu", printer=lambda _: None
-                    ).evaluate_step(step)
-    want = jax_evaluator.Evaluator(td, printer=lambda _: None
-                                   ).evaluate_step(step)
-    return got, want
+    """Both packages' evaluators on step ``step``, the port's in a thread
+    beside the JAX one's build and compile."""
+    with ThreadPoolExecutor(1) as pool:
+        got = pool.submit(Evaluator(td, device="cpu",
+                                    printer=lambda _: None).evaluate_step,
+                          step)
+        want = jax_evaluator.Evaluator(td, printer=lambda _: None
+                                       ).evaluate_step(step)
+        return got.result(), want
 
 
-def test_vgg_checkpoints_score_alike_in_both_evaluators(tmp_path):
+@pytest.fixture(scope="module")
+def vgg_two_steps(tmp_path_factory):
+    """The small CIFAR-100 and the port's VGG11 run of 2 steps (a
+    checkpoint at 2), which both VGG tests start from: (data dir, train
+    dir). A test that writes copies the train dir first."""
+    root = tmp_path_factory.mktemp("vgg")
+    data_dir = _tiny_cifar100(root / "data")
+    td = root / "two_steps"
+    _run(_vgg_cfg(td, data_dir, max_steps=2))
+    return data_dir, td
+
+
+def test_vgg_checkpoints_score_alike_in_both_evaluators(tmp_path,
+                                                        vgg_two_steps):
     """VGG11 (BatchNorm, biased convs, 100 classes) on a small CIFAR-100:
     the port's checkpoint after 2 steps, and a JAX checkpoint of a seeded
     flax init, each scored by the JAX ``evaluate.py --once`` path and the
     port's evaluator to the same loss, Prec@1 and Prec@5."""
-    data_dir = _tiny_cifar100(tmp_path / "data")
-    td = str(tmp_path / "port")
+    data_dir, two_steps = vgg_two_steps
+    td = str(two_steps)
     cfg = _vgg_cfg(td, data_dir, max_steps=2)
-    Trainer(cfg, device="cpu", printer=lambda _: None).train()
     jtd = str(tmp_path / "jax")
     state = create_train_state(jax_build_model("VGG11", 100),
                                jax_sgd(lr=0.05, momentum=0.9),
@@ -358,14 +377,14 @@ def test_vgg_checkpoints_score_alike_in_both_evaluators(tmp_path):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
 
 
-def test_vgg_resume_with_dropout_is_bitwise(tmp_path):
+def test_vgg_resume_with_dropout_is_bitwise(tmp_path, vgg_two_steps):
     """VGG11 with its two Dropout layers: 2 steps, then a resumed Trainer
     for 2 more, against 4 uninterrupted steps. The masks are drawn from
     (seed * 100003 + step, replica), so the resumed run draws the same
     ones: equal losses, bitwise parameters, momentum and checkpoint."""
-    data_dir = _tiny_cifar100(tmp_path / "data")
+    data_dir, two_steps = vgg_two_steps
     whole, whole_steps = _run(_vgg_cfg(tmp_path / "a", data_dir))
-    _run(_vgg_cfg(tmp_path / "b", data_dir, max_steps=2))
+    shutil.copytree(two_steps, tmp_path / "b")
     resumed, resumed_steps = _run(_vgg_cfg(tmp_path / "b", data_dir))
     assert resumed.start_step == 2
     assert [r["loss"] for r in resumed_steps] == \

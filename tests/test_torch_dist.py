@@ -24,6 +24,7 @@ Every launch has a time limit and kills its fleet when it ends.
 
 import json
 import re
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -132,10 +133,12 @@ def _masks(leader_log, n):
     return masks
 
 
-def _jax_params(n, batch, masks, seed=42):
+def _jax_replay(n, batch, seed=42):
     """The JAX make_train_step on an n-device mesh from the port's initial
-    LeNet weights, fed the JAX loader's n shards side by side and
-    ``masks``; returns the parameters after the last step."""
+    LeNet weights, fed the JAX loader's n shards side by side. Returns
+    ``replay(masks)``: the parameters after one step a mask. The step is
+    compiled here (one step on throwaway inputs), so that a thread can
+    build it while the port's ranks run."""
     kw = dict(network="LeNet", dataset="synthetic_mnist", batch_size=batch,
               compute_dtype="float32", lr=0.05, momentum=0.9, eval_freq=0,
               seed=seed)
@@ -158,12 +161,38 @@ def _jax_params(n, batch, masks, seed=42):
     loaders = [jax_datasets.DataLoader(
         x, y, batch, "synthetic_mnist", seed=seed, host_id=r, num_hosts=n,
         device_normalize=input_norm is not None) for r in range(n)]
-    for k, mask in enumerate(masks):
+
+    def batches():
         parts = [loader.next_batch() for loader in loaders]
-        x = np.concatenate([p[0] for p in parts])
-        y = np.concatenate([p[1] for p in parts])
-        state, _ = step(state, x, y, mask, jax.random.key(k))
-    return jax.device_get(state.params)
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
+    first = batches()
+    step(state, *first, np.ones(n, np.float32), jax.random.key(0))
+
+    def replay(masks):
+        st = state
+        for k, mask in enumerate(masks):
+            xb, yb = first if k == 0 else batches()
+            st, _ = step(st, xb, yb, mask, jax.random.key(k))
+        return jax.device_get(st.params)
+
+    return replay
+
+
+def _jax_params(n, batch, masks, seed=42):
+    """The JAX parameters after one step a mask (``_jax_replay``)."""
+    return _jax_replay(n, batch, seed)(masks)
+
+
+def _launch_beside_jax(n, batch, masks_of, launch):
+    """``launch()``, while the JAX replay compiles in a thread; then (its
+    logs, the masks ``masks_of(logs)``, the JAX parameters after them)."""
+    with ThreadPoolExecutor(1) as pool:
+        replay = pool.submit(_jax_replay, n, batch)
+        logs = launch()
+        masks = masks_of(logs)
+        return logs, masks, replay.result()(masks)
 
 
 def _checkpoint_params(train_dir, step):
@@ -198,12 +227,14 @@ def _assert_ranks_equal(tmp_path, logs):
 @pytest.mark.parametrize("n,k", [(2, 1), (3, 2)])
 def test_kofn_drops_the_straggling_leader_and_matches_jax(tmp_path, n, k):
     batch = 16 * n
-    logs = _launch(tmp_path, n, _args(
-        tmp_path, batch, "--mode", "kofn", "--num-aggregate", str(k),
-        "--inject-step-delay", "0.3", "--inject-delay-process", "0"))
+    logs, masks, theirs = _launch_beside_jax(
+        n, batch, lambda logs: _masks(logs[0], n), lambda: _launch(
+            tmp_path, n, _args(
+                tmp_path, batch, "--mode", "kofn", "--num-aggregate",
+                str(k), "--inject-step-delay", "0.3",
+                "--inject-delay-process", "0")))
     assert all(f"MESH data={n} model=1 devices={n} backend=gloo device=cpu"
                in log for log in logs)
-    masks = _masks(logs[0], n)
     assert masks[0].tolist() == [1] * k + [0] * (n - k)   # no durations yet
     assert masks[-1].tolist() == [0] + [1] * (n - 1)      # process 0 out
     assert not any(line.startswith("MASK") for log in logs[1:]
@@ -219,17 +250,16 @@ def test_kofn_drops_the_straggling_leader_and_matches_jax(tmp_path, n, k):
         [[3, STEPS]] + [[]] * (n - 1)
     assert ckpt.committed_steps(str(tmp_path / "td")) == [3, STEPS]
     _assert_ranks_equal(tmp_path, logs)
-    _assert_tree_close(_checkpoint_params(tmp_path / "td", STEPS),
-                       _jax_params(n, batch, masks))
+    _assert_tree_close(_checkpoint_params(tmp_path / "td", STEPS), theirs)
 
 
 def test_sync_matches_jax_with_all_ones_masks(tmp_path):
-    logs = _launch(tmp_path, 2, _args(tmp_path, 32))
-    masks = _masks(logs[0], 2)
+    logs, masks, theirs = _launch_beside_jax(
+        2, 32, lambda logs: _masks(logs[0], 2),
+        lambda: _launch(tmp_path, 2, _args(tmp_path, 32)))
     assert all(m.tolist() == [1, 1] for m in masks)
     _assert_ranks_equal(tmp_path, logs)
-    _assert_tree_close(_checkpoint_params(tmp_path / "td", STEPS),
-                       _jax_params(2, 32, masks))
+    _assert_tree_close(_checkpoint_params(tmp_path / "td", STEPS), theirs)
 
 
 # ---- the ZeRO-1 checkpoint across the two packages ----

@@ -18,6 +18,7 @@ function, which these tests hold against the JAX package:
 
 import pickle
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -118,20 +119,39 @@ def test_f16_pallas_resnet_steps_match_jax():
             model, FusedSGD(lr=0.05, **kw), input_norm=norm))
     model, step = steps[torch.float16]
     model32, step32 = steps[torch.float32]
-    for k, seed in enumerate((18, 19)):
-        x, y = _batch(4, seed)
-        state, jm = jstep(state, jnp.asarray(x), jnp.asarray(y),
-                          jnp.ones(1, jnp.float32), jax.random.key(k))
-        tm = step(x, y, np.ones(1, np.float32))
-        step32(x, y, np.ones(1, np.float32))
-        assert np.isfinite(float(tm["loss"]))
-        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
-                                   rtol=LOSS_RTOL)
-        params, got_stats = convert.to_jax(model.state_dict())
-        assert all(p.dtype == torch.float32 for p in model.parameters())
+    batches = [_batch(4, seed) for seed in (18, 19)]
+
+    def port_steps():
+        """The port's two steps in both types, each step's state kept:
+        they run in a thread while the JAX steps compile and run."""
+        out = []
+        for x, y in batches:
+            tm = step(x, y, np.ones(1, np.float32))
+            step32(x, y, np.ones(1, np.float32))
+            out.append((float(tm["loss"]), {
+                k: v.detach().clone()
+                for k, v in model.state_dict().items()},
+                all(p.dtype == torch.float32 for p in model.parameters()),
+                convert.to_jax({k: v.detach().clone() for k, v in
+                                model32.state_dict().items()})[0]))
+        return out
+
+    with ThreadPoolExecutor(1) as pool:
+        ported = pool.submit(port_steps)
+        jax_steps = []
+        for k, (x, y) in enumerate(batches):
+            state, jm = jstep(state, jnp.asarray(x), jnp.asarray(y),
+                              jnp.ones(1, jnp.float32), jax.random.key(k))
+            jax_steps.append((state, float(jm["loss"])))
+        ported = ported.result()
+    for (loss, sd, f32_params, f32), (state, jloss) in zip(ported,
+                                                            jax_steps):
+        assert np.isfinite(loss)
+        np.testing.assert_allclose(loss, jloss, rtol=LOSS_RTOL)
+        params, got_stats = convert.to_jax(sd)
+        assert f32_params
         want = jax.device_get(state.params)
         _assert_tree_close(params, want, PARAM_TOL)
-        f32 = convert.to_jax(model32.state_dict())[0]
         assert _max_diff(params, want) < _max_diff(f32, want)
         _assert_tree_close(got_stats, jax.tree.map(
             lambda a: np.asarray(a)[0], state.batch_stats), PARAM_TOL)
@@ -196,12 +216,14 @@ def test_f16_checkpoints_score_alike_in_both_evaluators(f16_run, tmp_path):
     lines = {"port": [], "jax": []}
     ours = Evaluator(td, device="cpu", printer=lines["port"].append)
     theirs = jax_evaluator.Evaluator(td, printer=lines["jax"].append)
-    for step in (2, 3):
-        if step == 3:      # the same config: both evaluators build once
-            jax_ckpt.save_checkpoint(td, 3, theirs.template,
-                                     config_json=config_json)
-        ours.evaluate_step(step)
-        theirs.evaluate_step(step)
+    with ThreadPoolExecutor(1) as pool:    # the port's beside the JAX's
+        for step in (2, 3):
+            if step == 3:  # the same config: both evaluators build once
+                jax_ckpt.save_checkpoint(td, 3, theirs.template,
+                                         config_json=config_json)
+            done = pool.submit(ours.evaluate_step, step)
+            theirs.evaluate_step(step)
+            done.result()
     for line, jline, step in zip(lines["port"], lines["jax"], (2, 3)):
         got, want = line.split(), jline.split()
         assert got[:3] == want[:3] == ["EVAL", "step", str(step)]

@@ -35,11 +35,13 @@ from ps_pytorch_tpu.runtime import evaluator as jax_evaluator
 from ps_pytorch_tpu.runtime import metrics as jax_metrics
 from ps_pytorch_tpu.runtime import multislice as jax_multislice
 from ps_pytorch_tpu_torch import config, evaluate, train
+from ps_pytorch_tpu_torch.data import datasets as port_datasets
 from ps_pytorch_tpu_torch.models import convert
 from ps_pytorch_tpu_torch.ops import quantize as tq
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.multislice import MultiSliceTrainer
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer
+from test_torch_train import two_torch_threads  # noqa: F401
 
 TOL = 1e-4      # f32 sums in another order in the two packages
 
@@ -217,12 +219,16 @@ def test_int8_ticks_quantize_every_leaf_and_train(tmp_path):
     assert tq.quantize_int8.launches == 0
 
 
-def test_resnet_slices_keep_their_own_batchnorm_statistics(tmp_path):
+def test_resnet_slices_keep_their_own_batchnorm_statistics(tmp_path,
+                                                          monkeypatch):
     """ResNet-18 at batch 4 over 2 slices of 2 devices: each device moves
     its own statistics, evaluate() reads slice 0's first device's, the
     checkpoint carries slice 0's [2, ...] stack byte-equal to the JAX
     trainer's checkpoint of the same state, and a JAX trainer's
-    per-slice statistics load device by device."""
+    per-slice statistics load device by device. The synthetic CIFAR set
+    holds 64 images a split: one tick draws 4, the evaluation 8."""
+    monkeypatch.setitem(port_datasets.DATASET_SHAPES, "synthetic_cifar10",
+                        (32, 32, 3, 10, 64))
     kw = _kw(network="ResNet18", dataset="synthetic_cifar10", batch_size=4,
              test_batch_size=8, train_dir=str(tmp_path / "port"), lr=0.01,
              fused_optimizer=True, conv_impl="pallas")

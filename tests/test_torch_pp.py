@@ -20,6 +20,8 @@ package's ``parallel/pp.py``.
   another stage count, a local batch the microbatches do not divide.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,7 +129,11 @@ def runs(tmp_path_factory):
                for s in (2, 4)}
     wait = launch_ranks(tmp_path_factory.mktemp("pp"), 4, _WORKER, dict(
         lm=LM, stacked=stacked, opt=OPT, batches=batches, runs=RUNS))
-    want = {run: _jax_pp(params, batches, *run) for run in RUNS}
+    # The JAX steps compile in threads of their own while the ranks run:
+    # XLA's compiler leaves the interpreter lock.
+    with ThreadPoolExecutor(len(RUNS)) as pool:
+        want = dict(zip(RUNS, pool.map(
+            lambda run: _jax_pp(params, batches, *run), RUNS)))
     return wait(), want
 
 

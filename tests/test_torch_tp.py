@@ -17,6 +17,7 @@ against the JAX messages, and the splits the port takes against those
 """
 
 import re
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -164,10 +165,14 @@ def runs(tmp_path_factory):
         (case, lm, odd[case], shape) for case, (lm, shape) in ODD.items()]
     wait = launch_ranks(tmp_path_factory.mktemp("tp"), 4, _WORKER, dict(
         runs=plan, opt=OPT, batches=batches))
-    want = {("even", data): _jax_tp(params, batches, data)
-            for data in (1, 2)}
-    for case, (lm, (data, model)) in ODD.items():
-        want[case, data] = _jax_tp(odd[case], batches, data, model, lm)
+    # The JAX steps compile in threads of their own while the ranks run:
+    # XLA's compiler leaves the interpreter lock.
+    jobs = {("even", data): (params, batches, data) for data in (1, 2)}
+    jobs.update({(case, data): (odd[case], batches, data, model, lm)
+                 for case, (lm, (data, model)) in ODD.items()})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        want = dict(zip(jobs, pool.map(lambda a: _jax_tp(*a),
+                                       jobs.values())))
     return wait(), want
 
 

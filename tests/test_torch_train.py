@@ -57,6 +57,18 @@ PKG = REPO / "ps_pytorch_tpu_torch"
 TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Two intra-op threads for a file's tests (this file's, and those
+    that import this fixture): the suite runs six test processes on the
+    host's cores at once, and torch's default of a thread a core made
+    their parallel regions contend, ~10x slower than alone."""
+    held = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(held)
+
+
 # ------------------------------------------------------------- config --
 
 def test_config_fields_and_defaults_match_jax():

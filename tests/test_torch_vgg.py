@@ -38,6 +38,7 @@ from ps_pytorch_tpu_torch.models.layers import Conv2d, Conv3x3, Dropout
 from ps_pytorch_tpu_torch.ops.conv3x3 import conv3x3
 from ps_pytorch_tpu_torch.ops.fused_sgd import FusedSGD
 from ps_pytorch_tpu_torch.parallel import make_train_step
+from test_torch_train import two_torch_threads  # noqa: F401
 
 TOL = 1e-4
 # A narrow VGG with the A cfg's five pools, and one whose last map is 8x8

@@ -35,6 +35,7 @@ across the two packages: ``tests/test_torch_dist.py``.
 
 import functools
 import os
+from concurrent.futures import ThreadPoolExecutor
 import pickle
 import subprocess
 import sys
@@ -204,12 +205,18 @@ def _port_run(n):
          str(work)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(n)]
     logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=120)[0])
-    finally:
-        for p in procs:
-            p.kill()
+    # The JAX runs this file's tests hold these ranks against compile and
+    # run in threads while the ranks train (``_jax_run`` keeps them).
+    with ThreadPoolExecutor(len(_JAX_RUNS[n])) as pool:
+        jax_runs = [pool.submit(_jax_run, n, name) for name in _JAX_RUNS[n]]
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=120)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        for run in jax_runs:
+            run.result()
     assert all(p.returncode == 0 for p in procs), "\n".join(
         log[-3000:] for log in logs)
     recs = [pickle.load(open(work / f"rank{r}.pkl", "rb")) for r in range(n)]
@@ -231,6 +238,12 @@ def _intercept(keeps):
                                   jnp.zeros_like(x))
         return next_fun(*args, **kwargs)
     return nn.intercept_methods(interceptor)
+
+
+# The JAX runs of each world size's cases that the tests below read.
+_JAX_RUNS = {2: tuple(f"lenet_{opt}_zero" for opt in OPTIMIZERS)
+             + ("vgg_zero", "vgg_repl"),
+             3: ("lenet_fused_sgd_zero",)}
 
 
 @functools.lru_cache(maxsize=None)
