@@ -17,13 +17,15 @@ exit and no result line, if any phase fails:
    ``F.scaled_dot_product_attention`` forward and backward; the port never
    calls them; no single PyTorch call computes the int8 stochastic-rounding
    quantizer, so it has none) and the bound (bytes over 3.35 TB/s or operations over the
-   peak rate of their type, whichever is larger); conv3x3 runs f32 through
-   its SIMT kernel and bf16 and f16 through its tensor-core kernel (an f16
-   view off a 16-byte boundary through the SIMT one), and the 16-bit
-   rows also time the SIMT kernel on the same inputs; the three flash
+   peak rate of the route that runs them, whichever is larger: f32 on the
+   tensor cores runs as 3xTF32, three TF32 operations at 495 TFLOP/s for
+   each f32 one, and prints its bound at the CUDA cores' f32 FMA peak
+   beside it, ``bound_fma_ms``); conv3x3 runs f32, bf16
+   and f16 through its tensor-core kernels (f32 as 3xTF32; an f32 and an
+   f16 view off a 16-byte boundary through the SIMT one), and every row
+   also times the SIMT kernel on the same inputs; the three flash
    kernels run on the tensor cores (f32 as 3xTF32; bf16 and f16 as the
-   JAX op's 16-bit forms) and print a second
-   bound at that route's rate, ``bound_tc_ms``; the tree quantizer runs a
+   JAX op's 16-bit forms); the tree quantizer runs a
    whole gradient tree in one launch, with its noise drawn in the kernel
    (Philox) and with the caller's; then times the conv's weight gradient
    (torch ops) over one step's calls;
@@ -34,6 +36,10 @@ exit and no result line, if any phase fails:
    steps, ``evaluate.main --once 4``, a resume from step 2 equal to the
    uninterrupted run bit for bit, and the step-1 loss of one
    ``--conv-impl xla`` step, cuDNN in f16, within rtol 1e-2); then the same
+   network in float32 through ``train.main`` (MAIN-F32: 3 steps, every
+   conv3x3 launch on the 3xTF32 tensor-core kernel, and the step-1 loss of
+   one ``--conv-impl xla`` step, cuDNN in f32 with TF32 off, within rtol
+   1e-3); then the same
    network trained asynchronously by 2
    slices through ``train.main --mode async`` with every gradient tree
    through one launch of the int8 quantize kernel on submit, a mixed-rate
@@ -103,8 +109,9 @@ exit and no result line, if any phase fails:
    Dropout, synthetic CIFAR-100, batch 256) and ResNet-50 at 224 px on the
    random-resized-crop loader (MAIN-IMAGENET: batch 128, uint8 batches)
    through ``train.main`` and ``evaluate.main --once``, each after the
-   bf16 and f16 conv3x3 checks at its geometries (VGG11's channel ladder from
-   16x16 down to 2x2, ResNet-50's 56, 28, 14 and 7 px stages); then the
+   bf16, f16 and f32 conv3x3 checks at its geometries (VGG11's channel
+   ladder from 16x16 down to 2x2, ResNet-50's 56, 28, 14 and 7 px
+   stages); then the
    full-width TransformerLM (d 512, 8 layers, 8 heads, vocab 32000, S
    2048, batch 8, f32, flash
    attention) for a few steps through the port's LMTrainer, evaluating 2
@@ -176,14 +183,14 @@ exit and no result line, if any phase fails:
    and a numeric ``mfu`` on every STEP line, each JSONL row's within 1e-6
    of that count over its step time and the H100's 989 TFLOP/s. Every
    launch count is set to 0 just before each path and read just after: each kernel of the path ran the expected number of times,
-   no other kernel ran, and every bf16 conv3x3 launch and every flash
+   no other kernel ran, and every conv3x3 launch and every flash
    launch took the tensor-core kernel (``conv3x3_tc``, ``flash_fwd_tc``,
    ``flash_dq_tc``, ``flash_dkv_tc``);
    Before MAIN-CKPT, the fused SGD and Adam kernels on each replica's
    slice of a padded flat buffer, as the sharded update runs them (CHECK
    zero slice);
-5. holds one small ResNet step in f32 (SIMT conv only) and one each in
-   bf16 and f16 (tensor-core conv only), one small bf16 VGG step (the same
+5. holds one small ResNet step in each of f32, bf16 and f16 (tensor-core
+   conv only), one small bf16 VGG step (the same
    injected
    Dropout masks) and one of a ResNet with the ImageNet stem, two small
    asynchronous ticks (the same
@@ -370,6 +377,15 @@ F16_EVAL_BATCHES = 2
 F16_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
             "--batch-size", str(BATCH), "--test-batch-size", "4167",
             "--compute-dtype", "float16", "--fused-optimizer", "--momentum",
+            "0.9", "--weight-decay", "5e-4", "--device", "cuda")
+# MAIN-F32: MAIN's ResNet-18 in float32 through train.main, 3 steps on the
+# 3xTF32 tensor-core conv3x3, then one step of the same run with
+# --conv-impl xla (cuDNN in f32, TF32 off) for the step-1 loss; each run's
+# FINAL evaluation is MAIN-F16's 2 batches of 4167.
+F32_STEPS = 3
+F32_ARGS = ("--network", "ResNet18", "--dataset", "synthetic_cifar10",
+            "--batch-size", str(BATCH), "--test-batch-size", "4167",
+            "--compute-dtype", "float32", "--fused-optimizer", "--momentum",
             "0.9", "--weight-decay", "5e-4", "--device", "cuda")
 # MAIN-ZERO: the CNN path's ResNet-18 as two gloo ranks on the card, ZeRO-1
 # then replicated, with every step option of the slice. The heartbeat
@@ -734,31 +750,39 @@ def host_us(fn, iters: int = 100) -> float:
 
 
 def conv_bound_ms(n, h, c, co, dtype_name) -> tuple:
-    """(ms for the operations at peak, ms for the bytes at the memory
-    rate) of one conv: each input read once, the output written once."""
+    """(ms for the operations at the tensor-core route's rate, ms for the
+    bytes at the memory rate, ms for the operations at the type's peak) of
+    one conv: each input read once, the output written once. The route
+    runs f32 as 3xTF32, three TF32 operations at 495 TFLOP/s for each f32
+    one (its type's peak is the CUDA cores' FMA); bf16 and f16 at their
+    peak."""
     size = ELEMENT_BYTES[dtype_name]
     ops = 2.0 * n * h * h * c * co * 9
     nbytes = (n * h * h * c + 9 * c * co + n * h * h * co) * size
-    return 1e3 * ops / PEAK_OPS[dtype_name], 1e3 * nbytes / HBM_BYTES_PER_S
+    peak_ms = 1e3 * ops / PEAK_OPS[dtype_name]
+    route_ms = 1e3 * 3 * ops / TF32_OPS if dtype_name == "float32" \
+        else peak_ms
+    return route_ms, 1e3 * nbytes / HBM_BYTES_PER_S, peak_ms
 
 
 def check_conv(torch, F, conv_mod) -> dict:
     """The conv3x3 kernels against their plain version, forward and input
-    gradient, at the four ResNet-18 geometries, batch 256: f32 through the
-    SIMT kernel, bf16 and f16 through the tensor-core kernel (its route is
-    counted); the 16-bit rows also time the SIMT kernel on the same inputs,
-    the kernel that route replaced. Returns one step's sums (26 launches)
-    for bf16, and for f16 under ``"float16"``; an f16 view 2 bytes off a
-    16-byte boundary takes the SIMT kernel."""
+    gradient, at the four ResNet-18 geometries, batch 256: f32, bf16 and
+    f16 through the tensor-core kernels (the route is counted; f32 as
+    3xTF32, with its bound at that rate and at the f32 FMA peak,
+    ``bound_fma_ms``); every row also times the
+    SIMT kernel on the same inputs, the kernel that route replaced.
+    Returns one step's sums (26 launches) for bf16, and for f16 and f32
+    under ``"float16"`` and ``"float32"``; an f32 and an f16 view one
+    element off a 16-byte boundary take the SIMT kernel."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     steps = {}
     for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
         tol = CONV_TOL[dtype_name]
-        want_route = "simt" if dtype_name == "float32" else "tc"
         step = {"ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0,
-                "library_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-                "bytes_ms": 0.0, "max_abs_err": 0.0}
+                "library_ms": 0.0, "bound_ms": 0.0, "bound_fma_ms": 0.0,
+                "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0}
         for h, c, count in GEOMETRIES:
             x = torch.randn(BATCH, h, h, c, device="cuda", generator=gen)
             w = torch.randn(3, 3, c, c, device="cuda", generator=gen) \
@@ -770,11 +794,9 @@ def check_conv(torch, F, conv_mod) -> dict:
                     ("input_grad", conv_mod.conv3x3_input_grad, wt)):
                 tc_before = conv_mod.conv3x3.tc_launches
                 out = fn(x, w)
-                route = "tc" if conv_mod.conv3x3.tc_launches > tc_before \
-                    else "simt"
-                if route != want_route:
+                if conv_mod.conv3x3.tc_launches == tc_before:
                     fail(f"conv3x3 {kind} {dtype_name} {h}x{h}x{c} took the "
-                         f"{route} kernel, expected {want_route}")
+                         "simt kernel, expected tc")
                 ref = conv_mod.conv3x3_reference(x, w_eff)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
@@ -783,82 +805,94 @@ def check_conv(torch, F, conv_mod) -> dict:
                     fail(f"conv3x3 {kind} {dtype_name} {h}x{h}x{c}: max abs "
                          f"err {err} above {tol}")
                 # Times of the kernel alone (on w_eff, without the input
-                # gradient's flip), device time from graph replays.
+                # gradient's flip; f32's call lays w_eff out K-major),
+                # device time from graph replays.
                 x_cl = x.permute(0, 3, 1, 2)          # channels_last NCHW
                 w_oihw = w_eff.permute(3, 2, 0, 1).contiguous()
                 ms = graph_ms(lambda: conv_mod.conv3x3(x, w_eff))
                 plain = graph_ms(
                     lambda: conv_mod.conv3x3_reference(x, w_eff), iters=3)
                 lib = graph_ms(lambda: F.conv2d(x_cl, w_oihw, padding=1))
-                ops_ms, bytes_ms = conv_bound_ms(BATCH, h, c, c, dtype_name)
+                simt = graph_ms(
+                    lambda: conv_mod._launch(x, w_eff, "simt"), iters=3)
+                ops_ms, bytes_ms, peak_ms = conv_bound_ms(BATCH, h, c, c,
+                                                          dtype_name)
                 bound = max(ops_ms, bytes_ms)
+                bound_fma = max(peak_ms, bytes_ms)
                 line = (f"KERNEL conv3x3 {kind} {dtype_name} {BATCH}x{h}x{h}x"
-                        f"{c} route {route} ms {ms:.4f} plain_ms {plain:.4f} "
-                        f"library_ms {lib:.4f} bound_ms {bound:.4f} "
-                        f"max_abs_err {err:.3e}")
-                if dtype_name != "float32":
-                    simt = graph_ms(
-                        lambda: conv_mod._launch(x, w_eff, "simt"), iters=3)
-                    line += (f" simt_ms {simt:.4f} tflops "
-                             f"{2 * 9 * BATCH * h * h * c * c / ms / 1e9:.1f}")
-                    if kind == "fwd" and dtype_name == "bfloat16":
-                        us = host_us(lambda: fn(x, w))
-                        lib_us = host_us(
-                            lambda: F.conv2d(x_cl, w_oihw, padding=1))
-                        line += f" host_us {us:.1f} library_host_us " \
-                                f"{lib_us:.1f}"
-                    step["max_abs_err"] = max(step["max_abs_err"], err)
-                    for key, value in (("ms", ms), ("simt_ms", simt),
-                                       ("plain_ms", plain),
-                                       ("library_ms", lib),
-                                       ("bound_ms", bound),
-                                       ("ops_ms", ops_ms),
-                                       ("bytes_ms", bytes_ms)):
-                        step[key] += count * value
+                        f"{c} route tc ms {ms:.4f} plain_ms {plain:.4f} "
+                        f"library_ms {lib:.4f} bound_ms {bound:.4f} ")
+                if dtype_name == "float32":
+                    # Both f32 kernels against the conv in f64 (cuDNN).
+                    exact = F.conv2d(x_cl.double(), w_oihw.double(),
+                                     padding=1).permute(0, 2, 3, 1)
+                    errs = [(o.double() - exact).abs().max().item() for o in
+                            (out, conv_mod._launch(x, w_eff, "simt"))]
+                    line += (f"bound_fma_ms {bound_fma:.4f} f64_err "
+                             f"{errs[0]:.3e} simt_f64_err {errs[1]:.3e} ")
+                line += (f"max_abs_err {err:.3e} simt_ms {simt:.4f} tflops "
+                         f"{2 * 9 * BATCH * h * h * c * c / ms / 1e9:.1f}")
+                if kind == "fwd" and dtype_name == "bfloat16":
+                    us = host_us(lambda: fn(x, w))
+                    lib_us = host_us(lambda: F.conv2d(x_cl, w_oihw, padding=1))
+                    line += f" host_us {us:.1f} library_host_us {lib_us:.1f}"
+                step["max_abs_err"] = max(step["max_abs_err"], err)
+                for key, value in (("ms", ms), ("simt_ms", simt),
+                                   ("plain_ms", plain), ("library_ms", lib),
+                                   ("bound_ms", bound),
+                                   ("bound_fma_ms", bound_fma),
+                                   ("ops_ms", ops_ms),
+                                   ("bytes_ms", bytes_ms)):
+                    step[key] += count * value
                 print(line, flush=True)
-        if dtype_name != "float32":
-            steps[dtype_name] = step
-            print(f"KERNEL conv3x3 one step's {CONV_PER_STEP} launches "
-                  f"({dtype_name}, batch {BATCH}, route tc): ms "
-                  f"{step['ms']:.4f} simt_ms {step['simt_ms']:.4f} "
-                  f"plain_ms {step['plain_ms']:.4f} library_ms "
-                  f"{step['library_ms']:.4f} bound_ms "
-                  f"{step['bound_ms']:.4f} ratio_to_library "
-                  f"{step['ms'] / step['library_ms']:.3f}", flush=True)
-    # An f16 view 2 bytes off a 16-byte boundary: route picks SIMT, which
-    # computes it; nothing goes through the tensor cores.
-    x = torch.randn(2, 8, 8, 16, device="cuda", generator=gen).half()
-    w = (torch.randn(3, 3, 16, 16, device="cuda", generator=gen) / 12).half()
-    odd = torch.empty(x.numel() + 1, dtype=torch.float16, device="cuda")[1:]
-    odd = odd.view(x.shape).copy_(x)
-    tc_before = conv_mod.conv3x3.tc_launches
-    out = conv_mod.conv3x3(odd, w)
-    err = (out.float() - conv_mod.conv3x3_reference(odd, w).float()) \
-        .abs().max().item()
-    if conv_mod.conv3x3.tc_launches != tc_before or \
-            conv_mod.route(odd.dtype, 16, 16, odd.data_ptr(), w.data_ptr(),
-                           out.data_ptr()) != "simt" \
-            or err > CONV_TOL["float16"]:
-        fail(f"conv3x3 f16 view off 16 bytes: route or result (max abs err "
-             f"{err})")
-    print(f"KERNEL conv3x3 fwd float16 2x8x8x16 view 2 bytes off 16 route "
-          f"simt max_abs_err {err:.3e}", flush=True)
-    return dict(steps["bfloat16"], float16=steps["float16"])
+        steps[dtype_name] = step
+        print(f"KERNEL conv3x3 one step's {CONV_PER_STEP} launches "
+              f"({dtype_name}, batch {BATCH}, route tc): ms "
+              f"{step['ms']:.4f} simt_ms {step['simt_ms']:.4f} "
+              f"plain_ms {step['plain_ms']:.4f} library_ms "
+              f"{step['library_ms']:.4f} bound_ms {step['bound_ms']:.4f} "
+              f"bound_fma_ms {step['bound_fma_ms']:.4f} ratio_to_library "
+              f"{step['ms'] / step['library_ms']:.3f}", flush=True)
+    # A view one element off a 16-byte boundary, in f32 and f16: route
+    # picks SIMT, which computes it; nothing goes through the tensor cores.
+    for name in ("float32", "float16"):
+        dt = getattr(torch, name)
+        x = torch.randn(2, 8, 8, 16, device="cuda", generator=gen).to(dt)
+        w = (torch.randn(3, 3, 16, 16, device="cuda", generator=gen) / 12) \
+            .to(dt)
+        odd = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:]
+        odd = odd.view(x.shape).copy_(x)
+        tc_before = conv_mod.conv3x3.tc_launches
+        out = conv_mod.conv3x3(odd, w)
+        err = (out.float() - conv_mod.conv3x3_reference(odd, w).float()) \
+            .abs().max().item()
+        if conv_mod.conv3x3.tc_launches != tc_before or \
+                conv_mod.route(odd.dtype, 16, 16, odd.data_ptr(),
+                               w.data_ptr(), out.data_ptr()) != "simt" \
+                or err > CONV_TOL[name]:
+            fail(f"conv3x3 {name} view off 16 bytes: route or result (max "
+                 f"abs err {err})")
+        print(f"KERNEL conv3x3 fwd {name} 2x8x8x16 view "
+              f"{odd.element_size()} bytes off 16 route simt max_abs_err "
+              f"{err:.3e}", flush=True)
+    return dict(steps["bfloat16"], float16=steps["float16"],
+                float32=steps["float32"])
 
 
 def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
                           geometries, dtype_name: str = "bfloat16") -> dict:
-    """The tensor-core conv3x3 (bf16 or f16) against its plain version at
-    a model's stride-1 geometries, forward (C -> Co) and input gradient
-    (Co -> C), within the tolerance of ``check_conv``; every launch must
-    take the tensor-core kernel. Times the kernel, the plain version and
-    ``F.conv2d`` by graph replay beside the bound, and sums one step's
-    launches (each geometry times its count)."""
+    """The tensor-core conv3x3 (bf16, f16 or f32) against its plain
+    version at a model's stride-1 geometries, forward (C -> Co) and input
+    gradient (Co -> C), within the tolerance of ``check_conv``; every
+    launch must take the tensor-core kernel. Times the kernel, the plain
+    version and ``F.conv2d`` by graph replay beside the bound (f32 also at
+    the f32 FMA peak, ``bound_fma_ms``), and sums one step's launches (each
+    geometry times its count)."""
     tol = CONV_TOL[dtype_name]
     dt = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(7)
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "ops_ms": 0.0, "bytes_ms": 0.0}
+            "bound_fma_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
     max_err, launches = 0.0, 0
     for h, c, co, count in geometries:
         x = torch.randn(batch, h, h, c, device="cuda", generator=gen)
@@ -889,13 +923,14 @@ def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
             plain = graph_ms(lambda: conv_mod.conv3x3_reference(inp, w_eff),
                              iters=3)
             lib = graph_ms(lambda: F.conv2d(in_cl, w_oihw, padding=1))
-            ops_ms, bytes_ms = conv_bound_ms(batch, h, c_in, c_out,
-                                             dtype_name)
+            ops_ms, bytes_ms, peak_ms = conv_bound_ms(batch, h, c_in, c_out,
+                                                      dtype_name)
             bound = max(ops_ms, bytes_ms)
+            bound_fma = max(peak_ms, bytes_ms)
             print(f"KERNEL conv3x3 {label} {kind} {dtype_name} "
                   f"{batch}x{h}x{h} {c_in}->{c_out} x{count} route tc ms "
                   f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
-                  f"bound_ms {bound:.4f} "
+                  f"bound_ms {bound:.4f} bound_fma_ms {bound_fma:.4f} "
                   f"ratio_to_library {ms / lib:.3f} tflops "
                   f"{2 * 9 * batch * h * h * c_in * c_out / ms / 1e9:.1f} "
                   f"max_abs_err {err:.3e}", flush=True)
@@ -903,13 +938,15 @@ def check_conv_geometries(torch, F, conv_mod, label: str, batch: int,
             launches += count
             for key, value in (("ms", ms), ("plain_ms", plain),
                                ("library_ms", lib), ("bound_ms", bound),
-                               ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                               ("bound_fma_ms", bound_fma), ("ops_ms", ops_ms),
+                               ("bytes_ms", bytes_ms)):
                 step[key] += count * value
     print(f"KERNEL conv3x3 {label} one step's {launches} launches "
           f"({dtype_name}, batch {batch}, route tc): ms {step['ms']:.4f} "
           f"plain_ms {step['plain_ms']:.4f} library_ms "
           f"{step['library_ms']:.4f} "
-          f"bound_ms {step['bound_ms']:.4f} ratio_to_library "
+          f"bound_ms {step['bound_ms']:.4f} bound_fma_ms "
+          f"{step['bound_fma_ms']:.4f} ratio_to_library "
           f"{step['ms'] / step['library_ms']:.3f}", flush=True)
     return dict(step, max_abs_err=max_err, launches_a_step=launches)
 
@@ -1176,24 +1213,25 @@ def check_flash(torch, F, fa, cases=FLASH_CASES,
                 ops_ms, bytes_ms, route_ms = flash_bound_ms(
                     name, bh, s, d, causal, dtype_name)
                 line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                         f"{lib:.4f} bound_ms {max(ops_ms, bytes_ms):.4f} "
-                         f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}) "
-                         f"bound_tc_ms {max(route_ms, bytes_ms):.4f}")
+                         f"{lib:.4f} bound_ms {max(route_ms, bytes_ms):.4f} "
+                         f"(ops {route_ms:.4f}, bytes {bytes_ms:.4f}) "
+                         f"bound_fma_ms {max(ops_ms, bytes_ms):.4f}")
                 figures = dict(
                     ms=ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=max(ops_ms, bytes_ms),
-                    bound_by=("operations" if ops_ms >= bytes_ms
+                    bound_ms=max(route_ms, bytes_ms),
+                    bound_by=("operations" if route_ms >= bytes_ms
                               else "bytes"))
                 if dtype_name == "float32":
                     out[name].update(figures,
-                                     bound_tc_ms=max(route_ms, bytes_ms))
+                                     bound_fma_ms=max(ops_ms, bytes_ms))
                 elif dtype_name == "float16":
                     out[name]["float16"].update(figures)
             print(line, flush=True)
     print("KERNEL flash library_ms: SDPA forward for flash_fwd, SDPA's whole "
           "backward (dq, dk and dv together) for flash_dq and flash_dkv; "
-          "bound_tc_ms: the operations at the route's own rate (f32: "
-          "3xTF32, three TF32 operations at 495 TFLOP/s for each f32 one)",
+          "bound_ms: the operations at the route's own rate (f32: "
+          "3xTF32, three TF32 operations at 495 TFLOP/s for each f32 one); "
+          "bound_fma_ms: f32's at the CUDA cores' 67 TFLOP/s",
           flush=True)
     return out
 
@@ -1613,8 +1651,8 @@ def read_counts(wrappers) -> dict:
 
 def want_counts(wrappers, **launches) -> dict:
     """The counts a path should read: the given launches, every other
-    wrapper 0, and every conv3x3 (the paths run bf16 or f16) and flash
-    launch through the tensor cores."""
+    wrapper 0, and every conv3x3 and flash launch through the tensor
+    cores."""
     want = dict({name: 0 for name in wrappers}, **launches)
     for name in TC_COUNTED:
         want[f"{name}_tc"] = want[name]
@@ -1978,6 +2016,63 @@ def f16_main_path(torch, wrappers, main_median_s: float) -> dict:
     total = {name: sum(c[name] for c in counts.values())
              for name in counts["run"]}
     return dict(total, median_step_s=median, by_run=counts)
+
+
+def f32_main_path(torch, wrappers, main_median_s: float) -> dict:
+    """MAIN-F32: ResNet-18 in float32 with ``--conv-impl pallas`` through
+    ``train.main`` (3 steps, FINAL over 2 eval batches), then one step of
+    the same run with ``--conv-impl xla``. Every launch count is set to 0
+    just before each run and read just after: 26 conv3x3 launches a step
+    and 13 an eval batch, all through the 3xTF32 tensor-core kernel, a
+    fused SGD a step, no conv3x3 launch in the xla run. The losses are
+    finite and the step-1 loss within rtol 1e-3 of the xla run's (cuDNN
+    in f32 with TF32 off: ``set_reference_numerics``; the same weights and
+    batch)."""
+    from ps_pytorch_tpu_torch import train
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_f32_")
+    step_re = re.compile(r"^STEP (\d+) .*? loss (\S+)", re.M)
+    counts = {}
+    try:
+        torch.cuda.empty_cache()
+        zero_counts(wrappers)
+        out = run_entry(train.main, [
+            *F32_ARGS, "--conv-impl", "pallas", "--resume", "false",
+            "--max-steps", str(F32_STEPS), "--eval-freq", "0",
+            "--train-dir", f"{root}/td", "--metrics-file",
+            f"{root}/m.jsonl"])
+        counts["run"] = read_counts(wrappers)
+        whole = step_re.findall(out)
+        rows = read_jsonl(f"{root}/m.jsonl")
+        zero_counts(wrappers)
+        xla = step_re.findall(run_entry(train.main, [
+            *F32_ARGS, "--conv-impl", "xla", "--resume", "false",
+            "--max-steps", "1", "--eval-freq", "0", "--train-dir",
+            f"{root}/xla"]))
+        counts["xla"] = read_counts(wrappers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if [int(k) for k, _ in whole] != list(range(1, F32_STEPS + 1)) or \
+            not all(math.isfinite(float(v)) for _, v in whole):
+        fail(f"MAIN-F32: STEP lines {whole}, expected {F32_STEPS} finite")
+    loss1, loss1_xla = float(whole[0][1]), float(xla[0][1])
+    if not np.isclose(loss1, loss1_xla, rtol=1e-3, atol=0.0):
+        fail(f"MAIN-F32: step-1 loss {loss1} on the conv3x3 kernel, "
+             f"{loss1_xla} on cuDNN (rtol 1e-3)")
+    wants = {"run": want_counts(wrappers, fused_sgd=F32_STEPS,
+                                conv3x3=CONV_PER_STEP * F32_STEPS
+                                + CONV_PER_EVAL_BATCH * F16_EVAL_BATCHES),
+             "xla": want_counts(wrappers, fused_sgd=1)}
+    for run, want in wants.items():
+        if counts[run] != want:
+            fail(f"MAIN-F32 {run} launches {counts[run]}, expected {want}")
+    times = [r["step_time"] for r in rows]
+    median = float(np.median(times[1:]))
+    print(f"MAIN-F32 step_times_s {times} median_step_s {median:.5f} "
+          f"({BATCH / median:.1f} images/s; bf16 MAIN {main_median_s:.5f} "
+          f"s, ratio {median / main_median_s:.3f}) step1_loss {loss1} xla "
+          f"{loss1_xla} launches {counts}", flush=True)
+    return dict(counts["run"], median_step_s=median, by_run=counts)
 
 
 def lm_main_path(torch, wrappers) -> dict:
@@ -2442,11 +2537,10 @@ def digits_accuracy(torch) -> None:
 def small_step_agrees(torch, conv_mod, dtype_name: str) -> None:
     """One small ResNet (one BasicBlock a stage, conv pallas, fused SGD), 2
     train steps on the card and on the CPU from the same weights and
-    batches. f32 runs the SIMT kernel only; losses and weights agree at
-    rtol 1e-3, atol 1e-4 (sums run in another order on the card). bf16 and
-    f16 run every conv3x3 launch through the tensor cores; losses agree at
-    rtol 1e-2 (16-bit activations round at other places in another
-    order)."""
+    batches; every conv3x3 launch runs through the tensor cores. In f32
+    (3xTF32) losses and weights agree at rtol 1e-3, atol 1e-4 (sums run in
+    another order on the card); in bf16 and f16 losses agree at rtol 1e-2
+    (16-bit activations round at other places in another order)."""
     from ps_pytorch_tpu_torch.models.resnet import BasicBlock, ResNet
     from ps_pytorch_tpu_torch.ops.fused_sgd import FusedSGD
     from ps_pytorch_tpu_torch.parallel import make_train_step
@@ -2470,7 +2564,7 @@ def small_step_agrees(torch, conv_mod, dtype_name: str) -> None:
                               in model.state_dict().items()})
     launches = conv_mod.conv3x3.launches - before[0]
     tc = conv_mod.conv3x3.tc_launches - before[1]
-    if launches == 0 or tc != (launches if dtype_name != "float32" else 0):
+    if launches == 0 or tc != launches:
         fail(f"small step {dtype_name}: {launches} conv3x3 launches, {tc} "
              "through the tensor cores")
     (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
@@ -5985,6 +6079,8 @@ def main() -> int:
         timed(small_step_agrees, torch, conv_mod, "float16")
         f16_launches = timed(f16_main_path, torch, wrappers,
                              launches["median_step_s"])
+        f32_launches = timed(f32_main_path, torch, wrappers,
+                             launches["median_step_s"])
         quant = timed(check_quantize, torch, tq, leaf_sizes)
         async_launches = timed(async_main_path, torch, wrappers, n_params)
         timed(small_async_tick_agrees, torch, tq)
@@ -5998,6 +6094,8 @@ def main() -> int:
                          "VGG11", BATCH, VGG_GEOMETRIES)
         vgg_conv16 = timed(check_conv_geometries, torch, F, conv_mod,
                            "VGG11", BATCH, VGG_GEOMETRIES, "float16")
+        vgg_conv32 = timed(check_conv_geometries, torch, F, conv_mod,
+                           "VGG11", BATCH, VGG_GEOMETRIES, "float32")
         vgg_launches = timed(vgg_main_path, torch, wrappers)
         timed(small_vgg_and_stem_steps_agree, torch, conv_mod)
         r50_conv = timed(check_conv_geometries, torch, F, conv_mod,
@@ -6006,6 +6104,9 @@ def main() -> int:
         r50_conv16 = timed(check_conv_geometries, torch, F, conv_mod,
                            "ResNet50_ImageNet", IMAGENET_BATCH,
                            RESNET50_GEOMETRIES, "float16")
+        r50_conv32 = timed(check_conv_geometries, torch, F, conv_mod,
+                           "ResNet50_ImageNet", IMAGENET_BATCH,
+                           RESNET50_GEOMETRIES, "float32")
         imagenet_launches = timed(imagenet_main_path, torch, wrappers)
         torch.cuda.empty_cache()
         timed(dist_main_path, wrappers)
@@ -6074,6 +6175,23 @@ def main() -> int:
                      "max_abs_err", "launches_a_step")}
                      for name, timed in (("VGG11", vgg_conv16),
                                          ("ResNet50_ImageNet", r50_conv16))}),
+             # f32 (tc, 3xTF32): MAIN-F32's launches, by run; one step's
+             # 26 at MAIN's geometry and the other models' steps.
+             float32=dict(
+                 launches=f32_launches["conv3x3"],
+                 tc_launches=f32_launches["conv3x3_tc"],
+                 launches_by_run={run: c["conv3x3"] for run, c
+                                  in f32_launches["by_run"].items()},
+                 **{key: conv["float32"][key] for key in (
+                     "ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_fma_ms", "max_abs_err")},
+                 bound_by=("operations" if conv["float32"]["ops_ms"]
+                           >= conv["float32"]["bytes_ms"] else "bytes"),
+                 paths={name: {key: timed[key] for key in (
+                     "ms", "bound_ms", "bound_fma_ms", "plain_ms",
+                     "library_ms", "max_abs_err", "launches_a_step")}
+                     for name, timed in (("VGG11", vgg_conv32),
+                                         ("ResNet50_ImageNet", r50_conv32))}),
              # The slice's other paths: launches of each run, and one
              # train step's launches at its geometries (kernel, bound,
              # plain version and F.conv2d, ms).
@@ -6124,6 +6242,7 @@ def main() -> int:
              launches=launches["fused_sgd"],
              launches_by_path={"MAIN-VGG": vgg_launches["fused_sgd"],
                                "MAIN-F16": f16_launches["fused_sgd"],
+                               "MAIN-F32": f32_launches["fused_sgd"],
                                "MAIN-IMAGENET":
                                imagenet_launches["fused_sgd"],
                                "MAIN-WIRE": wire_launches["fused_sgd"],
@@ -6176,7 +6295,7 @@ def main() -> int:
              # batches; the evaluator's flash oracle in flash_oracle).
              s8192=dict({key: lm8k["figures"][name][key] for key in (
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                 "bound_tc_ms", "max_abs_err")},
+                 "bound_fma_ms", "max_abs_err")},
                  launches=lm8k["launches"][name],
                  tc_launches=lm8k["launches"][f"{name}_tc"],
                  flash_oracle=lm8k["oracle_launches"][name]),

@@ -14,9 +14,12 @@
 // about 19.3 GFLOP: 0.020 ms a launch at the 989 TFLOP/s bf16 tensor-core
 // peak, 0.51 ms for the 26 launches of a training step. The 32x32x64
 // geometry also moves about 67 MB in bf16, 0.020 ms at 3.35 TB/s, so it sits
-// on the ridge; the deeper ones are bound by operations.
+// on the ridge; the deeper ones are bound by operations. In f32 the same
+// conv is 0.2885 ms at the 67 TFLOP/s of f32 FMA on the CUDA cores and
+// 0.1171 ms as 3xTF32 on the tensor cores (three TF32 products at 495
+// TFLOP/s for each f32 one); its bytes, 134 MB at 32x32x64, take 0.040 ms.
 //
-// Two kernels, picked by shape before the launch (ops/conv3x3.py:route):
+// Three kernels, picked by shape before the launch (ops/conv3x3.py:route):
 //
 // conv3x3_tc_kernel, bf16 or f16 with C % 8 == 0, Co % 8 == 0 and 16-byte
 // aligned pointers (every ResNet stride-1 3x3). An implicit GEMM on the
@@ -59,16 +62,58 @@
 // memory and writes it with 16-byte stores. Offsets into x, w and out are
 // 64-bit.
 //
-// conv3x3_simt_kernel, every f32 call and any other bf16 or f16 shape: the
-// first port of the kernel, exact f32 FMA on the CUDA cores (67 TFLOP/s).
-// The f32 path stays here on purpose: the tensor cores would take f32
-// inputs only as TF32 (10-bit mantissa), which breaks the f32 parity the
-// port is held to (1e-4 against the plain version, 1e-3 over two training
-// steps). A block computes TH*TW <= 64 pixels x 64 channels, 4 x 4 a
-// thread, staging 8 input channels of the halo and the 9 weight slices at
-// a time in shared memory as f32. 16-bit values convert through the
-// intrinsics only (__bfloat162float, __half2float, __float2half_rn), never
-// __half arithmetic.
+// conv3x3_tf32_kernel, f32 with C % 8 == 0, Co % 8 == 0 and 16-byte
+// aligned pointers: the same implicit GEMM as 3xTF32 on wgmma.mma_async
+// m64n64k8 (tf32 x tf32 -> f32). The tensor cores read only the top 19
+// bits of an f32 operand (TF32, 10 mantissa bits), and one TF32 product
+// errs about 2^-11 of each term, above the f32 tolerances. So each operand
+// x is split into hi, x with its low 13 bits masked off, and lo = x - hi
+// (exact in f32), and every k8 step issues lo_a hi_b, hi_a lo_b and then
+// hi_a hi_b into one f32 accumulator, the small terms first: the split of
+// csrc/flash_attention.cu. lo is truncated again as it is read and lo_a
+// lo_b is left out, so a product errs below 3 * 2^-20 of |a b|, the order
+// of the f32 sums' own rounding over K = 9C terms. The tensor cores add
+// into their accumulator with truncation toward zero, so a sum kept there
+// over all 9C/8 steps drifts toward zero in proportion to K. So the
+// accumulator holds one chunk's 18 steps (its first product overwrites
+// it: scale-d 0), and after each chunk it is added to a second f32 sum in
+// registers (round to nearest): 32 more f32 a thread and tile (212
+// registers at BM = 256, no spills); the errors against an f64 conv are
+// then the SIMT kernel's (chip_smoke.py's f32 rows).
+// tests/test_torch_ops.py emulates this order (the split, each wgmma's sum
+// truncated, the chunks' sums rounded) and holds it against the JAX kernel
+// at the JAX tests' 1e-5, where one TF32 product fails, and at C = 512 at
+// the card tests' 1e-4, where one accumulator over all of K fails. The
+// layout is the 16-bit kernel's in 4-byte elements:
+//   A (the pixels): the same halo in chunks of BK = 16 channels, so a halo
+//   row is the same 64 bytes in the same swizzle, and the same ldmatrix
+//   addresses give the TF32 fragments (a 16-byte row of 4 floats is 4
+//   (row, k) elements of 32 bits, the m64nNk8 A layout); each fragment is
+//   split in registers, an AND and a subtraction an element, no cvt.
+//   B (the weights): TF32 wgmma takes B only K-major from shared memory,
+//   so the kernel reads w as [3][3][Co][C] (ops/conv3x3.py lays it out;
+//   for the input gradient that is the flip alone). Each tap's 64 x 16
+//   tile is 64 rows of 64 bytes in the 64-byte swizzle, chunk ^ ((row >>
+//   1) & 3), the halo's; the descriptors step 512 bytes to the next 8
+//   rows (SBO) and 32 bytes into each row for the second k8 step. Each
+//   thread splits the weight chunks it copied once they have landed: hi
+//   in place, lo into a second copy beside it.
+// Shared memory: a stage is the halo, (TH+2)(TW+2)+1 rows of 64 bytes
+// (22-33 KB at BM = 256), and the 9 taps' hi and lo, 2 x 36,864 bytes. Two
+// stages take 189-211 KB of the 227 KB a block may use: one block an SM,
+// 2 warpgroups, BN = 64, BM = 256 (128 where 256 would not make a wave,
+// or at W = 1, where its halo would not fit). At BK = 32 or BN = 128 the
+// weights' hi and lo alone would take 147 KB a stage. The epilogue stores
+// the f32 sums from registers with 8-byte stores, no rounding.
+//
+// conv3x3_simt_kernel, every other shape (the CIFAR stem's C = 3, ragged
+// channels, a view off 16 bytes) in f32, bf16 or f16: the first port of
+// the kernel, exact f32 FMA on the CUDA cores (67 TFLOP/s). A block
+// computes TH*TW <= 64 pixels x 64 channels, 4 x 4 a thread, staging 8
+// input channels of the halo and the 9 weight slices at a time in shared
+// memory as f32. 16-bit values convert through the intrinsics only
+// (__bfloat162float, __half2float, __float2half_rn), never __half
+// arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -382,9 +427,89 @@ __device__ __forceinline__ unsigned long long b_desc(unsigned addr) {
          ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// One block: BM pixels x BN channels. Warpgroup g owns pixels
-// [g*BM/2, (g+1)*BM/2) as BM/128 m64 tiles; warp w of it the 16 rows w*16..
-// of each tile.
+// The block's place in the batch, one tall image of N*H rows: its first
+// row and column, and its halo, (TH+2) x (TW+2) pixels; row `halo` of a
+// stage is a row of zeros, the one a tap in the padding reads.
+struct Tile {
+  int HW2, halo, rows, row0, col0;
+  __device__ __forceinline__ Tile(int N, int H, int W, int TH, int TW) {
+    HW2 = TW + 2;
+    halo = (TH + 2) * HW2;
+    rows = N * H;
+    const int col_tiles = (W + TW - 1) / TW;
+    row0 = (blockIdx.x / col_tiles) * TH;
+    col0 = (blockIdx.x % col_tiles) * TW;
+  }
+};
+
+// The ring's start in dynamic shared memory, aligned to the 1024-byte
+// swizzle atom, with the zero row of each stage written.
+__device__ __forceinline__ unsigned char* ring(unsigned char* smem_raw,
+                                               const Tile& tl, int tid,
+                                               int stage_bytes) {
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  if (tid < 4 * STAGES)
+    *reinterpret_cast<uint4*>(smem + (tid >> 2) * stage_bytes +
+                              tl.halo * ROW_BYTES + (tid & 3) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  return smem;
+}
+
+// This lane's pixel in each of its MT m64 tiles (the ldmatrix row it
+// addresses): its halo row for tap (0,0) and a mask of the taps that read
+// inside its own image. Warpgroup wg owns pixels [wg*BM/2, (wg+1)*BM/2),
+// warp wq of it the 16 rows wq*16.. of each m64 tile.
+template <int MT>
+__device__ __forceinline__ void lane_pixels(const Tile& tl, int H, int W,
+                                            int TH, int TW, int wg, int wq,
+                                            int lane, int (&a_base)[MT],
+                                            unsigned (&a_mask)[MT]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int p = wg * (MT * 64) + i * 64 + wq * 16 + (lane & 15);
+    const int pr = p / TW, pc = p % TW;
+    const int r = tl.row0 + pr, col = tl.col0 + pc;
+    const bool pv = pr < TH && r < tl.rows && col < W;
+    const int h = pv ? r % H : 0;
+    unsigned m = 0;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int hh = h + t / 3 - 1, ww = col + t % 3 - 1;
+      if (pv && hh >= 0 && hh < H && ww >= 0 && ww < W) m |= 1u << t;
+    }
+    a_base[i] = pr * tl.HW2 + pc;
+    a_mask[i] = m;
+  }
+}
+
+// Copy one chunk of the halo into the stage at sa: 64 bytes a pixel,
+// channels c0.. (32 of a 16-bit type, 16 of f32), thread tid copying the
+// 16-byte piece tid & 3 of every fourth row.
+template <typename T>
+__device__ __forceinline__ void load_halo(unsigned sa, const T* x,
+                                          const Tile& tl, int W, int C,
+                                          int c0, int tid) {
+  const int kc = tid & 3;
+  const int ch = c0 + kc * (16 / (int)sizeof(T));
+  for (int q = tid >> 2; q < tl.halo; q += THREADS / 4) {
+    const int r = tl.row0 - 1 + q / tl.HW2, col = tl.col0 - 1 + q % tl.HW2;
+    const bool ok = ch < C && r >= 0 && r < tl.rows && col >= 0 && col < W;
+    const T* src = ok ? x + (((long long)r * W + col) * C + ch) : x;
+    cp_async16(sa + a_off(q, kc), src, ok);
+  }
+}
+
+// The A fragment of tap t (halo offset toff) and k step ks: an ldmatrix
+// from the lane's shifted halo row, or from the zero row in the padding.
+__device__ __forceinline__ void load_a(unsigned (&v)[4], unsigned sa,
+                                       int base, unsigned mask, int t,
+                                       int toff, int halo, int ks, int lane) {
+  const int r = (mask >> t) & 1u ? base + toff : halo;
+  ldmatrix_x4(v, sa + a_off(r, ks * 2 + (lane >> 4)));
+}
+
+// One block: BM pixels x BN channels, BM/128 m64 tiles a warpgroup.
 // Two 128 x 64 blocks fit an SM (126 registers, 99 KB of shared memory at
 // 32x32); every larger tile takes one.
 template <typename T, int BM, int BN>
@@ -397,61 +522,22 @@ conv3x3_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int NC = BN / 8;              // 16-byte chunks in a weight row
   constexpr int B_BYTES = (BN / 64) * HALF_BYTES;
   extern __shared__ unsigned char smem_raw[];
-  // Swizzle atoms are 1024 bytes: align the ring to them.
-  unsigned char* smem =
-      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wq = warp & 3;
   const int stage_bytes = a_bytes + B_BYTES;
-  const int HW2 = TW + 2;
-  const int halo = (TH + 2) * HW2;        // halo rows; row `halo` is zeros
-  const int rows = N * H;
-  const int col_tiles = (W + TW - 1) / TW;
-  const int row0 = (blockIdx.x / col_tiles) * TH;  // first row of N*H
-  const int col0 = (blockIdx.x % col_tiles) * TW;
+  const Tile tl(N, H, W, TH, TW);
   const int co0 = blockIdx.y * BN;
-
-  if (tid < 4 * STAGES)
-    *reinterpret_cast<uint4*>(smem + (tid >> 2) * stage_bytes +
-                              halo * ROW_BYTES + (tid & 3) * 16) =
-        make_uint4(0u, 0u, 0u, 0u);
-
-  // This lane's pixel in each of its m64 tiles (the ldmatrix row it
-  // addresses): its halo row for tap (0,0) and a mask of the taps that read
-  // inside its own image.
+  unsigned char* smem = ring(smem_raw, tl, tid, stage_bytes);
   int a_base[MT];
   unsigned a_mask[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int p = wg * (BM / 2) + i * 64 + wq * 16 + (lane & 15);
-    const int pr = p / TW, pc = p % TW;
-    const int r = row0 + pr, col = col0 + pc;
-    const bool pv = pr < TH && r < rows && col < W;
-    const int h = pv ? r % H : 0;
-    unsigned m = 0;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int hh = h + t / 3 - 1, ww = col + t % 3 - 1;
-      if (pv && hh >= 0 && hh < H && ww >= 0 && ww < W) m |= 1u << t;
-    }
-    a_base[i] = pr * HW2 + pc;
-    a_mask[i] = m;
-  }
+  lane_pixels(tl, H, W, TH, TW, wg, wq, lane, a_base, a_mask);
 
   // Copy chunk c0 (channels c0..c0+BK-1) of the halo and of the 9 weight
   // slices into stage s.
   auto load_stage = [&](int s, int c0) {
     const unsigned sa = smem_u32(smem + s * stage_bytes);
     const unsigned sb = sa + a_bytes;
-    const int kc = tid & 3;
-    const int ch = c0 + kc * 8;
-    for (int q = tid >> 2; q < halo; q += THREADS / 4) {
-      const int r = row0 - 1 + q / HW2, col = col0 - 1 + q % HW2;
-      const bool ok = ch < C && r >= 0 && r < rows && col >= 0 && col < W;
-      const T* src = ok ? x + (((long long)r * W + col) * C + ch) : x;
-      cp_async16(sa + a_off(q, kc), src, ok);
-    }
+    load_halo(sa, x, tl, W, C, c0, tid);
     const int nc = tid % NC;
     const int co = co0 + nc * 8;
     for (int row = tid / NC; row < 9 * BK; row += THREADS / NC) {
@@ -485,12 +571,11 @@ conv3x3_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int step = 0; step < 9 * BK / 16; ++step) {
       const int t = step / (BK / 16), ks = step % (BK / 16);
-      const int toff = (t / 3) * HW2 + t % 3;
+      const int toff = (t / 3) * tl.HW2 + t % 3;
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = (a_mask[i] >> t) & 1u ? a_base[i] + toff : halo;
-        ldmatrix_x4(af[step & 1][i], sa + a_off(r, ks * 2 + (lane >> 4)));
-      }
+      for (int i = 0; i < MT; ++i)
+        load_a(af[step & 1][i], sa, a_base[i], a_mask[i], t, toff, tl.halo,
+               ks, lane);
       wgmma_fence();
       const unsigned long long desc = b_desc(sb + (t * BK + ks * 16) * 128);
 #pragma unroll
@@ -524,33 +609,220 @@ conv3x3_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int e = tid; e < BM * NC; e += THREADS) {
     const int p = e / NC, nc = e % NC;
     const int pr = p / TW, pc = p % TW;
-    const int r = row0 + pr, col = col0 + pc, co = co0 + nc * 8;
-    if (pr < TH && r < rows && col < W && co < Co)
+    const int r = tl.row0 + pr, col = tl.col0 + pc, co = co0 + nc * 8;
+    if (pr < TH && r < tl.rows && col < W && co < Co)
       *reinterpret_cast<uint4*>(out + (((long long)r * W + col) * Co + co)) =
           *reinterpret_cast<const uint4*>(&cs[p * CS + nc * 8]);
   }
 }
 
+// ------------------------------------------------ tensor cores, f32 --
+
+constexpr int F32_BK = 16;                    // f32 channels a 64-byte row
+constexpr int F32_BN = 64;                    // output channels a block
+constexpr int F32_TAP_BYTES = F32_BN * ROW_BYTES;  // a tap's 64 x 16 tile
+constexpr int F32_B_BYTES = 9 * F32_TAP_BYTES;     // 9 taps: hi, or lo
+
+// d (64 x 64, f32) = a (64 x 8 TF32, this warp's 16 rows in registers:
+// (g, t), (g+8, t), (g, t+4), (g+8, t+4) for lane 4g + t) * B (8 x 64
+// TF32 in shared memory, K-major, described by desc), plus d where
+// accumulate is not 0. TF32 takes no transpose immediates.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           unsigned long long desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+// wgmma descriptor of the 8 x 64 K-major slice of B whose first row of k
+// starts at addr: 64-byte swizzle, the next 8 rows (n) 512 bytes on; LBO
+// is not read in a swizzled K-major layout.
+__device__ __forceinline__ unsigned long long kmajor_desc(unsigned addr) {
+  return (unsigned long long)((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         ((unsigned long long)((8 * ROW_BYTES) >> 4) << 32) | (2ull << 62);
+}
+
+// hi: x with its low 13 bits masked off (TF32); lo = x - hi, exact in f32.
+__device__ __forceinline__ void split_tf32(unsigned v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = v & 0xFFFFE000u;
+  lo = __float_as_uint(__uint_as_float(v) - __uint_as_float(hi));
+}
+
+// One block: BM pixels x 64 channels, as conv3x3_tc_kernel's tile; wk is
+// the weight in K-major order [3][3][Co][C].
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
+                    float* __restrict__ out, int N, int H, int W, int C,
+                    int Co, int TH, int TW, int a_bytes) {
+  constexpr int MT = BM / 128;            // m64 tiles a warpgroup
+  extern __shared__ unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int stage_bytes = a_bytes + 2 * F32_B_BYTES;
+  const Tile tl(N, H, W, TH, TW);
+  const int co0 = blockIdx.y * F32_BN;
+  const int kc = tid & 3;                 // the 16-byte chunk this thread
+                                          // copies of every weight row
+  unsigned char* smem = ring(smem_raw, tl, tid, stage_bytes);
+  int a_base[MT];
+  unsigned a_mask[MT];
+  lane_pixels(tl, H, W, TH, TW, wg, wq, lane, a_base, a_mask);
+
+  // Copy chunk c0 (channels c0..c0+15) of the halo and of the 9 taps'
+  // K-major weight tiles (row t * 64 + n: wk[t][co0 + n][c0..c0+15]) into
+  // stage s; the weights land in the hi copy.
+  auto load_stage = [&](int s, int c0) {
+    const unsigned sa = smem_u32(smem + s * stage_bytes);
+    const unsigned sb = sa + a_bytes;
+    const int ch = c0 + kc * 4;
+    load_halo(sa, x, tl, W, C, c0, tid);
+    for (int row = tid >> 2; row < 9 * F32_BN; row += THREADS / 4) {
+      const int t = row / F32_BN, co = co0 + row % F32_BN;
+      const bool ok = co < Co && ch < C;
+      const float* src = ok ? wk + (((long long)t * Co + co) * C + ch) : wk;
+      cp_async16(sb + a_off(row, kc), src, ok);
+    }
+  };
+  // Split the weight chunks this thread copied into stage s, landed: hi in
+  // place, lo at the same offset of the lo copy.
+  auto split_stage = [&](int s) {
+    unsigned char* b = smem + s * stage_bytes + a_bytes;
+    for (int row = tid >> 2; row < 9 * F32_BN; row += THREADS / 4) {
+      uint4* hp = reinterpret_cast<uint4*>(b + a_off(row, kc));
+      uint4 v = *hp, hi, lo;
+      split_tf32(v.x, hi.x, lo.x);
+      split_tf32(v.y, hi.y, lo.y);
+      split_tf32(v.z, hi.z, lo.z);
+      split_tf32(v.w, hi.w, lo.w);
+      *hp = hi;
+      *reinterpret_cast<uint4*>(b + F32_B_BYTES + a_off(row, kc)) = lo;
+    }
+  };
+
+  // acc: one chunk's sums, in the tensor cores' accumulator; sum: the
+  // chunks' sums, added in f32 (round to nearest) after each chunk.
+  float acc[MT][32], sum[MT][32];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) sum[i][v] = acc[i][v] = 0.f;
+
+  const int chunks = (C + F32_BK - 1) / F32_BK;
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < chunks; ++kt) {
+    cp_async_wait_all();
+    split_stage(kt % STAGES);
+    fence_proxy_async();
+    __syncthreads();  // chunk kt is in and split; stage (kt+1)%2 is free
+    if (kt + 1 < chunks) load_stage((kt + 1) % STAGES, (kt + 1) * F32_BK);
+    cp_async_commit();
+    const unsigned sa = smem_u32(smem + (kt % STAGES) * stage_bytes);
+    const unsigned sb = sa + a_bytes;
+    // 9 taps x 2 k8 steps. A is double-buffered in registers, hi and lo:
+    // the ldmatrix and split of step s+1 run while the wgmmas of step s
+    // are in flight.
+    unsigned ah[2][MT][4], al[2][MT][4];
+#pragma unroll
+    for (int step = 0; step < 9 * F32_BK / 8; ++step) {
+      const int t = step / (F32_BK / 8), ks = step % (F32_BK / 8);
+      const int toff = (t / 3) * tl.HW2 + t % 3;
+      const int bf = step & 1;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        unsigned v[4];
+        load_a(v, sa, a_base[i], a_mask[i], t, toff, tl.halo, ks, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_tf32(v[j], ah[bf][i][j], al[bf][i][j]);
+      }
+      wgmma_fence();
+      const unsigned b = sb + t * F32_TAP_BYTES + ks * 32;
+      const unsigned long long b_hi = kmajor_desc(b);
+      const unsigned long long b_lo = kmajor_desc(b + F32_B_BYTES);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        wgmma_tf32(acc[i], al[bf][i], b_hi, step != 0);
+        wgmma_tf32(acc[i], ah[bf][i], b_lo, 1);
+        wgmma_tf32(acc[i], ah[bf][i], b_hi, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();  // the stage is read before the next chunk lands in it
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      pin(acc[i]);
+#pragma unroll
+      for (int v = 0; v < 32; ++v) sum[i][v] += acc[i][v];
+    }
+  }
+
+  // Epilogue: sum 4j..4j+3 of a thread is (row g, columns 8j+2q, +1) and
+  // (row g+8, the same); each pair is one 8-byte store.
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = wg * (BM / 2) + i * 64 + wq * 16 + g + 8 * half;
+      const int pr = p / TW, pc = p % TW;
+      const int r = tl.row0 + pr, col = tl.col0 + pc;
+      if (pr >= TH || r >= tl.rows || col >= W) continue;
+      float* o = out + (((long long)r * W + col) * Co + co0 + q * 2);
+#pragma unroll
+      for (int j = 0; j < F32_BN / 8; ++j)
+        if (co0 + j * 8 + q * 2 < Co)
+          *reinterpret_cast<float2*>(o + j * 8) =
+              make_float2(sum[i][4 * j + 2 * half],
+                          sum[i][4 * j + 2 * half + 1]);
+    }
+}
+
 // Dynamic shared memory of one block of the BM x BN tile at image width W:
 // the ring's 2 stages (halo and zero row, rounded to 1024 bytes, then the
-// weight slices) or the epilogue's staged tile, whichever is larger, plus
-// 1024 bytes to align the ring.
-template <int BM, int BN>
+// weight slices: in f32 their hi and lo copies) or the 16-bit epilogue's
+// staged tile, whichever is larger, plus 1024 bytes to align the ring.
+template <typename T, int BM, int BN>
 int smem_bytes(int W, int* a_bytes) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   const int TW = W < 64 ? W : 64;
   const int halo = (BM / TW + 2) * (TW + 2);
   *a_bytes = ((halo + 1) * ROW_BYTES + 1023) / 1024 * 1024;
-  const int ring = STAGES * (*a_bytes + (BN / 64) * HALF_BYTES);
-  const int tile = BM * (BN + 8) * 2;
+  const int ring = STAGES * (*a_bytes + (f32 ? 2 * F32_B_BYTES
+                                             : (BN / 64) * HALF_BYTES));
+  const int tile = f32 ? 0 : BM * (BN + 8) * 2;
   return (ring > tile ? ring : tile) + 1024;
 }
 
 template <typename T, int BM, int BN>
 int launch(const void* x, const void* w, void* out, int N, int H, int W,
            int C, int Co, void* stream) {
-  auto kernel = conv3x3_tc_kernel<T, BM, BN>;
+  void (*kernel)(const T*, const T*, T*, int, int, int, int, int, int, int,
+                 int);
+  if constexpr (std::is_same<T, float>::value)
+    kernel = conv3x3_tf32_kernel<BM>;
+  else
+    kernel = conv3x3_tc_kernel<T, BM, BN>;
   int a_bytes = 0;
-  const int smem = smem_bytes<BM, BN>(W, &a_bytes);
+  const int smem = smem_bytes<T, BM, BN>(W, &a_bytes);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int TW = W < 64 ? W : 64;
   const int TH = BM / TW;
@@ -577,19 +849,19 @@ int launch(const void* x, const void* w, void* out, int N, int H, int W,
   return (int)cudaGetLastError();
 }
 
-// The tile, from the table in the header.
+// The tile, from the tables in the header.
 template <typename T, int BN>
 int launch_bn(const void* x, const void* w, void* out, int N, int H, int W,
               int C, int Co, void* stream) {
   const long long pixels = (long long)N * H * W;
   int unused = 0;
   if ((pixels + 255) / 256 * ((Co + BN - 1) / BN) >= 128 &&
-      smem_bytes<256, BN>(W, &unused) <= MAX_SMEM)
+      smem_bytes<T, 256, BN>(W, &unused) <= MAX_SMEM)
     return launch<T, 256, BN>(x, w, out, N, H, W, C, Co, stream);
   return launch<T, 128, BN>(x, w, out, N, H, W, C, Co, stream);
 }
 
-// The shape and alignment checks of the tensor-core kernel, then its tile.
+// The shape and alignment checks of the tensor-core kernels, then the tile.
 template <typename T>
 int launch_any(const void* x, const void* w, void* out, int N, int H, int W,
                int C, int Co, void* stream) {
@@ -599,16 +871,20 @@ int launch_any(const void* x, const void* w, void* out, int N, int H, int W,
        reinterpret_cast<unsigned long long>(out)) % 16 ||
       (long long)N * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  return Co <= 64 ? launch_bn<T, 64>(x, w, out, N, H, W, C, Co, stream)
-                  : launch_bn<T, 128>(x, w, out, N, H, W, C, Co, stream);
+  if constexpr (std::is_same<T, float>::value)
+    return launch_bn<float, F32_BN>(x, w, out, N, H, W, C, Co, stream);
+  else
+    return Co <= 64 ? launch_bn<T, 64>(x, w, out, N, H, W, C, Co, stream)
+                    : launch_bn<T, 128>(x, w, out, N, H, W, C, Co, stream);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-extern "C" int psk_conv3x3_f32(const void* x, const void* w, void* out, int N,
-                               int H, int W, int C, int Co, void* stream) {
+extern "C" int psk_conv3x3_f32_simt(const void* x, const void* w, void* out,
+                                    int N, int H, int W, int C, int Co,
+                                    void* stream) {
   return simt::launch<float>(x, w, out, N, H, W, C, Co, stream);
 }
 
@@ -626,7 +902,14 @@ extern "C" int psk_conv3x3_f16_simt(const void* x, const void* w, void* out,
 
 // The tensor-core kernels. Each takes C % 8 == 0, Co % 8 == 0 and 16-byte
 // aligned pointers, and refuses anything else (cudaErrorInvalidValue): the
-// caller picks the kernel by shape before the launch.
+// caller picks the kernel by shape before the launch. The f32 one reads
+// its weight K-major, wk[3][3][Co][C]; the 16-bit ones read w[3][3][C][Co].
+extern "C" int psk_conv3x3_f32(const void* x, const void* wk, void* out,
+                               int N, int H, int W, int C, int Co,
+                               void* stream) {
+  return tc::launch_any<float>(x, wk, out, N, H, W, C, Co, stream);
+}
+
 extern "C" int psk_conv3x3_bf16(const void* x, const void* w, void* out, int N,
                                 int H, int W, int C, int Co, void* stream) {
   return tc::launch_any<__nv_bfloat16>(x, w, out, N, H, W, C, Co, stream);

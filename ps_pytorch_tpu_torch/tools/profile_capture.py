@@ -53,7 +53,8 @@ from ps_pytorch_tpu_torch.telemetry import compute_mfu
 
 # Kernel-name fragments -> the group a device event is charged to.
 GROUPS = (
-    ("conv3x3 kernel (port)", ("conv3x3_tc_kernel", "conv3x3_simt_kernel")),
+    ("conv3x3 kernel (port)", ("conv3x3_tc_kernel", "conv3x3_tf32_kernel",
+                               "conv3x3_simt_kernel")),
     ("fused_sgd kernel (port)", ("sgd_kernel",)),
     ("fused_adam kernel (port)", ("adam_kernel",)),
     ("flash kernels (port)", ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",

@@ -78,9 +78,9 @@ def _conv_inputs(dev, n, h, w, c, co, dtype, seed=0):
     (5, 7, 7, 512, 512),
 ])
 def test_conv3x3_kernel_matches_plain(cuda, shape, dtype, kind):
-    """Forward and input gradient against the plain version; bf16 and f16
-    with C and Co multiples of 8 go through the tensor cores, everything
-    else through the SIMT kernel."""
+    """Forward and input gradient against the plain version; every type
+    with C and Co multiples of 8 goes through the tensor cores (f32 as
+    3xTF32), everything else through the SIMT kernel."""
     n, h, wd, c, co = shape
     x, w = _conv_inputs(cuda, *shape, dtype)
     fn, w_eff, c_out = conv.conv3x3, w, co
@@ -91,7 +91,7 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype, kind):
     before, tc_before = conv.conv3x3.launches, conv.conv3x3.tc_launches
     got = fn(x, w)
     assert conv.conv3x3.launches == before + 1
-    tensor_cores = dtype != torch.float32 and c % 8 == 0 and co % 8 == 0
+    tensor_cores = c % 8 == 0 and co % 8 == 0
     assert conv.conv3x3.tc_launches == tc_before + tensor_cores
     assert got.dtype == dtype and got.shape == (n, h, wd, c_out)
     want = conv.conv3x3_reference(x, w_eff)
@@ -127,12 +127,10 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
         conv.conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError):
         conv.conv3x3(x, w.cpu())
-    with pytest.raises(ValueError, match="tc"):    # no f32 tensor-core kernel
-        conv._launch(x, w, "tc")
-    # A bf16 or f16 view 2 bytes off a 16-byte boundary: route picks SIMT,
-    # which computes it, and the tensor-core kernel, named, refuses it
-    # rather than running elsewhere.
-    for dtype in (torch.bfloat16, torch.float16):
+    # A view one element (4 bytes in f32, 2 in bf16 and f16) off a 16-byte
+    # boundary: route picks SIMT, which computes it, and the tensor-core
+    # kernel, named, refuses it rather than running elsewhere.
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         xb, wb = x.to(dtype), w.to(dtype)
         odd = torch.empty(xb.numel() + 1, dtype=dtype, device=cuda)[1:]
         odd = odd.view(xb.shape).copy_(xb)
@@ -145,6 +143,20 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
         assert conv.conv3x3.tc_launches == tc_before
         with pytest.raises(RuntimeError, match="tc kernel launch failed"):
             conv._launch(odd, wb, "tc")
+    # A weight view one element off 16 bytes: route reads the layout the
+    # kernel gets, so f32 (whose tensor-core kernel reads a K-major copy)
+    # takes the tensor cores and bf16 (which reads w as it is) takes SIMT.
+    for dtype, tensor_cores in ((torch.float32, True),
+                                (torch.bfloat16, False)):
+        xb, wb = x.to(dtype), w.to(dtype)
+        flat = torch.empty(wb.numel() + 1, dtype=dtype, device=cuda)
+        odd_w = flat[1:].view(wb.shape).copy_(wb)
+        assert odd_w.data_ptr() % 16 == odd_w.element_size()
+        tc_before = conv.conv3x3.tc_launches
+        torch.testing.assert_close(conv.conv3x3(xb, odd_w).float(),
+                                   conv.conv3x3_reference(xb, wb).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        assert conv.conv3x3.tc_launches == tc_before + tensor_cores
 
 
 @pytest.mark.cuda

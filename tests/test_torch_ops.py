@@ -125,7 +125,14 @@ def test_conv3x3_rejects_unknown_variant_and_mixed_dtypes():
     (torch.bfloat16, 64, 64, (0, 256, 4096), "tc"),
     (torch.bfloat16, 24, 72, (16, 48, 80), "tc"),      # ragged C and Co
     (torch.bfloat16, 8, 8, (), "tc"),
-    (torch.float32, 64, 64, (0, 256, 4096), "simt"),   # f32 stays exact
+    (torch.float32, 64, 64, (0, 256, 4096), "tc"),     # f32 as 3xTF32
+    (torch.float32, 24, 72, (16, 48, 80), "tc"),       # ragged C and Co
+    (torch.float32, 3, 64, (0, 256, 4096), "simt"),    # the CIFAR stem
+    (torch.float32, 12, 16, (0, 0, 0), "simt"),        # C % 8
+    (torch.float32, 16, 12, (0, 0, 0), "simt"),        # Co % 8
+    (torch.float32, 64, 64, (4, 256, 4096), "simt"),   # x off 16 bytes
+    (torch.float32, 64, 64, (0, 8, 4096), "simt"),     # w off 16 bytes
+    (torch.float32, 64, 64, (0, 256, 4100), "simt"),   # out off 16 bytes
     (torch.bfloat16, 12, 16, (0, 0, 0), "simt"),       # C % 8
     (torch.bfloat16, 16, 12, (0, 0, 0), "simt"),       # Co % 8
     (torch.bfloat16, 64, 64, (2, 256, 4096), "simt"),  # x off 16 bytes
@@ -143,6 +150,126 @@ def test_conv3x3_route_by_dtype_channels_and_alignment(dtype, c, co,
     """The kernel a CUDA call takes is decided from dtype, C, Co and the
     pointers' alignment before the launch."""
     assert conv.route(dtype, c, co, *pointers) == want
+
+
+# The f32 tensor-core kernel's arithmetic (csrc/conv3x3.cu,
+# conv3x3_tf32_kernel), which has no CPU mode: 3xTF32, emulated in numpy.
+
+def _truncate_tf32(x):
+    """The top 19 bits of f32 x (TF32): what the tensor cores read of it,
+    and the kernel's hi (a mask)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _round_tf32(x):
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)) \
+        .view(np.float32)
+
+
+def _toward_zero(x):
+    """f64 x to f32, truncated toward zero."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x),
+                    np.nextafter(f, np.float32(0)), f)
+
+
+def _taps(xp, h, wd, t):
+    """Tap t's shifted pixels of the padded xp, [N*H*W, C]."""
+    return xp[:, t // 3:t // 3 + h, t % 3:t % 3 + wd, :] \
+        .reshape(-1, xp.shape[-1])
+
+
+def _conv_3xtf32(x, w, chunk=16):
+    """The conv in the kernel's order: per chunk of ``chunk`` input
+    channels, 9 taps x k8 steps; each step issues lo_a hi_b, hi_a lo_b and
+    hi_a hi_b (hi truncated, lo = x - hi truncated again as it is read),
+    and each of these adds its 8 products to the tensor cores' accumulator
+    as one sum truncated toward zero (modelled as the exact sum, then
+    truncated); the chunk's first product overwrites it. After each chunk
+    the accumulator is added to an f32 running sum, rounded to nearest.
+    ``chunk=None`` keeps one accumulator over all of K instead."""
+    n, h, wd, c = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    terms = []
+    for t in range(9):
+        a, b = _taps(xp, h, wd, t), w[t // 3, t % 3]
+        ah, bh = _truncate_tf32(a), _truncate_tf32(b)
+        al, bl = _truncate_tf32(a - ah), _truncate_tf32(b - bh)
+        terms.append((((al, bh), (ah, bl), (ah, bh))))
+    total = np.zeros((n * h * wd, w.shape[-1]), np.float32)
+    chunk = chunk or c
+    for c0 in range(0, c, chunk):
+        acc = np.zeros(total.shape, np.float32)
+        for t in range(9):
+            for k in range(c0, min(c0 + chunk, c), 8):
+                for a, b in terms[t]:
+                    acc = _toward_zero(
+                        acc.astype(np.float64)
+                        + a[:, k:k + 8].astype(np.float64)
+                        @ b[k:k + 8].astype(np.float64))
+        total += acc
+    return total.reshape(n, h, wd, -1)
+
+
+def _conv_tf32(x, w):
+    """The conv as 9 tap products of one TF32 product each (the operands
+    rounded to TF32), summed in f32."""
+    n, h, wd, _ = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    out = np.zeros((n * h * wd, w.shape[-1]), np.float32)
+    for t in range(9):
+        out += np.matmul(_round_tf32(_taps(xp, h, wd, t)),
+                         _round_tf32(w[t // 3, t % 3]))
+    return out.reshape(n, h, wd, -1)
+
+
+def _conv_operands(kind, shape, co, seed=5):
+    """The kernel's operands for ``kind`` (x and w, or the cotangent and
+    the flipped, channel-swapped w) and the JAX function's output, in
+    interpret mode, at the JAX tests' scale (w * 0.1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    w = (rng.normal(size=(3, 3, shape[-1], co)) * 0.1).astype(np.float32)
+    if kind == "forward":
+        return x, w, _np(jax_conv.conv3x3(_j(x), _j(w), interpret=True))
+    g = rng.normal(size=shape[:3] + (co,)).astype(np.float32)
+    want = jax_conv.conv3x3_input_grad(_j(g), _j(w), interpret=True)
+    return g, np.flip(w, (0, 1)).swapaxes(2, 3), _np(want)
+
+
+@pytest.mark.parametrize("kind", ["forward", "input_grad"])
+@pytest.mark.parametrize("shape,co", [((2, 8, 8, 16), 16),
+                                      ((3, 8, 8, 24), 40)])  # ragged C, Co
+def test_conv3x3_3xtf32_arithmetic_matches_jax(kind, shape, co):
+    """The f32 tensor-core kernel's 3xTF32 arithmetic, emulated in its
+    order, against the JAX ``conv3x3`` / ``conv3x3_input_grad`` in
+    interpret mode at the JAX package's f32 tolerance (1e-5,
+    tests/test_pallas_conv.py), at its tests' shapes and scale; one TF32
+    product misses that tolerance."""
+    inp, w_eff, want = _conv_operands(kind, shape, co)
+    np.testing.assert_allclose(_conv_3xtf32(inp, w_eff), want, rtol=1e-5,
+                               atol=1e-5)
+    assert not np.allclose(_conv_tf32(inp, w_eff), want, rtol=1e-5,
+                           atol=1e-5)
+
+
+def test_conv3x3_3xtf32_chunked_sums_hold_at_resnet_depth():
+    """At ResNet-18's deepest geometry (4x4, C = Co = 512, K = 4608) the
+    kernel's per-chunk accumulator keeps the emulated conv within the
+    tolerance the card tests hold the kernel to (1e-4,
+    tests/test_torch_kernels.py) of the JAX conv, where one truncating
+    accumulator over all of K drifts toward zero past it. The JAX
+    package's own 1e-5 is held at its tests' depth, above: at this depth
+    the chunks' truncated sums do not keep within it on every output."""
+    inp, w_eff, want = _conv_operands("forward", (1, 4, 4, 512), 512)
+    np.testing.assert_allclose(_conv_3xtf32(inp, w_eff), want, rtol=1e-4,
+                               atol=1e-4)
+    assert not np.allclose(_conv_3xtf32(inp, w_eff, chunk=None), want,
+                           rtol=1e-4, atol=1e-4)
 
 
 # ------------------------------------------------------------ backend --
