@@ -133,7 +133,7 @@ exit and no result line, if any phase fails:
    x 8 layers of each kernel, all on the tensor cores; the CNN rows'
    peaks and step times with and without remat) and the JAX package's
    ACCURACY_LM recipe, taken from ``tools/accuracy_run.py``, on the flash
-   kernels (ACCURACY-LM: 2000 steps on the ``.py`` bytes of
+   kernels in a process of its own (ACCURACY-LM: 2000 steps on the ``.py`` bytes of
    ``ps_pytorch_tpu/`` and ``tests/``, read as files, then
    ``evaluate.main``; perplexity at most 16); between those two, MAIN-LMCKPT's
    checkpoints served (MAIN-SERVE: ``ServingEngine`` at 1, 4 and 8 slots,
@@ -146,8 +146,8 @@ exit and no result line, if any phase fails:
    card, one launch of five runs (MAIN-LMDIST, ``--rank-lmdist``:
    ``train_lm.run`` with ``--lm-parallelism sp`` over both ranks on ring
    attention, ``tp`` over the model axis, and ``pp`` of 2 stages x 4
-   microbatches on the flash kernels under remat, 3 steps and a
-   checkpoint at 3 each; every run's FINAL line equal on both ranks, rank
+   microbatches on the flash kernels under remat, 2 steps and a
+   checkpoint at 2 each; every run's FINAL line equal on both ranks, rank
    0 alone writing, the bytes each rank hands gloo a step equal to the
    shapes' count, pp's flash launches those of its schedule,
    ``evaluate.main`` scoring pp's stage-stacked checkpoint, each run's
@@ -188,7 +188,17 @@ exit and no result line, if any phase fails:
    ``flash_dq_tc``, ``flash_dkv_tc``);
    Before MAIN-CKPT, the fused SGD and Adam kernels on each replica's
    slice of a padded flat buffer, as the sharded update runs them (CHECK
-   zero slice);
+   zero slice). After MAIN-SERVE, the port's measurement harness as a
+   user runs it (MAIN-BENCH): ``python -m ps_pytorch_tpu_torch.bench
+   --extras`` (the headline and every rider: fused SGD, the quantizer,
+   the 4x batch, conv3x3 against ``F.conv2d``, the LM, decode), ``python
+   -m ps_pytorch_tpu_torch.bench_suite --isolate`` over five rows, each
+   launching its kernel in a child of its own (``resnet18_pallas_conv``,
+   ``resnet18_fused_sgd``, ``int8_quantizer``, ``pallas_conv_ab``,
+   ``transformer_lm_2k_flash``), and the hierarchy, poison and kvrep
+   drills' bench phases; no row may carry an error, miss its kernel or
+   break an invariant, and the three overhead and speedup budgets are
+   printed with the port's gate verdict;
 5. holds one small ResNet step in each of f32, bf16 and f16 (tensor-core
    conv only), one small bf16 VGG step (the same
    injected
@@ -198,8 +208,11 @@ exit and no result line, if any phase fails:
    same steps on the CPU (the plain versions);
 6. trains LeNet on the UCI digits for 1200 steps through the port's
    ``tools/accuracy_run.py`` (``python -m ps_pytorch_tpu_torch.train``,
-   then ``evaluate --once`` on the checkpoint, each a process, beside
-   ACCURACY-LM): Prec@1 must reach 0.98;
+   then ``evaluate --once`` on the checkpoint, each a process; the tool a
+   process too): Prec@1 must reach 0.98. It, ACCURACY-LM (a process of
+   its own, ``--rank-acclm``) and CHECK zero-wire with CHECK hier (a
+   process of their own, ``--rank-checks``) run beside MAIN-LMDIST's
+   launch;
 7. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -212,6 +225,7 @@ import os
 import re
 import shutil
 import socket
+import subprocess
 import sys
 import tempfile
 import threading
@@ -410,6 +424,29 @@ CRASH_SPEC = "replica_crash:r=0,step=5;ckpt_corrupt:step=6;kv_drop:p=0.05,seed=7
 MEMORY_MODES = ("lm_base", "lm_remat", "lm_flash", "cnn_base", "cnn_remat")
 MEMORY_JOBS = len(MEMORY_MODES)
 MEMORY_STEPS = 3
+# MAIN-BENCH: the port's measurement harness as a user runs it, each a
+# process of its own: the headline with every rider, five suite rows each
+# in a child of its own (--isolate), with the kernel each row must launch
+# (conv3x3 and flash on their tensor-core kernels), and the three drills'
+# bench phases in this process. The headline's riders and the kernel
+# each launches: fused_* fused SGD, int8_* the quantizer, pallas_conv
+# conv3x3.
+BENCH_ARGS = ("--extras", "--steps", "5", "--warmup", "2")
+BENCH_SUITE_ARGS = ("--isolate", "--steps", "5")
+BENCH_ROWS = {"resnet18_pallas_conv": ("conv3x3", "conv3x3_tc"),
+              "resnet18_fused_sgd": ("fused_sgd",),
+              "int8_quantizer": ("quantize",),
+              "pallas_conv_ab": ("conv3x3", "conv3x3_tc"),
+              "transformer_lm_2k_flash": ("flash_fwd", "flash_fwd_tc",
+                                          "flash_dq", "flash_dq_tc",
+                                          "flash_dkv", "flash_dkv_tc")}
+BENCH_RIDERS = {"fused_sgd": "fused_images_per_sec",
+                "quantize": "int8_quantize_ms", "conv3x3_tc": "pallas_conv"}
+BENCH_KEYS = ("value", "sec_per_step", "mfu", "fused_images_per_sec",
+              "int8_quantize_ms", "int8_blocking_ms",
+              "bigbatch_images_per_sec", "pallas_conv", "lm_tokens_per_sec",
+              "decode")
+BENCH_TIMEOUT_S = 600
 # MAIN-ELECT: the same ResNet-18 as three processes on the card, async over
 # the KV wire with the int8 codec, the PS leader a lease (--elastic) held
 # first by process 1 (process 0 serves the TCPStore, as in the JAX
@@ -575,12 +612,13 @@ LMCKPT_NEW = 64
 # process group (the fourth is MAIN-MOE, below), first sp over both ranks
 # (ring attention, 1024 tokens a rank),
 # tp over the model axis, and pp of 2 stages x 4 microbatches with its
-# stages on the flash kernels under remat. Each run takes 3 steps and a
-# checkpoint at 3; its step-1 loss and its parameters after 2 steps
+# stages on the flash kernels under remat. Each run takes 2 steps and a
+# checkpoint at 2 (3 until PR 25); its step-1 loss and its parameters
+# after 2 steps
 # (gathered) are held against the one-rank LM on the same weights and
 # batches (full attention for sp and tp, flash for pp) at the JAX parity
 # tolerances (tests/test_tp.py:112-115, tests/test_pp.py:99-103).
-LMDIST_STEPS = 3
+LMDIST_STEPS = 2
 LMDIST_HELD = 2
 LMDIST_MICRO = 4
 # MAIN-MOE is the fourth run: the JAX bench_suite.py row moe_lm_2k
@@ -597,7 +635,7 @@ MOE_NEW = 32
 # The fifth, tp7: tp over the 2-rank model axis with 7 heads of 64 (d 448),
 # which the axis does not divide: each rank's q/k/v columns straddle a
 # head (parallel/tp.py gathers them), 2 steps, no checkpoint. Then, in
-# the same launch, sp's step-3 checkpoint scored by evaluate.main on both
+# the same launch, sp's step-2 checkpoint scored by evaluate.main on both
 # ranks: the ring over them (LMDIST_EVAL).
 ODD_HEADS = ("--lm-heads", "7", "--lm-d-model", "448")
 LMDIST_RUNS = (
@@ -2511,29 +2549,6 @@ def flat_leaves(tree):
             yield np.asarray(v, np.float64)
 
 
-def digits_accuracy(torch) -> None:
-    """LeNet on the UCI digits through the port's ``tools/accuracy_run``
-    on the card (``train`` and then ``evaluate --once``, each a process):
-    Prec@1 at least 0.98, read from the tool's artifact."""
-    from ps_pytorch_tpu_torch.tools import accuracy_run
-
-    root = tempfile.mkdtemp(prefix="chip_smoke_digits_")
-    try:
-        accuracy_run.run(["--train-dir", f"{root}/td", "--out",
-                          f"{root}/accuracy.json", "--device", "cuda"])
-        art = json.loads(Path(root, "accuracy.json").read_text())
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    if not (art["steps"] == 1200 and art["prec1"] >= 0.98
-            and art["met_target"] and art["platform"] == "gpu"):
-        fail(f"ACCURACY digits: {art}, Prec@1 below 0.98")
-    print(f"ACCURACY digits LeNet {art['steps']} steps: prec1 "
-          f"{art['prec1']:.4f} prec5 {art['prec5']:.4f} loss "
-          f"{art['eval_loss']} train_wall_s {art['train_wall_s']} (a "
-          f"process, its start included) on {art['device_kind']}",
-          flush=True)
-
-
 def small_step_agrees(torch, conv_mod, dtype_name: str) -> None:
     """One small ResNet (one BasicBlock a stage, conv pallas, fused SGD), 2
     train steps on the card and on the CPU from the same weights and
@@ -2954,13 +2969,13 @@ def lmdist_main_path(torch, wrappers) -> dict:
     over both ranks (ring attention), tp, pp of 2 stages x 4 microbatches
     on the flash kernels with remat, and MAIN-MOE, the MoE LM under ep on
     the flash kernels. Fails unless every run prints the same FINAL line
-    on both ranks; rank 0 alone commits the step-3 checkpoint; the bytes
-    each rank hands gloo a step are the shapes' count; pp and ep launch
+    on both ranks; rank 0 alone commits the last step's checkpoint; the
+    bytes each rank hands gloo a step are the shapes' count; pp and ep launch
     the flash kernels as their schedules say (pp per rank per step:
     forward layers_per_stage x M, doubled under remat, dq and dk/dv
     layers_per_stage x M; ep a layer a step each, and the forward again a
     layer for each batch of the FINAL evaluation, which keeps flash) and
-    sp and tp none; ``evaluate.main --once 3`` scores pp's stage-stacked
+    sp and tp none; ``evaluate.main --once 2`` scores pp's stage-stacked
     checkpoint to its FINAL loss; each run's step-1 loss and step-2
     parameters agree with the one-rank model's (for ep the one-rank MoE in
     two capacity groups); and MAIN-MOE's checks (``moe_checks``). Prints
@@ -2980,7 +2995,7 @@ def lmdist_main_path(torch, wrappers) -> dict:
             steps = LMDIST_RUN_STEPS.get(mode, LMDIST_STEPS)
             argv += ([THEN] if i else []) + [
                 *LM_ARGS, *flags, "--max-steps", str(steps), "--eval-freq",
-                str(LMDIST_STEPS if steps == LMDIST_STEPS else 0),
+                str(0 if mode in LMDIST_RUN_STEPS else LMDIST_STEPS),
                 "--log-every", "1",
                 "--resume", "false", "--train-dir", f"{root}/{mode}",
                 "--device", "cuda"]
@@ -3153,7 +3168,7 @@ def lmdist_main_path(torch, wrappers) -> dict:
 
 def moe_checks(torch, wrappers, td: str) -> dict:
     """MAIN-MOE's checkpoint through the entry points: ``evaluate.main
-    --once 3`` prints a finite EVAL_LM equal at 1e-4 to the mean
+    --once 2`` prints a finite EVAL_LM equal at 1e-4 to the mean
     next-token loss of the validation batches under the one-group,
     full-attention MoE computed here (on ``generate.main``'s model, that
     MoE with the checkpoint in it); greedy ``generate.main`` of
@@ -3652,61 +3667,160 @@ def serve_main_path(torch, wrappers, served_dir: str) -> dict:
                 reload_s=reload_s, failover_s=failover_s)
 
 
-def accuracy_lm(torch, wrappers) -> dict:
-    """ACCURACY_LM on the card: the recipe's 2000 steps through
+def acclm_rank_main(argv) -> int:
+    """ACCURACY-LM in a process of its own (``--rank-acclm <root>``), run
+    beside MAIN-LMDIST's launch: the recipe's 2000 steps through
     ``train_lm.main`` on the flash kernels, the checkpoint at 2000 scored
-    by ``evaluate.main``; perplexity at most 16."""
+    by ``evaluate.main``, this process's launch counts set to 0 just
+    before the training and read just after; one ``ACCLM`` line."""
     from ps_pytorch_tpu_torch import evaluate, train_lm
     from ps_pytorch_tpu_torch.tools import accuracy_run
 
+    root = argv[0]
+    wrappers = kernel_wrappers()
     recipe = accuracy_run.lm_recipe(ACC_LM_STEPS)
-    if recipe[recipe.index("--lm-layers") + 1] != str(ACC_LM_LAYERS):
-        fail(f"ACCURACY-LM: the recipe's layers are not {ACC_LM_LAYERS}")
-    root = tempfile.mkdtemp(prefix="chip_smoke_acclm_")
-    try:
-        corpus = f"{root}/corpus.bin"
-        nbytes = accuracy_run.write_source_corpus(corpus)
-        zero_counts(wrappers)
+    corpus = f"{root}/corpus.bin"
+    nbytes = accuracy_run.write_source_corpus(corpus)
+    zero_counts(wrappers)
+    t0 = time.monotonic()
+    run_entry(train_lm.main, [*recipe, "--lm-attention", "flash",
+                              "--lm-corpus-file", corpus,
+                              "--train-dir", f"{root}/td", "--device",
+                              "cuda"])
+    wall = time.monotonic() - t0
+    launches = read_counts(wrappers)
+    found = EVAL_LM_RE.findall(run_entry(
+        evaluate.main, ["--train-dir", f"{root}/td", "--once",
+                        str(ACC_LM_STEPS)]))
+    print("ACCLM " + json.dumps({
+        "launches": launches, "found": found, "wall": wall,
+        "nbytes": nbytes, "layers": recipe[recipe.index("--lm-layers") + 1]
+    }), flush=True)
+    return 0
+
+
+def checks_rank_main(argv) -> int:
+    """CHECK zero-wire and CHECK hier in a process of its own
+    (``--rank-checks``), run beside MAIN-LMDIST's launch: both are the
+    host's work on trees from the card (the sharded wire update at 1, 2
+    and 3 shards; the two-tier aggregator and the hierarchy drill's
+    bitwise phase at ResNet-18's width), and neither launches a kernel.
+    Each prints its CHECK lines and its time."""
+    import torch
+    for check in (check_zero_wire, check_hier):
         t0 = time.monotonic()
-        run_entry(train_lm.main, [*recipe, "--lm-attention", "flash",
-                                  "--lm-corpus-file", corpus,
-                                  "--train-dir", f"{root}/td", "--device",
-                                  "cuda"])
-        wall = time.monotonic() - t0
-        launches = read_counts(wrappers)
-        found = EVAL_LM_RE.findall(run_entry(
-            evaluate.main, ["--train-dir", f"{root}/td", "--once",
-                            str(ACC_LM_STEPS)]))
+        check(torch)
+        print(f"CHECKS {check.__name__} {time.monotonic() - t0:.1f} s",
+              flush=True)
+    return 0
+
+
+def start_beside() -> dict:
+    """ACCURACY digits (``python -m ps_pytorch_tpu_torch.tools.
+    accuracy_run``: LeNet on the UCI digits, ``train`` then ``evaluate
+    --once``, each a process), ACCURACY-LM (``--rank-acclm``) and the
+    host-heavy checks (``--rank-checks``), each a process of its own,
+    started beside MAIN-LMDIST's launch: they read and count nothing of
+    this process, so its launch counts stay its own. ``finish_beside``
+    waits for them."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_accuracy_")
+    here = Path(__file__).resolve()
+    procs = {}
+    for name, cmd in (
+            ("digits", [sys.executable, "-m",
+                        "ps_pytorch_tpu_torch.tools.accuracy_run",
+                        "--train-dir", f"{root}/td", "--out",
+                        f"{root}/accuracy.json", "--device", "cuda"]),
+            ("lm", [sys.executable, str(here), "--rank-acclm", root]),
+            ("checks", [sys.executable, str(here), "--rank-checks"])):
+        log = open(f"{root}/{name}.log", "w")
+        # A session of its own: a failure here kills its children too.
+        procs[name] = (subprocess.Popen(cmd, cwd=str(here.parent),
+                                        stdout=log, stderr=subprocess.STDOUT,
+                                        start_new_session=True), log)
+    atexit.register(stop_sessions, [p for p, _ in procs.values()])
+    return {"root": root, "procs": procs, "t0": time.monotonic()}
+
+
+def stop_sessions(procs) -> None:
+    """SIGKILL each process's session (it and its children) if it still
+    runs."""
+    import signal
+    for proc in procs:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
+
+def finish_beside(torch, started: dict) -> dict:
+    """Wait for ``start_beside``'s processes and check them: every one
+    exits 0 (the checks' process fails on a check, printing FAIL),
+    ACCURACY digits' Prec@1 at least 0.98 (from the tool's artifact),
+    ACCURACY-LM's perplexity at most 16 and its flash launches those of
+    2000 steps and FINAL's 8 batches. Prints each one's lines; returns
+    ACCURACY-LM's launches."""
+    root = started["root"]
+    try:
+        rcs = {}
+        for name, (proc, log) in started["procs"].items():
+            try:
+                rcs[name] = proc.wait(timeout=900)
+            finally:
+                stop_sessions([proc])
+                log.close()
+        logs = {name: Path(f"{root}/{name}.log").read_text()
+                for name in started["procs"]}
+        for line in logs["checks"].splitlines():
+            print(line[:2000], flush=True)
+        for line in logs["lm"].splitlines():
+            if not line.startswith(("CONFIG", "[W")):
+                print(f"ACCURACY-LM [process] {line[:400]}", flush=True)
+        if any(rcs.values()):
+            fail(f"beside MAIN-LMDIST: exit codes {rcs}: "
+                 f"{ {k: v[-2000:] for k, v in logs.items()} }")
+        art = json.loads(Path(root, "accuracy.json").read_text())
+        found = re.findall(r"^ACCLM (.*)$", logs["lm"], re.M)
+        acc = json.loads(found[0]) if len(found) == 1 else {}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    if not (art["steps"] == 1200 and art["prec1"] >= 0.98
+            and art["met_target"] and art["platform"] == "gpu"):
+        fail(f"ACCURACY digits: {art}, Prec@1 below 0.98")
+    print(f"ACCURACY digits LeNet {art['steps']} steps: prec1 "
+          f"{art['prec1']:.4f} prec5 {art['prec5']:.4f} loss "
+          f"{art['eval_loss']} train_wall_s {art['train_wall_s']} (a "
+          f"process, its start included, beside MAIN-LMDIST) on "
+          f"{art['device_kind']}", flush=True)
+    if acc.get("layers") != str(ACC_LM_LAYERS):
+        fail(f"ACCURACY-LM: the recipe's layers are not {ACC_LM_LAYERS}")
+    found = acc["found"]
     if len(found) != 1 or not float(found[0][2]) <= ACC_LM_TARGET_PPL:
         fail(f"ACCURACY-LM: EVAL_LM {found}, perplexity above "
              f"{ACC_LM_TARGET_PPL}")
     # train_lm's FINAL evaluation: 8 of the 24 validation batches.
+    wrappers = kernel_wrappers()
     want = lm_flash_counts(wrappers, ACC_LM_STEPS, 8, ACC_LM_LAYERS,
                            remat=False)
-    if launches != want:
-        fail(f"ACCURACY-LM launches {launches}, expected {want}")
+    if acc["launches"] != want:
+        fail(f"ACCURACY-LM launches {acc['launches']}, expected {want}")
     print(f"ACCURACY-LM TransformerLM d 128 x 2 layers S 256 batch 16 "
-          f"flash, framework source bytes ({nbytes} B), {ACC_LM_STEPS} "
-          f"steps: perplexity {found[0][2]} loss {found[0][1]} "
-          f"train_wall_s {wall:.2f} launches {flash_by_kind(launches)}",
+          f"flash, framework source bytes ({acc['nbytes']} B), "
+          f"{ACC_LM_STEPS} steps: perplexity {found[0][2]} loss "
+          f"{found[0][1]} train_wall_s {acc['wall']:.2f} (a process beside "
+          f"MAIN-LMDIST) launches {flash_by_kind(acc['launches'])}; both "
+          f"done {time.monotonic() - started['t0']:.1f} s after their start",
           flush=True)
-    return launches
+    return acc["launches"]
 
 
 def kernel_wrappers() -> dict:
-    """Every kernel wrapper, by the name the kernels line gives it."""
-    from ps_pytorch_tpu_torch.ops import conv3x3 as conv_mod
-    from ps_pytorch_tpu_torch.ops import flash_attention as fa
-    from ps_pytorch_tpu_torch.ops import fused_adam as adam_mod
-    from ps_pytorch_tpu_torch.ops import fused_sgd as sgd_mod
-    from ps_pytorch_tpu_torch.ops import quantize as tq
-    return {"conv3x3": conv_mod.conv3x3,
-            "fused_sgd": sgd_mod.fused_sgd_update,
-            "fused_adam": adam_mod.fused_adam_update,
-            "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
-            "flash_dkv": fa.flash_dkv, "quantize": tq.quantize_int8}
+    """Every kernel wrapper, by the name the kernels line gives it (the
+    bench suite's table, whose rows count the same launches)."""
+    from ps_pytorch_tpu_torch import bench_suite
+    return bench_suite.kernel_wrappers()
 
 
 THEN = "--then"
@@ -5935,6 +6049,130 @@ def memory_main_path(torch) -> dict:
     return launches
 
 
+def bench_errors(row: dict) -> list:
+    """A bench line's failure keys: ``error``, ``<rider>_error`` and the
+    parent's salvage marks."""
+    return sorted(k for k in row if k == "error" or k.endswith("_error")
+                  or k in ("extras_timeout", "extras_crashed"))
+
+
+def bench_run(module: str, args) -> list:
+    """``python -m <module> <args>`` from the checkout's root: its JSON
+    lines; fails on a non-zero exit."""
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          capture_output=True, text=True,
+                          cwd=str(Path(__file__).resolve().parent),
+                          timeout=BENCH_TIMEOUT_S + 120)
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"MAIN-BENCH {module} rc {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    return lines
+
+
+def bench_main_path(torch, wrappers) -> dict:
+    """MAIN-BENCH: ``python -m ps_pytorch_tpu_torch.bench`` with every
+    rider, ``bench_suite --isolate`` over ``BENCH_ROWS``, and the
+    hierarchy, poison and kvrep drills' bench phases (``--device cuda``).
+    Fails on any ``error`` or ``*_error`` key, a malformed line or row, a
+    row or rider that did not launch its kernel (conv3x3 and flash off
+    their tensor-core kernels included), a launch in the drills' phases
+    (LeNet and the wire run none), a false ``bitwise_identical`` or a
+    hierarchy ``rel_err`` of 0.05 or more (kvrep's payload equality is
+    asserted in its bench). The three budgets (hierarchy ``speedup`` > 1,
+    integrity < 2%, kvrep < 5%) are printed with the port's gate verdict:
+    a budget missed is a measurement, not a failure. Returns each
+    kernel's launches by row."""
+    from ps_pytorch_tpu_torch.tools import (
+        hierarchy_drill, kvrep_drill, poison_drill, regress,
+    )
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card, kind = card_line(), torch.cuda.get_device_name(0)
+    t0 = time.monotonic()
+    lines = bench_run("ps_pytorch_tpu_torch.bench",
+                      (*BENCH_ARGS, "--timeout", str(BENCH_TIMEOUT_S)))
+    head = lines[-1]
+    bad = bench_errors(head)
+    if len(lines) != 1 or bad:
+        fail(f"MAIN-BENCH headline: {len(lines)} lines, "
+             f"{ {k: head[k] for k in bad} }")
+    missing = [k for k in BENCH_KEYS if head.get(k) is None]
+    if (missing or head["platform"] != "gpu" or head["device_kind"] != kind
+            or not head["value"] > 0 or not head["mfu"] > 0):
+        fail(f"MAIN-BENCH headline malformed (missing {missing}): {head}")
+    launched = head.get("launches", {})
+    for kernel, key in BENCH_RIDERS.items():
+        if not launched.get(kernel):
+            fail(f"MAIN-BENCH headline: the {key} rider launched no "
+                 f"{kernel}: {launched}")
+    print(f"MAIN-BENCH headline {json.dumps(head)} in "
+          f"{time.monotonic() - t0:.1f} s; card {card}", flush=True)
+
+    t0 = time.monotonic()
+    rows = {r.get("config"): r for r in bench_run(
+        "ps_pytorch_tpu_torch.bench_suite",
+        (*BENCH_SUITE_ARGS, "--configs", ",".join(BENCH_ROWS)))}
+    by_row = {}
+    for name, kernels in BENCH_ROWS.items():
+        row = rows.get(name, {"error": "no row"})
+        counts = row.get("launches", {})
+        if (bench_errors(row) or row.get("platform") != "gpu"
+                or row.get("device_kind") != kind
+                or row.get("bitwise_identical") is False):
+            fail(f"MAIN-BENCH {name}: {row}")
+        if any(not counts.get(k) for k in kernels) or any(
+                counts.get(f"{k}_tc", 0) != counts[k] for k in kernels
+                if f"{k}_tc" in kernels):
+            fail(f"MAIN-BENCH {name} launched {counts}, not all of "
+                 f"{kernels} (every conv3x3 and flash launch on the "
+                 f"tensor cores)")
+        by_row[name] = counts
+        print(f"MAIN-BENCH suite {json.dumps(row)}", flush=True)
+    print(f"MAIN-BENCH suite {len(BENCH_ROWS)} rows in "
+          f"{time.monotonic() - t0:.1f} s; card {card}", flush=True)
+
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    zero_counts(wrappers)
+    try:
+        arts = {}
+        for family, drill, phase in (("hierarchy", hierarchy_drill, "bench"),
+                                     ("integrity", poison_drill, "bench"),
+                                     ("kvrep", kvrep_drill, "overhead")):
+            out = f"{root}/{family}.json"
+            rc = drill.main(["--phase", phase, "--device", "cuda",
+                             "--run-dir", f"{root}/{family}", "--out", out])
+            arts[family] = json.loads(Path(out).read_text())
+            if rc != (0 if arts[family]["ok"] else 1):
+                fail(f"MAIN-BENCH {family} drill rc {rc}: {arts[family]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = read_counts(wrappers)
+    if counts != want_counts(wrappers):
+        fail(f"MAIN-BENCH the drills' bench phases launched {counts}")
+    hier = arts["hierarchy"]["phases"]["bench"]
+    integ = arts["integrity"]["phases"]["bench"]
+    if not hier["rel_err"] < 0.05 or (integ["platform"], integ[
+            "device_kind"]) != ("gpu", kind):
+        fail(f"MAIN-BENCH drills: hierarchy {hier}, integrity {integ}")
+    for family, metric, budget in (("hierarchy", "bench_speedup", "> 1"),
+                                   ("integrity", "overhead_frac", "< 0.02"),
+                                   ("kvrep", "overhead_frac", "< 0.05")):
+        check = regress.compare(family, None, arts[family])["configs"][
+            "invariants"]["metrics"][metric]
+        print(f"MAIN-BENCH budget {family} {metric} {check['cand']} "
+              f"(budget {budget}): gate ok={check['ok']}", flush=True)
+    print(f"MAIN-BENCH drills hierarchy {json.dumps(hier)} integrity "
+          f"{json.dumps(integ)} kvrep "
+          f"{json.dumps(arts['kvrep']['kvrep']['overhead'])} in "
+          f"{time.monotonic() - t0:.1f} s; card {card}", flush=True)
+    return {"MAIN-BENCH headline (a child, with its riders)": launched,
+            **{f"MAIN-BENCH {name} (a child)": c
+               for name, c in by_row.items()}}
+
+
 def cache_bytecode() -> None:
     """Compile Python sources once for all the processes this script
     starts. Where the environment says not to write bytecode
@@ -5957,7 +6195,9 @@ RANK_MODES = {"--rank": rank_main, "--rank-wire": wire_rank_main,
               "--rank-shard": shard_rank_main,
               "--rank-poison": poison_rank_main,
               "--rank-hier": hier_rank_main,
-              "--rank-lmdist": lmdist_rank_main}
+              "--rank-lmdist": lmdist_rank_main,
+              "--rank-acclm": acclm_rank_main,
+              "--rank-checks": checks_rank_main}
 
 
 def main() -> int:
@@ -6115,12 +6355,10 @@ def main() -> int:
         timed(wire_int8_bytes_agree, torch, tq)
         wire_launches = timed(wire_main_path, wrappers)
         elect_launches = timed(elect_main_path, wrappers)
-        timed(check_zero_wire, torch)
         shard_launches = timed(shard_main_path, wrappers)
         shard_slices = timed(shard_slices_leg, torch, wrappers)
         timed(check_integrity_on_device, torch)
         poison_launches = timed(poison_main_path, wrappers)
-        timed(check_hier, torch)
         hier_launches = timed(hier_main_path, wrappers)
         hier_slices = timed(hier_slices_leg, torch, wrappers)
         kvrep_launches = timed(kvrep_main_path, wrappers)
@@ -6134,17 +6372,18 @@ def main() -> int:
         lmckpt = timed(lm_ckpt_main_path, torch, wrappers)
         torch.cuda.empty_cache()
         memory = timed(memory_main_path, torch)
+        # ACCURACY digits, ACCURACY-LM and CHECK zero-wire and hier,
+        # processes of their own, run beside MAIN-LMDIST (its ranks are
+        # processes too): the script gains their ~90 s; LMDIST's step
+        # times and theirs share the card and the host.
+        beside = start_beside()
         lmdist = timed(lmdist_main_path, torch, wrappers)
+        acc_lm = timed(finish_beside, torch, beside)
         torch.cuda.empty_cache()
         served = timed(serve_main_path, torch, wrappers,
                        lmckpt["served_dir"])
-        # ACCURACY digits' two processes (LeNet on the card) run beside
-        # ACCURACY-LM in this one: neither reads the other's launches or
-        # times, and the script's budget gains the digits' ~24 s.
-        with ThreadPoolExecutor(1) as beside:
-            digits = beside.submit(timed, digits_accuracy, torch)
-            acc_lm = timed(accuracy_lm, torch, wrappers)
-            digits.result()
+        torch.cuda.empty_cache()
+        bench = timed(bench_main_path, torch, wrappers)
 
     kernels = [
         dict(name="conv3x3", route="cuda",
@@ -6339,6 +6578,16 @@ def main() -> int:
         for name, line in (("flash_fwd", 95), ("flash_dq", 164),
                            ("flash_dkv", 189))
     ]
+    # MAIN-BENCH's children: each kernel's launches by row.
+    for kernel in kernels:
+        name = kernel["name"]
+        for path, counts in bench.items():
+            if counts.get(name):
+                kernel.setdefault("launches_by_path", {})[path] = \
+                    counts[name]
+            if f"{name}_tc" in counts:
+                kernel.setdefault("tc_launches_by_path", {})[path] = \
+                    counts[f"{name}_tc"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"CARD {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,10 +40,19 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A host array, or a tensor already on ``device``, -> the tensor on
+    ``device``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a))
+    return a.to(device, non_blocking=True)
+
+
 def _input(x, device, input_norm) -> torch.Tensor:
-    """Host batch -> device tensor; raw uint8 is normalized on the device
-    (``x * scale - shift``, dp.py:97-103)."""
-    x = torch.as_tensor(np.asarray(x)).to(device, non_blocking=True)
+    """Host batch (or one already on the device) -> device tensor; raw
+    uint8 is normalized on the device (``x * scale - shift``,
+    dp.py:97-103)."""
+    x = _tensor(x, device)
     if input_norm is not None:
         scale = torch.as_tensor(input_norm[0], device=device)
         shift = torch.as_tensor(input_norm[1], device=device)
@@ -163,7 +172,7 @@ class TrainStep:
         m, msum = float(mask[self.rank]), float(mask.sum())
         denom = max(msum, 1.0)
         x = _input(x, self.device, self.input_norm)
-        y = torch.as_tensor(np.asarray(y)).to(self.device, non_blocking=True)
+        y = _tensor(y, self.device)
         self.model.train()
         self.comm_s = 0.0
         self.flat_grad.zero_()

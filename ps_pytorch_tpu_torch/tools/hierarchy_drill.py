@@ -17,9 +17,10 @@
   residuals); the rerun from the checkpoint must end bitwise where the
   uninterrupted run ends.
 
-The JAX drill's third phase, the hier-against-flat latency bench, needs
-``bench_suite.py``, which is not ported yet (ROADMAP.md): ``--phase
-bench`` raises.
+- **bench** (in one process): the hier-against-flat latency row of the
+  port's ``bench_suite.bench_hier_agg`` at the JAX drill's scale (2 MB
+  payload, 4 slices in groups of 2, one rep): the regress ``hierarchy``
+  family's ``speedup > 1`` travels in the artifact's ``hierarchy.bench``.
 
     python -m ps_pytorch_tpu_torch.tools.hierarchy_drill --device cpu \\
         --out /tmp/hier_drill.json
@@ -176,9 +177,12 @@ def _phase_bitwise(resume_step: int = 20, total_steps: int = 32,
 
 
 def _phase_bench() -> dict:
-    raise NotImplementedError(
-        "the hierarchy drill's bench phase (bench_suite.bench_hier_agg) is "
-        "not ported yet (ROADMAP.md)")
+    """The hier-against-flat latency row at drill scale (small payload,
+    one rep), the JAX drill's arguments."""
+    from ps_pytorch_tpu_torch import bench_suite
+    return bench_suite.bench_hier_agg(
+        "drill_hier_bench", 1, payload_mb=2, leaf_kb=256,
+        n_slices=4, group_size=2)
 
 
 # ----------------------------------------------------------------- drill
@@ -241,15 +245,13 @@ def main(argv=None) -> int:
     if args.phase == "worker":
         _worker_partition(args)
         return 0
-    if args.phase == "bench":
-        _phase_bench()
     base = pathlib.Path(args.run_dir or tempfile.mkdtemp(
         prefix="hierarchy_drill_"))
     out = _drill.artifact_path(args.out, base, "hierarchy_drill.json",
                                ARTIFACT_NOT_WRITTEN)
     art = {"platform": args.device, "processes": 4,
            "scenario": "hier_subtree_partition_degrade_regraft + "
-                       "bitwise_ef_resume",
+                       "bitwise_ef_resume + hier_vs_flat_bench",
            "phases": {}}
     ok = True
     if args.phase in ("all", "partition"):
@@ -290,6 +292,15 @@ def main(argv=None) -> int:
         art["phases"]["bitwise"] = p2
         art["bitwise_equal"] = p2["bitwise_equal"]
         ok = ok and p2["ok"]
+    if args.phase in ("all", "bench"):
+        p3 = _phase_bench()
+        p3_ok = p3["speedup"] > 1.0 and p3["rel_err"] < 0.05
+        print(f"PHASE bench ok={p3_ok} flat_s={p3['flat_s']} "
+              f"hier_s={p3['hier_s']} speedup={p3['speedup']}", flush=True)
+        art["phases"]["bench"] = p3
+        art.setdefault("hierarchy", {})["bench"] = {
+            k: p3[k] for k in ("flat_s", "hier_s", "speedup", "rel_err")}
+        ok = ok and p3_ok
     art["ok"] = bool(ok)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(art, indent=1))

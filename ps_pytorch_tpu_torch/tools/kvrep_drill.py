@@ -23,11 +23,12 @@ artifact) on the port's ``runtime/kvrep.py``. The KV itself is the victim.
   and ``kv_backend_wipe`` armed on one backend and a client restart
   mid-sequence that resumes from a quorum read, ends bitwise on the
   numpy oracle.
-
-The JAX drill's fourth phase, the replication-overhead bench, needs
-``bench_suite.py``, which is not ported yet (ROADMAP.md): ``--phase
-overhead`` raises, and the artifact's ``kvrep.overhead`` is empty (the
-JAX gate's 5% budget then fails it; it needs that bench).
+- **overhead** (in one process): the replication-overhead row of the
+  port's ``bench_suite.bench_kvrep_overhead`` (the wire bench's 24 MB
+  publish and read over one store and over the 3-way quorum at a 2 ms
+  RTT, 3 steps), the artifact's ``kvrep.overhead`` (the regress ``kvrep``
+  family's 5% budget). ``--phase overhead`` runs it alone and writes an
+  artifact with that section only.
 
 The JAX defaults are kept: 24 versions, the kill once a step >= 2 is
 logged, a 4 s window. They were sized so that the kill, the probation,
@@ -499,16 +500,26 @@ def _phase_bitwise() -> dict:
 
 
 def _phase_overhead() -> dict:
-    raise NotImplementedError(
-        "the kvrep drill's overhead phase (bench_suite."
-        "bench_kvrep_overhead) is not ported yet (ROADMAP.md)")
+    """The replication-tax row: the wire bench's publish and read over
+    one backend and over the 3-way quorum at the same RTT (<5%)."""
+    from ps_pytorch_tpu_torch import bench_suite
+    row = bench_suite.bench_kvrep_overhead("kvrep_overhead", 3)
+    out = {"ok": bool(row["ok"]),
+           "overhead_frac": row["overhead_frac"],
+           "single_s": row["single_s"], "replicated_s": row["replicated_s"],
+           "payload_mb": row["payload_mb"], "rtt_ms": row["rtt_ms"],
+           "n_backends": row["n_backends"], "budget": 0.05}
+    print(f"PHASE overhead ok={out['ok']} frac={out['overhead_frac']} "
+          f"single={out['single_s']}s replicated={out['replicated_s']}s",
+          flush=True)
+    return out
 
 
 def build_artifact(args, train: dict, serve: dict, bitwise: dict,
                    overhead=None) -> dict:
     """The JAX drill's artifact (the regress ``kvrep`` family's contract).
-    ``overhead``: the replication-overhead row, None until the bench phase
-    is ported."""
+    ``overhead``: the replication-overhead row; without one the section
+    is empty and the artifact is not ok."""
     ok = bool(train["ok"] and serve["ok"] and bitwise["ok"]
               and overhead is not None and overhead["ok"])
     kills = int(train["kills"] + bitwise["kills"])
@@ -542,8 +553,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=("all", "overhead", "worker"),
-                    help="all, the overhead bench (not ported yet), or "
-                         "one training process (worker, started by the "
+                    help="all, the overhead bench alone, or one "
+                         "training process (worker, started by the "
                          "launcher)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--train-dir", default="")
@@ -566,25 +577,27 @@ def main(argv=None) -> int:
     if args.phase == "worker":
         _worker_train(args)
         return 0
-    if args.phase == "overhead":
-        _phase_overhead()
     _drill.require_device(args.device)
     base = pathlib.Path(args.run_dir or tempfile.mkdtemp(
         prefix="kvrep_drill_"))
     base.mkdir(parents=True, exist_ok=True)
     out = _drill.artifact_path(args.out, base, "kvrep_drill.json",
                                ARTIFACT_NOT_WRITTEN)
+    if args.phase == "overhead":
+        overhead = _phase_overhead()
+        art = {"platform": args.device, "ok": overhead["ok"],
+               "kvrep": {"overhead": overhead}}
+        out.write_text(json.dumps(art, indent=1))
+        print(f"WROTE {out} ok={art['ok']}")
+        return 0 if art["ok"] else 1
     train = _phase_train(args, base)
     serve = _phase_serve(args, base)
     bitwise = _phase_bitwise()
-    print("PHASE overhead skipped: bench_suite is not ported yet")
-    art = build_artifact(args, train, serve, bitwise)
+    overhead = _phase_overhead()
+    art = build_artifact(args, train, serve, bitwise, overhead)
     out.write_text(json.dumps(art, indent=1))
-    # The drill's own phases decide the exit code; the artifact's ok
-    # waits for the overhead bench.
-    ok = all(p["ok"] for p in (train, serve, bitwise))
-    print(f"WROTE {out} ok={art['ok']} phases_ok={ok}")
-    return 0 if ok else 1
+    print(f"WROTE {out} ok={art['ok']}")
+    return 0 if art["ok"] else 1
 
 
 if __name__ == "__main__":

@@ -24,10 +24,12 @@ artifact) on the port's modules.
   1e8-scaled payloads for a window, quarantined, then readmitted; a
   control aggregator fed exactly the admitted sets ends on the same bits.
 
-The JAX drill's fifth phase, the integrity-overhead bench, needs
-``bench_suite.py``, which is not ported yet (ROADMAP.md): ``--phase
-bench`` raises, and the artifact has no ``overhead_frac`` (the JAX
-gate's 2% budget then fails it; it needs that bench).
+- **bench** (in one process): the integrity-overhead row of the port's
+  ``bench_suite.bench_integrity_overhead`` at the JAX drill's scale (20
+  steps, 2 reps): the per-step digest and screen cost of a 4-contributor
+  LeNet round on ``--device``, the artifact's ``integrity.overhead_frac``
+  (the regress ``integrity`` family's 2% budget). ``--phase bench`` runs
+  it alone and writes an artifact with that section only.
 
 The window is counted in the poisoner's own steps, the run in leader
 versions. The JAX defaults (16 poisoned steps of 40 versions) suit the
@@ -175,10 +177,19 @@ def _phase_bitwise(total_steps: int = 24) -> dict:
             "events": [list(e) for e in events]}
 
 
-def _phase_bench() -> dict:
-    raise NotImplementedError(
-        "the poison drill's bench phase (bench_suite."
-        "bench_integrity_overhead) is not ported yet (ROADMAP.md)")
+def _phase_bench(device: str = "cuda") -> dict:
+    """The integrity_overhead row at drill scale, the JAX drill's
+    arguments, on ``device``."""
+    from ps_pytorch_tpu_torch import bench_suite
+    return bench_suite.bench_integrity_overhead(
+        "poison_drill_bench", 20, reps=2, device=device)
+
+
+def run_bench(device: str) -> dict:
+    bench = _phase_bench(device)
+    print(f"PHASE bench ok={bench['ok']} overhead_frac="
+          f"{bench['overhead_frac']}", flush=True)
+    return bench
 
 
 # ------------------------------------------------------------- evidence
@@ -262,8 +273,8 @@ def parse_control(logs, rc: int, loss_clean: float) -> dict:
 def build_artifact(args, clean: dict, poison: dict, poison_ef: dict,
                    control: dict, bitwise: dict, bench=None) -> dict:
     """The JAX drill's artifact (the regress ``integrity`` family's
-    contract). ``bench``: the integrity-overhead row, None until the bench
-    phase is ported."""
+    contract). ``bench``: the integrity-overhead row; without one the
+    artifact has no ``overhead_frac`` and is not ok."""
     bench_ok = bench is not None and bool(bench["ok"])
     ok = bool(clean["ok"] and poison["ok"] and poison_ef["ok"]
               and control["ok"] and bitwise["ok"] and bench_ok)
@@ -332,9 +343,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", default="all",
                     choices=("all", "bench", "worker"),
-                    help="all, the bench (not ported yet), or one "
-                         "training process (worker, started by the "
-                         "launcher)")
+                    help="all, the bench alone, or one training process "
+                         "(worker, started by the launcher)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--train-dir", default="")
     ap.add_argument("--fault-spec", default="")
@@ -358,13 +368,23 @@ def main(argv=None) -> int:
     if args.phase == "worker":
         _worker(args)
         return 0
-    if args.phase == "bench":
-        _phase_bench()
     _drill.require_device(args.device)
     base = pathlib.Path(args.run_dir or tempfile.mkdtemp(
         prefix="poison_drill_"))
     out = _drill.artifact_path(args.out, base, "poison_drill.json",
                                ARTIFACT_NOT_WRITTEN)
+    if args.phase == "bench":
+        bench = run_bench(args.device)
+        art = {"platform": args.device, "ok": bool(bench["ok"]),
+               "integrity": {"overhead_frac": bench["overhead_frac"],
+                             "bench": {k: bench[k] for k in (
+                                 "baseline_s", "integrity_s",
+                                 "overhead_frac")}},
+               "phases": {"bench": bench}}
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(art, indent=1))
+        print(f"WROTE {out} ok={art['ok']}")
+        return 0 if art["ok"] else 1
     # scale=1e38 makes every poisoned payload a deterministic screen
     # reject: any leaf with absmax > ~1e-17 lands past the int8lat
     # exponent bound or at inf. The bit-flips are reader-side and
@@ -411,16 +431,13 @@ def main(argv=None) -> int:
     p4 = _phase_bitwise()
     print(f"PHASE bitwise ok={p4['ok']} bitwise_equal="
           f"{p4['bitwise_equal']} counters={p4['counters']}")
-    print("PHASE bench skipped: bench_suite is not ported yet")
+    bench = run_bench(args.device)
 
-    art = build_artifact(args, clean, poison, poison_ef, control, p4)
+    art = build_artifact(args, clean, poison, poison_ef, control, p4, bench)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(art, indent=1))
-    # The drill's own phases decide the exit code; the artifact's ok
-    # waits for the bench.
-    ok = all(p["ok"] for p in (clean, poison, poison_ef, control, p4))
-    print(f"WROTE {out} ok={art['ok']} phases_ok={ok}")
-    return 0 if ok else 1
+    print(f"WROTE {out} ok={art['ok']}")
+    return 0 if art["ok"] else 1
 
 
 if __name__ == "__main__":

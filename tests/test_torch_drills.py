@@ -6,13 +6,13 @@ poison, kvrep and router) against the JAX package's, on the CPU.
   KVREPSTATS and FINAL lines) and the load generator's stats, build an
   artifact that the JAX ``tools/regress.compare`` accepts for the
   ``elastic``, ``integrity``, ``kvrep`` and ``router`` families. The
-  integrity and kvrep gates also read a bench row (the overhead budget),
-  which comes from ``bench_suite``, not ported: given one, the artifact
-  passes; without one, the overhead budget is the only check it fails.
+  integrity and kvrep gates also read a bench row (the overhead budget,
+  from the port's ``bench_suite``): given one, the artifact passes;
+  without one, the overhead budget is the only check it fails.
 - The in-process bitwise phases (``poison_drill._phase_bitwise``,
   ``kvrep_drill._phase_bitwise``) report ``bitwise_equal`` true and the
-  JAX phases' counters; the bench phases raise until ``bench_suite`` is
-  ported.
+  JAX phases' counters; the bench phases, at a small size, give the JAX
+  phases' row keys (their ``ok`` is a timing, not asserted here).
 - Marked ``slow`` (each a minute or more of several processes): every
   drill's multi-process phases end to end with ``--device cpu`` at its
   defaults.
@@ -134,8 +134,8 @@ def test_poison_artifact_passes_the_jax_gate():
                                       poison_ef, control, bitwise, bench)
     report = regress.compare("integrity", None, art)
     assert report["ok"], report
-    # Without the bench row (bench_suite is not ported) the overhead
-    # budget is the one check that fails.
+    # Without the bench row the overhead budget is the one check that
+    # fails.
     art = poison_drill.build_artifact(_poison_args(), clean, poison,
                                       poison_ef, control, bitwise)
     assert not art["ok"] and "overhead_frac" not in art["integrity"]
@@ -147,13 +147,32 @@ def test_poison_artifact_passes_the_jax_gate():
     assert not poison_drill.parse_control(_finals("2.31"), 0, 2.3)["ok"]
 
 
-def test_poison_bitwise_phase_is_the_jax_phase():
+def _smaller(monkeypatch, module, name, steps, **kw):
+    """``module.name`` called with ``steps`` and ``kw`` over its caller's
+    arguments."""
+    full = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda row, _steps, **k: full(
+        row, steps, **{**k, **kw}))
+
+
+def test_poison_bitwise_phase_is_the_jax_phase(monkeypatch):
     got, want = poison_drill._phase_bitwise(), jax_poison_drill._phase_bitwise()
     assert got["ok"] and got["bitwise_equal"]
     for key in ("counters", "events", "rejected_rounds", "total_steps"):
         assert got[key] == want[key], key
-    with pytest.raises(NotImplementedError, match="not ported"):
-        poison_drill._phase_bench()
+    # The bench phase: the integrity-overhead row, LeNet at batch 16.
+    import bench_suite as jax_suite
+    from ps_pytorch_tpu_torch import bench_suite
+    _smaller(monkeypatch, bench_suite, "bench_integrity_overhead", 2,
+             batch=16, reps=1)
+    row = poison_drill._phase_bench("cpu")
+    want = jax_suite.bench_integrity_overhead("poison_drill_bench", 2,
+                                              batch=16, reps=1)
+    assert set(row) == set(want) | {"device_kind"}
+    assert (row["config"], row["steps"], row["platform"]) == \
+        ("poison_drill_bench", 2, "cpu")
+    assert row["wire_chunks"] == want["wire_chunks"]
+    assert row["baseline_s"] > 0 and row["integrity_s"] > 0
 
 
 # ------------------------------------------------------------------ kvrep --
@@ -198,12 +217,24 @@ def test_kvrep_artifact_passes_the_jax_gate():
                                          6, 6, 0)["ok"]
 
 
-def test_kvrep_bitwise_phase_is_the_jax_phase():
+def test_kvrep_bitwise_phase_is_the_jax_phase(monkeypatch):
     got, want = kvrep_drill._phase_bitwise(), jax_kvrep_drill._phase_bitwise()
     assert got["ok"] and got["bitwise_equal"]
     assert got == want
-    with pytest.raises(NotImplementedError, match="not ported"):
-        kvrep_drill._phase_overhead()
+    # The overhead phase at 2 MB, both packages.
+    import bench_suite as jax_suite
+    from ps_pytorch_tpu_torch import bench_suite
+    for module in (bench_suite, jax_suite):
+        _smaller(monkeypatch, module, "bench_kvrep_overhead", 1,
+                 payload_mb=2, leaf_kb=256, reps=1)
+    got, want = kvrep_drill._phase_overhead(), \
+        jax_kvrep_drill._phase_overhead()
+    assert set(got) == set(want)
+    assert {k: got[k] for k in ("payload_mb", "rtt_ms", "n_backends",
+                                "budget")} == \
+        {k: want[k] for k in ("payload_mb", "rtt_ms", "n_backends",
+                              "budget")} == \
+        {"payload_mb": 2, "rtt_ms": 2.0, "n_backends": 3, "budget": 0.05}
 
 
 # ----------------------------------------------------------------- router --
@@ -270,20 +301,25 @@ def test_elastic_drill_runs_on_the_cpu(tmp_path):
 
 @pytest.mark.slow
 def test_poison_drill_runs_on_the_cpu(tmp_path):
-    assert poison_drill.main(["--device", "cpu", "--run-dir",
-                              str(tmp_path), "--out",
-                              str(tmp_path / "a.json")]) == 0
+    rc = poison_drill.main(["--device", "cpu", "--run-dir", str(tmp_path),
+                            "--out", str(tmp_path / "a.json")])
     art = _artifact(tmp_path)
-    assert _failing(regress.compare("integrity", None, art)) == \
+    assert rc == (0 if art["ok"] else 1)
+    assert "overhead_frac" in art["integrity"]
+    # The bench's budget is a timing: the one check that may fail here.
+    assert _failing(regress.compare("integrity", None, art)) <= \
         {"ok", "overhead_frac"}
 
 
 @pytest.mark.slow
 def test_kvrep_drill_runs_on_the_cpu(tmp_path):
-    assert kvrep_drill.main(["--device", "cpu", "--run-dir", str(tmp_path),
-                             "--out", str(tmp_path / "a.json")]) == 0
-    assert _failing(regress.compare("kvrep", None, _artifact(tmp_path))) \
-        == {"ok", "overhead_frac"}
+    rc = kvrep_drill.main(["--device", "cpu", "--run-dir", str(tmp_path),
+                           "--out", str(tmp_path / "a.json")])
+    art = _artifact(tmp_path)
+    assert rc == (0 if art["ok"] else 1)
+    assert "overhead_frac" in art["kvrep"]["overhead"]
+    assert _failing(regress.compare("kvrep", None, art)) <= \
+        {"ok", "overhead_frac"}
 
 
 @pytest.mark.slow

@@ -538,7 +538,7 @@ def test_hier_members_may_submit_device_tensors():
 
 # ---- the drill's bitwise phase ----
 
-def test_drill_bitwise_phase_reproduces_the_jax_arc():
+def test_drill_bitwise_phase_reproduces_the_jax_arc(monkeypatch, tmp_path):
     """The port's drill phase: RESILIENCE_r14.json's events and counters,
     the JAX drill phase's, and its final vector bitwise the one the JAX
     package's HierarchicalAggregator gives in the same recurrence."""
@@ -557,8 +557,26 @@ def test_drill_bitwise_phase_reproduces_the_jax_arc():
         agg_cls=jax_hier.HierarchicalAggregator)
     assert other["final"]["w"].tobytes() == got["final"]["w"].tobytes()
     assert other["final_sha256"] == got["final_sha256"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        hierarchy_drill.main(["--phase", "bench"])
+    # The bench phase: the hier-against-flat row (1 MB, 10 ms across
+    # regions), its artifact section the JAX drill's.
+    import bench_suite as jax_suite
+    from ps_pytorch_tpu_torch import bench_suite
+    full = bench_suite.bench_hier_agg
+    monkeypatch.setattr(bench_suite, "bench_hier_agg", lambda *a, **k: full(
+        *a, **{**k, "payload_mb": 1, "inter_rtt_ms": 10.0}))
+    out = tmp_path / "bench.json"
+    rc = hierarchy_drill.main(["--phase", "bench", "--run-dir",
+                               str(tmp_path), "--out", str(out)])
+    art = json.loads(out.read_text())
+    row = art["phases"]["bench"]
+    want = jax_suite.bench_hier_agg("drill_hier_bench", 1, payload_mb=1,
+                                    leaf_kb=256, n_slices=4, group_size=2,
+                                    inter_rtt_ms=10.0)
+    assert set(row) == set(want) and row["n_groups"] == 2
+    assert row["rel_err"] < 0.05
+    assert set(art["hierarchy"]["bench"]) == {"flat_s", "hier_s",
+                                              "speedup", "rel_err"}
+    assert rc == (0 if art["ok"] else 1)
     with pytest.raises(ValueError, match="JAX drill"):
         hierarchy_drill.main(["--phase", "bitwise", "--out",
                               os.path.join(REPO, "no", "RESILIENCE_r14.json")])
