@@ -192,13 +192,18 @@ exit and no result line, if any phase fails:
    user runs it (MAIN-BENCH): ``python -m ps_pytorch_tpu_torch.bench
    --extras`` (the headline and every rider: fused SGD, the quantizer,
    the 4x batch, conv3x3 against ``F.conv2d``, the LM, decode), ``python
-   -m ps_pytorch_tpu_torch.bench_suite --isolate`` over five rows, each
-   launching its kernel in a child of its own (``resnet18_pallas_conv``,
+   -m ps_pytorch_tpu_torch.bench_suite`` over five rows in one process,
+   each launching its kernel (``resnet18_pallas_conv``,
    ``resnet18_fused_sgd``, ``int8_quantizer``, ``pallas_conv_ab``,
    ``transformer_lm_2k_flash``), and the hierarchy, poison and kvrep
    drills' bench phases; no row may carry an error, miss its kernel or
    break an invariant, and the three overhead and speedup budgets are
-   printed with the port's gate verdict;
+   printed with the port's gate verdict. Then MAIN-BENCH-RANKS: ``python
+   -m ps_pytorch_tpu_torch.bench_suite --ranks 2`` over
+   ``vgg11_pallas_conv`` (K-of-N, mask ``[1, 0]``) and ``resnet18_zero1``
+   as one launch of two ranks sharing the card (gloo): each row says
+   ``devices`` 2 and ``backend`` gloo, conv3x3 launches on the tensor
+   cores on both ranks, and both rows' ranks end with equal parameters;
 5. holds one small ResNet step in each of f32, bf16 and f16 (tensor-core
    conv only), one small bf16 VGG step (the same
    injected
@@ -424,15 +429,16 @@ CRASH_SPEC = "replica_crash:r=0,step=5;ckpt_corrupt:step=6;kv_drop:p=0.05,seed=7
 MEMORY_MODES = ("lm_base", "lm_remat", "lm_flash", "cnn_base", "cnn_remat")
 MEMORY_JOBS = len(MEMORY_MODES)
 MEMORY_STEPS = 3
-# MAIN-BENCH: the port's measurement harness as a user runs it, each a
-# process of its own: the headline with every rider, five suite rows each
-# in a child of its own (--isolate), with the kernel each row must launch
-# (conv3x3 and flash on their tensor-core kernels), and the three drills'
-# bench phases in this process. The headline's riders and the kernel
-# each launches: fused_* fused SGD, int8_* the quantizer, pallas_conv
-# conv3x3.
-BENCH_ARGS = ("--extras", "--steps", "5", "--warmup", "2")
-BENCH_SUITE_ARGS = ("--isolate", "--steps", "5")
+# MAIN-BENCH: the port's measurement harness as a user runs it: the
+# headline with every rider (a child of its own), five suite rows in one
+# process (one start-up; each row a child of its own under --isolate took
+# 11-15 s of start-up for 1-2 s of work), with the kernel each row must
+# launch (conv3x3 and flash on their tensor-core kernels), and the three
+# drills' bench phases in this process; both on one rank, whatever the
+# host's cards. The headline's riders and the kernel each launches:
+# fused_* fused SGD, int8_* the quantizer, pallas_conv conv3x3.
+BENCH_ARGS = ("--extras", "--steps", "5", "--warmup", "2", "--ranks", "1")
+BENCH_SUITE_ARGS = ("--steps", "5", "--ranks", "1")
 BENCH_ROWS = {"resnet18_pallas_conv": ("conv3x3", "conv3x3_tc"),
               "resnet18_fused_sgd": ("fused_sgd",),
               "int8_quantizer": ("quantize",),
@@ -447,6 +453,11 @@ BENCH_KEYS = ("value", "sec_per_step", "mfu", "fused_images_per_sec",
               "bigbatch_images_per_sec", "pallas_conv", "lm_tokens_per_sec",
               "decode")
 BENCH_TIMEOUT_S = 600
+# MAIN-BENCH-RANKS: two of the suite's rows over the ranks of a launch,
+# two ranks sharing the card (gloo): each row's kernels on every rank.
+BENCH_RANKS_ARGS = ("--ranks", "2", "--steps", "5", "--row-timeout", "240")
+BENCH_RANKS_ROWS = {"vgg11_pallas_conv": ("conv3x3", "conv3x3_tc"),
+                    "resnet18_zero1": ()}
 # MAIN-ELECT: the same ResNet-18 as three processes on the card, async over
 # the KV wire with the int8 codec, the PS leader a lease (--elastic) held
 # first by process 1 (process 0 serves the TCPStore, as in the JAX
@@ -6169,8 +6180,54 @@ def bench_main_path(torch, wrappers) -> dict:
           f"{json.dumps(arts['kvrep']['kvrep']['overhead'])} in "
           f"{time.monotonic() - t0:.1f} s; card {card}", flush=True)
     return {"MAIN-BENCH headline (a child, with its riders)": launched,
-            **{f"MAIN-BENCH {name} (a child)": c
+            **{f"MAIN-BENCH {name} (the suite's process)": c
                for name, c in by_row.items()}}
+
+
+def bench_ranks_main_path(torch) -> dict:
+    """MAIN-BENCH-RANKS: ``python -m ps_pytorch_tpu_torch.bench_suite
+    --ranks 2`` over ``BENCH_RANKS_ROWS``, one launch of two ranks that
+    share the card, so gloo. Fails unless each row says ``devices`` 2,
+    ``backend`` gloo and the global batch of two ranks, carries no error,
+    launched each of its kernels on both ranks (every conv3x3 launch on
+    the tensor cores), and ended with one parameter sha256 on both ranks;
+    ``vgg11_pallas_conv`` must be K-of-N with mask ``[1, 0]`` (its masked
+    rank computes, and joins the all-reduce with zeros). Returns each
+    kernel's launches by row and rank."""
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    card, kind = card_line(), torch.cuda.get_device_name(0)
+    t0 = time.monotonic()
+    rows = {r.get("config"): r for r in bench_run(
+        "ps_pytorch_tpu_torch.bench_suite",
+        (*BENCH_RANKS_ARGS, "--configs", ",".join(BENCH_RANKS_ROWS)))}
+    by_rank = {}
+    for name, kernels in BENCH_RANKS_ROWS.items():
+        row = rows.get(name, {"error": "no row"})
+        per = {"vgg11_pallas_conv": 256, "resnet18_zero1": 1024}[name]
+        if (bench_errors(row) or row.get("platform") != "gpu"
+                or row.get("device_kind") != kind
+                or (row.get("devices"), row.get("backend"),
+                    row.get("global_batch")) != (2, "gloo", 2 * per)
+                or len(row.get("rank_params_sha256", [])) != 2
+                or len(set(row["rank_params_sha256"])) != 1):
+            fail(f"MAIN-BENCH-RANKS {name}: {row}")
+        if name == "vgg11_pallas_conv" and row.get("mask") != [1, 0]:
+            fail(f"MAIN-BENCH-RANKS {name}: mask {row.get('mask')}, not "
+                 "K-of-N's [1, 0]")
+        for rank, counts in enumerate(row["rank_launches"]):
+            if any(not counts.get(k) for k in kernels) or any(
+                    counts.get(f"{k}_tc", 0) != counts[k] for k in kernels
+                    if f"{k}_tc" in kernels):
+                fail(f"MAIN-BENCH-RANKS {name} rank {rank} launched "
+                     f"{counts}, not all of {kernels} (every conv3x3 on "
+                     "the tensor cores)")
+            by_rank[f"MAIN-BENCH-RANKS {name} (rank {rank} of a launch of "
+                    "2)"] = counts
+        print(f"MAIN-BENCH-RANKS {json.dumps(row)}", flush=True)
+    print(f"MAIN-BENCH-RANKS {len(BENCH_RANKS_ROWS)} rows over 2 ranks in "
+          f"{time.monotonic() - t0:.1f} s; card {card}", flush=True)
+    return by_rank
 
 
 def cache_bytecode() -> None:
@@ -6384,6 +6441,7 @@ def main() -> int:
                        lmckpt["served_dir"])
         torch.cuda.empty_cache()
         bench = timed(bench_main_path, torch, wrappers)
+        bench.update(timed(bench_ranks_main_path, torch))
 
     kernels = [
         dict(name="conv3x3", route="cuda",

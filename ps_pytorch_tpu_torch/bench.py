@@ -9,6 +9,15 @@ Prints exactly ONE JSON line, ``{"metric", "value", "unit",
   ``--timeout``; the child prints the headline before its riders, so a
   rider that hangs or crashes leaves the measured headline in the line
   (``extras_timeout`` / ``extras_crashed``);
+- the child is ``--ranks N`` processes (default: the cards the host
+  shows; 1 with ``--device cpu``), one launch (``tools/launch.py``) of
+  one replica a rank over NCCL when each has a card, as the JAX headline
+  spans ``jax.devices()``: the global batch is ``--per-device-batch``
+  times N, each rank takes its rows of it (``bench_suite._build``), the
+  seconds a step are the slowest rank's, and rank 0 prints the line,
+  with ``devices`` N and ``backend``. The fused, large-batch and LM
+  riders span the ranks as the headline does (the LM as a ring over
+  them); the quantizer, conv3x3 and decode riders run on rank 0;
 - the run is ResNet-18, batch 1024, bf16, ``conv_impl`` xla (cuDNN), SGD
   lr 0.1 momentum 0.9 weight decay 1e-4 on ``default_rng(0)`` inputs, the
   JAX ``bench_suite._build`` default, through the port's
@@ -35,6 +44,7 @@ peak (``peak_flops_bf16``: 989 TFLOP/s for an H100); null off the card.
 rate, 415 images a second (80 img/s a node x 5.19, BASELINE.md).
 
     python -m ps_pytorch_tpu_torch.bench --extras
+    python -m ps_pytorch_tpu_torch.bench --ranks 4
     python -m ps_pytorch_tpu_torch.bench --device cpu \\
         --per-device-batch 16 --steps 2 --warmup 1
 """
@@ -53,13 +63,27 @@ REPO = str(Path(__file__).resolve().parents[1])
 
 
 def child_main(args) -> int:
-    """The measurement, under the parent's timeout. The model, the step
-    and the timing loop are ``bench_suite``'s, so the two cannot drift."""
+    """The measurement, under the parent's timeout: in one process, or as
+    one rank of the parent's launch (the env contract), which leaves the
+    group on its way out. The model, the step and the timing loop are
+    ``bench_suite``'s, so the two cannot drift."""
+    from ps_pytorch_tpu_torch.parallel import dist
+    try:
+        launched = dist.initialize_from_env(args.device) is not None
+        _measure(args, dist.world(), dist.rank() == 0)
+        if launched:        # the launcher's sign that this rank finished
+            print(f"FINAL rank {dist.rank()} of {dist.world()}", flush=True)
+        return 0
+    finally:
+        dist.shutdown()
+
+
+def _measure(args, world: int, lead: bool) -> None:
+    """The headline and riders over ``world`` replicas; ``lead`` prints."""
     import torch
 
     from ps_pytorch_tpu_torch import bench_suite
     from ps_pytorch_tpu_torch.config import TrainConfig
-    from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
     from ps_pytorch_tpu_torch.utils.flops import (
         peak_flops_bf16, training_flops,
     )
@@ -67,10 +91,11 @@ def child_main(args) -> int:
     if args.steps < 1 or args.warmup < 1:
         raise SystemExit("--steps and --warmup must be >= 1")
     bench_suite.DEVICE = args.device
+    bench_suite.DEVICES = world
     before = bench_suite.kernel_counts()
 
     t_init = time.perf_counter()
-    dev = resolve_device(args.device)
+    dev = bench_suite._device()
     torch.zeros(1, device=dev)
     init_s = time.perf_counter() - t_init
     chip = bench_suite._chip(dev)
@@ -85,6 +110,7 @@ def child_main(args) -> int:
                                           steps=args.steps,
                                           warmup=args.warmup)
     compile_s = time.perf_counter() - t_c - sec_per_step * args.steps
+    sec_per_step = bench_suite._slowest(sec_per_step, step_fn.group, dev)
     imgs_per_sec = batch / sec_per_step
 
     # FLOPs an image of the xla route (per-image cost is batch-invariant
@@ -104,6 +130,7 @@ def child_main(args) -> int:
         "flops_per_image_gf": round(flops_per_image / 1e9, 3),
         "global_batch": batch,
         "devices": n_dev,
+        "backend": bench_suite._backend(step_fn.group),
         "platform": chip["platform"],
         "device_kind": kind,
         "init_s": round(init_s, 1),
@@ -116,41 +143,96 @@ def child_main(args) -> int:
         out.update(moved)
         return out
 
+    def show():
+        if lead:
+            print(json.dumps(counted()), flush=True)
+
     # The headline prints before the riders: the parent keeps the LAST
     # metric line, so a rider that hangs into the timeout leaves it.
-    print(json.dumps(counted()), flush=True)
+    show()
     if args.extras:
-        _extras(args, out, counted, batch, n_dev, flops_per_image, peak)
-    print(json.dumps(counted()), flush=True)
-    return 0
+        _extras(args, out, show, batch, n_dev, flops_per_image, peak, lead)
+    show()
 
 
-def _extras(args, out, counted, batch, n_dev, flops_per_image, peak):
+def _extras(args, out, show, batch, n_dev, flops_per_image, peak, lead):
     """The JAX riders, each recording its own failure under
-    ``<key>_error``; the line is reprinted before each."""
-    import numpy as np
-
+    ``<key>_error``; the line is reprinted before each. The quantizer,
+    conv3x3 and decode riders run on the leading rank alone."""
     from ps_pytorch_tpu_torch import bench_suite
 
     dev = bench_suite._device()
     try:
         st, fn, xf, yf, mf = bench_suite._build("ResNet18", "Cifar10", batch,
                                                 fused=True)
-        fused_sps = bench_suite.time_steps(st, fn, xf, yf, mf,
-                                           steps=args.steps,
-                                           warmup=args.warmup)
+        fused_sps = bench_suite._slowest(
+            bench_suite.time_steps(st, fn, xf, yf, mf, steps=args.steps,
+                                   warmup=args.warmup), fn.group, dev)
         out["fused_sec_per_step"] = round(fused_sps, 5)
         out["fused_images_per_sec"] = round(batch / fused_sps, 1)
         del st, fn
     except Exception as e:
         out["fused_error"] = f"{type(e).__name__}: {e}"[:200]
-    print(json.dumps(counted()), flush=True)
+    show()
+    if lead:
+        _int8_rider(out, dev)
+    show()
     try:
-        import torch
+        big = 4 * args.per_device_batch * n_dev
+        st, fn, xb, yb, mb = bench_suite._build("ResNet18", "Cifar10", big)
+        big_sps = bench_suite._slowest(
+            bench_suite.time_steps(st, fn, xb, yb, mb,
+                                   steps=max(args.steps // 2, 5),
+                                   warmup=args.warmup), fn.group, dev)
+        out["bigbatch_global_batch"] = big
+        out["bigbatch_images_per_sec"] = round(big / big_sps, 1)
+        if peak:
+            out["bigbatch_mfu"] = round(
+                flops_per_image * big / big_sps / (peak * n_dev), 4)
+        del st, fn, xb
+    except Exception as e:
+        out["bigbatch_error"] = f"{type(e).__name__}: {e}"[:200]
 
-        from ps_pytorch_tpu_torch.ops.quantize import (
-            quantize_tree, quantized_nbytes,
-        )
+    def ride(key, fn_name, subset, steps_n):
+        show()
+        if not lead:
+            return
+        try:
+            r = getattr(bench_suite, fn_name)(f"bench_extra_{key}", steps_n)
+            out[key] = {k: r[k] for k in subset}
+        except Exception as e:
+            out[f"{key}_error"] = f"{type(e).__name__}: {e}"[:200]
+
+    ride("pallas_conv", "bench_pallas_conv_ab",
+         ("speedup_vs_xla", "speedup_vs_xla_bwd", "accepted_fwd",
+          "accepted_bwd", "xla_ms", "pallas_ms", "xla_grad_input_ms",
+          "pallas_grad_input_ms", "block_n"), 5)
+    show()
+    try:
+        lm = bench_suite.bench_transformer_lm("bench_extra_lm", steps=5)
+        out["lm_tokens_per_sec"] = lm["tokens_per_sec"]
+        out["lm_sec_per_step"] = lm["sec_per_step"]
+        out["lm_geometry"] = {k: lm[k] for k in
+                              ("batch", "seq_len", "d_model", "n_layers")}
+    except Exception as e:
+        out["lm_error"] = f"{type(e).__name__}: {e}"[:200]
+    ride("decode", "bench_lm_decode",
+         ("batch", "prompt_len", "n_new", "prefill_plus1_s",
+          "sec_per_token", "decode_tokens_per_sec"), 3)
+
+
+def _int8_rider(out, dev):
+    """The quantizer kernel on a VGG-11-sized vector, pipelined and
+    blocking; its failure under ``int8_error``."""
+    import numpy as np
+
+    import torch
+
+    from ps_pytorch_tpu_torch import bench_suite
+    from ps_pytorch_tpu_torch.ops.quantize import (
+        quantize_tree, quantized_nbytes,
+    )
+    try:
         n = 9_231_114   # VGG-11-sized gradient vector
         xq = torch.as_tensor(np.random.default_rng(0).normal(size=(n,))
                              .astype(np.float32)).to(dev)
@@ -174,46 +256,6 @@ def _extras(args, out, counted, batch, n_dev, flops_per_image, peak):
         out["int8_blocking_gbps"] = round(n * 4 / dtb / 1e9, 1)
     except Exception as e:
         out["int8_error"] = f"{type(e).__name__}: {e}"[:200]
-    print(json.dumps(counted()), flush=True)
-    try:
-        big = 4 * args.per_device_batch * n_dev
-        st, fn, xb, yb, mb = bench_suite._build("ResNet18", "Cifar10", big)
-        big_sps = bench_suite.time_steps(st, fn, xb, yb, mb,
-                                         steps=max(args.steps // 2, 5),
-                                         warmup=args.warmup)
-        out["bigbatch_global_batch"] = big
-        out["bigbatch_images_per_sec"] = round(big / big_sps, 1)
-        if peak:
-            out["bigbatch_mfu"] = round(
-                flops_per_image * big / big_sps / (peak * n_dev), 4)
-        del st, fn, xb
-    except Exception as e:
-        out["bigbatch_error"] = f"{type(e).__name__}: {e}"[:200]
-
-    def ride(key, fn_name, subset, steps_n):
-        print(json.dumps(counted()), flush=True)
-        try:
-            r = getattr(bench_suite, fn_name)(f"bench_extra_{key}", steps_n)
-            out[key] = {k: r[k] for k in subset}
-        except Exception as e:
-            out[f"{key}_error"] = f"{type(e).__name__}: {e}"[:200]
-
-    ride("pallas_conv", "bench_pallas_conv_ab",
-         ("speedup_vs_xla", "speedup_vs_xla_bwd", "accepted_fwd",
-          "accepted_bwd", "xla_ms", "pallas_ms", "xla_grad_input_ms",
-          "pallas_grad_input_ms", "block_n"), 5)
-    print(json.dumps(counted()), flush=True)
-    try:
-        lm = bench_suite.bench_transformer_lm("bench_extra_lm", steps=5)
-        out["lm_tokens_per_sec"] = lm["tokens_per_sec"]
-        out["lm_sec_per_step"] = lm["sec_per_step"]
-        out["lm_geometry"] = {k: lm[k] for k in
-                              ("batch", "seq_len", "d_model", "n_layers")}
-    except Exception as e:
-        out["lm_error"] = f"{type(e).__name__}: {e}"[:200]
-    ride("decode", "bench_lm_decode",
-         ("batch", "prompt_len", "n_new", "prefill_plus1_s",
-          "sec_per_token", "decode_tokens_per_sec"), 3)
 
 
 def _last_metric_line(text):
@@ -230,12 +272,14 @@ def _last_metric_line(text):
 def _run_attempt(args):
     """One child measurement under a hard timeout -> (the parsed JSON dict
     or None, an error string or None)."""
-    cmd = [sys.executable, "-m", "ps_pytorch_tpu_torch.bench", "--child",
-           "--per-device-batch", str(args.per_device_batch),
-           "--steps", str(args.steps), "--warmup", str(args.warmup),
-           "--device", args.device]
+    child = ["--child", "--per-device-batch", str(args.per_device_batch),
+             "--steps", str(args.steps), "--warmup", str(args.warmup),
+             "--device", args.device]
     if args.extras:
-        cmd.append("--extras")
+        child.append("--extras")
+    if args.ranks > 1:
+        return _run_ranks(args, child)
+    cmd = [sys.executable, "-m", "ps_pytorch_tpu_torch.bench", *child]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=args.timeout, cwd=REPO)
@@ -258,6 +302,26 @@ def _run_attempt(args):
         return d, None
     tail = (proc.stderr or proc.stdout or "").strip().splitlines()[-3:]
     return None, f"child: rc={proc.returncode}: " + " | ".join(tail)[-400:]
+
+
+def _run_ranks(args, child):
+    """The child as a launch of ``--ranks`` processes: rank 0's last
+    metric line, kept across a rider's timeout or crash as in one
+    process."""
+    from ps_pytorch_tpu_torch.tools.launch import run_fleet
+
+    rc, logs = run_fleet("ps_pytorch_tpu_torch.bench", args.ranks, child,
+                         args.timeout)
+    d = _last_metric_line(logs[0])
+    if rc == 0 and d is not None:
+        return d, None
+    if d is not None:
+        d["extras_timeout" if rc == 2 else "extras_crashed"] = (
+            True if rc == 2 else f"rc={rc}")
+        return d, None
+    tails = " | ".join(f"rank {r}: " + " ".join(
+        log.strip().splitlines()[-3:])[-300:] for r, log in enumerate(logs))
+    return None, f"launch of {args.ranks} ranks rc={rc}: {tails}"
 
 
 def _failure(error: str) -> dict:
@@ -298,9 +362,16 @@ def main(argv=None) -> int:
                    default=float(os.environ.get("BENCH_TIMEOUT", 900)),
                    help="seconds before the child is killed")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--ranks", type=int, default=0,
+                   help="replicas, one process a rank (default: the cards "
+                        "the host shows; 1 with --device cpu)")
     args = p.parse_args(argv)
     if args.child:
         return child_main(args)
+    if not args.ranks:
+        import torch
+        args.ranks = (max(torch.cuda.device_count(), 1)
+                      if args.device == "cuda" else 1)
     return parent_main(args)
 
 

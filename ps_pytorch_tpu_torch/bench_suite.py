@@ -22,24 +22,53 @@ config; ``--markdown`` also writes the BASELINE.md-style table.
   ``params_sha256`` and ``bitwise_identical`` equal the JAX rows' for the
   same seed and geometry.
 
-The port runs one replica a process, so a row the JAX suite runs over
-"all devices" runs on the one card this process drives and records
-``devices: 1`` (the ``kofn`` rows' ``num_aggregate = max(n - 1, 1)`` then
-leaves the mask full, as the JAX rule does at one device). An explicit
-``n_devices`` above 1 raises: several replicas are several processes
-(``tools/launch.py``). Every timed loop ends in
-``torch.cuda.synchronize()`` (and, for a step, reading its loss) before
-the clock is read.
+The JAX suite spans ``len(jax.devices())``; the port spans the ranks
+of a launch, one process a replica (``tools/launch.py``), ``--ranks N``
+of them (default: the cards the host shows, or 1 with ``--device cpu``):
+
+- **Rows over the ranks** (:data:`SPANNING`: the train-step rows whose
+  JAX counterpart spans the devices, and the LM rows without a pinned
+  attention) run as one launch of N rank processes, each on
+  ``cuda:{rank % cards}``, over NCCL when each rank has a card of its own
+  and gloo when they share one (``parallel/dist.py``). Rank r takes rows
+  ``[r*per, (r+1)*per)`` of the JAX global batch (drawn from
+  ``default_rng(0)`` at ``per * N``: the data axis's shard), the step
+  all-reduces over the default group, the mask is the JAX ``_build``'s
+  over N (K-of-N zeroes the ranks past ``num_aggregate``) and
+  ``shard_update`` shards over the ranks. ``transformer_lm_2k`` and its
+  remat twin run ring attention over the ranks (``parallel/sp.py``),
+  ``moe_lm_2k`` its experts over them (``parallel/ep.py``). A row's
+  seconds are the slowest rank's mean (an all-reduce MAX); rank 0 alone
+  writes it, with ``devices`` N, ``backend`` and, for a train step, the
+  ``mask``, every rank's ``rank_launches`` and ``rank_params_sha256``
+  (equal on every rank: one update on every replica).
+- **Rows in one process**: ``lenet_mnist_single`` and the rows of pinned
+  attention on one device, the loader rows at the JAX global batch (per
+  device times N), ``resnet18_async_2slice`` over N devices in one
+  ``MultiSliceTrainer`` (a slice count that does not divide N falls to
+  one slice, the JAX rule), and every host row.
+
+At one rank a spanning row runs in the suite's own process, with no
+group (``backend`` ``none``). Started under the env contract (by
+``tools.launch`` with ``--entry ps_pytorch_tpu_torch.bench_suite``), the
+suite joins that group instead: the spanning rows run on every rank, the
+others on rank 0 alone, and every rank ends with a ``FINAL`` line. A
+rank whose spanning row fails raises, and the launch ends the fleet.
+Every timed loop ends in ``torch.cuda.synchronize()`` (and, for a step,
+reading its loss) before the clock is read.
 
     python -m ps_pytorch_tpu_torch.bench_suite --configs int8_quantizer
+    python -m ps_pytorch_tpu_torch.bench_suite --ranks 4 \\
+        --configs vgg11_cifar100_kofn,resnet18_zero1,moe_lm_2k
     python -m ps_pytorch_tpu_torch.bench_suite --device cpu \\
         --configs wire_blocking_8mb,wire_overlapped_8mb --steps 2
 
-Usage: [--configs a,b] [--steps 20] [--device cuda|cpu] [--isolate]
-[--row-timeout S] [--markdown PATH].
+Usage: [--configs a,b] [--steps 20] [--device cuda|cpu] [--ranks N]
+[--isolate] [--row-timeout S] [--markdown PATH].
 """
 
 import argparse
+import hashlib
 import json
 import os
 import time
@@ -55,8 +84,17 @@ REPO = str(Path(__file__).resolve().parents[1])
 # The device of the chip rows (``--device``); every bench function also
 # takes ``device=`` for one call.
 DEVICE = "cuda"
-# Replicas this process runs: one. The JAX suite's ``len(jax.devices())``.
+# The world the rows span: ``--ranks``, or the group of the launch this
+# process joined. The JAX suite's ``len(jax.devices())``.
 DEVICES = 1
+
+# The rows that run on every rank of a launch.
+SPANNING = frozenset({
+    "lenet_mnist_dp", "resnet18_cifar10_dp", "vgg11_cifar100_kofn",
+    "resnet50_imagenet", "resnet18_fused_sgd", "resnet18_zero1",
+    "resnet18_remat", "resnet18_b2048", "resnet18_b4096",
+    "transformer_lm_2k", "transformer_lm_2k_remat", "moe_lm_2k",
+    "resnet18_pallas_conv", "vgg11_pallas_conv", "lenet_convergence"})
 
 # Effective reference rates (images/sec), the JAX suite's estimates
 # (BASELINE.md): a single m4.2xlarge ~80 img/s on ResNet-18, LeNet ~1,245
@@ -78,8 +116,10 @@ TC_COUNTED = ("conv3x3", "flash_fwd", "flash_dq", "flash_dkv")
 # ----------------------------------------------------------- the device
 
 def _device(device: Optional[str] = None) -> torch.device:
+    """The row's device: this rank's card in a launch."""
+    from ps_pytorch_tpu_torch.parallel import dist
     from ps_pytorch_tpu_torch.runtime.trainer import resolve_device
-    return resolve_device(device or DEVICE)
+    return dist.local_device(str(resolve_device(device or DEVICE)))
 
 
 def _chip(dev: torch.device) -> dict:
@@ -95,12 +135,63 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _one_process(n_devices) -> None:
-    if n_devices and n_devices > DEVICES:
-        raise ValueError(
-            f"n_devices={n_devices}: the port runs one replica a process; "
-            "run several through tools/launch.py (ps_pytorch_tpu_torch."
-            "tools.launch), one bench process a replica")
+def _row_group(n: int):
+    """The group a row over ``n`` replicas runs on: the launch's default
+    group when ``n`` is its world, none for one replica alone."""
+    from ps_pytorch_tpu_torch.parallel import dist
+    if n == DEVICES:
+        return dist.group()
+    if n == 1:
+        return None
+    raise ValueError(f"n_devices={n} in a world of {DEVICES}: run the "
+                     f"suite with --ranks {n} (one process a rank, "
+                     "tools/launch.py)")
+
+
+def _backend(group) -> str:
+    return torch.distributed.get_backend(group) if group is not None \
+        else "none"
+
+
+def _slowest(seconds: float, group, dev: torch.device) -> float:
+    """The largest of every rank's ``seconds`` (one all-reduce MAX): the
+    step of a synchronous group is its slowest rank's."""
+    if group is None:
+        return seconds
+    on = dev if _backend(group) == "nccl" else "cpu"
+    t = torch.tensor([seconds], dtype=torch.float64, device=on)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                 group=group)
+    return float(t[0])
+
+
+def _params_sha256(model: torch.nn.Module) -> str:
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _with_ranks(row: dict, before: dict, group, model=None,
+                mask=None) -> dict:
+    """``row`` with ``launches`` (this rank's), ``backend`` and, for a
+    train step, its ``mask``; in a group also every rank's launches and
+    parameter sha256, in rank order (a collective: every rank calls
+    it)."""
+    row = _with_launches(row, before)
+    row["backend"] = _backend(group)
+    if mask is not None:
+        row["mask"] = [int(m) for m in mask]
+    if group is not None:
+        mine = {"launches": row.get("launches", {}),
+                "params_sha256": (_params_sha256(model) if model is not None
+                                  else None)}
+        every = [None] * torch.distributed.get_world_size(group)
+        torch.distributed.all_gather_object(every, mine, group=group)
+        row["rank_launches"] = [r["launches"] for r in every]
+        if model is not None:
+            row["rank_params_sha256"] = [r["params_sha256"] for r in every]
+    return row
 
 
 def kernel_wrappers() -> dict:
@@ -143,11 +234,14 @@ def _with_launches(row: dict, before: dict) -> dict:
 def _build(network, dataset, batch, *, mode="sync", num_aggregate=0,
            n_devices=None, dtype="bfloat16", fused=False, remat=False,
            shard_update=False, lr=0.1, conv_impl="xla", device=None):
-    """(model, step, x, y, mask) of the JAX ``_build``: the port's
-    ``TrainConfig``, ``build_model`` (seed 0), ``build_optimizer`` and
+    """(model, step, x, y, mask) of the JAX ``_build`` over ``n_devices``
+    replicas (default: the world): the port's ``TrainConfig``,
+    ``build_model`` (seed 0), ``build_optimizer`` and
     ``parallel/dp.make_train_step`` (``parallel/zero`` under
-    ``shard_update``), inputs from ``default_rng(0)`` put on the device
-    once, a mask of ones (K-of-N's zeros past ``num_aggregate``)."""
+    ``shard_update``) on the row's group; the global batch of ``batch``
+    from ``default_rng(0)``, of which this rank's rows (the data axis's
+    shard) go to its device once; a mask of ones over the replicas
+    (K-of-N's zeros past ``num_aggregate``)."""
     from ps_pytorch_tpu_torch.config import TrainConfig
     from ps_pytorch_tpu_torch.data.datasets import DATASET_SHAPES
     from ps_pytorch_tpu_torch.models import build_model
@@ -155,7 +249,12 @@ def _build(network, dataset, batch, *, mode="sync", num_aggregate=0,
     from ps_pytorch_tpu_torch.parallel.dp import make_train_step
     from ps_pytorch_tpu_torch.runtime.trainer import set_reference_numerics
 
-    _one_process(n_devices)
+    n = n_devices or DEVICES
+    group = _row_group(n)
+    if batch % n:
+        raise ValueError(f"global batch {batch} over {n} replicas")
+    rank = torch.distributed.get_rank(group) if group is not None else 0
+    per = batch // n
     dev = _device(device)
     set_reference_numerics()
     cfg = TrainConfig(dataset=dataset, network=network, batch_size=batch,
@@ -166,17 +265,17 @@ def _build(network, dataset, batch, *, mode="sync", num_aggregate=0,
                       conv_impl=conv_impl)
     model = build_model(cfg.network, cfg.num_classes, cfg.compute_dtype,
                         cfg.conv_impl, seed=0).to(dev)
-    step = make_train_step(model, build_optimizer(cfg), remat=remat,
-                           shard_update=shard_update)
+    step = make_train_step(model, build_optimizer(cfg), group=group,
+                           remat=remat, shard_update=shard_update)
     h, w, c, ncls, _ = DATASET_SHAPES[dataset]
     rng = np.random.default_rng(0)
+    rows = slice(rank * per, (rank + 1) * per)
     x = torch.as_tensor(rng.normal(size=(batch, h, w, c))
-                        .astype(np.float32)).to(dev)
-    y = torch.as_tensor(rng.integers(0, ncls, batch).astype(np.int32)) \
-        .to(dev)
-    n_data = DEVICES
-    mask = np.ones(n_data, np.float32)
-    if mode == "kofn" and 0 < num_aggregate < n_data:
+                        .astype(np.float32)[rows]).to(dev)
+    y = torch.as_tensor(rng.integers(0, ncls, batch).astype(np.int32)
+                        [rows]).to(dev)
+    mask = np.ones(n, np.float32)
+    if mode == "kofn" and 0 < num_aggregate < n:
         mask[num_aggregate:] = 0.0
     return model, step, x, y, mask
 
@@ -208,17 +307,17 @@ def bench_throughput(name, network, dataset, per_device_batch, steps, **kw):
     from ps_pytorch_tpu_torch.telemetry import Tracer
 
     n_dev = kw.pop("n_devices", None) or DEVICES
-    _one_process(n_dev)
     batch = per_device_batch * n_dev
     before = kernel_counts()
     state, step_fn, x, y, mask = _build(network, dataset, batch,
                                         n_devices=n_dev, **kw)
     tracer = Tracer()
-    sec_per_step = time_steps(state, step_fn, x, y, mask, steps=steps,
-                              tracer=tracer)
+    sec_per_step = _slowest(
+        time_steps(state, step_fn, x, y, mask, steps=steps, tracer=tracer),
+        step_fn.group, step_fn.device)
     ips = batch / sec_per_step
     base = BASELINES.get(name)
-    return _with_launches({
+    return _with_ranks({
         "config": name, "network": network, "dataset": dataset,
         **_chip(step_fn.device), "devices": n_dev, "global_batch": batch,
         "sec_per_step": round(sec_per_step, 5),
@@ -227,7 +326,8 @@ def bench_throughput(name, network, dataset, per_device_batch, steps, **kw):
         "vs_baseline": round(ips / base, 2) if base else None,
         # The reference published only relative speedups: vs_baseline is
         # derived from estimates (BASELINES), not from a measurement.
-        "vs_baseline_basis": "estimate" if base else None}, before)
+        "vs_baseline_basis": "estimate" if base else None},
+        before, step_fn.group, state, mask)
 
 
 def bench_input_pipeline(name, dataset, per_device_batch, steps, workers=1):
@@ -326,21 +426,27 @@ def bench_async_multislice(name, steps, *, network="ResNet18",
                            dataset="synthetic", per_slice_batch=512,
                            n_slices=2, device=None):
     """Async (stale-gradient) throughput: the in-process
-    ``MultiSliceTrainer``, its canonical state on the device. The JAX
-    rule: a slice count that does not divide the devices falls to one
-    slice (here, at one device, always)."""
+    ``MultiSliceTrainer`` over the world's devices (the JAX trainer's
+    ``jax.devices()``: on the card ``cuda:{i % cards}`` for i < N), its
+    canonical state on the first. The JAX rule: a slice count that does
+    not divide the devices falls to one slice."""
     from ps_pytorch_tpu_torch.config import TrainConfig
     from ps_pytorch_tpu_torch.runtime.multislice import MultiSliceTrainer
 
-    if DEVICES % n_slices:
+    n = DEVICES
+    if n % n_slices:
         n_slices = 1
     dev = _device(device)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    devices = [torch.device("cuda", i % cards) if cards else dev
+               for i in range(n)]
     before = kernel_counts()
     cfg = TrainConfig(dataset=dataset, network=network,
                       batch_size=per_slice_batch, lr=0.1, momentum=0.9,
                       weight_decay=1e-4, mode="async", max_steps=10 ** 9,
                       eval_freq=0, log_every=10 ** 9)
-    t = MultiSliceTrainer(cfg, n_slices=n_slices, device=str(dev))
+    t = MultiSliceTrainer(cfg, n_slices=n_slices, devices=devices,
+                          device=str(devices[0]))
     for _ in range(3):          # build + warm
         t.tick()
     _sync(dev)
@@ -351,7 +457,7 @@ def bench_async_multislice(name, steps, *, network="ResNet18",
     dt = (time.perf_counter() - t0) / steps
     imgs = per_slice_batch * n_slices
     return _with_launches({
-        "config": name, "network": network, **_chip(dev),
+        "config": name, "network": network, **_chip(dev), "devices": n,
         "n_slices": n_slices, "per_slice_batch": per_slice_batch,
         "sec_per_tick": round(dt, 5),
         "images_per_sec": round(imgs / dt, 1),
@@ -388,64 +494,77 @@ def bench_transformer_lm(name, steps, *, batch=8, seq_len=2048, d_model=512,
                          n_layers=8, n_heads=8, vocab=32000, remat=False,
                          attention=None, device=None):
     """TransformerLM training throughput (tokens a second), f32, SGD lr
-    0.01 momentum 0.9, on one device: ``attention`` (``flash``: the
-    hand-written kernels) or, as the JAX suite does at one device,
-    ``full``."""
+    0.01 momentum 0.9. The JAX row's rule: an ``attention`` given
+    (``flash``: the hand-written kernels) pins the row to one device;
+    without one the sequence is sharded over the world's ranks with ring
+    attention (``parallel/sp.py``), and one device runs ``full``."""
     from ps_pytorch_tpu_torch.models.transformer import TransformerLM
-    from ps_pytorch_tpu_torch.parallel.sp import LMTrainStep
+    from ps_pytorch_tpu_torch.parallel.mesh import make_grid
+    from ps_pytorch_tpu_torch.parallel.sp import LMTrainStep, sequence_shard
     from ps_pytorch_tpu_torch.runtime.trainer import set_reference_numerics
 
+    n = 1 if attention is not None else DEVICES
+    group = _row_group(n)
+    axis = make_grid(data=n, model=1).data if n > 1 else None
     dev = _device(device)
     set_reference_numerics()
     before = kernel_counts()
-    impl = attention or "full"
+    impl = attention or ("ring" if n > 1 else "full")
     model = TransformerLM(vocab_size=vocab, d_model=d_model,
                           n_layers=n_layers, n_heads=n_heads,
                           max_seq_len=seq_len, attention_impl=impl,
-                          remat=remat,
+                          remat=remat, axis=axis,
                           generator=torch.Generator().manual_seed(0)).to(dev)
-    step = LMTrainStep(model, _lm_opt())
-    dt, m = _timed_steps(step, _lm_tokens(vocab, batch, seq_len), steps, dev)
-    return _with_launches({
+    step = LMTrainStep(model, _lm_opt(), axis)
+    tokens = sequence_shard(_lm_tokens(vocab, batch, seq_len), axis)
+    dt, m = _timed_steps(step, tokens, steps, dev)
+    dt = _slowest(dt, group, dev)
+    return _with_ranks({
         "config": name, "attention": impl, **_chip(dev),
-        "devices": DEVICES, "batch": batch, "seq_len": seq_len,
+        "devices": n, "batch": batch, "seq_len": seq_len,
         "d_model": d_model, "n_layers": n_layers, "remat": remat,
         "sec_per_step": round(dt, 5),
         "tokens_per_sec": round(batch * seq_len / dt, 1),
-        "loss": round(float(m["loss"]), 4)}, before)
+        "loss": round(float(m["loss"]), 4)}, before, group, model)
 
 
 def bench_moe_lm(name, steps, *, batch=8, seq_len=2048, d_model=512,
                  n_layers=8, n_heads=8, vocab=32000, n_experts=8,
                  device=None):
     """The MoE (switch top-1) LM at the dense row's geometry, its experts
-    over this process's one rank (``parallel/ep.py``); the expert count
-    rounds up to a multiple of the ranks, as in the JAX suite."""
+    over the world's ranks (``parallel/ep.py``), each rank a dispatch
+    group of its rows of the batch; the expert count rounds up to a
+    multiple of the ranks, as in the JAX suite."""
     from ps_pytorch_tpu_torch.models.moe import MoETransformerLM
     from ps_pytorch_tpu_torch.parallel import ep
-    from ps_pytorch_tpu_torch.parallel.mesh import Axis
+    from ps_pytorch_tpu_torch.parallel.mesh import Axis, make_grid
+    from ps_pytorch_tpu_torch.parallel.tp import batch_shard
     from ps_pytorch_tpu_torch.runtime.trainer import set_reference_numerics
 
+    n = DEVICES
+    group = _row_group(n)
+    axis = (make_grid(data=n, model=1).data if n > 1
+            else Axis("data", [0], 0, None))
     dev = _device(device)
     set_reference_numerics()
     before = kernel_counts()
-    n = DEVICES
     e = -(-n_experts // n) * n
-    alone = Axis("data", [0], 0, None)
     model = MoETransformerLM(vocab_size=vocab, d_model=d_model,
                              n_layers=n_layers, n_heads=n_heads,
                              n_experts=e, max_seq_len=seq_len,
                              generator=torch.Generator().manual_seed(0))
-    model = ep.shard_model_(model.to(dev), alone)
-    step = ep.EPTrainStep(model, _lm_opt(), alone)
-    dt, m = _timed_steps(step, _lm_tokens(vocab, batch, seq_len), steps, dev)
-    return _with_launches({
+    model = ep.shard_model_(model.to(dev), axis)
+    step = ep.EPTrainStep(model, _lm_opt(), axis)
+    tokens = batch_shard(_lm_tokens(vocab, batch, seq_len), axis)
+    dt, m = _timed_steps(step, tokens, steps, dev)
+    dt = _slowest(dt, group, dev)
+    return _with_ranks({
         "config": name, **_chip(dev), "devices": n, "batch": batch,
         "seq_len": seq_len, "d_model": d_model, "n_layers": n_layers,
         "n_experts": e, "sec_per_step": round(dt, 5),
         "tokens_per_sec": round(batch * seq_len / dt, 1),
         "loss": round(float(m["loss"]), 4),
-        "aux": round(float(m["aux"]), 4)}, before)
+        "aux": round(float(m["aux"]), 4)}, before, group)
 
 
 def bench_lm_decode(name, steps, *, batch=1, prompt_len=128, n_new=128,
@@ -723,7 +842,9 @@ def bench_time_to_loss(name, network, dataset, batch, target_loss,
                        max_steps=400, device=None):
     """Convergence probe: wall time to a training loss on a learnable
     synthetic task, in f32 (TF32 off) at lr 0.02, the loss read every
-    step so the step count is exact."""
+    step so the step count is exact; ``batch`` is the global batch over
+    the world's replicas, whose loss, all-reduced, ends every rank's loop
+    at the same step."""
     state, step_fn, x, y, mask = _build(network, dataset, batch,
                                         dtype="float32", lr=0.02,
                                         device=device)
@@ -735,9 +856,10 @@ def bench_time_to_loss(name, network, dataset, batch, target_loss,
         if float(m["loss"]) <= target_loss:
             break
     loss = float(m["loss"])
-    dt = time.perf_counter() - t0
+    dt = _slowest(time.perf_counter() - t0, step_fn.group, step_fn.device)
     return {"config": name, "network": network, "dataset": dataset,
-            **_chip(step_fn.device),
+            **_chip(step_fn.device), "devices": step_fn.world,
+            "backend": _backend(step_fn.group),
             "target_loss": target_loss, "reached_loss": round(loss, 4),
             "steps": i + 1, "seconds": round(dt, 3),
             "converged": loss <= target_loss}
@@ -1506,23 +1628,93 @@ def _run_isolated(name: str, steps: int, timeout_s: float) -> dict:
     import subprocess
     import sys as _sys
     cmd = [_sys.executable, "-m", "ps_pytorch_tpu_torch.bench_suite",
-           "--configs", name, "--steps", str(steps), "--device", DEVICE]
+           "--configs", name, "--steps", str(steps), "--device", DEVICE,
+           "--ranks", str(DEVICES)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=timeout_s, cwd=REPO)
     except subprocess.TimeoutExpired:
         return {"config": name, "error": f"timeout after {timeout_s:.0f}s "
                                          "(killed; device freed)"}
-    for line in reversed(res.stdout.splitlines()):
-        try:
-            r = json.loads(line)
-        except ValueError:
-            continue
-        if isinstance(r, dict) and r.get("config") == name:
+    for r in reversed(_json_rows(res.stdout)):
+        if r["config"] == name:
             return r
     return {"config": name,
             "error": f"child rc={res.returncode}: "
                      f"{(res.stderr or res.stdout)[-200:]}"}
+
+
+def _json_rows(text: str) -> list:
+    """The row lines (JSON objects with a ``config``) of ``text``."""
+    rows = []
+    for line in text.splitlines():
+        if not line.startswith("{"):
+            continue
+        try:
+            r = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(r, dict) and "config" in r:
+            rows.append(r)
+    return rows
+
+
+def _run_launch(names, steps: int, timeout_s: float) -> list:
+    """``names`` (rows of :data:`SPANNING`) as one launch of ``DEVICES``
+    rank processes (``tools/launch.py``, the suite as its entry) under a
+    hard wall-clock bound; -> rank 0's rows, and an error row for each
+    row it did not write (the launch's exit code and the logs' tails)."""
+    from ps_pytorch_tpu_torch.tools.launch import run_fleet
+
+    rc, logs = run_fleet("ps_pytorch_tpu_torch.bench_suite", DEVICES,
+                         ["--configs", ",".join(names), "--steps",
+                          str(steps), "--device", DEVICE], timeout_s)
+    got = {r["config"]: r for r in _json_rows(logs[0])}
+    tail = " | ".join(f"rank {r}: {log.strip()[-300:]}"
+                      for r, log in enumerate(logs))
+    return [got.get(name) or {"config": name, "error":
+                              f"launch of {DEVICES} ranks rc={rc}: {tail}"}
+            for name in names]
+
+
+def _run_here(name: str, steps: int) -> dict:
+    """One config in this process; its failure becomes the row."""
+    try:
+        return CONFIGS[name](steps)
+    except Exception as e:  # one config failing must not lose the rest
+        return {"config": name, "error": f"{type(e).__name__}: {e}"[:300]}
+
+
+def _rank_main(names, steps: int, device: str) -> int:
+    """The suite as one rank of a launch: join its group (the env
+    contract), run each spanning row on every rank and the others on rank
+    0 alone; rank 0 prints the rows. A spanning row that fails raises, so
+    the launcher ends the fleet rather than leave the others waiting in a
+    collective."""
+    global DEVICES
+    from ps_pytorch_tpu_torch.parallel import dist
+    try:
+        dist.initialize_from_env(device)
+        DEVICES = dist.world()
+        lead = dist.rank() == 0
+        rows = []
+        for name in names:
+            if name in SPANNING:
+                r = CONFIGS[name](steps)
+            elif lead:
+                r = _run_here(name, steps)
+            else:
+                continue
+            if lead:
+                print(json.dumps(r), flush=True)
+                rows.append(r)
+        if lead:
+            derived_rows(rows)
+        print(f"FINAL rank {dist.rank()} of {DEVICES}: {len(names)} "
+              "configs", flush=True)
+    finally:
+        dist.shutdown()
+    return 0
 
 
 def _emit(rows, out) -> None:
@@ -1687,7 +1879,7 @@ def markdown(rows) -> str:
 
 
 def main(argv=None) -> int:
-    global DEVICE
+    global DEVICE, DEVICES
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--configs", default=",".join(CONFIGS))
     p.add_argument("--steps", type=int, default=20)
@@ -1699,23 +1891,50 @@ def main(argv=None) -> int:
     p.add_argument("--row-timeout", type=float, default=600.0)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="the chip rows' device (cuda raises without a card)")
+    p.add_argument("--ranks", type=int, default=0,
+                   help="the world the spanning rows run over, one process "
+                        "a rank (default: the cards the host shows; 1 "
+                        "with --device cpu)")
     args = p.parse_args(argv)
     DEVICE = args.device
-
-    rows = []
-    for name in args.configs.split(","):
-        name = name.strip()
+    names = [n.strip() for n in args.configs.split(",")]
+    for name in names:
         if name not in CONFIGS:
             raise SystemExit(f"unknown config {name!r}; have {sorted(CONFIGS)}")
+    from ps_pytorch_tpu_torch.parallel import dist
+    if os.environ.get(dist.ENV_COORD):
+        if args.ranks:
+            raise SystemExit("--ranks in a launch: the launch's world is "
+                             "the suite's")
+        return _rank_main(names, args.steps, args.device)
+    DEVICES = args.ranks or (max(torch.cuda.device_count(), 1)
+                             if args.device == "cuda" else 1)
+
+    rows = []
+    pending: list = []
+
+    def flush() -> None:
+        if pending:
+            for r in _run_launch(pending, args.steps,
+                                 args.row_timeout * len(pending)):
+                print(json.dumps(r), flush=True)
+                rows.append(r)
+            pending.clear()
+
+    for name in names:
+        if name in SPANNING and DEVICES > 1:
+            pending.append(name)
+            if args.isolate:        # a spanning row is a launch of its own
+                flush()
+            continue
+        flush()
         if args.isolate:
             r = _run_isolated(name, args.steps, args.row_timeout)
         else:
-            try:
-                r = CONFIGS[name](args.steps)
-            except Exception as e:  # one config failing must not lose the rest
-                r = {"config": name, "error": f"{type(e).__name__}: {e}"[:300]}
+            r = _run_here(name, args.steps)
         print(json.dumps(r), flush=True)
         rows.append(r)
+    flush()
     derived_rows(rows)
     if args.markdown:
         with open(args.markdown, "w") as f:

@@ -27,11 +27,14 @@ its tensor-parallel step (Megatron's ``f`` and ``g``).
 The port's functions are written here rather than taken from
 ``torch.distributed.nn.functional``, whose backward rules have changed
 between releases. Point-to-point transfers post the send and the receive
-together (``isend`` + ``irecv``), so a ring of two ranks cannot deadlock.
-gloo moves point-to-point buffers from host memory only, so a CUDA tensor
-is staged through a host copy on a gloo group, and so is an
-all-to-all's buffer; an all-reduce hands gloo the CUDA tensor, which gloo
-reduces through host memory itself.
+together (``isend`` + ``irecv``; on NCCL as one group,
+``batch_isend_irecv``, since two ranks that each post a send before a
+receive on one communicator would wait on each other), so a ring of two
+ranks cannot deadlock. gloo moves point-to-point buffers from host memory
+only, so a CUDA tensor is staged through a host copy on a gloo group, and
+so is an all-to-all's buffer; an all-reduce hands gloo the CUDA tensor,
+which gloo reduces through host memory itself. On NCCL every CUDA tensor
+goes to the collective as it is.
 
 ``stats`` counts what this rank hands the backend: ``bytes_sent`` is the
 payload of every send, all-reduce, all-to-all and all-gather (an
@@ -73,8 +76,13 @@ def sendrecv_start(x: torch.Tensor, axis, dst: int, src: int):
         send = send.cpu()
     recv = torch.empty_like(send)
     _count(send)
-    reqs = [tdist.isend(send, axis.ranks[dst], group=axis.group),
-            tdist.irecv(recv, axis.ranks[src], group=axis.group)]
+    if tdist.get_backend(axis.group) == "nccl":
+        reqs = tdist.batch_isend_irecv([
+            tdist.P2POp(tdist.isend, send, axis.ranks[dst], axis.group),
+            tdist.P2POp(tdist.irecv, recv, axis.ranks[src], axis.group)])
+    else:
+        reqs = [tdist.isend(send, axis.ranks[dst], group=axis.group),
+                tdist.irecv(recv, axis.ranks[src], group=axis.group)]
 
     def wait() -> torch.Tensor:
         for req in reqs:

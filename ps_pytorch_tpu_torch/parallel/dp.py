@@ -88,9 +88,13 @@ class TrainStep:
     batch, y its labels, mask the [world] participation vector, key the
     step's Dropout key (needed only by a model with Dropout). Metrics are 0-d device
     tensors (loss, accuracy, participating, grad_norm, nonfinite): reading
-    one waits for the device. ``comm_s`` is the host time the last call
-    spent in its all-reduces: waiting for the other replicas, and for the
-    device where the backend copies through host memory (gloo).
+    one waits for the device. ``comm_s`` is the time the last call spent
+    in its collectives, waiting for the other replicas included: on gloo
+    the host clock around each call (gloo returns once the reduction,
+    through host memory, is done); on NCCL, which returns before the
+    reduction ends, the stream's time from a CUDA event before each
+    collective to one after it, read after the step's outputs were (the
+    events are done by then, so reading them waits for nothing).
 
     ``sync_batchnorm``: after the update, every replica's new running
     statistics become the masked mean over the replicas,
@@ -117,8 +121,12 @@ class TrainStep:
         self.skip_nonfinite = skip_nonfinite
         self.sync_batchnorm = sync_batchnorm
         self.remat = remat
-        self.comm_s = 0.0
         self.device = _device_of(model)
+        # Collectives on the card's stream are timed by CUDA events.
+        self._on_stream = (group is not None and self.device.type == "cuda"
+                           and dist.get_backend(group) == "nccl")
+        self._comm_host = 0.0
+        self._comm_events: list = []
         self.dropout = DropoutDraws(model, self.device)
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
@@ -154,10 +162,24 @@ class TrainStep:
         return checkpoint(forward, x, use_reentrant=False)
 
     def _timed(self, collective, *args) -> None:
-        """Run a collective over the group, its host time into comm_s."""
+        """Run a collective over the group, its time into ``comm_s``."""
+        if self._on_stream:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            collective(*args, group=self.group)
+            end.record()
+            self._comm_events.append((start, end))
+            return
         t0 = time.monotonic()
         collective(*args, group=self.group)
-        self.comm_s += time.monotonic() - t0
+        self._comm_host += time.monotonic() - t0
+
+    @property
+    def comm_s(self) -> float:
+        """Seconds the last call spent in its collectives."""
+        return self._comm_host + sum(
+            start.elapsed_time(end) for start, end in self._comm_events) / 1e3
 
     def _all_reduce(self, t: torch.Tensor) -> None:
         if self.group is not None:          # even at world 1
@@ -174,7 +196,7 @@ class TrainStep:
         x = _input(x, self.device, self.input_norm)
         y = _tensor(y, self.device)
         self.model.train()
-        self.comm_s = 0.0
+        self._comm_host, self._comm_events = 0.0, []
         self.flat_grad.zero_()
         for name, p in self.params.items():
             p.grad = self.grads[name]

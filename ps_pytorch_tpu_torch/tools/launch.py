@@ -18,6 +18,10 @@
   new leader and run on.
 - ``kill``: SIGTERM, then SIGKILL after ``--grace`` seconds.
 
+:func:`run_fleet` is the same launch and wait for a tool that starts
+ranks of its own (``bench``, ``bench_suite``): a temporary run dir, a
+free port, the logs returned.
+
 Host modes:
 
 - ``--simulate N``: N local processes (ranks that share a card all-reduce
@@ -37,15 +41,19 @@ arguments after ``--`` go to it. Run artifacts land in ``--run-dir``:
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shlex
+import shutil
 import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from ps_pytorch_tpu_torch.parallel import dist
 from ps_pytorch_tpu_torch.resilience.faults import LEADER_KILL_LINE
@@ -53,6 +61,33 @@ from ps_pytorch_tpu_torch.resilience.faults import LEADER_KILL_LINE
 PROCS_FILE = "procs.json"
 REPO = Path(__file__).resolve().parents[2]
 DEFAULT_ENTRY = "ps_pytorch_tpu_torch.train"
+
+
+def free_port() -> int:
+    """A TCP port free on this host now, for a local coordinator."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_fleet(entry: str, n: int, argv: List[str],
+              timeout_s: float) -> Tuple[int, List[str]]:
+    """``n`` local processes of ``entry`` with ``argv``, launched and
+    waited for (the fleet killed at ``timeout_s``, or as soon as one
+    exits without its FINAL line); -> (the wait's exit code, each
+    process's log). The launcher's own lines go to stderr."""
+    run_dir = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = main(["launch", "--run-dir", run_dir, "--simulate", str(n),
+                       "--port", str(free_port()), "--entry", entry,
+                       "--cwd", str(REPO), "--wait", "--timeout",
+                       str(timeout_s), "--grace", "5", "--", *argv])
+        logs = [Path(run_dir, f"proc_{r}.log").read_text(errors="replace")
+                for r in range(n)]
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return rc, logs
 
 
 def _read_hostfile(path: str) -> List[str]:

@@ -8,10 +8,11 @@ The JAX package's ``tools/regress.py`` in the port, host-only: the same
 (``images_per_sec``, ``tokens_per_sec``, the wire seconds) is compared
 only between rows of one device: where the candidate has chip rows (a
 ``platform`` other than ``"host"``), its baseline is the newest committed
-artifact whose chip rows name the same ``platform`` and ``device_kind``;
-where none does, the gate passes with "no committed baseline", as the
-JAX gate does for a family with no artifact. So an H100 row is never
-judged against a TPU row. Host rows keep the JAX rule.
+artifact whose chip rows name the same ``platform``, ``device_kind``
+and ``devices`` (the ranks a row spans); where none does, the gate
+passes with "no committed baseline", as the JAX gate does for a family
+with no artifact. So an H100 row is never judged against a TPU row, nor
+a row over four ranks against one over one. Host rows keep the JAX rule.
 
 Families and their watched metrics (direction, relative tolerance):
 
@@ -681,9 +682,11 @@ def _check_kvrep(spec: dict, candidate) -> dict:
 
 
 def chip_devices(doc) -> set:
-    """The ``(platform, device_kind)`` pairs of an artifact's chip rows:
-    rows with a ``platform`` other than ``"host"``."""
-    return {(r.get("platform"), r.get("device_kind")) for r in _as_rows(doc)
+    """The ``(platform, device_kind, devices)`` of an artifact's chip rows
+    (rows with a ``platform`` other than ``"host"``): a row over four
+    ranks is never judged against one over one."""
+    return {(r.get("platform"), r.get("device_kind"), r.get("devices"))
+            for r in _as_rows(doc)
             if isinstance(r, dict) and r.get("platform") not in (None,
                                                                  "host")}
 

@@ -9,8 +9,8 @@ LeNet.ipynb`` cell 6, ``analysis/Speedups_with_GradCompression.ipynb`` cell
 3; mirrored in BASELINE.md). This tool produces the same artifact for this
 framework in one command: for each (mode, world size) cell it runs
 the port's ``tools/launch.py --simulate N`` (N OS processes over the
-launcher's env contract and a gloo group, per-process input shards), then
-feeds the per-process STEP logs to
+launcher's env contract and a process group, per-process input shards),
+then feeds the per-process STEP logs to
 ``tools/analyze.py``'s max/min-per-step computation — "normal" speedup is
 the slowest worker, "ideal" the fastest, exactly the notebooks' definition.
 
@@ -27,9 +27,13 @@ like the reference's fixed-batch tables):
   ``sync_replicas_master_nn.py`` pool.
 
 With ``--device cpu`` the numbers are CPU numbers (``platform``
-``cpu-simulate``); with ``--device cuda`` (the default) every process of a
-cell shares the one card over gloo, as the chip smoke test's K-of-N ranks
-do (``gpu-simulate``). Either way the curve *shape* and the
+``cpu-simulate``, gloo). With ``--device cuda`` (the default) rank r of a
+cell runs on ``cuda:{r % cards}``: a cell of N ranks on a host of at
+least N cards runs one rank a card over NCCL, and the table's
+``platform`` is ``gpu`` when every cell does; ranks that share a card
+reduce over gloo (``gpu-simulate``, ``parallel/dist.py:choose_backend``).
+Each row records its cell's ``backend`` (the MESH line's, else that rule)
+and ``cards``. On shared cards or CPU cores the curve *shape* and the
 normal-vs-ideal gap are the reproducible content, as in the reference's
 m4.2xlarge tables. The artifact is written only where ``--out`` and
 ``--markdown`` say; the JAX ``SCALING_r04.*`` are never written.
@@ -38,24 +42,19 @@ m4.2xlarge tables. The artifact is written only where ``--out`` and
 import argparse
 import json
 import os
-import socket
+import re
 import sys
 import tempfile
 import time
 from typing import Dict, List
 
+from ps_pytorch_tpu_torch.parallel import dist
 from ps_pytorch_tpu_torch.tools import analyze as analyze_mod
 from ps_pytorch_tpu_torch.tools import launch as launch_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 ARTIFACTS_NOT_WRITTEN = ("SCALING_r04.json", "SCALING_r04.md")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _train_argv(mode: str, n: int, args) -> List[str]:
@@ -117,7 +116,7 @@ def run_cell(mode: str, n: int, args, work: str):
     cell_t0 = time.time()
     rc = launch_mod.main([
         "launch", "--run-dir", run_dir, "--simulate", str(n),
-        "--devices-per-host", "1", "--port", str(_free_port()),
+        "--devices-per-host", "1", "--port", str(launch_mod.free_port()),
         "--entry", "ps_pytorch_tpu_torch.train", "--cwd", REPO,
         "--wait", "--timeout", str(args.timeout),
         "--",
@@ -138,15 +137,39 @@ def run_cell(mode: str, n: int, args, work: str):
     return logs, wall
 
 
+def _cards(device: str) -> int:
+    if device == "cpu":
+        return 0
+    import torch
+    return torch.cuda.device_count()
+
+
+def cell_backend(logs: List[str], n: int, device: str) -> str:
+    """The backend a cell's ranks reduced over: process 0's MESH line's,
+    else the rule that picked it (``dist.choose_backend``)."""
+    try:
+        with open(logs[0]) as f:
+            found = re.search(r"^MESH .*backend=(\w+)", f.read(), re.M)
+    except OSError:
+        found = None
+    if found:
+        return found.group(1)
+    return dist.choose_backend("cpu" if device == "cpu" else "cuda", n,
+                               _cards(device))
+
+
 def build_table(args, work: str) -> dict:
     sizes = [int(s) for s in args.sizes.split(",")]
     modes = args.modes.split(",")
     cells_wall = 0.0
+    cards = _cards(args.device)
+    on_cards = args.device != "cpu" and max(sizes) <= cards
     result: dict = {
         "artifact": "scaling",
         "network": args.network, "dataset": args.dataset,
         "global_batch": args.batch_size, "steps_per_run": args.steps,
-        "platform": f"{'cpu' if args.device == 'cpu' else 'gpu'}-simulate",
+        "platform": ("gpu" if on_cards else
+                     f"{'cpu' if args.device == 'cpu' else 'gpu'}-simulate"),
         # N processes timeshare these cores: wall-clock speedup is only
         # meaningful up to host_cpus; past that the table's content is the
         # normal-vs-ideal gap (straggler story), not throughput.
@@ -166,6 +189,10 @@ def build_table(args, work: str) -> dict:
                 cells_wall += cell_wall
         rows = analyze_mod.analyze(runs, baseline=str(min(sizes)),
                                    skip_first=args.skip_first)
+        for row in rows:
+            n = int(row["run"])
+            row["backend"] = cell_backend(runs[row["run"]], n, args.device)
+            row["cards"] = min(n, cards)
         result["modes"][mode] = rows
         print(analyze_mod.to_markdown(rows), flush=True)
     # Sum of per-cell launch walls (persisted next to each cell), so a
@@ -188,6 +215,11 @@ def to_markdown(result: dict) -> str:
         "computation (BASELINE.md).",
         "",
     ]
+    if result["platform"] == "gpu":
+        lines += ["Every cell ran one rank a card: the backend of each "
+                  "size is " + ", ".join(
+                      f"N={r['run']} {r['backend']}" for r in
+                      next(iter(result["modes"].values()), [])) + ".", ""]
     cpus = result.get("host_cpus")
     if cpus:
         lines += [

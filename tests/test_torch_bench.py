@@ -4,7 +4,8 @@ package's (the root ``bench_suite.py`` and ``bench.py``, its
 ``tools/regress.py`` and ``tools/report.py``) on the CPU, at small size.
 
 - ``CONFIGS`` has the JAX suite's 49 names, in its order.
-- A LeNet throughput row has the JAX row's keys plus ``device_kind``; the
+- A LeNet throughput row has the JAX row's keys plus ``device_kind``,
+  ``backend`` and ``mask``; the
   host rows' wire (``payload_sha256``, ``wire_mb``), ZeRO parameters
   (``params_sha256``) and homomorphic averages (``bitwise_identical``)
   equal the JAX rows' for the same seed and geometry; the hierarchy row's
@@ -13,7 +14,7 @@ package's (the root ``bench_suite.py`` and ``bench.py``, its
   ``main``'s.
 - The gate and the report give the JAX verdicts on the repo's committed
   artifacts and on the drills' fixtures, and the gate never judges a card
-  row against a TPU one.
+  row against a TPU one, nor a row over four ranks against one over one.
 - ``bench.py``'s parent prints one line on success and on failure, exits
   non-zero without a card, and runs one child (no CPU rung).
 
@@ -60,7 +61,8 @@ def test_lenet_row_has_the_jax_keys_and_device_kind():
     want = jax_suite.bench_throughput(
         "lenet_mnist_single", "LeNet", "synthetic_mnist", 16, 2,
         n_devices=1)
-    assert set(ours) == set(want) | {"device_kind"}
+    assert set(ours) == set(want) | {"device_kind", "backend", "mask"}
+    assert (ours["backend"], ours["mask"]) == ("none", [1])
     assert set(ours["phases"]) == set(want["phases"])
     assert (ours["platform"], ours["device_kind"]) == ("cpu", "cpu")
     assert ours["devices"] == want["devices"] == 1
@@ -302,6 +304,30 @@ def test_a_card_row_is_never_judged_against_a_tpu_row(tmp_path):
         jax_regress.run_gate("wire", host, repo=str(tmp_path))
 
 
+def test_a_row_over_four_ranks_is_never_judged_against_one_rank(tmp_path):
+    one = _rows_file(tmp_path / "BENCH_SUITE_r30.json", [
+        dict(H100, config="resnet18_cifar10_dp", devices=1,
+             images_per_sec=100.0)])
+    cand = _rows_file(tmp_path / "cand.json", [
+        dict(H100, config="resnet18_cifar10_dp", devices=4,
+             images_per_sec=10.0)])
+    assert regress.chip_devices(regress.load_artifact(one)) == {
+        ("gpu", H100["device_kind"], 1)}
+    verdict = regress.run_gate("suite", cand, repo=str(tmp_path))
+    assert verdict == {"family": "suite", "ok": True, "configs": {},
+                       "note": "no committed baseline; gate passes"}
+    assert regress.run_gate("suite", cand, repo=str(tmp_path),
+                            baseline_path=one) == verdict
+    # A baseline over the same four ranks is compared, and the slow row
+    # fails.
+    _rows_file(tmp_path / "BENCH_SUITE_r31.json", [
+        dict(H100, config="resnet18_cifar10_dp", devices=4,
+             images_per_sec=100.0)])
+    verdict = regress.run_gate("suite", cand, repo=str(tmp_path))
+    assert verdict["baseline"] == "BENCH_SUITE_r31.json"
+    assert not verdict["ok"]
+
+
 def test_report_takes_a_card_headline_as_measured(tmp_path):
     (tmp_path / "BENCH_r30_headline.json").write_text(json.dumps(
         dict(H100, value=5000.0, unit="images/sec", mfu=0.05,
@@ -319,7 +345,7 @@ def test_report_takes_a_card_headline_as_measured(tmp_path):
 
 def _args(**over):
     d = dict(per_device_batch=16, steps=1, warmup=1, timeout=60.0,
-             extras=False, device="cpu")
+             extras=False, device="cpu", ranks=1)
     d.update(over)
     return argparse.Namespace(**d)
 
@@ -375,11 +401,11 @@ def test_child_prints_the_jax_headline_keys(capsys):
         == last
     assert set(last) == {
         "metric", "value", "unit", "vs_baseline", "sec_per_step", "mfu",
-        "flops_per_image_gf", "global_batch", "devices", "platform",
-        "device_kind", "init_s", "compile_s", "baseline_note"}
+        "flops_per_image_gf", "global_batch", "devices", "backend",
+        "platform", "device_kind", "init_s", "compile_s", "baseline_note"}
     assert last["metric"] == jax_bench.METRIC
-    assert (last["platform"], last["mfu"], last["global_batch"]) == \
-        ("cpu", None, 16)
+    assert (last["platform"], last["mfu"], last["global_batch"],
+            last["devices"], last["backend"]) == ("cpu", None, 16, 1, "none")
     assert last["vs_baseline"] == round(
         last["value"] / jax_bench.BASELINE_IMGS_PER_SEC, 2)
     assert np.isfinite(last["flops_per_image_gf"])

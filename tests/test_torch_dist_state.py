@@ -20,6 +20,7 @@ from ps_pytorch_tpu_torch.optim import SGD
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime import evaluator as evaluator_mod
 from test_torch_dist import _launch, _result
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # The smallest BatchNorm network the port's tests train (one BasicBlock a
 # stage), on a cut synthetic CIFAR-10 so that a CPU evaluates it quickly.

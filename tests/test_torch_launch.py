@@ -211,6 +211,37 @@ def test_no_contract_is_one_process(monkeypatch):
     assert dist.local_data_shard() == (0, 1)
 
 
+def test_gloo_peer_wait_is_the_host_clock_around_each_collective(
+        monkeypatch):
+    """On gloo ``comm_s`` stays the host clock around each collective (a
+    fake clock a quarter second a read: the step's two all-reduces, loss
+    pair and gradient, read it twice each); no CUDA event is taken."""
+    from ps_pytorch_tpu_torch.parallel import dp
+
+    _clear_env(monkeypatch)
+    monkeypatch.setenv("PS_TPU_COORDINATOR", f"127.0.0.1:{free_port()}")
+    monkeypatch.setenv("PS_TPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("PS_TPU_PROCESS_ID", "0")
+    try:
+        dist.initialize_from_env("cpu")
+        model = lenet.LeNet(generator=torch.Generator().manual_seed(1))
+        step = make_train_step(model, SGD(0.1, momentum=0.9),
+                               group=dist.group())
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(4, 28, 28, 1)).astype(np.float32)
+        y = rng.integers(0, 10, 4).astype(np.int32)
+        reads = iter(0.25 * i for i in range(100))
+        monkeypatch.setattr(dp.time, "monotonic", lambda: next(reads))
+        step(x, y, np.ones(1, np.float32))
+        assert not step._on_stream and step._comm_events == []
+        assert step.comm_s == 0.5
+        step(x, y, np.ones(1, np.float32))      # reset at every call
+        assert step.comm_s == 0.5
+    finally:
+        monkeypatch.undo()
+        dist.shutdown()
+
+
 def test_world_one_group_through_the_contract(monkeypatch):
     """A one-rank launch joins a real group (gloo on the CPU); a second
     call returns the same store; the step all-reduces at world 1 and

@@ -19,6 +19,7 @@ from ps_pytorch_tpu.models import lenet as jax_lenet
 from ps_pytorch_tpu.models import resnet as jax_resnet
 from ps_pytorch_tpu_torch.models import build_model, convert, lenet, resnet
 from ps_pytorch_tpu_torch.models.layers import Conv3x3
+from test_torch_train import two_torch_threads  # noqa: F401
 
 TOL = 1e-4
 
