@@ -2842,7 +2842,9 @@ class _WatchedStep:
                                       - before)
         self.rec["losses"].append(float(out["loss"]))
         if len(self.rec["losses"]) == LMDIST_HELD:
+            t0 = time.monotonic()
             params, _ = self.trainer.full_state()
+            self.rec["gather_s"] = round(time.monotonic() - t0, 4)
             if not isinstance(params, dict):
                 params = params.state_dict()
             if self.trainer.rank == 0:
@@ -2865,7 +2867,7 @@ def lmdist_rank_main(argv) -> int:
     import torch
 
     from ps_pytorch_tpu_torch import evaluate, train_lm
-    from ps_pytorch_tpu_torch.parallel import collectives
+    from ps_pytorch_tpu_torch.parallel import collectives, dist
     from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
     from ps_pytorch_tpu_torch.runtime import lm_trainer
 
@@ -2890,6 +2892,20 @@ def lmdist_rank_main(argv) -> int:
         self.step_fn = _WatchedStep(self, rec, out_dir)
 
     cls.__init__ = watched
+    real_checkpoint = cls.checkpoint
+
+    def aligned(self, step):
+        # The ranks leave a checkpoint together, so the step after it
+        # does not wait on rank 0's write (MAIN-LMDIST's and --cards'
+        # step times).
+        path = real_checkpoint(self, step)
+        if dist.is_multiprocess():
+            torch.distributed.barrier()
+        return path
+
+    cls.checkpoint = aligned
+
+    on_card = torch.cuda.is_available()
 
     def run_one(part):
         if part[0] == LMDIST_EVAL:
@@ -2900,6 +2916,7 @@ def lmdist_rank_main(argv) -> int:
                 evaluate.main(part[1:])
             print(out.getvalue().strip(), flush=True)
             print("LMDIST-EVAL " + json.dumps({
+                "train_dir": part[part.index("--train-dir") + 1],
                 "line": out.getvalue().strip(),
                 "collectives": collectives.stats["calls"] - calls,
                 "launches": read_counts(wrappers)}), flush=True)
@@ -2908,21 +2925,27 @@ def lmdist_rank_main(argv) -> int:
         rec.clear()
         rec.update(losses=[], step_bytes=[])
         zero_counts(wrappers)
-        torch.cuda.reset_peak_memory_stats()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         trainer, result = train_lm.run(part)
         run_s = time.monotonic() - t0
-        if not probed:
+        if not probed and dist.backend() == "gloo" and on_card:
             probe_all_reduce()
             probed.append(True)
         print("LMDIST " + json.dumps({
             "run_s": round(run_s, 3),
             "rank": trainer.rank, "mode": trainer.mode,
+            "train_dir": trainer.cfg.train_dir, "backend": dist.backend(), "device": str(trainer.device),
+            "grid": [trainer.grid.data.size, trainer.grid.model.size],
             "attention": trainer.model.attention_impl,
             "launches": read_counts(wrappers), "saves": saves,
             "losses": rec["losses"], "step_bytes": rec["step_bytes"],
-            "save_s": rec.get("save_s"), "step_times": trainer.step_times,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "save_s": rec.get("save_s"), "gather_s": rec.get("gather_s"),
+            "step_times": trainer.step_times,
+            "peak_bytes": (torch.cuda.max_memory_allocated()
+                           if on_card else None),
+            "profiles": trainer.ops.profile_files,
             "eval": result}), flush=True)
         return trainer
 
@@ -2930,72 +2953,86 @@ def lmdist_rank_main(argv) -> int:
     return 0
 
 
-def lmdist_step_bytes(mode: str, run_flags=()) -> int:
-    """What a rank of MAIN-LMDIST hands gloo a step, counted from the
-    shapes (two ranks, f32): sp, one K/V hop a layer forward and one of
-    their gradients backward ([2, B, H, S/2, D] each), the boundary
-    token, the gradient all-reduce of every parameter and the loss; tp
-    (model axis 2, data 1), two all-reduces of [B, S, d] a block forward
-    and two backward, the one in front of ``lm_head`` backward, the
-    vocab-parallel cross-entropy's row max and its two row sums; pp (2
-    stages, data 1), a [B/M, S, d] activation or its gradient a
-    microbatch, the edges' gradients over both ranks and the loss; ep
-    (MAIN-MOE), two all-to-alls of the [E, C, d] slot buffer a layer
-    forward and two backward (C the capacity of a rank's B/2 x S tokens),
-    the replicated gradients (all but the experts) and the loss and aux
-    sums. With a head count the model axis does not divide (tp7), a tp
-    block also all-reduces the zero-padded [B, S, d] q, k and v forward
-    (the gather of its column shards) and their gradients backward.
-    ``run_flags`` override LM_ARGS' geometry."""
+def lmdist_step_bytes(mode: str, run_flags=(), world: int = 2,
+                      rank: int = 0) -> int:
+    """What rank ``rank`` of a launch of ``world`` ranks hands the backend
+    a step (f32), counted from the shapes; the grid is ``data x model``
+    with ``model`` the run's ``--lm-model-axis`` (0: every rank) for tp and
+    pp, 1 otherwise, and a rank's local batch B / data. sp, ``world - 1``
+    K/V hops a layer forward and as many of their gradients backward
+    ([2, B, H, S / world, D] each), the boundary token, the gradient
+    all-reduce of every parameter and the loss; tp, two all-reduces of
+    the local [B, S, d] a block forward and two backward, the one in
+    front of ``lm_head`` backward, the vocab-parallel cross-entropy's row
+    max and its two row sums, and over ``data`` (when it has more than
+    one rank) this rank's shard of the gradients and the loss; pp (stage
+    ``rank % model``), a [B / M, S, d] activation a microbatch to the next
+    stage and its gradient to the one before (the first stage sends no
+    gradient, the last no activation), this stage's block gradients over
+    ``data``, the edges' gradients over every rank and the loss; ep, two
+    all-to-alls of the [E, C, d] slot buffer a layer forward and two
+    backward (C the capacity of a rank's B / world x S tokens), the
+    replicated gradients (all but the experts) and the loss and aux sums.
+    With a head count the model axis does not divide (tp7), a tp block
+    also all-reduces the zero-padded [B, S, d] q, k and v forward (the
+    gather of its column shards) and their gradients backward.
+    ``run_flags`` override LM_ARGS' geometry. A world of one rank hands
+    the backend nothing: every collective over one rank is local."""
     from ps_pytorch_tpu_torch.models.moe import capacity
+
+    if world == 1:
+        return 0
 
     flags = dict(zip(LM_ARGS[::2], LM_ARGS[1::2]))
     flags.update(zip(run_flags[::2], run_flags[1::2]))
     d, heads, vocab, layers, b, s = (int(flags[f"--{k}"]) for k in (
         "lm-d-model", "lm-heads", "lm-vocab", "lm-layers", "batch-size",
         "lm-seq-len"))
+    model = int(flags.get("--lm-model-axis", 0)) or world \
+        if mode in ("tp", "pp") else 1
+    data = world // model
+    if mode != "sp":        # sp shards the sequence, the rest the rows
+        b //= data
     block = 4 * d * d + 2 * (d * 4 * d) + 4 * d + d + 2 * 2 * d
     edges = vocab * d + s * d + 2 * d + vocab * d
     if mode == "ep":
-        slots = MOE_EXPERTS * capacity(1, b // 2 * s, MOE_EXPERTS, 1.25)
+        slots = MOE_EXPERTS * capacity(1, b * s, MOE_EXPERTS, 1.25)
         replicated = edges + layers * (4 * d * d + 2 * 2 * d
                                        + d * MOE_EXPERTS)
         return layers * 4 * slots * d * 4 + replicated * 4 + 8
     params = edges + layers * block
     rows = b * (s - 1)
     if mode == "sp":
-        kv = 2 * b * heads * (s // 2) * (d // heads) * 4
-        return 2 * layers * kv + b * 8 + params * 4 + 4
+        kv = 2 * b * heads * (s // world) * (d // heads) * 4
+        return 2 * (world - 1) * layers * kv + b * 8 + params * 4 + 4
     if mode == "tp":
         act = b * s * d * 4
-        gathers = 0 if heads % 2 == 0 else 6 * layers
-        return (4 * layers + gathers + 1) * act + rows * 4 + 2 * rows * 4
-    act = (b // LMDIST_MICRO) * s * d * 4
-    return LMDIST_MICRO * act + edges * 4 + 4
+        gathers = 0 if heads % model == 0 else 6 * layers
+        local = vocab * d + s * d + 2 * d + vocab * d // model + layers * (
+            block - 4 * d * d - 2 * (d * 4 * d) - 4 * d
+            + (4 * d * d + 2 * (d * 4 * d) + 4 * d) // model)
+        return ((4 * layers + gathers + 1) * act + rows * 4 + 2 * rows * 4
+                + ((local * 4 + 4) if data > 1 else 0))
+    micro = int(flags["--lm-microbatches"])
+    stage = rank % model
+    act = (b // micro) * s * d * 4
+    hops = (stage < model - 1) + (stage > 0)
+    return (hops * micro * act + edges * 4 + 4
+            + (layers // model * block * 4 if data > 1 else 0))
 
 
 def lmdist_main_path(torch, wrappers) -> dict:
     """MAIN-LMDIST: the LM path's model (LM_ARGS) as two gloo ranks on the
-    card through the launcher, one launch, four runs (LMDIST_RUNS): sp
+    card through the launcher, one launch, five runs (LMDIST_RUNS): sp
     over both ranks (ring attention), tp, pp of 2 stages x 4 microbatches
-    on the flash kernels with remat, and MAIN-MOE, the MoE LM under ep on
-    the flash kernels. Fails unless every run prints the same FINAL line
-    on both ranks; rank 0 alone commits the last step's checkpoint; the
-    bytes each rank hands gloo a step are the shapes' count; pp and ep launch
-    the flash kernels as their schedules say (pp per rank per step:
-    forward layers_per_stage x M, doubled under remat, dq and dk/dv
-    layers_per_stage x M; ep a layer a step each, and the forward again a
-    layer for each batch of the FINAL evaluation, which keeps flash) and
-    sp and tp none; ``evaluate.main --once 2`` scores pp's stage-stacked
-    checkpoint to its FINAL loss; each run's step-1 loss and step-2
-    parameters agree with the one-rank model's (for ep the one-rank MoE in
-    two capacity groups); and MAIN-MOE's checks (``moe_checks``). Prints
-    each mode's median step, bytes a step, peak memory and the largest
-    differences."""
+    on the flash kernels with remat, MAIN-MOE (the MoE LM under ep on the
+    flash kernels) and tp7. Each run is held by ``check_lm_run`` (gloo,
+    both ranks on cuda:0; sp's checkpoint scored through the ring on both
+    ranks and in one process, both against its FINAL). Besides:
+    gloo all-reduces a CUDA tensor (``gloo_probe``), ``evaluate.main
+    --once 2`` scores pp's stage-stacked checkpoint to its FINAL loss, and
+    MAIN-MOE's checks (``moe_checks``)."""
     from ps_pytorch_tpu_torch import evaluate
-    from ps_pytorch_tpu_torch.config import config_from_args
-    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
-    from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
     from ps_pytorch_tpu_torch.tools.profile_capture import card_line
 
     card = card_line()
@@ -3016,156 +3053,37 @@ def lmdist_main_path(torch, wrappers) -> dict:
         logs = launch_ranks(root, 2, argv, "MAIN-LMDIST")
         wall = time.monotonic() - t0
         gloo_probe(logs)
-        recs = {}
-        for r, log in enumerate(logs):
-            sections = run_sections(log, "LM mesh")
-            if len(sections) != len(LMDIST_RUNS):
-                fail(f"MAIN-LMDIST: rank {r} ran {len(sections)} runs")
-            for (mode, _, _), sec in zip(LMDIST_RUNS, sections):
-                found = re.findall(r"^LMDIST (.*)$", sec, re.M)
-                final = re.findall(r"^FINAL .*$", sec, re.M)
-                if len(found) != 1 or len(final) != 1:
-                    fail(f"MAIN-LMDIST {mode}: rank {r} printed no LMDIST "
-                         "or no FINAL line")
-                recs.setdefault(mode, []).append(
-                    dict(json.loads(found[0]), final=final[0]))
-        per = LM_LAYERS // 2
-        out = {}
-        for mode, flags, _ in LMDIST_RUNS:
-            a, b = recs[mode]
-            if a["final"] != b["final"]:
-                fail(f"MAIN-LMDIST {mode}: FINAL differs across ranks "
-                     f"({a['final']} / {b['final']})")
-            saved = [LMDIST_STEPS] if mode not in LMDIST_RUN_STEPS else []
-            if [a["saves"], b["saves"]] != [saved, []] or \
-                    ckpt.committed_steps(f"{root}/{mode}") != saved:
-                fail(f"MAIN-LMDIST {mode}: checkpoints {a['saves']} / "
-                     f"{b['saves']}, committed "
-                     f"{ckpt.committed_steps(f'{root}/{mode}')}")
-            want_bytes = lmdist_step_bytes(a["mode"], flags)
-            if any(n != want_bytes for rec in (a, b)
-                   for n in rec["step_bytes"]):
-                fail(f"MAIN-LMDIST {mode}: bytes a step {a['step_bytes']} /"
-                     f" {b['step_bytes']}, the shapes count {want_bytes}")
-            # FINAL: tp and pp score through the flash oracle on each
-            # rank, ep through its own flash forward, sp through the ring.
-            oracle = LM_LAYERS * LM_FINAL_BATCHES
-            fwd = per * LMDIST_MICRO * LMDIST_STEPS
-            moe = LM_LAYERS * LMDIST_STEPS
-            want = want_counts(wrappers, **(
-                dict(flash_fwd=2 * fwd + oracle, flash_dq=fwd,
-                     flash_dkv=fwd)
-                if mode == "pp" else dict(
-                    flash_fwd=moe + oracle, flash_dq=moe, flash_dkv=moe)
-                if mode == "ep" else dict(flash_fwd=oracle)
-                if a["mode"] == "tp" else {}))
-            for rec in (a, b):
-                if rec["launches"] != want:
-                    fail(f"MAIN-LMDIST {mode} rank {rec['rank']}: launches "
-                         f"{rec['launches']}, expected {want}")
-            out[mode] = a
+        figs, refs = {}, {}
+        for mode, flags, ref_flags in LMDIST_RUNS:
+            recs, evals = lm_run_records(logs, root, mode)
+            if None in recs:
+                fail(f"MAIN-LMDIST {mode}: ranks "
+                     f"{[r for r, x in enumerate(recs) if x is None]} "
+                     "printed no LMDIST line")
+            steps = LMDIST_RUN_STEPS.get(mode, LMDIST_STEPS)
+            figs[mode] = check_lm_run(
+                torch, wrappers, 2, mode, flags, ref_flags, recs, evals,
+                root, refs, fail, card, phase="MAIN-LMDIST", backend="gloo",
+                steps=steps, saved=[] if mode in LMDIST_RUN_STEPS else
+                [LMDIST_STEPS], scored=mode == "sp", decode=False)
         # pp's stage-stacked checkpoint through the evaluator.
         printed = run_entry(evaluate.main, [
             "--train-dir", f"{root}/pp", "--once", str(LMDIST_STEPS),
             "--device", "cuda"])
         m = EVAL_LM_RE.search(printed)
-        pp_final = float(out["pp"]["final"].split()[2])
+        pp_final = float(figs["pp"]["final"][0].split()[2])
         if not m or int(m.group(1)) != LMDIST_STEPS or \
                 abs(float(m.group(2)) - pp_final) > 1e-5:
             fail(f"MAIN-LMDIST: EVAL_LM of pp's checkpoint "
                  f"{m and m.group(0)} against its FINAL {pp_final}")
-        # sp's checkpoint: evaluate.main on both ranks (the ring over
-        # them, in the launch) and in this process (the flash oracle).
-        sp_final = float(out["sp"]["final"].split()[2])
-        ring = []
-        for r, log in enumerate(logs):
-            found = re.findall(r"^LMDIST-EVAL (.*)$", log, re.M)
-            rec = json.loads(found[0]) if len(found) == 1 else {}
-            em = EVAL_LM_RE.search(rec.get("line", ""))
-            if not em or int(em.group(1)) != LMDIST_STEPS or \
-                    abs(float(em.group(2)) - sp_final) > 1e-4 or \
-                    rec["collectives"] < 1 or \
-                    rec["launches"] != want_counts(wrappers):
-                fail(f"MAIN-LMDIST: rank {r}'s ring evaluation of sp's "
-                     f"checkpoint {rec} against its FINAL {sp_final}")
-            ring.append(em.group(0))
-        zero_counts(wrappers)
-        em = EVAL_LM_RE.search(run_entry(evaluate.main, [
-            "--train-dir", f"{root}/sp", "--once", str(LMDIST_STEPS),
-            "--device", "cuda"]))
-        sp_oracle = read_counts(wrappers)
-        if not em or abs(float(em.group(2)) - sp_final) > 1e-4 or \
-                sp_oracle != want_counts(wrappers, flash_fwd=LM_LAYERS
-                                         * LM_FINAL_BATCHES):
-            fail(f"MAIN-LMDIST: one process's EVAL_LM of sp's checkpoint "
-                 f"{em and em.group(0)} (launches {sp_oracle}) against its "
-                 f"FINAL {sp_final}")
-        ring_diff = max(abs(float(EVAL_LM_RE.search(x).group(2))
-                            - sp_final) for x in ring)
-        print(f"MAIN-LMDIST sp's checkpoint scored across the 2 ranks "
-              f"(ring) {ring} and in one process (flash oracle) "
-              f"{em.group(0)} against FINAL {sp_final:.6f}: |diff| "
-              f"{ring_diff:.3e} / {abs(float(em.group(2)) - sp_final):.3e};"
-              f" card {card}", flush=True)
         moe = moe_checks(torch, wrappers, f"{root}/ep")
-        # The one-rank model on the same weights and batches, once a
-        # reference (ep's in two capacity groups, one a rank).
-        refs, ref_s = {}, {}
-        for ref_flags in dict.fromkeys(flags for _, _, flags in LMDIST_RUNS):
-            t0 = time.monotonic()
-            torch.cuda.empty_cache()
-            ref = LMTrainer(config_from_args(
-                [*LM_ARGS, *ref_flags, "--resume", "false",
-                 "--eval-freq", "0", "--train-dir", f"{root}/ref"]),
-                device="cuda", printer=lambda line: None)
-            for mlp in getattr(ref.model, "moe_layers", list)():
-                mlp.n_groups = 2
-            refs[ref_flags] = (
-                [float(ref.step_fn(ref.train_loader.next_batch())["loss"])
-                 for _ in range(LMDIST_HELD)],
-                {k: v.detach().cpu()
-                 for k, v in ref.model.state_dict().items()})
-            del ref
-            ref_s[ref_flags] = time.monotonic() - t0
-        for mode, _, ref_flags in LMDIST_RUNS:
-            losses, want = refs[ref_flags]
-            loss_tol, rtol, atol = LMDIST_TOLS.get(
-                mode, (LMDIST_LOSS_TOL, LMDIST_RTOL, LMDIST_ATOL))
-            got = torch.load(f"{root}/{mode}_held.pt")
-            rec = out[mode]
-            loss_diff = abs(rec["losses"][0] - losses[0])
-            if set(got) != set(want) or loss_diff > loss_tol * (
-                    1 + abs(losses[0])):
-                fail(f"MAIN-LMDIST {mode}: step-1 loss {rec['losses'][0]} "
-                     f"against the one-rank {losses[0]}")
-            worst = max((got[k] - want[k]).abs().max().item() for k in got)
-            for k in got:
-                if not torch.allclose(got[k], want[k], rtol=rtol, atol=atol):
-                    fail(f"MAIN-LMDIST {mode}: {k} after {LMDIST_HELD} "
-                         f"steps differs from the one-rank model by "
-                         f"{(got[k] - want[k]).abs().max().item():.3e}")
-            a, b = recs[mode]
-            print(f"{'MAIN-MOE' if mode == 'ep' else 'MAIN-LMDIST'} {mode} "
-                  f"2 gloo ranks attention {rec['attention']}: median step "
-                  f"{np.median(a['step_times']):.4f} / "
-                  f"{np.median(b['step_times']):.4f} s (steps "
-                  f"{a['step_times']} / {b['step_times']}); bytes a rank a "
-                  f"step {a['step_bytes'][0]} / {b['step_bytes'][0]}; peak "
-                  f"{a['peak_bytes']} / {b['peak_bytes']} B; {a['final']}; "
-                  f"step-1 loss {rec['losses'][0]!r} vs one-rank "
-                  f"{' '.join(ref_flags[1::2])} {losses[0]!r} (|diff| "
-                  f"{loss_diff:.3e}); max |param diff| after {LMDIST_HELD} "
-                  f"steps {worst:.3e}; launches {flash_by_kind(a['launches'])}"
-                  f" / {flash_by_kind(b['launches'])}; run_s {a['run_s']} / "
-                  f"{b['run_s']}; reference_s {ref_s[ref_flags]:.2f}; card "
-                  f"{card}", flush=True)
         print(f"MAIN-LMDIST EVAL_LM of pp's stacked checkpoint "
               f"{m.group(0)}; launch_wall_s {wall:.2f}; card {card}",
               flush=True)
+        ep = figs["ep"]["ranks"][0]
         print(f"MAIN-MOE checkpoint_bytes {moe['bytes']} save_s "
-              f"{out['ep']['save_s']} (rank 0); run_s "
-              f"{out['ep']['run_s']} (rank 0, train_lm.run); checks_s "
-              f"{moe['s']:.2f}; "
+              f"{ep['save_s']} (rank 0); run_s {ep['run_s']} (rank 0, "
+              f"train_lm.run); checks_s {moe['s']:.2f}; "
               f"{moe['eval']} vs the one-group full-attention oracle "
               f"{moe['oracle']!r} (|diff| {moe['eval_diff']:.3e}); greedy "
               f"{MOE_NEW} tokens equal the full forward's argmax in one "
@@ -3173,8 +3091,9 @@ def lmdist_main_path(torch, wrappers) -> dict:
               f"card {card}", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return dict({mode: recs[mode][0]["launches"]
-                 for mode, _, _ in LMDIST_RUNS}, sp_oracle=sp_oracle)
+    return dict({mode: figs[mode]["ranks"][0]["launches"]
+                 for mode, _, _ in LMDIST_RUNS},
+                sp_oracle=figs["sp"]["eval_one_launches"])
 
 
 def moe_checks(torch, wrappers, td: str) -> dict:
@@ -3265,6 +3184,687 @@ def moe_checks(torch, wrappers, td: str) -> dict:
     return {"bytes": nbytes, "eval": m.group(0), "oracle": oracle,
             "eval_diff": abs(float(m.group(2)) - oracle), "gap": min(gaps),
             "s": time.monotonic() - t0}
+
+
+# --cards: the LM's model-parallel modes and the one-process async trainer
+# across the cards of one machine, one rank a card over NCCL (not in the
+# default run, which needs one card; README.md gives the command). Each
+# world of ``--cards WORLDS`` is three launches of the LM path's model
+# (LM_ARGS) through ``tools.launch --simulate <world>``, each rank this
+# script's ``--rank-lmdist``: the ring and tp (with the 2 x 2 grid and 7
+# heads of 64 at d 448 over the model axis), pp (4 stages of 2 blocks x 8
+# microbatches under remat at world 4, and the 2 x 2 grid), ep (8
+# experts). Every run takes CARDS_STEPS steps with checkpoints every 2
+# (the ranks meet at a barrier after each, so the next step does not wait
+# on rank 0's write); its step-1 loss and step-2 parameters are held
+# against the one-rank model on the same weights and batches at
+# MAIN-LMDIST's tolerances, its
+# step-2 checkpoint is scored by ``evaluate.main`` on every rank of the
+# launch (sp through the ring) and in this process (the flash oracle),
+# and pp's and ep's are decoded greedily by ``generate.main`` against the
+# one-rank model's stream. sp's step CARDS_PROFILED runs under
+# torch.profiler on every rank (``--profile-dir``). Tokens a second come
+# from the slowest rank's median of steps 3 on (step 1 warms up, step 2
+# gathers the held parameters), the profiled step left out.
+CARDS_STEPS, CARDS_CKPT, CARDS_PROFILED = 6, 2, 5
+CARDS_PP_MICRO = 8
+CARDS_NEW = 32
+CARDS_LAUNCH_S = {"ring+tp": 480, "pp": 300, "ep": 300}
+# The async trainer in one process over every card (``train.run --mode
+# async``: ``_slice_devices`` hands it cuda:0..n-1), 2 slices then 4, held
+# against the same run with every replica on cuda:0.
+ASYNC_CARDS_ARGS = ("--mode", "async", "--network", "ResNet18", "--dataset",
+                    "synthetic", "--batch-size", "256", "--compute-dtype",
+                    "bfloat16", "--conv-impl", "pallas", "--fused-optimizer",
+                    "--compress-grad", "--grad-codec", "int8", "--log-every",
+                    "1", "--resume", "false")
+ASYNC_CARDS_TICKS = 6
+ASYNC_CARDS_SLICES = (2, 4)
+
+
+def cards_runs(world: int) -> list:
+    """(launch, name, flags, one-rank flags) of the LM runs at ``world``
+    ranks; the 2 x 2 grids at 4."""
+    tp = ("--lm-parallelism", "tp", "--lm-attention", "full")
+    pp = ("--lm-parallelism", "pp", "--lm-attention", "flash")
+    full = ("--lm-attention", "full")
+    runs = [("ring+tp", "sp", ("--lm-parallelism", "sp", "--lm-attention",
+                               "auto"), full),
+            ("ring+tp", "tp", (*tp, "--lm-model-axis", str(world)), full)]
+    if world == 4:
+        runs.append(("ring+tp", "tp2x2", (*tp, "--lm-model-axis", "2"),
+                     full))
+    runs += [("ring+tp", "tp7", (*tp, "--lm-model-axis", str(world),
+                                 *ODD_HEADS), (*full, *ODD_HEADS)),
+             ("pp", "pp", (*pp, "--lm-model-axis", str(world),
+                           "--lm-microbatches", str(CARDS_PP_MICRO),
+                           "--remat"), ("--lm-attention", "flash",
+                                        "--remat"))]
+    if world == 4:
+        runs.append(("pp", "pp2x2", (*pp, "--lm-model-axis", "2",
+                                     "--lm-microbatches", "4"),
+                     ("--lm-attention", "flash")))
+    runs.append(("ep", "ep", MOE_FLAGS, MOE_FLAGS))
+    return runs
+
+
+def cards_launch(root: str, world: int, argv, phase: str,
+                 timeout_s: int) -> tuple:
+    """``tools.launch launch --simulate world --wait`` of this script with
+    a hard time limit: (the launcher's exit code, each rank's log). Logs
+    go to ``<root>/run``; only the lines that matter are echoed."""
+    from ps_pytorch_tpu_torch.tools import launch
+
+    run_dir = f"{root}/run"
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = launch.main(["launch", "--run-dir", run_dir, "--simulate",
+                          str(world), "--port", str(launch.free_port()),
+                          "--entry", str(Path(__file__).resolve()),
+                          "--wait", "--timeout", str(timeout_s), "--",
+                          *argv])
+    logs = []
+    for r in range(world):
+        path = Path(run_dir, f"proc_{r}.log")
+        logs.append(path.read_text() if path.exists() else "")
+        for line in logs[-1].splitlines():
+            if line.startswith(("LM mesh", "FINAL", "EVAL_LM", "FAIL",
+                                "Traceback")) or "Error" in line:
+                print(f"{phase} [rank {r}] {line[:300]}", flush=True)
+    if rc != 0:
+        print(f"{phase}: the launcher exited {rc} "
+              f"({out.getvalue().strip()[-500:]}); the ranks' tails: "
+              + " | ".join(log[-1500:] for log in logs), flush=True)
+    return rc, logs
+
+
+def one_rank_lm(torch, root: str, ref_flags, groups: int,
+                steps: int = CARDS_STEPS) -> dict:
+    """The one-rank LM (LM_ARGS and ``ref_flags``) on cuda:0, MoE layers in
+    ``groups`` capacity groups: ``steps`` steps of the trainer's batches,
+    each timed to its loss read; the losses, the parameters after step
+    LMDIST_HELD and the peak memory."""
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref = LMTrainer(config_from_args(
+        [*LM_ARGS, *ref_flags, "--resume", "false", "--eval-freq", "0",
+         "--train-dir", f"{root}/ref"]), device="cuda",
+        printer=lambda line: None)
+    for mlp in getattr(ref.model, "moe_layers", list)():
+        mlp.n_groups = groups
+    out = {"losses": [], "step_times": []}
+    for i in range(steps):
+        t0 = time.monotonic()
+        out["losses"].append(float(ref.step_fn(
+            ref.train_loader.next_batch())["loss"]))
+        out["step_times"].append(time.monotonic() - t0)
+        if i + 1 == LMDIST_HELD:
+            out["held"] = {k: v.detach().to("cpu", copy=True)
+                           for k, v in ref.model.state_dict().items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del ref
+    return out
+
+
+def greedy_against(torch, td: str, held: dict) -> dict:
+    """``generate.main --temperature 0`` of CARDS_NEW tokens from ``td``'s
+    step-CARDS_CKPT checkpoint, and the same decode on generate's model
+    with the one-rank parameters ``held`` in it: both streams and the
+    first position where they part (None)."""
+    from ps_pytorch_tpu_torch import generate
+    from ps_pytorch_tpu_torch.models import generate as gen_mod
+
+    decoded, real = [], gen_mod.generate
+
+    def recorded(model, prompt, **kw):
+        out = real(model, prompt, **kw)
+        decoded.append((model, prompt, kw, out))
+        return out
+
+    gen_mod.generate = recorded
+    try:
+        run_entry(generate.main, [
+            "--train-dir", td, "--step", str(CARDS_CKPT), "--prompt", "def ",
+            "--n-new", str(CARDS_NEW), "--temperature", "0", "--device",
+            "cuda"])
+    finally:
+        gen_mod.generate = real
+    model, prompt, kw, got = decoded[-1]
+    model.load_state_dict(held)
+    want = real(model, prompt, **kw)
+    parted = None if torch.equal(got, want) else int(
+        (got != want).nonzero()[0, -1])
+    return {"stream": got[0].tolist(), "one_rank": want[0].tolist(),
+            "parted_at": parted}
+
+
+def lm_cards_path(torch, wrappers, world: int, refs: dict,
+                  faults: list) -> dict:
+    """The LM's model-parallel modes over ``world`` cards (see CARDS_STEPS
+    above): every fault found goes into ``faults`` and the phase goes on;
+    returns each run's record."""
+    from ps_pytorch_tpu_torch.tools.profile_capture import (
+        card_line, trace_digest,
+    )
+
+    phase = f"CARDS-LM world {world}"
+
+    def fault(msg):
+        print(f"FAULT {phase}: {msg}", flush=True)
+        faults.append(f"{phase}: {msg}")
+
+    card = card_line()
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_cards{world}_")
+    runs = cards_runs(world)
+    out = {}
+    try:
+        for launch_name in dict.fromkeys(r[0] for r in runs):
+            mine = [r for r in runs if r[0] == launch_name]
+            argv = ["--rank-lmdist", root]
+            for _, name, flags, _ in mine:
+                argv += [*LM_ARGS, *flags, "--max-steps", str(CARDS_STEPS),
+                         "--eval-freq", str(CARDS_CKPT), "--log-every", "1",
+                         "--resume", "false", "--train-dir", f"{root}/{name}",
+                         "--device", "cuda", *(
+                             ("--profile-dir", f"{root}/prof",
+                              "--profile-steps", str(CARDS_PROFILED))
+                             if name == "sp" else ()), THEN]
+            for i, (_, name, _, _) in enumerate(mine):
+                argv += [LMDIST_EVAL, "--train-dir", f"{root}/{name}",
+                         "--once", str(CARDS_CKPT), "--device", "cuda",
+                         *([THEN] if i + 1 < len(mine) else [])]
+            t0 = time.monotonic()
+            rc, logs = cards_launch(root, world, argv,
+                                    f"{phase} {launch_name}",
+                                    CARDS_LAUNCH_S[launch_name])
+            print(f"{phase} launch {launch_name} rc {rc} wall "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            if rc != 0:
+                fault(f"launch {launch_name} exited {rc}")
+            for _, name, flags, ref_flags in mine:
+                recs, evals = lm_run_records(logs, root, name)
+                missing = [r for r, x in enumerate(recs) if x is None]
+                if missing:
+                    fault(f"{name}: ranks {missing} printed no LMDIST line")
+                    continue
+                try:
+                    out[name] = check_lm_run(
+                        torch, wrappers, world, name, flags, ref_flags,
+                        recs, evals, root, refs, fault, card, phase=phase)
+                except Exception as e:  # recorded; the next run goes on
+                    fault(f"{name}: {type(e).__name__}: {e}")
+        for name, rec in out.items():
+            if name != "sp" or rec is None:
+                continue
+            digests = []
+            for r, rank_rec in enumerate(rec["ranks"]):
+                for path in rank_rec.get("profiles", []):
+                    d = trace_digest(path)
+                    digests.append(d)
+                    print(f"{phase} PROFILE sp rank {r} step "
+                          f"{CARDS_PROFILED}: " + json.dumps(
+                              {**d, "host_cuda_runtime": dict(list(
+                                  d["host_cuda_runtime"].items())[:8])}),
+                          flush=True)
+            rec["profile"] = digests
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"{phase} done: runs {sorted(out)}; card {card}", flush=True)
+    return out
+
+
+def lm_run_records(logs, root: str, name: str) -> tuple:
+    """Each rank's LMDIST record of the run whose train dir is
+    ``<root>/<name>``, with its LM mesh line and FINAL lines (None where a
+    rank printed none), and its LMDIST-EVAL record of that run's
+    checkpoint (None where it scored none)."""
+    recs, evals = [], []
+    for log in logs:
+        rec = None
+        for sec in run_sections(log, "LM mesh"):
+            found = [json.loads(x)
+                     for x in re.findall(r"^LMDIST (.*)$", sec, re.M)]
+            if found and found[0]["train_dir"] == f"{root}/{name}":
+                rec = dict(found[0], mesh=sec.splitlines()[0],
+                           final=re.findall(r"^FINAL .*$", sec, re.M))
+        recs.append(rec)
+        ev = [x for x in (json.loads(y) for y in re.findall(
+            r"^LMDIST-EVAL (.*)$", log, re.M))
+            if x["train_dir"] == f"{root}/{name}"]
+        evals.append(ev[0] if ev else None)
+    return recs, evals
+
+
+def check_lm_run(torch, wrappers, world: int, name: str, flags, ref_flags,
+                 recs: list, evals: list, root: str, refs: dict, fault,
+                 card: str, phase: str, backend: str = "nccl",
+                 steps: int = CARDS_STEPS, saved=None, scored: bool = True,
+                 decode: bool = True) -> dict:
+    """One run of ``world`` ranks through ``--rank-lmdist`` (``recs`` and
+    ``evals`` from ``lm_run_records``), every failed check handed to
+    ``fault``: the LM mesh line of rank r ends ``backend=<backend>
+    device=<cuda:r under NCCL, the one card cuda:0 under gloo>``; one FINAL
+    line, the same on every rank; rank 0 alone wrote the checkpoints
+    ``saved`` (default every CARDS_CKPT steps); each rank's bytes a step
+    the shapes' count (``lmdist_step_bytes``); each rank's flash launches
+    as its schedule says (pp: layers a stage x microbatches a step, the
+    forward twice under remat; ep: a layer a step; tp and pp: FINAL's
+    flash oracle; sp: none); where ``scored``, the first checkpoint scored
+    by ``evaluate.main`` on every rank (one line on all, the ring's
+    collectives for sp) and in this process within 1e-4, and both within
+    1e-4 of FINAL where that checkpoint is the last step; step-1 loss and
+    step-2 parameters within MAIN-LMDIST's tolerances of the one-rank
+    model (ep's in ``world`` capacity groups); and where ``decode``, pp's
+    and ep's greedy stream equal to the one-rank model's. Returns the
+    run's figures."""
+    from ps_pytorch_tpu_torch import evaluate
+    from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+
+    a, td = recs[0], f"{root}/{name}"
+    mode, (data, model) = a["mode"], a["grid"]
+    for r, rec in enumerate(recs):
+        device = f"cuda:{r}" if backend == "nccl" else "cuda:0"
+        if not rec["mesh"].endswith(f"backend={backend} device={device}") \
+                or (rec["backend"], rec["device"]) != (backend, device):
+            fault(f"{name} rank {r}: {rec['mesh']!r}, not on {backend} "
+                  f"and {device}")
+    finals = [tuple(rec["final"]) for rec in recs]
+    if len(finals[0]) != 1 or len(set(finals)) != 1:
+        fault(f"{name}: FINAL by rank {finals}")
+    if saved is None:
+        saved = list(range(CARDS_CKPT, steps + 1, CARDS_CKPT))
+    if [rec["saves"] for rec in recs] != [saved] + [[]] * (world - 1) or \
+            ckpt.committed_steps(td) != saved:
+        fault(f"{name}: checkpoints {[rec['saves'] for rec in recs]}, "
+              f"committed {ckpt.committed_steps(td)}")
+    want_bytes = [lmdist_step_bytes(mode, flags, world, r)
+                  for r in range(world)]
+    if any(n != want for rec, want in zip(recs, want_bytes)
+           for n in rec["step_bytes"]):
+        fault(f"{name}: bytes a step by rank "
+              f"{[rec['step_bytes'] for rec in recs]}, the shapes count "
+              f"{want_bytes}")
+    oracle = LM_LAYERS * LM_FINAL_BATCHES
+    if mode == "pp":
+        micro = int(dict(zip(flags[::2], flags[1::2]))["--lm-microbatches"])
+        fwd = LM_LAYERS // model * micro * steps
+        want = want_counts(wrappers, flash_fwd=fwd * (
+            2 if "--remat" in flags else 1) + oracle, flash_dq=fwd,
+            flash_dkv=fwd)
+    elif mode == "ep":
+        moe = LM_LAYERS * steps
+        want = want_counts(wrappers, flash_fwd=moe + oracle, flash_dq=moe,
+                           flash_dkv=moe)
+    else:
+        want = want_counts(wrappers, **(
+            {"flash_fwd": oracle} if mode == "tp" else {}))
+    for r, rec in enumerate(recs):
+        if rec["launches"] != want:
+            fault(f"{name} rank {r}: launches {rec['launches']}, expected "
+                  f"{want}")
+    # The checkpoint scored on every rank (sp: the ring), then here.
+    ranks_eval, one, one_counts, eval_diff = [], None, None, None
+    if scored:
+        at = saved[0]
+        ring = mode == "sp" and world > 1
+        want_eval = want_counts(wrappers, **(
+            {} if ring or mode == "ep" else {"flash_fwd": oracle}))
+        for r, ev in enumerate(evals):
+            em = ev and EVAL_LM_RE.search(ev["line"])
+            if em and int(em.group(1)) == at:
+                ranks_eval.append(em.group(0))
+            if not em or ev["launches"] != want_eval or \
+                    (ring and ev["collectives"] < 1):
+                fault(f"{name} rank {r}: evaluate.main printed {ev}, "
+                      f"launches expected {flash_by_kind(want_eval)}")
+        zero_counts(wrappers)
+        one = EVAL_LM_RE.search(run_entry(evaluate.main, [
+            "--train-dir", td, "--once", str(at), "--device", "cuda"]))
+        one_counts = read_counts(wrappers)
+        if len(ranks_eval) != world or len(set(ranks_eval)) != 1 or not one:
+            fault(f"{name}: EVAL_LM on the ranks {ranks_eval}, in one "
+                  f"process {one and one.group(0)}")
+        else:
+            losses = [float(EVAL_LM_RE.search(ranks_eval[0]).group(2)),
+                      float(one.group(2))]
+            eval_diff = abs(losses[1] - losses[0])
+            if at == steps:         # the last step's checkpoint: FINAL's
+                final = float(finals[0][0].split()[2])
+                eval_diff = max(eval_diff,
+                                *(abs(x - final) for x in losses))
+            if eval_diff > 1e-4 or one_counts != want_counts(wrappers, **(
+                    {} if mode == "ep" else {"flash_fwd": oracle})):
+                fault(f"{name}: EVAL_LM on the ranks {ranks_eval[0]}, in "
+                      f"one process {one.group(0)}, FINAL {finals[0]} "
+                      f"(|diff| {eval_diff:.3e}, launches "
+                      f"{flash_by_kind(one_counts)})")
+    # The one-rank model on the same weights and batches.
+    groups = world if mode == "ep" else 1
+    key = (tuple(ref_flags), groups)
+    if key not in refs:
+        refs[key] = one_rank_lm(torch, root, ref_flags, groups, steps)
+    ref = refs[key]
+    loss_tol, rtol, atol = LMDIST_TOLS.get(
+        mode, (LMDIST_LOSS_TOL, LMDIST_RTOL, LMDIST_ATOL))
+    got = torch.load(f"{root}/{name}_held.pt")
+    loss_diff = abs(a["losses"][0] - ref["losses"][0])
+    worst = max((got[k] - ref["held"][k]).abs().max().item() for k in got) \
+        if set(got) == set(ref["held"]) else float("inf")
+    bad = [k for k in got if k in ref["held"] and not torch.allclose(
+        got[k], ref["held"][k], rtol=rtol, atol=atol)]
+    if set(got) != set(ref["held"]) or bad or \
+            loss_diff > loss_tol * (1 + abs(ref["losses"][0])):
+        fault(f"{name}: step-1 loss {a['losses'][0]} against the one-rank "
+              f"{ref['losses'][0]}; parameters past rtol {rtol} atol "
+              f"{atol} after {LMDIST_HELD} steps: {bad[:4]} (max |diff| "
+              f"{worst:.3e})")
+    greedy = None
+    if decode and mode in ("pp", "ep") and name in ("pp", "ep"):
+        greedy = greedy_against(torch, td, ref["held"])
+        if greedy["parted_at"] is not None:
+            fault(f"{name}: greedy stream {greedy['stream']} parts from the "
+                  f"one-rank model's {greedy['one_rank']} at "
+                  f"{greedy['parted_at']}")
+
+    def median_step(times, skip=()):    # steps 3 on where there are
+        return float(np.median([t for i, t in enumerate(times)
+                                if i >= 2 and i + 1 not in skip] or times))
+
+    skip = (CARDS_PROFILED,) if name == "sp" else ()
+    step = max(median_step(rec["step_times"], skip) for rec in recs)
+    ref_step = median_step(ref["step_times"])
+    tokens = LM_BATCH * LM_SEQ
+    fig = {"grid": [data, model], "tokens_per_s": tokens / step,
+           "median_step_s": step, "one_card_tokens_per_s": tokens / ref_step,
+           "one_card_median_step_s": ref_step,
+           "bytes_a_step": [rec["step_bytes"][0] for rec in recs],
+           "peak_bytes": [rec["peak_bytes"] for rec in recs],
+           "one_card_peak_bytes": ref["peak_bytes"],
+           "flash_launches": flash_by_kind(a["launches"]),
+           "step1_loss": a["losses"][0], "one_rank_loss": ref["losses"][0],
+           "loss_diff": loss_diff, "max_param_diff": worst,
+           "eval_ranks": ranks_eval[:1], "eval_one": one and one.group(0),
+           "eval_diff": eval_diff, "eval_one_launches": one_counts,
+           "final": finals[0],
+           "greedy_equal": greedy and greedy["parted_at"] is None,
+           "gather_s": [rec["gather_s"] for rec in recs],
+           "save_s": a["save_s"],
+           "run_s": [rec["run_s"] for rec in recs], "ranks": recs}
+    print(f"{phase} {name} grid {data}x{model} {backend}: "
+          f"tokens/s {fig['tokens_per_s']:.1f} (median step {step:.5f} s, "
+          f"slowest rank; steps by rank "
+          f"{[[round(t, 5) for t in rec['step_times']] for rec in recs]}); "
+          f"one card {fig['one_card_tokens_per_s']:.1f} (step "
+          f"{ref_step:.5f} s); bytes a rank a step {fig['bytes_a_step']}; "
+          f"peak {fig['peak_bytes']} B (one card {ref['peak_bytes']}); "
+          f"flash launches a rank {fig['flash_launches']}; step-1 loss "
+          f"{a['losses'][0]!r} vs one-rank {ref['losses'][0]!r} (|diff| "
+          f"{loss_diff:.3e}); max |param diff| after {LMDIST_HELD} steps "
+          f"{worst:.3e}; EVAL_LM ranks {ranks_eval[:1]} one process "
+          f"{fig['eval_one']} (|diff| {eval_diff}); {finals[0]}; state "
+          f"gather s by rank {fig['gather_s']}, rank 0's last save s "
+          f"{fig['save_s']}; greedy "
+          f"{'equal' if fig['greedy_equal'] else greedy}; card {card}",
+          flush=True)
+    return fig
+
+
+@contextmanager
+def launches_by_card():
+    """Inside: every launch of conv3x3 (and of its tensor-core kernel),
+    the quantizer and fused SGD counted by the card it ran on, as
+    ``{"<kernel>@cuda:<i>": n}`` (the wrappers' own counts stay as they
+    are)."""
+    from ps_pytorch_tpu_torch.ops import _sgd_triton
+    from ps_pytorch_tpu_torch.ops import conv3x3 as conv_mod
+    from ps_pytorch_tpu_torch.ops import quantize as q_mod
+
+    counts = {}
+
+    def note(name, device):
+        key = f"{name}@{device}"
+        counts[key] = counts.get(key, 0) + 1
+
+    real = conv_mod._launch, q_mod._launch, _sgd_triton.launch
+
+    def conv(x, w, kernel=None):
+        tc = conv_mod.conv3x3.tc_launches
+        out = real[0](x, w, kernel)
+        note("conv3x3", x.device)
+        if conv_mod.conv3x3.tc_launches > tc:
+            note("conv3x3_tc", x.device)
+        return out
+
+    def quant(plan, key):
+        out = real[1](plan, key)
+        note("quantize", plan.table.device)
+        return out
+
+    def sgd(p, *args):
+        real[2](p, *args)
+        note("fused_sgd", p.device)
+
+    conv_mod._launch, q_mod._launch, _sgd_triton.launch = conv, quant, sgd
+    try:
+        yield counts
+    finally:
+        conv_mod._launch, q_mod._launch, _sgd_triton.launch = real
+
+
+def async_cards_path(torch, wrappers, faults: list) -> dict:
+    """The one-process async trainer over every card: for each slice count
+    of ASYNC_CARDS_SLICES, ``train.run --mode async`` (ResNet-18, int8,
+    fused SGD; ``--device cuda``, so ``_slice_devices`` hands it cuda:0..
+    n-1) for ASYNC_CARDS_TICKS ticks with a checkpoint at the last,
+    against ``MultiSliceTrainer(devices=["cuda:0"] * n)`` on the same
+    config: the SLICES line, the ``used`` lists equal, tick losses within
+    1e-4, parameters and slice 0's BatchNorm statistics within 1e-3
+    (MAIN-ASYNC's slices leg), conv3x3
+    launched on every card and all through the tensor cores (each
+    replica's 26 a tick on its card), the quantizer once a slice a tick on
+    its slice's first card, fused SGD once an applied update on cuda:0;
+    ``evaluate.main --once`` scores the checkpoint. Then ``bench_suite
+    --ranks n`` runs ``resnet18_async_2slice`` over the n devices."""
+    from collections import Counter
+
+    from ps_pytorch_tpu_torch import evaluate, train
+    from ps_pytorch_tpu_torch.config import config_from_args
+    from ps_pytorch_tpu_torch.runtime import MultiSliceTrainer
+    from ps_pytorch_tpu_torch.tools.profile_capture import card_line
+
+    def fault(msg):
+        print(f"FAULT CARDS-ASYNC: {msg}", flush=True)
+        faults.append(f"CARDS-ASYNC: {msg}")
+
+    card, cards = card_line(), torch.cuda.device_count()
+    root = tempfile.mkdtemp(prefix="chip_smoke_async_cards_")
+    real_tick, out = MultiSliceTrainer.tick, {}
+    try:
+        for k in ASYNC_CARDS_SLICES:
+            td = f"{root}/s{k}"
+            argv = [*ASYNC_CARDS_ARGS, "--async-slices", str(k),
+                    "--max-steps", str(ASYNC_CARDS_TICKS), "--eval-freq",
+                    str(ASYNC_CARDS_TICKS), "--train-dir", td]
+            devices = [str(d) for d in train._slice_devices("cuda", k)
+                       or ["cuda:0"] * k]
+            per = len(devices) // k
+            runs = {}
+            for run in ("cards", "cuda:0"):
+                infos, times = [], []
+
+                def tick(self):
+                    t0 = time.monotonic()
+                    info = real_tick(self)
+                    torch.cuda.synchronize()
+                    times.append(time.monotonic() - t0)
+                    infos.append(info)
+                    return info
+
+                MultiSliceTrainer.tick = tick
+                zero_counts(wrappers)
+                printed = io.StringIO()
+                try:
+                    with launches_by_card() as by_card:
+                        if run == "cards":
+                            with redirect_stdout(printed):
+                                trainer, _ = train.run([*argv, "--device",
+                                                        "cuda"])
+                        else:
+                            cfg = config_from_args([*argv, "--eval-freq",
+                                                    "0"])
+                            trainer = MultiSliceTrainer(
+                                cfg, n_slices=k,
+                                fetch_every=cfg.fetch_every,
+                                devices=["cuda:0"] * len(devices),
+                                device="cuda", printer=lambda line: None)
+                            for _ in range(ASYNC_CARDS_TICKS):
+                                trainer.tick()
+                finally:
+                    MultiSliceTrainer.tick = real_tick
+                # The parameters, and the BatchNorm statistics of slice
+                # 0's first replica (the canonical model's buffers take
+                # them only when evaluate() runs, as train.run's FINAL).
+                runs[run] = dict(
+                    used=[i["used"] for i in infos],
+                    losses=[i["loss"] for i in infos], tick_s=times,
+                    params={**{n: v.detach().cpu() for n, v
+                               in trainer.model.named_parameters()},
+                            **{f"slice0.{n}": v.detach().cpu() for n, v in
+                               trainer.replicas[0][0].named_buffers()}},
+                    by_card=dict(by_card), applied=trainer.applied,
+                    per=trainer.per, printed=printed.getvalue())
+                del trainer
+            got, ref = runs["cards"], runs["cuda:0"]
+            if f"SLICES {k} x {per} devices" not in got["printed"] or \
+                    got["per"] != per:
+                fault(f"{k} slices: no 'SLICES {k} x {per} devices' line "
+                      f"({got['printed'][:300]!r})")
+            worst = max((got["params"][n] - ref["params"][n]).abs().max()
+                        .item() for n in got["params"])
+            if got["used"] != ref["used"] or not np.allclose(
+                    got["losses"], ref["losses"], rtol=1e-4, atol=1e-4) or \
+                    worst > 1e-3:
+                fault(f"{k} slices over {devices}: used {got['used']} / "
+                      f"{ref['used']}, losses {got['losses']} / "
+                      f"{ref['losses']}, max |param diff| {worst:.3e}")
+            replicas = Counter(devices)
+            quant = Counter(devices[s * per] for s in range(k))
+            by_card = got["by_card"]
+            for dev in sorted(set(devices)):
+                conv = by_card.get(f"conv3x3@{dev}", 0)
+                if conv != by_card.get(f"conv3x3_tc@{dev}", 0) or conv < \
+                        26 * ASYNC_CARDS_TICKS * replicas[dev] or (
+                            dev != "cuda:0" and conv != 26 *
+                            ASYNC_CARDS_TICKS * replicas[dev]):
+                    fault(f"{k} slices: conv3x3 on {dev} {conv} launches "
+                          f"({by_card.get(f'conv3x3_tc@{dev}', 0)} tc), "
+                          f"{replicas[dev]} replicas there")
+                if by_card.get(f"quantize@{dev}", 0) != \
+                        quant[dev] * ASYNC_CARDS_TICKS:
+                    fault(f"{k} slices: the quantizer on {dev} "
+                          f"{by_card.get(f'quantize@{dev}', 0)} times")
+            if by_card.get("fused_sgd@cuda:0", 0) != got["applied"] or any(
+                    key.startswith("fused_sgd@") and key != "fused_sgd@cuda:0"
+                    for key in by_card):
+                fault(f"{k} slices: fused SGD {by_card}, {got['applied']} "
+                      "updates applied on cuda:0")
+            found = EVAL_RE.findall(run_entry(evaluate.main, [
+                "--train-dir", td, "--once", str(ASYNC_CARDS_TICKS)]))
+            if len(found) != 1 or not all(math.isfinite(float(x))
+                                          for x in found[0][1:]):
+                fault(f"{k} slices: evaluate.main printed {found}")
+            out[k] = {"devices": devices, "used": got["used"],
+                      "losses": got["losses"], "ref_losses": ref["losses"],
+                      "max_param_diff": worst, "by_card": by_card,
+                      "tick_s": got["tick_s"], "ref_tick_s": ref["tick_s"],
+                      "eval": found}
+            print(f"CARDS-ASYNC SLICES {k} x {per} devices on {devices}: "
+                  f"used {got['used']} (cuda:0 only {ref['used']}); losses "
+                  f"{got['losses']} / {ref['losses']}; max |param diff| "
+                  f"{worst:.3e}; tick s {[round(t, 4) for t in got['tick_s']]}"
+                  f" (cuda:0 only {[round(t, 4) for t in ref['tick_s']]}); "
+                  f"launches by card {by_card} (cuda:0 only "
+                  f"{ref['by_card']}); EVAL {found}; card {card}",
+                  flush=True)
+        t0 = time.monotonic()
+        rows = bench_run("ps_pytorch_tpu_torch.bench_suite", (
+            "--ranks", str(cards), "--steps", "5", "--configs",
+            "resnet18_async_2slice"))
+        row = next((r for r in rows
+                    if r.get("config") == "resnet18_async_2slice"), {})
+        if bench_errors(row) or row.get("devices") != cards:
+            fault(f"resnet18_async_2slice: {row}")
+        out["bench"] = row
+        print(f"CARDS-ASYNC BENCH {json.dumps(row)} in "
+              f"{time.monotonic() - t0:.1f} s; card {card}", flush=True)
+    finally:
+        MultiSliceTrainer.tick = real_tick
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def cards_main(argv) -> int:
+    """``python3 chip_smoke.py --cards WORLDS [PHASES]``: the LM's
+    model-parallel modes over each world of WORLDS (comma-separated, each
+    at most the visible cards; 1 runs every NCCL branch but
+    point-to-point on one card) and the one-process async trainer over
+    every visible card (PHASES ``lmdist``, ``async``, comma-separated;
+    both by default). Prints every card's name and power limit, the
+    kernels' build, a ``CARDS-*`` line a run and last a JSON summary;
+    exits 1 after the last phase if any check failed, each printed as a
+    FAULT line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: --cards needs NVIDIA "
+             "cards")
+    from ps_pytorch_tpu_torch.ops import _build
+    _build.cache_bytecode()
+
+    worlds = [int(w) for w in argv[0].split(",")] if argv else [
+        torch.cuda.device_count()]
+    phases = (argv[1] if len(argv) > 1 else "lmdist,async").split(",")
+    cards = torch.cuda.device_count()
+    if max(worlds) > cards or set(phases) - {"lmdist", "async"}:
+        fail(f"--cards {argv}: worlds up to {cards} cards, phases lmdist "
+             "and async")
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    for i, line in enumerate(lines):
+        print(f"CARD {i} {line}", flush=True)
+    arrays_dir = tempfile.mkdtemp(prefix="chip_smoke_arrays_")
+    atexit.register(shutil.rmtree, arrays_dir, True)
+    os.environ[ARRAYS_ENV] = arrays_dir
+    t0 = time.monotonic()
+    took = _build.build()
+    print(f"BUILD nvcc {took} wall {time.monotonic() - t0:.2f} s",
+          flush=True)
+    wrappers = kernel_wrappers()
+    faults, summary, refs = [], {"lm": {}}, {}
+    with arrays_made_once(), flops_counted_once():
+        if "lmdist" in phases:
+            for world in worlds:
+                t0 = time.monotonic()
+                figs = lm_cards_path(torch, wrappers, world, refs, faults)
+                summary["lm"][world] = {name: {
+                    k: v for k, v in fig.items() if k != "ranks"}
+                    for name, fig in figs.items()}
+                print(f"TIME lm_cards_path world {world} "
+                      f"{time.monotonic() - t0:.1f} s", flush=True)
+        if "async" in phases:
+            t0 = time.monotonic()
+            summary["async"] = async_cards_path(torch, wrappers, faults)
+            print(f"TIME async_cards_path {time.monotonic() - t0:.1f} s",
+                  flush=True)
+    for i, line in enumerate(lines):
+        print(f"CARD {i} {line}", flush=True)
+    print(json.dumps({"cards": cards, "faults": faults, **summary},
+                     default=str), flush=True)
+    return 1 if faults else 0
 
 
 def http_json(url: str, path: str, body=None, timeout: float = 120.0):
@@ -3862,7 +4462,7 @@ def in_turn(argv, run_one) -> None:
     """Run ``run_one(part)`` for each part of ``argv`` split at ``--then``,
     in one process group: the group stays up between runs (``train.run``
     leaves it only after the last), and the control plane is reset
-    between them."""
+    after each part that returns a trainer, unless it is the last."""
     from ps_pytorch_tpu_torch.parallel import dist
 
     parts, cur = [], []
@@ -3878,7 +4478,7 @@ def in_turn(argv, run_one) -> None:
     try:
         for i, part in enumerate(parts):
             trainer = run_one(part)
-            if i + 1 < len(parts):
+            if i + 1 < len(parts) and trainer is not None:
                 reset_control_plane(trainer.cfg.max_steps)
             del trainer
     finally:
@@ -6230,23 +6830,6 @@ def bench_ranks_main_path(torch) -> dict:
     return by_rank
 
 
-def cache_bytecode() -> None:
-    """Compile Python sources once for all the processes this script
-    starts. Where the environment says not to write bytecode
-    (``PYTHONDONTWRITEBYTECODE``), every rank and server process would
-    compile torch's sources anew, seconds of each start. The bytecode goes
-    under the package's build directory, beside the kernels; the processes
-    started later inherit the setting through the environment."""
-    pkg = Path(__file__).resolve().parent / "ps_pytorch_tpu_torch"
-    if not pkg.is_dir():
-        return
-    prefix = str(pkg / "build" / "pycache")
-    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
-    os.environ["PYTHONPYCACHEPREFIX"] = prefix
-    sys.dont_write_bytecode = False
-    sys.pycache_prefix = prefix
-
-
 RANK_MODES = {"--rank": rank_main, "--rank-wire": wire_rank_main,
               "--rank-elect": elect_rank_main,
               "--rank-shard": shard_rank_main,
@@ -6262,14 +6845,16 @@ def main() -> int:
     if rank_mode is not None:
         with arrays_made_once(), flops_counted_once():
             return rank_mode(sys.argv[2:])
+    if sys.argv[1:2] == ["--cards"]:
+        return cards_main(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "an NVIDIA card")
-    cache_bytecode()
+    from ps_pytorch_tpu_torch.ops import _build
+    _build.cache_bytecode()
     import torch.nn.functional as F
     from ps_pytorch_tpu_torch.models import build_model
-    from ps_pytorch_tpu_torch.ops import _build
     from ps_pytorch_tpu_torch.ops import conv3x3 as conv_mod
     from ps_pytorch_tpu_torch.ops import flash_attention as fa
     from ps_pytorch_tpu_torch.ops import fused_adam as adam_mod

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -33,6 +34,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def cache_bytecode() -> None:
+    """Keep the bytecode of this process's later imports, and of every
+    process it starts, under ``build/pycache``: where the environment says
+    not to write bytecode (``PYTHONDONTWRITEBYTECODE``), every rank and
+    child process would compile torch's and the port's sources anew,
+    about a second of each start. The started processes inherit the
+    setting through the environment."""
+    prefix = str(BUILD / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
 
 
 def sources() -> list:

@@ -21,8 +21,8 @@ its tensor-parallel step (Megatron's ``f`` and ``g``).
   cross-entropy); ``all_reduce_flat_`` does a list of tensors as one flat
   buffer.
 - ``send`` / ``recv``: one pipeline hop (``parallel/pp.py``);
-  ``all_gather_host``: every rank's host tensor, for a checkpoint's or an
-  evaluation's gather.
+  ``all_gather_host``: every rank's tensor on the host, for a
+  checkpoint's or an evaluation's gather.
 
 The port's functions are written here rather than taken from
 ``torch.distributed.nn.functional``, whose backward rules have changed
@@ -219,18 +219,23 @@ def all_reduce_flat_(tensors, axis, divisor=None) -> None:
 
 
 def all_gather_host(t: torch.Tensor, axis) -> list:
-    """Every rank's ``t`` (a host tensor of one shape on every rank), in
-    axis order, on the host of each rank of ``axis``."""
+    """Every rank's ``t`` (one shape on every rank), in axis order, on the
+    host of each rank of ``axis``. The gather runs where ``t`` lies on
+    NCCL (a host ``t`` goes to this rank's card first) and through host
+    memory on gloo, which gathers host tensors only: a CUDA ``t`` visits
+    the host before the gather there and only after it on NCCL."""
+    t = t.detach().contiguous()
     if axis.size == 1:
-        return [t]
-    t = t.contiguous()
-    on_card = tdist.get_backend(axis.group) == "nccl"
-    if on_card:
-        t = t.cuda()
+        return [t.cpu()]
+    if tdist.get_backend(axis.group) == "nccl":
+        if not t.is_cuda:
+            t = t.cuda()
+    else:
+        t = t.cpu()
     out = [torch.empty_like(t) for _ in range(axis.size)]
     _count(t)
     tdist.all_gather(out, t, group=axis.group)
-    return [o.cpu() for o in out] if on_card else out
+    return [o.cpu() for o in out]
 
 
 def send(x: torch.Tensor, axis, dst: int):

@@ -254,7 +254,7 @@ def gather_stages(tensors: Dict[str, torch.Tensor], stage: PipelineStage,
     out = {k: t.detach().cpu().clone() for k, t in tensors.items()
            if not k.startswith("block_")}
     mine = [(k, t) for k, t in tensors.items() if k.startswith("block_")]
-    flat = torch.cat([t.detach().reshape(-1).cpu() for _, t in mine])
+    flat = torch.cat([t.detach().reshape(-1) for _, t in mine])
     per = stage.per
     for s, got in enumerate(all_gather_host(flat, axis)):
         offset = 0

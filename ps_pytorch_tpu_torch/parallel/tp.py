@@ -257,16 +257,26 @@ def gather_full(tensors: Dict[str, torch.Tensor], axis,
     """Name -> this rank's part (parameters, or a mirror of them such as
     the momentum) -> name -> the whole tensor on the host, on every rank
     of ``axis`` (each takes part); ``shard_dim(name)`` is the dimension a
-    tensor is sharded along (tensor parallelism's by default)."""
-    out = {}
-    for name, t in tensors.items():
-        host = t.detach().cpu()
-        dim = shard_dim(name)
-        if dim is None or axis.size == 1:
-            out[name] = host.clone()
-        else:
-            out[name] = unshard(all_gather_host(host, axis), dim)
-    return out
+    tensor is sharded along (tensor parallelism's by default). The parts
+    go as one flat buffer a dtype, one gather each
+    (``all_gather_host``: on the card under NCCL)."""
+    sharded = {name: dim for name in tensors
+               if axis.size > 1 and (dim := shard_dim(name)) is not None}
+    parts: Dict[str, list] = {}
+    by_dtype: Dict[torch.dtype, list] = {}
+    for name in sharded:
+        by_dtype.setdefault(tensors[name].dtype, []).append(name)
+    for names in by_dtype.values():
+        flat = torch.cat([tensors[n].detach().reshape(-1) for n in names])
+        for got in all_gather_host(flat, axis):
+            offset = 0
+            for n in names:
+                t = tensors[n]
+                parts.setdefault(n, []).append(
+                    got[offset:offset + t.numel()].view(t.shape))
+                offset += t.numel()
+    return {name: unshard(parts[name], sharded[name]) if name in sharded
+            else t.detach().cpu().clone() for name, t in tensors.items()}
 
 
 def full_state(model: nn.Module, opt_state, grid) -> tuple:

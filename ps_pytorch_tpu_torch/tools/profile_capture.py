@@ -101,6 +101,43 @@ def busy_us(intervals) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+def trace_digest(path) -> dict:
+    """Where a Chrome trace's time went (a trainer's ``--profile-dir``
+    window, ``runtime/ops_plane.py``): the window from its first event to
+    its last; the device's busy time (the union of its kernel, copy and
+    set events) and its idle share of the window; device milliseconds by
+    group (``GROUPS``, plus ``nccl`` for the collectives' kernels), the
+    kernel count; and on the host, the operator count and the CUDA
+    runtime calls by name (count and milliseconds): launches,
+    synchronizations and copies."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    if not events:
+        raise ValueError(f"{path}: no timed events")
+    device = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    start = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - start
+    busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in device)
+    groups, runtime = {}, {}
+    for e in device:
+        g = "nccl" if "nccl" in e["name"].lower() else group_of(e["name"])
+        groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
+    for e in events:
+        if e.get("cat") == "cuda_runtime":
+            n, ms = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy / window),
+            "kernels": sum(e.get("cat") == "kernel" for e in device),
+            "host_ops": sum(e.get("cat") == "cpu_op" for e in events),
+            "device_ms_by_group": dict(sorted(
+                groups.items(), key=lambda kv: -kv[1])),
+            "host_cuda_runtime": {k: {"calls": n, "ms": ms} for k, (n, ms)
+                                  in sorted(runtime.items(),
+                                            key=lambda kv: -kv[1][1])}}
+
+
 def main(argv=None) -> int:
     parser = add_train_args()
     parser.add_argument("--warmup", type=int, default=5)

@@ -56,7 +56,8 @@ def run(argv=None):
         print(f"LM mesh devices={trainer.world} "
               f"parallelism={cfg.lm_parallelism} "
               f"attention={trainer.model.attention_impl} "
-              f"seq_len={cfg.lm_seq_len} device={trainer.device}")
+              f"seq_len={cfg.lm_seq_len} backend={dist.backend()} "
+              f"device={trainer.device}")
         trainer.train()
         result = trainer.evaluate(max_batches=8)
         print(f"FINAL lm_loss {result['loss']:.6f} "

@@ -16,6 +16,7 @@ import pytest
 
 from ps_pytorch_tpu.utils import armor as jax_armor
 from ps_pytorch_tpu_torch.utils import armor
+from test_torch_train import two_torch_threads  # noqa: F401
 
 SIZES = sorted({0, 1, 3, 4, 5, 7, 64, 509, 510, 511, 512, 513, 514, 515,
                 516, 517, 1024, 4099, 65536 + 3})

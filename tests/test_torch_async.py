@@ -28,6 +28,7 @@ from ps_pytorch_tpu.runtime import checkpoint as jax_ckpt
 from ps_pytorch_tpu_torch import config
 from ps_pytorch_tpu_torch.parallel import async_dp
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
+from test_torch_train import two_torch_threads  # noqa: F401
 
 
 # --------------------------------------------------------- aggregator --

@@ -266,7 +266,7 @@ def _launch(tmp_path, run, steps, resume):
             str(tmp_path / f"{run}.jsonl"), "--trace-file",
             str(tmp_path / f"{run}.trace.json"), "--publish-every", "2"]
     mp = pytest.MonkeyPatch()
-    mp.setenv("OMP_NUM_THREADS", "2")       # ranks share the test's cores
+    mp.setenv("OMP_NUM_THREADS", "1")       # ranks share the test's cores
     try:
         rc = launch.main(["launch", "--run-dir", str(run_dir), "--simulate",
                           "2", "--port", str(free_port()), "--entry",

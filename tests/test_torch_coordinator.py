@@ -21,6 +21,7 @@ import torch.distributed as tdist
 from conftest import free_port
 from ps_pytorch_tpu.runtime import coordinator as jax_coordinator
 from ps_pytorch_tpu_torch.runtime import coordinator
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

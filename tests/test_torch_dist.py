@@ -22,6 +22,7 @@ against the JAX package.
 Every launch has a time limit and kills its fleet when it ends.
 """
 
+import functools
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
@@ -45,6 +46,7 @@ from ps_pytorch_tpu.runtime.trainer import Trainer as JaxTrainer
 from ps_pytorch_tpu_torch.models import build_model, convert
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 TOL = 1e-4          # tests/test_torch_train.py's
 STEPS = 6
@@ -91,7 +93,11 @@ def _launch(tmp_path, n, train_args, env=None, run="run"):
     run_dir = tmp_path / run
     mp = pytest.MonkeyPatch()
     mp.setenv("OUT_DIR", str(tmp_path))
-    mp.setenv("OMP_NUM_THREADS", "2")       # ranks share the test's cores
+    # One intra-op thread a rank: under the suite's six workers a rank's
+    # two-thread team stalled whenever one of its threads lost its core,
+    # and a LeNet step of 16 rows took up to 0.5 s (0.01-0.09 s with one
+    # thread), as long as the 0.3 s the K-of-N test's straggler sleeps.
+    mp.setenv("OMP_NUM_THREADS", "1")
     for k, v in (env or {}).items():
         mp.setenv(k, v)
     try:
@@ -133,12 +139,14 @@ def _masks(leader_log, n):
     return masks
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_replay(n, batch, seed=42):
     """The JAX make_train_step on an n-device mesh from the port's initial
     LeNet weights, fed the JAX loader's n shards side by side. Returns
     ``replay(masks)``: the parameters after one step a mask. The step is
     compiled here (one step on throwaway inputs), so that a thread can
-    build it while the port's ranks run."""
+    build it while the port's ranks run; once for each (n, batch, seed) in
+    a test process (the 2-rank K-of-N test and the sync test share one)."""
     kw = dict(network="LeNet", dataset="synthetic_mnist", batch_size=batch,
               compute_dtype="float32", lr=0.05, momentum=0.9, eval_freq=0,
               seed=seed)
@@ -158,22 +166,24 @@ def _jax_replay(n, batch, seed=42):
     step = jax_make_train_step(model, tx, mesh, state, donate=False,
                                input_norm=input_norm)
     x, y = jax_datasets.load_arrays("synthetic_mnist", seed=seed)
-    loaders = [jax_datasets.DataLoader(
-        x, y, batch, "synthetic_mnist", seed=seed, host_id=r, num_hosts=n,
-        device_normalize=input_norm is not None) for r in range(n)]
 
     def batches():
-        parts = [loader.next_batch() for loader in loaders]
-        return (np.concatenate([p[0] for p in parts]),
-                np.concatenate([p[1] for p in parts]))
+        """The global batches in order, from a fresh set of the n shards'
+        loaders."""
+        loaders = [jax_datasets.DataLoader(
+            x, y, batch, "synthetic_mnist", seed=seed, host_id=r,
+            num_hosts=n, device_normalize=input_norm is not None)
+            for r in range(n)]
+        while True:
+            parts = [loader.next_batch() for loader in loaders]
+            yield (np.concatenate([p[0] for p in parts]),
+                   np.concatenate([p[1] for p in parts]))
 
-    first = batches()
-    step(state, *first, np.ones(n, np.float32), jax.random.key(0))
+    step(state, *next(batches()), np.ones(n, np.float32), jax.random.key(0))
 
     def replay(masks):
         st = state
-        for k, mask in enumerate(masks):
-            xb, yb = first if k == 0 else batches()
+        for k, (mask, (xb, yb)) in enumerate(zip(masks, batches())):
             st, _ = step(st, xb, yb, mask, jax.random.key(k))
         return jax.device_get(st.params)
 

@@ -29,6 +29,7 @@ from ps_pytorch_tpu.tools import regress
 from ps_pytorch_tpu_torch.tools import (
     elastic_drill, kvrep_drill, poison_drill, router_drill,
 )
+from test_torch_train import two_torch_threads  # noqa: F401
 
 
 def _failing(report) -> set:

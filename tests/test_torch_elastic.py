@@ -46,6 +46,7 @@ from ps_pytorch_tpu_torch.runtime.coordinator import (
     Coordinator, KVStore, LeaderLost,
 )
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGES = {

@@ -20,6 +20,7 @@ from ps_pytorch_tpu_torch.runtime import (
     Evaluator, MultiSliceTrainer, Trainer, lm_trainer,
 )
 from ps_pytorch_tpu_torch.runtime import trainer as trainer_mod
+from test_torch_train import two_torch_threads  # noqa: F401
 
 CNN_ARGS = ["--network", "LeNet", "--dataset", "synthetic_mnist",
             "--batch-size", "16", "--compute-dtype", "float32",

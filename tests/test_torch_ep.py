@@ -56,6 +56,7 @@ from test_torch_ring import launch_ranks
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import generate as jax_generate_cli  # noqa: E402  the root generate.py
+from test_torch_train import two_torch_threads  # noqa: F401
 
 B, S = 8, LM["max_seq_len"]
 LOSS_TOL, PARAM_RTOL, PARAM_ATOL, STEP_TOL = 2e-5, 5e-4, 5e-5, 1e-4

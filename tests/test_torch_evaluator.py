@@ -35,6 +35,7 @@ from ps_pytorch_tpu_torch.runtime import Evaluator, Trainer
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime import evaluator, lm_eval
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 KW = dict(network="LeNet", dataset="Digits", batch_size=32,

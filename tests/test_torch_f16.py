@@ -43,6 +43,7 @@ from ps_pytorch_tpu_torch.runtime import Evaluator, msgpack_io
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # Losses: the packages round to f16 at other places (the conv's output is
 # rounded once on both sides, but the BatchNorm, ReLU and the residual adds

@@ -21,6 +21,7 @@ import torch
 from ps_pytorch_tpu.parallel.ring import full_attention as jax_full
 from ps_pytorch_tpu_torch.ops import flash_attention as fa
 from ps_pytorch_tpu_torch.parallel.ring import full_attention
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # The module, not the function the package's ops/__init__ exports by the
 # same name.

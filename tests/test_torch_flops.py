@@ -24,6 +24,7 @@ from ps_pytorch_tpu_torch.telemetry import (
     aggregate_peak_flops, compute_mfu, derive_step_record,
 )
 from ps_pytorch_tpu_torch.utils import flops
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # name -> (dataset, sample shape, classes); the ImageNet stems at 64 px.
 CASES = {

@@ -35,6 +35,7 @@ from ps_pytorch_tpu_torch.models.transformer import (
 )
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+from test_torch_train import two_torch_threads  # noqa: F401
 
 GEO = dict(vocab=61, d_model=32, n_layers=2, n_heads=4)
 

@@ -45,6 +45,7 @@ from ps_pytorch_tpu_torch.resilience import (
 )
 from ps_pytorch_tpu_torch.runtime.coordinator import FileKV, KVStore
 from ps_pytorch_tpu_torch.tools import hierarchy_drill
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -34,6 +34,7 @@ from ps_pytorch_tpu_torch.parallel.hierarchy import HierarchicalAggregator
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.multislice import MultiSliceTrainer
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 HIER = dict(compress_grad=True, grad_codec="int8lat", sync_topology="hier",
             sync_group_size=2)

@@ -27,6 +27,7 @@ from ps_pytorch_tpu_torch import config, evaluate, train
 from ps_pytorch_tpu_torch.data import augment, datasets, vision_io
 from ps_pytorch_tpu_torch.models import build_model, convert, resnet
 from ps_pytorch_tpu_torch.models.layers import Conv3x3
+from test_torch_train import two_torch_threads  # noqa: F401
 
 TOL = 1e-4
 RRC = "synthetic_imagenet_rrc"

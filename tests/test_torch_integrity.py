@@ -47,6 +47,7 @@ from ps_pytorch_tpu_torch.resilience import FaultInjector, integrity
 from ps_pytorch_tpu_torch.runtime.async_trainer import AsyncTrainer
 from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 PACKAGES = {"port": integrity, "jax": jax_integrity}
 

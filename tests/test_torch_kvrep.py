@@ -46,6 +46,7 @@ from ps_pytorch_tpu_torch.runtime.kvrep import (
     peek_tag, serve_kv, unwrap_value, wrap_value,
 )
 from ps_pytorch_tpu_torch.utils.armor import WireCorrupt
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -23,6 +23,7 @@ from ps_pytorch_tpu_torch.optim import SGD
 from ps_pytorch_tpu_torch.parallel import dist, make_train_step
 from ps_pytorch_tpu_torch.runtime import trainer as trainer_mod
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 CONTRACT = (dist.ENV_COORD, dist.ENV_NPROC, dist.ENV_PID)
 

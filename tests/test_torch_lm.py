@@ -36,6 +36,7 @@ from ps_pytorch_tpu_torch.models.transformer import TransformerLM
 from ps_pytorch_tpu_torch.optim import SGD, build_schedule
 from ps_pytorch_tpu_torch.parallel.sp import LMTrainStep, make_lm_eval_fn
 from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # A small LM: head dim 16, one 64-row tile of the sequence.
 LM = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, max_seq_len=64)

@@ -40,6 +40,7 @@ from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime import evaluator, lm_eval, msgpack_io
 from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
 from ps_pytorch_tpu_torch.parallel.sp import nexttoken_loss
+from test_torch_train import two_torch_threads  # noqa: F401
 
 STEP_TOL = 1e-4             # tests/test_torch_lm.py's
 KW = dict(lm_vocab=61, lm_d_model=32, lm_layers=2, lm_heads=4,

@@ -42,6 +42,7 @@ from ps_pytorch_tpu_torch.tools import launch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import generate as jax_generate_cli  # noqa: E402  the root generate.py
+from test_torch_train import two_torch_threads  # noqa: F401
 
 STEP_TOL = 1e-4
 LM_ARGS = ["--lm-vocab", "256", "--lm-d-model", "32", "--lm-layers", "2",

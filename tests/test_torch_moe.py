@@ -51,6 +51,7 @@ from ps_pytorch_tpu_torch.optim import SGD
 from ps_pytorch_tpu_torch.parallel import ep
 from ps_pytorch_tpu_torch.parallel.mesh import Axis
 from ps_pytorch_tpu_torch.utils import flops
+from test_torch_train import two_torch_threads  # noqa: F401
 
 FWD_TOL, STEP_TOL, PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-4, 5e-4, 5e-5
 GAP = 1e-4

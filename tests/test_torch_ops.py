@@ -30,6 +30,7 @@ from ps_pytorch_tpu_torch.ops import _backend, _build
 from ps_pytorch_tpu_torch.ops import conv3x3 as conv
 from ps_pytorch_tpu_torch.ops import fused_adam, fused_sgd
 from ps_pytorch_tpu_torch.optim import SGD, Adam, schedules
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # float16: both sides sum in f32 and round once, so they differ by at most
 # one f16 rounding of sums that agree to f32 order (2e-3 holds ~2 ulp of f16
@@ -243,13 +244,15 @@ def _conv_operands(kind, shape, co, seed=5):
 
 @pytest.mark.parametrize("kind", ["forward", "input_grad"])
 @pytest.mark.parametrize("shape,co", [((2, 8, 8, 16), 16),
-                                      ((3, 8, 8, 24), 40)])  # ragged C, Co
+                                      ((3, 8, 8, 24), 40),  # ragged C, Co
+                                      ((2, 32, 32, 64), 64)])
 def test_conv3x3_3xtf32_arithmetic_matches_jax(kind, shape, co):
     """The f32 tensor-core kernel's 3xTF32 arithmetic, emulated in its
     order, against the JAX ``conv3x3`` / ``conv3x3_input_grad`` in
     interpret mode at the JAX package's f32 tolerance (1e-5,
-    tests/test_pallas_conv.py), at its tests' shapes and scale; one TF32
-    product misses that tolerance."""
+    tests/test_pallas_conv.py), at its tests' shapes and scale, the
+    deepest of them (2, 32, 32, 64) -> 64 included (four 16-channel
+    chunks a tap); one TF32 product misses that tolerance."""
     inp, w_eff, want = _conv_operands(kind, shape, co)
     np.testing.assert_allclose(_conv_3xtf32(inp, w_eff), want, rtol=1e-5,
                                atol=1e-5)

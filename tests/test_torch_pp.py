@@ -38,6 +38,7 @@ from ps_pytorch_tpu_torch.optim import SGD
 from ps_pytorch_tpu_torch.parallel import pp
 from ps_pytorch_tpu_torch.parallel.mesh import Axis, RankGrid
 from test_torch_ring import launch_ranks
+from test_torch_train import two_torch_threads  # noqa: F401
 
 B, S = 8, 32
 LM = dict(vocab_size=64, d_model=32, n_layers=4, n_heads=2, max_seq_len=S)

@@ -29,6 +29,7 @@ from ps_pytorch_tpu_torch.compression import codecs
 from ps_pytorch_tpu_torch.ops import quantize as tq
 from ps_pytorch_tpu_torch.parallel import buckets
 from ps_pytorch_tpu_torch.parallel.async_dp import StaleGradientAggregator
+from test_torch_train import two_torch_threads  # noqa: F401
 
 # The package re-exports the function under the module's name.
 jq = importlib.import_module("ps_pytorch_tpu.ops.quantize")

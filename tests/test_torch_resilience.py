@@ -52,6 +52,7 @@ from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import Coordinator, KVStore
 from ps_pytorch_tpu_torch.runtime.trainer import Trainer
 from ps_pytorch_tpu_torch.telemetry import parse_exposition
+from test_torch_train import two_torch_threads  # noqa: F401
 
 ACCEPTED = [
     "kv_drop:p=0.05,seed=7;replica_crash:r=2,step=40;"

@@ -35,6 +35,7 @@ from ps_pytorch_tpu_torch.resilience import (
 )
 from ps_pytorch_tpu_torch.runtime import Trainer
 from ps_pytorch_tpu_torch.runtime.coordinator import DistributedKV, KVStore
+from test_torch_train import two_torch_threads  # noqa: F401
 
 
 class Sleeps:

@@ -38,6 +38,7 @@ from ps_pytorch_tpu.parallel import ring as jax_ring
 from ps_pytorch_tpu.parallel import sp as jax_sp
 from ps_pytorch_tpu_torch.models import convert
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 B, H, S, D = 2, 4, 64, 16
 LM = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, max_seq_len=S)

@@ -61,6 +61,7 @@ from ps_pytorch_tpu_torch.serving.server import ServingFrontend
 from ps_pytorch_tpu_torch.telemetry.registry import (
     Registry, declare_serving_metrics,
 )
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 V, D, L, H, S = 61, 32, 2, 2, 96

@@ -54,6 +54,7 @@ from ps_pytorch_tpu_torch.telemetry.registry import (
 from ps_pytorch_tpu_torch.telemetry.slo import (
     SLOTracker, WindowPercentile, check_slo, parse_slo_spec,
 )
+from test_torch_train import two_torch_threads  # noqa: F401
 
 V, D, L, H, S = 61, 32, 2, 2, 96
 # (slo, reqtrace, engine, registry, health) of each package.

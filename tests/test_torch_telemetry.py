@@ -25,6 +25,7 @@ from ps_pytorch_tpu_torch.runtime import Trainer
 from ps_pytorch_tpu_torch.runtime import checkpoint as ckpt
 from ps_pytorch_tpu_torch.runtime.coordinator import DistributedKV, KVStore
 from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
+from test_torch_train import two_torch_threads  # noqa: F401
 
 FIELDS = ("trace_file", "timeline_file", "metrics_port", "health_spec",
           "flight_file", "profile_dir", "profile_steps")
@@ -517,7 +518,7 @@ def test_two_ranks_write_the_timeline_and_rank_suffixed_files(tmp_path):
     flags = [arg for k, v in fields.items()
              for arg in (f"--{k.replace('_', '-')}", str(v))]
     mp = pytest.MonkeyPatch()
-    mp.setenv("OMP_NUM_THREADS", "2")       # ranks share the test's cores
+    mp.setenv("OMP_NUM_THREADS", "1")       # ranks share the test's cores
     try:
         rc = launch.main(["launch", "--run-dir", str(run_dir), "--simulate",
                           "2", "--port", str(_free_port()), "--wait",

@@ -21,6 +21,10 @@ against the JAX package's on the same inputs, on the CPU.
 - ``accuracy_codec``: the JAX ``RUNS``, and its row of a codec sweep.
 - No tool writes a JAX artifact; with no card and no ``--device cpu``,
   a tool that runs a model raises.
+- ``profile_capture.trace_digest``: a Chrome trace's window, the device's
+  busy time as the union of its events and its idle share, the device
+  time by group (NCCL's kernels apart), the host's operators and CUDA
+  runtime calls.
 """
 
 import json
@@ -42,8 +46,10 @@ from ps_pytorch_tpu.tools import sweep as jax_sweep
 from ps_pytorch_tpu_torch.runtime.metrics import format_line
 from ps_pytorch_tpu_torch.telemetry.flightrec import FlightRecorder
 from ps_pytorch_tpu_torch.tools import (
-    accuracy_codec, accuracy_run, analyze, memory_probe, scaling_run, sweep,
+    accuracy_codec, accuracy_run, analyze, memory_probe, profile_capture,
+    scaling_run, sweep,
 )
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -484,3 +490,39 @@ def test_accuracy_codec_runs_and_row(tmp_path, capsys):
     with pytest.raises(SystemExit):
         accuracy_codec.main(["--device", "cpu", "--out",
                              str(tmp_path / "ACCURACY_CODEC_r13.json")])
+
+
+# ----------------------------------------------------------- trace_digest --
+
+def test_trace_digest_of_a_profiled_window(tmp_path):
+    """The digest of a window with overlapping kernels, a copy, an NCCL
+    kernel, host operators and runtime calls: busy is the union of the
+    device events (not their sum), idle its complement in the window."""
+    def ev(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+    trace = tmp_path / "trace_p0_steps3-3.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        ev("cpu_op", "aten::mm", 0.0, 50.0),
+        ev("cpu_op", "aten::add", 60.0, 10.0),
+        ev("cuda_runtime", "cudaLaunchKernel", 5.0, 4.0),
+        ev("cuda_runtime", "cudaLaunchKernel", 62.0, 4.0),
+        ev("cuda_runtime", "cudaStreamSynchronize", 70.0, 130.0),
+        ev("kernel", "ampere_sgemm_128x64_nn", 10.0, 40.0),
+        ev("kernel", "vectorized_elementwise_kernel", 30.0, 40.0),
+        ev("kernel", "ncclDevKernel_SendRecv", 100.0, 50.0),
+        ev("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 190.0, 10.0),
+        {"ph": "i", "name": "marker", "ts": 500.0}]}))
+    d = profile_capture.trace_digest(trace)
+    assert d["window_ms"] == pytest.approx(0.2)
+    assert d["device_busy_ms"] == pytest.approx(0.12)     # 10-70, 100-150,
+    assert d["device_idle_share"] == pytest.approx(0.4)   # 190-200
+    assert d["kernels"] == 3 and d["host_ops"] == 2
+    assert d["device_ms_by_group"] == pytest.approx({
+        "nccl": 0.05, "matmul (cuBLAS)": 0.04, "elementwise": 0.04,
+        "copy / layout": 0.01})
+    assert d["host_cuda_runtime"] == {
+        "cudaStreamSynchronize": {"calls": 1, "ms": pytest.approx(0.13)},
+        "cudaLaunchKernel": {"calls": 2, "ms": pytest.approx(0.008)}}
+    assert list(d["host_cuda_runtime"]) == ["cudaStreamSynchronize",
+                                            "cudaLaunchKernel"]

@@ -39,6 +39,7 @@ from ps_pytorch_tpu_torch.parallel import dist, tp
 from ps_pytorch_tpu_torch.parallel.mesh import Axis, RankGrid, make_grid
 from ps_pytorch_tpu_torch.runtime.lm_trainer import LMTrainer
 from test_torch_ring import launch_ranks
+from test_torch_train import two_torch_threads  # noqa: F401
 
 B, S = 8, 32
 LM = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, max_seq_len=S)
@@ -368,3 +369,37 @@ def test_rank_grid_is_the_jax_mesh_layout(monkeypatch, data, model):
         assert grid.model.ranks == ids[d_idx]
         assert grid.data.ranks == [row[m_idx] for row in ids]
         assert grid.local_data_shard() == (d_idx, len(ids))
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_the_state_gather_is_one_collective_a_dtype(monkeypatch, size):
+    """``gather_full`` on rank 0 of a model axis: every sharded tensor's
+    part goes out in one flat buffer, so the checkpoint's and the oracle's
+    gather is one collective (one a tensor before), and the whole tensors
+    come back bitwise, in the names' order, replicated ones from this
+    rank. The other ranks' buffers are their shards flattened in the same
+    order."""
+    import torch
+    full = TransformerLM(**dict(LM, d_model=48, n_heads=6)).state_dict()
+    names = list(full)
+
+    def part(rank, shard=convert.tp_shard):
+        return {n: shard(n, full[n], rank, size).contiguous()
+                for n in names}
+
+    calls = []
+
+    def gather(flat, axis):
+        calls.append(flat.numel())
+        mine = part(0)
+        sharded = [n for n in names if convert.tp_shard_dim(n) is not None]
+        assert torch.equal(flat, torch.cat([mine[n].reshape(-1)
+                                            for n in sharded]))
+        return [torch.cat([part(r)[n].reshape(-1) for n in sharded])
+                for r in range(size)]
+
+    monkeypatch.setattr(tp, "all_gather_host", gather)
+    got = tp.gather_full(part(0), Axis("model", list(range(size)), 0, None))
+    assert len(calls) == 1 and list(got) == names
+    for n in names:
+        assert torch.equal(got[n], full[n]), n

@@ -45,6 +45,7 @@ from ps_pytorch_tpu.runtime import metrics as jax_metrics
 from ps_pytorch_tpu_torch import config, train
 from ps_pytorch_tpu_torch.data import augment, datasets, vision_io
 from ps_pytorch_tpu_torch.models import convert, lenet, resnet
+from ps_pytorch_tpu_torch.ops import _build
 from ps_pytorch_tpu_torch.ops.fused_adam import FusedAdam
 from ps_pytorch_tpu_torch.ops.fused_sgd import FusedSGD
 from ps_pytorch_tpu_torch.optim import SGD, Adam, build_optimizer
@@ -55,6 +56,11 @@ from ps_pytorch_tpu_torch.runtime.trainer import Trainer, resolve_device
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "ps_pytorch_tpu_torch"
 TOL = 1e-4
+# Every port test file imports this one, and each test process collects
+# them all: from here on its imports, and every process it starts (the
+# launches' ranks, the entry points' children), keep their bytecode in the
+# build directory's cache (``_build.cache_bytecode``).
+_build.cache_bytecode()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,6 +73,19 @@ def two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(held)
+
+
+def test_bytecode_goes_to_the_build_directorys_cache():
+    """``_build.cache_bytecode`` (called as this module is imported)
+    points this process, and every process it starts, at build/pycache,
+    and lets them write there."""
+    prefix = str(_build.BUILD / "pycache")
+    assert (sys.pycache_prefix, sys.dont_write_bytecode) == (prefix, False)
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys; "
+         "print(sys.pycache_prefix, sys.dont_write_bytecode)"],
+        capture_output=True, text=True, check=True)
+    assert out.stdout.split() == [prefix, "False"]
 
 
 # ------------------------------------------------------------- config --

@@ -41,6 +41,7 @@ from ps_pytorch_tpu_torch.parallel.transport import (
 from ps_pytorch_tpu_torch.runtime.async_trainer import AsyncTrainer
 from ps_pytorch_tpu_torch.runtime.coordinator import KVStore
 from ps_pytorch_tpu_torch.telemetry import set_default_tracer
+from test_torch_train import two_torch_threads  # noqa: F401
 
 
 def _tree(seed=0, scale=1.0):

@@ -64,6 +64,7 @@ from ps_pytorch_tpu_torch.models import build_model, convert, vgg
 from ps_pytorch_tpu_torch.optim import build_optimizer
 from ps_pytorch_tpu_torch.config import TrainConfig
 from ps_pytorch_tpu_torch.parallel import make_train_step
+from test_torch_train import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = 3

@@ -67,6 +67,7 @@ from ps_pytorch_tpu_torch.runtime.coordinator import (
 )
 from ps_pytorch_tpu_torch.runtime.multislice import MultiSliceTrainer
 from ps_pytorch_tpu_torch.tools import launch
+from test_torch_train import two_torch_threads  # noqa: F401
 
 BENCH_SHA = "ce8875b84688cfb7cac024a3f425a2e15ef2e5b3291a87dbeb6f23a69df5f9e3"
 
